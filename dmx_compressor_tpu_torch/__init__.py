@@ -1,0 +1,108 @@
+"""dmx_compressor_tpu_torch: the PyTorch/CUDA port of dmx_compressor_tpu.
+
+The package mirrors the JAX package's module paths and public names.  Plain
+tensor code is PyTorch; every kernel of the JAX package's Pallas code on the
+ported path is a CUDA kernel written for Hopper (``csrc/``), built with
+``nvcc`` at first use and launched through ``ctypes``.  Entry points run on
+the card unless the caller passes ``device="cpu"``; they never fall back to
+the CPU on their own.  The package imports neither ``jax`` nor
+``dmx_compressor_tpu``.
+
+Top-level namespaces mirror the JAX package's: ``format.*`` presets,
+``default_approx.*`` and ``config_rules.{BASELINE, BASIC}`` (restricted to
+the module types this port has).
+"""
+
+from types import SimpleNamespace
+
+from . import nn
+from .functional.approximate import ApproximationFunction
+from .modeling.model import DmxConfigRule, DmxModel
+from .numerics.format import Format
+
+__version__ = "0.1.0"
+
+_F = Format.from_shorthand
+
+format = SimpleNamespace(
+    SAME=_F("SAME"),
+    FLOAT32=_F("FP[1|8|23,127](_N)"),
+    FLOAT16=_F("FP[1|5|10,15](FN)"),
+    BFLOAT16=_F("FP[1|8|7,127](FN)"),
+    AFLOAT8=_F("FP[1|4|3,7](_N)"),
+    BFLOAT8=_F("FP[1|5|2,15](_N)"),
+    INT8=_F("XP[8,0](CSN)"),
+    INT4=_F("XP[4,0](CSN)"),
+    BFP32_1=_F("BFP[24|8]{1}(SN)"),
+)
+for _p, _pname in ((16, "24"), (8, "16"), (6, "14"), (4, "12")):
+    for _b in (128, 64, 32, 16):
+        setattr(format, f"BFP{_pname}_{_b}", _F(f"BFP[{_p}|8]{{{_b}}}(SN)"))
+
+_A = ApproximationFunction.from_shorthand
+
+default_approx = SimpleNamespace(
+    RELU=_A("NONE"),
+    SOFTMAX=_A("SOFTMAX[vsimd]{input_clamp=-100}(max_adjust=0.1141)"),
+    LAYER_NORM=_A("LAYER_NORM[vsimd]{}()"),
+    NONE=_A("NONE"),
+)
+
+
+def _rules_for(io_fmt, linear_fmt, bias_fmt, out_fmt, approx):
+    """Shared shape of the BASELINE and BASIC rule sets."""
+    return [
+        DmxConfigRule(
+            module_types=(nn.Linear,),
+            module_config=dict(
+                input_formats=[linear_fmt],
+                weight_format=linear_fmt,
+                bias_format=bias_fmt,
+                output_formats=[out_fmt],
+            ),
+        ),
+        DmxConfigRule(
+            module_types=(nn.ResAdd,),
+            module_config=dict(input_formats=[io_fmt, io_fmt], output_formats=[io_fmt]),
+        ),
+        DmxConfigRule(
+            module_types=(nn.ActActMatMul,),
+            module_config=dict(input_formats=[linear_fmt, linear_fmt], output_formats=[out_fmt]),
+        ),
+        DmxConfigRule(module_types=(nn.Embedding,), module_config=dict(output_formats=[out_fmt])),
+    ] + [
+        DmxConfigRule(
+            module_types=types,
+            module_config=dict(
+                input_formats=[io_fmt], output_formats=[io_fmt], approximation_function=fn,
+            ),
+        )
+        for types, fn in approx
+    ]
+
+
+config_rules = SimpleNamespace(
+    BASELINE=_rules_for(
+        format.SAME, format.SAME, format.SAME, format.SAME,
+        approx=[((nn.ReLU, nn.Softmax, nn.LayerNorm), default_approx.NONE)],
+    ),
+    BASIC=_rules_for(
+        format.FLOAT16, format.BFP16_64, format.BFP32_1, format.FLOAT16,
+        approx=[
+            ((nn.ReLU,), default_approx.RELU),
+            ((nn.Softmax,), default_approx.SOFTMAX),
+            ((nn.LayerNorm,), default_approx.LAYER_NORM),
+        ],
+    ),
+)
+
+__all__ = [
+    "Format",
+    "ApproximationFunction",
+    "DmxModel",
+    "DmxConfigRule",
+    "nn",
+    "format",
+    "default_approx",
+    "config_rules",
+]

@@ -1,0 +1,312 @@
+"""OPT decoder-only transformer (facebook/opt-125m shapes).
+
+Port of ``dmx_compressor_tpu/models/opt.py`` for the weights-mode serving
+path.  Authored with torch modules and ``rawnn`` op wrappers so the Dmx
+substitution pass intercepts every op; module paths mirror the HF checkpoint
+layout (``model.decoder.layers.N.self_attn.q_proj``).
+
+Attention routing (the JAX package's opt.py:172-292, quantized and
+transparent branches):
+
+- prefill at offset 0 with an int8 cache: the int8 payload is written and
+  attention runs over the fresh K/V through ``flash_attention`` (B3);
+- decode (T == 1) with an int8 cache: ``flash_decode_int8`` (B2) over the
+  int8 payload, masked by the cache's per-row lengths;
+- otherwise the modular compound SDPA (dequantized K/V for an int8 cache).
+
+Every packed linear runs ``bfp_linear`` (B1) through PackedBFPLinear.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import rawnn
+from ..kernels import resolve_device
+from ..ops.compress import merge_parallel_linears
+from ..ops.flash_attention import flash_attention, sdpa_transparent
+from ..ops.flash_decode import flash_decode_int8, post_update_lengths
+from ..ops.kv_cache import cache_seq_len, make_caches, quantized_sdpa
+from .positions import causal_mask, resolve_positions
+
+
+@dataclasses.dataclass
+class OPTConfig:
+    vocab_size: int = 50272
+    hidden_size: int = 768
+    ffn_dim: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 2048
+    do_layer_norm_before: bool = True
+    dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def opt_125m(cls):
+        return cls()
+
+    @classmethod
+    def tiny(cls):  # test-sized
+        return cls(vocab_size=512, hidden_size=64, ffn_dim=128, num_hidden_layers=2,
+                   num_attention_heads=4, max_position_embeddings=64)
+
+
+class OPTAttention(nn.Module):
+    def __init__(self, cfg: OPTConfig, device):
+        super().__init__()
+        d = cfg.hidden_size
+        self.num_heads = cfg.num_attention_heads
+        self.head_dim = d // cfg.num_attention_heads
+        self.scaling = self.head_dim**-0.5
+        self.q_proj = nn.Linear(d, d, device=device)
+        self.k_proj = nn.Linear(d, d, device=device)
+        self.v_proj = nn.Linear(d, d, device=device)
+        self.out_proj = nn.Linear(d, d, device=device)
+        self.sdpa = rawnn.ScaledDotProductAttention()
+        self.qkv_merged = None
+        # sdpa_transparent(self.sdpa), frozen by fuse_for_inference; None
+        # until then, and attend asks the casts on every call
+        self.sdpa_is_transparent = None
+
+    def _split(self, x):
+        B, T, _ = x.shape
+        return x.reshape(B, T, self.num_heads, self.head_dim).transpose(1, 2)
+
+    def fuse_for_inference(self) -> None:
+        """Merge q/k/v into one packed projection when possible (called by
+        ops.compress.compress_for_inference; bit-exact).  Also freezes the
+        routing's transparency check: the casts are fixed from here on, as
+        the packed payloads are, so decode steps need not walk them."""
+        merged = merge_parallel_linears([self.q_proj, self.k_proj, self.v_proj])
+        if merged is not None:
+            self.qkv_merged = merged
+        self.sdpa_is_transparent = sdpa_transparent(self.sdpa)
+
+    def _project_qkv(self, x):
+        if self.qkv_merged is not None:
+            qkv = self.qkv_merged(x)
+            d = self.num_heads * self.head_dim
+            return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        return self.q_proj(x), self.k_proj(x), self.v_proj(x)
+
+    def forward(self, x, attn_mask=None, cache=None, position_offset=0):
+        _q, _k, _v = self._project_qkv(x)
+        return self.out_proj(self.attend(_q, _k, _v, attn_mask, cache, position_offset))
+
+    def attend(self, _q, _k, _v, attn_mask=None, cache=None, position_offset=0):
+        """Head-split attention over projected q/k/v [B, T, D]; returns the
+        merged-head context [B, T, D] (before out_proj)."""
+        B, T, D = _q.shape
+        q, k, v = self._split(_q), self._split(_k), self._split(_v)
+        quant = cache is not None and cache.quantized
+        prefill = (
+            cache is not None and T > 1
+            and isinstance(position_offset, int) and position_offset == 0
+        )
+        transparent = self.sdpa_is_transparent
+        if transparent is None:
+            transparent = sdpa_transparent(self.sdpa)
+        if prefill and transparent:
+            if quant:
+                cache.update_payload(k, v)
+            else:
+                cache.update(k, v)
+            out = flash_attention(q, k, v, causal=True, scale=self.scaling)
+        elif quant and transparent:
+            kv = cache.update_quantized(k, v)
+            if T == 1 and attn_mask is not None:
+                out = flash_decode_int8(q, kv, post_update_lengths(cache), scale=self.scaling)
+            else:
+                out = quantized_sdpa(q, kv, attn_mask=attn_mask, scale=self.scaling)
+        else:
+            if cache is not None:
+                k, v, _ = cache.update(k, v)  # an int8 cache dequantizes here
+            out = self.sdpa(q, k, v, attn_mask=attn_mask, scale=self.scaling)
+        return out.transpose(1, 2).reshape(B, T, D)
+
+
+class OPTDecoderLayer(nn.Module):
+    def __init__(self, cfg: OPTConfig, device):
+        super().__init__()
+        d = cfg.hidden_size
+        self.do_layer_norm_before = cfg.do_layer_norm_before
+        self.self_attn = OPTAttention(cfg, device)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5, device=device)
+        self.fc1 = nn.Linear(d, cfg.ffn_dim, device=device)
+        self.activation_fn = rawnn.ReLU()
+        self.fc2 = nn.Linear(cfg.ffn_dim, d, device=device)
+        self.final_layer_norm = nn.LayerNorm(d, eps=1e-5, device=device)
+        self.resadd1 = rawnn.ResAdd()
+        self.resadd2 = rawnn.ResAdd()
+
+    def forward(self, x, attn_mask=None, cache=None, position_offset=0):
+        residual = x
+        if self.do_layer_norm_before:
+            x = self.self_attn_layer_norm(x)
+        x = self.self_attn(x, attn_mask=attn_mask, cache=cache, position_offset=position_offset)
+        x = self.resadd1(x, residual)
+        if not self.do_layer_norm_before:
+            x = self.self_attn_layer_norm(x)
+        residual = x
+        if self.do_layer_norm_before:
+            x = self.final_layer_norm(x)
+        x = self.fc2(self.activation_fn(self.fc1(x)))
+        x = self.resadd2(x, residual)
+        if not self.do_layer_norm_before:
+            x = self.final_layer_norm(x)
+        return x
+
+
+class OPTDecoder(nn.Module):
+    def __init__(self, cfg: OPTConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device)
+        # OPT's learned positions carry a +2 offset (HF convention)
+        self.embed_positions = nn.Embedding(
+            cfg.max_position_embeddings + 2, cfg.hidden_size, device=device
+        )
+        self.layers = nn.ModuleList(
+            OPTDecoderLayer(cfg, device) for _ in range(cfg.num_hidden_layers)
+        )
+        self.final_layer_norm = (
+            nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
+            if cfg.do_layer_norm_before else None
+        )
+
+    def forward(self, input_ids, caches=None, position_offset=0):
+        B, T = input_ids.shape
+        device = input_ids.device
+        x = self.embed_tokens(input_ids)
+        positions, _ = resolve_positions(T, position_offset, device)
+        x = x + self.embed_positions(positions + 2)
+        if caches is not None:
+            # with a cache, queries attend to all filled slots
+            mask = causal_mask(T, cache_seq_len(caches[0]), position_offset, x.dtype, device)
+        else:
+            mask = causal_mask(T, T, 0, x.dtype, device)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, attn_mask=mask, cache=None if caches is None else caches[i],
+                      position_offset=position_offset)
+        if self.final_layer_norm is not None:
+            x = self.final_layer_norm(x)
+        return x
+
+
+class OPTModel(nn.Module):
+    def __init__(self, cfg: OPTConfig, device):
+        super().__init__()
+        self.decoder = OPTDecoder(cfg, device)
+
+    def forward(self, input_ids, caches=None, position_offset=0):
+        return self.decoder(input_ids, caches=caches, position_offset=position_offset)
+
+
+class OPTForCausalLM(nn.Module):
+    """OPT with the LM head tied to the token embedding; returns logits.
+
+    Built on the card unless ``device='cpu'``.  Weights are random, drawn
+    from ``seed`` (HF's OPT init: normal(0, 0.02), zero biases, unit
+    LayerNorm scales); :func:`load_jax_params` replaces them."""
+
+    def __init__(self, cfg: OPTConfig, device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.model = OPTModel(cfg, device)
+        self.lm_head = rawnn.TiedLinear(self.model.decoder.embed_tokens)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (nn.Linear, nn.Embedding)):
+                    m.weight.normal_(0.0, 0.02, generator=gen)
+                if isinstance(m, nn.Linear):
+                    m.bias.zero_()
+
+    def forward(self, input_ids, caches=None, position_offset=0):
+        h = self.model(input_ids, caches=caches, position_offset=position_offset)
+        return self.lm_head(h)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, quantized: bool = False,
+                   device=None):
+        """One cache per layer, on the card unless ``device='cpu'``."""
+        cfg = self.cfg
+        return make_caches(
+            cfg.num_hidden_layers, batch, cfg.num_attention_heads, max_len,
+            cfg.hidden_size // cfg.num_attention_heads, dtype or cfg.dtype,
+            quantized=quantized, device=device,
+        )
+
+
+def load_jax_params(model: OPTForCausalLM, params: Dict[str, np.ndarray]) -> None:
+    """Copy the raw JAX OPT's weights into a raw port model, in place.
+
+    ``params`` is the JAX model's flattened nnx state, dotted path -> numpy
+    array (``model.decoder.layers.0.self_attn.q_proj.kernel`` ...).
+    ``nnx.Linear.kernel`` [in, out] becomes ``weight`` [out, in],
+    ``LayerNorm.scale`` and ``Embed.embedding`` become ``weight``; the LM head
+    stays tied to ``embed_tokens`` (nnx may list the shared table under the
+    head's ``lm_head.embed_ref``).  Every parameter of the port must be
+    covered, and every array must be used."""
+    own = dict(model.named_parameters())
+    seen = set()
+    with torch.no_grad():
+        for path, arr in params.items():
+            *mod, leaf = path.split(".")
+            if mod == ["lm_head", "embed_ref"]:
+                mod = ["model", "decoder", "embed_tokens"]
+            name = ".".join(mod + ["bias" if leaf == "bias" else "weight"])
+            if name not in own:
+                raise KeyError(f"{path}: no parameter {name} in the port model")
+            value = torch.tensor(np.asarray(arr, dtype=np.float32))
+            if leaf == "kernel":
+                value = value.T
+            elif leaf not in ("bias", "scale", "embedding"):
+                raise KeyError(f"{path}: unknown leaf {leaf!r}")
+            if tuple(value.shape) != tuple(own[name].shape):
+                raise ValueError(f"{path}: shape {tuple(value.shape)} != {tuple(own[name].shape)}")
+            own[name].copy_(value)
+            seen.add(name)
+    missing = set(own) - seen
+    if missing:
+        raise KeyError(f"parameters not in params: {sorted(missing)}")
+
+
+# ---------------------------------------------------------------------------
+# greedy prefill / decode (bench.py:252-302)
+# ---------------------------------------------------------------------------
+
+
+def greedy_token(logits_row: torch.Tensor) -> torch.Tensor:
+    """Greedy choice with the JAX bench's tie rule: the LARGEST index among
+    the maxima (``torch.argmax`` returns the first).  int32 [B]."""
+    mx = torch.amax(logits_row, dim=-1, keepdim=True)
+    idx = torch.arange(logits_row.shape[-1], device=logits_row.device)
+    return torch.amax(torch.where(logits_row == mx, idx, -1), dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def greedy_prefill(model: nn.Module, caches: List, ids: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill at offset 0; returns (logits [B, T, V], first token [B])."""
+    logits = model(ids, caches=caches, position_offset=0)
+    return logits, greedy_token(logits[:, -1])
+
+
+@torch.no_grad()
+def greedy_decode(model: nn.Module, caches: List, tok: torch.Tensor, start: int,
+                  n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n_steps`` single-token steps from position ``start``; returns
+    (tokens [B, n_steps], last-position logits [n_steps, B, V])."""
+    toks, rows = [], []
+    for i in range(n_steps):
+        logits = model(tok[:, None], caches=caches, position_offset=start + i)
+        rows.append(logits[:, -1])
+        tok = greedy_token(logits[:, -1])
+        toks.append(tok)
+    return torch.stack(toks, dim=1), torch.stack(rows)

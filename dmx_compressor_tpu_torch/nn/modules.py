@@ -1,0 +1,320 @@
+"""The Dmx op modules of the OPT subset.
+
+Port of the OPT subset of ``dmx_compressor_tpu/nn/modules.py``: Linear,
+Embedding, LayerNorm, ResAdd, Mul, ActActMatMul, Softmax, Dropout, ReLU and
+the compound ScaledDotProductAttention.  Each follows the DmxModule pipeline
+(nn/core.py) and declares the same cast topology as its JAX counterpart:
+
+- Linear: weight [out, in]; input and weight casts block along the last
+  (input-channel) axis.
+- ActActMatMul: input blocks along -1, multiplier along -2.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import torch
+from torch import nn
+
+from ..numerics.format import Same
+from .core import DmxModule
+
+
+class ResAdd(DmxModule):
+    """Residual addition with separate input/residual casts."""
+
+    input_cast_names = ("input_cast", "residual_cast")
+
+    def _forward(self, _input, _residual):
+        return _input + _residual
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls()
+
+
+class Mul(DmxModule):
+    """Elementwise multiply."""
+
+    input_cast_names = ("input_cast", "multiplier_cast")
+
+    def _forward(self, _input, _multiplier):
+        return _input * _multiplier
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls()
+
+
+class ActActMatMul(DmxModule):
+    """Activation x activation matmul: input blocks along -1, multiplier
+    along -2 (the contraction dim)."""
+
+    input_cast_names = ("input_cast", "multiplier_cast")
+
+    def __init__(self):
+        super().__init__()
+        self.input_casts["input_cast"].block_dim = -1
+        self.input_casts["multiplier_cast"].block_dim = -2
+
+    def _forward(self, _input, _multiplier):
+        return torch.matmul(_input, _multiplier)
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls()
+
+
+class Linear(DmxModule):
+    """Quantized linear: y = x @ W.T + b, weight [out_features, in_features]."""
+
+    ch_axis = -1
+    win_ch_axis = -1
+    wout_ch_axis = 0
+    has_accum = True
+    has_weight = True
+    has_bias = True
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None):
+        self.in_features = in_features
+        self.out_features = out_features
+        self.has_bias = bias
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features) if in_features > 0 else 1.0
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features, device=device).uniform_(-bound, bound)
+        )
+        self.bias = (
+            nn.Parameter(torch.empty(out_features, device=device).uniform_(-bound, bound))
+            if bias else None
+        )
+        self.input_casts["input_cast"].block_dim = -1
+        self.weight_cast.block_dim = -1
+        if self.bias_cast is not None:
+            self.bias_cast.block_dim = -1
+
+    def _forward(self, _input):
+        if isinstance(self.accum_format, Same):
+            out = _input @ self._weight.to(_input.dtype).T
+            if self.bias is not None:
+                out = out + self._bias.to(_input.dtype)
+            return out
+        _weight = self._weight
+        out = self.accum_cast(_input.to(_weight.dtype) @ _weight.T)
+        return out + self._bias if self.bias is not None else out
+
+    @classmethod
+    def from_raw(cls, raw: nn.Linear) -> "Linear":
+        """Build from a torch ``nn.Linear``, sharing its parameters."""
+        mod = cls(raw.in_features, raw.out_features, bias=raw.bias is not None,
+                  device="meta")
+        mod.weight = raw.weight
+        mod.bias = raw.bias
+        return mod
+
+    @classmethod
+    def from_tied(cls, raw) -> "Linear":
+        """Build from ``rawnn.TiedLinear``: the weight Parameter IS the
+        embedding table, so embedding and head stay tied."""
+        V, D = raw.embed_ref.weight.shape
+        mod = cls(D, V, bias=False, device="meta")
+        mod.weight = raw.embed_ref.weight
+        return mod
+
+
+class Embedding(DmxModule):
+    """Quantized embedding lookup (integer input: no input casts)."""
+
+    has_weight = True
+    wout_ch_axis = 0
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, device=None):
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(num_embeddings, embedding_dim, device=device))
+        self.align_boundary_dtype = False
+
+    def _forward(self, _input):
+        return self._weight[_input]
+
+    def forward(self, input, *args, **kwargs):
+        self._check_hooks()
+        return self.output_casts(self._forward(input), output=True)
+
+    @classmethod
+    def from_raw(cls, raw: nn.Embedding) -> "Embedding":
+        mod = cls(raw.num_embeddings, raw.embedding_dim, device="meta")
+        mod.weight = raw.weight  # shared, so a tied head stays tied
+        return mod
+
+
+class _Activation(DmxModule):
+    """Unary activation with an approximation hook."""
+
+    def _raw_forward(self, _input):
+        raise NotImplementedError
+
+    def _forward(self, _input):
+        return self.approx_forward((_input,))
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls()
+
+
+class ReLU(_Activation):
+    def _raw_forward(self, x):
+        return torch.relu(x)
+
+
+class Softmax(DmxModule):
+    """Softmax with an approximation hook."""
+
+    def __init__(self, dim: int = -1):
+        self.dim = dim
+        super().__init__()
+
+    def functional_forward(self, _input, dim=-1):
+        return torch.softmax(_input, dim=dim)
+
+    def _forward(self, _input):
+        return self.approx_forward((_input,), dim=self.dim)
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls(dim=getattr(raw, "dim", -1))
+
+
+class Dropout(DmxModule):
+    """Dropout: the identity at inference, the only mode ported so far."""
+
+    def __init__(self, p: float = 0.0):
+        self.p = p
+        super().__init__()
+
+    def _forward(self, _input):
+        return _input
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls(p=getattr(raw, "p", 0.0))
+
+
+class LayerNorm(DmxModule):
+    """LayerNorm computed in f32, with an approximation hook."""
+
+    has_weight = True
+    has_bias = True
+
+    def __init__(self, normalized_shape: Union[int, Sequence[int]], eps: float = 1e-5,
+                 elementwise_affine: bool = True, device=None):
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.eps = eps
+        self.elementwise_affine = elementwise_affine
+        self.has_weight = elementwise_affine
+        self.has_bias = elementwise_affine
+        super().__init__()
+        if elementwise_affine:
+            self.weight = nn.Parameter(torch.ones(self.normalized_shape, device=device))
+            self.bias = nn.Parameter(torch.zeros(self.normalized_shape, device=device))
+        else:
+            self.weight = None
+            self.bias = None
+
+    def functional_forward(self, x, normalized_shape, weight, bias, eps):
+        dims = tuple(range(x.ndim - len(normalized_shape), x.ndim))
+        xf = x.to(torch.float32)
+        mean = torch.mean(xf, dim=dims, keepdim=True)
+        var = torch.mean(torch.square(xf - mean), dim=dims, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        if weight is not None:
+            y = y * weight.to(torch.float32)
+        if bias is not None:
+            y = y + bias.to(torch.float32)
+        return y.to(x.dtype)
+
+    def _forward(self, _input):
+        w = self._weight if self.weight is not None else None
+        b = self._bias if self.bias is not None else None
+        return self.approx_forward((_input,), self.normalized_shape, w, b, self.eps)
+
+    @classmethod
+    def from_raw(cls, raw: nn.LayerNorm) -> "LayerNorm":
+        affine = raw.weight is not None
+        mod = cls(raw.normalized_shape, eps=raw.eps, elementwise_affine=affine, device="meta")
+        if affine:
+            mod.weight = raw.weight
+            mod.bias = raw.bias if raw.bias is not None else nn.Parameter(
+                torch.zeros_like(raw.weight)
+            )
+        return mod
+
+
+class ScaledDotProductAttention(DmxModule):
+    """Compound SDPA decomposed into quantizable sub-ops: actmatmul ->
+    resadd(bias) -> mul(scale) -> softmax -> dropout -> actmatmul, with
+    q/k/v/mask casts."""
+
+    is_compound = True
+    input_cast_names = (
+        "query_states_cast",
+        "key_states_cast",
+        "value_states_cast",
+        "attn_mask_cast",
+    )
+
+    def __init__(self, dropout_p: float = 0.0):
+        super().__init__()
+        for name in self.input_cast_names:
+            self.input_casts[name].block_dim = -1
+        self.resadd = ResAdd()
+        self.actmatmul = ActActMatMul()
+        self.softmax = Softmax(dim=-1)
+        self.dropout = Dropout(p=dropout_p)
+        self.mul = Mul()
+
+    def forward(self, query, key, value, attn_mask=None, is_causal=False, scale=None,
+                enable_gqa=False):
+        self._check_hooks()
+        query = self.input_casts["query_states_cast"](query)
+        key = self.input_casts["key_states_cast"](key)
+        value = self.input_casts["value_states_cast"](value)
+        if attn_mask is not None and attn_mask.is_floating_point():
+            attn_mask = self.input_casts["attn_mask_cast"](attn_mask)
+
+        L, S = query.shape[-2], key.shape[-2]
+        # the JAX package's default scale is an fp16 constant
+        scale_factor = (
+            float(torch.tensor(1.0 / math.sqrt(query.shape[-1]), dtype=torch.float16))
+            if scale is None else scale
+        )
+        attn_bias = torch.zeros((L, S), dtype=query.dtype, device=query.device)
+        if is_causal:
+            if attn_mask is not None:
+                raise ValueError("is_causal with an explicit attn_mask")
+            causal = torch.ones((L, S), dtype=torch.bool, device=query.device).tril()
+            attn_bias = attn_bias.masked_fill(~causal, -10000.0)
+        if attn_mask is not None:
+            if attn_mask.dtype == torch.bool:
+                attn_bias = attn_bias.masked_fill(~attn_mask, -10000.0)
+            else:
+                attn_bias = self.resadd(attn_bias, attn_mask)
+        if enable_gqa:
+            key = torch.repeat_interleave(key, query.shape[-3] // key.shape[-3], dim=-3)
+            value = torch.repeat_interleave(value, query.shape[-3] // value.shape[-3], dim=-3)
+
+        attn_weight = self.actmatmul(query, key.transpose(-2, -1))
+        attn_weight = self.resadd(attn_weight, attn_bias)
+        attn_weight = self.mul(attn_weight, scale_factor)
+        attn_weight = self.softmax(attn_weight)
+        attn_weight = self.dropout(attn_weight)
+        return self.actmatmul(attn_weight, value)
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls(dropout_p=getattr(raw, "dropout_p", 0.0))

@@ -1,0 +1,191 @@
+"""Inference compression: freeze fake-quant Linears into packed BFP modules.
+
+Port of ``PackedBFPLinear``, ``merge_parallel_linears``,
+``compress_for_inference``, ``release_dead_originals`` and
+``set_inference_mode`` of ``dmx_compressor_tpu/ops/compress.py``.  Every
+Linear whose weight format is BFP becomes a :class:`PackedBFPLinear` holding
+int8 mantissas + per-block exponents (bit-exact w.r.t. the fake-quant weight
+cast), and its forward runs the dequant-matmul kernel B1
+(ops/bfp_linear.py).
+
+The JAX package keeps a bf16 dequant cache instead of the int8 payload for
+most layers (a TPU tuning choice, compress.py:73-77); the port keeps the
+int8 payload only, so every packed linear reads half the bytes of a bf16
+weight.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from ..nn import modules as dmxnn
+from ..nn.core import DmxModule
+from ..numerics.format import BlockFloatingPoint, Same
+from .bfp_linear import bfp_linear
+from .bfp_pack import PackedBFP, bfp_pack
+
+
+class PackedBFPLinear(DmxModule):
+    """Inference-only Linear with packed BFP weights and the fused
+    dequant-matmul kernel."""
+
+    ch_axis = -1
+    win_ch_axis = -1
+    wout_ch_axis = 0
+    has_accum = False
+    has_weight = False  # the weight lives packed; no weight casts
+    has_bias = True
+
+    def __init__(self, packed: PackedBFP, bias: Optional[torch.Tensor], src: dmxnn.Linear):
+        self.in_features = src.in_features
+        self.out_features = src.out_features
+        self.has_bias = bias is not None
+        super().__init__()
+        self.register_buffer("weight_mantissa", packed.mantissa)
+        self.register_buffer("weight_exponent", packed.exponent)
+        self.precision = packed.precision
+        self.block_size = packed.block_size
+        self.bias = nn.Parameter(bias, requires_grad=False) if bias is not None else None
+        # the live input/output/bias casts carry over
+        self.input_casts = src.input_casts
+        self.output_casts = src.output_casts
+        self.bias_cast = src.bias_cast
+        self.input_casts["input_cast"].block_dim = -1
+
+    @property
+    def packed(self) -> PackedBFP:
+        if self.weight_mantissa is None:
+            raise RuntimeError("this projection was merged into a fused one and released")
+        return PackedBFP(self.weight_mantissa, self.weight_exponent, self.precision,
+                         self.block_size)
+
+    def _forward(self, _input):
+        return bfp_linear(_input, self.packed, bias=self._bias)
+
+    @classmethod
+    def from_linear(cls, lin: dmxnn.Linear) -> "PackedBFPLinear":
+        fmt = lin.weight_format
+        if not isinstance(fmt, BlockFloatingPoint):
+            raise TypeError(f"PackedBFPLinear requires a BFP weight format, got {fmt!r}")
+        with torch.no_grad():
+            w = lin.weight
+            if lin.weight_storage_cast is not None and not isinstance(
+                lin.weight_storage_cast.format, Same
+            ):
+                w = lin.weight_storage_cast(w)
+            packed = bfp_pack(w.to(torch.float32), fmt.precision, fmt.block_size)
+            bias = None
+            if lin.bias is not None:
+                bias = lin.bias_cast(lin.bias) if lin.bias_cast is not None else lin.bias
+                bias = bias.detach().clone()
+                if lin.bias_cast is not None:  # folded: the cast downstream is identity
+                    lin.bias_cast.set_format("SAME")
+        return cls(packed, bias, lin)
+
+
+def merge_parallel_linears(mods: List[nn.Module]) -> Optional[PackedBFPLinear]:
+    """Concatenate sibling PackedBFPLinears that consume the same input (q/k/v)
+    into one module: one kernel launch instead of three.  Bit-exact, since the
+    matmul is row-independent.  None unless every module has the same static
+    cast configuration."""
+    if not mods or not all(isinstance(m, PackedBFPLinear) for m in mods):
+        return None
+
+    def sig(m):
+        ic = m.input_casts["input_cast"]
+        oc = m.output_casts[m.output_cast_names[0]]
+        return (
+            m.in_features, repr(ic.format), ic.block_dim, ic.fake_quant_enabled,
+            bool(ic.pre_transform), repr(oc.format), oc.fake_quant_enabled,
+            bool(oc.pre_transform), m.precision, m.block_size, m.bias is not None,
+        )
+
+    if len({sig(m) for m in mods}) != 1:
+        return None
+    packed = PackedBFP(
+        torch.cat([m.weight_mantissa for m in mods], dim=0),
+        torch.cat([m.weight_exponent for m in mods], dim=0),
+        mods[0].precision,
+        mods[0].block_size,
+    )
+    bias = torch.cat([m.bias for m in mods]) if mods[0].bias is not None else None
+    # inherits mods[0]'s live casts: exactly the sharing wanted (same configs)
+    merged = PackedBFPLinear(packed, bias, src=mods[0])
+    merged.out_features = sum(m.out_features for m in mods)
+    return merged
+
+
+def set_inference_mode(enabled: bool = True) -> None:
+    DmxModule.inference_mode = enabled
+
+
+def _replace_linears(parent: nn.Module) -> int:
+    count = 0
+    for name, child in list(parent.named_children()):
+        fmt = getattr(child, "weight_format", None)
+        if (
+            isinstance(child, dmxnn.Linear)
+            and isinstance(fmt, BlockFloatingPoint)
+            and fmt.block_size > 1
+            and child.in_features % fmt.block_size == 0
+        ):
+            setattr(parent, name, PackedBFPLinear.from_linear(child))
+            count += 1
+        else:
+            count += _replace_linears(child)
+    return count
+
+
+def compress_for_inference(dm, keep_originals: bool = False) -> int:
+    """Replace BFP-weight Linears of a DmxModel with PackedBFPLinear, then let
+    composite modules fuse their packed children (merged q/k/v).  The merged
+    originals' payloads are released unless ``keep_originals``.  Returns the
+    number of modules converted."""
+    model = dm.module if hasattr(dm, "module") else dm
+    count = _replace_linears(model)
+    for m in list(model.modules()):
+        if hasattr(m, "fuse_for_inference"):
+            m.fuse_for_inference()
+    if not keep_originals:
+        release_dead_originals(model)
+    return count
+
+
+def release_dead_originals(model: nn.Module) -> int:
+    """Free the payloads of projections superseded by a merged module
+    (``qkv_merged``).  The modules stay attached, but calling them raises.
+    Returns the number released."""
+    released = 0
+    for m in model.modules():
+        if getattr(m, "qkv_merged", None) is None:
+            continue
+        for name in ("q_proj", "k_proj", "v_proj"):
+            p = getattr(m, name, None)
+            if isinstance(p, PackedBFPLinear) and p.weight_mantissa is not None:
+                p.weight_mantissa = None
+                p.weight_exponent = None
+                released += 1
+    return released
+
+
+def build_weights_mode(model: nn.Module):
+    """The weights-mode serving configuration (BFP16_64 packed weights,
+    activations in their own precision): ``DmxModel.from_raw`` ->
+    ``to_basic_mode`` -> every input/output cast SAME and every approximator
+    ``NoApproximation`` -> ``compress_for_inference`` -> inference mode.
+    Returns the DmxModel; ``model`` is transformed in place."""
+    from ..functional.approximate import NoApproximation
+    from ..modeling.model import DmxModel
+
+    dm = DmxModel.from_raw(model)
+    dm.to_basic_mode()
+    for _, m in dm.named_dmx_modules():
+        m.input_casts.set_format(["SAME"] * len(m.input_casts))
+        m.output_casts.set_format(["SAME"] * len(m.output_casts))
+        m.approximator.function = NoApproximation()
+    compress_for_inference(dm)
+    set_inference_mode(True)
+    return dm

@@ -1,0 +1,103 @@
+"""Blockwise (flash) attention (kernel B3).
+
+Port of ``flash_attention_ref``, ``flash_attention`` and ``sdpa_transparent``
+of ``dmx_compressor_tpu/ops/flash_attention.py``.  The CUDA kernel
+(``csrc/flash_attention.cu``) streams K/V tiles through shared memory with
+an online softmax in f32, so the [L, S] logits never reach device memory.
+``flash_attention`` launches it for CUDA tensors and runs the plain version
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .. import kernels
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+                        causal: bool = False) -> torch.Tensor:
+    """Plain version, unblocked; same contract as the kernel."""
+    L, D = q.shape[-2], q.shape[-1]
+    S = k.shape[-2]
+    scale = (D**-0.5) if scale is None else scale
+    logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.to(torch.float32)
+    if causal:
+        mask = torch.ones((L, S), dtype=torch.bool, device=q.device).tril(S - L)
+        logits = logits.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    return torch.matmul(w, v.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+                    causal: bool = False) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v, blockwise.
+
+    q: [..., L, D]; k, v: [..., S, D]; bias broadcastable to [..., L, S].
+    Causal masking puts the diagonal at S - L and needs S >= L.
+    """
+    *lead, L, D = q.shape
+    S = k.shape[-2]
+    if causal and S < L:
+        raise ValueError(f"causal attention needs S >= L, got L={L}, S={S}")
+    if not kernels.plain_or_kernel(q):
+        return flash_attention_ref(q, k, v, bias, scale, causal)
+    if D not in (32, 64):
+        raise ValueError(f"the flash attention kernel takes head_dim 32 or 64, got {D}")
+    BH = math.prod(lead)
+    scale = (D**-0.5) if scale is None else float(scale)
+    q2 = q.reshape(BH, L, D).to(torch.float32).contiguous()
+    k2 = k.reshape(BH, S, D).to(torch.float32).contiguous()
+    v2 = v.reshape(BH, S, D).to(torch.float32).contiguous()
+    operands = [q2, k2, v2]
+    b2 = None
+    if bias is not None:
+        b2 = torch.broadcast_to(bias.to(torch.float32), (*lead, L, S)).reshape(BH, L, S)
+        b2 = b2.contiguous()
+        operands.append(b2)
+    kernels.check_cuda(*operands, dtypes=(torch.float32,) * len(operands))
+    out = torch.empty_like(q2)
+    kernels.launch(
+        "flash_attention",
+        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+        b2.data_ptr() if b2 is not None else None, out.data_ptr(),
+        BH, L, S, D, scale, int(causal), S - L,
+    )
+    return out.reshape(*lead, L, D).to(q.dtype)
+
+
+def sdpa_transparent(sdpa) -> bool:
+    """True when the sdpa module applies no fake-quant cast or surrogate
+    anywhere in its compound pipeline (weights-only serving): the flash and
+    int8 kernels are then exact up to f32 summation order."""
+    from ..functional.approximate import NoApproximation
+    from ..numerics.format import Same
+
+    def module_transparent(m) -> bool:
+        casts = getattr(m, "input_casts", None)
+        if casts is None:
+            return True
+        ok = all(isinstance(casts[kk].format, Same) for kk in casts.keys())
+        outs = getattr(m, "output_casts", None)
+        if outs is not None:
+            ok = ok and all(isinstance(outs[kk].format, Same) for kk in outs.keys())
+        apx = getattr(m, "approximator", None)
+        if apx is not None:
+            ok = ok and isinstance(apx.function, NoApproximation)
+        return ok
+
+    subs = [
+        getattr(sdpa, name)
+        for name in ("actmatmul", "resadd", "mul", "softmax", "dropout")
+        if getattr(sdpa, name, None) is not None
+    ]
+    return module_transparent(sdpa) and all(module_transparent(s) for s in subs)

@@ -1,0 +1,159 @@
+"""KV caches: full-precision and int8 static-capacity buffers.
+
+Port of ``KVCache``, ``QuantizedKVCache``, ``QuantKV``, ``quantized_sdpa``,
+``make_caches`` and ``cache_seq_len`` of ``dmx_compressor_tpu/ops/kv_cache.py``.
+
+Layout: the port keeps caches D-minor, ``[B, H, S, D]`` (the JAX package
+stores them ``[B, H, D, S]``, a TPU lane-tiling choice).  A key row of D int8
+values is then contiguous, which the decode kernel reads with 16-byte loads.
+The int8 cache quantizes symmetrically over the head dim with one f32 scale
+per (batch, head, position): ``scale = max(amax / 127, 1e-10)``,
+``q = clip(round(x / scale), -127, 127)``.
+
+The caches are updated in place (the JAX package returns new arrays);
+``length`` is a host integer, and ``lengths`` is the same fill point as an
+int32 device tensor [B] for the decode kernel.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import torch
+
+from ..kernels import resolve_device
+
+
+class QuantKV(NamedTuple):
+    """Int8 KV payloads [B, H, S, D] + per-(batch, head, position) scales [B, H, S]."""
+
+    k_q: torch.Tensor
+    v_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+
+def quantized_sdpa(q: torch.Tensor, kv: QuantKV, attn_mask=None, scale=None,
+                   out_dtype=None, enable_gqa: bool = False) -> torch.Tensor:
+    """Attention over int8 K/V, scales applied after the matmuls:
+    logits = (q @ k_q^T) * k_scale * scale; out = (probs * v_scale) @ v_q."""
+    out_dtype = out_dtype or q.dtype
+    D = q.shape[-1]
+    scale = (D**-0.5) if scale is None else scale
+    if enable_gqa and q.shape[-3] != kv.k_q.shape[-3]:
+        rep = q.shape[-3] // kv.k_q.shape[-3]
+        kv = QuantKV(
+            torch.repeat_interleave(kv.k_q, rep, dim=-3),
+            torch.repeat_interleave(kv.v_q, rep, dim=-3),
+            torch.repeat_interleave(kv.k_scale, rep, dim=-2),
+            torch.repeat_interleave(kv.v_scale, rep, dim=-2),
+        )
+    logits = torch.matmul(q.to(torch.float32), kv.k_q.to(torch.float32).transpose(-1, -2)) * (
+        kv.k_scale[..., None, :] * scale
+    )
+    if attn_mask is not None:
+        logits = logits + attn_mask.to(torch.float32)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.matmul(w * kv.v_scale[..., None, :], kv.v_q.to(torch.float32))
+    return out.to(out_dtype)
+
+
+def cache_seq_len(cache) -> int:
+    """Sequence capacity of a cache."""
+    return cache.max_len
+
+
+class _StaticCache:
+    """Capacity, fill point and the per-row lengths shared by both caches."""
+
+    def __init__(self, batch: int, max_len: int, head_dim: int, device: torch.device):
+        self.max_len = max_len
+        self.head_dim = head_dim
+        self.length = 0
+        self.lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+
+    @property
+    def seq_len(self) -> int:
+        return self.max_len
+
+    def _advance(self, T: int) -> int:
+        pos = self.length
+        if pos + T > self.max_len:
+            raise ValueError(f"cache overflow: {pos} + {T} > {self.max_len}")
+        self.length = pos + T
+        self.lengths.fill_(self.length)
+        return pos
+
+
+class KVCache(_StaticCache):
+    """Full-precision static cache, [B, H, S_max, D]."""
+
+    quantized = False
+
+    def __init__(self, batch: int, heads: int, max_len: int, head_dim: int,
+                 dtype=torch.float32, device=None):
+        device = resolve_device(device)
+        super().__init__(batch, max_len, head_dim, device)
+        self.k = torch.zeros((batch, heads, max_len, head_dim), dtype=dtype, device=device)
+        self.v = torch.zeros_like(self.k)
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor):
+        """Append [B, H, T, D] at the fill point; returns the full buffers
+        and the new length."""
+        pos = self._advance(k_new.shape[2])
+        self.k[:, :, pos:self.length] = k_new.to(self.k.dtype)
+        self.v[:, :, pos:self.length] = v_new.to(self.v.dtype)
+        return self.k, self.v, self.length
+
+
+class QuantizedKVCache(_StaticCache):
+    """INT8 KV cache with per-(batch, head, position) scales."""
+
+    quantized = True
+
+    def __init__(self, batch: int, heads: int, max_len: int, head_dim: int,
+                 dtype=torch.float32, device=None):
+        device = resolve_device(device)
+        super().__init__(batch, max_len, head_dim, device)
+        self.out_dtype = dtype
+        self.k_q = torch.zeros((batch, heads, max_len, head_dim), dtype=torch.int8, device=device)
+        self.v_q = torch.zeros_like(self.k_q)
+        self.k_scale = torch.zeros((batch, heads, max_len), dtype=torch.float32, device=device)
+        self.v_scale = torch.zeros_like(self.k_scale)
+
+    @staticmethod
+    def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        amax = torch.amax(torch.abs(x), dim=-1)
+        scale = torch.clamp(amax / 127.0, min=1e-10)
+        q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
+        return q, scale.to(torch.float32)
+
+    def update_payload(self, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        kq, ks = self._quantize(k_new.to(torch.float32))
+        vq, vs = self._quantize(v_new.to(torch.float32))
+        pos = self._advance(k_new.shape[2])
+        end = self.length
+        self.k_q[:, :, pos:end] = kq
+        self.v_q[:, :, pos:end] = vq
+        self.k_scale[:, :, pos:end] = ks
+        self.v_scale[:, :, pos:end] = vs
+
+    def update_quantized(self, k_new: torch.Tensor, v_new: torch.Tensor) -> QuantKV:
+        """Append and return the int8 payloads and scales (no dequantization)."""
+        self.update_payload(k_new, v_new)
+        return QuantKV(self.k_q, self.v_q, self.k_scale, self.v_scale)
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor):
+        """Append and return dequantized full buffers and the new length."""
+        self.update_payload(k_new, v_new)
+        k = (self.k_q.to(torch.float32) * self.k_scale[..., None]).to(self.out_dtype)
+        v = (self.v_q.to(torch.float32) * self.v_scale[..., None]).to(self.out_dtype)
+        return k, v, self.length
+
+
+def make_caches(n_layers: int, batch: int, heads: int, max_len: int, head_dim: int,
+                dtype=torch.float32, quantized: bool = False,
+                device=None) -> List:
+    """One cache per layer, on the card unless ``device='cpu'``."""
+    cls = QuantizedKVCache if quantized else KVCache
+    return [cls(batch, heads, max_len, head_dim, dtype, device=device) for _ in range(n_layers)]
