@@ -44,6 +44,8 @@ SIGNATURES = {
     "flash_attention": (
         "dmx_flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
+    "sbfp_linear": ("dmx_sbfp_linear", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "flash_decode": ("dmx_flash_decode", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
@@ -145,12 +147,15 @@ def launch(name: str, *args) -> None:
 
 def check_cuda(*tensors: torch.Tensor, dtypes) -> None:
     """Validate what a kernel takes: the current CUDA device (the kernel
-    launches on its stream), contiguous, dtype."""
+    launches on its stream), contiguous and 16-byte aligned (the kernels
+    read with 16-byte loads), dtype."""
     for t, dt in zip(tensors, dtypes):
         if not t.is_cuda or t.device.index != torch.cuda.current_device():
             raise ValueError(f"kernel operands must be on the current CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("kernel operands must start on a 16-byte boundary")
         if t.dtype != dt:
             raise ValueError(f"kernel operand dtype {t.dtype}, expected {dt}")
 

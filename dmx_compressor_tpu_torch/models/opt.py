@@ -5,16 +5,21 @@ path.  Authored with torch modules and ``rawnn`` op wrappers so the Dmx
 substitution pass intercepts every op; module paths mirror the HF checkpoint
 layout (``model.decoder.layers.N.self_attn.q_proj``).
 
-Attention routing (the JAX package's opt.py:172-292, quantized and
-transparent branches):
+Attention routing (the JAX package's opt.py:172-292), when the compound SDPA
+is transparent (no cast, no surrogate):
 
-- prefill at offset 0 with an int8 cache: the int8 payload is written and
-  attention runs over the fresh K/V through ``flash_attention`` (B3);
+- prefill at offset 0 with a cache: the cache is written (the int8 payload
+  for an int8 cache) and attention runs over the fresh K/V through
+  ``flash_attention`` (B3);
 - decode (T == 1) with an int8 cache: ``flash_decode_int8`` (B2) over the
   int8 payload, masked by the cache's per-row lengths;
-- otherwise the modular compound SDPA (dequantized K/V for an int8 cache).
+- decode (T == 1) with a float cache: ``flash_decode`` (B4) over the f32
+  buffers, masked the same way;
+- otherwise, and whenever the SDPA is not transparent, the modular compound
+  SDPA (dequantized K/V for an int8 cache).
 
-Every packed linear runs ``bfp_linear`` (B1) through PackedBFPLinear.
+Every packed linear runs ``bfp_linear`` (B1) through PackedBFPLinear or
+``sbfp_linear`` (B5) through PackedSBFPLinear.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from .. import rawnn
 from ..kernels import resolve_device
 from ..ops.compress import merge_parallel_linears
 from ..ops.flash_attention import flash_attention, sdpa_transparent
-from ..ops.flash_decode import flash_decode_int8, post_update_lengths
+from ..ops.flash_decode import flash_decode, flash_decode_int8, post_update_lengths
 from ..ops.kv_cache import cache_seq_len, make_caches, quantized_sdpa
 from .positions import causal_mask, resolve_positions
 
@@ -69,8 +74,8 @@ class OPTAttention(nn.Module):
         self.out_proj = nn.Linear(d, d, device=device)
         self.sdpa = rawnn.ScaledDotProductAttention()
         self.qkv_merged = None
-        # sdpa_transparent(self.sdpa), frozen by fuse_for_inference; None
-        # until then, and attend asks the casts on every call
+        # sdpa_transparent(self.sdpa), frozen by freeze_routing; None until
+        # then, and attend asks the casts on every call
         self.sdpa_is_transparent = None
 
     def _split(self, x):
@@ -79,12 +84,16 @@ class OPTAttention(nn.Module):
 
     def fuse_for_inference(self) -> None:
         """Merge q/k/v into one packed projection when possible (called by
-        ops.compress.compress_for_inference; bit-exact).  Also freezes the
-        routing's transparency check: the casts are fixed from here on, as
-        the packed payloads are, so decode steps need not walk them."""
+        ops.compress.compress_for_inference; bit-exact), then freeze the
+        routing."""
         merged = merge_parallel_linears([self.q_proj, self.k_proj, self.v_proj])
         if merged is not None:
             self.qkv_merged = merged
+        self.freeze_routing()
+
+    def freeze_routing(self) -> None:
+        """Freeze the routing's transparency check: the casts are fixed from
+        here on, so decode steps need not walk them."""
         self.sdpa_is_transparent = sdpa_transparent(self.sdpa)
 
     def _project_qkv(self, x):
@@ -123,6 +132,10 @@ class OPTAttention(nn.Module):
                 out = flash_decode_int8(q, kv, post_update_lengths(cache), scale=self.scaling)
             else:
                 out = quantized_sdpa(q, kv, attn_mask=attn_mask, scale=self.scaling)
+        elif cache is not None and transparent and T == 1 and attn_mask is not None:
+            cache.update(k, v)
+            out = flash_decode(q, cache.k, cache.v, post_update_lengths(cache),
+                               scale=self.scaling)
         else:
             if cache is not None:
                 k, v, _ = cache.update(k, v)  # an int8 cache dequantizes here

@@ -1,10 +1,14 @@
-"""Physical BFP representation: packed integer mantissas + shared exponents.
+"""Physical BFP and SBFP representations: packed integer mantissas + per-block
+exponents or scales.
 
 Port of ``dmx_compressor_tpu/ops/bfp_pack.py`` (``PackedBFP``, ``bfp_pack``,
-``bfp_unpack``).  BFP16_64 weights are stored as int8 mantissas plus one
-int8 exponent per 64-block: a quarter of the fp32 bytes, which is what a
-bandwidth-bound decode matmul pays for.  ``bfp_unpack(bfp_pack(x))`` is bit
-for bit the simulated ``block_quantize`` cast.
+``bfp_unpack``, ``PackedSBFP``, ``sbfp_pack``, ``sbfp_unpack``).  BFP16_64
+weights are stored as int8 mantissas plus one int8 exponent per 64-block: a
+quarter of the fp32 bytes, which is what a bandwidth-bound decode matmul pays
+for.  SBFP12_16 weights are int4 mantissas, two per byte, plus one f32 scale
+per 16-block: 0.75 bytes per weight.  ``bfp_unpack(bfp_pack(x))`` is bit for
+bit the simulated ``block_quantize`` cast, ``sbfp_unpack(sbfp_pack(x, fmt))``
+bit for bit ``fmt.cast(x, -1)``.
 """
 
 from __future__ import annotations
@@ -64,3 +68,61 @@ def bfp_unpack(p: PackedBFP) -> torch.Tensor:
     man = p.mantissa.to(torch.float32).reshape(*lead, n // p.block_size, p.block_size)
     e = p.exponent.to(torch.int32)[..., None]
     return R._mul_pow2(man, e + 2 - p.precision).reshape(*lead, n)
+
+
+class PackedSBFP(NamedTuple):
+    """SBFP payload blocked along the last axis (numerics/format.py
+    ScaledBlockFloatingPoint).
+
+    nibbles: uint8 [..., N // 2], two two's-complement int4 mantissas per
+        byte (low nibble = even index); the mantissas are the integer values
+        of ``block_format.cast(block / chunk_max)``, in [-7, 7]
+    scale: float32 [..., N // block_size], the scaler_format-cast chunk max
+        (zero for an all-zero block)
+    block_size: B (16 for SBFP12_16)
+    """
+
+    nibbles: torch.Tensor
+    scale: torch.Tensor
+    block_size: int
+
+
+def sbfp_pack(x: torch.Tensor, fmt) -> PackedSBFP:
+    """Pack along the last axis; ``sbfp_unpack`` of the result is bit for bit
+    ``fmt.cast(x, -1)`` (all-zero blocks included)."""
+    *lead, n = x.shape
+    B = fmt.block_size
+    if n % B or n % 2:
+        raise ValueError(f"{n} not an even multiple of block {B}")
+    if fmt.block_format.precision > 4:
+        raise ValueError("nibble packing is int4: block_format precision must be <= 4")
+    xf = x.to(torch.float32).reshape(*lead, n // B, B)
+    chunk_max = torch.amax(torch.abs(xf), dim=-1, keepdim=True) / fmt.man_scaling
+    safe_max = torch.where(chunk_max > 0.0, chunk_max, torch.ones_like(chunk_max))
+    man = fmt.block_format.cast(xf / safe_max)  # integer-valued floats
+    scale = torch.where(chunk_max > 0.0, fmt.scaler_format.cast(chunk_max),
+                        torch.zeros_like(chunk_max))[..., 0]
+    man = man.reshape(*lead, n).to(torch.int32)
+    lo = man[..., 0::2] & 0xF
+    hi = man[..., 1::2] & 0xF
+    return PackedSBFP(nibbles=(lo | (hi << 4)).to(torch.uint8),
+                      scale=scale.to(torch.float32), block_size=B)
+
+
+def sbfp_unpack_mantissa_int8(nibbles: torch.Tensor) -> torch.Tensor:
+    """Two's-complement nibble payload -> int8 mantissas [..., 2 * half]:
+    ``v - ((v > 7) << 4)`` on each nibble, low nibble first."""
+    b = nibbles.to(torch.int32)
+    lo = b & 0xF
+    hi = (b >> 4) & 0xF
+    man = torch.stack([lo - ((lo > 7).to(torch.int32) << 4),
+                       hi - ((hi > 7).to(torch.int32) << 4)], dim=-1)
+    return man.reshape(*b.shape[:-1], b.shape[-1] * 2).to(torch.int8)
+
+
+def sbfp_unpack(p: PackedSBFP) -> torch.Tensor:
+    """Dequantize to f32: mantissa * block scale."""
+    man = sbfp_unpack_mantissa_int8(p.nibbles).to(torch.float32)
+    *lead, n = man.shape
+    man = man.reshape(*lead, n // p.block_size, p.block_size)
+    return (man * p.scale[..., None]).reshape(*lead, n)

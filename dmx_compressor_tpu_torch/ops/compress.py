@@ -1,17 +1,21 @@
-"""Inference compression: freeze fake-quant Linears into packed BFP modules.
+"""Inference compression: freeze fake-quant Linears into packed BFP and SBFP
+modules, and the serving configurations of the JAX bench built on them.
 
-Port of ``PackedBFPLinear``, ``merge_parallel_linears``,
+Port of ``PackedBFPLinear``, ``PackedSBFPLinear``, ``merge_parallel_linears``,
 ``compress_for_inference``, ``release_dead_originals`` and
-``set_inference_mode`` of ``dmx_compressor_tpu/ops/compress.py``.  Every
-Linear whose weight format is BFP becomes a :class:`PackedBFPLinear` holding
-int8 mantissas + per-block exponents (bit-exact w.r.t. the fake-quant weight
-cast), and its forward runs the dequant-matmul kernel B1
-(ops/bfp_linear.py).
+``set_inference_mode`` of ``dmx_compressor_tpu/ops/compress.py``, and of the
+``weights``, ``sbfp`` and ``baseline`` recipes of ``bench.py:_build_host``.
+Every Linear whose weight format is BFP becomes a :class:`PackedBFPLinear`
+holding int8 mantissas + per-block exponents, and runs kernel B1; every
+Linear with weight format SAME and an SBFP weight storage format of at most
+4 bits becomes a :class:`PackedSBFPLinear` holding int4 nibbles + per-block
+f32 scales, and runs kernel B5 (both payloads bit-exact w.r.t. the fake-quant
+weight cast; kernels in ops/bfp_linear.py).
 
-The JAX package keeps a bf16 dequant cache instead of the int8 payload for
-most layers (a TPU tuning choice, compress.py:73-77); the port keeps the
-int8 payload only, so every packed linear reads half the bytes of a bf16
-weight.
+The JAX package keeps a bf16 dequant cache instead of the payload for most
+layers (a TPU tuning choice, compress.py:73-77 and :310-315); the port keeps
+the payload only, so a BFP16 linear reads half the bytes of a bf16 weight and
+an SBFP12_16 one 0.375 of them.
 """
 
 from __future__ import annotations
@@ -23,37 +27,59 @@ from torch import nn
 
 from ..nn import modules as dmxnn
 from ..nn.core import DmxModule
-from ..numerics.format import BlockFloatingPoint, Same
-from .bfp_linear import bfp_linear
-from .bfp_pack import PackedBFP, bfp_pack
+from ..numerics.format import BlockFloatingPoint, Same, ScaledBlockFloatingPoint
+from .bfp_linear import bfp_linear, sbfp_linear
+from .bfp_pack import PackedBFP, PackedSBFP, bfp_pack, sbfp_pack
+
+# the SBFP12_16 weight storage of the JAX bench's sbfp mode (bench.py:163-183)
+SBFP12_16 = "SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{16}"
 
 
-class PackedBFPLinear(DmxModule):
-    """Inference-only Linear with packed BFP weights and the fused
-    dequant-matmul kernel."""
+def _folded_bias(lin: dmxnn.Linear) -> Optional[torch.Tensor]:
+    """The bias with its cast applied, detached; the cast is then set to SAME
+    (folded: the cast downstream is the identity)."""
+    if lin.bias is None:
+        return None
+    bias = lin.bias_cast(lin.bias) if lin.bias_cast is not None else lin.bias
+    bias = bias.detach().clone()
+    if lin.bias_cast is not None:
+        lin.bias_cast.set_format("SAME")
+    return bias
+
+
+class _PackedLinear(DmxModule):
+    """Inference-only Linear whose weight lives packed (no weight casts); the
+    source Linear's live input/output/bias casts carry over."""
 
     ch_axis = -1
     win_ch_axis = -1
     wout_ch_axis = 0
     has_accum = False
-    has_weight = False  # the weight lives packed; no weight casts
+    has_weight = False
     has_bias = True
 
-    def __init__(self, packed: PackedBFP, bias: Optional[torch.Tensor], src: dmxnn.Linear):
+    def __init__(self, bias: Optional[torch.Tensor], src: dmxnn.Linear):
         self.in_features = src.in_features
         self.out_features = src.out_features
         self.has_bias = bias is not None
         super().__init__()
-        self.register_buffer("weight_mantissa", packed.mantissa)
-        self.register_buffer("weight_exponent", packed.exponent)
-        self.precision = packed.precision
-        self.block_size = packed.block_size
         self.bias = nn.Parameter(bias, requires_grad=False) if bias is not None else None
-        # the live input/output/bias casts carry over
         self.input_casts = src.input_casts
         self.output_casts = src.output_casts
         self.bias_cast = src.bias_cast
         self.input_casts["input_cast"].block_dim = -1
+
+
+class PackedBFPLinear(_PackedLinear):
+    """Inference-only Linear with packed BFP weights and the fused
+    dequant-matmul kernel B1."""
+
+    def __init__(self, packed: PackedBFP, bias: Optional[torch.Tensor], src: dmxnn.Linear):
+        super().__init__(bias, src)
+        self.register_buffer("weight_mantissa", packed.mantissa)
+        self.register_buffer("weight_exponent", packed.exponent)
+        self.precision = packed.precision
+        self.block_size = packed.block_size
 
     @property
     def packed(self) -> PackedBFP:
@@ -77,12 +103,41 @@ class PackedBFPLinear(DmxModule):
             ):
                 w = lin.weight_storage_cast(w)
             packed = bfp_pack(w.to(torch.float32), fmt.precision, fmt.block_size)
-            bias = None
-            if lin.bias is not None:
-                bias = lin.bias_cast(lin.bias) if lin.bias_cast is not None else lin.bias
-                bias = bias.detach().clone()
-                if lin.bias_cast is not None:  # folded: the cast downstream is identity
-                    lin.bias_cast.set_format("SAME")
+            bias = _folded_bias(lin)
+        return cls(packed, bias, lin)
+
+
+class PackedSBFPLinear(_PackedLinear):
+    """Inference-only Linear serving from SBFP payloads: two's-complement
+    int4 mantissas packed two to a byte + one f32 scale per block (0.75
+    bytes per weight for SBFP12_16, against 4 for f32), through the fused
+    dequant-matmul kernel B5.  Covers weights-only SBFP serving: weight
+    storage format SBFP with weight format SAME."""
+
+    def __init__(self, packed: PackedSBFP, bias: Optional[torch.Tensor], src: dmxnn.Linear):
+        super().__init__(bias, src)
+        self.register_buffer("weight_nibbles", packed.nibbles)
+        self.register_buffer("weight_block_scale", packed.scale)
+        self.block_size = packed.block_size
+
+    @property
+    def packed(self) -> PackedSBFP:
+        return PackedSBFP(self.weight_nibbles, self.weight_block_scale, self.block_size)
+
+    def _forward(self, _input):
+        return sbfp_linear(_input, self.packed, bias=self._bias)
+
+    @classmethod
+    def from_linear(cls, lin: dmxnn.Linear) -> "PackedSBFPLinear":
+        fmt = lin.weight_storage_format
+        if not isinstance(fmt, ScaledBlockFloatingPoint) or not isinstance(
+            lin.weight_format, Same
+        ):
+            raise TypeError("PackedSBFPLinear requires SBFP weight storage and weight "
+                            f"format SAME, got {fmt!r} / {lin.weight_format!r}")
+        with torch.no_grad():
+            packed = sbfp_pack(lin.weight.to(torch.float32), fmt)
+            bias = _folded_bias(lin)
         return cls(packed, bias, lin)
 
 
@@ -126,6 +181,7 @@ def _replace_linears(parent: nn.Module) -> int:
     count = 0
     for name, child in list(parent.named_children()):
         fmt = getattr(child, "weight_format", None)
+        store = getattr(child, "weight_storage_format", None)
         if (
             isinstance(child, dmxnn.Linear)
             and isinstance(fmt, BlockFloatingPoint)
@@ -134,14 +190,24 @@ def _replace_linears(parent: nn.Module) -> int:
         ):
             setattr(parent, name, PackedBFPLinear.from_linear(child))
             count += 1
+        elif (
+            isinstance(child, dmxnn.Linear)
+            and isinstance(fmt, Same)
+            and isinstance(store, ScaledBlockFloatingPoint)
+            and store.block_format.precision <= 4
+            and child.in_features % store.block_size == 0
+        ):
+            setattr(parent, name, PackedSBFPLinear.from_linear(child))
+            count += 1
         else:
             count += _replace_linears(child)
     return count
 
 
 def compress_for_inference(dm, keep_originals: bool = False) -> int:
-    """Replace BFP-weight Linears of a DmxModel with PackedBFPLinear, then let
-    composite modules fuse their packed children (merged q/k/v).  The merged
+    """Replace BFP-weight Linears of a DmxModel with PackedBFPLinear and
+    SBFP-stored ones with PackedSBFPLinear, then let composite modules fuse
+    their packed children (merged BFP q/k/v) and freeze their routing.  The merged
     originals' payloads are released unless ``keep_originals``.  Returns the
     number of modules converted."""
     model = dm.module if hasattr(dm, "module") else dm
@@ -188,4 +254,37 @@ def build_weights_mode(model: nn.Module):
         m.approximator.function = NoApproximation()
     compress_for_inference(dm)
     set_inference_mode(True)
+    return dm
+
+
+def build_sbfp_mode(model: nn.Module):
+    """The SBFP serving configuration (SBFP12_16 weight storage served from
+    packed int4 payloads, activations in their own precision):
+    ``DmxModel.from_raw`` -> every Linear (the tied LM head included) gets
+    weight storage SBFP12_16 -> ``compress_for_inference`` -> inference mode.
+    Returns the DmxModel; ``model`` is transformed in place."""
+    from ..modeling.model import DmxConfigRule, DmxModel
+
+    dm = DmxModel.from_raw(model)
+    dm.configure(None, DmxConfigRule(module_types=(dmxnn.Linear,),
+                                     module_config=dict(weight_storage_format=SBFP12_16)))
+    compress_for_inference(dm)
+    set_inference_mode(True)
+    return dm
+
+
+def build_baseline_mode(model: nn.Module):
+    """The fp32 baseline the JAX bench divides by: ``DmxModel.from_raw`` ->
+    ``to_baseline_mode`` (every cast SAME, no surrogate; the Linears stay
+    plain matmuls).  The attention modules' routing is frozen once here, as
+    ``compress_for_inference`` does for the packed modes, so decode steps do
+    not walk the casts.  Returns the DmxModel; ``model`` is transformed in
+    place."""
+    from ..modeling.model import DmxModel
+
+    dm = DmxModel.from_raw(model)
+    dm.to_baseline_mode()
+    for m in dm.module.modules():
+        if hasattr(m, "freeze_routing"):
+            m.freeze_routing()
     return dm

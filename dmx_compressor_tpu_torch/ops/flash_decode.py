@@ -1,13 +1,17 @@
-"""Single-query attention over an int8 KV cache (kernel B2).
+"""Single-query attention over a float KV cache (kernel B4) and an int8 one
+(kernel B2).
 
-Port of ``flash_decode_int8_ref``, ``flash_decode_int8`` and
-``post_update_lengths`` of ``dmx_compressor_tpu/ops/flash_decode.py``.  The
-CUDA kernel (``csrc/flash_decode_int8.cu``) reads the int8 K/V rows below
-each row's length, dequantizes them in registers with the per-position
-scales after the dot products (``quantized_sdpa``'s factorization), and keeps
-an online softmax in f32.  ``flash_decode_int8`` launches it for CUDA tensors
-and runs the plain version for CPU tensors.  The port has no routing floor:
-every T == 1 decode over an int8 cache goes through it.
+Port of ``flash_decode_ref``, ``flash_decode``, ``flash_decode_int8_ref``,
+``flash_decode_int8`` and ``post_update_lengths`` of
+``dmx_compressor_tpu/ops/flash_decode.py``.  The CUDA kernels
+(``csrc/flash_decode.cu``, ``csrc/flash_decode_int8.cu``) read the K/V rows
+below each row's length and keep an online softmax in f32; the int8 one
+dequantizes in registers with the per-position scales after the dot products
+(``quantized_sdpa``'s factorization).  ``flash_decode`` and
+``flash_decode_int8`` launch their kernel for CUDA tensors and run the plain
+version for CPU tensors.  The port has no routing floor: every transparent
+T == 1 decode step goes through one of them.  The JAX package's
+``s_minor`` variants are a TPU layout; the port's caches are D-minor.
 """
 
 from __future__ import annotations
@@ -31,6 +35,55 @@ def post_update_lengths(cache) -> torch.Tensor:
 def _lengths_1d(lengths, B: int, device) -> torch.Tensor:
     le = torch.as_tensor(lengths, dtype=torch.int32, device=device)
     return le.expand(B) if le.ndim == 0 else le
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version: unblocked masked softmax attention for T == 1 queries.
+    q [B, H, 1, D]; K/V [B, Hkv, S, D]."""
+    B, H, _, D = q.shape
+    scale = (D**-0.5) if scale is None else scale
+    if k.shape[-3] != H:
+        rep = H // k.shape[-3]
+        k = torch.repeat_interleave(k, rep, dim=-3)
+        v = torch.repeat_interleave(v, rep, dim=-3)
+    logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
+    le = _lengths_1d(lengths, B, q.device)
+    mask = torch.arange(k.shape[-2], device=q.device)[None, :] < le[:, None]  # [B, S]
+    logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    return torch.matmul(w, v.to(torch.float32)).to(q.dtype)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """softmax((q k^T) * scale masked to col < lengths[b]) v over f32 K/V
+    [B, Hkv, S, D], one query per row.  Returns [B, H, 1, D].  lengths:
+    int32 [B] or a scalar, each >= 1.  On the card, K/V of another dtype or a
+    head_dim other than 32/64/128 raise."""
+    B, H, T, D = q.shape
+    if T != 1:
+        raise ValueError("flash_decode is the single-query decode kernel")
+    if not kernels.plain_or_kernel(q):
+        return flash_decode_ref(q, k, v, lengths, scale)
+    Hkv, S = k.shape[1], k.shape[2]
+    if D not in (32, 64, 128) or H % Hkv:
+        raise ValueError(f"the decode kernel takes head_dim 32/64/128 and H % Hkv == 0, "
+                         f"got D={D}, H={H}, Hkv={Hkv}")
+    if k.shape != (B, Hkv, S, D) or v.shape != k.shape:
+        raise ValueError("K/V must be [B, Hkv, S, D]")
+    scale = (D**-0.5) if scale is None else float(scale)
+    q2 = q.to(torch.float32).contiguous()
+    le = _lengths_1d(lengths, B, q.device).contiguous()
+    kernels.check_cuda(q2, k, v, le,
+                       dtypes=(torch.float32, torch.float32, torch.float32, torch.int32))
+    out = torch.empty_like(q2)
+    kernels.launch(
+        "flash_decode",
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), le.data_ptr(), out.data_ptr(),
+        B, H, Hkv, S, D, scale,
+    )
+    return out.to(q.dtype)
 
 
 def flash_decode_int8_ref(q: torch.Tensor, kv: QuantKV, lengths,

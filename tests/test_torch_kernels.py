@@ -1,4 +1,4 @@
-"""The three kernel modules of the port against the JAX package.
+"""The kernel modules of the port (B1-B5) against the JAX package.
 
 On the CPU each wrapper runs its plain PyTorch version; these tests hold it
 to the JAX function run as the JAX package's own CPU tests run it (Pallas in
@@ -16,12 +16,16 @@ from dmx_compressor_tpu.ops import flash_attention as jfa
 from dmx_compressor_tpu.ops import flash_decode as jfd
 from dmx_compressor_tpu.ops import kv_cache as jkv
 
+from dmx_compressor_tpu.numerics.format import Format as JFormat
+
 from dmx_compressor_tpu_torch import kernels
+from dmx_compressor_tpu_torch.numerics.format import Format as TFormat
 from dmx_compressor_tpu_torch.ops import bfp_linear as tbl
 from dmx_compressor_tpu_torch.ops import bfp_pack as tpack
 from dmx_compressor_tpu_torch.ops import flash_attention as tfa
 from dmx_compressor_tpu_torch.ops import flash_decode as tfd
 from dmx_compressor_tpu_torch.ops import kv_cache as tkv
+from dmx_compressor_tpu_torch.ops.compress import SBFP12_16
 
 torch.set_num_threads(2)
 
@@ -181,3 +185,132 @@ def test_quantized_cache_update_returns_dequantized_buffers():
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     with pytest.raises(ValueError):
         tc.update(torch.zeros(B, H, 7, D), torch.zeros(B, H, 7, D))
+
+
+# ---------------------------------------------------------------------------
+# B5: sbfp_pack / sbfp_linear
+# ---------------------------------------------------------------------------
+
+SBFP = SBFP12_16
+
+
+def sbfp_pair(w):
+    jp = jpack.sbfp_pack(jnp.asarray(w), JFormat.from_shorthand(SBFP))
+    tp = tpack.sbfp_pack(torch.from_numpy(w), TFormat.from_shorthand(SBFP))
+    return jp, tp
+
+
+def test_sbfp_pack_bit_exact_against_jax_and_the_cast():
+    """tests/test_ops.py:200-215: an all-zero block and a x100 block.  The
+    nibbles and scales equal the JAX package's bit for bit; unpacking gives
+    the simulated cast's values.  The only bit difference from the cast is
+    the sign of a zero: a mantissa that rounds to -0.0 in the cast packs as
+    the integer 0 (no -0 in two's complement), in the JAX package too."""
+    rs = np.random.RandomState(0)
+    w = rand(rs, 32, 64, scale=0.3)
+    w[0, :16] = 0.0
+    w[1, 16:32] *= 100.0
+    jp, tp = sbfp_pair(w)
+    assert tp.nibbles.dtype == torch.uint8 and tp.nibbles.shape == (32, 32)
+    assert tp.scale.shape == (32, 4) and tp.block_size == 16
+    np.testing.assert_array_equal(tp.nibbles.numpy(), np.asarray(jp.nibbles))
+    np.testing.assert_array_equal(tp.scale.numpy().view(np.uint32),
+                                  np.asarray(jp.scale).view(np.uint32))
+    assert not tp.scale[0, 0] and not tp.nibbles[0, :8].any()  # the all-zero block
+    got = tpack.sbfp_unpack(tp).numpy()
+    cast = TFormat.from_shorthand(SBFP).cast(torch.from_numpy(w), -1).numpy()
+    np.testing.assert_array_equal(got, cast)
+    np.testing.assert_array_equal((got + 0.0).view(np.uint32), (cast + 0.0).view(np.uint32))
+    np.testing.assert_array_equal(got, np.asarray(jpack.sbfp_unpack(jp)))
+
+
+def test_sbfp_nibble_order_and_sign_asymmetric():
+    """Low nibble = even index, two's complement; every nibble 0..15 decodes
+    (-8 included, though the packer never makes it), and the order is not
+    symmetric, so a swapped pair would fail."""
+    nib = np.arange(256, dtype=np.uint8).reshape(8, 32)
+    want = np.asarray(jbl.sbfp_unpack_mantissa_int8(jnp.asarray(nib)))
+    got = tbl.sbfp_unpack_mantissa_int8(torch.from_numpy(nib)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int8 and got.shape == (8, 64)
+    assert got[0, :6].tolist() == [0, 0, 1, 0, 2, 0] and got[0, 30:32].tolist() == [-1, 0]
+    assert got[7, -2:].tolist() == [-1, -1] and got.min() == -8 and got.max() == 7
+    # a ramp of weights packs to mantissas in index order
+    w = np.tile(np.linspace(-1.0, 1.0, 16, dtype=np.float32), (2, 2))
+    _, tp = sbfp_pair(w)
+    man = tbl.sbfp_unpack_mantissa_int8(tp.nibbles).numpy()
+    assert (np.diff(man[0, :16].astype(int)) >= 0).all() and man[0, 0] == -7 and man[0, 15] == 7
+
+
+# tests/test_ops.py:301's shapes (M, N, K), then the SBFP leg's head shape cut
+# to a small vocabulary, and a K that is not a multiple of 32
+B5_SHAPES = [(8, 48, 80), (3, 33, 48), (130, 256, 160), (8, 100, 768), (5, 48, 80)]
+
+
+@pytest.mark.parametrize("M,N,K", B5_SHAPES)
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_sbfp_linear_matches_jax_pallas_interpret(M, N, K, with_bias):
+    """tests/test_ops.py:292-309, at its tolerance (atol 1e-5, rtol 1e-6)."""
+    rs = np.random.RandomState(0)
+    w = rand(rs, N, K, scale=0.3)
+    x = rand(rs, M, K)
+    b = rand(rs, N) if with_bias else None
+    jp, tp = sbfp_pair(w)
+    want = np.asarray(jbl.sbfp_linear(jnp.asarray(x), jp, None if b is None else jnp.asarray(b),
+                                      use_pallas=True, interpret=True))
+    before = dict(kernels.LAUNCHES)
+    got = tbl.sbfp_linear(torch.from_numpy(x), tp, None if b is None else torch.from_numpy(b))
+    assert kernels.LAUNCHES == before  # the plain version launches nothing
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+    ref = np.asarray(jbl.sbfp_linear_ref(jnp.asarray(x), jp, None if b is None else jnp.asarray(b)))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-5)
+
+
+def test_sbfp_linear_leading_dims_and_cpu_dispatch():
+    rs = np.random.RandomState(1)
+    jp, tp = sbfp_pair(rand(rs, 40, 64))
+    x = rand(rs, 2, 3, 64)
+    got = tbl.sbfp_linear(torch.from_numpy(x), tp)
+    assert got.shape == (2, 3, 40)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jbl.sbfp_linear_ref(jnp.asarray(x), jp)),
+                               rtol=1e-6, atol=1e-5)
+    with pytest.raises(ValueError):
+        tbl.sbfp_linear(torch.from_numpy(x).to("meta"), tp)
+
+
+# ---------------------------------------------------------------------------
+# B4: flash_decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_flash_decode_matches_jax_pallas_interpret(rep):
+    """tests/test_flash_decode.py:26-35: per-row lengths, GQA by rep."""
+    rs = np.random.RandomState(6)
+    B, H, S, D = 3, 8, 256, 64
+    q = rand(rs, B, H, 1, D)
+    k, v = rand(rs, B, H // rep, S, D), rand(rs, B, H // rep, S, D)
+    lengths = np.array([17, 256, 130], np.int32)
+    got = tfd.flash_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                           torch.from_numpy(lengths)).numpy()
+    want = np.asarray(jfd.flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       jnp.asarray(lengths), use_pallas=True, interpret=True))
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-5)
+    ref = np.asarray(jfd.flash_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          jnp.asarray(lengths)))
+    np.testing.assert_allclose(got, ref, atol=2e-6, rtol=1e-5)
+
+
+def test_flash_decode_scalar_length_d32():
+    """tests/test_flash_decode.py:38-43: a scalar length at D 32, block 64."""
+    rs = np.random.RandomState(7)
+    B, H, S, D = 2, 4, 192, 32
+    q, k, v = rand(rs, B, H, 1, D), rand(rs, B, H, S, D), rand(rs, B, H, S, D)
+    got = tfd.flash_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 100,
+                           scale=0.3).numpy()
+    want = np.asarray(jfd.flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 100,
+                                       scale=0.3, use_pallas=True, interpret=True, block_k=64))
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-5)
+    with pytest.raises(ValueError):
+        tfd.flash_decode(torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 8, 32),
+                         torch.zeros(1, 4, 8, 32), 3)

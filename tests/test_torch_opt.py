@@ -217,8 +217,10 @@ def test_load_jax_params_rejects_missing_and_unknown(pair):
 
 
 def test_fp_cache_decode_matches_jax():
-    """The full-precision cache: prefill through flash_attention, decode
-    through the modular compound SDPA, on both sides."""
+    """The full-precision cache of the raw models: prefill through
+    flash_attention on both sides; decode through the port's flash_decode
+    (B4's plain version on the CPU) against the JAX package's modular
+    SDPA."""
     jm = JOPT(JOPTConfig.tiny(), rngs=nnx.Rngs(5))
     tm = OPTForCausalLM(OPTConfig.tiny(), device="cpu")
     load_jax_params(tm, flat_params(jm))
