@@ -10,13 +10,17 @@ Phases (any failure exits non-zero):
 1. Device: the card's name and power limit (nvidia-smi), and the build of
    every kernel of ``dmx_compressor_tpu_torch/csrc`` (one nvcc per source,
    started together).
-2. The five kernels against their plain PyTorch versions on the card, at
+2. The seven kernels against their plain PyTorch versions on the card, at
    the paths' shapes and at ragged ones: max abs error against the stated
-   tolerance, the kernel's time, its plain version's, one library call's
-   (a yardstick the port never calls) and the bound (bytes or f32
-   operations over the H100 SXM's published peaks).  B1 bfp_linear, B2
-   flash_decode_int8, B3 flash_attention, B4 flash_decode, B5 sbfp_linear.
-3. Three serving paths of OPT-125m at full width from seeded random weights
+   tolerance (T2: bit for bit), the kernel's time, its plain version's, one
+   library call's where there is one (a yardstick the port never calls) and
+   the bound (bytes, or operations over the H100 SXM's published f32 or
+   bf16 tensor-core peak).  B1 bfp_linear, B2 flash_decode_int8, B3
+   flash_attention, B4 flash_decode, B5 sbfp_linear, T1 bfp_linear_bf16
+   (with B1 timed beside on the same payloads, and a row of subnormal
+   weights), T2 bfp_cast (both modes at the BASIC path's cast sites, special
+   blocks, the eight probes).
+3. Four serving paths of OPT-125m at full width from seeded random weights
    (seed 0), each a prefill of batch 8 x prompt 128 then 63 greedy decode
    steps, with the launch counters set to 0 just before and read just after
    (L = 12 layers):
@@ -25,12 +29,17 @@ Phases (any failure exits non-zero):
    - SBFP mode (SBFP12_16 packed weights, int8 KV cache): prefill
      6L+1 = 73 B5 + 12 B3, each decode step 73 B5 + 12 B2;
    - fp32 baseline (BASELINE rules, plain Linears, f32 KV cache): prefill
-     12 B3, each decode step 12 B4.
+     12 B3, each decode step 12 B4;
+   - BASIC mode (BFP16_64 casts on Linear and ActActMatMul inputs, FLOAT16
+     module boundaries, the SOFTMAX and LAYER_NORM surrogates, packed
+     BFP16_64 weights, a float16 split cache of 128 + 64 slots): prefill
+     4L+1 = 49 T1 + 34L+6 = 414 T2, prepare_split_decode 2L = 24 T2, each
+     decode step 49 T1 + 19L+4 = 232 T2.
    Each path's prefill logits and first 8 greedy tokens are held against the
    same model moved to the CPU (``.to("cpu")``); each prints its decode
    tokens/s, the device busy/idle split of a profiled decode step and a host
-   cProfile of the same steps.  The JAX bench's ratios (weights / baseline,
-   SBFP / baseline tokens/s) follow.
+   cProfile of the same steps.  The JAX bench's ratios (weights, SBFP and
+   basic over baseline tokens/s) follow.
 4. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -51,6 +60,7 @@ import traceback
 # non-tensor-core FLOP/s; a card set below 700 W runs below them
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12  # dense bf16 on the tensor cores
 L2_BYTES = 50 * 2**20
 
 BATCH, PROMPT, GEN = 8, 128, 64  # prefill + GEN - 1 decode steps
@@ -58,6 +68,15 @@ BATCH, PROMPT, GEN = 8, 128, 64  # prefill + GEN - 1 decode steps
 # rounded up to a multiple of 128
 CAPACITY = -(-(PROMPT + GEN - 1) // 128) * 128
 LOGIT_TOL = 1e-3  # f32 logits, GPU vs CPU: the same math summed in another order
+# the BASIC path's logits, GPU vs CPU, fixed before its first run on the
+# card: its FLOAT16 and BFP casts round values that the card sums in
+# another order (LayerNorm moments, softmax sums), and a rounding that lands
+# one step apart propagates.  dmx_compressor_tpu_torch/tools/
+# order_sensitivity.py measures that on the CPU at 12 layers of OPT-125m
+# width (vocab cut to 2048, seeds 0 and 1): the same model with its matmuls
+# and reductions summed in float64 moves a prefill logit by up to 0.0574;
+# 0.15 leaves room for the full vocabulary's 25x more logits.
+BASIC_LOGIT_TOL = 0.15
 B1_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of up to 3072 terms, another order
 B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
@@ -76,28 +95,37 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flop_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_events(torch, run):
+def device_events(torch, run, calls: int = 0):
     """(name, device microseconds) of every device activity of ``run()``,
     from torch.profiler, the one timing source of this script.  The profiler
-    now and then hands back an empty trace, so an empty one is taken again,
-    up to five times in all; empty if all five were."""
+    now and then hands back an empty trace, or one that lost some of its
+    kernels; an empty one, or with ``calls`` (``run`` makes that many calls
+    that each launch the same kernels) one where a kernel's count is no
+    multiple of ``calls``, is taken again, up to five times in all.  Returns
+    the last non-empty trace (logged when it stayed uneven), empty if all
+    five were."""
     from torch.profiler import ProfilerActivity, profile
 
+    events = []
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        if events:
+        taken = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0]
+        events = [(key, us) for key, us, _ in taken] or events
+        if taken and not (calls and any(n % calls for _, _, n in taken)):
             return events
-    return []
+    if events:
+        log(f"  (torch.profiler: no trace with every kernel {calls} times in five tries; "
+            f"the last one is used)")
+    return events
 
 
 def time_ms(torch, fn, arg_sets, min_iters: int = 20) -> float:
@@ -114,14 +142,21 @@ def time_ms(torch, fn, arg_sets, min_iters: int = 20) -> float:
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
 
-    events = device_events(torch, run)
+    events = device_events(torch, run, calls=iters)
     if not events:
-        raise RuntimeError(f"torch.profiler recorded no device time for {fn}")
+        raise RuntimeError(f"torch.profiler recorded no whole trace of {fn}")
     return sum(us for _, us in events) / 1e3 / iters
 
 
 def copies_for(nbytes: int) -> int:
     return max(2, min(64, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def same_bits(torch, got, want) -> bool:
+    """Equal bit for bit, a NaN meeting a NaN whatever its payload."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
 
 
 def max_err(torch, got, want, tol, what):
@@ -152,16 +187,20 @@ def sbfp_linear_shapes(cfg):
 
 
 def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shapes, ragged,
-                 tol, seed):
+                 tol, seed, peak_flop_s=PEAK_F32_FLOP_S, lib_dtype=None, ab=None):
     """A dequant-matmul kernel against its plain version at the decode (M =
     batch) and prefill (M = batch x prompt) shapes of ``step_shapes`` and at
     ``ragged`` (M, K, N) shapes; then its time per launch over one decode
     step's launches as the path makes them (each linear of each layer, then
-    the head, each launch on its own cold weight).  Returns (the per-step
-    numbers, the cases)."""
+    the head, each launch on its own cold weight).  The library yardstick is
+    torch.matmul on the dequantized weight, in ``lib_dtype`` (default f32);
+    ``ab`` = (name, kernel) is timed beside on the same payloads.  Returns
+    (the per-step numbers, the cases)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     cases, sets_of, deq_of = [], {}, {}
     shapes = [(M, K, N) for M in (BATCH, BATCH * PROMPT) for K, N, _ in step_shapes]
+    lib_dtype = lib_dtype or torch.float32
+    lib_size = torch.tensor([], dtype=lib_dtype).element_size()
     for M, K, N in shapes + ragged:
         per_set = nbytes(M, K, N)
         sets = []
@@ -173,31 +212,38 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
         err = max_err(torch, kern(x, w, b), plain(x, w, b), tol, f"{label} {M}x{K}x{N}")
         ms = time_ms(torch, kern, sets)
         plain_ms = time_ms(torch, plain, sets)
-        deq = [(s[0], unpack(s[1]).T.contiguous())
-               for s in sets[:copies_for(M * K * 4 + N * K * 4 + M * N * 4)]]
+        deq = [(s[0].to(lib_dtype), unpack(s[1]).T.contiguous().to(lib_dtype))
+               for s in sets[:copies_for((M * K + N * K + M * N) * lib_size)]]
         lib_ms = time_ms(torch, torch.matmul, deq)
         sets_of[M, K, N], deq_of[M, K, N] = sets, deq
-        bound_ms, by = bound(per_set, 2 * M * N * K)
-        cases.append(dict(shape=[M, K, N], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+        bound_ms, by = bound(per_set, 2 * M * N * K, peak_flop_s)
+        case = dict(shape=[M, K, N], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+        extra = ""
+        if ab is not None:
+            case[f"{ab[0]}_ms"] = time_ms(torch, ab[1], sets)
+            extra = f" {ab[0]}_ms(same payload)={case[f'{ab[0]}_ms']:.4f}"
+        cases.append(case)
         log(f"{label} M={M} K={K} N={N}: max_abs_err={err:.3g} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms(torch.matmul, dequantized W)={lib_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({by}; {PEAK_BYTES_S/1e12} TB/s, "
-            f"{PEAK_F32_FLOP_S/1e12} f32 TFLOP/s)")
+            f"plain_ms={plain_ms:.4f} library_ms(torch.matmul, dequantized W, {lib_dtype})="
+            f"{lib_ms:.4f}{extra} bound_ms={bound_ms:.4f} ({by}; {PEAK_BYTES_S/1e12} TB/s, "
+            f"{peak_flop_s/1e12} TFLOP/s)")
 
     step = [(BATCH, K, N, i) for K, N, n in step_shapes for i in range(n)]
     runs = {}
-    for what, fn, arg_of in (("ms", kern, sets_of), ("plain_ms", plain, sets_of),
-                             ("library_ms", torch.matmul, deq_of)):
+    timed = [("ms", kern, sets_of), ("plain_ms", plain, sets_of),
+             ("library_ms", torch.matmul, deq_of)]
+    if ab is not None:
+        timed.append((f"{ab[0]}_ms", ab[1], sets_of))
+    for what, fn, arg_of in timed:
         args = [arg_of[M, K, N][i % len(arg_of[M, K, N])] for M, K, N, i in step]
         runs[what] = time_ms(torch, lambda: [fn(*a) for a in args], [()]) / len(step)
     per_launch_bytes = sum(nbytes(M, K, N) for M, K, N, _ in step) / len(step)
     flops = sum(2 * M * N * K for M, K, N, _ in step) / len(step)
-    runs["bound_ms"], runs["bound_by"] = bound(per_launch_bytes, flops)
+    runs["bound_ms"], runs["bound_by"] = bound(per_launch_bytes, flops, peak_flop_s)
     log(f"{label}, one decode step's {len(step)} launches, per launch: "
-        f"kernel_ms={runs['ms']:.4f} plain_ms={runs['plain_ms']:.4f} "
-        f"library_ms={runs['library_ms']:.4f} bound_ms={runs['bound_ms']:.4f} "
-        f"({runs['bound_by']})")
+        + " ".join(f"{k}={v:.4f}" for k, v in runs.items() if k != "bound_by")
+        + f" ({runs['bound_by']})")
     return runs, cases
 
 
@@ -221,6 +267,173 @@ def check_b5(torch, dev, cfg):
                         lambda w: sbfp_pack(w, fmt), sbfp_unpack, b5_bytes,
                         sbfp_linear_shapes(cfg), [(3, 48, 33), (130, 160, 256), (5, 80, 48)],
                         B5_TOL, seed=15)
+
+
+# T1's own shapes: diag_bfpkernel_ab.py:177-183, OPT-1.3B decode at M = 8
+T1_TPU_SHAPES = [(8, 2048, 6144), (8, 2048, 2048), (8, 2048, 8192), (8, 8192, 2048),
+                 (8, 2048, 50272)]
+
+
+def check_t1(torch, dev, cfg):
+    """T1 at the BASIC path's linear shapes (M = batch and batch x prompt)
+    and at its own TPU shapes, B1 timed beside on the same payloads and a
+    bf16 torch.matmul on the dequantized weight as the yardstick; then the
+    scalar-load path (K and block no multiple of 16, a ragged M > 16 tile)
+    and a weight row of f32 subnormals, to see whether the tensor cores
+    flush them.  Returns (the per-step numbers, the cases, the flush
+    report)."""
+    from dmx_compressor_tpu_torch.ops.bfp_linear import (
+        bfp_linear,
+        bfp_linear_bf16,
+        bfp_linear_bf16_ref,
+    )
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
+
+    step, cases = check_linear(
+        torch, dev, "T1 bfp_linear_bf16", bfp_linear_bf16, bfp_linear_bf16_ref,
+        lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, linear_shapes(cfg),
+        T1_TPU_SHAPES + [(5, 192, 200), (130, 192, 200)], B1_TOL, seed=16,
+        peak_flop_s=PEAK_BF16_FLOP_S, lib_dtype=torch.bfloat16, ab=("bfp_linear", bfp_linear))
+    g = torch.Generator(device=dev).manual_seed(17)
+    # the scalar-load path, and both epilogues
+    for M, K, N, block in [(3, 72, 40, 8), (37, 72, 130, 8)]:
+        w = bfp_pack(torch.randn(N, K, generator=g, device=dev) * 0.05, 8, block)
+        x = torch.randn(M, K, generator=g, device=dev)
+        b = torch.randn(N, generator=g, device=dev)
+        res = torch.randn(M, N, generator=g, device=dev).half().float()
+        # a FLOAT16 output may land one fp16 step of itself apart where the
+        # sums round differently; the ResAdd output one step of the largest
+        # product output
+        y16 = bfp_linear_bf16_ref(x, w, b, out_fp16=True)
+        ulp = 2.0 ** (torch.floor(torch.log2(y16.abs().max())).item() - 10)
+        for kw, tol in (({}, B1_TOL), ({"out_fp16": True}, dict(rtol=2.0**-10, atol=2.0**-14)),
+                        ({"out_fp16": True, "residual": res}, dict(rtol=0, atol=ulp))):
+            got, want = bfp_linear_bf16(x, w, b, **kw), bfp_linear_bf16_ref(x, w, b, **kw)
+            max_err(torch, got, want, tol, f"T1 {M}x{K}x{N} block {block} {sorted(kw)}")
+    # one weight row of f32 subnormals (bf16 subnormals too, man * 2^-133 and
+    # up); x large enough that the row's outputs are normal f32
+    M, K, N = 8, 256, 64
+    wf = torch.randn(N, K, generator=g, device=dev) * 0.05
+    wf[5] *= 2e-38
+    w = bfp_pack(wf, 8, 64)
+    x = torch.randn(M, K, generator=g, device=dev) * 1e3
+    got, want = bfp_linear_bf16(x, w), bfp_linear_bf16_ref(x, w)
+    col = (got[:, 5] - want[:, 5]).abs().max().item() / want[:, 5].abs().max().item()
+    flushed = bool((got[:, 5] == 0).all().item())
+    log(f"T1 with a row of subnormal weights (exponent {int(w.exponent[5].min())}, "
+        f"plain |y| up to {want[:, 5].abs().max().item():.3g}): "
+        f"{'flushed to zero' if flushed else 'kept'} by the tensor cores, the row's "
+        f"relative error {col:.3g}")
+    if flushed or not col <= 1e-5:
+        raise AssertionError("T1 flushed or mangled a row of subnormal weights")
+    return step, cases, dict(flushed=flushed, rel_err=col)
+
+
+def t2_step_launches(cfg):
+    """(mode, shape, axis) of each T2 launch of one BASIC decode step, in
+    launch order: the two embedding output casts; per layer the LN1 input
+    and output casts and qkv's input cast, the decode attention's q, tail-k,
+    scores, mask, resadd, scale, softmax, weights, tail-v and output casts,
+    out_proj's input cast, the resadd's two input casts and output cast,
+    LN2's output cast, fc1's and fc2's input casts; the head's LN output
+    and input casts."""
+    d, f, H, L = cfg.hidden_size, cfg.ffn_dim, cfg.num_attention_heads, cfg.num_hidden_layers
+    D, S, B = d // H, PROMPT + GEN, BATCH
+    x, sc = ("fp16", (B, 1, d), -1), ("fp16", (B, H, 1, S), -1)
+    layer = [x, x, ("bfp", (B, 1, d), -1), ("bfp", (B, H, 1, D), -1),
+             ("bfp", (B, H, GEN, D), -1), sc, ("fp16", (S,), -1), sc, sc, sc,
+             ("bfp", (B, H, 1, S), -1), ("bfp", (B, H, GEN, D), -2), ("fp16", (B, H, 1, D), -1),
+             ("bfp", (B, 1, d), -1), x, x, x, ("bfp", (B, 1, d), -1), ("bfp", (B, 1, f), -1)]
+    return [x, x] + layer * L + [x, ("bfp", (B, 1, d), -1)]
+
+
+def special_blocks(torch, n: int = 10):
+    """[n * 64] f32: blocks of random values at four scales, a zero block, a
+    block of +-0.0, one of f32 subnormals, one whose max rounds up to
+    2^(e+1) and clamps, one at the clamp edge, one whose max is 2^126 (where
+    the rebase constant overflows)."""
+    g = torch.Generator().manual_seed(18)
+    blocks = [torch.randn(64, generator=g) * s for s in (1.0, 1e-3, 3e4, 1e-30)]
+    blocks += [torch.zeros(64), torch.zeros(64).index_fill_(0, torch.arange(0, 64, 2), -0.0),
+               torch.randn(64, generator=g) * 1e-39]
+    for i, v in ((5, 1.9999), (9, -(2 - 2.0**-7)), (0, 2.0**126)):
+        b = torch.rand(64, generator=g) * 2 - 1
+        b[i] = v
+        blocks.append(b)
+    return torch.cat(blocks[:n])
+
+
+def check_t2(torch, dev, cfg):
+    """T2 against its plain version, bit for bit, at the BASIC path's cast
+    sites (both modes at each), on special blocks, and through the eight
+    probes; then its time per launch over one decode step's launches.
+    Returns (the per-step numbers, the cases)."""
+    from dmx_compressor_tpu_torch.ops import bfp_cast as T2
+
+    def run(mode, x, axis, plain=False):
+        if mode == "fp16":
+            return (T2.fp16_cast_ref if plain else T2.fp16_cast)(x)
+        return (T2.bfp_cast_ref if plain else T2.bfp_cast)(x, 8, 64, axis)
+
+    def check(label, mode, x, axis):
+        got, want = run(mode, x, axis), run(mode, x, axis, plain=True)
+        if not same_bits(torch, got, want):
+            bad = (got.view(torch.int32) != want.view(torch.int32)).sum().item()
+            raise AssertionError(f"T2 {label}: {bad} elements differ from the plain version")
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    d, f, H = cfg.hidden_size, cfg.ffn_dim, cfg.num_attention_heads
+    D, B = d // H, BATCH
+    sites = [("x", (B, d), -1), ("x", (B, f), -1), ("q", (B, H, 1, D), -1),
+             ("tail k", (B, H, GEN, D), -1), ("scores", (B, H, 1, PROMPT + GEN), -1),
+             ("tail v", (B, H, GEN, D), -2), ("prefill x", (B * PROMPT, d), -1),
+             ("prefill x", (B * PROMPT, f), -1), ("prefill scores", (B, H, PROMPT, PROMPT), -1)]
+    cases = []
+    for label, shape, axis in sites:
+        n = math.prod(shape)
+        sets = [(torch.randn(shape, generator=g, device=dev)
+                 * torch.exp(3 * torch.randn(shape, generator=g, device=dev)),)
+                for _ in range(copies_for(8 * n))]
+        for mode in ("bfp", "fp16"):
+            check(f"{mode} {label} {list(shape)} axis {axis}", mode, sets[0][0], axis)
+            ms = time_ms(torch, lambda x: run(mode, x, axis), sets)
+            plain_ms = time_ms(torch, lambda x: run(mode, x, axis, plain=True), sets)
+            bound_ms, by = bound(8 * n, 0)
+            cases.append(dict(mode=mode, site=label, shape=list(shape), axis=axis,
+                              max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=bound_ms, bound_by=by))
+            log(f"T2 bfp_cast {mode} {label} {list(shape)} axis {axis}: bit-exact, "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+                f"({by}; 8 B per element at {PEAK_BYTES_S/1e12} TB/s)")
+    sp = special_blocks(torch).to(dev)
+    for mode in ("bfp", "fp16"):
+        check(f"{mode} special blocks along the last axis", mode, sp.reshape(5, 128), -1)
+    # the same ten blocks along an inner axis: [2, 64, 5] with blocks on dim 1
+    check("bfp special blocks along an inner axis", "bfp",
+          sp.reshape(2, 5, 64).transpose(1, 2).contiguous(), -2)
+    log("T2 bfp_cast on zero, -0.0, subnormal, clamp-edge and 2^126 blocks, both modes, "
+        "last and inner axis: bit-exact")
+    for probe in T2.PROBES:
+        x = torch.randn(B, d, generator=g, device=dev) * (8.0 if probe == "d" else 3.0)
+        if probe == "h":
+            x = x[:, :d // 64].contiguous()
+        if not same_bits(torch, T2.probe(probe, x), T2.probe_ref(probe, x)):
+            raise AssertionError(f"T2 probe ({probe}) disagrees with its plain version")
+    log(f"T2 probes ({', '.join(T2.PROBES)}) at [{B}, {d}]: bit-exact")
+
+    step = t2_step_launches(cfg)
+    inputs = [torch.randn(shape, generator=g, device=dev) for _, shape, _ in step]
+    runs = {}
+    for what, plain in (("ms", False), ("plain_ms", True)):
+        runs[what] = time_ms(torch, lambda: [run(m, x, a, plain) for (m, _, a), x
+                                             in zip(step, inputs)], [()]) / len(step)
+    runs["library_ms"] = None
+    runs["bound_ms"], runs["bound_by"] = bound(
+        sum(8 * math.prod(shape) for _, shape, _ in step) / len(step), 0)
+    log(f"T2 bfp_cast, one decode step's {len(step)} launches, per launch: "
+        f"kernel_ms={runs['ms']:.4f} plain_ms={runs['plain_ms']:.4f} "
+        f"bound_ms={runs['bound_ms']:.6f} (bytes)")
+    return runs, cases
 
 
 def b1_bytes(M, K, N):
@@ -412,30 +625,53 @@ def check_b4(torch, dev, cfg):
 
 
 def path_specs(cfg):
-    """(name, build function, int8 cache, launches at prefill, launches per
-    decode step, {kernel: profiler name marks}) of the three serving paths."""
+    """The four serving paths: name, build function, init_cache arguments,
+    the launches at prefill, in prepare_split_decode (None: not called) and
+    per decode step, the profiler's name marks of each kernel launched per
+    step, and the logits' tolerance GPU vs CPU."""
     from dmx_compressor_tpu_torch.ops.compress import (
         build_baseline_mode,
+        build_basic_mode,
         build_sbfp_mode,
         build_weights_mode,
     )
 
     L = cfg.num_hidden_layers
+    t1_marks = ("bfp_bf16_kernel",)
+    t2_marks = ("bfp_rows_kernel", "bfp_cols_kernel", "fp16_kernel")
     return [
-        ("weights", build_weights_mode, True,
-         {"bfp_linear": 4 * L + 1, "flash_attention": L},
-         {"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
-         {"bfp_linear": ("bfp_gemv_kernel", "bfp_gemm_kernel"),
-          "flash_decode_int8": ("flash_decode_int8_kernel",)}),
-        ("sbfp", build_sbfp_mode, True,
-         {"sbfp_linear": 6 * L + 1, "flash_attention": L},
-         {"sbfp_linear": 6 * L + 1, "flash_decode_int8": L},
-         {"sbfp_linear": ("sbfp_gemv_kernel", "sbfp_gemm_kernel"),
-          "flash_decode_int8": ("flash_decode_int8_kernel",)}),
-        ("baseline", build_baseline_mode, False,
-         {"flash_attention": L},
-         {"flash_decode": L},
-         {"flash_decode": ("flash_decode_kernel",)}),
+        dict(name="weights", build=build_weights_mode,
+             cache=dict(max_len=CAPACITY, quantized=True),
+             prefill={"bfp_linear": 4 * L + 1, "flash_attention": L}, prepare=None,
+             step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
+             marks={"bfp_linear": ("bfp_gemv_kernel", "bfp_gemm_kernel"),
+                    "flash_decode_int8": ("flash_decode_int8_kernel",)},
+             logit_tol=LOGIT_TOL),
+        dict(name="sbfp", build=build_sbfp_mode, cache=dict(max_len=CAPACITY, quantized=True),
+             prefill={"sbfp_linear": 6 * L + 1, "flash_attention": L}, prepare=None,
+             step={"sbfp_linear": 6 * L + 1, "flash_decode_int8": L},
+             marks={"sbfp_linear": ("sbfp_gemv_kernel", "sbfp_gemm_kernel"),
+                    "flash_decode_int8": ("flash_decode_int8_kernel",)},
+             logit_tol=LOGIT_TOL),
+        dict(name="baseline", build=build_baseline_mode, cache=dict(max_len=CAPACITY),
+             prefill={"flash_attention": L}, prepare=None, step={"flash_decode": L},
+             marks={"flash_decode": ("flash_decode_kernel",)}, logit_tol=LOGIT_TOL),
+        # bench.py's basic mode: a float16 split cache, base = prompt, tail =
+        # the 64 decode slots (PROMPT + GEN = 192 slots; the tail is a
+        # multiple of the BFP block, so not CAPACITY).  The prefill runs the
+        # modular pipeline: per layer 34 FLOAT16 / BFP casts (LN 2, qkv 2,
+        # SDPA 14, out_proj 2, resadd 3, LN 2, fc1 2, ReLU 2, fc2 2, resadd 3),
+        # + 2 embedding casts + the final LN's 2 and the head's 2; each of the
+        # 4L+1 linears one T1.  prepare_split_decode casts each layer's base k
+        # and v.  A decode step runs the fused step and head: 19 casts per
+        # layer + 4 (t2_step_launches), 4L+1 T1.
+        dict(name="basic", build=build_basic_mode,
+             cache=dict(max_len=PROMPT + GEN, dtype="float16", split_base_len=PROMPT),
+             prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 34 * L + 6},
+             prepare={"bfp_cast": 2 * L},
+             step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 19 * L + 4},
+             marks={"bfp_linear_bf16": ("bfp_bf16_kernel",), "bfp_cast": t2_marks},
+             logit_tol=BASIC_LOGIT_TOL),
     ]
 
 
@@ -461,42 +697,59 @@ def host_profile(torch, name, run, steps):
             f"{fn} ({file.rsplit('/', 1)[-1]}:{line})")
 
 
-def serve_path(torch, dev, kernels, cfg, name, build, quantized, want_prefill, want_step,
-               marks):
-    """One serving path: OPT at full width from seed 0, built by ``build``,
-    prefill then GEN - 1 greedy decode steps with the launch counters set to
-    0 just before and read just after; its profile; the CPU check.  Returns
-    (the launch counts, decode tokens/s)."""
+def serve_path(torch, dev, kernels, cfg, spec):
+    """One serving path: OPT at full width from seed 0, built by
+    ``spec["build"]``, prefill, [prepare_split_decode,] then GEN - 1 greedy
+    decode steps with the launch counters set to 0 just before and read
+    after each part; its profile; the CPU check.  Returns (the launch
+    counts, decode tokens/s)."""
     from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM, greedy_decode, greedy_prefill
+    from dmx_compressor_tpu_torch.ops.split_decode import prepare_split_decode
 
+    name = spec["name"]
+    cache_kw = dict(spec["cache"])
+    if "dtype" in cache_kw:
+        cache_kw["dtype"] = getattr(torch, cache_kw["dtype"])
     t0 = time.perf_counter()
     model = OPTForCausalLM(cfg, device=dev, seed=0)
-    build(model)
+    spec["build"](model)
     torch.cuda.synchronize()
     log(f"{name} path: OPT {cfg.hidden_size}x{cfg.num_hidden_layers} built in "
         f"{time.perf_counter() - t0:.2f} s")
     ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                         generator=torch.Generator().manual_seed(1))
-    caches = model.init_cache(BATCH, CAPACITY, quantized=quantized, device=dev)
 
+    def prefill(caches, ids_):
+        """Prefill [and prepare]; (logits, first token, launches after the
+        prefill)."""
+        logits, tok = greedy_prefill(model, caches, ids_)
+        after = dict(kernels.LAUNCHES)
+        if spec["prepare"] is not None:
+            prepare_split_decode(model, caches)
+        return logits, tok, after
+
+    caches = model.init_cache(BATCH, device=dev, **cache_kw)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    logits, tok = greedy_prefill(model, caches, ids.to(dev))
+    logits, tok, after_prefill = prefill(caches, ids.to(dev))
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    after_prefill = dict(kernels.LAUNCHES)
+    after_prepare = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
     toks, _ = greedy_decode(model, caches, tok, PROMPT, GEN - 1)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
 
-    want_after_prefill = dict.fromkeys(kernels.LAUNCHES, 0)
-    want_after_prefill.update(want_prefill)
-    want_total = {k: v + want_step.get(k, 0) * (GEN - 1) for k, v in want_after_prefill.items()}
-    log(f"{name} path: launches after prefill {after_prefill} (expected {want_after_prefill}); "
-        f"after {GEN - 1} decode steps {launches} (expected {want_total})")
-    if after_prefill != want_after_prefill or launches != want_total:
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    want_prefill = {**zero, **spec["prefill"]}
+    want_prepare = {k: v + (spec["prepare"] or {}).get(k, 0) for k, v in want_prefill.items()}
+    want_total = {k: v + spec["step"].get(k, 0) * (GEN - 1) for k, v in want_prepare.items()}
+    log(f"{name} path: launches after prefill {after_prefill} (expected {want_prefill}); "
+        + (f"after prepare_split_decode {after_prepare} (expected {want_prepare}); "
+           if spec["prepare"] is not None else "")
+        + f"after {GEN - 1} decode steps {launches} (expected {want_total})")
+    if after_prefill != want_prefill or after_prepare != want_prepare or launches != want_total:
         raise AssertionError(f"the {name} path did not launch the kernels the expected "
                              f"number of times")
     tokens = torch.cat([tok[:, None], toks], dim=1)
@@ -505,14 +758,15 @@ def serve_path(torch, dev, kernels, cfg, name, build, quantized, want_prefill, w
     if tokens.shape != (BATCH, GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
         raise AssertionError("greedy tokens out of range")
     tok_s = BATCH * (GEN - 1) / t_decode
-    log(f"{name} path: prefill {t_prefill * 1e3:.1f} ms (first call, includes warm-up); "
-        f"decode {tok_s:.1f} tokens/s over {GEN - 1} steps at batch {BATCH} "
+    log(f"{name} path: prefill {t_prefill * 1e3:.1f} ms (first call, includes warm-up"
+        + (" and prepare_split_decode" if spec["prepare"] is not None else "")
+        + f"); decode {tok_s:.1f} tokens/s over {GEN - 1} steps at batch {BATCH} "
         f"(host clock, synchronized)")
 
     # where a decode step's time goes: 8 more steps from a fresh prefill,
     # device time from torch.profiler against the unprofiled step time above
-    prof_caches = model.init_cache(BATCH, CAPACITY, quantized=quantized, device=dev)
-    _, ptok = greedy_prefill(model, prof_caches, ids.to(dev))
+    prof_caches = model.init_cache(BATCH, device=dev, **cache_kw)
+    _, ptok, _ = prefill(prof_caches, ids.to(dev))
     torch.cuda.synchronize()
     events = sorted(device_events(torch, lambda: greedy_decode(model, prof_caches, ptok,
                                                                PROMPT, 8)),
@@ -522,9 +776,9 @@ def serve_path(torch, dev, kernels, cfg, name, build, quantized, want_prefill, w
     if events:
         log(f"{name} decode step: {step_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
             f"(idle share {1 - busy_ms / step_ms:.3f})")
-        for kern, names in marks.items():
+        for kern, names in spec["marks"].items():
             us = sum(t for n, t in events if any(m in n for m in names))
-            per_step = want_step[kern]
+            per_step = spec["step"][kern]
             log(f"  {kern} on the {name} path: {us / 1e3 / (8 * per_step):.4f} ms per launch "
                 f"(its kernel's device time over {8 * per_step} launches)")
     else:
@@ -540,16 +794,16 @@ def serve_path(torch, dev, kernels, cfg, name, build, quantized, want_prefill, w
     del logits, caches
     model.to("cpu")
     torch.cuda.empty_cache()
-    cpu_caches = model.init_cache(BATCH, CAPACITY, quantized=quantized, device="cpu")
+    cpu_caches = model.init_cache(BATCH, device="cpu", **cache_kw)
     t0 = time.perf_counter()
-    cpu_logits, ctok = greedy_prefill(model, cpu_caches, ids)
+    cpu_logits, ctok, _ = prefill(cpu_caches, ids)
     n = min(8, GEN)  # the first n greedy tokens are held
     ctoks, rows = greedy_decode(model, cpu_caches, ctok, PROMPT, n - 1)
     log(f"{name} path: CPU reference run {time.perf_counter() - t0:.1f} s")
+    tol = spec["logit_tol"]
     err = (gpu_logits - cpu_logits).abs().max().item()
-    log(f"{name} path: prefill logits GPU vs CPU: max_abs_err={err:.3g} "
-        f"(tolerance {LOGIT_TOL})")
-    if not err <= LOGIT_TOL:
+    log(f"{name} path: prefill logits GPU vs CPU: max_abs_err={err:.3g} (tolerance {tol})")
+    if not err <= tol:
         raise AssertionError(f"{name} path: prefill logits disagree with the CPU run")
     cpu_tokens = torch.cat([ctok[:, None], ctoks], dim=1)
     step_rows = torch.cat([cpu_logits[:, -1][None], rows])  # [n, B, V]
@@ -558,14 +812,14 @@ def serve_path(torch, dev, kernels, cfg, name, build, quantized, want_prefill, w
     held = 0
     for b in range(BATCH):
         for s in range(n):
-            if margin[s, b] <= LOGIT_TOL:
+            if margin[s, b] <= tol:
                 break  # a near-tie: this row's later tokens are not held
             if gpu_tokens[b, s] != cpu_tokens[b, s]:
                 raise AssertionError(f"{name} path: greedy token {s} of row {b} differs "
                                      f"from the CPU run")
             held += 1
     log(f"{name} path: greedy tokens GPU vs CPU: {held} of {BATCH * n} held (top-1/top-2 "
-        f"margin > {LOGIT_TOL}), all equal")
+        f"margin > {tol}), all equal")
     del model, cpu_caches
     return launches, tok_s
 
@@ -603,15 +857,18 @@ def main() -> int:
     b3 = check_b3(torch, dev, cfg)
     b4 = check_b4(torch, dev, cfg)
     b5_step, b5 = check_b5(torch, dev, cfg)
+    t1_step, t1, t1_flush = check_t1(torch, dev, cfg)
+    t2_step, t2 = check_t2(torch, dev, cfg)
 
     by_path, tok_s = {}, {}
-    for name, build, quantized, want_prefill, want_step, marks in path_specs(cfg):
-        by_path[name], tok_s[name] = serve_path(torch, dev, kernels, cfg, name, build, quantized,
-                                                want_prefill, want_step, marks)
+    for spec in path_specs(cfg):
+        name = spec["name"]
+        by_path[name], tok_s[name] = serve_path(torch, dev, kernels, cfg, spec)
         log(f"{name} path: decode {tok_s[name]:.1f} tokens/s on {card}")
     log(f"bench.py's ratio, for information (host clock, batch {BATCH}, {card}): "
         f"weights / baseline {tok_s['weights'] / tok_s['baseline']:.4f}, "
-        f"sbfp / baseline {tok_s['sbfp'] / tok_s['baseline']:.4f}")
+        f"sbfp / baseline {tok_s['sbfp'] / tok_s['baseline']:.4f}, "
+        f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}")
 
     def launches(kern):
         """The kernel's launches over the paths' runs, in all and per path."""
@@ -621,8 +878,8 @@ def main() -> int:
     def top(cases):
         return {k: cases[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
 
-    # top-level times: B1 and B5 per launch over one decode step's launches,
-    # B2, B3 and B4 at their path's shape (their first case)
+    # top-level times: B1, B5, T1 and T2 per launch over one decode step's
+    # launches, B2, B3 and B4 at their path's shape (their first case)
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:53", **launches("bfp_linear"),
@@ -646,6 +903,14 @@ def main() -> int:
              source="dmx_compressor_tpu_torch/csrc/sbfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:199", **launches("sbfp_linear"),
              max_abs_err=max(c["max_abs_err"] for c in b5), **b5_step, cases=b5),
+        dict(name="bfp_linear_bf16", route="cuda",
+             source="dmx_compressor_tpu_torch/csrc/bfp_linear_bf16.cu",
+             replaces="tools/diag_bfpkernel_ab.py:30", **launches("bfp_linear_bf16"),
+             max_abs_err=max(c["max_abs_err"] for c in t1), **t1_step,
+             subnormal_weights=t1_flush, cases=t1),
+        dict(name="bfp_cast", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_cast.cu",
+             replaces="tools/probe_fused_cast.py:9", **launches("bfp_cast"),
+             max_abs_err=0.0, **t2_step, cases=t2),
     ]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

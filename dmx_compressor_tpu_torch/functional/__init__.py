@@ -1,4 +1,4 @@
-"""Approximation taxonomy (the vsimd surrogates come in a later slice)."""
+"""Approximation taxonomy and the vsimd surrogates OPT uses (simd_ops)."""
 
 from .approximate import (
     Approximate,

@@ -1,9 +1,10 @@
 """Approximation-function taxonomy: shorthand grammar and execution.
 
 Port of ``dmx_compressor_tpu/functional/approximate.py``.  Shorthand grammar
-``FUNC[algorithm]{wrapper_params}(extra_params)``.  The taxonomy, the parser
-and :class:`NoApproximation` are here; the vsimd surrogates that execute a
-configured approximation are not ported yet, so calling one raises
+``FUNC[algorithm]{wrapper_params}(extra_params)``.  A configured
+approximation executes the vsimd surrogate of the same name in
+``simd_ops.FUNCTIONS`` (softmax, exp and layer_norm, the ones OPT's BASIC
+rules configure); the others are not ported and raise
 ``NotImplementedError``.
 
 Value replacement with the exact op's gradient is
@@ -15,6 +16,8 @@ from __future__ import annotations
 import ast
 import re
 from typing import Any, Dict
+
+from . import simd_ops
 
 TORCH_FUNCTION_IDS = {
     "GELU": "gelu",
@@ -29,11 +32,6 @@ CUSTOM_FUNCTION_IDS = {
     "QUICK_GELU": "quick_gelu",
     "APPLY_LLAMA_ROPE": "apply_rotary_pos_emb",
 }
-
-_SURROGATES_TODO = (
-    "the vsimd surrogates (functional/simd_ops.py) arrive with the full BASIC "
-    "fake-quant decode slice of the port"
-)
 
 
 def string_to_kwargs(kwargs_string: str) -> Dict[str, Any]:
@@ -130,7 +128,16 @@ class _FunctionApproximation(ApproximationFunction):
         )
 
     def execute(self, *args, **kwargs):
-        raise NotImplementedError(f"{self!r}: {_SURROGATES_TODO}")
+        if self.algorithm not in ("vsimd", "experimental"):
+            raise ValueError(
+                f"unknown approximation algorithm {self.algorithm} for {self.func_id}"
+            )
+        fn = simd_ops.FUNCTIONS.get(self.func_name)
+        if fn is None:
+            raise NotImplementedError(
+                f"{self!r}: the {self.func_name} surrogate is not ported (OPT does not use it)"
+            )
+        return fn(*args, **kwargs, **self.extra_params)
 
     def __repr__(self):
         return (

@@ -46,6 +46,10 @@ SIGNATURES = {
     ),
     "sbfp_linear": ("dmx_sbfp_linear", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "flash_decode": ("dmx_flash_decode", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "bfp_cast": ("dmx_bfp_cast", [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "bfp_linear_bf16": (
+        "dmx_bfp_linear_bf16", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
@@ -145,17 +149,17 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 
 
-def check_cuda(*tensors: torch.Tensor, dtypes) -> None:
+def check_cuda(*tensors: torch.Tensor, dtypes, align: int = 16) -> None:
     """Validate what a kernel takes: the current CUDA device (the kernel
-    launches on its stream), contiguous and 16-byte aligned (the kernels
-    read with 16-byte loads), dtype."""
+    launches on its stream), contiguous and ``align``-byte aligned (16 for
+    the kernels that read with 16-byte loads), dtype."""
     for t, dt in zip(tensors, dtypes):
         if not t.is_cuda or t.device.index != torch.cuda.current_device():
             raise ValueError(f"kernel operands must be on the current CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError("kernel operands must start on a 16-byte boundary")
+        if t.data_ptr() % align:
+            raise ValueError(f"kernel operands must start on a {align}-byte boundary")
         if t.dtype != dt:
             raise ValueError(f"kernel operand dtype {t.dtype}, expected {dt}")
 

@@ -1,7 +1,7 @@
 """OPT decoder-only transformer (facebook/opt-125m shapes).
 
-Port of ``dmx_compressor_tpu/models/opt.py`` for the weights-mode serving
-path.  Authored with torch modules and ``rawnn`` op wrappers so the Dmx
+Port of ``dmx_compressor_tpu/models/opt.py`` for the serving paths of the
+JAX bench.  Authored with torch modules and ``rawnn`` op wrappers so the Dmx
 substitution pass intercepts every op; module paths mirror the HF checkpoint
 layout (``model.decoder.layers.N.self_attn.q_proj``).
 
@@ -18,14 +18,24 @@ is transparent (no cast, no surrogate):
 - otherwise, and whenever the SDPA is not transparent, the modular compound
   SDPA (dequantized K/V for an int8 cache).
 
-Every packed linear runs ``bfp_linear`` (B1) through PackedBFPLinear or
-``sbfp_linear`` (B5) through PackedSBFPLinear.
+A prefill/decode split cache (``SplitKVCache``, the BASIC mode's float16
+cache) takes its own branch (``_attend_split``): prefill writes the base
+segment and attends over the fresh K/V (B3 when transparent, else the
+modular SDPA); a decode step appends to the tail and, when the SDPA is in
+the BASIC shape, runs ``basic_sdpa_decode_split`` over the two segments.
+
+In BASIC mode a decode step of a layer runs the fused step
+(``OPTDecoderLayer._fused_basic_step``, ops/basic_layer.py) and the LM head
+folds the final LayerNorm in (``fused_ln_linear``): casts through kernel T2,
+matmuls through kernel T1.  Otherwise every packed linear runs
+``bfp_linear`` (B1, or T1 on bf16-exact activations) through
+PackedBFPLinear or ``sbfp_linear`` (B5) through PackedSBFPLinear.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +44,9 @@ from torch import nn
 from .. import rawnn
 from ..kernels import resolve_device
 from ..ops.compress import merge_parallel_linears
+from ..ops.basic_attention import basic_sdpa_decode_split, basic_sdpa_shape
+from ..ops.basic_layer import basic_head_plan, basic_layer_plan, fused_ln_linear
+from ..ops.basic_linear import fused_basic_linear
 from ..ops.flash_attention import flash_attention, sdpa_transparent
 from ..ops.flash_decode import flash_decode, flash_decode_int8, post_update_lengths
 from ..ops.kv_cache import cache_seq_len, make_caches, quantized_sdpa
@@ -107,19 +120,52 @@ class OPTAttention(nn.Module):
         _q, _k, _v = self._project_qkv(x)
         return self.out_proj(self.attend(_q, _k, _v, attn_mask, cache, position_offset))
 
+    def _transparent(self) -> bool:
+        if self.sdpa_is_transparent is None:
+            return sdpa_transparent(self.sdpa)
+        return self.sdpa_is_transparent
+
+    def _attend_split(self, q, k, v, attn_mask, cache, position_offset):
+        """Attention over a SplitKVCache, [B, H, T, D] in and out."""
+        T = q.shape[2]
+        if T > 1 and isinstance(position_offset, int) and position_offset == 0:
+            # prefill: write the base, attend over the fresh K/V (the base
+            # casts are made by prepare_split_decode before decoding)
+            cache.write_base(k, v)
+            if self._transparent():
+                return flash_attention(q, k, v, causal=True, scale=self.scaling)
+            m = attn_mask[..., :k.shape[2]] if attn_mask is not None else None
+            return self.sdpa(q, k, v, attn_mask=m, scale=self.scaling)
+        if T == 1 and attn_mask is not None:
+            p = basic_sdpa_shape(self.sdpa, self.head_dim, cache.tail_len)
+            if p is not None and cache.base_len % p.block == 0:
+                bk, bv, tk, tv = cache.append_tail(k, v)
+                precast = cache.base_cast_key == (p.wl, p.block)
+                return basic_sdpa_decode_split(
+                    q, bk, bv, tk, tv, attn_mask, scale=self.scaling, params=p,
+                    base_k_cast=cache.base_k_cast if precast else None,
+                    base_v_cast=cache.base_v_cast if precast else None,
+                )
+        # the modular path over the concatenated segments, in q's dtype (the
+        # JAX package's matmuls promote a float16 cache the same way)
+        kf, vf, _ = cache.update(k, v)
+        return self.sdpa(q, kf.to(q.dtype), vf.to(q.dtype), attn_mask=attn_mask,
+                         scale=self.scaling)
+
     def attend(self, _q, _k, _v, attn_mask=None, cache=None, position_offset=0):
         """Head-split attention over projected q/k/v [B, T, D]; returns the
         merged-head context [B, T, D] (before out_proj)."""
         B, T, D = _q.shape
         q, k, v = self._split(_q), self._split(_k), self._split(_v)
+        if cache is not None and getattr(cache, "split", False):
+            out = self._attend_split(q, k, v, attn_mask, cache, position_offset)
+            return out.transpose(1, 2).reshape(B, T, D)
         quant = cache is not None and cache.quantized
         prefill = (
             cache is not None and T > 1
             and isinstance(position_offset, int) and position_offset == 0
         )
-        transparent = self.sdpa_is_transparent
-        if transparent is None:
-            transparent = sdpa_transparent(self.sdpa)
+        transparent = self._transparent()
         if prefill and transparent:
             if quant:
                 cache.update_payload(k, v)
@@ -158,6 +204,11 @@ class OPTDecoderLayer(nn.Module):
         self.resadd2 = rawnn.ResAdd()
 
     def forward(self, x, attn_mask=None, cache=None, position_offset=0):
+        if (x.shape[1] == 1 and cache is not None and attn_mask is not None
+                and attn_mask.is_floating_point()):
+            plan = basic_layer_plan(self)
+            if plan is not None:
+                return self._fused_basic_step(x, attn_mask, cache, position_offset, plan)
         residual = x
         if self.do_layer_norm_before:
             x = self.self_attn_layer_norm(x)
@@ -173,6 +224,32 @@ class OPTDecoderLayer(nn.Module):
         if not self.do_layer_norm_before:
             x = self.final_layer_norm(x)
         return x
+
+    def _fused_basic_step(self, x, attn_mask, cache, position_offset, plan):
+        """The BASIC decode step as fused chains (ops/basic_layer.py):
+        LN1 + qkv / fused SDPA / out_proj / resadd1 + LN2 + fc1 + ReLU /
+        fc2 + resadd2, the modular pipeline's numerics up to the f32
+        summation order of the LN moments and the matmuls."""
+        attn = self.self_attn
+        merged = attn.qkv_merged
+        ln1, ln2 = self.self_attn_layer_norm, self.final_layer_norm
+        qkv = fused_ln_linear(x, packed=merged.packed, bias=merged.bias, ln_w=ln1._weight,
+                              ln_b=ln1._bias, eps=plan.ln1_eps, wl=plan.wl, in_block=plan.block)
+        d = attn.num_heads * attn.head_dim
+        ctx = attn.attend(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], attn_mask=attn_mask,
+                          cache=cache, position_offset=position_offset)
+        y = attn.out_proj(ctx)  # PackedBFPLinear's fused path
+        h, r = fused_ln_linear(
+            y, packed=self.fc1.packed, bias=self.fc1.bias, ln_w=ln2._weight, ln_b=ln2._bias,
+            eps=plan.ln2_eps, wl=plan.wl, in_block=plan.block, residual=x, relu=True,
+            emit_pre=True,
+            input_on_grid=True,  # y: out_proj's FLOAT16 output cast
+        )
+        return fused_basic_linear(
+            h, packed=self.fc2.packed, bias=self.fc2.bias, in_wl=plan.wl, in_block=plan.block,
+            out_fp16=True, res_out=r,
+            res_on_grid=True,  # r: resadd's FLOAT16 output cast
+        )
 
 
 class OPTDecoder(nn.Module):
@@ -192,7 +269,7 @@ class OPTDecoder(nn.Module):
             if cfg.do_layer_norm_before else None
         )
 
-    def forward(self, input_ids, caches=None, position_offset=0):
+    def forward(self, input_ids, caches=None, position_offset=0, apply_final_ln=True):
         B, T = input_ids.shape
         device = input_ids.device
         x = self.embed_tokens(input_ids)
@@ -206,7 +283,7 @@ class OPTDecoder(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, attn_mask=mask, cache=None if caches is None else caches[i],
                       position_offset=position_offset)
-        if self.final_layer_norm is not None:
+        if apply_final_ln and self.final_layer_norm is not None:
             x = self.final_layer_norm(x)
         return x
 
@@ -242,17 +319,32 @@ class OPTForCausalLM(nn.Module):
                     m.bias.zero_()
 
     def forward(self, input_ids, caches=None, position_offset=0):
+        if input_ids.shape[1] == 1 and caches is not None:
+            final_ln = self.model.decoder.final_layer_norm
+            plan = basic_head_plan(final_ln, self.lm_head)
+            if plan is not None:
+                # BASIC decode: the final LayerNorm folds into the head
+                h = self.model.decoder(input_ids, caches=caches,
+                                       position_offset=position_offset, apply_final_ln=False)
+                return fused_ln_linear(
+                    h, packed=self.lm_head.packed, bias=self.lm_head.bias,
+                    ln_w=final_ln._weight, ln_b=final_ln._bias, eps=plan.ln_eps, wl=plan.wl,
+                    in_block=plan.block,
+                    input_on_grid=True,  # h: the last resadd's FLOAT16 output cast
+                )
         h = self.model(input_ids, caches=caches, position_offset=position_offset)
         return self.lm_head(h)
 
     def init_cache(self, batch: int, max_len: int, dtype=None, quantized: bool = False,
-                   device=None):
-        """One cache per layer, on the card unless ``device='cpu'``."""
+                   split_base_len: Optional[int] = None, device=None):
+        """One cache per layer, on the card unless ``device='cpu'``; with
+        ``split_base_len`` a SplitKVCache whose base holds that many slots
+        and whose tail the rest of ``max_len``."""
         cfg = self.cfg
         return make_caches(
             cfg.num_hidden_layers, batch, cfg.num_attention_heads, max_len,
             cfg.hidden_size // cfg.num_attention_heads, dtype or cfg.dtype,
-            quantized=quantized, device=device,
+            quantized=quantized, split_base_len=split_base_len, device=device,
         )
 
 

@@ -177,6 +177,13 @@ class Softmax(DmxModule):
         self.dim = dim
         super().__init__()
 
+    def approximator_wrapper(self, inputs, approx_args, approx_kwargs, **wrapper_kwargs):
+        """The vsimd wrapper's ``input_clamp`` clips the logits from below
+        before the surrogate."""
+        if "input_clamp" in wrapper_kwargs:
+            inputs = [torch.clamp(x, min=wrapper_kwargs["input_clamp"]) for x in inputs]
+        return self.approximator(*inputs, *approx_args, **approx_kwargs)
+
     def functional_forward(self, _input, dim=-1):
         return torch.softmax(_input, dim=dim)
 
@@ -225,6 +232,12 @@ class LayerNorm(DmxModule):
         else:
             self.weight = None
             self.bias = None
+
+    def approximator_wrapper(self, inputs, approx_args, approx_kwargs, **wrapper_kwargs):
+        """The vsimd wrapper's ``tile_size`` reaches the surrogate."""
+        if "tile_size" in wrapper_kwargs:
+            approx_kwargs = dict(approx_kwargs, tile_size=wrapper_kwargs["tile_size"])
+        return self.approximator(*inputs, *approx_args, **approx_kwargs)
 
     def functional_forward(self, x, normalized_shape, weight, bias, eps):
         dims = tuple(range(x.ndim - len(normalized_shape), x.ndim))

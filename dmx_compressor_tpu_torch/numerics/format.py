@@ -4,6 +4,10 @@ Port of ``dmx_compressor_tpu/numerics/format.py``: the same frozen,
 hashable format classes and the same shorthand grammar; ``cast`` works on
 torch tensors through :mod:`.rounding`.
 
+The symmetric nearest BFP cast over blocks that divide the cast axis and
+the FLOAT16 cast of f32 values run ``ops/bfp_cast.py`` (kernel T2 on the
+card, its plain version on the CPU); every other format is plain torch.
+
 Shorthand grammar:
 
 - ``SAME``                                      identity
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 
 from . import rounding as R
+from ..ops import bfp_cast as T2
 
 ROUNDING_MODE = {"U": "up", "D": "down", "N": "nearest", "S": "stochastic"}
 ROUNDING_MODE_INV = {v: k for k, v in ROUNDING_MODE.items()}
@@ -177,9 +182,7 @@ class FloatingPoint(Format):
         elif r == _FLOAT16_REPR and x.dtype == torch.float32:
             # the hardware fp16 cast IS the format (nearest-even on the same
             # grid); saturate at the fp16 max and flush subnormals below
-            y = torch.clamp(x, -65504.0, 65504.0).to(torch.float16)
-            y = torch.where(torch.abs(y) < _FP16_MIN_NORMAL, torch.zeros_like(y), y)
-            return y.to(x.dtype)
+            return T2.fp16_cast(x)
         else:
             out = R.float_quantize(
                 x.to(torch.float32), man=self.mantissa, exp=self.exponent,
@@ -237,6 +240,8 @@ class BlockFloatingPoint(Format):
                 flush_subnormal=False, rounding=self.rounding, generator=generator,
             ).to(x.dtype)
         if self.symmetric and x.ndim >= 1 and x.shape[block_dim] % self.block_size == 0:
+            if self.rounding == "nearest":
+                return T2.bfp_cast(x, self.precision, self.block_size, block_dim)
             bd = block_dim % x.ndim
             q = R.block_quantize_lastdim(
                 torch.movedim(x, bd, -1), self.precision, self.block_size,

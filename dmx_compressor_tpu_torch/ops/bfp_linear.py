@@ -1,7 +1,11 @@
-"""Fused BFP and SBFP dequant + matmul (kernels B1 and B5).
+"""Fused BFP and SBFP dequant + matmul (kernels B1, B5 and T1).
 
 Port of ``bfp_linear_ref`` / ``bfp_linear`` and ``sbfp_linear_ref`` /
-``sbfp_linear`` of ``dmx_compressor_tpu/ops/bfp_linear.py``.  BFP weights stay
+``sbfp_linear`` of ``dmx_compressor_tpu/ops/bfp_linear.py``, and of the bf16
+form of the BFP dequant-matmul (``expand_full`` of
+``dmx_compressor_tpu/tools/diag_bfpkernel_ab.py:bfp_matmul_variant``):
+``bfp_linear_bf16`` / ``bfp_linear_bf16_ref``, the matmul of the BASIC fused
+linear, on tensor cores (``csrc/bfp_linear_bf16.cu``).  BFP weights stay
 int8 mantissas + per-block int8 exponents in device memory, SBFP weights int4
 mantissas two to a byte + one f32 scale per block; the CUDA kernels
 (``csrc/bfp_linear.cu``, ``csrc/sbfp_linear.cu``) dequantize them in
@@ -19,8 +23,19 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from .bfp_cast import fp16_cast_ref
 from .bfp_pack import PackedBFP, PackedSBFP, bfp_unpack, sbfp_unpack
 from .bfp_pack import sbfp_unpack_mantissa_int8  # noqa: F401  (as in the JAX module)
+
+
+def _check_bfp_payload(w: PackedBFP, K: int) -> int:
+    N = w.mantissa.shape[0]
+    if w.mantissa.shape != (N, K) or w.mantissa.dtype != torch.int8:
+        raise ValueError(f"packed weight {tuple(w.mantissa.shape)} {w.mantissa.dtype} "
+                         f"does not take x [..., {K}] (int8 mantissas, [N, K])")
+    if K % w.block_size or w.exponent.shape != (N, K // w.block_size):
+        raise ValueError("exponents must be [N, K // block_size]")
+    return N
 
 
 def bfp_linear_ref(x: torch.Tensor, w: PackedBFP,
@@ -38,12 +53,7 @@ def bfp_linear(x: torch.Tensor, w: PackedBFP,
     if not kernels.plain_or_kernel(x):
         return bfp_linear_ref(x, w, bias)
     *lead, K = x.shape
-    N = w.mantissa.shape[0]
-    if w.mantissa.shape != (N, K) or w.mantissa.dtype != torch.int8:
-        raise ValueError(f"packed weight {tuple(w.mantissa.shape)} {w.mantissa.dtype} "
-                         f"does not take x [..., {K}] (int8 mantissas, [N, K])")
-    if K % w.block_size or w.exponent.shape != (N, K // w.block_size):
-        raise ValueError("exponents must be [N, K // block_size]")
+    N = _check_bfp_payload(w, K)
     x2 = x.reshape(-1, K).to(torch.float32).contiguous()
     M = x2.shape[0]
     operands = [x2, w.mantissa, w.exponent]
@@ -59,6 +69,58 @@ def bfp_linear(x: torch.Tensor, w: PackedBFP,
         M, N, K, w.block_size, w.precision,
     )
     return out.reshape(*lead, N).to(x.dtype)
+
+
+def bfp_linear_bf16_ref(x: torch.Tensor, w: PackedBFP, bias: Optional[torch.Tensor] = None,
+                        out_fp16: bool = False,
+                        residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of T1: bf16(x) times the dequantized weight (exact in
+    bf16 for <= 8-bit mantissas) in f32, + bias, then the FLOAT16 output
+    cast when ``out_fp16`` and FLOAT16(y + residual) when ``residual`` (on
+    the fp16 grid, shaped like the output) is given.  f32 out."""
+    y = torch.matmul(x.to(torch.bfloat16).to(torch.float32), bfp_unpack(w).T)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    if out_fp16:
+        y = fp16_cast_ref(y)
+    if residual is not None:
+        y = fp16_cast_ref(y + residual.to(torch.float32))
+    return y
+
+
+def bfp_linear_bf16(x: torch.Tensor, w: PackedBFP, bias: Optional[torch.Tensor] = None,
+                    out_fp16: bool = False,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = bf16(x) @ bf16(dequant(w)).T + bias with f32 accumulation, and the
+    optional FLOAT16 and ResAdd-FLOAT16 epilogues of
+    :func:`bfp_linear_bf16_ref`; ``x`` may have any leading shape.  Exact
+    products where x is exact in bf16 (after a BFP cast of <= 8 bits).  f32
+    out."""
+    if not kernels.plain_or_kernel(x):
+        return bfp_linear_bf16_ref(x, w, bias, out_fp16, residual)
+    *lead, K = x.shape
+    N = _check_bfp_payload(w, K)
+    x2 = x.reshape(-1, K).to(torch.float32).contiguous()
+    M = x2.shape[0]
+    operands, dtypes = [x2, w.mantissa, w.exponent], [torch.float32, torch.int8, torch.int8]
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+        operands.append(bias)
+        dtypes.append(torch.float32)
+    if residual is not None:
+        residual = residual.reshape(M, N).to(torch.float32).contiguous()
+        operands.append(residual)
+        dtypes.append(torch.float32)
+    kernels.check_cuda(*operands, dtypes=dtypes)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    kernels.launch(
+        "bfp_linear_bf16",
+        x2.data_ptr(), w.mantissa.data_ptr(), w.exponent.data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        residual.data_ptr() if residual is not None else None, out.data_ptr(),
+        M, N, K, w.block_size, w.precision, int(out_fp16),
+    )
+    return out.reshape(*lead, N)
 
 
 def sbfp_linear_ref(x: torch.Tensor, w: PackedSBFP,

@@ -4,9 +4,13 @@ modules, and the serving configurations of the JAX bench built on them.
 Port of ``PackedBFPLinear``, ``PackedSBFPLinear``, ``merge_parallel_linears``,
 ``compress_for_inference``, ``release_dead_originals`` and
 ``set_inference_mode`` of ``dmx_compressor_tpu/ops/compress.py``, and of the
-``weights``, ``sbfp`` and ``baseline`` recipes of ``bench.py:_build_host``.
-Every Linear whose weight format is BFP becomes a :class:`PackedBFPLinear`
-holding int8 mantissas + per-block exponents, and runs kernel B1; every
+``weights``, ``sbfp``, ``basic`` and ``baseline`` recipes of
+``bench.py:_build_host``.  Every Linear whose weight format is BFP becomes a
+:class:`PackedBFPLinear` holding int8 mantissas + per-block exponents; it
+runs kernel T1 (bf16 tensor cores) when its live input cast makes the
+activations exact in bf16 (a BFP cast of <= 9 bits: BASIC mode), kernel B1
+(f32) otherwise, and in the decode regime the fused BASIC linear
+(``ops/basic_linear.py``: casts through T2, matmul through T1).  Every
 Linear with weight format SAME and an SBFP weight storage format of at most
 4 bits becomes a :class:`PackedSBFPLinear` holding int4 nibbles + per-block
 f32 scales, and runs kernel B5 (both payloads bit-exact w.r.t. the fake-quant
@@ -27,8 +31,14 @@ from torch import nn
 
 from ..nn import modules as dmxnn
 from ..nn.core import DmxModule
-from ..numerics.format import BlockFloatingPoint, Same, ScaledBlockFloatingPoint
-from .bfp_linear import bfp_linear, sbfp_linear
+from ..numerics.format import (
+    _FLOAT16_REPR,
+    BlockFloatingPoint,
+    FloatingPoint,
+    Same,
+    ScaledBlockFloatingPoint,
+)
+from .bfp_linear import bfp_linear, bfp_linear_bf16, sbfp_linear
 from .bfp_pack import PackedBFP, PackedSBFP, bfp_pack, sbfp_pack
 
 # the SBFP12_16 weight storage of the JAX bench's sbfp mode (bench.py:163-183)
@@ -71,8 +81,8 @@ class _PackedLinear(DmxModule):
 
 
 class PackedBFPLinear(_PackedLinear):
-    """Inference-only Linear with packed BFP weights and the fused
-    dequant-matmul kernel B1."""
+    """Inference-only Linear with packed BFP weights and a fused
+    dequant-matmul kernel: T1 on bf16-exact activations, B1 otherwise."""
 
     def __init__(self, packed: PackedBFP, bias: Optional[torch.Tensor], src: dmxnn.Linear):
         super().__init__(bias, src)
@@ -88,7 +98,59 @@ class PackedBFPLinear(_PackedLinear):
         return PackedBFP(self.weight_mantissa, self.weight_exponent, self.precision,
                          self.block_size)
 
+    # ---- the fused fake-quant path: input cast + matmul + fp16 out ----
+
+    def _fusable(self, x: torch.Tensor) -> bool:
+        """The whole BASIC pipeline of this module folds into the fused path
+        (ops/basic_linear.py): at most 256 rows (the decode regime), a
+        symmetric nearest BFP input cast along the last axis, a SAME or
+        FLOAT16 output cast, no observer or pre-transform."""
+        if x.ndim < 1 or x.shape[-1] != self.in_features or x.numel() // x.shape[-1] > 256:
+            return False
+        ic = self.input_casts["input_cast"]
+        oc = self.output_casts[self.output_cast_names[0]]
+        in_ok = (
+            isinstance(ic.format, BlockFloatingPoint)
+            and ic.format.symmetric
+            and ic.format.rounding == "nearest"
+            and ic.format.block_size > 1
+            and ic.block_dim in (-1, x.ndim - 1)
+            and self.in_features % ic.format.block_size == 0
+            and ic.fake_quant_enabled
+            and not ic.observer_enabled
+            and not ic.pre_transform
+        )
+        out_ok = (
+            (isinstance(oc.format, Same) or repr(oc.format) == _FLOAT16_REPR)
+            and oc.fake_quant_enabled and not oc.observer_enabled and not oc.pre_transform
+        )
+        return in_ok and out_ok and not DmxModule.plugins
+
+    def forward(self, input, *args, **kwargs):
+        if not self._fusable(input):
+            return super().forward(input, *args, **kwargs)
+        from .basic_linear import fused_basic_linear
+
+        ic = self.input_casts["input_cast"]
+        oc = self.output_casts[self.output_cast_names[0]]
+        out = fused_basic_linear(
+            input.to(torch.float32), packed=self.packed, bias=self.bias,
+            in_wl=ic.format.precision, in_block=ic.format.block_size,
+            out_fp16=isinstance(oc.format, FloatingPoint),
+        )
+        return out.to(input.dtype) if self.align_boundary_dtype else out
+
+    def _acts_exact_in_bf16(self) -> bool:
+        """True when the live input cast makes the activations reaching
+        ``_forward`` exact in bf16: BFP with <= 8 mantissa bits, fake-quant
+        on (the quantized serving configurations)."""
+        ic = self.input_casts["input_cast"]
+        return (isinstance(ic.format, BlockFloatingPoint) and ic.format.precision <= 9
+                and ic.fake_quant_enabled)
+
     def _forward(self, _input):
+        if self._acts_exact_in_bf16():
+            return bfp_linear_bf16(_input, self.packed, bias=self._bias).to(_input.dtype)
         return bfp_linear(_input, self.packed, bias=self._bias)
 
     @classmethod
@@ -252,6 +314,25 @@ def build_weights_mode(model: nn.Module):
         m.input_casts.set_format(["SAME"] * len(m.input_casts))
         m.output_casts.set_format(["SAME"] * len(m.output_casts))
         m.approximator.function = NoApproximation()
+    compress_for_inference(dm)
+    set_inference_mode(True)
+    return dm
+
+
+def build_basic_mode(model: nn.Module):
+    """The BASIC fake-quant serving configuration (bench.py's basic mode):
+    ``DmxModel.from_raw`` -> ``to_basic_mode`` (BFP16_64 Linear and
+    ActActMatMul inputs, FLOAT16 module boundaries, the SOFTMAX and
+    LAYER_NORM surrogates) -> ``compress_for_inference`` (packed BFP16_64
+    weights, merged q/k/v) -> inference mode.  Serve it with a float16
+    split cache (``init_cache(..., dtype=torch.float16, split_base_len=
+    prompt)``) and ``ops/split_decode.prepare_split_decode`` between
+    prefill and decode.  Returns the DmxModel; ``model`` is transformed in
+    place."""
+    from ..modeling.model import DmxModel
+
+    dm = DmxModel.from_raw(model)
+    dm.to_basic_mode()
     compress_for_inference(dm)
     set_inference_mode(True)
     return dm

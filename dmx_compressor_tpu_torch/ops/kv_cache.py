@@ -1,7 +1,8 @@
 """KV caches: full-precision and int8 static-capacity buffers.
 
-Port of ``KVCache``, ``QuantizedKVCache``, ``QuantKV``, ``quantized_sdpa``,
-``make_caches`` and ``cache_seq_len`` of ``dmx_compressor_tpu/ops/kv_cache.py``.
+Port of ``KVCache``, ``QuantizedKVCache``, ``SplitKVCache`` (its D-minor
+form), ``QuantKV``, ``quantized_sdpa``, ``make_caches`` and ``cache_seq_len``
+of ``dmx_compressor_tpu/ops/kv_cache.py``.
 
 Layout: the port keeps caches D-minor, ``[B, H, S, D]`` (the JAX package
 stores them ``[B, H, D, S]``, a TPU lane-tiling choice).  A key row of D int8
@@ -17,7 +18,7 @@ int32 device tensor [B] for the decode kernel.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -151,9 +152,90 @@ class QuantizedKVCache(_StaticCache):
         return k, v, self.length
 
 
+class SplitKVCache(_StaticCache):
+    """Prefill/decode split cache: a base segment written once at prefill
+    (then read-only while decoding) and a small tail that decode steps
+    append to, [B, H, S, D] each.
+
+    The BASIC decode attention (ops/basic_attention.py) reads the segments
+    without concatenating them, and ``prepare_split_decode`` installs the
+    base segment's BFP casts once (``set_base_cast``), so a decode step
+    casts only the tail.  ``base_len`` and ``tail_len`` are multiples of
+    the BASIC BFP block (64) so that sequence-blocked casts never straddle
+    the boundary.  Decoding beyond the tail (the JAX package's
+    ``merge_tail``, which raises there too) is not supported.  The JAX
+    package's ``s_minor`` layout (a TPU layout A/B) is not ported."""
+
+    quantized = False
+    split = True
+
+    def __init__(self, batch: int, heads: int, base_len: int, tail_len: int, head_dim: int,
+                 dtype=torch.float32, device=None):
+        device = resolve_device(device)
+        super().__init__(batch, base_len + tail_len, head_dim, device)
+        self.base_len = base_len
+        self.tail_len = tail_len
+        self.base_k = torch.zeros((batch, heads, base_len, head_dim), dtype=dtype, device=device)
+        self.base_v = torch.zeros_like(self.base_k)
+        self.tail_k = torch.zeros((batch, heads, tail_len, head_dim), dtype=dtype, device=device)
+        self.tail_v = torch.zeros_like(self.tail_k)
+        # the base segment's BFP casts, installed by set_base_cast; the JAX
+        # package keeps them in bf16, which holds the <= 8-bit cast values
+        # exactly: the port keeps the same values in f32, ready for the f32
+        # matmuls of the decode attention
+        self.base_k_cast = None
+        self.base_v_cast = None
+        self.base_cast_key = None
+
+    def set_base_cast(self, k_cast: torch.Tensor, v_cast: torch.Tensor, key) -> None:
+        """Install precomputed base casts ([B, H, S0, D]) made with ``key``
+        = (wl, block)."""
+        self.base_k_cast = k_cast.to(torch.float32)
+        self.base_v_cast = v_cast.to(torch.float32)
+        self.base_cast_key = key
+
+    def write_base(self, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        """Prefill: write [B, H, T, D] at the fill point of the base."""
+        T = k_new.shape[2]
+        if self.length + T > self.base_len:
+            raise ValueError(f"base overflow: {self.length} + {T} > {self.base_len}")
+        pos = self._advance(T)
+        self.base_k[:, :, pos:self.length] = k_new.to(self.base_k.dtype)
+        self.base_v[:, :, pos:self.length] = v_new.to(self.base_v.dtype)
+
+    def append_tail(self, k_new: torch.Tensor, v_new: torch.Tensor):
+        """Decode: append [B, H, T, D] into the tail; returns the four
+        segment buffers (base_k, base_v, tail_k, tail_v)."""
+        if self.length < self.base_len:
+            raise ValueError("the tail is written after the base is full")
+        pos = self._advance(k_new.shape[2]) - self.base_len
+        end = self.length - self.base_len
+        self.tail_k[:, :, pos:end] = k_new.to(self.tail_k.dtype)
+        self.tail_v[:, :, pos:end] = v_new.to(self.tail_v.dtype)
+        return self.base_k, self.base_v, self.tail_k, self.tail_v
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor):
+        """KVCache-compatible: a T > 1 step writes the base, a T == 1 step
+        the tail; returns the concatenated buffers and the new length."""
+        if k_new.shape[2] > 1:
+            self.write_base(k_new, v_new)
+        else:
+            self.append_tail(k_new, v_new)
+        k = torch.cat([self.base_k, self.tail_k], dim=2)
+        v = torch.cat([self.base_v, self.tail_v], dim=2)
+        return k, v, self.length
+
+
 def make_caches(n_layers: int, batch: int, heads: int, max_len: int, head_dim: int,
                 dtype=torch.float32, quantized: bool = False,
-                device=None) -> List:
-    """One cache per layer, on the card unless ``device='cpu'``."""
+                split_base_len: Optional[int] = None, device=None) -> List:
+    """One cache per layer, on the card unless ``device='cpu'``; with
+    ``split_base_len`` a float :class:`SplitKVCache` whose base holds
+    ``split_base_len`` slots and whose tail the rest of ``max_len``."""
+    if split_base_len is not None:
+        if quantized:
+            raise ValueError("a split cache is not quantized")
+        return [SplitKVCache(batch, heads, split_base_len, max_len - split_base_len, head_dim,
+                             dtype, device=device) for _ in range(n_layers)]
     cls = QuantizedKVCache if quantized else KVCache
     return [cls(batch, heads, max_len, head_dim, dtype, device=device) for _ in range(n_layers)]

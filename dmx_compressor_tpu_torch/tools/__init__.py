@@ -1,0 +1,1 @@
+"""Diagnostic scripts of the port, each run with ``python -m``."""

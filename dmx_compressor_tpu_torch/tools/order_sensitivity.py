@@ -1,0 +1,118 @@
+"""How far the BASIC path's logits move when its sums run in another order.
+
+The BASIC path's FLOAT16 and BFP casts round values that come out of f32
+sums: the matmuls, the LayerNorm moments, the softmax sums.  Where a sum's
+last bit differs, a cast may land one step apart, and the step propagates
+through the layers.  A card sums in another order than the CPU, so the
+BASIC path's logits on the card can only be held against a CPU run at a
+tolerance of that size.
+
+This script serves OPT in BASIC mode (``build_basic_mode``, a float16 split
+cache) twice from the same seeded weights and prompt: as is, and with every
+T1 matmul and every LayerNorm, softmax and attention reduction summed in
+float64 and rounded once.  It prints the largest difference of the prefill
+logits between the two, and how many of the greedy tokens agree (a token
+that differs where the top two logits nearly tie changes every later step):
+
+    python -m dmx_compressor_tpu_torch.tools.order_sensitivity --device cpu \\
+        --layers 12 --vocab 2048 --seeds 0 1
+
+Widths are OPT-125m's; ``--layers`` and ``--vocab`` cut depth and the
+vocabulary.  Without ``--device`` it runs on the card (the first run then
+goes through the kernels).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+from unittest import mock
+
+import torch
+
+from ..functional import simd_ops
+from ..models.opt import OPTConfig, OPTForCausalLM, greedy_decode, greedy_prefill
+from ..ops import basic_attention, basic_layer, basic_linear, compress
+from ..ops.bfp_cast import fp16_cast_ref
+from ..ops.bfp_pack import bfp_unpack
+from ..ops.compress import build_basic_mode
+from ..ops.split_decode import prepare_split_decode
+
+
+def _matmul_f64(x, w, bias=None, out_fp16=False, residual=None):
+    """T1's function with the products summed in float64, rounded once."""
+    y = torch.matmul(x.to(torch.bfloat16).double(), bfp_unpack(w).double().T).float()
+    if bias is not None:
+        y = y + bias.float()
+    if out_fp16:
+        y = fp16_cast_ref(y)
+    if residual is not None:
+        y = fp16_cast_ref(y + residual.float())
+    return y
+
+
+class _Float64Sums:
+    """``torch`` as the BASIC modules see it, with mean and sum in float64."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def mean(x, dim=None, keepdim=False):
+        return torch.mean(x.double(), dim=dim, keepdim=keepdim).float()
+
+    @staticmethod
+    def sum(x, dim=None, keepdim=False):
+        return torch.sum(x.double(), dim=dim, keepdim=keepdim).float()
+
+
+@contextlib.contextmanager
+def float64_sums():
+    with contextlib.ExitStack() as stack:
+        for mod in (compress, basic_linear):
+            stack.enter_context(mock.patch.object(mod, "bfp_linear_bf16", _matmul_f64))
+        for mod in (basic_layer, basic_attention, simd_ops):
+            stack.enter_context(mock.patch.object(mod, "torch", _Float64Sums()))
+        yield
+
+
+def serve(cfg, seed, device, batch, prompt, steps):
+    """BASIC mode from ``seed``: the prefill logits and the greedy tokens
+    (the prefill's, then ``steps`` decode steps')."""
+    model = OPTForCausalLM(cfg, device=device, seed=seed)
+    build_basic_mode(model)
+    caches = model.init_cache(batch, prompt + 64, dtype=torch.float16, split_base_len=prompt,
+                              device=device)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                        generator=torch.Generator().manual_seed(seed + 1)).to(device)
+    logits, tok = greedy_prefill(model, caches, ids)
+    prepare_split_decode(model, caches)
+    toks, _ = greedy_decode(model, caches, tok, prompt, steps)
+    return logits.float().cpu(), torch.cat([tok[:, None], toks], dim=1).cpu()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None, help="cpu, or the card (default)")
+    ap.add_argument("--layers", type=int, default=12)
+    ap.add_argument("--vocab", type=int, default=50272)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=7)
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0])
+    a = ap.parse_args(argv)
+    cfg = OPTConfig(vocab_size=a.vocab, num_hidden_layers=a.layers)
+    for seed in a.seeds:
+        base = serve(cfg, seed, a.device, a.batch, a.prompt, a.steps)
+        with float64_sums():
+            other = serve(cfg, seed, a.device, a.batch, a.prompt, a.steps)
+        d = (base[0] - other[0]).abs()
+        print(f"seed {seed}, {a.layers} layers, vocab {a.vocab}, batch {a.batch} x prompt "
+              f"{a.prompt}, on {a.device or 'cuda'}: prefill logits max |diff| {d.max().item():.4g}"
+              f" (share of logits that differ {(d > 0).float().mean().item():.4f}, largest "
+              f"|logit| {base[0].abs().max().item():.4g}); greedy tokens equal "
+              f"{(base[1] == other[1]).sum().item()} of {base[1].numel()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from dmx_compressor_tpu_torch import kernels
+from dmx_compressor_tpu_torch.ops import bfp_cast as T2
 from dmx_compressor_tpu_torch.ops import bfp_linear as tbl
 from dmx_compressor_tpu_torch.ops import bfp_pack as tpack
 from dmx_compressor_tpu_torch.ops import flash_attention as tfa
@@ -126,3 +127,125 @@ def test_flash_decode_kernel_raises_rather_than_falling_back(cuda, dtype, D):
     with pytest.raises(ValueError):
         tfd.flash_decode(q, k, k.clone(), 8)
     assert kernels.LAUNCHES["flash_decode"] == n0
+
+
+# T1 (M, N, K, block): the BASIC path's decode and prefill shapes, T1's own
+# TPU shapes at M = 8 (K 8192 and N 50272 among them), a ragged tile on the
+# prefill path, and K or block no multiple of 16 (the scalar-load path)
+T1_SHAPES = [(8, 2304, 768, 64), (8, 768, 3072, 64), (8, 50272, 768, 64), (1024, 3072, 768, 64),
+             (1024, 768, 3072, 64), (8, 2048, 8192, 64), (8, 50272, 2048, 64),
+             (130, 200, 192, 64), (17, 96, 80, 16), (3, 40, 72, 8), (37, 130, 72, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K,B", T1_SHAPES)
+def test_bfp_linear_bf16_kernel_matches_plain_on_card(cuda, M, N, K, B):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = tpack.bfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05, 8, B)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    b = torch.randn(N, generator=g, device=cuda)
+    n0 = kernels.LAUNCHES["bfp_linear_bf16"]
+    got = tbl.bfp_linear_bf16(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bfp_linear_bf16"] == n0 + 1
+    torch.testing.assert_close(got, tbl.bfp_linear_bf16_ref(x, w, b), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K,B", [(8, 768, 3072, 64), (1024, 768, 768, 64), (37, 130, 72, 8)])
+def test_bfp_linear_bf16_epilogues_on_card(cuda, M, N, K, B):
+    """The FLOAT16 output and ResAdd-FLOAT16 epilogues: where the f32 sums
+    differ in their last bit at a rounding boundary, the FLOAT16 output lands
+    one fp16 step of itself apart, and the ResAdd output one fp16 step of
+    the largest product output (the residual may cancel it)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = tpack.bfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05, 8, B)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    b = torch.randn(N, generator=g, device=cuda)
+    res = torch.randn(M, N, generator=g, device=cuda).half().float()
+    y16 = tbl.bfp_linear_bf16_ref(x, w, b, out_fp16=True)
+    step = 2.0 ** (torch.floor(torch.log2(y16.abs().max())).item() - 10)
+    for kw, tol in (({"out_fp16": True}, dict(rtol=2.0**-10, atol=2.0**-14)),
+                    ({"out_fp16": True, "residual": res}, dict(rtol=0, atol=step))):
+        got = tbl.bfp_linear_bf16(x, w, b, **kw)
+        assert torch.equal(got, got.half().float())  # on the fp16 grid
+        torch.testing.assert_close(got, tbl.bfp_linear_bf16_ref(x, w, b, **kw), **tol)
+
+
+@pytest.mark.gpu
+def test_bfp_linear_bf16_keeps_subnormal_weights_on_card(cuda):
+    """A weight row of f32 subnormals (man * 2^-133 and up, bf16 subnormals
+    too): the tensor cores must not flush it."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    wf = torch.randn(64, 256, generator=g, device=cuda) * 0.05
+    wf[5] *= 2e-38
+    w = tpack.bfp_pack(wf, 8, 64)
+    x = torch.randn(8, 256, generator=g, device=cuda) * 1e3
+    got, want = tbl.bfp_linear_bf16(x, w), tbl.bfp_linear_bf16_ref(x, w)
+    assert int(w.exponent[5].min()) == -127 and (want[:, 5] != 0).all()
+    torch.testing.assert_close(got[:, 5], want[:, 5], rtol=1e-5, atol=0)
+
+
+def _special_blocks():
+    """Ten blocks of 64: random at four scales, zero, +-0.0, f32 subnormals,
+    one whose max rounds up to 2^(e+1) and clamps, one at the clamp edge,
+    one whose max is 2^126 (the rebase constant overflows to inf: NaN out,
+    as in the plain version)."""
+    g = torch.Generator().manual_seed(3)
+    blocks = [torch.randn(64, generator=g) * s for s in (1.0, 1e-3, 3e4, 1e-30)]
+    blocks += [torch.zeros(64), torch.zeros(64).index_fill_(0, torch.arange(0, 64, 2), -0.0),
+               torch.randn(64, generator=g) * 1e-39]
+    for i, v in ((5, 1.9999), (9, -(2 - 2.0**-7)), (0, 2.0**126)):
+        b = torch.rand(64, generator=g) * 2 - 1
+        b[i] = v
+        blocks.append(b)
+    return torch.cat(blocks)
+
+
+def _same_bits(got, want):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+# (shape, axis): the BASIC path's cast sites, an S-blocked V, a k^T view
+# blocked along its rows, blocks of 32 and 256, and the special blocks
+T2_SITES = [((8, 768), -1), ((8, 3072), -1), ((8, 12, 1, 64), -1), ((8, 12, 64, 64), -1),
+            ((8, 12, 1, 192), -1), ((8, 12, 64, 64), -2), ((1024, 768), -1),
+            ((8, 12, 128, 128), -1), ((3, 5, 64, 7), -2), ("kT", -2), ("special", -1),
+            ("special_inner", -2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", range(len(T2_SITES)))
+@pytest.mark.parametrize("block", [64, 32, 256])
+def test_bfp_cast_kernel_matches_plain_bit_for_bit_on_card(cuda, site, block):
+    shape, axis = T2_SITES[site]
+    g = torch.Generator(device=cuda).manual_seed(site)
+    if shape == "kT":
+        x = torch.randn(8, 12, 64, 256, generator=g, device=cuda).transpose(-1, -2)
+    elif shape == "special":
+        x = _special_blocks().to(cuda).reshape(5, 128)
+    elif shape == "special_inner":
+        x = _special_blocks().to(cuda).reshape(2, 5, 64).transpose(1, 2).contiguous()
+    else:
+        x = torch.randn(shape, generator=g, device=cuda) * torch.exp(
+            3 * torch.randn(shape, generator=g, device=cuda))
+    if x.shape[axis] % block:
+        pytest.skip(f"axis of {x.shape[axis]} is no multiple of the block {block}")
+    n0 = kernels.LAUNCHES["bfp_cast"]
+    got = T2.bfp_cast(x, 8, block, axis)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bfp_cast"] == n0 + 1
+    _same_bits(got, T2.bfp_cast_ref(x, 8, block, axis))
+    _same_bits(T2.fp16_cast(x), T2.fp16_cast_ref(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probe", list("abcdefgh"))
+def test_bfp_cast_probe_matches_plain_bit_for_bit_on_card(cuda, probe):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(8, 768, generator=g, device=cuda) * (8.0 if probe == "d" else 3.0)
+    if probe == "h":
+        x = x[:, :12].contiguous()
+    _same_bits(T2.probe(probe, x), T2.probe_ref(probe, x))
