@@ -15,11 +15,17 @@ Phases (any failure exits non-zero):
    tolerance (T2: bit for bit), the kernel's time, its plain version's, one
    library call's where there is one (a yardstick the port never calls) and
    the bound (bytes, or operations over the H100 SXM's published f32 or
-   bf16 tensor-core peak).  B1 bfp_linear, B2 flash_decode_int8, B3
-   flash_attention, B4 flash_decode, B5 sbfp_linear, T1 bfp_linear_bf16
-   (with B1 timed beside on the same payloads, and a row of subnormal
-   weights), T2 bfp_cast (both modes at the BASIC path's cast sites, special
-   blocks, the eight probes).
+   bf16 tensor-core peak).  B1 bfp_linear and T1 bfp_linear_bf16 share
+   the kernels of csrc/bfp_wgmma.cuh, B1 on three exact bf16 planes of x,
+   T1 on one: a tensor-core GEMV on mma.sync with K split over a cluster
+   (decode) and a wgmma mainloop (prefill).  B1 at its tile edges, a K
+   split, x near +-FLT_MAX and subnormal x, its bound the
+   tensor-core figure (3 x 2MNK at the bf16 peak) with the f32 SIMT figure
+   beside it; T1 with B1 timed beside on the same payloads, its epilogues
+   and a row of subnormal weights.  B2 flash_decode_int8, B3
+   flash_attention, B4 flash_decode, B5 sbfp_linear, T2 bfp_cast (both
+   modes at the BASIC path's cast sites, special blocks, the eight
+   probes).
 3. Four serving paths of OPT-125m at full width from seeded random weights
    (seed 0), each a prefill of batch 8 x prompt 128 then 63 greedy decode
    steps, with the launch counters set to 0 just before and read just after
@@ -37,7 +43,9 @@ Phases (any failure exits non-zero):
      decode step 49 T1 + 19L+4 = 232 T2.
    Each path's prefill logits and first 8 greedy tokens are held against the
    same model moved to the CPU (``.to("cpu")``); each prints its decode
-   tokens/s, the device busy/idle split of a profiled decode step and a host
+   tokens/s, the device time of one warm prefill (a second prefill call
+   under torch.profiler, split into its packed linears' kernel and the
+   rest), the device busy/idle split of a profiled decode step and a host
    cProfile of the same steps.  The JAX bench's ratios (weights, SBFP and
    basic over baseline tokens/s) follow.
 4. A ``kernels`` JSON line, then the last line
@@ -82,6 +90,7 @@ B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
 B4_TOL = dict(rtol=1e-5, atol=2e-5)
 B5_TOL = dict(rtol=1e-5, atol=1e-4)  # as B1: exact weights, sums in another order
+LINEAR_KERNELS = ("bfp_linear", "sbfp_linear", "bfp_linear_bf16")
 
 
 def log(*args):
@@ -187,15 +196,19 @@ def sbfp_linear_shapes(cfg):
 
 
 def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shapes, ragged,
-                 tol, seed, peak_flop_s=PEAK_F32_FLOP_S, lib_dtype=None, ab=None):
+                 tol, seed, peak_flop_s=PEAK_F32_FLOP_S, lib_dtype=None, ab=None, planes=None):
     """A dequant-matmul kernel against its plain version at the decode (M =
     batch) and prefill (M = batch x prompt) shapes of ``step_shapes`` and at
     ``ragged`` (M, K, N) shapes; then its time per launch over one decode
     step's launches as the path makes them (each linear of each layer, then
     the head, each launch on its own cold weight).  The library yardstick is
     torch.matmul on the dequantized weight, in ``lib_dtype`` (default f32);
-    ``ab`` = (name, kernel) is timed beside on the same payloads.  Returns
-    (the per-step numbers, the cases)."""
+    ``ab`` = (name, kernel) is timed beside on the same payloads.  With
+    ``planes`` (B1: 3; its kernels run that many bf16 tensor-core products
+    at every shape here, where K and the block are multiples of 16) a shape
+    is bounded by them at the bf16 peak (``bound_ms``), the ``peak_flop_s``
+    figure kept as ``bound_f32_ms``.
+    Returns (the per-step numbers, the cases)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     cases, sets_of, deq_of = [], {}, {}
     shapes = [(M, K, N) for M in (BATCH, BATCH * PROMPT) for K, N, _ in step_shapes]
@@ -220,9 +233,16 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
         case = dict(shape=[M, K, N], max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
         extra = ""
+        if planes is not None:
+            case["bound_f32_ms"] = bound_ms
+            case["bound_ms"], case["bound_by"] = bound(per_set, planes * 2 * M * N * K,
+                                                       PEAK_BF16_FLOP_S)
+            bound_ms, by = case["bound_ms"], case["bound_by"]
+            extra = (f" bound_f32_ms={case['bound_f32_ms']:.4f} (f32 SIMT; bound_ms is "
+                     f"{planes} bf16 tensor-core products)")
         if ab is not None:
             case[f"{ab[0]}_ms"] = time_ms(torch, ab[1], sets)
-            extra = f" {ab[0]}_ms(same payload)={case[f'{ab[0]}_ms']:.4f}"
+            extra += f" {ab[0]}_ms(same payload)={case[f'{ab[0]}_ms']:.4f}"
         cases.append(case)
         log(f"{label} M={M} K={K} N={N}: max_abs_err={err:.3g} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms(torch.matmul, dequantized W, {lib_dtype})="
@@ -251,9 +271,28 @@ def check_b1(torch, dev, cfg):
     from dmx_compressor_tpu_torch.ops.bfp_linear import bfp_linear, bfp_linear_ref
     from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
 
-    return check_linear(torch, dev, "B1 bfp_linear", bfp_linear, bfp_linear_ref,
-                        lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes,
-                        linear_shapes(cfg), [(5, 192, 200)], B1_TOL, seed=11)
+    step, cases = check_linear(
+        torch, dev, "B1 bfp_linear", bfp_linear, bfp_linear_ref, lambda w: bfp_pack(w, 8, 64),
+        bfp_unpack, b1_bytes, linear_shapes(cfg),
+        [(5, 192, 200), (12, 192, 129), (17, 768, 127), (65, 192, 129), (129, 256, 300)],
+        B1_TOL, seed=11,
+        planes=3)
+    # the three-plane split at its edges: x near +-FLT_MAX (one per row, so
+    # no sum overflows), f32 subnormals and -0.0, at the prefill's shape
+    g = torch.Generator(device=dev).manual_seed(20)
+    M, K, N = BATCH * PROMPT, cfg.hidden_size, cfg.hidden_size
+    w = bfp_pack(torch.randn(N, K, generator=g, device=dev) * 0.05, 8, 64)
+    x = torch.randn(M, K, generator=g, device=dev)
+    rows = torch.arange(M, device=dev)
+    fmax = torch.finfo(torch.float32).max
+    x[rows, (7 * rows) % K] = torch.where(rows % 2 == 0, fmax, -fmax)
+    x[:, 1::5] *= 1e-39
+    x[:, 2::7] = -0.0
+    err = max_err(torch, bfp_linear(x, w), bfp_linear_ref(x, w), B1_TOL,
+                  f"B1 {M}x{K}x{N} with x near +-FLT_MAX, subnormal and -0.0")
+    log(f"B1 bfp_linear {M}x{K}x{N}, x near +-FLT_MAX, subnormal and -0.0: max_abs_err={err:.3g} "
+        f"(|y| up to {bfp_linear_ref(x, w).abs().max().item():.3g})")
+    return step, cases
 
 
 def check_b5(torch, dev, cfg):
@@ -292,7 +331,8 @@ def check_t1(torch, dev, cfg):
     step, cases = check_linear(
         torch, dev, "T1 bfp_linear_bf16", bfp_linear_bf16, bfp_linear_bf16_ref,
         lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, linear_shapes(cfg),
-        T1_TPU_SHAPES + [(5, 192, 200), (130, 192, 200)], B1_TOL, seed=16,
+        T1_TPU_SHAPES + [(5, 192, 200), (130, 192, 200), (17, 768, 127), (12, 192, 129)],
+        B1_TOL, seed=16,
         peak_flop_s=PEAK_BF16_FLOP_S, lib_dtype=torch.bfloat16, ab=("bfp_linear", bfp_linear))
     g = torch.Generator(device=dev).manual_seed(17)
     # the scalar-load path, and both epilogues
@@ -637,14 +677,16 @@ def path_specs(cfg):
     )
 
     L = cfg.num_hidden_layers
-    t1_marks = ("bfp_bf16_kernel",)
+    t1_marks = ("bfp_decode_kernel", "bfp_wgmma_kernel", "split_planes_kernel",
+                "bfp_bf16_ragged_kernel")
     t2_marks = ("bfp_rows_kernel", "bfp_cols_kernel", "fp16_kernel")
     return [
         dict(name="weights", build=build_weights_mode,
              cache=dict(max_len=CAPACITY, quantized=True),
              prefill={"bfp_linear": 4 * L + 1, "flash_attention": L}, prepare=None,
              step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
-             marks={"bfp_linear": ("bfp_gemv_kernel", "bfp_gemm_kernel"),
+             marks={"bfp_linear": ("bfp_decode_kernel", "bfp_gemm_kernel", "bfp_wgmma_kernel",
+                                   "split_planes_kernel"),
                     "flash_decode_int8": ("flash_decode_int8_kernel",)},
              logit_tol=LOGIT_TOL),
         dict(name="sbfp", build=build_sbfp_mode, cache=dict(max_len=CAPACITY, quantized=True),
@@ -670,7 +712,7 @@ def path_specs(cfg):
              prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 34 * L + 6},
              prepare={"bfp_cast": 2 * L},
              step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 19 * L + 4},
-             marks={"bfp_linear_bf16": ("bfp_bf16_kernel",), "bfp_cast": t2_marks},
+             marks={"bfp_linear_bf16": t1_marks, "bfp_cast": t2_marks},
              logit_tol=BASIC_LOGIT_TOL),
     ]
 
@@ -763,11 +805,37 @@ def serve_path(torch, dev, kernels, cfg, spec):
         + f"); decode {tok_s:.1f} tokens/s over {GEN - 1} steps at batch {BATCH} "
         f"(host clock, synchronized)")
 
-    # where a decode step's time goes: 8 more steps from a fresh prefill,
-    # device time from torch.profiler against the unprofiled step time above
+    # one warm prefill's device time (torch.profiler over a second prefill
+    # call; a retaken trace starts again from an empty cache), split into
+    # the packed linears' kernel and the rest
     prof_caches = model.init_cache(BATCH, device=dev, **cache_kw)
-    _, ptok, _ = prefill(prof_caches, ids.to(dev))
+    ids_dev, warm = ids.to(dev), {}
+
+    def warm_prefill():
+        for c in prof_caches:
+            c.length = 0
+        warm["out"] = greedy_prefill(model, prof_caches, ids_dev)
+
+    pre_events = device_events(torch, warm_prefill)
+    pre_ms = sum(us for _, us in pre_events) / 1e3
+    linear = next((k for k in spec["prefill"] if k in LINEAR_KERNELS), None)
+    if linear is None:
+        log(f"{name} prefill, warm: device time {pre_ms:.4f} ms (its linears run cuBLAS)")
+    else:
+        lin_ms = sum(us for n, us in pre_events
+                     if any(m in n for m in spec["marks"][linear])) / 1e3
+        log(f"{name} prefill, warm: device time {pre_ms:.4f} ms, of which {linear} "
+            f"{lin_ms:.4f} ms over {spec['prefill'][linear]} launches, the rest "
+            f"{pre_ms - lin_ms:.4f} ms")
+    for ev, us in sorted(pre_events, key=lambda e: -e[1])[:6]:
+        log(f"  device, warm prefill: {us / 1e3:.4f} ms  {ev[:110]}")
+    _, ptok = warm["out"]
+    if spec["prepare"] is not None:
+        prepare_split_decode(model, prof_caches)
     torch.cuda.synchronize()
+
+    # where a decode step's time goes: 8 more steps from that prefill,
+    # device time from torch.profiler against the unprofiled step time above
     events = sorted(device_events(torch, lambda: greedy_decode(model, prof_caches, ptok,
                                                                PROMPT, 8)),
                     key=lambda e: -e[1])

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library under ``build/dmx_kernels/`` at the root of the
 checkout (``.gitignore`` lists ``build/``), loaded with ``ctypes``.  The
-library's file name carries a hash of its source and flags, so an edit
-rebuilds it.  :func:`build` starts one ``nvcc`` per source, all at once;
-:func:`function` builds a single missing one at first use.  Nothing is built
+library's file name carries a hash of its source, the shared headers
+``csrc/*.cuh`` and the flags, so an edit rebuilds it.  :func:`build` starts
+one ``nvcc`` per source, all at once; :func:`function` builds a single
+missing one at first use.  Nothing is built
 or imported from the CUDA toolchain when this module is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: each wrapper
@@ -37,7 +38,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> (C symbol, argument types); every pointer and the stream are c_void_p
 SIGNATURES = {
-    "bfp_linear": ("dmx_bfp_linear", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "bfp_linear": ("dmx_bfp_linear", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "flash_decode_int8": (
         "dmx_flash_decode_int8", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     ),
@@ -48,7 +49,7 @@ SIGNATURES = {
     "flash_decode": ("dmx_flash_decode", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "bfp_cast": ("dmx_bfp_cast", [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "bfp_linear_bf16": (
-        "dmx_bfp_linear_bf16", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "dmx_bfp_linear_bf16", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
 
@@ -84,7 +85,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``<name>.cu``, named by a hash of its source, every
+    shared header ``csrc/*.cuh`` (an edit to one rebuilds all) and the
+    flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -12,8 +12,16 @@ mantissas two to a byte + one f32 scale per block; the CUDA kernels
 registers on their way into the f32 products, so a decode step reads a
 quarter (BFP) or 0.19 (SBFP12_16) of the fp32 weight bytes.
 
-``bfp_linear`` and ``sbfp_linear`` launch their kernel for CUDA tensors and
-run the plain version (``*_ref``) for CPU tensors; there is no other path.
+B1 and T1 share the kernels of ``csrc/bfp_wgmma.cuh``, on bf16 planes of x:
+one for T1 (bf16(x)), three for B1 (x = h + m + l exactly,
+:func:`split_bf16x3_ref`), so that B1's exact f32 product runs on the bf16
+tensor cores.  Up to 16 rows a tensor-core GEMV reads x itself; above, the
+wgmma mainloop reads the planes that a pre-pass of the same C entry point
+writes into a scratch buffer the wrapper allocates.
+
+``bfp_linear``, ``bfp_linear_bf16`` and ``sbfp_linear`` launch their kernel
+for CUDA tensors and run the plain version (``*_ref``) for CPU tensors;
+there is no other path.
 """
 
 from __future__ import annotations
@@ -36,6 +44,50 @@ def _check_bfp_payload(w: PackedBFP, K: int) -> int:
     if K % w.block_size or w.exponent.shape != (N, K // w.block_size):
         raise ValueError("exponents must be [N, K // block_size]")
     return N
+
+
+# rows of x that B1 and T1 serve with their decode kernel; above them the
+# entry points take the wgmma path and its bf16 x-plane scratch
+_DECODE_ROWS = 16
+
+
+def _x_planes(x2: torch.Tensor, planes: int) -> Optional[torch.Tensor]:
+    """Scratch for the wgmma path's bf16 planes of x: [planes, M, K rounded
+    up to 64]; None for the decode rows (the kernel then reads x itself)."""
+    M, K = x2.shape
+    if M <= _DECODE_ROWS:
+        return None
+    return torch.empty((planes, M, -(-K // 64) * 64), dtype=torch.bfloat16, device=x2.device)
+
+
+_HIGH_HALF = -65536  # 0xffff0000 as an int32: the bits of an f32 that bf16 keeps
+_QUIET_NAN = 0x00400000
+_SIGN = -2147483648  # 0x80000000 as an int32
+
+
+def split_bf16x3_ref(x: torch.Tensor):
+    """Plain transcription of B1's three-plane split (csrc/bfp_wgmma.cuh
+    ``split_x``), for tests: x = h + m + l, each the high 16 bits of an f32
+    and so exact in bf16.  h is x with its low 16 bits cleared (truncation;
+    a NaN keeps its quiet bit set, since its payload may lie in the low
+    half), r = x - h (exact), m = r truncated the same way and l = r - m
+    (exact) truncated to bf16, m and l with x's sign bit set where x's is
+    (so a zero of m or l is signed like x, and -0.0 splits into three
+    -0.0); where x is not finite, m = l = 0.  (h + m) + l == x bit for bit
+    where |x| >= 2^-110; below that l loses what lies under 2^-133.
+    Returns (h, m, l) as bfloat16."""
+    x = x.to(torch.float32).contiguous()
+    bits = x.view(torch.int32)
+    sign = bits & _SIGN
+    h = bits & _HIGH_HALF
+    h = torch.where(torch.isnan(x), h | _QUIET_NAN, h).view(torch.float32)
+    finite = torch.isfinite(x)
+    r = x - h
+    m = ((r.view(torch.int32) & _HIGH_HALF) | sign).view(torch.float32)
+    l = (((r - m).view(torch.int32) & _HIGH_HALF) | sign).view(torch.float32)
+    zero = torch.zeros_like(x)
+    m, l = torch.where(finite, m, zero), torch.where(finite, l, zero)
+    return tuple(p.to(torch.bfloat16) for p in (h, m, l))
 
 
 def bfp_linear_ref(x: torch.Tensor, w: PackedBFP,
@@ -62,10 +114,12 @@ def bfp_linear(x: torch.Tensor, w: PackedBFP,
         operands.append(bias)
     kernels.check_cuda(*operands, dtypes=(torch.float32, torch.int8, torch.int8, torch.float32))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    planes = _x_planes(x2, 3)
     kernels.launch(
         "bfp_linear",
         x2.data_ptr(), w.mantissa.data_ptr(), w.exponent.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        planes.data_ptr() if planes is not None else None,
         M, N, K, w.block_size, w.precision,
     )
     return out.reshape(*lead, N).to(x.dtype)
@@ -113,11 +167,13 @@ def bfp_linear_bf16(x: torch.Tensor, w: PackedBFP, bias: Optional[torch.Tensor] 
         dtypes.append(torch.float32)
     kernels.check_cuda(*operands, dtypes=dtypes)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    planes = _x_planes(x2, 1)
     kernels.launch(
         "bfp_linear_bf16",
         x2.data_ptr(), w.mantissa.data_ptr(), w.exponent.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         residual.data_ptr() if residual is not None else None, out.data_ptr(),
+        planes.data_ptr() if planes is not None else None,
         M, N, K, w.block_size, w.precision, int(out_fp16),
     )
     return out.reshape(*lead, N)

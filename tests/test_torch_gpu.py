@@ -22,10 +22,16 @@ from dmx_compressor_tpu_torch.ops.compress import SBFP12_16
 torch.set_num_threads(2)
 
 # (M, N, K, block): odd shapes (block 8 takes the byte-load path), then
-# OPT-125m's prefill fc1 and decode head
+# OPT-125m's prefill fc1 and decode head; then the wgmma path's tile edges
+# (M 17, 63, 64, 65, 129 about its 128-row tile; N 127 and 129 about its
+# 128-feature tile), its K split (fc2 at M 1024, 3 splits; out_proj, 2), the
+# fc2 decode shape and the decode kernel's second batch tile (M 9-16)
 B1_SHAPES = [(8, 300, 128, 64), (8, 40, 1024, 16), (8, 256, 4096, 64), (8, 33, 80, 16),
              (5, 200, 192, 64), (3, 17, 72, 8), (1024, 3072, 768, 64), (8, 50272, 768, 64),
-             (37, 96, 80, 16), (12, 10, 24, 8)]
+             (37, 96, 80, 16), (12, 10, 24, 8),
+             (17, 127, 768, 64), (63, 129, 192, 64), (64, 768, 768, 64), (65, 129, 3072, 64),
+             (129, 127, 256, 16), (8, 768, 3072, 64), (1024, 768, 3072, 64),
+             (1024, 768, 768, 64), (16, 768, 3072, 64), (12, 129, 96, 32)]
 
 @pytest.fixture
 def cuda():
@@ -47,6 +53,29 @@ def test_bfp_linear_kernel_matches_plain_on_card(cuda, M, N, K, B):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["bfp_linear"] == n0 + 1
     torch.testing.assert_close(got, tbl.bfp_linear_ref(x, w, b), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 200])
+def test_bfp_linear_kernel_extreme_x_on_card(cuda, M):
+    """x near +-FLT_MAX (one per row, so no sum overflows), f32 subnormals,
+    +-0.0, and a row each with an inf and a NaN: the three-plane decode
+    kernel (M 8) and wgmma path (M 200) give what the plain version gives."""
+    N, K = 136, 768
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = tpack.bfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05, 8, 64)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    rows = torch.arange(M, device=cuda)
+    fmax = torch.finfo(torch.float32).max
+    x[rows, (7 * rows) % K] = torch.where(rows % 2 == 0, fmax, -fmax)
+    x[:, 1::5] *= 1e-39
+    x[:, 2::7] = -0.0
+    x[1, 3], x[2, 9] = float("inf"), float("nan")
+    x[3, 11] = torch.tensor(0x7F800001, dtype=torch.int32).view(torch.float32)  # low-bit NaN
+    got = tbl.bfp_linear(x, w)
+    want = tbl.bfp_linear_ref(x, w)
+    assert torch.isnan(got[2]).all() and torch.isnan(got[3]).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4, equal_nan=True)
 
 
 @pytest.mark.gpu
@@ -131,10 +160,16 @@ def test_flash_decode_kernel_raises_rather_than_falling_back(cuda, dtype, D):
 
 # T1 (M, N, K, block): the BASIC path's decode and prefill shapes, T1's own
 # TPU shapes at M = 8 (K 8192 and N 50272 among them), a ragged tile on the
-# prefill path, and K or block no multiple of 16 (the scalar-load path)
+# prefill path, and K or block no multiple of 16 (the scalar-load path); then
+# the tile edges of the wgmma path (M 17, 63, 64, 65, 129; N 127, 129), the
+# decode kernel's second batch tile (M 9-16) and its K split at fc2 (8 x 3072
+# x 768: 6 splits) beside the prefill's (1024 x 3072 x 768: 3 splits)
 T1_SHAPES = [(8, 2304, 768, 64), (8, 768, 3072, 64), (8, 50272, 768, 64), (1024, 3072, 768, 64),
              (1024, 768, 3072, 64), (8, 2048, 8192, 64), (8, 50272, 2048, 64),
-             (130, 200, 192, 64), (17, 96, 80, 16), (3, 40, 72, 8), (37, 130, 72, 8)]
+             (130, 200, 192, 64), (17, 96, 80, 16), (3, 40, 72, 8), (37, 130, 72, 8),
+             (17, 127, 768, 64), (63, 129, 192, 64), (64, 768, 768, 64), (65, 2304, 768, 64),
+             (129, 127, 3072, 64), (16, 768, 3072, 64), (12, 129, 96, 32), (1, 127, 768, 64),
+             (1024, 768, 768, 64)]
 
 
 @pytest.mark.gpu

@@ -86,6 +86,83 @@ def test_bfp_linear_leading_dims_and_cpu_dispatch():
         tbl.bfp_linear(torch.from_numpy(x).to("meta"), tp)
 
 
+# B1's wgmma path splits x into three bf16 planes (csrc/bfp_wgmma.cuh); its
+# plain transcription split_bf16x3_ref is held here, and the three-plane
+# product, summed in f32, against bfp_linear_ref and the JAX bfp_linear
+
+_LOW_NAN = (0x7F800001, -8388607, 0x7FC00000)  # low-payload NaNs (+, -), a quiet NaN
+
+
+def _floats(bits):
+    return torch.tensor(bits, dtype=torch.int32).view(torch.float32)
+
+
+def test_split_bf16x3_reproduces_x_bit_for_bit():
+    """(h + m) + l == x bit for bit over random values at every exponent
+    down to 2^-110, +-FLT_MAX and +-0.0; h is x truncated (never rounded up,
+    so FLT_MAX does not overflow); each plane is exact in bf16."""
+    rs = np.random.RandomState(8)
+    with np.errstate(over="ignore"):
+        x = (rs.standard_normal(200000) * np.exp2(rs.uniform(-110, 128, 200000))).astype(np.float32)
+    fmax = np.finfo(np.float32).max
+    x = x[np.isfinite(x) & (np.abs(x) >= 2.0**-110)]
+    x = np.concatenate([x, np.array([fmax, -fmax, np.nextafter(fmax, 0), 0.0, -0.0,
+                                     2.0**-110, -(2.0**-110)], np.float32)])
+    t = torch.from_numpy(x)
+    h, m, l = tbl.split_bf16x3_ref(t)
+    assert h.dtype == m.dtype == l.dtype == torch.bfloat16
+    total = (h.float() + m.float()) + l.float()
+    assert torch.equal(total.view(torch.int32), t.view(torch.int32))
+    assert torch.equal(h.float().view(torch.int32), t.view(torch.int32) & -65536)
+    assert torch.isfinite(h.float()).all()
+    for p in (h, m, l):  # exact in bf16: the f32 round trip keeps the bits
+        assert torch.equal(p.float().to(torch.bfloat16).view(torch.int16), p.view(torch.int16))
+
+
+def test_split_bf16x3_subnormals_and_non_finite():
+    """Below 2^-110, f32 subnormals included, the planes lose less than
+    2^-133 (bf16's last subnormal bit); +-inf keeps h and zeroes m and l; a
+    NaN stays a NaN in h, also one whose payload lies only in the low 16
+    bits, with m = l = 0 (as the kernel's loader does)."""
+    rs = np.random.RandomState(9)
+    x = (rs.standard_normal(50000) * np.exp2(rs.uniform(-150, -110, 50000))).astype(np.float32)
+    assert (np.abs(x) < 2.0**-126).sum() > 1000  # subnormals among them
+    t = torch.from_numpy(x)
+    h, m, l = tbl.split_bf16x3_ref(t)
+    lost = (t.double() - ((h.float() + m.float()) + l.float()).double()).abs()
+    assert lost.max().item() < 2.0**-133
+    special = torch.cat([torch.tensor([float("inf"), -float("inf"), float("nan")]),
+                         _floats(list(_LOW_NAN))])
+    h, m, l = tbl.split_bf16x3_ref(special)
+    assert h[0].item() == float("inf") and h[1].item() == -float("inf")
+    assert torch.isnan(h[2:].float()).all()
+    assert not m.float().any() and not l.float().any()
+
+
+@pytest.mark.parametrize("M,N,K,B,atol", B1_CASES)
+def test_bfp_linear_three_plane_product_matches_ref_and_jax(M, N, K, B, atol):
+    """h.W^T + m.W^T + l.W^T + bias, each product in f32, is B1's product:
+    within B1's tolerance (rtol 1e-5, atol 1e-4) of bfp_linear_ref and of
+    the JAX bfp_linear (Pallas, interpret mode) on the same numpy inputs;
+    a seventh of x is scaled by 1e-3, so that the planes span more
+    exponents."""
+    rs = np.random.RandomState(10)
+    w = rand(rs, N, K, scale=0.3)
+    x = rand(rs, M, K)
+    x[:, ::7] *= 1e-3
+    b = rand(rs, N)
+    jp, tp = packed_pair(w, B)
+    wd = tpack.bfp_unpack(tp)
+    h, m, l = tbl.split_bf16x3_ref(torch.from_numpy(x))
+    assert m.float().abs().max() > 0 and l.float().abs().max() > 0
+    y = (h.float() @ wd.T + m.float() @ wd.T) + l.float() @ wd.T + torch.from_numpy(b)
+    ref = tbl.bfp_linear_ref(torch.from_numpy(x), tp, torch.from_numpy(b))
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
+    want = np.asarray(jbl.bfp_linear(jnp.asarray(x), jp, jnp.asarray(b),
+                                     use_pallas=True, interpret=True))
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # B2: flash_decode_int8
 # ---------------------------------------------------------------------------

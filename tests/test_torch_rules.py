@@ -3,6 +3,7 @@ wrappers have no fallback around a launch, its entry points default to the
 card and raise without one, and ``chip_smoke.py`` fails without a card."""
 
 import ast
+import json
 import shutil
 import subprocess
 import sys
@@ -79,6 +80,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         m.init_cache(1, 16, quantized=True)
     assert m.init_cache(1, 16, quantized=True, device="cpu")[0].k_q.device.type == "cpu"
+
+
+def test_ab_linears_needs_a_card_and_reports_runs_side_by_side(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    script = PORT / "tools" / "ab_linears.py"
+    out = tmp_path / "ab.jsonl"
+    r = subprocess.run([sys.executable, str(script), "--root", str(ROOT), "--out", str(out)],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and not out.exists()
+    run = {"device": "card", "nvidia_smi": "card, 700.00 W"}
+    out.write_text("\n".join(
+        json.dumps(dict(run, label=label, B1={"8x768x768": t}, T1={"8x768x768": t}))
+        for label, t in [("old", 0.5), ("new", 0.25), ("new", 0.75), ("old", 1.5)]))
+    r = subprocess.run([sys.executable, str(script), "--report", str(out)],
+                       capture_output=True, text=True, timeout=120, check=True)
+    assert "card, 700.00 W" in r.stdout
+    assert "0.5000 1.5000 (median 1.0000) | 0.2500 0.7500 (median 0.5000)" in r.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path, monkeypatch):
