@@ -15,17 +15,18 @@ Phases (any failure exits non-zero):
    tolerance (T2: bit for bit), the kernel's time, its plain version's, one
    library call's where there is one (a yardstick the port never calls) and
    the bound (bytes, or operations over the H100 SXM's published f32 or
-   bf16 tensor-core peak).  B1 bfp_linear and T1 bfp_linear_bf16 share
-   the kernels of csrc/bfp_wgmma.cuh, B1 on three exact bf16 planes of x,
-   T1 on one: a tensor-core GEMV on mma.sync with K split over a cluster
-   (decode) and a wgmma mainloop (prefill).  B1 at its tile edges, a K
-   split, x near +-FLT_MAX and subnormal x, its bound the
-   tensor-core figure (3 x 2MNK at the bf16 peak) with the f32 SIMT figure
-   beside it; T1 with B1 timed beside on the same payloads, its epilogues
-   and a row of subnormal weights.  B2 flash_decode_int8, B3
-   flash_attention, B4 flash_decode, B5 sbfp_linear, T2 bfp_cast (both
-   modes at the BASIC path's cast sites, special blocks, the eight
-   probes).
+   bf16 tensor-core peak).  B1 bfp_linear, B5 sbfp_linear and T1
+   bfp_linear_bf16 share the kernels of csrc/bfp_wgmma.cuh, B1 and B5 on
+   three exact bf16 planes of x, T1 on one: a tensor-core GEMV on mma.sync
+   with K split over a cluster (decode) and a wgmma mainloop (prefill).  B1
+   and B5 at their tile edges, a K split, x near +-FLT_MAX and subnormal x,
+   their bound the tensor-core figure (3 x 2MNK at the bf16 peak) with the
+   f32 SIMT figure beside it; T1 with B1 timed beside on the same payloads,
+   its epilogues and a row of subnormal weights.  B2 flash_decode_int8, B3
+   flash_attention (its two products as six bf16 plane products each on
+   mma.sync: its bound at the bf16 peak, the f32 figure beside), B4
+   flash_decode, T2 bfp_cast (both modes at the BASIC path's cast sites,
+   special blocks, the eight probes).
 3. Four serving paths of OPT-125m at full width from seeded random weights
    (seed 0), each a prefill of batch 8 x prompt 128 then 63 greedy decode
    steps, with the launch counters set to 0 just before and read just after
@@ -44,7 +45,7 @@ Phases (any failure exits non-zero):
    Each path's prefill logits and first 8 greedy tokens are held against the
    same model moved to the CPU (``.to("cpu")``); each prints its decode
    tokens/s, the device time of one warm prefill (a second prefill call
-   under torch.profiler, split into its packed linears' kernel and the
+   under torch.profiler, split into its packed linears' kernel, B3 and the
    rest), the device busy/idle split of a profiled decode step and a host
    cProfile of the same steps.  The JAX bench's ratios (weights, SBFP and
    basic over baseline tokens/s) follow.
@@ -90,6 +91,8 @@ B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
 B4_TOL = dict(rtol=1e-5, atol=2e-5)
 B5_TOL = dict(rtol=1e-5, atol=1e-4)  # as B1: exact weights, sums in another order
+# B3's bf16 plane products per f32 product (csrc/flash_attention.cu)
+B3_PLANE_PRODUCTS = 6
 LINEAR_KERNELS = ("bfp_linear", "sbfp_linear", "bfp_linear_bf16")
 
 
@@ -267,6 +270,18 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
     return runs, cases
 
 
+def extreme_x(torch, x):
+    """x with the three-plane split's edges: a value near +-FLT_MAX in each
+    row (one per row, so no sum overflows), f32 subnormals and -0.0."""
+    M, K = x.shape
+    rows = torch.arange(M, device=x.device)
+    fmax = torch.finfo(torch.float32).max
+    x[rows, (7 * rows) % K] = torch.where(rows % 2 == 0, fmax, -fmax)
+    x[:, 1::5] *= 1e-39
+    x[:, 2::7] = -0.0
+    return x
+
+
 def check_b1(torch, dev, cfg):
     from dmx_compressor_tpu_torch.ops.bfp_linear import bfp_linear, bfp_linear_ref
     from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
@@ -282,12 +297,7 @@ def check_b1(torch, dev, cfg):
     g = torch.Generator(device=dev).manual_seed(20)
     M, K, N = BATCH * PROMPT, cfg.hidden_size, cfg.hidden_size
     w = bfp_pack(torch.randn(N, K, generator=g, device=dev) * 0.05, 8, 64)
-    x = torch.randn(M, K, generator=g, device=dev)
-    rows = torch.arange(M, device=dev)
-    fmax = torch.finfo(torch.float32).max
-    x[rows, (7 * rows) % K] = torch.where(rows % 2 == 0, fmax, -fmax)
-    x[:, 1::5] *= 1e-39
-    x[:, 2::7] = -0.0
+    x = extreme_x(torch, torch.randn(M, K, generator=g, device=dev))
     err = max_err(torch, bfp_linear(x, w), bfp_linear_ref(x, w), B1_TOL,
                   f"B1 {M}x{K}x{N} with x near +-FLT_MAX, subnormal and -0.0")
     log(f"B1 bfp_linear {M}x{K}x{N}, x near +-FLT_MAX, subnormal and -0.0: max_abs_err={err:.3g} "
@@ -302,10 +312,21 @@ def check_b5(torch, dev, cfg):
     from dmx_compressor_tpu_torch.ops.compress import SBFP12_16
 
     fmt = Format.from_shorthand(SBFP12_16)
-    return check_linear(torch, dev, "B5 sbfp_linear", sbfp_linear, sbfp_linear_ref,
-                        lambda w: sbfp_pack(w, fmt), sbfp_unpack, b5_bytes,
-                        sbfp_linear_shapes(cfg), [(3, 48, 33), (130, 160, 256), (5, 80, 48)],
-                        B5_TOL, seed=15)
+    step, cases = check_linear(
+        torch, dev, "B5 sbfp_linear", sbfp_linear, sbfp_linear_ref, lambda w: sbfp_pack(w, fmt),
+        sbfp_unpack, b5_bytes, sbfp_linear_shapes(cfg),
+        [(3, 48, 33), (130, 160, 256), (5, 80, 48), (17, 768, 127), (65, 192, 129)],
+        B5_TOL, seed=15, planes=3)
+    # the three-plane split at its edges, as for B1, at the prefill's shape
+    g = torch.Generator(device=dev).manual_seed(21)
+    M, K, N = BATCH * PROMPT, cfg.hidden_size, cfg.hidden_size
+    w = sbfp_pack(torch.randn(N, K, generator=g, device=dev) * 0.05, fmt)
+    x = extreme_x(torch, torch.randn(M, K, generator=g, device=dev))
+    err = max_err(torch, sbfp_linear(x, w), sbfp_linear_ref(x, w), B5_TOL,
+                  f"B5 {M}x{K}x{N} with x near +-FLT_MAX, subnormal and -0.0")
+    log(f"B5 sbfp_linear {M}x{K}x{N}, x near +-FLT_MAX, subnormal and -0.0: max_abs_err={err:.3g} "
+        f"(|y| up to {sbfp_linear_ref(x, w).abs().max().item():.3g})")
+    return step, cases
 
 
 # T1's own shapes: diag_bfpkernel_ab.py:177-183, OPT-1.3B decode at M = 8
@@ -592,15 +613,21 @@ def check_b3(torch, dev, cfg):
         lib_err = (library(*lib_sets[0]) - plain(*sets[0])).abs().max().item()
         lib_ms = time_ms(torch, library, lib_sets)
         pairs = sum(min(S, i + (S - L) + 1) for i in range(L))
-        bound_ms, by = bound(per_set, 4 * B * H * D * pairs)
+        # the kernel takes each of its two products as B3_PLANE_PRODUCTS
+        # bf16 tensor-core products; the f32 SIMT figure is kept beside
+        bound_f32_ms, _ = bound(per_set, 4 * B * H * D * pairs)
+        bound_ms, by = bound(per_set, B3_PLANE_PRODUCTS * 4 * B * H * D * pairs, PEAK_BF16_FLOP_S)
         cases.append(dict(shape=[B * H, L, S, D], bias=with_bias, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                          bound_f32_ms=bound_f32_ms))
         log(f"B3 flash_attention BH={B * H} L={L} S={S} D={D} causal bias={with_bias}: "
             f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms(F.scaled_dot_product_attention, float mask)={lib_ms:.4f} "
             f"(its max_abs_err against the plain version {lib_err:.3g}) "
             f"bound_ms={bound_ms:.4f} ({by}; {PEAK_BYTES_S/1e12} TB/s, "
-            f"{PEAK_F32_FLOP_S/1e12} f32 TFLOP/s)")
+            f"{B3_PLANE_PRODUCTS} bf16 tensor-core products per f32 product at "
+            f"{PEAK_BF16_FLOP_S/1e12} TFLOP/s) bound_f32_ms={bound_f32_ms:.4f} "
+            f"({PEAK_F32_FLOP_S/1e12} f32 TFLOP/s)")
     return cases
 
 
@@ -692,7 +719,8 @@ def path_specs(cfg):
         dict(name="sbfp", build=build_sbfp_mode, cache=dict(max_len=CAPACITY, quantized=True),
              prefill={"sbfp_linear": 6 * L + 1, "flash_attention": L}, prepare=None,
              step={"sbfp_linear": 6 * L + 1, "flash_decode_int8": L},
-             marks={"sbfp_linear": ("sbfp_gemv_kernel", "sbfp_gemm_kernel"),
+             marks={"sbfp_linear": ("bfp_decode_kernel", "sbfp_gemm_kernel", "bfp_wgmma_kernel",
+                                    "split_planes_kernel"),
                     "flash_decode_int8": ("flash_decode_int8_kernel",)},
              logit_tol=LOGIT_TOL),
         dict(name="baseline", build=build_baseline_mode, cache=dict(max_len=CAPACITY),
@@ -818,15 +846,20 @@ def serve_path(torch, dev, kernels, cfg, spec):
 
     pre_events = device_events(torch, warm_prefill)
     pre_ms = sum(us for _, us in pre_events) / 1e3
+    b3 = ""
+    if "flash_attention" in spec["prefill"]:
+        b3_ms = sum(us for n, us in pre_events if "flash_attention_kernel" in n) / 1e3
+        b3 = (f", flash_attention {b3_ms:.4f} ms over {spec['prefill']['flash_attention']} "
+              f"launches")
     linear = next((k for k in spec["prefill"] if k in LINEAR_KERNELS), None)
     if linear is None:
-        log(f"{name} prefill, warm: device time {pre_ms:.4f} ms (its linears run cuBLAS)")
+        log(f"{name} prefill, warm: device time {pre_ms:.4f} ms (its linears run cuBLAS){b3}")
     else:
         lin_ms = sum(us for n, us in pre_events
                      if any(m in n for m in spec["marks"][linear])) / 1e3
         log(f"{name} prefill, warm: device time {pre_ms:.4f} ms, of which {linear} "
-            f"{lin_ms:.4f} ms over {spec['prefill'][linear]} launches, the rest "
-            f"{pre_ms - lin_ms:.4f} ms")
+            f"{lin_ms:.4f} ms over {spec['prefill'][linear]} launches{b3}; all but "
+            f"{linear} {pre_ms - lin_ms:.4f} ms")
     for ev, us in sorted(pre_events, key=lambda e: -e[1])[:6]:
         log(f"  device, warm prefill: {us / 1e3:.4f} ms  {ev[:110]}")
     _, ptok = warm["out"]

@@ -1,9 +1,14 @@
 // The Hopper (sm_90a) kernels shared by T1 (bfp_linear_bf16.cu, one bf16
-// plane of x) and B1 (bfp_linear.cu, three bf16 planes of x): y[M, N] =
-// x[M, K] . W[N, K]^T + bias (+ T1's FLOAT16 epilogues), with the BFP weight
-// W[n, k] = man[n, k] * 2^(exp[n, k / B] + 2 - precision) kept as int8 in
-// device memory.  Up to 16 rows of x, a tensor-core GEMV (bfp_decode_kernel,
-// its note below); above, the wgmma mainloop this note describes.
+// plane of x), B1 (bfp_linear.cu, three bf16 planes of x) and B5
+// (sbfp_linear.cu, three planes): y[M, N] = x[M, K] . W[N, K]^T + bias (+
+// T1's FLOAT16 epilogues), with the weight kept packed in device memory in
+// one of two formats, a template policy of every kernel here (BfpW, SbfpW):
+// the BFP weight W[n, k] = man[n, k] * 2^(exp[n, k / B] + 2 - precision),
+// int8 mantissas and int8 exponents, or the SBFP weight W[n, k] = man[n, k]
+// * scale[n, k / B], int4 mantissas two to a byte and f32 scales.  Either
+// dequantizes exactly into bf16.  Up to 16 rows of x, a tensor-core GEMV
+// (bfp_decode_kernel, its note below); above, the wgmma mainloop this note
+// describes.
 //
 // x planes.  A pre-pass kernel (split_planes_kernel, launched by the same C
 // entry point) writes x as P bf16 planes into a scratch buffer the wrapper
@@ -16,17 +21,19 @@
 //   |x| >= 2^-110; below that the part of l under bf16's last subnormal bit
 //   (2^-133) is lost.  A non-finite x keeps h (a NaN stays a NaN: its
 //   quiet bit is set, since its payload may lie in the low half) and zeroes
-//   m and l.  W is exact in bf16 (<= 7 significant bits times a power of
-//   two, down to 2^-133), so every product h.w, m.w, l.w is exact in f32 and
-//   three tensor-core products per K step give B1's f32 product, differing
-//   from bfp_linear_ref only in how the f32 sums are taken.
+//   m and l.  W is exact in bf16 (BFP: <= 7 significant bits times a power
+//   of two, down to 2^-133; SBFP: a 3-bit mantissa times a scale of <= 5
+//   significant bits, which sbfp_pack checks), so every product h.w, m.w,
+//   l.w is exact in f32 and three tensor-core products per K step give B1's
+//   and B5's f32 products, differing from their plain versions only in how
+//   the f32 sums are taken.
 //
 // Where the dequant goes.  A and B are swapped: W is wgmma's A operand
 // (output features on its 64 rows per warpgroup), x's tokens its N.  Each
 // consumer thread dequantizes its 16 mantissas of two weight rows per
-// stage (no conversion instruction: deq_byte) and stores them as bf16 into
-// its warpgroup's 64 x 64 A tile in shared memory, in the 128-byte swizzle
-// wgmma reads, then `fence.proxy.async`.  One dequant serves all P planes
+// stage (no conversion instruction: the format's deq4) and stores them as
+// bf16 into its warpgroup's 64 x 64 A tile in shared memory, in the
+// 128-byte swizzle wgmma reads, then `fence.proxy.async`.  One dequant serves all P planes
 // and all BM tokens.  A tile in shared memory rather than in registers:
 // ptxas serializes every wgmma (C7513) when registers that wgmma reads are
 // written while another wgmma is in flight, so register-sourced A cannot
@@ -37,14 +44,16 @@
 // 128-feature tile; BM / 2 f32 accumulators per thread, 232 registers by
 // setmaxnreg) and a producer whose one thread keeps a ring of STAGES tiles
 // in flight with TMA (x planes: BM x 64 bf16 each, 128-byte swizzle; W:
-// 128 x 64 int8), completed on mbarriers.  A consumer issues a stage's P x 4
-// wgmmas, then waits for the previous stage's (`wgmma.wait_group 1`) and
-// releases its tiles, so each stage's dequant overlaps the last stage's
-// products.  Exponents are loaded EXP_AHEAD stages before their use.  BM is
-// 256 tokens where those tiles alone fill the card (T1's head: the dequant
-// per product halves), else 128 (three 256-row planes leave no room for a
-// ring).  Blocks are persistent, one per SM, walking the tiles with M
-// fastest, so the tiles that share a weight tile run together and W streams
+// 128 rows of 64 int8 (BFP) or 32 bytes of nibbles (SBFP)), completed on
+// mbarriers.  A consumer issues a stage's P x 4 wgmmas, then waits for the
+// previous stage's (`wgmma.wait_group 1`) and releases its tiles, so each
+// stage's dequant overlaps the last stage's products.  Exponents and
+// scales (one per thread and row per stage: B is a multiple of 16) are
+// loaded EXP_AHEAD stages before their use.  BM is 256 tokens where those
+// tiles alone fill the card (T1's head: the dequant per product halves),
+// else 128 (three 256-row planes leave no room for a ring).  Blocks are
+// persistent, one per SM, walking the tiles with M fastest, so the tiles
+// that share a weight tile run together and W streams
 // from device memory about once; the producer runs on into the next tile
 // while the consumers store the last one, each warp through a small buffer
 // that turns its fragments into 16-byte row stores.  Where the tiles do not
@@ -57,9 +66,11 @@
 // H100 measured with the epilogue removed) and the 206 MB f32 output; at
 // B1's head the 3 x 2MNK bf16 tensor-core operations (989 TFLOP/s); at the
 // narrow shapes the per-stage latency of a ring that is only 6-12 stages
-// deep per tile.  The pre-pass moves M x K x (4 + 2P) bytes.  Needs K and
-// the block size as multiples of 16 (TMA strides, one exponent per 16
-// mantissas); the callers keep their plain-load kernels for the rest.
+// deep per tile.  The pre-pass moves M x K x (4 + 2P) bytes.  Needs the
+// block size as a multiple of 16 (one exponent or scale per 16 mantissas)
+// and K as a multiple of 16 (BFP) or 32 (SBFP: a row of nibbles is K / 2
+// bytes, and a TMA stride is a multiple of 16 bytes); the callers keep
+// their plain-load kernels for the rest.
 
 #pragma once
 
@@ -89,19 +100,21 @@ constexpr int OUT_BYTES = CONSUMERS * 4 * 8 * OUT_PITCH * 4;
 
 // P planes of x; BM x rows (tokens) per block, the wgmma's N: 256 where the
 // tiles fill the card (T1's head), so that a weight tile's dequant serves
-// twice the products, else 128
-template <int P, int BM_>
+// twice the products, else 128; W the weight format (BfpW, SbfpW)
+template <int P, int BM_, class W>
 struct Cfg {
   static constexpr int BM = BM_;
   static constexpr int ACC = BM / 2;  // f32 accumulators per consumer thread
   static constexpr int X_BYTES = P * BM * BK * 2;
-  static constexpr int W_BYTES = BN * BK;
-  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;  // a 1024-byte multiple
+  static constexpr int W_ROW = BK / 16 * W::BYTES16;  // a weight row's bytes per stage
+  static constexpr int W_BYTES = BN * W_ROW;
+  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+  static_assert(STAGE_BYTES % 1024 == 0, "each stage's x tiles 1024-byte aligned");
   // each consumer warpgroup's dequantized weight tiles, bf16 64 x 64, two
   static constexpr int A_BYTES = 64 * BK * 2;
   // as many stages as shared memory holds (227 KB) beside the A tiles and
   // the epilogue buffers, at most 8: 7 x 24 KB (P 1, BM 128), 4 x 40 KB
-  // (BM 256), 3 x 56 KB (P 3)
+  // (BM 256), 3 x 56 KB (P 3, BFP), 3 x 52 KB (P 3, SBFP)
   static constexpr int FIT =
       (232448 - 1024 - 256 - CONSUMERS * 2 * A_BYTES - OUT_BYTES) / STAGE_BYTES;
   static constexpr int STAGES = FIT < 8 ? FIT : 8;
@@ -151,6 +164,70 @@ __device__ __forceinline__ float deq_byte(uint32_t w, int j, float s) {
 __device__ __forceinline__ uint32_t deq_pair(uint32_t w, int j, float s) {
   return __byte_perm(__float_as_uint(deq_byte(w, j, s)), __float_as_uint(deq_byte(w, j + 1, s)),
                      0x7632);
+}
+
+// d = a * b + c on bf16 pairs, rounded once to nearest
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// ---------------------------------------------------------------------------
+// the weight formats: how 16 consecutive weights of a row are stored (Word,
+// BYTES16 bytes), the per-block scale kept beside them (Scale; scale() gives
+// it as an f32 factor), and deq4, which turns weights 4q .. 4q+3 of the 16
+// into two bf16 pairs, each holding the lower k in its low half
+// ---------------------------------------------------------------------------
+
+// BFP (B1, T1): int8 mantissas times 2^(exponent + 2 - precision), one int8
+// exponent per block
+struct BfpW {
+  using Scale = int8_t;
+  using Word = uint4;
+  static constexpr int BYTES16 = 16;
+  __device__ static float scale(Scale e, int precision) {
+    return pow2_exact((int)e + 2 - precision);
+  }
+  __device__ static void deq4(const Word w, int q, float s, uint32_t& lo, uint32_t& hi) {
+    const uint32_t v = q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w;
+    lo = deq_pair(v, 0, s);
+    hi = deq_pair(v, 2, s);
+  }
+};
+
+// SBFP (B5): int4 two's-complement mantissas in [-8, 7], two to a byte (the
+// low nibble the even k), times one f32 scale per block.  The product of a
+// 3-bit mantissa and a scale of <= 5 significant bits is exact in bf16, so
+// the decode runs on bf16 pairs without a conversion instruction: a byte
+// permute puts the two nibbles of a byte at bits 0 and 16, (nib ^ 8) under
+// the exponent of 128 reads 136 + man in bf16, one pair FMA subtracts 136
+// and one multiplies by the scale (the high half of its f32 bits), both
+// exact.
+struct SbfpW {
+  using Scale = float;
+  using Word = uint2;
+  static constexpr int BYTES16 = 8;
+  __device__ static float scale(Scale s, int) { return s; }
+  // byte i of v (its two nibbles) as a bf16 pair times s2
+  __device__ static uint32_t byte_pair(uint32_t v, int i, uint32_t s2) {
+    const uint32_t b = (__byte_perm(v, v >> 4, i | ((4 + i) << 8)) & 0x000F000Fu) ^ 0x43084308u;
+    return fma_bf16x2(fma_bf16x2(b, 0x3F803F80u, 0xC308C308u), s2, 0x80008000u);
+  }
+  __device__ static void deq4(const Word w, int q, float s, uint32_t& lo, uint32_t& hi) {
+    const uint32_t sh = __float_as_uint(s) >> 16;
+    const uint32_t s2 = sh | (sh << 16);
+    const uint32_t v = q < 2 ? w.x : w.y;
+    lo = byte_pair(v, 2 * (q & 1), s2);
+    hi = byte_pair(v, 2 * (q & 1) + 1, s2);
+  }
+};
+
+// all 16 weights of a Word as 8 bf16 pairs, pair i holding k = 2i and 2i + 1
+template <class W>
+__device__ __forceinline__ void deq16(const typename W::Word w, float s, uint32_t (&o)[8]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) W::deq4(w, q, s, o[2 * q], o[2 * q + 1]);
 }
 
 // the x plane values of one f32 (bf16 bit patterns)
@@ -439,14 +516,14 @@ __device__ __forceinline__ void store_tile(const float (&acc)[A], float* buf, co
 // (M tiles fastest), its producer running ahead into the next tile while
 // the consumers store the last one.  With K split, gridDim.x is the number
 // of tiles: one tile per block, summed over the cluster.
-template <int P, int BM_>
+template <int P, int BM_, class W>
 __global__ void __launch_bounds__(THREADS, 1)
 bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                 const __grid_constant__ CUtensorMap wmap, const int8_t* __restrict__ ex,
-                 const float* __restrict__ bias, const float* __restrict__ res,
-                 float* __restrict__ out, int M, int N, int K, int block, int precision,
-                 int out_fp16, int chunks_per_split) {
-  using C = Cfg<P, BM_>;
+                 const __grid_constant__ CUtensorMap wmap,
+                 const typename W::Scale* __restrict__ ex, const float* __restrict__ bias,
+                 const float* __restrict__ res, float* __restrict__ out, int M, int N, int K,
+                 int block, int precision, int out_fp16, int chunks_per_split) {
+  using C = Cfg<P, BM_, W>;
   constexpr int BM = C::BM;
   namespace cg = cooperative_groups;
   extern __shared__ unsigned char smem_raw[];
@@ -490,7 +567,7 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           unsigned char* st = smem + s * C::STAGE_BYTES;
           mbar_expect_tx(&full[s], C::STAGE_BYTES);
           tma_load_3d(st, &xmap, &full[s], (c0 + kc) * BK, m0, 0);
-          tma_load_2d(st + C::X_BYTES, &wmap, &full[s], (c0 + kc) * BK, n0);
+          tma_load_2d(st + C::X_BYTES, &wmap, &full[s], (c0 + kc) * C::W_ROW, n0);
         }
       }
     }
@@ -502,9 +579,9 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       reinterpret_cast<float*>(smem + C::OUT_OFFSET) + (threadIdx.x >> 5) * 8 * OUT_PITCH;
   {
     // A stage: this thread dequantizes its 16 mantissas of rows r and r + 8
-    // of the warpgroup's 64 (16 k each, one 16-byte load per row from the
-    // TMA'd int8 tile) and stores them as bf16 into the warpgroup's A tile
-    // in the 128-byte swizzle that wgmma reads; the warpgroup syncs and
+    // of the warpgroup's 64 (16 k each, one 16-byte (BFP) or 8-byte (SBFP)
+    // load per row from the TMA'd tile) and stores them as bf16 into the
+    // warpgroup's A tile in the 128-byte swizzle that wgmma reads; the warpgroup syncs and
     // issues the stage's P x 4 wgmmas, then waits for the previous stage's
     // (`wgmma.wait_group 1`) and releases its x and W tiles.  The two A
     // tiles alternate, so a stage's dequant overlaps the previous stage's
@@ -518,10 +595,10 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       const int s = it % C::STAGES;
       mbar_wait(&full[s], (it / C::STAGES) & 1);
       const unsigned char* st = smem + s * C::STAGE_BYTES;
-      const uint4 ua = *reinterpret_cast<const uint4*>(st + C::X_BYTES + row * BK + 16 * t);
-      const uint4 ub = *reinterpret_cast<const uint4*>(st + C::X_BYTES + (row + 8) * BK + 16 * t);
-      const uint32_t wa[4] = {ua.x, ua.y, ua.z, ua.w};
-      const uint32_t wb[4] = {ub.x, ub.y, ub.z, ub.w};
+      const unsigned char* wt = st + C::X_BYTES + W::BYTES16 * t;
+      uint32_t oa[8], ob[8];
+      deq16<W>(*reinterpret_cast<const typename W::Word*>(wt + row * C::W_ROW), sa, oa);
+      deq16<W>(*reinterpret_cast<const typename W::Word*>(wt + (row + 8) * C::W_ROW), sb, ob);
       unsigned char* at = atile + (it & 1) * C::A_BYTES;
       // k 16t .. 16t+15 are the 16-byte chunks 2t and 2t + 1 of a 128-byte
       // row; chunk c of row r sits at chunk c ^ (r % 8)
@@ -529,11 +606,9 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int h = 0; h < 2; ++h) {
         const int c = 2 * t + h;
         *reinterpret_cast<uint4*>(at + r * 128 + ((c ^ (r & 7)) << 4)) =
-            make_uint4(deq_pair(wa[2 * h], 0, sa), deq_pair(wa[2 * h], 2, sa),
-                       deq_pair(wa[2 * h + 1], 0, sa), deq_pair(wa[2 * h + 1], 2, sa));
+            make_uint4(oa[4 * h], oa[4 * h + 1], oa[4 * h + 2], oa[4 * h + 3]);
         *reinterpret_cast<uint4*>(at + (r + 8) * 128 + ((c ^ ((r + 8) & 7)) << 4)) =
-            make_uint4(deq_pair(wb[2 * h], 0, sb), deq_pair(wb[2 * h], 2, sb),
-                       deq_pair(wb[2 * h + 1], 0, sb), deq_pair(wb[2 * h + 1], 2, sb));
+            make_uint4(ob[4 * h], ob[4 * h + 1], ob[4 * h + 2], ob[4 * h + 3]);
       }
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       warpgroup_sync(wg);
@@ -555,19 +630,21 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[done % C::STAGES]);
     };
-    // the exponents of this thread's rows (row, row + 8) for stage kc of a
-    // tile, loaded EXP_AHEAD stages before their use: slot u serves the
-    // stages kc with kc % EXP_AHEAD == u, in this tile and then the next
+    // the exponents or scales of this thread's rows (row, row + 8) for
+    // stage kc of a tile, loaded EXP_AHEAD stages before their use: slot u
+    // serves the stages kc with kc % EXP_AHEAD == u, in this tile and then
+    // the next
+    using Scale = typename W::Scale;
     const int nblk = K / block;
-    auto exps = [&](int tile, int kc, int& ea, int& eb) {
-      ea = eb = 0;
+    auto exps = [&](int tile, int kc, Scale& ea, Scale& eb) {
+      ea = eb = Scale(0);
       const int k = (c0 + kc) * BK + 16 * t;
       if (tile >= tiles || kc >= nk || k >= K) return;
       const int n = (tile / mt) * BN + row;
       if (n < N) ea = ex[(size_t)n * nblk + k / block];
       if (n + 8 < N) eb = ex[(size_t)(n + 8) * nblk + k / block];
     };
-    int ea[EXP_AHEAD], eb[EXP_AHEAD];
+    Scale ea[EXP_AHEAD], eb[EXP_AHEAD];
 #pragma unroll
     for (int u = 0; u < EXP_AHEAD; ++u) exps(blockIdx.x, u, ea[u], eb[u]);
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -578,8 +655,8 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
         for (int u = 0; u < EXP_AHEAD; ++u) {
           if (kc + u >= nk) break;
-          const float sa = pow2_exact(ea[u] + 2 - precision);
-          const float sb = pow2_exact(eb[u] + 2 - precision);
+          const float sa = W::scale(ea[u], precision);
+          const float sb = W::scale(eb[u], precision);
           if (kc + u + EXP_AHEAD < nk)
             exps(tile, kc + u + EXP_AHEAD, ea[u], eb[u]);
           else
@@ -621,7 +698,7 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
-// decode (M <= 16): the tensor-core GEMV of T1 (P = 1) and B1 (P = 3)
+// decode (M <= 16): the tensor-core GEMV of T1 (P = 1), B1 and B5 (P = 3)
 // ---------------------------------------------------------------------------
 
 constexpr int DEC_WARPS = 4;
@@ -640,8 +717,9 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[
 // NB tiles of 8 batch rows on its columns (M <= 8 NB), P bf16 planes of x
 // (split_x), one product each against the same A fragment.  A lane loads
 // the 16 contiguous mantissas 16t..16t+15 of its rows g and g + 8 with one
-// 16-byte load each and feeds the A fragment in its own k order (slots 2t,
-// 2t+1 of k16 step q hold k = 16t + 4q + {0, 1}, slots 2t+8, 2t+9 hold
+// 16-byte (BFP) or 8-byte (SBFP) load each and feeds the A fragment in its
+// own k order (slots 2t, 2t+1 of k16 step q hold k = 16t + 4q + {0, 1},
+// slots 2t+8, 2t+9 hold
 // 16t + 4q + {2, 3}), reading x's 16 matching values of its batch row for
 // the B fragment in the same order: no shared memory for either operand.
 // A block of 4 warps owns 16 features and splits its K range over the
@@ -649,19 +727,21 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[
 // meet in shared memory and the cluster's in rank 0's, read from the other
 // ranks' distributed shared memory in rank order.  Needs K % 16 == 0 and
 // block % 16 == 0.
-template <int P, int NB>
+template <int P, int NB, class W>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
-bfp_decode_kernel(const float* __restrict__ x, const int8_t* __restrict__ man,
-                  const int8_t* __restrict__ ex, const float* __restrict__ bias,
+bfp_decode_kernel(const float* __restrict__ x, const unsigned char* __restrict__ man,
+                  const typename W::Scale* __restrict__ ex, const float* __restrict__ bias,
                   const float* __restrict__ res, float* __restrict__ out, int M, int N, int K,
                   int block, int precision, int out_fp16, int chunks_per_split) {
   namespace cg = cooperative_groups;
+  using Word = typename W::Word;
   __shared__ float red[DEC_WARPS][NB * 4][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int na = blockIdx.x * 16 + g, nb = na + 8;
   const int nblk = K / block;
+  const size_t row_bytes = (size_t)K / 16 * W::BYTES16;
   const int nchunks = (K + 63) / 64;
   const int c0 = blockIdx.y * chunks_per_split;
   const int c1 = min(nchunks, c0 + chunks_per_split);
@@ -673,7 +753,7 @@ bfp_decode_kernel(const float* __restrict__ x, const int8_t* __restrict__ man,
     for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
 
   for (int c = c0 + warp; c < c1; c += DEC_WARPS * DEC_UNROLL) {
-    uint4 ua[DEC_UNROLL], ub[DEC_UNROLL];
+    Word ua[DEC_UNROLL], ub[DEC_UNROLL];
     float sa[DEC_UNROLL], sb[DEC_UNROLL];
     float xv[DEC_UNROLL][NB][16];
     // every load of the step first, then the products
@@ -681,15 +761,16 @@ bfp_decode_kernel(const float* __restrict__ x, const int8_t* __restrict__ man,
     for (int u = 0; u < DEC_UNROLL; ++u) {
       const int k = (c + u * DEC_WARPS) * 64 + 16 * t;
       const bool in = c + u * DEC_WARPS < c1 && k < K;
-      ua[u] = ub[u] = make_uint4(0u, 0u, 0u, 0u);
+      ua[u] = ub[u] = Word{};
       sa[u] = sb[u] = 0.f;
+      const size_t kb = (size_t)(k / 16) * W::BYTES16;
       if (in && na < N) {
-        ua[u] = __ldg(reinterpret_cast<const uint4*>(man + (size_t)na * K + k));
-        sa[u] = pow2_exact((int)ex[(size_t)na * nblk + k / block] + 2 - precision);
+        ua[u] = __ldg(reinterpret_cast<const Word*>(man + na * row_bytes + kb));
+        sa[u] = W::scale(ex[(size_t)na * nblk + k / block], precision);
       }
       if (in && nb < N) {
-        ub[u] = __ldg(reinterpret_cast<const uint4*>(man + (size_t)nb * K + k));
-        sb[u] = pow2_exact((int)ex[(size_t)nb * nblk + k / block] + 2 - precision);
+        ub[u] = __ldg(reinterpret_cast<const Word*>(man + nb * row_bytes + kb));
+        sb[u] = W::scale(ex[(size_t)nb * nblk + k / block], precision);
       }
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
@@ -707,12 +788,11 @@ bfp_decode_kernel(const float* __restrict__ x, const int8_t* __restrict__ man,
     }
 #pragma unroll
     for (int u = 0; u < DEC_UNROLL; ++u) {
-      const uint32_t wa[4] = {ua[u].x, ua[u].y, ua[u].z, ua[u].w};
-      const uint32_t wb[4] = {ub[u].x, ub[u].y, ub[u].z, ub[u].w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const uint32_t a[4] = {deq_pair(wa[q], 0, sa[u]), deq_pair(wb[q], 0, sb[u]),
-                               deq_pair(wa[q], 2, sa[u]), deq_pair(wb[q], 2, sb[u])};
+        uint32_t a[4];
+        W::deq4(ua[u], q, sa[u], a[0], a[2]);
+        W::deq4(ub[u], q, sb[u], a[1], a[3]);
 #pragma unroll
         for (int i = 0; i < NB; ++i) {
           uint16_t v[4][P];
@@ -816,10 +896,11 @@ inline int k_splits(int tiles, int nchunks, int per_wave) {
 }
 
 // the decode kernel for M <= 16 rows; K % 16 == 0 and block % 16 == 0
-template <int P>
-cudaError_t launch_decode(const float* x, const int8_t* man, const int8_t* ex, const float* bias,
-                          const float* res, float* out, int M, int N, int K, int block,
-                          int precision, int out_fp16, cudaStream_t s) {
+template <int P, class W = BfpW>
+cudaError_t launch_decode(const float* x, const void* man, const typename W::Scale* ex,
+                          const float* bias, const float* res, float* out, int M, int N, int K,
+                          int block, int precision, int out_fp16, cudaStream_t s) {
+  const unsigned char* wq = static_cast<const unsigned char*>(man);
   const int tiles = (N + 15) / 16;
   const int nchunks = (K + 63) / 64;
   // two blocks per SM where the feature tiles alone give fewer, each split
@@ -843,19 +924,19 @@ cudaError_t launch_decode(const float* x, const int8_t* man, const int8_t* ex, c
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (M <= 8)
-    return cudaLaunchKernelEx(&cfg, bfp_decode_kernel<P, 1>, x, man, ex, bias, res, out, M, N, K,
-                              block, precision, out_fp16, per);
-  return cudaLaunchKernelEx(&cfg, bfp_decode_kernel<P, 2>, x, man, ex, bias, res, out, M, N, K,
+    return cudaLaunchKernelEx(&cfg, bfp_decode_kernel<P, 1, W>, x, wq, ex, bias, res, out, M, N,
+                              K, block, precision, out_fp16, per);
+  return cudaLaunchKernelEx(&cfg, bfp_decode_kernel<P, 2, W>, x, wq, ex, bias, res, out, M, N, K,
                             block, precision, out_fp16, per);
 }
 
 // the main kernel at token tile BM, on the planes the pre-pass wrote
-template <int P, int BM>
-cudaError_t launch_main(EncodeTiled encode, const int8_t* man, const int8_t* ex,
+template <int P, int BM, class W>
+cudaError_t launch_main(EncodeTiled encode, const void* man, const typename W::Scale* ex,
                         const float* bias, const float* res, float* out, uint16_t* pl, int M,
                         int N, int K, int Kp, int block, int precision, int out_fp16,
                         cudaStream_t stream) {
-  using C = Cfg<P, BM>;
+  using C = Cfg<P, BM, W>;
   CUtensorMap xmap, wmap;
   {
     const cuuint64_t dims[3] = {(cuuint64_t)Kp, (cuuint64_t)M, (cuuint64_t)P};
@@ -869,11 +950,14 @@ cudaError_t launch_main(EncodeTiled encode, const int8_t* man, const int8_t* ex,
       return cudaErrorInvalidValue;
   }
   {
-    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
-    const cuuint64_t strides[1] = {(cuuint64_t)K};
-    const cuuint32_t box[2] = {BK, BN};
+    // a weight row: K / 16 groups of BYTES16 bytes; a stage's box: W_ROW
+    // bytes of BN rows
+    const cuuint64_t row = (cuuint64_t)K / 16 * W::BYTES16;
+    const cuuint64_t dims[2] = {row, (cuuint64_t)N};
+    const cuuint64_t strides[1] = {row};
+    const cuuint32_t box[2] = {C::W_ROW, BN};
     const cuuint32_t el[2] = {1, 1};
-    if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(man), dims, strides,
+    if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(man), dims, strides,
                box, el, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -883,7 +967,7 @@ cudaError_t launch_main(EncodeTiled encode, const int8_t* man, const int8_t* ex,
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bfp_wgmma_kernel<P, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        bfp_wgmma_kernel<P, BM, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
@@ -905,14 +989,15 @@ cudaError_t launch_main(EncodeTiled encode, const int8_t* man, const int8_t* ex,
   attr[0].val.clusterDim.z = ks;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, bfp_wgmma_kernel<P, BM>, xmap, wmap, ex, bias, res, out, M, N,
-                            K, block, precision, out_fp16, per);
+  return cudaLaunchKernelEx(&cfg, bfp_wgmma_kernel<P, BM, W>, xmap, wmap, ex, bias, res, out, M,
+                            N, K, block, precision, out_fp16, per);
 }
 
 // y = x . W^T (+ epilogue) through the pre-pass and the wgmma mainloop;
-// needs K % 16 == 0 and block % 16 == 0; planes: P * M * Kp bf16 scratch
-template <int P>
-cudaError_t launch_prefill(const float* x, const int8_t* man, const int8_t* ex,
+// needs block % 16 == 0 and K % 16 == 0 (BFP) or K % 32 == 0 (SBFP);
+// planes: P * M * Kp bf16 scratch
+template <int P, class W = BfpW>
+cudaError_t launch_prefill(const float* x, const void* man, const typename W::Scale* ex,
                            const float* bias, const float* res, float* out, void* planes,
                            int M, int N, int K, int block, int precision, int out_fp16,
                            cudaStream_t stream) {
@@ -927,10 +1012,10 @@ cudaError_t launch_prefill(const float* x, const int8_t* man, const int8_t* ex,
   // 256-token tiles where they alone fill the card (one plane only: three
   // planes of 256 rows leave no room for a ring)
   if (P == 1 && (M + 255) / 256 * ((N + BN - 1) / BN) >= SMS)
-    return launch_main<P, (P == 1 ? 256 : 128)>(encode, man, ex, bias, res, out, pl, M, N, K,
-                                                  Kp, block, precision, out_fp16, stream);
-  return launch_main<P, 128>(encode, man, ex, bias, res, out, pl, M, N, K, Kp, block,
-                             precision, out_fp16, stream);
+    return launch_main<P, (P == 1 ? 256 : 128), W>(encode, man, ex, bias, res, out, pl, M, N, K,
+                                                     Kp, block, precision, out_fp16, stream);
+  return launch_main<P, 128, W>(encode, man, ex, bias, res, out, pl, M, N, K, Kp, block,
+                                precision, out_fp16, stream);
 }
 
 }  // namespace bfp_wgmma

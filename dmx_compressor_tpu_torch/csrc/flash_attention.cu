@@ -1,114 +1,345 @@
-// B3: blockwise (flash) attention for Hopper (sm_90a), in f32.
+// B3: blockwise (flash) attention for Hopper (sm_90a), f32 in and out, on the
+// bf16 tensor cores over exact planes.
 //
 // Replaces: dmx_compressor_tpu/ops/flash_attention.py:_flash_pallas (the
 // TPU Pallas kernel behind flash_attention).
 //
 // out = softmax(q . k^T * scale + bias) . v over [BH, L, D] queries and
-// [BH, S, D] keys/values, optionally causal with the diagonal at offset
-// S - L (row i sees keys j <= i + S - L), optional additive bias [BH, L, S].
+// [BH, S, D] keys/values, D 32 or 64, optionally causal with the diagonal at
+// offset S - L (row i sees keys j <= i + S - L), optional additive bias
+// [BH, L, S].
 //
-// What bounds it on the card, and what the design does about it: f32
-// operations (4*L*S*D per head, about half of that under the causal mask).
-// One block per (bh, tile of 64 queries), one thread per query row holding
-// its q and its output accumulator in registers; key and value tiles of 32
-// rows are staged in shared memory, where every thread of the block reads
-// the same element (a broadcast).  Online softmax in f32 per row; key tiles
-// past the block's last causal column are skipped.  Tensor cores would
-// change the tolerance, so they are a later, stated choice.
+// Numerics.  Every f32 operand is split into three bf16 planes x = h + m +
+// l (as split_x of bfp_wgmma.cuh: truncation, exact), and each product of two
+// operands is taken as the six plane products hh, hm, mh, hl, lh, mm on
+// mma.sync m16n8k16 with f32 accumulators: every plane product is exact in
+// f32, and the three dropped ones (ml, lm, ll) lie below 2^-21 of |a||b|
+// per term, at the level of f32 rounding.  So q . k^T and P . v keep the
+// f32 contract of the plain version (ops/flash_attention.py:
+// flash_attention_ref, held at rtol 1e-5, atol 2e-5); one bf16 pass, or
+// TF32, would not.  flash_attention_planes_ref transcribes this arithmetic
+// for the CPU tests.
+//
+// What bounds it on the card, and what the design does about it: at the
+// prefill's shape (BH 96, L = S = 128, D 64, causal) the whole call is a
+// few microseconds of tensor work over 12.6 MB, so latency and occupancy,
+// not the tensor rate, are the limit (its byte floor is 0.0038 ms on an
+// H100).  FlashAttention-2's shape: a block of 8 warps owns 128 queries of
+// one (b, h), each warp 16 rows whose q planes sit in registers as MMA A
+// fragments (8 warps measured faster than 4 or 2 at that shape on an H100:
+// each K/V tile is split into planes once for twice the rows, at one block
+// of ~220 registers a thread per SM).  Key/value tiles of 64 rows are
+// copied with cp.async into an f32 staging buffer (the next tile's copy
+// overlaps this tile's products), split once into bf16 planes in shared
+// memory (rows padded by 8 elements, so ldmatrix reads hit distinct banks)
+// and read as B fragments with ldmatrix (K) and ldmatrix.trans (V).  Online softmax in f32 on the
+// accumulator fragments (row max by quad shuffles, row sums per thread,
+// summed at the end); the m16n8 accumulator layout is the A fragment of the
+// P . v product, so P is split into planes in registers and never touches
+// shared memory.  Causal key tiles past the block's last row are skipped,
+// and a warp skips the 8-key column groups and 16-key steps past its own
+// last row.  The output is divided by max(l, 1e-30).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "bfp_wgmma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // queries per block (one per thread)
-constexpr int BK = 32;  // keys per shared-memory tile
+using bfp_wgmma::mma_m16n8k16;
+using bfp_wgmma::smem_u32;
+using bfp_wgmma::split_x;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 16 * WARPS;  // queries per block, 16 per warp
+constexpr int BKEY = 64;        // keys per tile
+constexpr int PAD = 8;          // bf16 elements beyond D in a plane row
 
 template <int D>
-__global__ void __launch_bounds__(BQ)
+struct Smem {
+  static constexpr int ROW = D + PAD;             // bf16 per plane row
+  static constexpr int PLANE = BKEY * ROW;        // bf16 per plane
+  static constexpr int STAGE = BKEY * D;          // f32 per staged K or V tile
+  static constexpr int BYTES = 2 * STAGE * 4 + 6 * PLANE * 2;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// the three bf16 planes of two finite f32 values as three bf16 pairs (a
+// low): h = x truncated, r = x - h and l = r - m exact, m = r truncated, l
+// of <= 8 significant bits (bf16-exact down to 2^-133, as in split_x).  It
+// differs from split_x only in the sign of a zero m or l, which no sum
+// here can see.  Softmax weights (>= 0, finite, or NaN where the row's
+// output is NaN anyway) take it directly.
+__device__ __forceinline__ void split_finite_pair(float a, float b, uint32_t (&o)[3]) {
+  const uint32_t ha = __float_as_uint(a) & 0xffff0000u, hb = __float_as_uint(b) & 0xffff0000u;
+  const float ra = __fsub_rn(a, __uint_as_float(ha)), rb = __fsub_rn(b, __uint_as_float(hb));
+  const uint32_t ma = __float_as_uint(ra) & 0xffff0000u, mb = __float_as_uint(rb) & 0xffff0000u;
+  const float la = __fsub_rn(ra, __uint_as_float(ma)), lb = __fsub_rn(rb, __uint_as_float(mb));
+  o[0] = __byte_perm(ha, hb, 0x7632);
+  o[1] = __byte_perm(ma, mb, 0x7632);
+  o[2] = __byte_perm(__float_as_uint(la), __float_as_uint(lb), 0x7632);
+}
+
+// the same for any two f32 values (q, k, v): an inf or NaN keeps h and
+// zeroes m and l, as split_x does
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t (&o)[3]) {
+  if (__builtin_expect(fabsf(a) < INFINITY && fabsf(b) < INFINITY, 1)) {
+    split_finite_pair(a, b, o);
+    return;
+  }
+  uint16_t pa[3], pb[3];
+  split_x<3>(a, pa);
+  split_x<3>(b, pb);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) o[p] = pa[p] | ((uint32_t)pb[p] << 16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ bias,
                        float* __restrict__ out, int L, int S, float scale, int causal,
                        int offset) {
-  __shared__ __align__(16) float Ks[BK][D];
-  __shared__ __align__(16) float Vs[BK][D];
+  using Sm = Smem<D>;
+  constexpr int KD = D / 16;  // k16 steps over the head dim
+  constexpr int ND = D / 8;   // n8 tiles over the head dim
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* kst = reinterpret_cast<float*>(smem);
+  float* vst = kst + Sm::STAGE;
+  // the planes: K h, m, l, then V h, m, l
+  uint16_t* pl = reinterpret_cast<uint16_t*>(smem + 2 * Sm::STAGE * 4);
+
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int row = q0 + threadIdx.x;
-  const bool row_ok = row < L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rows[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
   const float* kb = k + (size_t)bh * S * D;
   const float* vb = v + (size_t)bh * S * D;
+  // keys the block's rows and this warp's rows can see (none where all of
+  // the warp's rows lie past L)
+  const int kend = causal ? min(S, min(q0 + BQ, L) + offset) : S;
+  const int wkend = q0 + 16 * warp >= L ? 0
+                    : causal            ? min(S, min(q0 + 16 * warp + 16, L) + offset)
+                                        : S;
 
-  float qv[D];
-  float acc[D];
-  {
-    const float* qp = q + ((size_t)bh * L + (row_ok ? row : 0)) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qv[d] = qp[d];
-      acc[d] = 0.f;
+  // cp.async of key/value rows t0 .. t0 + 63 into the staging buffer (zero
+  // beyond S)
+  auto stage = [&](int t0) {
+    for (int i = threadIdx.x; i < BKEY * D / 4; i += THREADS) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool in = t0 + r < S;
+      const size_t off = (size_t)(in ? t0 + r : 0) * D + c;
+      cp_async16(kst + r * D + c, kb + off, in);
+      cp_async16(vst + r * D + c, vb + off, in);
     }
-  }
-  float m = -INFINITY, l = 0.f;
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  stage(0);
 
-  // keys past the last row's causal diagonal contribute nothing
-  const int kend = causal ? min(S, min(q0 + BQ, L) - 1 + offset + 1) : S;
-  for (int t0 = 0; t0 < kend; t0 += BK) {
-    for (int i = threadIdx.x; i < BK * D / 4; i += BQ) {
-      const int r = (i * 4) / D;
-      const int c = (i * 4) % D;
-      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (t0 + r < S) {
-        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)(t0 + r) * D + c);
-        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)(t0 + r) * D + c);
+  // this warp's q rows as A fragments of its three planes: qa[p][kk] holds
+  // rows g and g + 8, head dims 16kk + 2t, +1 and 16kk + 8 + 2t, +1
+  uint32_t qa[3][KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rows[i & 1];
+      const int col = 16 * kk + 8 * (i >> 1) + 2 * t;
+      float2 f = make_float2(0.f, 0.f);
+      if (row < L) f = *reinterpret_cast<const float2*>(q + ((size_t)bh * L + row) * D + col);
+      uint32_t o[3];
+      split_pair(f.x, f.y, o);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) qa[p][kk][i] = o[p];
+    }
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+  for (int t0 = 0; t0 < kend; t0 += BKEY) {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();  // the tile has landed; the last tile's planes are read
+    for (int i = threadIdx.x; i < BKEY * D / 4; i += THREADS) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const float4 kf = *reinterpret_cast<const float4*>(kst + r * D + c);
+      const float4 vf = *reinterpret_cast<const float4*>(vst + r * D + c);
+      uint32_t k01[3], k23[3], v01[3], v23[3];
+      split_pair(kf.x, kf.y, k01);
+      split_pair(kf.z, kf.w, k23);
+      split_pair(vf.x, vf.y, v01);
+      split_pair(vf.z, vf.w, v23);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        *reinterpret_cast<uint2*>(pl + p * Sm::PLANE + r * Sm::ROW + c) =
+            make_uint2(k01[p], k23[p]);
+        *reinterpret_cast<uint2*>(pl + (3 + p) * Sm::PLANE + r * Sm::ROW + c) =
+            make_uint2(v01[p], v23[p]);
       }
-      *reinterpret_cast<float4*>(&Ks[r][c]) = kv4;
-      *reinterpret_cast<float4*>(&Vs[r][c]) = vv4;
     }
     __syncthreads();
+    if (t0 + BKEY < kend) stage(t0 + BKEY);  // overlaps this tile's products
+    const int nk = min(BKEY, wkend - t0);     // keys of this tile this warp can see
+    if (nk <= 0) continue;                    // warp-uniform
 
-    float s[BK];
-    float tmax = -INFINITY;
+    // s = q . k^T over this tile's keys: column group j holds keys t0 + 8j ..
+    float s[8][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const int col = t0 + j;
-      const bool ok = col < S && (!causal || col <= row + offset);
-      float dot = 0.f;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qv[d], Ks[j][d], dot);
-      float logit = dot * scale;
-      if (bias != nullptr && ok && row_ok) logit += bias[((size_t)bh * L + row) * S + col];
-      s[j] = ok ? logit : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float m_new = fmaxf(m, tmax);
-    if (m_new != -INFINITY) {  // else: no key of this row so far
-      const float alpha = expf(m - m_new);
-      float psum = 0.f;
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const int mi = lane >> 3;  // the 8x8 matrix whose row address this lane gives
 #pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        s[j] = s[j] == -INFINITY ? 0.f : expf(s[j] - m_new);
-        psum += s[j];
+    for (int kk = 0; kk < KD; kk += 2) {
+#pragma unroll
+      for (int kp = 0; kp < 3; ++kp) {  // k's plane
+        uint32_t b[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (8 * j < nk)
+            ldsm_x4(b[j], pl + kp * Sm::PLANE + (8 * j + (lane & 7)) * Sm::ROW +
+                              16 * (kk + (mi >> 1)) + 8 * (mi & 1));
+#pragma unroll
+        for (int qp = 0; qp + kp < 3; ++qp) {  // q's plane: hh, hm, hl, mh, mm, lh
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (8 * j < nk) mma_m16n8k16(s[j], qa[qp][kk], b[j][0], b[j][1]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (8 * j < nk) mma_m16n8k16(s[j], qa[qp][kk + 1], b[j][2], b[j][3]);
+        }
       }
-      l = l * alpha + psum;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        float a = acc[d] * alpha;
-#pragma unroll
-        for (int j = 0; j < BK; ++j) a = fmaf(s[j], Vs[j][d], a);
-        acc[d] = a;
-      }
-      m = m_new;
     }
-    __syncthreads();
+
+    // online softmax: logits, masks, the rows' new maxima (quad shuffles)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rows[e >> 1];
+        const int col = t0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = col < S && (!causal || col <= row + offset);
+        float x = __fmul_rn(s[j][e], scale);
+        if (bias != nullptr && ok && row < L)
+          x = __fadd_rn(x, bias[((size_t)bh * L + row) * S + col]);
+        s[j][e] = ok ? x : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(mrow[r], mx[r]);
+      ms[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key so far
+      alpha[r] = expf(mrow[r] - ms[r]);
+      mrow[r] = m_new;
+      lrow[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - ms[e >> 1]);
+        lrow[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+    // o += P . v: key step kk's A fragment is column groups 2kk and 2kk + 1
+#pragma unroll
+    for (int kk = 0; kk < BKEY / 16; ++kk) {
+      if (16 * kk >= nk) continue;
+      uint32_t pa[3][4];
+      {
+        uint32_t w[4][3];
+        split_finite_pair(s[2 * kk][0], s[2 * kk][1], w[0]);
+        split_finite_pair(s[2 * kk][2], s[2 * kk][3], w[1]);
+        split_finite_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], w[2]);
+        split_finite_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], w[3]);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pa[p][i] = w[i][p];
+      }
+#pragma unroll
+      for (int vp = 0; vp < 3; ++vp) {  // v's plane
+        uint32_t b[ND / 2][4];
+#pragma unroll
+        for (int j = 0; j < ND / 2; ++j)
+          ldsm_x4_trans(b[j], pl + (3 + vp) * Sm::PLANE +
+                                  (16 * kk + 8 * (mi & 1) + (lane & 7)) * Sm::ROW +
+                                  8 * (2 * j + (mi >> 1)));
+#pragma unroll
+        for (int pp = 0; pp + vp < 3; ++pp) {  // P's plane
+#pragma unroll
+          for (int j = 0; j < ND / 2; ++j) {
+            mma_m16n8k16(o[2 * j], pa[pp], b[j][0], b[j][1]);
+            mma_m16n8k16(o[2 * j + 1], pa[pp], b[j][2], b[j][3]);
+          }
+        }
+      }
+    }
   }
 
-  if (row_ok) {
-    float* op = out + ((size_t)bh * L + row) * D;
-    const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
   }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= L) continue;
+    const float inv = 1.f / fmaxf(lrow[r], 1e-30f);
+    float* op = out + ((size_t)bh * L + rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<float2*>(op + 8 * j) =
+          make_float2(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* bias, float* out,
+                   int BH, int L, int S, float scale, int causal, int offset, cudaStream_t s) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid((L + BQ - 1) / BQ, BH);
+  flash_attention_kernel<D><<<grid, THREADS, Smem<D>::BYTES, s>>>(q, k, v, bias, out, L, S,
+                                                                   scale, causal, offset);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -117,23 +348,18 @@ extern "C" int dmx_flash_attention(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int BH, int L, int S, int D,
                                    float scale, int causal, int offset, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((L + BQ - 1) / BQ, BH);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   const float* bp = static_cast<const float*>(bias);
   float* op = static_cast<float*>(out);
+  if (L <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32:
-      flash_attention_kernel<32><<<grid, BQ, 0, s>>>(qp, kp, vp, bp, op, L, S, scale, causal,
-                                                     offset);
-      break;
+      return (int)launch<32>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);
     case 64:
-      flash_attention_kernel<64><<<grid, BQ, 0, s>>>(qp, kp, vp, bp, op, L, S, scale, causal,
-                                                     offset);
-      break;
+      return (int)launch<64>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

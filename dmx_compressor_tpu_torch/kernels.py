@@ -45,7 +45,7 @@ SIGNATURES = {
     "flash_attention": (
         "dmx_flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
-    "sbfp_linear": ("dmx_sbfp_linear", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "sbfp_linear": ("dmx_sbfp_linear", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "flash_decode": ("dmx_flash_decode", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "bfp_cast": ("dmx_bfp_cast", [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "bfp_linear_bf16": (

@@ -12,12 +12,14 @@ mantissas two to a byte + one f32 scale per block; the CUDA kernels
 registers on their way into the f32 products, so a decode step reads a
 quarter (BFP) or 0.19 (SBFP12_16) of the fp32 weight bytes.
 
-B1 and T1 share the kernels of ``csrc/bfp_wgmma.cuh``, on bf16 planes of x:
-one for T1 (bf16(x)), three for B1 (x = h + m + l exactly,
-:func:`split_bf16x3_ref`), so that B1's exact f32 product runs on the bf16
-tensor cores.  Up to 16 rows a tensor-core GEMV reads x itself; above, the
-wgmma mainloop reads the planes that a pre-pass of the same C entry point
-writes into a scratch buffer the wrapper allocates.
+B1, B5 and T1 share the kernels of ``csrc/bfp_wgmma.cuh``, on bf16 planes of
+x: one for T1 (bf16(x)), three for B1 and B5 (x = h + m + l exactly,
+:func:`split_bf16x3_ref`), so that their exact f32 products run on the bf16
+tensor cores; the weight format (BFP int8 or SBFP int4 + scale, each exact
+in bf16 once dequantized) is a template policy of those kernels.  Up to 16
+rows a tensor-core GEMV reads x itself; above, the wgmma mainloop reads the
+planes that a pre-pass of the same C entry point writes into a scratch
+buffer the wrapper allocates.
 
 ``bfp_linear``, ``bfp_linear_bf16`` and ``sbfp_linear`` launch their kernel
 for CUDA tensors and run the plain version (``*_ref``) for CPU tensors;
@@ -46,8 +48,8 @@ def _check_bfp_payload(w: PackedBFP, K: int) -> int:
     return N
 
 
-# rows of x that B1 and T1 serve with their decode kernel; above them the
-# entry points take the wgmma path and its bf16 x-plane scratch
+# rows of x that B1, B5 and T1 serve with their decode kernel; above them
+# the entry points take the wgmma path and its bf16 x-plane scratch
 _DECODE_ROWS = 16
 
 
@@ -66,8 +68,9 @@ _SIGN = -2147483648  # 0x80000000 as an int32
 
 
 def split_bf16x3_ref(x: torch.Tensor):
-    """Plain transcription of B1's three-plane split (csrc/bfp_wgmma.cuh
-    ``split_x``), for tests: x = h + m + l, each the high 16 bits of an f32
+    """Plain transcription of the three-plane split of B1, B3 and B5
+    (csrc/bfp_wgmma.cuh ``split_x``), for tests: x = h + m + l, each the
+    high 16 bits of an f32
     and so exact in bf16.  h is x with its low 16 bits cleared (truncation;
     a NaN keeps its quiet bit set, since its payload may lie in the low
     half), r = x - h (exact), m = r truncated the same way and l = r - m
@@ -213,10 +216,14 @@ def sbfp_linear(x: torch.Tensor, w: PackedSBFP,
     kernels.check_cuda(*operands,
                        dtypes=(torch.float32, torch.uint8, torch.float32, torch.float32))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    # the wgmma path reads its nibble rows with TMA: K / 2 bytes, a multiple
+    # of 16 only where K % 32 == 0 (else the f32 GEMM, which needs no planes)
+    planes = _x_planes(x2, 3) if K % 32 == 0 else None
     kernels.launch(
         "sbfp_linear",
         x2.data_ptr(), w.nibbles.data_ptr(), w.scale.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        planes.data_ptr() if planes is not None else None,
         M, N, K, w.block_size,
     )
     return out.reshape(*lead, N).to(x.dtype)

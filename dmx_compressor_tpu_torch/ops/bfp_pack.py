@@ -89,13 +89,18 @@ class PackedSBFP(NamedTuple):
 
 def sbfp_pack(x: torch.Tensor, fmt) -> PackedSBFP:
     """Pack along the last axis; ``sbfp_unpack`` of the result is bit for bit
-    ``fmt.cast(x, -1)`` (all-zero blocks included)."""
+    ``fmt.cast(x, -1)`` (all-zero blocks included) and exact in bfloat16.
+    Takes int4 mantissas and scale formats of at most 4 mantissa bits."""
     *lead, n = x.shape
     B = fmt.block_size
     if n % B or n % 2:
         raise ValueError(f"{n} not an even multiple of block {B}")
     if fmt.block_format.precision > 4:
         raise ValueError("nibble packing is int4: block_format precision must be <= 4")
+    if fmt.scaler_format.mantissa > 4:
+        # the kernel (B5) dequantizes into bf16: a 3-bit mantissa times a
+        # scale of <= 5 significant bits is exact there, a wider scale is not
+        raise ValueError("the SBFP kernel takes scale formats of at most 4 mantissa bits")
     xf = x.to(torch.float32).reshape(*lead, n // B, B)
     chunk_max = torch.amax(torch.abs(xf), dim=-1, keepdim=True) / fmt.man_scaling
     safe_max = torch.where(chunk_max > 0.0, chunk_max, torch.ones_like(chunk_max))

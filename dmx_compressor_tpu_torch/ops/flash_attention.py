@@ -3,7 +3,9 @@
 Port of ``flash_attention_ref``, ``flash_attention`` and ``sdpa_transparent``
 of ``dmx_compressor_tpu/ops/flash_attention.py``.  The CUDA kernel
 (``csrc/flash_attention.cu``) streams K/V tiles through shared memory with
-an online softmax in f32, so the [L, S] logits never reach device memory.
+an online softmax in f32, so the [L, S] logits never reach device memory;
+its two products run on the bf16 tensor cores over exact planes of their
+f32 operands (:func:`flash_attention_planes_ref` transcribes them).
 ``flash_attention`` launches it for CUDA tensors and runs the plain version
 for CPU tensors.
 """
@@ -16,8 +18,13 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from .bfp_linear import split_bf16x3_ref
 
 NEG_INF = -1e30
+# the plane products (a's plane, b's plane; 0 = h, 1 = m, 2 = l) that the
+# kernel takes of each of its two products: ml, lm and ll lie below 2^-21
+# of |a||b| per term and are dropped
+KEPT_PLANE_PRODUCTS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -37,13 +44,48 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(w, v.to(torch.float32)).to(q.dtype)
 
 
+def _plane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel takes it: the sum, in f32, of the kept products
+    of the bf16 planes of a and b (each product exact in f32)."""
+    pa = [p.float() for p in split_bf16x3_ref(a)]
+    pb = [p.float() for p in split_bf16x3_ref(b)]
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for i, j in KEPT_PLANE_PRODUCTS[::-1]:  # the small products first
+        out = out + torch.matmul(pa[i], pb[j])
+    return out
+
+
+def flash_attention_planes_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None,
+                               scale: Optional[float] = None,
+                               causal: bool = False) -> torch.Tensor:
+    """Plain transcription of the kernel's arithmetic, for tests (f32 CPU
+    tensors): q k^T and P v each from the six kept plane products, P =
+    exp(logits - row max) unnormalized, the output divided by max(row sum,
+    1e-30).  Unblocked: the kernel's online softmax differs from it only in
+    the order of its f32 sums."""
+    L, D = q.shape[-2], q.shape[-1]
+    S = k.shape[-2]
+    scale = (D**-0.5) if scale is None else scale
+    logits = _plane_matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias
+    if causal:
+        mask = torch.ones((L, S), dtype=torch.bool).tril(S - L)
+        logits = logits.masked_fill(~mask, -math.inf)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return _plane_matmul(p, v) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, scale: Optional[float] = None,
                     causal: bool = False) -> torch.Tensor:
     """softmax(q k^T * scale + bias) v, blockwise.
 
     q: [..., L, D]; k, v: [..., S, D]; bias broadcastable to [..., L, S].
-    Causal masking puts the diagonal at S - L and needs S >= L.
+    Causal masking puts the diagonal at S - L and needs S >= L.  The kernel
+    takes float32 q, k, v and bias and head_dim 32 or 64, and raises on
+    anything else.
     """
     *lead, L, D = q.shape
     S = k.shape[-2]
@@ -55,14 +97,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the flash attention kernel takes head_dim 32 or 64, got {D}")
     BH = math.prod(lead)
     scale = (D**-0.5) if scale is None else float(scale)
-    q2 = q.reshape(BH, L, D).to(torch.float32).contiguous()
-    k2 = k.reshape(BH, S, D).to(torch.float32).contiguous()
-    v2 = v.reshape(BH, S, D).to(torch.float32).contiguous()
+    q2 = q.reshape(BH, L, D).contiguous()
+    k2 = k.reshape(BH, S, D).contiguous()
+    v2 = v.reshape(BH, S, D).contiguous()
     operands = [q2, k2, v2]
     b2 = None
     if bias is not None:
-        b2 = torch.broadcast_to(bias.to(torch.float32), (*lead, L, S)).reshape(BH, L, S)
-        b2 = b2.contiguous()
+        b2 = torch.broadcast_to(bias, (*lead, L, S)).reshape(BH, L, S).contiguous()
         operands.append(b2)
     kernels.check_cuda(*operands, dtypes=(torch.float32,) * len(operands))
     out = torch.empty_like(q2)

@@ -55,23 +55,30 @@ def test_bfp_linear_kernel_matches_plain_on_card(cuda, M, N, K, B):
     torch.testing.assert_close(got, tbl.bfp_linear_ref(x, w, b), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("M", [8, 200])
-def test_bfp_linear_kernel_extreme_x_on_card(cuda, M):
-    """x near +-FLT_MAX (one per row, so no sum overflows), f32 subnormals,
-    +-0.0, and a row each with an inf and a NaN: the three-plane decode
-    kernel (M 8) and wgmma path (M 200) give what the plain version gives."""
-    N, K = 136, 768
-    g = torch.Generator(device=cuda).manual_seed(5)
-    w = tpack.bfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05, 8, 64)
-    x = torch.randn(M, K, generator=g, device=cuda)
-    rows = torch.arange(M, device=cuda)
+def _extreme_x(g, M, K, device):
+    """x near +-FLT_MAX (one per row, so no sum overflows against weights
+    below 1), f32 subnormals, +-0.0, and a row each with an inf, a NaN and
+    a NaN whose payload lies in its low bits."""
+    x = torch.randn(M, K, generator=g, device=device)
+    rows = torch.arange(M, device=device)
     fmax = torch.finfo(torch.float32).max
     x[rows, (7 * rows) % K] = torch.where(rows % 2 == 0, fmax, -fmax)
     x[:, 1::5] *= 1e-39
     x[:, 2::7] = -0.0
     x[1, 3], x[2, 9] = float("inf"), float("nan")
-    x[3, 11] = torch.tensor(0x7F800001, dtype=torch.int32).view(torch.float32)  # low-bit NaN
+    x[3, 11] = torch.tensor(0x7F800001, dtype=torch.int32).view(torch.float32)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 200])
+def test_bfp_linear_kernel_extreme_x_on_card(cuda, M):
+    """_extreme_x: the three-plane decode kernel (M 8) and wgmma path (M
+    200) give what the plain version gives."""
+    N, K = 136, 768
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = tpack.bfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05, 8, 64)
+    x = _extreme_x(g, M, K, cuda)
     got = tbl.bfp_linear(x, w)
     want = tbl.bfp_linear_ref(x, w)
     assert torch.isnan(got[2]).all() and torch.isnan(got[3]).all()
@@ -91,26 +98,56 @@ def test_flash_decode_int8_kernel_matches_plain_on_card(cuda, B, H, Hkv, S, D):
     torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q, kv, lengths), rtol=1e-5, atol=2e-5)
 
 
+# (B, H, L, S, D, causal, with_bias, c): ragged and bias cases, the main
+# path's prefill (8 x 12 heads, L = S = 128, D 64), L and S no multiples of
+# 16 or 64 (one key tile, one ragged 8-key group), and q, k scaled by c = 2
+# so that |q . k| reaches ~100
+B3_SHAPES = [(4, 3, 128, 128, 64, True, False, 1.0), (4, 3, 48, 200, 64, True, True, 1.0),
+             (4, 3, 70, 70, 64, False, False, 1.0), (4, 3, 90, 130, 32, True, False, 1.0),
+             (4, 3, 33, 33, 32, False, True, 1.0), (8, 12, 128, 128, 64, True, False, 1.0),
+             (2, 3, 7, 9, 64, True, False, 1.0), (2, 3, 13, 61, 32, False, True, 1.0),
+             (2, 3, 77, 77, 64, True, True, 1.0), (8, 12, 128, 128, 64, True, False, 2.0),
+             (2, 3, 100, 160, 32, True, True, 2.0)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,S,D,causal,with_bias", [
-    (128, 128, 64, True, False), (48, 200, 64, True, True), (70, 70, 64, False, False),
-    (90, 130, 32, True, False), (33, 33, 32, False, True),
-])
-def test_flash_attention_kernel_matches_plain_on_card(cuda, L, S, D, causal, with_bias):
+@pytest.mark.parametrize("B,H,L,S,D,causal,with_bias,c", B3_SHAPES)
+def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, L, S, D, causal, with_bias, c):
     g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(4, 3, L, D, generator=g, device=cuda)
-    k = torch.randn(4, 3, S, D, generator=g, device=cuda)
-    v = torch.randn(4, 3, S, D, generator=g, device=cuda)
-    bias = torch.randn(4, 3, L, S, generator=g, device=cuda) if with_bias else None
+    q = torch.randn(B, H, L, D, generator=g, device=cuda) * c
+    k = torch.randn(B, H, S, D, generator=g, device=cuda) * c
+    v = torch.randn(B, H, S, D, generator=g, device=cuda)
+    bias = torch.randn(B, H, L, S, generator=g, device=cuda) if with_bias else None
+    n0 = kernels.LAUNCHES["flash_attention"]
     got = tfa.flash_attention(q, k, v, bias, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == n0 + 1
     want = tfa.flash_attention_ref(q, k, v, bias, causal=causal)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
 
 
-# (M, N, K): ragged shapes (K = 48 and 80 are not multiples of 32 and take
-# the 8-byte loads), the SBFP leg's decode shapes and its head
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 128), (torch.bfloat16, 64),
+                                     (torch.float16, 64)])
+def test_flash_attention_kernel_raises_rather_than_falling_back(cuda, dtype, D):
+    q = torch.randn(2, 4, 16, D, device=cuda).to(dtype)
+    n0 = kernels.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q.clone(), q.clone(), causal=True)
+    assert kernels.LAUNCHES["flash_attention"] == n0
+
+
+# (M, N, K): ragged shapes (K = 48 and 80 are not multiples of 32: decode
+# kernel below 17 rows, the f32 GEMM above), the SBFP leg's decode shapes
+# and its head, fc1 at prefill; then the wgmma path's tile edges (M 17, 63,
+# 64, 65, 129; N 127, 129), its K split (out_proj at M 1024, 2 splits; fc2,
+# 3), the decode kernel's second batch tile (M 9-16), and K % 32 == 16 (the
+# f32 GEMM) beside K % 32 == 0 at M > 16
 B5_SHAPES = [(3, 33, 48), (130, 256, 160), (5, 48, 80), (8, 768, 768), (8, 3072, 768),
-             (8, 768, 3072), (8, 50272, 768), (1024, 768, 3072)]
+             (8, 768, 3072), (8, 50272, 768), (1024, 768, 3072),
+             (17, 127, 768), (63, 129, 192), (64, 768, 768), (65, 129, 3072), (129, 127, 256),
+             (1024, 768, 768), (1024, 3072, 768), (9, 768, 3072), (16, 768, 3072),
+             (12, 129, 96), (40, 130, 208), (40, 130, 224)]
 
 
 @pytest.mark.gpu
@@ -126,6 +163,22 @@ def test_sbfp_linear_kernel_matches_plain_on_card(cuda, M, N, K):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["sbfp_linear"] == n0 + 1
     torch.testing.assert_close(got, tbl.sbfp_linear_ref(x, w, b), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 200])
+def test_sbfp_linear_kernel_extreme_x_on_card(cuda, M):
+    """B5's twin of the B1 test: _extreme_x through the three-plane decode
+    kernel (M 8) and wgmma path (M 200) with the SBFP weight format."""
+    N, K = 136, 768
+    g = torch.Generator(device=cuda).manual_seed(6)
+    w = tpack.sbfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05,
+                        Format.from_shorthand(SBFP12_16))
+    x = _extreme_x(g, M, K, cuda)
+    got = tbl.sbfp_linear(x, w)
+    want = tbl.sbfp_linear_ref(x, w)
+    assert torch.isnan(got[2]).all() and torch.isnan(got[3]).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4, equal_nan=True)
 
 
 @pytest.mark.gpu

@@ -240,6 +240,36 @@ def test_flash_attention_matches_jax_ref(L, S, causal, with_bias):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+# B3's kernel takes each of its two products (q k^T and P v) as six exact
+# bf16 plane products (csrc/flash_attention.cu); flash_attention_planes_ref
+# transcribes that arithmetic, held here against the JAX reference at the
+# card test's tolerance.  (L, S, D, causal, with_bias, c): q and k are
+# scaled by c, so that at c = 2 |q . k| reaches ~100.
+B3_PLANE_CASES = [(128, 128, 64, True, False, 1.0), (64, 192, 64, True, False, 1.0),
+                  (72, 200, 64, False, True, 1.0), (90, 130, 32, True, False, 1.0),
+                  (33, 33, 32, False, True, 1.0), (128, 128, 64, True, False, 2.0),
+                  (100, 160, 32, True, True, 2.0)]
+
+
+@pytest.mark.parametrize("L,S,D,causal,with_bias,c", B3_PLANE_CASES)
+def test_flash_attention_plane_products_match_jax_ref(L, S, D, causal, with_bias, c):
+    rs = np.random.RandomState(14)
+    B, H = 2, 3
+    q, k, v = rand(rs, B, H, L, D, scale=c), rand(rs, B, H, S, D, scale=c), rand(rs, B, H, S, D)
+    bias = rand(rs, B, H, L, S) if with_bias else None
+    got = tfa.flash_attention_planes_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                         torch.from_numpy(v),
+                                         None if bias is None else torch.from_numpy(bias),
+                                         causal=causal)
+    if c > 1:
+        assert np.abs(np.einsum("bhld,bhsd->bhls", q, k)).max() > 90
+    want = np.asarray(jfa.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if bias is None else jnp.asarray(bias), causal=causal,
+    ))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-5)
+
+
 def test_flash_attention_rejects_causal_with_fewer_keys():
     with pytest.raises(ValueError):
         tfa.flash_attention(torch.zeros(1, 8, 64), torch.zeros(1, 4, 64),
@@ -341,6 +371,57 @@ def test_sbfp_linear_matches_jax_pallas_interpret(M, N, K, with_bias):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
     ref = np.asarray(jbl.sbfp_linear_ref(jnp.asarray(x), jp, None if b is None else jnp.asarray(b)))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-5)
+
+
+def test_sbfp12_16_weights_are_exact_in_bfloat16():
+    """B5's wgmma path stores the dequantized weight as bf16: an SBFP12_16
+    weight (a mantissa in [-7, 7] times a scale of <= 5 significant bits)
+    survives the round trip bit for bit, on random blocks at four scales,
+    blocks at the scale format's largest and smallest values, all +-7
+    blocks and an all-zero block; a scale format of 5 mantissa bits is
+    refused by the packer."""
+    fmt = TFormat.from_shorthand(SBFP)
+    rs = np.random.RandomState(12)
+    blocks = [rand(rs, 64, 16, scale=s) for s in (1e-4, 0.05, 1.0, 300.0)]
+    sweep = fmt.scaler_format.cast(torch.exp2(torch.arange(-60.0, 60.0)))
+    big, small = sweep.max().item(), sweep[sweep > 0].min().item()
+    for s in (big, small):
+        blocks += [(rs.randint(-7, 8, (8, 16)) * s).astype(np.float32),
+                   np.full((1, 16), 7 * s, np.float32), np.full((1, 16), -7 * s, np.float32)]
+    blocks.append(np.zeros((1, 16), np.float32))
+    w = np.concatenate(blocks)
+    _, tp = sbfp_pair(w)
+    assert tp.scale.max().item() == big and tp.scale[tp.scale > 0].min().item() == small
+    deq = tpack.sbfp_unpack(tp)
+    assert torch.equal(deq.bfloat16().float().view(torch.int32), deq.view(torch.int32))
+    man = tbl.sbfp_unpack_mantissa_int8(tp.nibbles)
+    assert man.max() == 7 and man.min() == -7 and not deq[-1].any()
+    with pytest.raises(ValueError):
+        tpack.sbfp_pack(torch.from_numpy(w),
+                        TFormat.from_shorthand("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}"))
+
+
+@pytest.mark.parametrize("M,N,K", B5_SHAPES)
+def test_sbfp_linear_three_plane_product_matches_ref_and_jax(M, N, K):
+    """B5's product on the wgmma path: the three bf16 planes of x times the
+    bf16 dequantized weight, each product exact, summed in f32 (+ bias),
+    within rtol 1e-5, atol 1e-4 of sbfp_linear_ref and of the JAX
+    sbfp_linear_ref; a seventh of x is scaled by 1e-3, so that the planes
+    span more exponents."""
+    rs = np.random.RandomState(13)
+    w = rand(rs, N, K, scale=0.3)
+    x = rand(rs, M, K)
+    x[:, ::7] *= 1e-3
+    b = rand(rs, N)
+    jp, tp = sbfp_pair(w)
+    wb = tpack.sbfp_unpack(tp).bfloat16().float()
+    h, m, l = tbl.split_bf16x3_ref(torch.from_numpy(x))
+    assert m.float().abs().max() > 0 and l.float().abs().max() > 0
+    y = (h.float() @ wb.T + m.float() @ wb.T) + l.float() @ wb.T + torch.from_numpy(b)
+    ref = tbl.sbfp_linear_ref(torch.from_numpy(x), tp, torch.from_numpy(b))
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
+    want = np.asarray(jbl.sbfp_linear_ref(jnp.asarray(x), jp, jnp.asarray(b)))
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
 def test_sbfp_linear_leading_dims_and_cpu_dispatch():
