@@ -25,8 +25,13 @@ Phases (any failure exits non-zero):
    its epilogues and a row of subnormal weights.  B2 flash_decode_int8, B3
    flash_attention (its two products as six bf16 plane products each on
    mma.sync: its bound at the bf16 peak, the f32 figure beside), B4
-   flash_decode, T2 bfp_cast (both modes at the BASIC path's cast sites,
-   special blocks, the eight probes).
+   flash_decode, T2 bfp_cast (the BFP, FLOAT16 and composed FLOAT16-then-BFP
+   modes at the BASIC path's cast sites, the composed one beside its two
+   launches; special blocks along the last axis and, through the tile
+   kernel, an inner one; the eight probes).  B2 also at bench.py's long
+   shape (S 2048, lengths 2016) and with GQA; B5 also on its f32 route, at
+   the SBFP formats beyond SBFP12_16 that the JAX package serves (a 5-bit
+   scale, blocks of 8 and 24), M = 8 and 1024.
 3. Four serving paths of OPT-125m at full width from seeded random weights
    (seed 0), each a prefill of batch 8 x prompt 128 then 63 greedy decode
    steps, with the launch counters set to 0 just before and read just after
@@ -41,7 +46,8 @@ Phases (any failure exits non-zero):
      module boundaries, the SOFTMAX and LAYER_NORM surrogates, packed
      BFP16_64 weights, a float16 split cache of 128 + 64 slots): prefill
      4L+1 = 49 T1 + 34L+6 = 414 T2, prepare_split_decode 2L = 24 T2, each
-     decode step 49 T1 + 19L+4 = 232 T2.
+     decode step 49 T1 + 16L+3 = 195 T2 (19L+4 casts: 3L+1 launches are a
+     FLOAT16 cast and the BFP cast of its output in one).
    Each path's prefill logits and first 8 greedy tokens are held against the
    same model moved to the CPU (``.to("cpu")``); each prints its decode
    tokens/s, the device time of one warm prefill (a second prefill call
@@ -91,6 +97,12 @@ B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
 B4_TOL = dict(rtol=1e-5, atol=2e-5)
 B5_TOL = dict(rtol=1e-5, atol=1e-4)  # as B1: exact weights, sums in another order
+# (format, K, N) of SBFP weights beyond SBFP12_16 that the JAX package packs
+# and serves, which B5 takes on its f32 route: a 5-bit scale (not exact in
+# bf16) at OPT-125m's out_proj, blocks of 8 and 24
+SBFP_OTHER_FORMATS = [("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", 768, 768),
+                      ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}", 40, 48),
+                      ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{24}", 72, 200)]
 # B3's bf16 plane products per f32 product (csrc/flash_attention.cu)
 B3_PLANE_PRODUCTS = 6
 LINEAR_KERNELS = ("bfp_linear", "sbfp_linear", "bfp_linear_bf16")
@@ -307,7 +319,11 @@ def check_b1(torch, dev, cfg):
 
 def check_b5(torch, dev, cfg):
     from dmx_compressor_tpu_torch.numerics.format import Format
-    from dmx_compressor_tpu_torch.ops.bfp_linear import sbfp_linear, sbfp_linear_ref
+    from dmx_compressor_tpu_torch.ops.bfp_linear import (
+        sbfp_linear,
+        sbfp_linear_ref,
+        sbfp_tensor_cores,
+    )
     from dmx_compressor_tpu_torch.ops.bfp_pack import sbfp_pack, sbfp_unpack
     from dmx_compressor_tpu_torch.ops.compress import SBFP12_16
 
@@ -326,6 +342,32 @@ def check_b5(torch, dev, cfg):
                   f"B5 {M}x{K}x{N} with x near +-FLT_MAX, subnormal and -0.0")
     log(f"B5 sbfp_linear {M}x{K}x{N}, x near +-FLT_MAX, subnormal and -0.0: max_abs_err={err:.3g} "
         f"(|y| up to {sbfp_linear_ref(x, w).abs().max().item():.3g})")
+    # the SBFP formats beyond SBFP12_16 that the JAX package packs and
+    # serves: the f32 route (sbfp_gemm_kernel) at every M; the library
+    # yardstick is torch.addmm (bias + x W^T) on the dequantized weight
+    for shorthand, K, N in SBFP_OTHER_FORMATS:
+        ofmt = Format.from_shorthand(shorthand)
+        for M in (BATCH, BATCH * PROMPT):
+            sets = [(torch.randn(M, K, generator=g, device=dev),
+                     sbfp_pack(torch.randn(N, K, generator=g, device=dev) * 0.05, ofmt),
+                     torch.randn(N, generator=g, device=dev)) for _ in range(copies_for(
+                         b5_bytes(M, K, N)))]
+            if sbfp_tensor_cores(sets[0][1], K):
+                raise AssertionError(f"{shorthand} would take B5's tensor cores")
+            err = max_err(torch, sbfp_linear(*sets[0]), sbfp_linear_ref(*sets[0]), B5_TOL,
+                          f"B5 f32 route {shorthand} {M}x{K}x{N}")
+            ms = time_ms(torch, sbfp_linear, sets)
+            plain_ms = time_ms(torch, sbfp_linear_ref, sets)
+            deq = [(b, x, sbfp_unpack(w).T.contiguous()) for x, w, b in sets]
+            lib_ms = time_ms(torch, torch.addmm, deq)
+            bound_ms, by = bound(b5_bytes(M, K, N), 2 * M * N * K)
+            cases.append(dict(shape=[M, K, N], format=shorthand, route="f32", max_abs_err=err,
+                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                              bound_by=by))
+            log(f"B5 sbfp_linear f32 route {shorthand} M={M} K={K} N={N}: max_abs_err={err:.3g} "
+                f"(tolerance {B5_TOL}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms(torch.addmm, dequantized W, f32)={lib_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({by}; f32)")
     return step, cases
 
 
@@ -393,19 +435,21 @@ def check_t1(torch, dev, cfg):
 def t2_step_launches(cfg):
     """(mode, shape, axis) of each T2 launch of one BASIC decode step, in
     launch order: the two embedding output casts; per layer the LN1 input
-    and output casts and qkv's input cast, the decode attention's q, tail-k,
-    scores, mask, resadd, scale, softmax, weights, tail-v and output casts,
-    out_proj's input cast, the resadd's two input casts and output cast,
-    LN2's output cast, fc1's and fc2's input casts; the head's LN output
-    and input casts."""
+    cast, LN1's output cast with qkv's input cast (one composed "fp16bfp"
+    launch), the decode attention's q, tail-k, scores, mask, resadd, scale,
+    softmax output with weights (composed), tail-v and output casts,
+    out_proj's input cast, the resadd's residual and output casts, LN2's
+    output cast with fc1's input cast (composed), fc2's input cast; the
+    head's LN output cast with its input cast (composed)."""
     d, f, H, L = cfg.hidden_size, cfg.ffn_dim, cfg.num_attention_heads, cfg.num_hidden_layers
     D, S, B = d // H, PROMPT + GEN, BATCH
     x, sc = ("fp16", (B, 1, d), -1), ("fp16", (B, H, 1, S), -1)
-    layer = [x, x, ("bfp", (B, 1, d), -1), ("bfp", (B, H, 1, D), -1),
-             ("bfp", (B, H, GEN, D), -1), sc, ("fp16", (S,), -1), sc, sc, sc,
-             ("bfp", (B, H, 1, S), -1), ("bfp", (B, H, GEN, D), -2), ("fp16", (B, H, 1, D), -1),
-             ("bfp", (B, 1, d), -1), x, x, x, ("bfp", (B, 1, d), -1), ("bfp", (B, 1, f), -1)]
-    return [x, x] + layer * L + [x, ("bfp", (B, 1, d), -1)]
+    layer = [x, ("fp16bfp", (B, 1, d), -1), ("bfp", (B, H, 1, D), -1),
+             ("bfp", (B, H, GEN, D), -1), sc, ("fp16", (S,), -1), sc, sc,
+             ("fp16bfp", (B, H, 1, S), -1), ("bfp", (B, H, GEN, D), -2),
+             ("fp16", (B, H, 1, D), -1), ("bfp", (B, 1, d), -1), x, x,
+             ("fp16bfp", (B, 1, d), -1), ("bfp", (B, 1, f), -1)]
+    return [x, x] + layer * L + [("fp16bfp", (B, 1, d), -1)]
 
 
 def special_blocks(torch, n: int = 10):
@@ -426,14 +470,21 @@ def special_blocks(torch, n: int = 10):
 
 def check_t2(torch, dev, cfg):
     """T2 against its plain version, bit for bit, at the BASIC path's cast
-    sites (both modes at each), on special blocks, and through the eight
-    probes; then its time per launch over one decode step's launches.
-    Returns (the per-step numbers, the cases)."""
+    sites (the BFP, FLOAT16 and composed FLOAT16-then-BFP modes at each; the
+    composed one timed beside its two launches), on special blocks along the
+    last axis and along an inner axis (the tile kernel; 5 columns, no
+    multiple of 4), and through the eight probes; then its time per launch
+    over one decode step's launches.  Returns (the per-step numbers, the
+    cases)."""
     from dmx_compressor_tpu_torch.ops import bfp_cast as T2
 
     def run(mode, x, axis, plain=False):
         if mode == "fp16":
             return (T2.fp16_cast_ref if plain else T2.fp16_cast)(x)
+        if mode == "fp16bfp":
+            if plain:
+                return T2.bfp_cast_ref(T2.fp16_cast_ref(x), 8, 64, axis)
+            return T2.bfp_cast(x, 8, 64, axis, fp16_first=True)
         return (T2.bfp_cast_ref if plain else T2.bfp_cast)(x, 8, 64, axis)
 
     def check(label, mode, x, axis):
@@ -455,25 +506,37 @@ def check_t2(torch, dev, cfg):
         sets = [(torch.randn(shape, generator=g, device=dev)
                  * torch.exp(3 * torch.randn(shape, generator=g, device=dev)),)
                 for _ in range(copies_for(8 * n))]
-        for mode in ("bfp", "fp16"):
+        for mode in ("bfp", "fp16", "fp16bfp"):
             check(f"{mode} {label} {list(shape)} axis {axis}", mode, sets[0][0], axis)
             ms = time_ms(torch, lambda x: run(mode, x, axis), sets)
             plain_ms = time_ms(torch, lambda x: run(mode, x, axis, plain=True), sets)
             bound_ms, by = bound(8 * n, 0)
-            cases.append(dict(mode=mode, site=label, shape=list(shape), axis=axis,
-                              max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                              bound_ms=bound_ms, bound_by=by))
+            case = dict(mode=mode, site=label, shape=list(shape), axis=axis, max_abs_err=0.0,
+                        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                        bound_by=by)
+            extra = ""
+            if mode == "fp16bfp":  # the two launches it replaces, on the same inputs
+                case["two_launches_ms"] = time_ms(
+                    torch, lambda x: T2.bfp_cast(T2.fp16_cast(x), 8, 64, axis), sets)
+                extra = f" two_launches_ms(fp16_cast, then bfp_cast)={case['two_launches_ms']:.4f}"
+            cases.append(case)
             log(f"T2 bfp_cast {mode} {label} {list(shape)} axis {axis}: bit-exact, "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+                f"kernel_ms={ms:.4f}{extra} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
                 f"({by}; 8 B per element at {PEAK_BYTES_S/1e12} TB/s)")
     sp = special_blocks(torch).to(dev)
-    for mode in ("bfp", "fp16"):
+    for mode in ("bfp", "fp16", "fp16bfp"):
+        check(f"{mode} special blocks along the last axis", mode, sp.reshape(5, 128) * 3e4, -1)
         check(f"{mode} special blocks along the last axis", mode, sp.reshape(5, 128), -1)
-    # the same ten blocks along an inner axis: [2, 64, 5] with blocks on dim 1
-    check("bfp special blocks along an inner axis", "bfp",
-          sp.reshape(2, 5, 64).transpose(1, 2).contiguous(), -2)
-    log("T2 bfp_cast on zero, -0.0, subnormal, clamp-edge and 2^126 blocks, both modes, "
-        "last and inner axis: bit-exact")
+    # the same ten blocks along an inner axis (the tile kernel): [2, 64, 5]
+    # with blocks on dim 1, five columns (no multiple of 4: one float a lane)
+    # and, tiled 4 times, twenty (a float4 a lane)
+    inner = sp.reshape(2, 5, 64).transpose(1, 2).contiguous()
+    for mode in ("bfp", "fp16bfp"):
+        check(f"{mode} special blocks along an inner axis", mode, inner, -2)
+        check(f"{mode} special blocks along an inner axis of 20", mode,
+              inner.repeat(1, 1, 4).contiguous() * 3e4, -2)
+    log("T2 bfp_cast on zero, -0.0, subnormal, clamp-edge, 2^126 and fp16-saturating blocks, "
+        "the BFP, FLOAT16 and composed modes, last and inner axis: bit-exact")
     for probe in T2.PROBES:
         x = torch.randn(B, d, generator=g, device=dev) * (8.0 if probe == "d" else 3.0)
         if probe == "h":
@@ -488,12 +551,14 @@ def check_t2(torch, dev, cfg):
     for what, plain in (("ms", False), ("plain_ms", True)):
         runs[what] = time_ms(torch, lambda: [run(m, x, a, plain) for (m, _, a), x
                                              in zip(step, inputs)], [()]) / len(step)
+    runs["step_ms"] = runs["ms"] * len(step)
     runs["library_ms"] = None
     runs["bound_ms"], runs["bound_by"] = bound(
         sum(8 * math.prod(shape) for _, shape, _ in step) / len(step), 0)
     log(f"T2 bfp_cast, one decode step's {len(step)} launches, per launch: "
         f"kernel_ms={runs['ms']:.4f} plain_ms={runs['plain_ms']:.4f} "
-        f"bound_ms={runs['bound_ms']:.6f} (bytes)")
+        f"bound_ms={runs['bound_ms']:.6f} (bytes); the step's T2 device time "
+        f"{runs['step_ms']:.4f} ms")
     return runs, cases
 
 
@@ -529,13 +594,18 @@ def check_b2(torch, dev, cfg):
 
     g = torch.Generator(device=dev).manual_seed(12)
     cases = []
-    # the main path's shape (its cache capacity at the mean fill of its decode
-    # steps) and ragged per-row lengths over an S that is no multiple of a tile
+    # (Hkv, S, lengths): the main path's shape (its cache capacity at the
+    # mean fill of its decode steps), ragged per-row lengths over an S that
+    # is no multiple of a chunk, bench.py's long leg (prompt 1984 in a
+    # 2048-slot cache, lengths 2016 half way through its 64 steps) and GQA
+    # (12 query heads on 4 KV heads, ragged)
     B, H = BATCH, cfg.num_attention_heads
-    Hkv, D = H, cfg.hidden_size // H
+    D = cfg.hidden_size // H
     mean_fill = PROMPT + GEN // 2
-    for S, lengths in [(CAPACITY, [mean_fill] * B),
-                       (200, [1 + (199 * i) // (B - 1) for i in range(B)])]:
+    for Hkv, S, lengths in [(H, CAPACITY, [mean_fill] * B),
+                            (H, 200, [1 + (199 * i) // (B - 1) for i in range(B)]),
+                            (H, 2048, [2016] * B),
+                            (max(1, H // 3), 300, [1 + (299 * i) // (B - 1) for i in range(B)])]:
         per_set = B * Hkv * S * (2 * D + 8) + 2 * B * H * D * 4
         sets = []
         for _ in range(copies_for(per_set)):
@@ -545,8 +615,11 @@ def check_b2(torch, dev, cfg):
                          QuantKV(kq, vq, ks, vs),
                          torch.tensor(lengths, dtype=torch.int32, device=dev)))
         q, kv, le = sets[0]
-        err = max_err(torch, flash_decode_int8(q, kv, le), flash_decode_int8_ref(q, kv, le),
-                      B2_TOL, f"B2 S={S} lengths={lengths}")
+        got = flash_decode_int8(q, kv, le)
+        err = max_err(torch, got, flash_decode_int8_ref(q, kv, le),
+                      B2_TOL, f"B2 Hkv={Hkv} S={S} lengths={lengths}")
+        if not torch.equal(flash_decode_int8(q, kv, le), got):
+            raise AssertionError("B2 gave other bits on the same inputs")
         ms = time_ms(torch, flash_decode_int8, sets)
         plain_ms = time_ms(torch, flash_decode_int8_ref, sets)
         lib_sets = []
@@ -556,12 +629,13 @@ def check_b2(torch, dev, cfg):
             mask = (torch.arange(S, device=dev)[None, :] < le_[:, None])[:, None, None, :]
             lib_sets.append((q_, k, v, mask))
         lib_ms = time_ms(torch, lambda q_, k, v, m: F.scaled_dot_product_attention(
-            q_, k, v, attn_mask=m), lib_sets)
+            q_, k, v, attn_mask=m, enable_gqa=Hkv != H), lib_sets)
         bound_ms, by = bound(*b2_bytes_flops(B, H, Hkv, D, lengths))
-        cases.append(dict(shape=[B, H, S, D], lengths=lengths, max_abs_err=err, ms=ms,
+        cases.append(dict(shape=[B, H, Hkv, S, D], lengths=lengths, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
-        log(f"B2 flash_decode_int8 B={B} H={H} S={S} D={D} lengths={lengths}: "
-            f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        log(f"B2 flash_decode_int8 B={B} H={H} Hkv={Hkv} S={S} D={D} lengths={lengths}: "
+            f"max_abs_err={err:.3g} (the same bits on a second call) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} "
             f"library_ms(F.scaled_dot_product_attention, dequantized K/V)={lib_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({by}; {PEAK_BYTES_S/1e12} TB/s, "
             f"{PEAK_F32_FLOP_S/1e12} f32 TFLOP/s)")
@@ -706,7 +780,9 @@ def path_specs(cfg):
     L = cfg.num_hidden_layers
     t1_marks = ("bfp_decode_kernel", "bfp_wgmma_kernel", "split_planes_kernel",
                 "bfp_bf16_ragged_kernel")
-    t2_marks = ("bfp_rows_kernel", "bfp_cols_kernel", "fp16_kernel")
+    t2_marks = ("bfp_rows_kernel", "bfp_rows_vec_kernel", "bfp_tile_kernel", "fp16_kernel",
+                "fp16_vec_kernel")
+    b2_marks = ("flash_decode_int8_kernel",)
     return [
         dict(name="weights", build=build_weights_mode,
              cache=dict(max_len=CAPACITY, quantized=True),
@@ -714,14 +790,14 @@ def path_specs(cfg):
              step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
              marks={"bfp_linear": ("bfp_decode_kernel", "bfp_gemm_kernel", "bfp_wgmma_kernel",
                                    "split_planes_kernel"),
-                    "flash_decode_int8": ("flash_decode_int8_kernel",)},
+                    "flash_decode_int8": b2_marks},
              logit_tol=LOGIT_TOL),
         dict(name="sbfp", build=build_sbfp_mode, cache=dict(max_len=CAPACITY, quantized=True),
              prefill={"sbfp_linear": 6 * L + 1, "flash_attention": L}, prepare=None,
              step={"sbfp_linear": 6 * L + 1, "flash_decode_int8": L},
              marks={"sbfp_linear": ("bfp_decode_kernel", "sbfp_gemm_kernel", "bfp_wgmma_kernel",
                                     "split_planes_kernel"),
-                    "flash_decode_int8": ("flash_decode_int8_kernel",)},
+                    "flash_decode_int8": b2_marks},
              logit_tol=LOGIT_TOL),
         dict(name="baseline", build=build_baseline_mode, cache=dict(max_len=CAPACITY),
              prefill={"flash_attention": L}, prepare=None, step={"flash_decode": L},
@@ -734,12 +810,13 @@ def path_specs(cfg):
         # + 2 embedding casts + the final LN's 2 and the head's 2; each of the
         # 4L+1 linears one T1.  prepare_split_decode casts each layer's base k
         # and v.  A decode step runs the fused step and head: 19 casts per
-        # layer + 4 (t2_step_launches), 4L+1 T1.
+        # layer + 4 in 16 launches per layer + 3 (t2_step_launches: 3 per
+        # layer and the head's are a FLOAT16 cast and a BFP cast in one), 4L+1 T1.
         dict(name="basic", build=build_basic_mode,
              cache=dict(max_len=PROMPT + GEN, dtype="float16", split_base_len=PROMPT),
              prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 34 * L + 6},
              prepare={"bfp_cast": 2 * L},
-             step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 19 * L + 4},
+             step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 16 * L + 3},
              marks={"bfp_linear_bf16": t1_marks, "bfp_cast": t2_marks},
              logit_tol=BASIC_LOGIT_TOL),
     ]

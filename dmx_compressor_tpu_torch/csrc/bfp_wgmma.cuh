@@ -23,7 +23,8 @@
 //   quiet bit is set, since its payload may lie in the low half) and zeroes
 //   m and l.  W is exact in bf16 (BFP: <= 7 significant bits times a power
 //   of two, down to 2^-133; SBFP: a 3-bit mantissa times a scale of <= 5
-//   significant bits, which sbfp_pack checks), so every product h.w, m.w,
+//   significant bits, which sbfp_pack records; B5 sends any other SBFP
+//   weight to its f32 GEMM), so every product h.w, m.w,
 //   l.w is exact in f32 and three tensor-core products per K step give B1's
 //   and B5's f32 products, differing from their plain versions only in how
 //   the f32 sums are taken.

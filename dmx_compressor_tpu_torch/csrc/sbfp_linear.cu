@@ -5,29 +5,36 @@
 //
 // W[n, k] = man[n, k] * scale[n, k / B]: int4 mantissas in [-7, 7] packed two
 // to a byte (two's complement, low nibble = even k), one f32 scale per block
-// of B along K.  A mantissa has at most 3 significant bits and the scale at
-// most 5 (sbfp_pack checks), so the dequantized weight is exact in bf16 and
-// the only difference from the plain PyTorch version (ops/bfp_linear.py:
-// sbfp_linear_ref) is the order of the f32 sums.
+// of B along K.  The packer (ops/bfp_pack.py:sbfp_pack) takes any scale
+// format, as the JAX package's does, and records whether the dequantized
+// weight is exact in bf16 (a 3-bit mantissa times a scale of at most 5
+// significant bits inside bf16's normal range: SBFP12_16 is).
 //
-// What bounds it on the card, and what the design does about it (the three
-// kernels are chosen by shape in the C entry point):
-// - Decode (M <= 16): the tensor-core GEMV of bfp_wgmma.cuh
+// What bounds it on the card, and what the design does about it (the kernels
+// are chosen by the C entry point from the shape and `tensor_cores`, which
+// the wrapper sets for bf16-exact weights with K and B multiples of 16):
+// - Decode (M <= 16), tensor cores: the tensor-core GEMV of bfp_wgmma.cuh
 //   (bfp_decode_kernel with the SBFP weight format, shared with B1 and T1),
 //   three bf16 planes of x, K split over a cluster: bound by launch and
 //   cluster-reduction latency at OPT-125m's shapes, not by the 0.75 bytes
 //   per weight it streams.
-// - Prefill (M > 16) with K a multiple of 32: the wgmma mainloop of
-//   bfp_wgmma.cuh with the SBFP weight format and three bf16 planes of x
-//   (the pre-pass writes them into the wrapper's scratch), so B5's f32
-//   product runs on the bf16 tensor cores: its floor is 3 x 2MNK at 989
-//   TFLOP/s.  The nibble decode (SbfpW::deq4) takes half of BFP's
+// - Prefill (M > 16) with K a multiple of 32, tensor cores: the wgmma
+//   mainloop of bfp_wgmma.cuh with the SBFP weight format and three bf16
+//   planes of x (the pre-pass writes them into the wrapper's scratch), so
+//   B5's f32 product runs on the bf16 tensor cores: its floor is 3 x 2MNK at
+//   989 TFLOP/s.  The nibble decode (SbfpW::deq4) takes half of BFP's
 //   instructions per weight, and the weight tile half its bytes.
-// - M > 16 with K % 32 == 16 (a row of nibbles is then no multiple of 16
-//   bytes, which TMA needs; sbfp_gemm_kernel): a plain shared-memory-tiled
-//   f32 FMA GEMM (64x64 tile, 4x4 per thread), weight tiles dequantized on
-//   their way into shared memory.
-// K and B must be multiples of 16 (the wrapper checks); M and N are
+// - Everything else (sbfp_gemm_kernel): M > 16 with K % 32 == 16 (a row of
+//   nibbles is then no multiple of 16 bytes, which TMA needs), and at every
+//   M a weight that is not exact in bf16 (a wider scale format) or a K or
+//   block that is no multiple of 16 (a block of 8 or 24): a plain
+//   shared-memory-tiled f32 FMA GEMM (64x64 tile, 4x4 per thread), each
+//   weight dequantized in f32 (man * scale, rounded as sbfp_unpack rounds
+//   it) on its way into shared memory.  A K that is no multiple of its
+//   16-wide tile is masked, not padded (padding as the TPU kernel does would
+//   copy x and W on every call); the block may be any divisor of K.  No route
+//   reads a scale through bf16.
+// K must be even and a multiple of B (the wrapper checks); M and N are
 // arbitrary.  The launch error is returned to the caller (cudaGetLastError).
 
 #include <cuda_runtime.h>
@@ -39,12 +46,6 @@ namespace {
 
 constexpr int TILE = 64;
 constexpr int TILE_K = 16;
-
-// the signed value of nibble j (0..7) of a 32-bit word of packed mantissas
-__device__ __forceinline__ float nibble(uint32_t word, int j) {
-  const int v = (int)((word >> (4 * j)) & 0xfu);
-  return (float)(v - ((v > 7) << 4));
-}
 
 __global__ void __launch_bounds__(256)
 sbfp_gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ nib,
@@ -58,7 +59,7 @@ sbfp_gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ nib,
   const int n0 = blockIdx.x * TILE;
   const int nblk = K / block_size;
   const int row_bytes = K / 2;
-  // loader coordinates: row li of the tile, k offset lk .. lk+3 (two bytes)
+  // loader coordinates: row li of the tile, k offset lk .. lk+3
   const int li = threadIdx.x / 4;
   const int lk = (threadIdx.x % 4) * 4;
 
@@ -71,18 +72,18 @@ sbfp_gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ nib,
   for (int k0 = 0; k0 < K; k0 += TILE_K) {
     const int m = m0 + li;
     const int n = n0 + li;
-    const int k = k0 + lk;  // K % 16 == 0: k .. k+3 are all in range
 #pragma unroll
-    for (int j = 0; j < 4; ++j) As[lk + j][li] = m < M ? x[(size_t)m * K + k + j] : 0.f;
-    if (n < N) {
-      const uint8_t* rp = nib + (size_t)n * row_bytes + k / 2;
-      const uint32_t word = (uint32_t)rp[0] | ((uint32_t)rp[1] << 8);
-      const float s = scale[(size_t)n * nblk + k / block_size];  // B % 16 == 0
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Bs[lk + j][li] = nibble(word, j) * s;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Bs[lk + j][li] = 0.f;
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + lk + j;  // past K (a ragged last tile): a zero term
+      const bool in_k = k < K;
+      As[lk + j][li] = m < M && in_k ? x[(size_t)m * K + k] : 0.f;
+      float w = 0.f;
+      if (n < N && in_k) {
+        const uint32_t byte = nib[(size_t)n * row_bytes + k / 2];
+        const int v = (int)((k & 1) ? byte >> 4 : byte & 0xfu);
+        w = __fmul_rn((float)(v - ((v > 7) << 4)), scale[(size_t)n * nblk + k / block_size]);
+      }
+      Bs[lk + j][li] = w;
     }
     __syncthreads();
 #pragma unroll
@@ -113,23 +114,23 @@ sbfp_gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ nib,
 
 }  // namespace
 
-// planes: bf16 scratch of [3, M, K rounded up to 64] for M > 16 with K % 32
-// == 0 (else unused)
+// planes: bf16 scratch of [3, M, K rounded up to 64] for the wgmma path
+// (tensor_cores, M > 16, K % 32 == 0; else unused)
 extern "C" int dmx_sbfp_linear(const void* x, const void* nibbles, const void* scale,
                                const void* bias, void* out, void* planes, int M, int N, int K,
-                               int block_size, void* stream) {
-  if (K % 16 != 0 || block_size % 16 != 0 || K % block_size != 0)
-    return (int)cudaErrorInvalidValue;
+                               int block_size, int tensor_cores, void* stream) {
+  if (K % 2 != 0 || block_size <= 0 || K % block_size != 0) return (int)cudaErrorInvalidValue;
+  if (tensor_cores && (K % 16 != 0 || block_size % 16 != 0)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* sp = static_cast<const float*>(scale);
   const float* bp = static_cast<const float*>(bias);
   float* op = static_cast<float*>(out);
   cudaError_t err = cudaSuccess;
-  if (M <= 16) {
+  if (tensor_cores && M <= 16) {
     err = bfp_wgmma::launch_decode<3, bfp_wgmma::SbfpW>(xf, nibbles, sp, bp, nullptr, op, M, N,
                                                         K, block_size, 0, 0, s);
-  } else if (K % 32 == 0) {
+  } else if (tensor_cores && K % 32 == 0) {
     err = bfp_wgmma::launch_prefill<3, bfp_wgmma::SbfpW>(xf, nibbles, sp, bp, nullptr, op, planes,
                                                          M, N, K, block_size, 0, 0, s);
   } else {

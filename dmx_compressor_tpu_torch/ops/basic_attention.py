@@ -8,7 +8,8 @@ The compound ScaledDotProductAttention decomposes into actmatmul -> resadd
 -> mul -> softmax -> dropout -> actmatmul, each sub-op with its BASIC casts.
 At T = 1 this module runs the same chain in f32 op for op: the BFP casts
 (q and k rows along head_dim, scores and v along the sequence) and the
-FLOAT16 boundaries through kernel T2 (``ops/bfp_cast.py``), the SOFTMAX
+FLOAT16 boundaries through kernel T2 (``ops/bfp_cast.py``; the softmax
+output cast and the weights' BFP cast in one launch), the SOFTMAX
 surrogate inline.  The two products are f32 ``torch.matmul`` on
 BFP16-cast operands, whose products are exact: the JAX package's
 bf16 x bf16 -> f32 einsums, in another summation order.  (A bf16
@@ -57,9 +58,11 @@ def cast_v_sblocks(v: torch.Tensor, block: int, wl: int) -> torch.Tensor:
 
 
 def _softmax_chain(s: torch.Tensor, mask_row: torch.Tensor, scale: float,
-                   params: BasicSDPAParams) -> torch.Tensor:
+                   params: BasicSDPAParams, out_cast: bool = True) -> torch.Tensor:
     """actmatmul output cast -> resadd(mask) -> mul(scale) -> SOFTMAX
-    surrogate between its FLOAT16 casts, on f32 scores [..., S]."""
+    surrogate between its FLOAT16 casts, on f32 scores [..., S].
+    ``out_cast=False`` leaves the softmax output cast to the consumer (the
+    weights' BFP cast takes it in the same T2 launch)."""
     s = _fp16_cast_f32(s)  # actmatmul output cast
     bias = _fp16_cast_f32(mask_row)  # resadd(0, mask) with fp16 casts
     s = _fp16_cast_f32(s + bias)  # resadd output cast
@@ -70,7 +73,7 @@ def _softmax_chain(s: torch.Tensor, mask_row: torch.Tensor, scale: float,
     ssum = torch.sum(e, dim=-1, keepdim=True)
     r0 = 1.0 / ssum
     r = r0 * (2.0 - ssum * r0)
-    return _fp16_cast_f32(e * r)  # softmax output cast
+    return _fp16_cast_f32(e * r) if out_cast else e * r  # softmax output cast
 
 
 def basic_sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,8 +95,8 @@ def basic_sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qc = cast_blocked_lastdim(q, params.block, params.wl).reshape(B, Hkv, rep, D)
     kc = cast_k_rows(k, params.wl, params.block)
     s = torch.matmul(qc, kc.transpose(-1, -2)).reshape(B, H, 1, S)
-    w = _softmax_chain(s, mask_row, scale, params)
-    wc = cast_blocked_lastdim(w, params.block, params.wl).reshape(B, Hkv, rep, S)
+    w = _softmax_chain(s, mask_row, scale, params, out_cast=False)
+    wc = cast_blocked_lastdim(w, params.block, params.wl, fp16_first=True).reshape(B, Hkv, rep, S)
     vc = cast_v_sblocks(v, params.block, params.wl)
     out = torch.matmul(wc, vc).reshape(B, H, 1, D)
     return _fp16_cast_f32(out)  # actmatmul output cast
@@ -134,7 +137,8 @@ def basic_sdpa_decode_split(
         return torch.matmul(qg, kc.transpose(-1, -2)).reshape(B, H, 1, k_seg.shape[2])
 
     s = torch.cat([seg_scores(base_k, base_k_cast), seg_scores(tail_k, None)], dim=-1)
-    wc = cast_blocked_lastdim(_softmax_chain(s, mask_row, scale, params), block, wl)
+    wc = cast_blocked_lastdim(_softmax_chain(s, mask_row, scale, params, out_cast=False), block,
+                              wl, fp16_first=True)
 
     def seg_out(w_seg, v_seg, precast):
         vc = precast if precast is not None else cast_v_sblocks(v_seg, block, wl)

@@ -36,10 +36,13 @@ from .bfp_pack import PackedBFP
 
 
 def layer_norm_surrogate_fp16(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
-                              eps: float, on_grid: bool = False) -> torch.Tensor:
+                              eps: float, on_grid: bool = False,
+                              out_cast: bool = True) -> torch.Tensor:
     """FLOAT16 input cast + LAYER_NORM[vsimd] surrogate + FLOAT16 output
     cast.  ``on_grid`` skips the input cast where the producer emitted
-    fp16-grid values (the cast is an identity there)."""
+    fp16-grid values (the cast is an identity there); ``out_cast=False``
+    leaves the output cast to the consumer (``fused_ln_linear``, whose BFP
+    input cast takes it in the same launch)."""
     x16 = x.to(torch.float32)
     if not on_grid:
         x16 = _fp16_cast_f32(x16)
@@ -49,7 +52,7 @@ def layer_norm_surrogate_fp16(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.T
     r0 = torch.rsqrt(var + eps)
     rr = r0 * (1.5 - 0.5 * (var + eps) * r0 * r0)  # one Newton step
     y = d * rr * ln_w.to(torch.float32) + ln_b.to(torch.float32)
-    return _fp16_cast_f32(y)
+    return _fp16_cast_f32(y) if out_cast else y
 
 
 def resadd_fp16(a: torch.Tensor, b: torch.Tensor, a_on_grid: bool = False,
@@ -83,17 +86,19 @@ def fused_ln_linear(
 ):
     """[resadd ->] LN surrogate -> BFP cast -> dequant matmul -> bias ->
     FLOAT16 [-> ReLU].  With ``emit_pre`` also returns the resadd output
-    (the next residual).  The JAX package's ``w_bf16`` weights are not
-    ported: the port keeps the int8 payload only."""
+    (the next residual).  The LN's FLOAT16 output cast and the linear's BFP
+    input cast run as one T2 launch (``bfp_cast(..., fp16_first=True)``).
+    The JAX package's ``w_bf16`` weights are not ported: the port keeps the
+    int8 payload only."""
     h = x
     on_grid = input_on_grid
     if residual is not None:
         h = resadd_fp16(h, residual, a_on_grid=input_on_grid, b_on_grid=residual_on_grid)
         on_grid = True  # resadd's FLOAT16 output cast just ran
     pre = h
-    h = layer_norm_surrogate_fp16(h, ln_w, ln_b, eps, on_grid=on_grid)
+    h = layer_norm_surrogate_fp16(h, ln_w, ln_b, eps, on_grid=on_grid, out_cast=False)
     y = fused_basic_linear(h, packed=packed, bias=bias, in_wl=wl, in_block=in_block,
-                           out_fp16=True)
+                           out_fp16=True, in_fp16_first=True)
     if relu:
         y = torch.clamp(y, min=0.0)
     if emit_pre:

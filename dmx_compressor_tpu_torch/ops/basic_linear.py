@@ -43,10 +43,12 @@ def _fp16_cast_f32(y: torch.Tensor) -> torch.Tensor:
     return T2.fp16_cast(y)
 
 
-def cast_blocked_lastdim(x: torch.Tensor, block: int, wl: int) -> torch.Tensor:
+def cast_blocked_lastdim(x: torch.Tensor, block: int, wl: int,
+                         fp16_first: bool = False) -> torch.Tensor:
     """Symmetric nearest BFP fake-quant, blocks along the last axis (T2 on
-    the card); f32 out."""
-    return T2.bfp_cast(x.to(torch.float32), wl, block, -1)
+    the card); f32 out.  ``fp16_first`` applies the FLOAT16 cast first, in
+    the same launch."""
+    return T2.bfp_cast(x.to(torch.float32), wl, block, -1, fp16_first=fp16_first)
 
 
 def fused_basic_linear(
@@ -59,6 +61,7 @@ def fused_basic_linear(
     out_fp16: bool = False,
     res_out: Optional[torch.Tensor] = None,
     res_on_grid: bool = False,
+    in_fp16_first: bool = False,
 ) -> torch.Tensor:
     """y = fp16(cast_bfp(x) @ W_deq.T + b) [-> FLOAT16 ResAdd with ``res_out``].
 
@@ -67,13 +70,15 @@ def fused_basic_linear(
     package also takes None, an input used as is: not ported);
     ``packed`` is the int8 BFP payload; ``out_fp16`` applies the FLOAT16
     output cast; ``res_out`` (shaped like the output) adds a FLOAT16 ResAdd
-    after it, its residual cast skipped when ``res_on_grid``.  The JAX
+    after it, its residual cast skipped when ``res_on_grid``;
+    ``in_fp16_first`` applies the producer's FLOAT16 output cast to x in the
+    input cast's launch (``fused_ln_linear``).  The JAX
     package's ``w_bf16`` form (a bf16 weight cache) is not ported: the port
     keeps the int8 payload only."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     N = packed.mantissa.shape[0]
-    x2 = cast_blocked_lastdim(x.reshape(-1, K), in_block, in_wl)
+    x2 = cast_blocked_lastdim(x.reshape(-1, K), in_block, in_wl, fp16_first=in_fp16_first)
     r = None
     if res_out is not None:
         r = res_out.reshape(-1, N).to(torch.float32)

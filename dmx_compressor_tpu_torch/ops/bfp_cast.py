@@ -12,8 +12,10 @@ plain versions below; both are bit for bit the same function.
 Every BASIC cast of the port goes through these two wrappers: the
 ``BlockFloatingPoint`` (symmetric, nearest, blocks dividing the axis) and
 ``FLOAT16`` casts of ``numerics/format.py``, and the casts of
-``ops/basic_*.py``.  :func:`probe` runs the eight building blocks one at a
-time through the same kernel.
+``ops/basic_*.py``.  ``bfp_cast(..., fp16_first=True)`` is the FLOAT16 cast
+followed by the BFP cast in one launch, for the fused decode step's sites
+where a FLOAT16 output cast feeds a BFP input cast.  :func:`probe` runs the
+eight building blocks one at a time through the same kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from .. import kernels
 from ..numerics import rounding as R
 
-_OP_BFP, _OP_FP16, _OP_PROBE_A = 0, 1, 2
+_OP_BFP, _OP_FP16, _OP_PROBE_A, _OP_FP16_BFP = 0, 1, 2, 10
 PROBES = "abcdefgh"
 _FP16_MIN_NORMAL = 6.103515625e-05
 _MAX_ROW_BLOCK = 256  # the last-axis kernel keeps a block in registers
@@ -94,31 +96,38 @@ def _launch(src: torch.Tensor, op: int, outer: int, length: int, inner: int, blo
     return out
 
 
-def bfp_cast(x: torch.Tensor, wl: int, block: int, axis: int = -1) -> torch.Tensor:
+def bfp_cast(x: torch.Tensor, wl: int, block: int, axis: int = -1,
+             fp16_first: bool = False) -> torch.Tensor:
     """Symmetric nearest BFP cast with ``wl``-bit mantissas, blocks of
     ``block`` consecutive positions along ``axis`` (a multiple of
-    ``block``).  Returns ``x``'s dtype."""
+    ``block``).  With ``fp16_first`` the FLOAT16 cast is applied first, in
+    the same launch: ``bfp_cast_ref(fp16_cast_ref(x), ...)`` bit for bit.
+    Returns ``x``'s dtype (f32 with ``fp16_first``)."""
     ax = axis % x.ndim
     n = x.shape[ax]
     if n % block:
         raise ValueError(f"axis {axis} of length {n} is not a multiple of the block {block}")
     if not kernels.plain_or_kernel(x):
+        if fp16_first:
+            x = fp16_cast_ref(x)
         return bfp_cast_ref(x, wl, block, ax)
     if x.numel() == 0:
-        return x.clone()
+        return x.to(torch.float32) if fp16_first else x.clone()
+    op = _OP_FP16_BFP if fp16_first else _OP_BFP
+    dtype = torch.float32 if fp16_first else x.dtype
     xf = x.to(torch.float32)
     moved = torch.movedim(xf, ax, -1)
     if moved.is_contiguous() and block <= _MAX_ROW_BLOCK:
         # the blocked axis is innermost in memory (a kᵀ view blocked along
         # its rows, for one): a last-axis cast of the same storage
-        out = _launch(moved, _OP_BFP, moved.numel() // n, n, 1, block, wl)
-        return torch.movedim(out, -1, ax).to(x.dtype)
+        out = _launch(moved, op, moved.numel() // n, n, 1, block, wl)
+        return torch.movedim(out, -1, ax).to(dtype)
     src = xf.contiguous()
     inner = math.prod(src.shape[ax + 1:])
     if inner == 1 and block > _MAX_ROW_BLOCK:
         raise ValueError(f"last-axis BFP blocks of at most {_MAX_ROW_BLOCK}, got {block}")
-    out = _launch(src, _OP_BFP, math.prod(src.shape[:ax]), n, inner, block, wl)
-    return out.to(x.dtype)
+    out = _launch(src, op, math.prod(src.shape[:ax]), n, inner, block, wl)
+    return out.to(dtype)
 
 
 def fp16_cast(x: torch.Tensor) -> torch.Tensor:

@@ -191,22 +191,28 @@ def sbfp_linear_ref(x: torch.Tensor, w: PackedSBFP,
     return y.to(x.dtype)
 
 
+def sbfp_tensor_cores(w: PackedSBFP, K: int) -> bool:
+    """Whether B5 serves ``w`` on its bf16 tensor-core kernels: weights exact
+    in bf16 (recorded at pack time, so no call reads the scales) with K and
+    the block multiples of 16.  Any other payload takes its f32 FMA GEMM, at
+    every M."""
+    return w.bf16_exact and K % 16 == 0 and w.block_size % 16 == 0
+
+
 def sbfp_linear(x: torch.Tensor, w: PackedSBFP,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ dequant(w).T + bias; ``x`` may have any leading shape.  The
-    kernel takes K and the block size as multiples of 16."""
+    """y = x @ dequant(w).T + bias; ``x`` may have any leading shape; K even
+    and a multiple of the block (as ``sbfp_pack`` makes it)."""
     if not kernels.plain_or_kernel(x):
         return sbfp_linear_ref(x, w, bias)
     *lead, K = x.shape
     N = w.nibbles.shape[0]
-    if w.nibbles.shape != (N, K // 2) or w.nibbles.dtype != torch.uint8:
+    if K % 2 or w.nibbles.shape != (N, K // 2) or w.nibbles.dtype != torch.uint8:
         raise ValueError(f"packed weight {tuple(w.nibbles.shape)} {w.nibbles.dtype} "
                          f"does not take x [..., {K}] (uint8 nibbles, [N, K // 2])")
-    if K % 16 or w.block_size % 16 or K % w.block_size:
-        raise ValueError(f"the SBFP kernel takes K and block_size as multiples of 16 "
-                         f"(K % block_size == 0), got K={K}, block_size={w.block_size}")
-    if w.scale.shape != (N, K // w.block_size):
-        raise ValueError("scales must be [N, K // block_size]")
+    if K % w.block_size or w.scale.shape != (N, K // w.block_size):
+        raise ValueError(f"scales must be [N, K // block_size], K a multiple of the block; "
+                         f"got K={K}, block_size={w.block_size}, scales {tuple(w.scale.shape)}")
     x2 = x.reshape(-1, K).to(torch.float32).contiguous()
     M = x2.shape[0]
     operands = [x2, w.nibbles, w.scale]
@@ -216,14 +222,15 @@ def sbfp_linear(x: torch.Tensor, w: PackedSBFP,
     kernels.check_cuda(*operands,
                        dtypes=(torch.float32, torch.uint8, torch.float32, torch.float32))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    tensor_cores = sbfp_tensor_cores(w, K)
     # the wgmma path reads its nibble rows with TMA: K / 2 bytes, a multiple
     # of 16 only where K % 32 == 0 (else the f32 GEMM, which needs no planes)
-    planes = _x_planes(x2, 3) if K % 32 == 0 else None
+    planes = _x_planes(x2, 3) if tensor_cores and K % 32 == 0 else None
     kernels.launch(
         "sbfp_linear",
         x2.data_ptr(), w.nibbles.data_ptr(), w.scale.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         planes.data_ptr() if planes is not None else None,
-        M, N, K, w.block_size,
+        M, N, K, w.block_size, int(tensor_cores),
     )
     return out.reshape(*lead, N).to(x.dtype)

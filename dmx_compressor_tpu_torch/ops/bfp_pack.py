@@ -80,27 +80,42 @@ class PackedSBFP(NamedTuple):
     scale: float32 [..., N // block_size], the scaler_format-cast chunk max
         (zero for an all-zero block)
     block_size: B (16 for SBFP12_16)
+    bf16_exact: every dequantized weight (mantissa x scale) is exact in
+        bfloat16, decided from the format at pack time (:func:`sbfp_bf16_exact`);
+        B5 serves only such weights on its bf16 tensor-core kernels
     """
 
     nibbles: torch.Tensor
     scale: torch.Tensor
     block_size: int
+    bf16_exact: bool = False
+
+
+def sbfp_bf16_exact(fmt) -> bool:
+    """Whether every weight of SBFP format ``fmt`` is exact in bfloat16 once
+    dequantized: a mantissa of at most 3 bits (int4) times a scale of at most
+    5 significant bits has at most 8, bf16's count, and every scale the
+    format can hold, times the mantissa, stays inside bf16's normal range
+    (its smallest, subnormals included, >= 2^-126; its largest < 2^124)."""
+    sf = fmt.scaler_format
+    emin = 1 - sf.bias - (0 if sf.flush_subnormal else sf.mantissa)
+    emax = 2**sf.exponent - sf.bias
+    return (fmt.block_format.precision <= 4 and sf.mantissa <= 4
+            and emin >= -126 and emax <= 124)
 
 
 def sbfp_pack(x: torch.Tensor, fmt) -> PackedSBFP:
     """Pack along the last axis; ``sbfp_unpack`` of the result is bit for bit
-    ``fmt.cast(x, -1)`` (all-zero blocks included) and exact in bfloat16.
-    Takes int4 mantissas and scale formats of at most 4 mantissa bits."""
+    ``fmt.cast(x, -1)`` (all-zero blocks included).  Takes int4 mantissas
+    (block_format precision <= 4) and any scale format, as the JAX
+    package's packer does; the last axis must be even (two mantissas to a
+    byte) and a multiple of the block."""
     *lead, n = x.shape
     B = fmt.block_size
     if n % B or n % 2:
         raise ValueError(f"{n} not an even multiple of block {B}")
     if fmt.block_format.precision > 4:
         raise ValueError("nibble packing is int4: block_format precision must be <= 4")
-    if fmt.scaler_format.mantissa > 4:
-        # the kernel (B5) dequantizes into bf16: a 3-bit mantissa times a
-        # scale of <= 5 significant bits is exact there, a wider scale is not
-        raise ValueError("the SBFP kernel takes scale formats of at most 4 mantissa bits")
     xf = x.to(torch.float32).reshape(*lead, n // B, B)
     chunk_max = torch.amax(torch.abs(xf), dim=-1, keepdim=True) / fmt.man_scaling
     safe_max = torch.where(chunk_max > 0.0, chunk_max, torch.ones_like(chunk_max))
@@ -111,7 +126,8 @@ def sbfp_pack(x: torch.Tensor, fmt) -> PackedSBFP:
     lo = man[..., 0::2] & 0xF
     hi = man[..., 1::2] & 0xF
     return PackedSBFP(nibbles=(lo | (hi << 4)).to(torch.uint8),
-                      scale=scale.to(torch.float32), block_size=B)
+                      scale=scale.to(torch.float32), block_size=B,
+                      bf16_exact=sbfp_bf16_exact(fmt))
 
 
 def sbfp_unpack_mantissa_int8(nibbles: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,9 @@ activations exact in bf16 (a BFP cast of <= 9 bits: BASIC mode), kernel B1
 (f32) otherwise, and in the decode regime the fused BASIC linear
 (``ops/basic_linear.py``: casts through T2, matmul through T1).  Every
 Linear with weight format SAME and an SBFP weight storage format of at most
-4 bits becomes a :class:`PackedSBFPLinear` holding int4 nibbles + per-block
-f32 scales, and runs kernel B5 (both payloads bit-exact w.r.t. the fake-quant
-weight cast; kernels in ops/bfp_linear.py).
+4 bits (any scale format) becomes a :class:`PackedSBFPLinear` holding int4
+nibbles + per-block f32 scales, and runs kernel B5 (both payloads bit-exact
+w.r.t. the fake-quant weight cast; kernels in ops/bfp_linear.py).
 
 The JAX package keeps a bf16 dequant cache instead of the payload for most
 layers (a TPU tuning choice, compress.py:73-77 and :310-315); the port keeps
@@ -181,10 +181,12 @@ class PackedSBFPLinear(_PackedLinear):
         self.register_buffer("weight_nibbles", packed.nibbles)
         self.register_buffer("weight_block_scale", packed.scale)
         self.block_size = packed.block_size
+        self.bf16_exact = packed.bf16_exact
 
     @property
     def packed(self) -> PackedSBFP:
-        return PackedSBFP(self.weight_nibbles, self.weight_block_scale, self.block_size)
+        return PackedSBFP(self.weight_nibbles, self.weight_block_scale, self.block_size,
+                          self.bf16_exact)
 
     def _forward(self, _input):
         return sbfp_linear(_input, self.packed, bias=self._bias)

@@ -25,6 +25,12 @@ from .kv_cache import QuantKV
 
 NEG_INF = -1e30
 
+# B2's split of S: keys per CUDA block, the CHUNK of csrc/flash_decode_int8.cu
+B2_CHUNK = 256
+# per device: B2's merge tickets, int32, zero between launches (the merging
+# block resets its own); launches that share them run on one stream
+_TICKETS = {}
+
 
 def post_update_lengths(cache) -> torch.Tensor:
     """Per-row valid lengths after this step's append, int32 [B] on the
@@ -109,6 +115,57 @@ def flash_decode_int8_ref(q: torch.Tensor, kv: QuantKV, lengths,
     return torch.matmul(w * v_s[:, :, None, :], v_q.to(torch.float32)).to(q.dtype)
 
 
+def flash_decode_int8_split_ref(q: torch.Tensor, kv: QuantKV, lengths,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """Plain transcription of B2's arithmetic, for tests: the keys below
+    each row's length cut into chunks of ``B2_CHUNK``;
+    per chunk and query head m = max logit, p = exp(logit - m), l = sum p,
+    acc = sum (p * v_scale) v_q; then the chunks merged in chunk order:
+    out = sum_c acc_c w_c / sum_c l_c w_c with w_c = exp(m_c - max_c m_c).
+    Shapes as :func:`flash_decode_int8_ref`."""
+    B, H, _, D = q.shape
+    chunk = B2_CHUNK
+    scale = (D**-0.5) if scale is None else scale
+    k_q, v_q, k_s, v_s = kv
+    S = k_q.shape[-2]
+    if k_q.shape[-3] != H:
+        rep = H // k_q.shape[-3]
+        k_q = torch.repeat_interleave(k_q, rep, dim=-3)
+        v_q = torch.repeat_interleave(v_q, rep, dim=-3)
+        k_s = torch.repeat_interleave(k_s, rep, dim=-2)
+        v_s = torch.repeat_interleave(v_s, rep, dim=-2)
+    logits = torch.matmul(q.to(torch.float32), k_q.to(torch.float32).transpose(-1, -2))[:, :, 0]
+    logits = logits * (k_s * scale)  # [B, H, S]
+    le = _lengths_1d(lengths, B, q.device)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    valid = torch.arange(n * chunk, device=q.device)[None, :] < le[:, None]  # [B, n * chunk]
+    lg = torch.nn.functional.pad(logits, (0, pad)).reshape(B, H, n, chunk)
+    lg = lg.masked_fill(~valid.reshape(B, 1, n, chunk), -torch.inf)
+    m = torch.amax(lg, dim=-1)  # [B, H, n]; -inf for a chunk past the length
+    live = torch.isfinite(m)
+    p = torch.exp(lg - torch.where(live, m, 0.0)[..., None])
+    l = p.sum(-1)
+    pv = p * torch.nn.functional.pad(v_s, (0, pad)).reshape(B, H, n, chunk)
+    vqf = torch.nn.functional.pad(v_q.to(torch.float32), (0, 0, 0, pad)).reshape(B, H, n, chunk, D)
+    acc = torch.matmul(pv[..., None, :], vqf)[..., 0, :]  # [B, H, n, D]
+    gm = torch.amax(m, dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - gm), 0.0)
+    gl = torch.zeros(B, H, device=q.device)
+    o = torch.zeros(B, H, D, device=q.device)
+    for c in range(n):  # chunk order
+        gl = gl + l[:, :, c] * w[:, :, c]
+        o = o + acc[:, :, c] * w[:, :, c, None]
+    return (o / torch.clamp(gl, min=1e-30)[..., None])[:, :, None].to(q.dtype)
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
 def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
                       scale: Optional[float] = None) -> torch.Tensor:
     """softmax((q k^T) * scale masked to col < lengths[b]) v over int8 K/V,
@@ -120,9 +177,9 @@ def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
     if not kernels.plain_or_kernel(q):
         return flash_decode_int8_ref(q, kv, lengths, scale)
     Hkv, S = kv.k_q.shape[1], kv.k_q.shape[2]
-    if D not in (32, 64, 128) or H % Hkv:
-        raise ValueError(f"the decode kernel takes head_dim 32/64/128 and H % Hkv == 0, "
-                         f"got D={D}, H={H}, Hkv={Hkv}")
+    if D not in (32, 64, 128) or H % Hkv or H // Hkv > 32:
+        raise ValueError(f"the decode kernel takes head_dim 32/64/128 and H % Hkv == 0 with at "
+                         f"most 32 query heads a KV head, got D={D}, H={H}, Hkv={Hkv}")
     if kv.k_q.shape != (B, Hkv, S, D) or kv.v_q.shape != kv.k_q.shape:
         raise ValueError("int8 payloads must be [B, Hkv, S, D]")
     if kv.k_scale.shape != (B, Hkv, S) or kv.v_scale.shape != (B, Hkv, S):
@@ -136,9 +193,17 @@ def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
                 torch.int32),
     )
     out = torch.empty_like(q2)
+    n = -(-S // B2_CHUNK)
+    acc = ml = tk = None  # one chunk a row: each block finishes its row
+    if n > 1:
+        # the chunks' (acc [B, H, n, D], then (m, l) [B, H, n, 2]) in one buffer
+        part = torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=q.device)
+        acc, ml = part.data_ptr(), part.data_ptr() + B * H * n * D * 4
+        tk = _tickets(q.device, B * Hkv).data_ptr()
     kernels.launch(
         "flash_decode_int8",
         q2.data_ptr(), kv.k_q.data_ptr(), kv.v_q.data_ptr(), kv.k_scale.data_ptr(),
-        kv.v_scale.data_ptr(), le.data_ptr(), out.data_ptr(), B, H, Hkv, S, D, scale,
+        kv.v_scale.data_ptr(), le.data_ptr(), out.data_ptr(), acc, ml, tk, B, H, Hkv, S, D,
+        scale,
     )
     return out.to(q.dtype)

@@ -235,6 +235,37 @@ def test_fp16_cast_matches_jax_bit_for_bit():
     bits_equal(fmt.numpy(), JFormat.from_shorthand(FLOAT16).cast(jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("layout", ["lastdim", "scores", "inner"])
+def test_composed_fp16_then_bfp_cast_matches_jax_bit_for_bit(layout):
+    """bfp_cast(..., fp16_first=True), the one-launch FLOAT16-then-BFP cast
+    of the fused decode step, is bfp_cast_ref(fp16_cast_ref(x)) bit for bit
+    and the JAX package's _fp16_cast_f32 then cast_blocked_lastdim (the
+    ten special blocks, less the subnormal one where XLA flushes; their
+    FLOAT16 images flush it to zero anyway, and values beyond 65504
+    saturate first); along an inner axis against the plain version."""
+    r = rng(3)
+    flat = np.concatenate([special_blocks(4), r.standard_normal(128) * 7e4,
+                           r.standard_normal(128) * 3e-5]).astype(np.float32)
+    if layout == "lastdim":
+        x = flat.reshape(7, 128)
+    elif layout == "scores":  # [B, H, 1, S] softmax weights, blocks along S
+        x = np.abs(flat).reshape(7, 1, 1, 128) / np.float32(7e4)
+    else:
+        x = np.ascontiguousarray(flat.reshape(2, 7, 64).transpose(0, 2, 1))
+    xt = torch.from_numpy(x)
+    axis = -2 if layout == "inner" else -1
+    got = T2.bfp_cast(xt, WL, BLOCK, axis, fp16_first=True)
+    assert got.dtype == torch.float32
+    bits_equal(got.numpy(), T2.bfp_cast_ref(T2.fp16_cast_ref(xt), WL, BLOCK, axis).numpy())
+    bits_equal(got.numpy(), tbli.cast_blocked_lastdim(tbli._fp16_cast_f32(xt), BLOCK, WL).numpy()
+               if axis == -1 else T2.bfp_cast(T2.fp16_cast(xt), WL, BLOCK, axis).numpy())
+    if axis == -1:
+        want = jbli.cast_blocked_lastdim(jbli._fp16_cast_f32(jnp.asarray(x)), BLOCK, WL)
+        bits_equal(got.numpy(), np.asarray(want))
+        # the FLOAT16 images differ from x: the composition is not a no-op
+        assert not np.array_equal(got.numpy(), T2.bfp_cast(xt, WL, BLOCK, -1).numpy())
+
+
 # ---------------------------------------------------------------------------
 # kernel T2's probes, against the Pallas kernels of probe_fused_cast.py
 # ---------------------------------------------------------------------------
@@ -572,18 +603,23 @@ def test_basic_leg_routes_through_t1_and_t2(monkeypatch):
     """Counts of the kernel wrappers' calls on the test config, as
     chip_smoke.py asserts the kernels' launches on the card: prefill
     (modular) 4L+1 T1 and 34L+6 T2, prepare_split_decode 2L T2, each decode
-    step 4L+1 T1 and 19L+4 T2 through the fused step and head; B1 never, the
-    plain BFP/FP rounding paths never."""
+    step 4L+1 T1 and 16L+3 T2 through the fused step and head; B1 never, the
+    plain BFP/FP rounding paths never.  Every cast is still counted: 3L+1
+    of a step's T2 calls are the composed FLOAT16-then-BFP cast (LN1 ->
+    qkv, softmax -> weights, LN2 -> fc1 per layer; the final LN -> the
+    head), two casts each, so a step makes 19L+4 casts as before."""
     ids = _jax_model()[2]
     tm, caches = _port_model()
     L = tm.cfg.num_hidden_layers
-    counts = dict.fromkeys(["t1", "b1", "t2", "fused_step", "plain_round"], 0)
+    counts = dict.fromkeys(["t1", "b1", "t2", "composed", "fused_step", "plain_round"], 0)
 
     def spy(mod, attr, key):
         fn = getattr(mod, attr)
 
         def wrapped(*a, **kw):
             counts[key] += 1
+            if kw.get("fp16_first"):
+                counts["composed"] += 1
             return fn(*a, **kw)
 
         monkeypatch.setattr(mod, attr, wrapped)
@@ -598,11 +634,14 @@ def test_basic_leg_routes_through_t1_and_t2(monkeypatch):
         spy(R, attr, "plain_round")
 
     _, tok = greedy_prefill(tm, caches, torch.from_numpy(ids))
-    assert counts == dict(t1=4 * L + 1, b1=0, t2=34 * L + 6, fused_step=0, plain_round=0)
+    assert counts == dict(t1=4 * L + 1, b1=0, t2=34 * L + 6, composed=0, fused_step=0,
+                          plain_round=0)
     prepare_split_decode(tm, caches)
     assert counts["t2"] == 34 * L + 6 + 2 * L
     assert all(c.base_cast_key == (WL, BLOCK) for c in caches)
     greedy_decode(tm, caches, tok, P, 2)
-    assert counts == dict(t1=3 * (4 * L + 1), b1=0, t2=34 * L + 6 + 2 * L + 2 * (19 * L + 4),
-                          fused_step=2 * L, plain_round=0)
+    assert counts == dict(t1=3 * (4 * L + 1), b1=0, t2=34 * L + 6 + 2 * L + 2 * (16 * L + 3),
+                          composed=2 * (3 * L + 1), fused_step=2 * L, plain_round=0)
+    casts = counts["t2"] + counts["composed"] - (34 * L + 6 + 2 * L)
+    assert casts == 2 * (19 * L + 4)
     assert all(isinstance(m, PackedBFPLinear) for m in (tm.lm_head,))

@@ -85,17 +85,44 @@ def test_bfp_linear_kernel_extreme_x_on_card(cuda, M):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4, equal_nan=True)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,H,Hkv,S,D", [(8, 12, 12, 200, 64), (2, 8, 4, 77, 128), (3, 4, 4, 33, 32)])
-def test_flash_decode_int8_kernel_matches_plain_on_card(cuda, B, H, Hkv, S, D):
+# (B, H, Hkv, S, D, lengths): the first three with random lengths; then the
+# main path's shape, bench.py's long shape (S 2048, lengths near 2016), every
+# row a single key, GQA (12 query heads on 4 KV heads) with ragged rows, and
+# rows of several 256-key chunks at each head_dim
+B2_SHAPES = [(8, 12, 12, 200, 64, None), (2, 8, 4, 77, 128, None), (3, 4, 4, 33, 32, None),
+             (8, 12, 12, 256, 64, [160] * 8), (8, 12, 12, 2048, 64, [2016 - i for i in range(8)]),
+             (8, 12, 12, 256, 64, [1] * 8), (4, 12, 4, 300, 64, [1, 129, 256, 300]),
+             (2, 32, 1, 1000, 128, [999, 513]), (4, 12, 4, 600, 64, [1, 200, 599, 600]),
+             (2, 8, 8, 520, 128, [520, 64]), (3, 4, 2, 600, 32, [600, 257, 3])]
+
+
+def _b2_inputs(cuda, B, H, Hkv, S, D, lengths):
     g = torch.Generator(device=cuda).manual_seed(0)
     kq, ks = tkv.QuantizedKVCache._quantize(torch.randn(B, Hkv, S, D, generator=g, device=cuda))
     vq, vs = tkv.QuantizedKVCache._quantize(torch.randn(B, Hkv, S, D, generator=g, device=cuda))
-    kv = tkv.QuantKV(kq, vq, ks, vs)
     q = torch.randn(B, H, 1, D, generator=g, device=cuda)
-    lengths = torch.randint(1, S + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
-    got = tfd.flash_decode_int8(q, kv, lengths)
-    torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q, kv, lengths), rtol=1e-5, atol=2e-5)
+    le = (torch.randint(1, S + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
+          if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=cuda))
+    return q, tkv.QuantKV(kq, vq, ks, vs), le
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,D,lengths", B2_SHAPES)
+def test_flash_decode_int8_kernel_matches_plain_on_card(cuda, B, H, Hkv, S, D, lengths):
+    """Held to the plain version and to the split transcription; the merge
+    tickets are left at zero."""
+    q, kv, le = _b2_inputs(cuda, B, H, Hkv, S, D, lengths)
+    n0 = kernels.LAUNCHES["flash_decode_int8"]
+    got = tfd.flash_decode_int8(q, kv, le)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode_int8"] == n0 + 1
+    torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q, kv, le), rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(got, tfd.flash_decode_int8_split_ref(q, kv, le), rtol=1e-5,
+                               atol=2e-5)
+    # the chunks merge in chunk order: the same inputs give the same bits
+    assert torch.equal(tfd.flash_decode_int8(q, kv, le), got)
+    tickets = tfd._TICKETS.get(torch.device("cuda", torch.cuda.current_device()))
+    assert tickets is None or not tickets.any()
 
 
 # (B, H, L, S, D, causal, with_bias, c): ragged and bias cases, the main
@@ -179,6 +206,31 @@ def test_sbfp_linear_kernel_extreme_x_on_card(cuda, M):
     want = tbl.sbfp_linear_ref(x, w)
     assert torch.isnan(got[2]).all() and torch.isnan(got[3]).all()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4, equal_nan=True)
+
+
+# the SBFP formats beyond SBFP12_16 that the JAX package serves (a 5-bit
+# scale: not exact in bf16; blocks of 8 and 24): B5's f32 GEMM at every M
+SBFP_OTHER = [("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", 768, 768),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", 80, 130),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}", 40, 48),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{24}", 72, 200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,K,N", SBFP_OTHER)
+@pytest.mark.parametrize("M", [8, 1024])
+def test_sbfp_linear_f32_route_other_formats_on_card(cuda, fmt, K, N, M):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    w = tpack.sbfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05,
+                        Format.from_shorthand(fmt))
+    assert not tbl.sbfp_tensor_cores(w, K)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    b = torch.randn(N, generator=g, device=cuda)
+    n0 = kernels.LAUNCHES["sbfp_linear"]
+    got = tbl.sbfp_linear(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sbfp_linear"] == n0 + 1
+    torch.testing.assert_close(got, tbl.sbfp_linear_ref(x, w, b), rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -297,11 +349,14 @@ def _same_bits(got, want):
 
 
 # (shape, axis): the BASIC path's cast sites, an S-blocked V, a k^T view
-# blocked along its rows, blocks of 32 and 256, and the special blocks
+# blocked along its rows, blocks of 32 and 256, and the special blocks; an
+# inner axis of 512 (a 256-block is taller than the tile kernel keeps in
+# registers) and an operand that is not on a 16-byte boundary (the scalar
+# paths)
 T2_SITES = [((8, 768), -1), ((8, 3072), -1), ((8, 12, 1, 64), -1), ((8, 12, 64, 64), -1),
             ((8, 12, 1, 192), -1), ((8, 12, 64, 64), -2), ((1024, 768), -1),
             ((8, 12, 128, 128), -1), ((3, 5, 64, 7), -2), ("kT", -2), ("special", -1),
-            ("special_inner", -2)]
+            ("special_inner", -2), ((2, 3, 512, 8), -2), ("unaligned", -1)]
 
 
 @pytest.mark.gpu
@@ -316,6 +371,8 @@ def test_bfp_cast_kernel_matches_plain_bit_for_bit_on_card(cuda, site, block):
         x = _special_blocks().to(cuda).reshape(5, 128)
     elif shape == "special_inner":
         x = _special_blocks().to(cuda).reshape(2, 5, 64).transpose(1, 2).contiguous()
+    elif shape == "unaligned":
+        x = torch.randn(8 * 768 + 1, generator=g, device=cuda)[1:].view(8, 768)
     else:
         x = torch.randn(shape, generator=g, device=cuda) * torch.exp(
             3 * torch.randn(shape, generator=g, device=cuda))
@@ -337,3 +394,32 @@ def test_bfp_cast_probe_matches_plain_bit_for_bit_on_card(cuda, probe):
     if probe == "h":
         x = x[:, :12].contiguous()
     _same_bits(T2.probe(probe, x), T2.probe_ref(probe, x))
+
+
+# (shape, axis): the composed FLOAT16-then-BFP cast at the fused decode
+# step's sites (LN output -> qkv / fc1 input, softmax output -> weights),
+# the prefill's scores, the tile kernel at tail v, the special blocks along
+# both axes and an inner axis that is no multiple of 4
+T2_COMPOSED = [((8, 768), -1), ((8, 12, 1, 192), -1), ((8, 12, 128, 128), -1),
+               ((8, 12, 64, 64), -2), ("special", -1), ("special_inner", -2),
+               ((3, 5, 64, 7), -2), ((8, 3072), -1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", range(len(T2_COMPOSED)))
+def test_bfp_cast_composed_matches_plain_bit_for_bit_on_card(cuda, site):
+    shape, axis = T2_COMPOSED[site]
+    g = torch.Generator(device=cuda).manual_seed(10 + site)
+    if shape == "special":
+        x = _special_blocks().to(cuda).reshape(5, 128) * 3e4
+    elif shape == "special_inner":
+        x = _special_blocks().to(cuda).reshape(2, 5, 64).transpose(1, 2).contiguous()
+    else:
+        x = torch.randn(shape, generator=g, device=cuda) * torch.exp(
+            3 * torch.randn(shape, generator=g, device=cuda))
+    n0 = kernels.LAUNCHES["bfp_cast"]
+    got = T2.bfp_cast(x, 8, 64, axis, fp16_first=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bfp_cast"] == n0 + 1
+    _same_bits(got, T2.bfp_cast_ref(T2.fp16_cast_ref(x), 8, 64, axis))
+    _same_bits(got, T2.bfp_cast(T2.fp16_cast(x), 8, 64, axis))

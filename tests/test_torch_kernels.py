@@ -215,6 +215,39 @@ def test_flash_decode_int8_scalar_full_length_and_ragged_s():
         tfd.flash_decode_int8(torch.zeros(1, 4, 2, 64), tq, 3)
 
 
+# B2 splits S into chunks of B2_CHUNK = 256 keys, one CUDA block each, and
+# merges the chunks' (m, l, acc) in chunk order (csrc/flash_decode_int8.cu);
+# flash_decode_int8_split_ref transcribes that arithmetic.  (B, H, Hkv, S,
+# D, lengths): every row a single key, every row full over three chunks,
+# ragged rows on either side of a chunk edge, an S that is no multiple of
+# the chunk, GQA with 12 query heads on 4 KV heads, the main path's shape
+B2_SPLIT_CASES = [(3, 4, 4, 256, 64, [1, 1, 1]), (2, 4, 4, 768, 64, [768] * 2),
+                  (4, 4, 4, 600, 32, [1, 256, 257, 600]), (2, 4, 4, 700, 64, [700, 513]),
+                  (2, 12, 4, 520, 64, [520, 300]), (2, 12, 4, 520, 128, [517, 260]),
+                  (8, 12, 12, 256, 64, [160] * 8)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,lengths", B2_SPLIT_CASES)
+def test_flash_decode_int8_split_matches_refs(B, H, Hkv, S, D, lengths):
+    """The split-and-merge transcription against flash_decode_int8_ref and
+    the JAX flash_decode_int8_ref at B2's card tolerance (rtol 1e-5, atol
+    2e-5); on the CPU the wrapper runs the plain version."""
+    rs = np.random.RandomState(24)
+    q = rand(rs, B, H, 1, D)
+    jq, tq = quant_pair(rs, B, Hkv, S, D)
+    le = np.array(lengths, np.int32)
+    got = tfd.flash_decode_int8_split_ref(torch.from_numpy(q), tq, torch.from_numpy(le))
+    ref = tfd.flash_decode_int8(torch.from_numpy(q), tq, torch.from_numpy(le))
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=2e-5)
+    want = np.asarray(jfd.flash_decode_int8_ref(jnp.asarray(q), jq, jnp.asarray(le)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-5)
+    # a single-key row is its value row, dequantized
+    for b in np.flatnonzero(le == 1):
+        v0 = tq.v_q[b, :, 0].float() * tq.v_scale[b, :, 0, None]
+        torch.testing.assert_close(got[b, :, 0], v0.repeat_interleave(H // Hkv, 0),
+                                   rtol=1e-6, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # B3: flash_attention
 # ---------------------------------------------------------------------------
@@ -292,6 +325,35 @@ def test_quantized_cache_update_returns_dequantized_buffers():
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     with pytest.raises(ValueError):
         tc.update(torch.zeros(B, H, 7, D), torch.zeros(B, H, 7, D))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cache_overflow_raises_where_jax_clamps(quantized):
+    """A difference from the JAX package kept on purpose: an append past the
+    capacity.  JAX writes through dynamic_update_slice, which clamps the
+    start, so the new rows overwrite the last slots and its length runs past
+    the capacity; the port raises ValueError before writing and keeps its
+    buffers and length, so a decode loop that outgrows its cache stops
+    instead of attending over overwritten keys."""
+    rs = np.random.RandomState(23)
+    B, H, S, D = 2, 3, 8, 4
+    jcls, tcls = ((jkv.QuantizedKVCache, tkv.QuantizedKVCache) if quantized
+                  else (jkv.KVCache, tkv.KVCache))
+    jc, tc = jcls(B, H, S, D), tcls(B, H, S, D, device="cpu")
+    first = rand(rs, B, H, 6, D)
+    jc.update(jnp.asarray(first), jnp.asarray(first))
+    tc.update(torch.from_numpy(first), torch.from_numpy(first))
+    before = [t.clone() for t in ((tc.k_q, tc.k_scale) if quantized else (tc.k,))]
+    extra = rand(rs, B, H, 4, D)
+    jk, _, jlen = jc.update(jnp.asarray(extra), jnp.asarray(extra))
+    assert int(jlen) == 10 > S  # JAX: the length runs past the capacity
+    if not quantized:  # and the last 4 slots hold the new rows
+        np.testing.assert_array_equal(np.asarray(jk)[:, :, S - 4:], extra)
+    with pytest.raises(ValueError, match="cache overflow"):
+        tc.update(torch.from_numpy(extra), torch.from_numpy(extra))
+    assert tc.length == 6 and tc.lengths.tolist() == [6] * B
+    after = (tc.k_q, tc.k_scale) if quantized else (tc.k,)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
 
 
 # ---------------------------------------------------------------------------
@@ -378,8 +440,9 @@ def test_sbfp12_16_weights_are_exact_in_bfloat16():
     weight (a mantissa in [-7, 7] times a scale of <= 5 significant bits)
     survives the round trip bit for bit, on random blocks at four scales,
     blocks at the scale format's largest and smallest values, all +-7
-    blocks and an all-zero block; a scale format of 5 mantissa bits is
-    refused by the packer."""
+    blocks and an all-zero block.  The packer records that (bf16_exact); a
+    scale format of 5 mantissa bits packs too, as in the JAX package, but
+    is recorded as not exact, so B5 serves it from its f32 GEMM."""
     fmt = TFormat.from_shorthand(SBFP)
     rs = np.random.RandomState(12)
     blocks = [rand(rs, 64, 16, scale=s) for s in (1e-4, 0.05, 1.0, 300.0)]
@@ -396,9 +459,51 @@ def test_sbfp12_16_weights_are_exact_in_bfloat16():
     assert torch.equal(deq.bfloat16().float().view(torch.int32), deq.view(torch.int32))
     man = tbl.sbfp_unpack_mantissa_int8(tp.nibbles)
     assert man.max() == 7 and man.min() == -7 and not deq[-1].any()
-    with pytest.raises(ValueError):
-        tpack.sbfp_pack(torch.from_numpy(w),
-                        TFormat.from_shorthand("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}"))
+    assert tp.bf16_exact and tbl.sbfp_tensor_cores(tp, w.shape[1])
+    wide = tpack.sbfp_pack(torch.from_numpy(w), TFormat.from_shorthand(SBFP_WIDE_SCALE))
+    assert not wide.bf16_exact and not tbl.sbfp_tensor_cores(wide, w.shape[1])
+    wdeq = tpack.sbfp_unpack(wide)
+    assert not torch.equal(wdeq.bfloat16().float().view(torch.int32), wdeq.view(torch.int32))
+
+
+# the SBFP formats that the JAX package packs and serves beyond SBFP12_16:
+# a scale of 5 mantissa bits (its dequantized weight is not exact in bf16),
+# blocks of 8 and 24 (no multiple of 16), each at a K that the block divides
+SBFP_WIDE_SCALE = "SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}"
+SBFP_OTHER_FORMATS = [(SBFP_WIDE_SCALE, 64), (SBFP_WIDE_SCALE, 80),
+                      ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}", 40),
+                      ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{24}", 72)]
+
+
+@pytest.mark.parametrize("fmt,K", SBFP_OTHER_FORMATS)
+@pytest.mark.parametrize("M", [8, 130])
+def test_sbfp_other_formats_pack_and_serve_as_in_jax(fmt, K, M):
+    """The port packs what the JAX sbfp_pack packs, bit for bit (an all-zero
+    block and a x100 block among them), records the payload as not served
+    by B5's tensor cores, and its sbfp_linear (the plain version here, the
+    f32 GEMM on the card) is within rtol 1e-5, atol 1e-4 of the JAX
+    sbfp_linear_ref and of the JAX kernel in interpret mode."""
+    rs = np.random.RandomState(22)
+    N = 48
+    w = rand(rs, N, K, scale=0.3)
+    w[0, :8] = 0.0
+    w[1, 8:16] *= 100.0
+    x = rand(rs, M, K)
+    b = rand(rs, N)
+    jp = jpack.sbfp_pack(jnp.asarray(w), JFormat.from_shorthand(fmt))
+    tp = tpack.sbfp_pack(torch.from_numpy(w), TFormat.from_shorthand(fmt))
+    np.testing.assert_array_equal(tp.nibbles.numpy(), np.asarray(jp.nibbles))
+    np.testing.assert_array_equal(tp.scale.numpy().view(np.uint32),
+                                  np.asarray(jp.scale).view(np.uint32))
+    assert tp.block_size == jp.block_size and not tbl.sbfp_tensor_cores(tp, K)
+    got = tbl.sbfp_linear(torch.from_numpy(x), tp, torch.from_numpy(b)).numpy()
+    ref = tbl.sbfp_linear_ref(torch.from_numpy(x), tp, torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    want = np.asarray(jbl.sbfp_linear_ref(jnp.asarray(x), jp, jnp.asarray(b)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    kern = np.asarray(jbl.sbfp_linear(jnp.asarray(x), jp, jnp.asarray(b),
+                                      use_pallas=True, interpret=True))
+    np.testing.assert_allclose(got, kern, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("M,N,K", B5_SHAPES)

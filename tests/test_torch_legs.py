@@ -30,7 +30,10 @@ from dmx_compressor_tpu.models.opt import OPTForCausalLM as JOPT
 from dmx_compressor_tpu.ops import flash_decode as jfd
 from dmx_compressor_tpu.ops.compress import compress_for_inference as j_compress
 
+from dmx_compressor_tpu_torch.modeling.model import DmxConfigRule as TDmxConfigRule
+from dmx_compressor_tpu_torch.modeling.model import DmxModel as TDmxModel
 from dmx_compressor_tpu_torch.models import opt as topt
+from dmx_compressor_tpu_torch.nn import modules as tdmxnn
 from dmx_compressor_tpu_torch.models.opt import (
     OPTConfig,
     OPTForCausalLM,
@@ -40,6 +43,7 @@ from dmx_compressor_tpu_torch.models.opt import (
 )
 from dmx_compressor_tpu_torch.nn.core import DmxModule
 from dmx_compressor_tpu_torch.ops import compress as tcompress
+from dmx_compressor_tpu_torch.ops.bfp_linear import sbfp_tensor_cores
 from dmx_compressor_tpu_torch.ops.compress import (
     SBFP12_16,
     PackedBFPLinear,
@@ -164,6 +168,44 @@ def test_sbfp_prefill_logits_match(sbfp_pair):
 def test_sbfp_greedy_decode_matches(sbfp_pair):
     p = sbfp_pair
     assert_same_run(p["jrows"], p["jtoks"], p["trows"], p["ttoks"])
+
+
+@pytest.mark.parametrize("fmt", ["SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}",
+                                 "SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}"])
+def test_other_sbfp_formats_build_and_serve_as_in_jax(fmt):
+    """compress_for_inference packs SBFP weight storage of a 5-bit scale, or
+    of a block of 8, as the JAX package does (its dequantized weight is not
+    exact in bf16, or its block no multiple of 16: B5's f32 GEMM on the
+    card), and the model then serves the same logits and greedy tokens as
+    the JAX model built the same way."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DMX_DECODE_FUSED", "1")
+        jm = JOPT(JOPTConfig.tiny(), rngs=nnx.Rngs(5))
+        params = flat_params(jm)
+        jdm = JDmxModel.from_raw(jm)
+        jdm.configure(None, JDmxConfigRule(module_types=(jdmxnn.Linear,),
+                                           module_config=dict(weight_storage_format=fmt)))
+        j_count = j_compress(jdm)
+    ids = prompt()
+    jrows, jtoks = run_jax(jm, jm.init_cache(B, CAP, quantized=True), ids)
+
+    tm = OPTForCausalLM(OPTConfig.tiny(), device="cpu")
+    load_jax_params(tm, params)
+    tdm = TDmxModel.from_raw(tm)
+    tdm.configure(None, TDmxConfigRule(module_types=(tdmxnn.Linear,),
+                                       module_config=dict(weight_storage_format=fmt)))
+    assert tcompress.compress_for_inference(tdm) == j_count == 6 * L + 1
+    tcompress.set_inference_mode(True)
+    packed = [tp for _, tp in _sbfp_modules(jm, tm)]
+    assert all(isinstance(p, PackedSBFPLinear) and not sbfp_tensor_cores(p.packed, p.in_features)
+               for p in packed)
+    for jp, tp in _sbfp_modules(jm, tm):
+        np.testing.assert_array_equal(tp.weight_nibbles.numpy(),
+                                      np.asarray(jp.weight_nibbles.get_value()))
+        np.testing.assert_array_equal(tp.weight_block_scale.numpy().view(np.uint32),
+                                      np.asarray(jp.weight_block_scale.get_value()).view(np.uint32))
+    trows, ttoks = run_port(tm, tm.init_cache(B, CAP, quantized=True, device="cpu"), ids)
+    assert_same_run(jrows, jtoks, trows, ttoks)
 
 
 # ---------------------------------------------------------------------------
