@@ -28,18 +28,26 @@ Phases (any failure exits non-zero):
    flash_decode, T2 bfp_cast (the BFP, FLOAT16 and composed FLOAT16-then-BFP
    modes at the BASIC path's cast sites, the composed one beside its two
    launches; special blocks along the last axis and, through the tile
-   kernel, an inner one; the eight probes).  B2 also at bench.py's long
-   shape (S 2048, lengths 2016) and with GQA; B5 also on its f32 route, at
-   the SBFP formats beyond SBFP12_16 that the JAX package serves (a 5-bit
-   scale, blocks of 8 and 24), M = 8 and 1024.
-3. Four serving paths of OPT-125m at full width from seeded random weights
+   kernel, an inner one; the eight probes).  B2 and B4 also at bench.py's
+   long shape (S 2048, lengths 2016) and with GQA, each with the same bits
+   on a second call; B5 also on its f32 route, at the SBFP formats beyond
+   SBFP12_16 that the JAX package serves (a 5-bit scale: two exact bf16
+   planes of the weight; a 13-bit scale: three; blocks of 8 and 24), M = 8
+   (the f32 GEMV) and 1024 (the weight planes on tensor cores, or the SIMT
+   GEMM for the blocks off 16), each case with its route.
+3. Five serving paths of OPT-125m at full width from seeded random weights
    (seed 0), each a prefill of batch 8 x prompt 128 then 63 greedy decode
    steps, with the launch counters set to 0 just before and read just after
    (L = 12 layers):
    - weights mode (BFP16_64 packed weights, int8 KV cache): prefill
      4L+1 = 49 B1 + 12 B3, each decode step 49 B1 + 12 B2;
    - SBFP mode (SBFP12_16 packed weights, int8 KV cache): prefill
-     6L+1 = 73 B5 + 12 B3, each decode step 73 B5 + 12 B2;
+     6L+1 = 73 B5 + 12 B3, each decode step 73 B5 + 12 B2, every B5 launch
+     on its tensor-core route;
+   - SBFP mode at another format (sbfp_wide: SBFP with a 5-bit scale, not
+     exact in bf16, as a user configures it on every Linear): the same
+     counts, every B5 launch on its f32 route (the weight planes at
+     prefill, the f32 GEMV at decode);
    - fp32 baseline (BASELINE rules, plain Linears, f32 KV cache): prefill
      12 B3, each decode step 12 B4;
    - BASIC mode (BFP16_64 casts on Linear and ActActMatMul inputs, FLOAT16
@@ -53,8 +61,8 @@ Phases (any failure exits non-zero):
    tokens/s, the device time of one warm prefill (a second prefill call
    under torch.profiler, split into its packed linears' kernel, B3 and the
    rest), the device busy/idle split of a profiled decode step and a host
-   cProfile of the same steps.  The JAX bench's ratios (weights, SBFP and
-   basic over baseline tokens/s) follow.
+   cProfile of the same steps.  The JAX bench's ratios (weights, SBFP,
+   sbfp_wide and basic over baseline tokens/s) follow.
 4. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -97,12 +105,19 @@ B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
 B4_TOL = dict(rtol=1e-5, atol=2e-5)
 B5_TOL = dict(rtol=1e-5, atol=1e-4)  # as B1: exact weights, sums in another order
+# the sbfp_wide path's weight storage: SBFP with a 5-bit scale, whose
+# dequantized weight is not exact in bf16 (two exact bf16 planes)
+SBFP_WIDE = "SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}"
 # (format, K, N) of SBFP weights beyond SBFP12_16 that the JAX package packs
-# and serves, which B5 takes on its f32 route: a 5-bit scale (not exact in
-# bf16) at OPT-125m's out_proj, blocks of 8 and 24
-SBFP_OTHER_FORMATS = [("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", 768, 768),
+# and serves, which B5 takes on its f32 route: the 5-bit scale and a 13-bit
+# one (three weight planes) at OPT-125m's out_proj, blocks of 8 and 24
+SBFP_OTHER_FORMATS = [(SBFP_WIDE, 768, 768),
+                      ("SBFP<XP[4,0](CSN)><FP[0|4|13,16](FN)>{16}", 768, 768),
                       ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}", 40, 48),
                       ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{24}", 72, 200)]
+# the bf16 plane products per K step of B5's planes route (three planes of
+# x, two or three of the weight: all six, or the six largest of nine)
+B5_PLANE_PRODUCTS = 6
 # B3's bf16 plane products per f32 product (csrc/flash_attention.cu)
 B3_PLANE_PRODUCTS = 6
 LINEAR_KERNELS = ("bfp_linear", "sbfp_linear", "bfp_linear_bf16")
@@ -211,7 +226,8 @@ def sbfp_linear_shapes(cfg):
 
 
 def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shapes, ragged,
-                 tol, seed, peak_flop_s=PEAK_F32_FLOP_S, lib_dtype=None, ab=None, planes=None):
+                 tol, seed, peak_flop_s=PEAK_F32_FLOP_S, lib_dtype=None, ab=None, planes=None,
+                 route_of=None):
     """A dequant-matmul kernel against its plain version at the decode (M =
     batch) and prefill (M = batch x prompt) shapes of ``step_shapes`` and at
     ``ragged`` (M, K, N) shapes; then its time per launch over one decode
@@ -222,7 +238,9 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
     ``planes`` (B1: 3; its kernels run that many bf16 tensor-core products
     at every shape here, where K and the block are multiples of 16) a shape
     is bounded by them at the bf16 peak (``bound_ms``), the ``peak_flop_s``
-    figure kept as ``bound_f32_ms``.
+    figure kept as ``bound_f32_ms``.  ``route_of(M, K, w)`` -> (route, plane
+    products or None), where the kernel picks its route per shape, records
+    each case's route and bounds it by its own products (None: f32 SIMT).
     Returns (the per-step numbers, the cases)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     cases, sets_of, deq_of = [], {}, {}
@@ -247,14 +265,17 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
         bound_ms, by = bound(per_set, 2 * M * N * K, peak_flop_s)
         case = dict(shape=[M, K, N], max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
-        extra = ""
-        if planes is not None:
+        extra, products = "", planes
+        if route_of is not None:
+            case["route"], products = route_of(M, K, w)
+            extra = f" route={case['route']}"
+        if products is not None:
             case["bound_f32_ms"] = bound_ms
-            case["bound_ms"], case["bound_by"] = bound(per_set, planes * 2 * M * N * K,
+            case["bound_ms"], case["bound_by"] = bound(per_set, products * 2 * M * N * K,
                                                        PEAK_BF16_FLOP_S)
             bound_ms, by = case["bound_ms"], case["bound_by"]
-            extra = (f" bound_f32_ms={case['bound_f32_ms']:.4f} (f32 SIMT; bound_ms is "
-                     f"{planes} bf16 tensor-core products)")
+            extra += (f" bound_f32_ms={case['bound_f32_ms']:.4f} (f32 SIMT; bound_ms is "
+                      f"{products} bf16 tensor-core products)")
         if ab is not None:
             case[f"{ab[0]}_ms"] = time_ms(torch, ab[1], sets)
             extra += f" {ab[0]}_ms(same payload)={case[f'{ab[0]}_ms']:.4f}"
@@ -322,6 +343,7 @@ def check_b5(torch, dev, cfg):
     from dmx_compressor_tpu_torch.ops.bfp_linear import (
         sbfp_linear,
         sbfp_linear_ref,
+        sbfp_route,
         sbfp_tensor_cores,
     )
     from dmx_compressor_tpu_torch.ops.bfp_pack import sbfp_pack, sbfp_unpack
@@ -342,8 +364,27 @@ def check_b5(torch, dev, cfg):
                   f"B5 {M}x{K}x{N} with x near +-FLT_MAX, subnormal and -0.0")
     log(f"B5 sbfp_linear {M}x{K}x{N}, x near +-FLT_MAX, subnormal and -0.0: max_abs_err={err:.3g} "
         f"(|y| up to {sbfp_linear_ref(x, w).abs().max().item():.3g})")
+    # the sbfp_wide path's format on B5's f32 route at every shape of that
+    # path (the GEMV at M = 8 and over a decode step's 73 launches, the
+    # weight planes at M = 1024, the head included) and at ragged shapes
+    # that reach each of its kernels (the SIMT GEMM at K 208)
+    wide = Format.from_shorthand(SBFP_WIDE)
+
+    def wide_route(M, K, w):
+        route = sbfp_route(w, M, K)
+        return route, (B5_PLANE_PRODUCTS if route == "planes" else None)
+
+    wide_step, wide_cases = check_linear(
+        torch, dev, f"B5 sbfp_linear f32 route {SBFP_WIDE}", sbfp_linear, sbfp_linear_ref,
+        lambda w: sbfp_pack(w, wide), sbfp_unpack, b5_bytes, sbfp_linear_shapes(cfg),
+        [(3, 48, 33), (130, 160, 256), (5, 80, 48), (17, 768, 127), (65, 208, 129)],
+        B5_TOL, seed=16, route_of=wide_route)
+    for case in wide_cases:
+        case["format"] = SBFP_WIDE
+    cases += wide_cases
     # the SBFP formats beyond SBFP12_16 that the JAX package packs and
-    # serves: the f32 route (sbfp_gemm_kernel) at every M; the library
+    # serves, on B5's f32 route: the f32 GEMV at M = 8, the weight planes on
+    # tensor cores at M = 1024 (the SIMT GEMM for blocks off 16); the library
     # yardstick is torch.addmm (bias + x W^T) on the dequantized weight
     for shorthand, K, N in SBFP_OTHER_FORMATS:
         ofmt = Format.from_shorthand(shorthand)
@@ -354,21 +395,33 @@ def check_b5(torch, dev, cfg):
                          b5_bytes(M, K, N)))]
             if sbfp_tensor_cores(sets[0][1], K):
                 raise AssertionError(f"{shorthand} would take B5's tensor cores")
+            route = sbfp_route(sets[0][1], M, K)
             err = max_err(torch, sbfp_linear(*sets[0]), sbfp_linear_ref(*sets[0]), B5_TOL,
-                          f"B5 f32 route {shorthand} {M}x{K}x{N}")
+                          f"B5 f32 route ({route}) {shorthand} {M}x{K}x{N}")
+            if not torch.equal(sbfp_linear(*sets[0]), sbfp_linear(*sets[0])):
+                raise AssertionError(f"B5 f32 route ({route}) gave other bits on the same inputs")
             ms = time_ms(torch, sbfp_linear, sets)
             plain_ms = time_ms(torch, sbfp_linear_ref, sets)
             deq = [(b, x, sbfp_unpack(w).T.contiguous()) for x, w, b in sets]
             lib_ms = time_ms(torch, torch.addmm, deq)
             bound_ms, by = bound(b5_bytes(M, K, N), 2 * M * N * K)
-            cases.append(dict(shape=[M, K, N], format=shorthand, route="f32", max_abs_err=err,
-                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                              bound_by=by))
-            log(f"B5 sbfp_linear f32 route {shorthand} M={M} K={K} N={N}: max_abs_err={err:.3g} "
-                f"(tolerance {B5_TOL}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            case = dict(shape=[M, K, N], format=shorthand, planes=sets[0][1].planes, route=route,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=bound_ms, bound_by=by)
+            extra = "f32"
+            if route == "planes":
+                case["bound_f32_ms"] = bound_ms
+                bound_ms, by = case["bound_ms"], case["bound_by"] = bound(
+                    b5_bytes(M, K, N), B5_PLANE_PRODUCTS * 2 * M * N * K, PEAK_BF16_FLOP_S)
+                extra = (f"{B5_PLANE_PRODUCTS} bf16 tensor-core products; "
+                         f"bound_f32_ms={case['bound_f32_ms']:.4f}")
+            cases.append(case)
+            log(f"B5 sbfp_linear f32 route ({route}) {shorthand} M={M} K={K} N={N}: "
+                f"max_abs_err={err:.3g} (tolerance {B5_TOL}; the same bits on a second call) "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms(torch.addmm, dequantized W, f32)={lib_ms:.4f} "
-                f"bound_ms={bound_ms:.4f} ({by}; f32)")
-    return step, cases
+                f"bound_ms={bound_ms:.4f} ({by}; {extra})")
+    return step, cases, wide_step
 
 
 # T1's own shapes: diag_bfpkernel_ab.py:177-183, OPT-1.3B decode at M = 8
@@ -713,13 +766,17 @@ def check_b4(torch, dev, cfg):
     g = torch.Generator(device=dev).manual_seed(14)
     cases = []
     # (B, H, Hkv, S, D, lengths): the baseline path's shape (its cache
-    # capacity at the mean fill of its decode steps), GQA with rep 4 and
-    # ragged lengths, a scalar length at D 32, and D 128 over an S that is no
-    # multiple of a tile
+    # capacity at the mean fill of its decode steps), bench.py's long leg
+    # (prompt 1984 in a 2048-slot cache, lengths 2016 half way through its
+    # 64 steps) at the path's batch and at batch 1 with 8000 keys, GQA with
+    # rep 4 and ragged lengths, a scalar length at D 32, and D 128 over an S
+    # that is no multiple of a tile
     H = cfg.num_attention_heads
     D = cfg.hidden_size // H
     for B, H_, Hkv, S, D_, lengths in [
         (BATCH, H, H, CAPACITY, D, [PROMPT + GEN // 2] * BATCH),
+        (BATCH, H, H, 2048, D, [2016] * BATCH),
+        (1, H, H, 8192, D, [8000]),
         (3, 8, 2, 256, 64, [17, 256, 130]),
         (2, 4, 4, 192, 32, 100),
         (2, 8, 8, 200, 128, [57, 200]),
@@ -733,8 +790,11 @@ def check_b4(torch, dev, cfg):
             sets.append((torch.randn(B, H_, 1, D_, generator=g, device=dev),
                          torch.randn(B, Hkv, S, D_, generator=g, device=dev),
                          torch.randn(B, Hkv, S, D_, generator=g, device=dev), le))
-        err = max_err(torch, flash_decode(*sets[0]), flash_decode_ref(*sets[0]), B4_TOL,
+        got = flash_decode(*sets[0])
+        err = max_err(torch, got, flash_decode_ref(*sets[0]), B4_TOL,
                       f"B4 B={B} H={H_} Hkv={Hkv} S={S} D={D_} lengths={lengths}")
+        if not torch.equal(flash_decode(*sets[0]), got):
+            raise AssertionError("B4 gave other bits on the same inputs")
         ms = time_ms(torch, flash_decode, sets)
         plain_ms = time_ms(torch, flash_decode_ref, sets)
         # the library yardstick: one SDPA call on the same f32 K/V with a
@@ -752,7 +812,8 @@ def check_b4(torch, dev, cfg):
         cases.append(dict(shape=[B, H_, Hkv, S, D_], lengths=lengths, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
         log(f"B4 flash_decode B={B} H={H_} Hkv={Hkv} S={S} D={D_} lengths={lengths}: "
-            f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"max_abs_err={err:.3g} (the same bits on a second call) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} "
             f"library_ms(F.scaled_dot_product_attention, boolean length mask)={lib_ms:.4f} "
             f"(its max_abs_err against the plain version {lib_err:.3g}) "
             f"bound_ms={bound_ms:.4f} ({by}; {PEAK_BYTES_S/1e12} TB/s, "
@@ -766,10 +827,11 @@ def check_b4(torch, dev, cfg):
 
 
 def path_specs(cfg):
-    """The four serving paths: name, build function, init_cache arguments,
+    """The five serving paths: name, build function, init_cache arguments,
     the launches at prefill, in prepare_split_decode (None: not called) and
-    per decode step, the profiler's name marks of each kernel launched per
-    step, and the logits' tolerance GPU vs CPU."""
+    per decode step (``routes``: B5's by route at prefill and per step), the
+    profiler's name marks of each kernel launched per step, and the logits'
+    tolerance GPU vs CPU."""
     from dmx_compressor_tpu_torch.ops.compress import (
         build_baseline_mode,
         build_basic_mode,
@@ -795,7 +857,20 @@ def path_specs(cfg):
         dict(name="sbfp", build=build_sbfp_mode, cache=dict(max_len=CAPACITY, quantized=True),
              prefill={"sbfp_linear": 6 * L + 1, "flash_attention": L}, prepare=None,
              step={"sbfp_linear": 6 * L + 1, "flash_decode_int8": L},
+             routes=({"tensor_cores": 6 * L + 1}, {"tensor_cores": 6 * L + 1}),
              marks={"sbfp_linear": ("bfp_decode_kernel", "sbfp_gemm_kernel", "bfp_wgmma_kernel",
+                                    "split_planes_kernel"),
+                    "flash_decode_int8": b2_marks},
+             logit_tol=LOGIT_TOL),
+        # a user's SBFP format off bf16 on every Linear: B5's f32 route, the
+        # weight planes at prefill (K 768 and 3072, blocks of 16) and the
+        # f32 GEMV at decode
+        dict(name="sbfp_wide", build=lambda m: build_sbfp_mode(m, SBFP_WIDE),
+             cache=dict(max_len=CAPACITY, quantized=True),
+             prefill={"sbfp_linear": 6 * L + 1, "flash_attention": L}, prepare=None,
+             step={"sbfp_linear": 6 * L + 1, "flash_decode_int8": L},
+             routes=({"planes": 6 * L + 1}, {"gemv": 6 * L + 1}),
+             marks={"sbfp_linear": ("sbfp_gemv_kernel", "bfp_wgmma_kernel",
                                     "split_planes_kernel"),
                     "flash_decode_int8": b2_marks},
              logit_tol=LOGIT_TOL),
@@ -871,11 +946,13 @@ def serve_path(torch, dev, kernels, cfg, spec):
         prefill)."""
         logits, tok = greedy_prefill(model, caches, ids_)
         after = dict(kernels.LAUNCHES)
+        routes["prefill"] = dict(kernels.ROUTE_LAUNCHES)
         if spec["prepare"] is not None:
             prepare_split_decode(model, caches)
         return logits, tok, after
 
     caches = model.init_cache(BATCH, device=dev, **cache_kw)
+    routes = {}
     kernels.reset_launches()
     t0 = time.perf_counter()
     logits, tok, after_prefill = prefill(caches, ids.to(dev))
@@ -899,6 +976,14 @@ def serve_path(torch, dev, kernels, cfg, spec):
     if after_prefill != want_prefill or after_prepare != want_prepare or launches != want_total:
         raise AssertionError(f"the {name} path did not launch the kernels the expected "
                              f"number of times")
+    if "routes" in spec:
+        pre, step = ({f"sbfp_linear/{r}": n for r, n in d.items()} for d in spec["routes"])
+        want_routes = {k: pre.get(k, 0) + step.get(k, 0) * (GEN - 1) for k in {*pre, *step}}
+        log(f"{name} path: B5 launches by route after prefill {routes['prefill']} (expected "
+            f"{pre}); after {GEN - 1} decode steps {kernels.ROUTE_LAUNCHES} (expected "
+            f"{want_routes})")
+        if routes["prefill"] != pre or kernels.ROUTE_LAUNCHES != want_routes:
+            raise AssertionError(f"the {name} path's B5 launches took other routes")
     tokens = torch.cat([tok[:, None], toks], dim=1)
     if logits.shape != (BATCH, PROMPT, cfg.vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite or misshapen")
@@ -1034,7 +1119,7 @@ def main() -> int:
     b2 = check_b2(torch, dev, cfg)
     b3 = check_b3(torch, dev, cfg)
     b4 = check_b4(torch, dev, cfg)
-    b5_step, b5 = check_b5(torch, dev, cfg)
+    b5_step, b5, b5_wide_step = check_b5(torch, dev, cfg)
     t1_step, t1, t1_flush = check_t1(torch, dev, cfg)
     t2_step, t2 = check_t2(torch, dev, cfg)
 
@@ -1046,6 +1131,7 @@ def main() -> int:
     log(f"bench.py's ratio, for information (host clock, batch {BATCH}, {card}): "
         f"weights / baseline {tok_s['weights'] / tok_s['baseline']:.4f}, "
         f"sbfp / baseline {tok_s['sbfp'] / tok_s['baseline']:.4f}, "
+        f"sbfp_wide / baseline {tok_s['sbfp_wide'] / tok_s['baseline']:.4f}, "
         f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}")
 
     def launches(kern):
@@ -1057,7 +1143,9 @@ def main() -> int:
         return {k: cases[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
 
     # top-level times: B1, B5, T1 and T2 per launch over one decode step's
-    # launches, B2, B3 and B4 at their path's shape (their first case)
+    # launches (B5's on the sbfp path, its tensor-core route; its f32 route's
+    # over a sbfp_wide step under f32_route_step), B2, B3 and B4
+    # at their path's shape (their first case)
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:53", **launches("bfp_linear"),
@@ -1080,7 +1168,8 @@ def main() -> int:
         dict(name="sbfp_linear", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/sbfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:199", **launches("sbfp_linear"),
-             max_abs_err=max(c["max_abs_err"] for c in b5), **b5_step, cases=b5),
+             max_abs_err=max(c["max_abs_err"] for c in b5), **b5_step,
+             f32_route_step=b5_wide_step, cases=b5),
         dict(name="bfp_linear_bf16", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/bfp_linear_bf16.cu",
              replaces="tools/diag_bfpkernel_ab.py:30", **launches("bfp_linear_bf16"),

@@ -2,13 +2,16 @@
 // plane of x), B1 (bfp_linear.cu, three bf16 planes of x) and B5
 // (sbfp_linear.cu, three planes): y[M, N] = x[M, K] . W[N, K]^T + bias (+
 // T1's FLOAT16 epilogues), with the weight kept packed in device memory in
-// one of two formats, a template policy of every kernel here (BfpW, SbfpW):
-// the BFP weight W[n, k] = man[n, k] * 2^(exp[n, k / B] + 2 - precision),
-// int8 mantissas and int8 exponents, or the SBFP weight W[n, k] = man[n, k]
-// * scale[n, k / B], int4 mantissas two to a byte and f32 scales.  Either
-// dequantizes exactly into bf16.  Up to 16 rows of x, a tensor-core GEMV
-// (bfp_decode_kernel, its note below); above, the wgmma mainloop this note
-// describes.
+// one of two formats, a template policy of every kernel here (BfpW, SbfpW,
+// SbfpPlanesW): the BFP weight W[n, k] = man[n, k] * 2^(exp[n, k / B] + 2 -
+// precision), int8 mantissas and int8 exponents, or the SBFP weight W[n, k]
+// = man[n, k] * scale[n, k / B], int4 mantissas two to a byte and f32
+// scales.  BfpW and SbfpW dequantize exactly into one bf16 plane;
+// SbfpPlanesW (B5's f32 route: SBFP formats whose weights bf16 does not
+// hold, up to 24 significant bits) dequantizes in f32 and splits each
+// weight into PW = 2 or 3 exact bf16 planes, the policy's PLANES.  Up to 16
+// rows of x, a tensor-core GEMV (bfp_decode_kernel, its note below; one
+// plane only); above, the wgmma mainloop this note describes.
 //
 // x planes.  A pre-pass kernel (split_planes_kernel, launched by the same C
 // entry point) writes x as P bf16 planes into a scratch buffer the wrapper
@@ -23,19 +26,27 @@
 //   quiet bit is set, since its payload may lie in the low half) and zeroes
 //   m and l.  W is exact in bf16 (BFP: <= 7 significant bits times a power
 //   of two, down to 2^-133; SBFP: a 3-bit mantissa times a scale of <= 5
-//   significant bits, which sbfp_pack records; B5 sends any other SBFP
-//   weight to its f32 GEMM), so every product h.w, m.w,
+//   significant bits, which sbfp_pack records), so every product h.w, m.w,
 //   l.w is exact in f32 and three tensor-core products per K step give B1's
 //   and B5's f32 products, differing from their plain versions only in how
 //   the f32 sums are taken.
+// - Weight planes (SbfpPlanesW<PW>): the f32 weight w = man * scale
+//   (__fmul_rn, as sbfp_unpack rounds it) splits the same way into w = hw
+//   + mw (+ lw), exact where w has <= 8 PW significant bits and none below
+//   2^-133, which sbfp_pack decides from the format (PackedSBFP.planes).
+//   Each x plane meets each weight plane: for PW = 2 all 6 products are
+//   exact and kept (the sum differs from sbfp_linear_ref only in its
+//   order); for PW = 3 the 6 largest of 9, as B3 takes them: the dropped
+//   mx.lw, lx.mw and lx.lw lie below 2^-20 |x| |w| a term (|m| < 2^-7 |v|,
+//   |l| < 2^-14 |v| of the value v they split).
 //
 // Where the dequant goes.  A and B are swapped: W is wgmma's A operand
 // (output features on its 64 rows per warpgroup), x's tokens its N.  Each
 // consumer thread dequantizes its 16 mantissas of two weight rows per
 // stage (no conversion instruction: the format's deq4) and stores them as
-// bf16 into its warpgroup's 64 x 64 A tile in shared memory, in the
-// 128-byte swizzle wgmma reads, then `fence.proxy.async`.  One dequant serves all P planes
-// and all BM tokens.  A tile in shared memory rather than in registers:
+// bf16 into its warpgroup's 64 x 64 A tile in shared memory (one tile per
+// weight plane), in the 128-byte swizzle wgmma reads, then
+// `fence.proxy.async`.  One dequant serves all P planes and all BM tokens.  A tile in shared memory rather than in registers:
 // ptxas serializes every wgmma (C7513) when registers that wgmma reads are
 // written while another wgmma is in flight, so register-sourced A cannot
 // overlap the next stage's dequant with the current products; two A tiles
@@ -46,7 +57,8 @@
 // setmaxnreg) and a producer whose one thread keeps a ring of STAGES tiles
 // in flight with TMA (x planes: BM x 64 bf16 each, 128-byte swizzle; W:
 // 128 rows of 64 int8 (BFP) or 32 bytes of nibbles (SBFP)), completed on
-// mbarriers.  A consumer issues a stage's P x 4 wgmmas, then waits for the
+// mbarriers.  A consumer issues a stage's P x PW x 4 wgmmas (PW = 3: 6 x 4),
+// then waits for the
 // previous stage's (`wgmma.wait_group 1`) and releases its tiles, so each
 // stage's dequant overlaps the last stage's products.  Exponents and
 // scales (one per thread and row per stage: B is a multiple of 16) are
@@ -111,16 +123,19 @@ struct Cfg {
   static constexpr int W_BYTES = BN * W_ROW;
   static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
   static_assert(STAGE_BYTES % 1024 == 0, "each stage's x tiles 1024-byte aligned");
-  // each consumer warpgroup's dequantized weight tiles, bf16 64 x 64, two
+  // each consumer warpgroup's dequantized weight tiles, bf16 64 x 64, one
+  // per weight plane, two sets
   static constexpr int A_BYTES = 64 * BK * 2;
+  static constexpr int A_SET = W::PLANES * A_BYTES;
   // as many stages as shared memory holds (227 KB) beside the A tiles and
   // the epilogue buffers, at most 8: 7 x 24 KB (P 1, BM 128), 4 x 40 KB
-  // (BM 256), 3 x 56 KB (P 3, BFP), 3 x 52 KB (P 3, SBFP)
+  // (BM 256), 3 x 56 KB (P 3, BFP), 3 x 52 KB (P 3, SBFP and two weight
+  // planes), 2 x 52 KB (three weight planes)
   static constexpr int FIT =
-      (232448 - 1024 - 256 - CONSUMERS * 2 * A_BYTES - OUT_BYTES) / STAGE_BYTES;
+      (232448 - 1024 - 256 - CONSUMERS * 2 * A_SET - OUT_BYTES) / STAGE_BYTES;
   static constexpr int STAGES = FIT < 8 ? FIT : 8;
   static constexpr int A_OFFSET = STAGES * STAGE_BYTES;
-  static constexpr int OUT_OFFSET = A_OFFSET + CONSUMERS * 2 * A_BYTES;
+  static constexpr int OUT_OFFSET = A_OFFSET + CONSUMERS * 2 * A_SET;
   static constexpr int SMEM = OUT_OFFSET + OUT_BYTES + 1024;  // + alignment
   static_assert(STAGES * STAGE_BYTES >= BM * BN * 4, "the ring holds the f32 tile");
 };
@@ -187,6 +202,7 @@ struct BfpW {
   using Scale = int8_t;
   using Word = uint4;
   static constexpr int BYTES16 = 16;
+  static constexpr int PLANES = 1;
   __device__ static float scale(Scale e, int precision) {
     return pow2_exact((int)e + 2 - precision);
   }
@@ -209,6 +225,7 @@ struct SbfpW {
   using Scale = float;
   using Word = uint2;
   static constexpr int BYTES16 = 8;
+  static constexpr int PLANES = 1;
   __device__ static float scale(Scale s, int) { return s; }
   // byte i of v (its two nibbles) as a bf16 pair times s2
   __device__ static uint32_t byte_pair(uint32_t v, int i, uint32_t s2) {
@@ -224,19 +241,19 @@ struct SbfpW {
   }
 };
 
-// all 16 weights of a Word as 8 bf16 pairs, pair i holding k = 2i and 2i + 1
-template <class W>
-__device__ __forceinline__ void deq16(const typename W::Word w, float s, uint32_t (&o)[8]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) W::deq4(w, q, s, o[2 * q], o[2 * q + 1]);
-}
-
-// the x plane values of one f32 (bf16 bit patterns)
+// the x plane values of one f32 (bf16 bit patterns); P = 2 (weights only:
+// finite, <= 16 significant bits) keeps h and m
 template <int P>
 __device__ __forceinline__ void split_x(float x, uint16_t (&out)[P]) {
   if constexpr (P == 1) {
     const __nv_bfloat16 b = __float2bfloat16_rn(x);
     out[0] = *reinterpret_cast<const uint16_t*>(&b);
+  } else if constexpr (P == 2) {
+    const uint32_t bits = __float_as_uint(x);
+    const uint32_t h = bits & 0xffff0000u;
+    const float r = __fsub_rn(x, __uint_as_float(h));
+    out[0] = (uint16_t)(h >> 16);
+    out[1] = (uint16_t)(((__float_as_uint(r) & 0xffff0000u) | (bits & 0x80000000u)) >> 16);
   } else {
     const uint32_t bits = __float_as_uint(x);
     uint32_t h = bits & 0xffff0000u, m = 0, l = 0;
@@ -253,6 +270,50 @@ __device__ __forceinline__ void split_x(float x, uint16_t (&out)[P]) {
     out[0] = (uint16_t)(h >> 16);
     out[1] = (uint16_t)(m >> 16);
     out[2] = (uint16_t)(l >> 16);
+  }
+}
+
+// an int4 two's-complement nibble (in the low 4 bits of v) as an exact f32
+// without the conversion unit: (v ^ 8) = man + 8 under the exponent of 2^23
+// reads 2^23 + 8 + man, and one exact subtraction leaves man
+__device__ __forceinline__ float nibble_f32(uint32_t v) {
+  return __uint_as_float(((v & 0xFu) ^ 8u) | 0x4B000000u) - 8388616.0f;
+}
+
+// SBFP weights that bf16 does not hold (B5's f32 route): SbfpW's payload,
+// each weight dequantized in f32 as sbfp_unpack rounds it (__fmul_rn) and
+// split into PW exact bf16 planes (split_x: h + m (+ l))
+template <int PW>
+struct SbfpPlanesW {
+  using Scale = float;
+  using Word = uint2;
+  static constexpr int BYTES16 = 8;
+  static constexpr int PLANES = PW;
+  __device__ static float scale(Scale s, int) { return s; }
+  // the 16 weights as 8 bf16 pairs per plane, pair i holding k = 2i, 2i + 1
+  __device__ static void deq16(const Word w, float s, uint32_t (&o)[PW][8]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t byte = (i < 4 ? w.x : w.y) >> (8 * (i & 3));
+      uint16_t lo[PW], hi[PW];
+      split_x<PW>(__fmul_rn(nibble_f32(byte), s), lo);
+      split_x<PW>(__fmul_rn(nibble_f32(byte >> 4), s), hi);
+#pragma unroll
+      for (int p = 0; p < PW; ++p) o[p][i] = lo[p] | ((uint32_t)hi[p] << 16);
+    }
+  }
+};
+
+// all 16 weights of a Word as 8 bf16 pairs per weight plane, pair i holding
+// k = 2i and 2i + 1
+template <class W>
+__device__ __forceinline__ void deq16(const typename W::Word w, float s,
+                                      uint32_t (&o)[W::PLANES][8]) {
+  if constexpr (W::PLANES == 1) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) W::deq4(w, q, s, o[0][2 * q], o[0][2 * q + 1]);
+  } else {
+    W::deq16(w, s, o);
   }
 }
 
@@ -582,45 +643,55 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     // A stage: this thread dequantizes its 16 mantissas of rows r and r + 8
     // of the warpgroup's 64 (16 k each, one 16-byte (BFP) or 8-byte (SBFP)
     // load per row from the TMA'd tile) and stores them as bf16 into the
-    // warpgroup's A tile in the 128-byte swizzle that wgmma reads; the warpgroup syncs and
-    // issues the stage's P x 4 wgmmas, then waits for the previous stage's
+    // warpgroup's A tiles (one per weight plane) in the 128-byte swizzle
+    // that wgmma reads; the warpgroup syncs and issues the stage's wgmmas
+    // (P x PW, PW = 3: 6, each 4 deep), then waits for the previous stage's
     // (`wgmma.wait_group 1`) and releases its x and W tiles.  The two A
     // tiles alternate, so a stage's dequant overlaps the previous stage's
     // products, and no register that a wgmma in flight reads is written
     // (ptxas would serialize the wgmmas).  Each warp's tensor core reads
     // only its own 16 rows of A, which that warp writes.
     const int r = warp * 16 + g;  // row r and r + 8 of the warpgroup's tile
-    unsigned char* atile = smem + C::A_OFFSET + wg * 2 * C::A_BYTES;
+    unsigned char* atile = smem + C::A_OFFSET + wg * 2 * C::A_SET;
     int it = 0;
     auto stage = [&](float sa, float sb) {
       const int s = it % C::STAGES;
       mbar_wait(&full[s], (it / C::STAGES) & 1);
       const unsigned char* st = smem + s * C::STAGE_BYTES;
       const unsigned char* wt = st + C::X_BYTES + W::BYTES16 * t;
-      uint32_t oa[8], ob[8];
+      constexpr int PW = W::PLANES;
+      uint32_t oa[PW][8], ob[PW][8];
       deq16<W>(*reinterpret_cast<const typename W::Word*>(wt + row * C::W_ROW), sa, oa);
       deq16<W>(*reinterpret_cast<const typename W::Word*>(wt + (row + 8) * C::W_ROW), sb, ob);
-      unsigned char* at = atile + (it & 1) * C::A_BYTES;
+      unsigned char* at = atile + (it & 1) * C::A_SET;
       // k 16t .. 16t+15 are the 16-byte chunks 2t and 2t + 1 of a 128-byte
       // row; chunk c of row r sits at chunk c ^ (r % 8)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = 2 * t + h;
-        *reinterpret_cast<uint4*>(at + r * 128 + ((c ^ (r & 7)) << 4)) =
-            make_uint4(oa[4 * h], oa[4 * h + 1], oa[4 * h + 2], oa[4 * h + 3]);
-        *reinterpret_cast<uint4*>(at + (r + 8) * 128 + ((c ^ ((r + 8) & 7)) << 4)) =
-            make_uint4(ob[4 * h], ob[4 * h + 1], ob[4 * h + 2], ob[4 * h + 3]);
-      }
+      for (int pw = 0; pw < PW; ++pw)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 2 * t + h;
+          unsigned char* ap = at + pw * C::A_BYTES;
+          *reinterpret_cast<uint4*>(ap + r * 128 + ((c ^ (r & 7)) << 4)) = make_uint4(
+              oa[pw][4 * h], oa[pw][4 * h + 1], oa[pw][4 * h + 2], oa[pw][4 * h + 3]);
+          *reinterpret_cast<uint4*>(ap + (r + 8) * 128 + ((c ^ ((r + 8) & 7)) << 4)) =
+              make_uint4(ob[pw][4 * h], ob[pw][4 * h + 1], ob[pw][4 * h + 2],
+                         ob[pw][4 * h + 3]);
+        }
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       warpgroup_sync(wg);
       pin(acc);
       wgmma_fence();
-      const uint64_t adesc = desc_sw128(at);
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const uint64_t bdesc = desc_sw128(st + p * (BM * BK * 2));
 #pragma unroll
-        for (int q = 0; q < 4; ++q) wgmma_m64k16(acc, adesc + 2 * q, bdesc + 2 * q);
+        for (int pw = 0; pw < PW; ++pw) {
+          if (PW == 3 && p + pw > 2) continue;  // the three smallest products
+          const uint64_t adesc = desc_sw128(at + pw * C::A_BYTES);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) wgmma_m64k16(acc, adesc + 2 * q, bdesc + 2 * q);
+        }
       }
       wgmma_commit();
       wgmma_wait1();

@@ -9,27 +9,57 @@
 //   out      = sum_s softmax(logit)[s] * v[s]
 // K/V are the port's D-minor cache, [B, Hkv, S, D] f32; q and out [B, H, D].
 //
-// What bounds it on the card, and what the design does about it: the f32
-// K/V stream of the filled slots (8 * lengths[b] * D bytes per KV head) --
-// the kernel reads keys only below lengths[b], so the unfilled capacity of
-// the cache costs nothing.  One block per (b, KV head), eight warps; a key
-// row of D floats is read as D/16 lanes x four 16-byte loads, so a warp
-// covers 32*16/D keys per step.  All rep = H / Hkv query heads of the KV head
-// are served from one read of each key and value (R of them per pass, R = 4,
-// 2 or 1, the largest that divides rep).  Each warp keeps its own online
-// softmax in f32 (max, sum, accumulator) per query head, and the warps merge
-// at the end through shared memory.  With B*Hkv blocks (96 at OPT-125m batch
-// 8) the card is not full and each block walks its keys in sequence, so the
-// kernel is latency-bound at short context; splitting S across blocks
-// (flash-decoding) is later work.  lengths[b] must be >= 1.
+// What bounds it on the card: the f32 K/V stream of the filled slots (8 *
+// lengths[b] * D bytes per KV head): 0.0024 ms at the baseline path's shape
+// (batch 8, 12 heads, lengths 160 in 256 slots), 0.0296 ms at bench.py's
+// long one (lengths 2016 in 2048).  The first version launched one block of
+// 8 warps per (b, KV head), 96 blocks at batch 8: each warp streams its
+// keys with __ldg and keeps an online softmax, and a block's keys of a row
+// arrive at the memory parallelism of 8 warps, a memory latency a step of
+// 64 keys (on an H100: 0.0067 ms at the path's shape, 0.0403 at the long
+// one).  Measured beside it (PERF.md): B2's design (a block per 256-key
+// chunk staged whole with cp.async, then its phases in sequence) ties it at
+// the path's shape and loses a third at the long one (one block an SM: 139
+// KB of f32 K/V), a ring of 64-key tiles streamed through each block does
+// no better, and a thread block cluster a row (2-8 blocks, merged through
+// distributed shared memory) loses at the path's shape: at ~115 registers
+// two blocks fit an SM, so its blocks run in waves.  The design keeps the
+// streaming warps, keeps the next step's rows in flight, and adds B2's
+// split:
+// - Split S across blocks (flash-decoding): grid (Hkv, B, ceil(S / CHUNK)),
+//   sized from the capacity S, which the host knows; a block whose chunk
+//   starts at or past lengths[b] exits at once, so the host never reads the
+//   lengths.  At long context a row's keys stream through ceil(S / CHUNK)
+//   blocks at once; a cache of at most CHUNK slots (the baseline path's)
+//   keeps one block a row and no merge.
+// - In a block, eight warps; a key row of D floats is read as D/16 lanes x
+//   four 16-byte loads, so a warp covers 32*16/D keys a step, and loads the
+//   next step's K and V rows before it uses this step's (H100: 0.0066 -> 0.0063
+//   ms at the path's shape, 0.0101 -> 0.0085 with GQA).  All rep = H /
+//   Hkv query heads of the KV head are served from one read of each key and
+//   value (R of them a pass, R = 4, 2 or 1, the largest that divides rep).
+//   Each warp keeps its own online softmax in f32 (max, sum, accumulator)
+//   per query head, and the warps merge at the end through shared memory,
+//   in warp order.
+// - A row of one chunk is finished by its block.  Otherwise each block
+//   writes its chunk's (m, l, acc[D]) per query head and the last block of
+//   the row to finish (an atomic ticket) merges the chunks in chunk order
+//   (decode_split.cuh): one launch, the same bits on every run.
+// head_dim 32, 64 or 128; CHUNK keys a block, chosen by measurement on the
+// H100 (PERF.md), mirrored by the wrapper's B4_CHUNK.  lengths[b] must be >=
+// 1 (a decode step always has its own key).  The launch error is returned to
+// the caller (cudaGetLastError).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_split.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;
+constexpr int CHUNK = 1024;  // keys per block
 
 __device__ __forceinline__ void load16(const float* p, float* dst) {
 #pragma unroll
@@ -42,11 +72,25 @@ __device__ __forceinline__ void load16(const float* p, float* dst) {
   }
 }
 
+// this lane's 16 dims of key and value row `row`, zeros where !valid
+__device__ __forceinline__ void load_kv(const float* k, const float* v, size_t row, bool valid,
+                                       float* kr, float* vr) {
+  if (valid) {
+    load16(k + row, kr);
+    load16(v + row, vr);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) kr[j] = vr[j] = 0.f;
+  }
+}
+
 template <int D, int R>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const int* __restrict__ lengths,
-                    float* __restrict__ out, int H, int Hkv, int S, float scale) {
+                    float* __restrict__ out, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int* __restrict__ tickets, int H, int Hkv, int S,
+                    float scale) {
   constexpr int LPK = D / 16;      // lanes per key row
   constexpr int KPW = 32 / LPK;    // keys per warp step
   constexpr int KPB = KPW * WARPS; // keys per block step
@@ -56,19 +100,27 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int hkv = blockIdx.x;
   const int b = blockIdx.y;
+  const int c = blockIdx.z;
   const int rep = H / Hkv;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int sub = lane % LPK;  // dims sub*16 .. sub*16+15
   const int grp = lane / LPK;  // key within the warp step
   const int len = min(lengths[b], S);
+  const int s0 = c * CHUNK;
+  if (s0 >= len) return;  // uniform: the whole block
+  const int s1 = min(len, s0 + CHUNK);
+  const int nact = (len + CHUNK - 1) / CHUNK;
+  const int nchunks = gridDim.z;
   const size_t kv_row0 = ((size_t)b * Hkv + hkv) * S;
+  const size_t bh0 = (size_t)b * H + (size_t)hkv * rep;  // the first query head's row
+  const int w0 = s0 + warp * KPW + grp;  // this lane's first key
 
   for (int r0 = 0; r0 < rep; r0 += R) {
-    const int h0 = hkv * rep + r0;  // first query head of this pass
-    float qv[R][16];
+    float qv[R][16], kr[16], vr[16];
 #pragma unroll
-    for (int r = 0; r < R; ++r) load16(q + ((size_t)b * H + h0 + r) * D + sub * 16, qv[r]);
+    for (int r = 0; r < R; ++r) load16(q + (bh0 + r0 + r) * D + sub * 16, qv[r]);
+    load_kv(k, v, (kv_row0 + w0) * D + sub * 16, w0 < s1, kr, vr);
 
     float m[R], l[R], acc[R][16];
 #pragma unroll
@@ -79,17 +131,12 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 16; ++j) acc[r][j] = 0.f;
     }
 
-    for (int s0 = warp * KPW; s0 < len; s0 += KPB) {
-      const int s = s0 + grp;
-      const bool valid = s < len;
-      float kr[16], vr[16];
-      if (valid) {
-        load16(k + (kv_row0 + s) * D + sub * 16, kr);
-        load16(v + (kv_row0 + s) * D + sub * 16, vr);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 16; ++j) kr[j] = vr[j] = 0.f;
-      }
+    // the next step's K and V rows are in flight while this step's are used
+    for (int st = s0 + warp * KPW; st < s1; st += KPB) {
+      const int s = st + grp;
+      const bool valid = s < s1;
+      float kn[16], vn[16];
+      load_kv(k, v, (kv_row0 + s + KPB) * D + sub * 16, s + KPB < s1, kn, vn);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float dot = 0.f;
@@ -113,6 +160,11 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < 16; ++j) acc[r][j] = fmaf(p, vr[j], acc[r][j] * alpha);
         m[r] = m_new;
       }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        kr[j] = kn[j];
+        vr[j] = vn[j];
+      }
     }
     // sum the accumulators of the key groups (they share the warp's max)
 #pragma unroll
@@ -131,6 +183,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
+    // the chunk: the warps' states merged in warp order
     for (int i = threadIdx.x; i < R * D; i += WARPS * 32) {
       const int r = i / D;
       const int d = i % D;
@@ -145,46 +198,73 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
         gl = fmaf(sm_l[w][r], wt, gl);
         o = fmaf(sm_acc[w][r][d], wt, o);
       }
-      out[((size_t)b * H + h0 + r) * D + d] = o / fmaxf(gl, 1e-30f);
+      const size_t row = bh0 + r0 + r;
+      if (nact == 1) {
+        out[row * D + d] = o / fmaxf(gl, 1e-30f);
+      } else {
+        part_acc[(row * nchunks + c) * D + d] = o;
+        if (d == 0) {
+          part_ml[(row * nchunks + c) * 2] = gm;
+          part_ml[(row * nchunks + c) * 2 + 1] = gl;
+        }
+      }
     }
     __syncthreads();
+  }
+  if (nact == 1) return;
+  if (!decode_split::last_to_arrive(tickets + (size_t)b * Hkv + hkv, nact)) return;
+  for (int o = threadIdx.x; o < rep * D; o += WARPS * 32) {
+    const int r = o / D, d = o - r * D;
+    out[(bh0 + r) * D + d] = decode_split::merge_chunks(
+        part_acc + (bh0 + r) * nchunks * D, part_ml + (bh0 + r) * nchunks * 2, nact, D, d);
   }
 }
 
 template <int D>
 void launch_d(dim3 grid, cudaStream_t s, int rep, const float* q, const float* k,
-              const float* v, const int* le, float* out, int H, int Hkv, int S, float scale) {
+              const float* v, const int* le, float* out, float* pa, float* pm, int* tk, int H,
+              int Hkv, int S, float scale) {
   if (rep % 4 == 0)
-    flash_decode_kernel<D, 4><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, H, Hkv, S, scale);
+    flash_decode_kernel<D, 4><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H, Hkv,
+                                                          S, scale);
   else if (rep % 2 == 0)
-    flash_decode_kernel<D, 2><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, H, Hkv, S, scale);
+    flash_decode_kernel<D, 2><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H, Hkv,
+                                                          S, scale);
   else
-    flash_decode_kernel<D, 1><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, H, Hkv, S, scale);
+    flash_decode_kernel<D, 1><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H, Hkv,
+                                                          S, scale);
 }
 
 }  // namespace
 
+// part_acc [B, H, ceil(S / CHUNK), D] and part_ml [B, H, ceil(S / CHUNK), 2]
+// f32 scratch; tickets int32 [B * Hkv], zero (and left zero); where S <=
+// CHUNK no block touches them, and they may be null
 extern "C" int dmx_flash_decode(const void* q, const void* k, const void* v,
-                                const void* lengths, void* out, int B, int H, int Hkv,
-                                int S, int D, float scale, void* stream) {
+                                const void* lengths, void* out, void* part_acc, void* part_ml,
+                                void* tickets, int B, int H, int Hkv, int S, int D, float scale,
+                                void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Hkv, B);
+  const dim3 grid(Hkv, B, (S + CHUNK - 1) / CHUNK);
   const int rep = H / Hkv;
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   const int* lp = static_cast<const int*>(lengths);
   float* op = static_cast<float*>(out);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  int* tk = static_cast<int*>(tickets);
   switch (D) {
     case 32:
-      launch_d<32>(grid, s, rep, qp, kp, vp, lp, op, H, Hkv, S, scale);
+      launch_d<32>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
       break;
     case 64:
-      launch_d<64>(grid, s, rep, qp, kp, vp, lp, op, H, Hkv, S, scale);
+      launch_d<64>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
       break;
     case 128:
-      launch_d<128>(grid, s, rep, qp, kp, vp, lp, op, H, Hkv, S, scale);
+      launch_d<128>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;

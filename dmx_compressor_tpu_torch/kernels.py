@@ -10,7 +10,9 @@ missing one at first use.  Nothing is built
 or imported from the CUDA toolchain when this module is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: each wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else.  ``ROUTE_LAUNCHES``
+counts them again by route for a kernel whose C entry point picks among
+several (``"sbfp_linear/gemv"``).
 """
 
 from __future__ import annotations
@@ -46,8 +48,10 @@ SIGNATURES = {
     "flash_attention": (
         "dmx_flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
-    "sbfp_linear": ("dmx_sbfp_linear", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "flash_decode": ("dmx_flash_decode", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "sbfp_linear": ("dmx_sbfp_linear", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_decode": (
+        "dmx_flash_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    ),
     "bfp_cast": ("dmx_bfp_cast", [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "bfp_linear_bf16": (
         "dmx_bfp_linear_bf16", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -55,13 +59,25 @@ SIGNATURES = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+# "<kernel>/<route>" -> launches, for the launches that named a route
+ROUTE_LAUNCHES: Dict[str, int] = {}
 
 _FUNCS: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
+    """Every count to 0, by kernel and by route."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
+
+
+def count(name: str, route: Optional[str] = None) -> None:
+    """One launch of kernel ``name``, by ``route`` where the caller names one."""
+    LAUNCHES[name] += 1
+    if route is not None:
+        key = f"{name}/{route}"
+        ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1
 
 
 def resolve_device(device) -> torch.device:
@@ -145,12 +161,12 @@ def function(name: str):
     return fn
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on PyTorch's current stream, count it, and
-    raise if the launch was refused."""
+def launch(name: str, *args, route: Optional[str] = None) -> None:
+    """Launch kernel ``name`` on PyTorch's current stream, count it (by
+    ``route`` too, where given), and raise if the launch was refused."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = function(name)(*args, stream)
-    LAUNCHES[name] += 1
+    count(name, route)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 

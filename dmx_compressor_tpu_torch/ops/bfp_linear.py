@@ -191,12 +191,55 @@ def sbfp_linear_ref(x: torch.Tensor, w: PackedSBFP,
     return y.to(x.dtype)
 
 
+def sbfp_w_planes_ref(w: PackedSBFP, planes: int):
+    """Plain transcription of the weight split of B5's planes route
+    (csrc/bfp_wgmma.cuh ``SbfpPlanesW``), for tests: the dequantized weight
+    (``sbfp_unpack``) as its first ``planes`` (2 or 3) bf16 truncation
+    planes of :func:`split_bf16x3_ref`, whose sum is the weight bit for bit
+    where ``planes >= w.planes``."""
+    return split_bf16x3_ref(sbfp_unpack(w))[:planes]
+
+
 def sbfp_tensor_cores(w: PackedSBFP, K: int) -> bool:
     """Whether B5 serves ``w`` on its bf16 tensor-core kernels: weights exact
     in bf16 (recorded at pack time, so no call reads the scales) with K and
-    the block multiples of 16.  Any other payload takes its f32 FMA GEMM, at
-    every M."""
+    the block multiples of 16.  Any other payload takes its f32 route
+    (:func:`sbfp_route`), at every M."""
     return w.bf16_exact and K % 16 == 0 and w.block_size % 16 == 0
+
+
+def sbfp_weight_planes(w: PackedSBFP, K: int) -> int:
+    """The bf16 planes of the weight (2 or 3) on which B5's f32 route runs
+    the wgmma mainloop above 16 rows: a payload off the tensor-core kernels
+    whose format splits exactly (``PackedSBFP.planes``, recorded at pack
+    time; one plane is served as two), with K a multiple of 32 (a TMA'd
+    nibble row) and the block of 16 (one scale per 16 weights).  0 where
+    the SIMT GEMM serves it instead."""
+    if sbfp_tensor_cores(w, K) or not w.planes or K % 32 or w.block_size % 16:
+        return 0
+    return max(2, w.planes)
+
+
+# B5's kernels (csrc/sbfp_linear.cu), numbered as its C entry point takes
+# them; kernels.ROUTE_LAUNCHES counts B5's launches by these names
+SBFP_ROUTES = ("tensor_cores", "gemv", "planes", "simt")
+
+
+def sbfp_route(w: PackedSBFP, M: int, K: int) -> str:
+    """The kernel of B5 that serves x [M, K] times ``w``, decided from M, K,
+    the block and the format (never from the scales): the bf16 tensor-core
+    kernels for :func:`sbfp_tensor_cores` payloads (the decode GEMV up to 16
+    rows, the wgmma mainloop above where K % 32 == 0); for any other
+    payload up to 16 rows, the f32 split-K GEMV; above, the wgmma mainloop
+    on the weight's exact bf16 planes (:func:`sbfp_weight_planes`); the
+    SIMT f32 GEMM for what is left (M > 16 with K % 32 != 0, or a block or
+    format the planes cannot take)."""
+    tc = sbfp_tensor_cores(w, K)
+    if M <= _DECODE_ROWS:
+        return "tensor_cores" if tc else "gemv"
+    if tc and K % 32 == 0:
+        return "tensor_cores"
+    return "planes" if sbfp_weight_planes(w, K) else "simt"
 
 
 def sbfp_linear(x: torch.Tensor, w: PackedSBFP,
@@ -222,15 +265,15 @@ def sbfp_linear(x: torch.Tensor, w: PackedSBFP,
     kernels.check_cuda(*operands,
                        dtypes=(torch.float32, torch.uint8, torch.float32, torch.float32))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    tensor_cores = sbfp_tensor_cores(w, K)
-    # the wgmma path reads its nibble rows with TMA: K / 2 bytes, a multiple
-    # of 16 only where K % 32 == 0 (else the f32 GEMM, which needs no planes)
-    planes = _x_planes(x2, 3) if tensor_cores and K % 32 == 0 else None
+    route = sbfp_route(w, M, K)
+    # the wgmma mainloop (above 16 rows) reads the pre-pass's planes of x
+    planes = _x_planes(x2, 3) if route in ("tensor_cores", "planes") else None
     kernels.launch(
         "sbfp_linear",
         x2.data_ptr(), w.nibbles.data_ptr(), w.scale.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         planes.data_ptr() if planes is not None else None,
-        M, N, K, w.block_size, int(tensor_cores),
+        M, N, K, w.block_size, SBFP_ROUTES.index(route), sbfp_weight_planes(w, K),
+        route=route,
     )
     return out.reshape(*lead, N).to(x.dtype)

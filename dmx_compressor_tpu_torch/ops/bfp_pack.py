@@ -83,12 +83,17 @@ class PackedSBFP(NamedTuple):
     bf16_exact: every dequantized weight (mantissa x scale) is exact in
         bfloat16, decided from the format at pack time (:func:`sbfp_bf16_exact`);
         B5 serves only such weights on its bf16 tensor-core kernels
+    planes: the number of bf16 planes (1-3) whose sum holds every
+        dequantized weight exactly, 0 where no such split exists, decided
+        from the format at pack time (:func:`sbfp_bf16_planes`); B5's f32
+        route multiplies such weights on the tensor cores above 16 rows
     """
 
     nibbles: torch.Tensor
     scale: torch.Tensor
     block_size: int
     bf16_exact: bool = False
+    planes: int = 0
 
 
 def sbfp_bf16_exact(fmt) -> bool:
@@ -102,6 +107,25 @@ def sbfp_bf16_exact(fmt) -> bool:
     emax = 2**sf.exponent - sf.bias
     return (fmt.block_format.precision <= 4 and sf.mantissa <= 4
             and emin >= -126 and emax <= 124)
+
+
+def sbfp_bf16_planes(fmt) -> int:
+    """How many bf16 planes hold every weight of SBFP format ``fmt`` exactly
+    once dequantized in f32 (``man * scale``), as the sum of truncations h +
+    m (+ l) that B5's f32 route splits it into: a mantissa of precision - 1
+    bits times a scale of mantissa + 1 significant bits has at most
+    precision + mantissa of them (and f32's 24), 8 to a plane.  Decided from
+    the format, with two range checks: the last bit of the smallest weight
+    (the scale grid's step, 2^(1 - bias - mantissa), subnormal scales
+    included) must not fall below bf16's last subnormal bit (2^-133), and
+    the largest weight (7 times a scale below 2^(emax + 1), emax =
+    2^(exponent - 1) the exponent at which the scale cast clips) must stay
+    finite in f32.  Returns 1, 2 or 3, or 0 where either check fails."""
+    sf = fmt.scaler_format
+    emax = 2 ** (sf.exponent - 1)
+    if 1 - sf.bias - sf.mantissa < -133 or emax + 4 > 128:
+        return 0
+    return -(-min(24, fmt.block_format.precision + sf.mantissa) // 8)
 
 
 def sbfp_pack(x: torch.Tensor, fmt) -> PackedSBFP:
@@ -127,7 +151,7 @@ def sbfp_pack(x: torch.Tensor, fmt) -> PackedSBFP:
     hi = man[..., 1::2] & 0xF
     return PackedSBFP(nibbles=(lo | (hi << 4)).to(torch.uint8),
                       scale=scale.to(torch.float32), block_size=B,
-                      bf16_exact=sbfp_bf16_exact(fmt))
+                      bf16_exact=sbfp_bf16_exact(fmt), planes=sbfp_bf16_planes(fmt))
 
 
 def sbfp_unpack_mantissa_int8(nibbles: torch.Tensor) -> torch.Tensor:

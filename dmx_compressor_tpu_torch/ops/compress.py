@@ -182,11 +182,12 @@ class PackedSBFPLinear(_PackedLinear):
         self.register_buffer("weight_block_scale", packed.scale)
         self.block_size = packed.block_size
         self.bf16_exact = packed.bf16_exact
+        self.planes = packed.planes
 
     @property
     def packed(self) -> PackedSBFP:
         return PackedSBFP(self.weight_nibbles, self.weight_block_scale, self.block_size,
-                          self.bf16_exact)
+                          self.bf16_exact, self.planes)
 
     def _forward(self, _input):
         return sbfp_linear(_input, self.packed, bias=self._bias)
@@ -340,17 +341,18 @@ def build_basic_mode(model: nn.Module):
     return dm
 
 
-def build_sbfp_mode(model: nn.Module):
-    """The SBFP serving configuration (SBFP12_16 weight storage served from
-    packed int4 payloads, activations in their own precision):
+def build_sbfp_mode(model: nn.Module, fmt: str = SBFP12_16):
+    """The SBFP serving configuration (SBFP weight storage served from packed
+    int4 payloads, activations in their own precision):
     ``DmxModel.from_raw`` -> every Linear (the tied LM head included) gets
-    weight storage SBFP12_16 -> ``compress_for_inference`` -> inference mode.
-    Returns the DmxModel; ``model`` is transformed in place."""
+    weight storage ``fmt`` (bench.py's SBFP12_16 by default) ->
+    ``compress_for_inference`` -> inference mode.  Returns the DmxModel;
+    ``model`` is transformed in place."""
     from ..modeling.model import DmxConfigRule, DmxModel
 
     dm = DmxModel.from_raw(model)
     dm.configure(None, DmxConfigRule(module_types=(dmxnn.Linear,),
-                                     module_config=dict(weight_storage_format=SBFP12_16)))
+                                     module_config=dict(weight_storage_format=fmt)))
     compress_for_inference(dm)
     set_inference_mode(True)
     return dm

@@ -4,12 +4,14 @@
 Port of ``flash_decode_ref``, ``flash_decode``, ``flash_decode_int8_ref``,
 ``flash_decode_int8`` and ``post_update_lengths`` of
 ``dmx_compressor_tpu/ops/flash_decode.py``.  The CUDA kernels
-(``csrc/flash_decode.cu``, ``csrc/flash_decode_int8.cu``) read the K/V rows
-below each row's length and keep an online softmax in f32; the int8 one
-dequantizes in registers with the per-position scales after the dot products
-(``quantized_sdpa``'s factorization).  ``flash_decode`` and
-``flash_decode_int8`` launch their kernel for CUDA tensors and run the plain
-version for CPU tensors.  The port has no routing floor: every transparent
+(``csrc/flash_decode.cu``, ``csrc/flash_decode_int8.cu``) split the keys
+below each row's length into chunks, one CUDA block each, and merge the
+chunks' softmax states in chunk order (``csrc/decode_split.cuh``); the int8
+one dequantizes with the per-position scales after the dot products
+(``quantized_sdpa``'s factorization).  ``flash_decode_split_ref`` and
+``flash_decode_int8_split_ref`` transcribe that arithmetic for the tests.
+``flash_decode`` and ``flash_decode_int8`` launch their kernel for CUDA
+tensors and run the plain version for CPU tensors.  The port has no routing floor: every transparent
 T == 1 decode step goes through one of them.  The JAX package's
 ``s_minor`` variants are a TPU layout; the port's caches are D-minor.
 """
@@ -27,8 +29,11 @@ NEG_INF = -1e30
 
 # B2's split of S: keys per CUDA block, the CHUNK of csrc/flash_decode_int8.cu
 B2_CHUNK = 256
-# per device: B2's merge tickets, int32, zero between launches (the merging
-# block resets its own); launches that share them run on one stream
+# B4's: the CHUNK of csrc/flash_decode.cu
+B4_CHUNK = 1024
+# per device: the merge tickets of B2 and B4, int32, zero between launches
+# (the merging block resets its own); launches that share them run on one
+# stream
 _TICKETS = {}
 
 
@@ -61,6 +66,59 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
     return torch.matmul(w, v.to(torch.float32)).to(q.dtype)
 
 
+def _merge_chunks(m, l, acc, D: int) -> torch.Tensor:
+    """The chunks' softmax states (m, l [B, H, n]; acc [B, H, n, D]) merged
+    in chunk order, as csrc/decode_split.cuh does: sum_c acc_c w_c / sum_c
+    l_c w_c with w_c = exp(m_c - max_c m_c), 0 for a chunk past the
+    length.  Returns [B, H, 1, D]."""
+    B, H, n = m.shape
+    live = torch.isfinite(m)
+    w = torch.where(live, torch.exp(m - torch.amax(m, dim=-1, keepdim=True)), 0.0)
+    gl = torch.zeros(B, H, device=m.device)
+    o = torch.zeros(B, H, D, device=m.device)
+    for c in range(n):  # chunk order
+        gl = gl + l[:, :, c] * w[:, :, c]
+        o = o + acc[:, :, c] * w[:, :, c, None]
+    return (o / torch.clamp(gl, min=1e-30)[..., None])[:, :, None]
+
+
+def _chunk_probs(logits: torch.Tensor, lengths: torch.Tensor, chunk: int):
+    """Logits [B, H, S] cut into chunks of ``chunk`` keys, masked to each
+    row's length: (p [B, H, n, chunk] = exp(logit - m), m [B, H, n] the
+    chunk's max logit (-inf past the length), l = sum p, the padding of S
+    to n * chunk)."""
+    B, H, S = logits.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    valid = torch.arange(n * chunk, device=logits.device)[None, :] < lengths[:, None]
+    lg = torch.nn.functional.pad(logits, (0, pad)).reshape(B, H, n, chunk)
+    lg = lg.masked_fill(~valid.reshape(B, 1, n, chunk), -torch.inf)
+    m = torch.amax(lg, dim=-1)
+    p = torch.exp(lg - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    return p, m, p.sum(-1), pad
+
+
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Plain transcription of B4's arithmetic, for tests: the keys below
+    each row's length cut into chunks of ``B4_CHUNK``; per chunk and query
+    head m = max logit, p = exp(logit - m), l = sum p, acc = sum p v; then
+    the chunks merged in chunk order (:func:`_merge_chunks`).  Shapes as
+    :func:`flash_decode_ref`."""
+    B, H, _, D = q.shape
+    scale = (D**-0.5) if scale is None else scale
+    if k.shape[-3] != H:
+        rep = H // k.shape[-3]
+        k = torch.repeat_interleave(k, rep, dim=-3)
+        v = torch.repeat_interleave(v, rep, dim=-3)
+    logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))[:, :, 0]
+    p, m, l, pad = _chunk_probs(logits * scale, _lengths_1d(lengths, B, q.device), B4_CHUNK)
+    n = p.shape[2]
+    vf = torch.nn.functional.pad(v.to(torch.float32), (0, 0, 0, pad)).reshape(B, H, n, -1, D)
+    acc = torch.matmul(p[..., None, :], vf)[..., 0, :]  # [B, H, n, D]
+    return _merge_chunks(m, l, acc, D).to(q.dtype)
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
                  scale: Optional[float] = None) -> torch.Tensor:
     """softmax((q k^T) * scale masked to col < lengths[b]) v over f32 K/V
@@ -84,9 +142,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
     kernels.check_cuda(q2, k, v, le,
                        dtypes=(torch.float32, torch.float32, torch.float32, torch.int32))
     out = torch.empty_like(q2)
+    _part, acc, ml, tk = _partials(q.device, B, H, Hkv, -(-S // B4_CHUNK), D)
     kernels.launch(
         "flash_decode",
-        q2.data_ptr(), k.data_ptr(), v.data_ptr(), le.data_ptr(), out.data_ptr(),
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), le.data_ptr(), out.data_ptr(), acc, ml, tk,
         B, H, Hkv, S, D, scale,
     )
     return out.to(q.dtype)
@@ -136,27 +195,12 @@ def flash_decode_int8_split_ref(q: torch.Tensor, kv: QuantKV, lengths,
         v_s = torch.repeat_interleave(v_s, rep, dim=-2)
     logits = torch.matmul(q.to(torch.float32), k_q.to(torch.float32).transpose(-1, -2))[:, :, 0]
     logits = logits * (k_s * scale)  # [B, H, S]
-    le = _lengths_1d(lengths, B, q.device)
-    n = -(-S // chunk)
-    pad = n * chunk - S
-    valid = torch.arange(n * chunk, device=q.device)[None, :] < le[:, None]  # [B, n * chunk]
-    lg = torch.nn.functional.pad(logits, (0, pad)).reshape(B, H, n, chunk)
-    lg = lg.masked_fill(~valid.reshape(B, 1, n, chunk), -torch.inf)
-    m = torch.amax(lg, dim=-1)  # [B, H, n]; -inf for a chunk past the length
-    live = torch.isfinite(m)
-    p = torch.exp(lg - torch.where(live, m, 0.0)[..., None])
-    l = p.sum(-1)
+    p, m, l, pad = _chunk_probs(logits, _lengths_1d(lengths, B, q.device), chunk)
+    n = p.shape[2]
     pv = p * torch.nn.functional.pad(v_s, (0, pad)).reshape(B, H, n, chunk)
     vqf = torch.nn.functional.pad(v_q.to(torch.float32), (0, 0, 0, pad)).reshape(B, H, n, chunk, D)
     acc = torch.matmul(pv[..., None, :], vqf)[..., 0, :]  # [B, H, n, D]
-    gm = torch.amax(m, dim=-1, keepdim=True)
-    w = torch.where(live, torch.exp(m - gm), 0.0)
-    gl = torch.zeros(B, H, device=q.device)
-    o = torch.zeros(B, H, D, device=q.device)
-    for c in range(n):  # chunk order
-        gl = gl + l[:, :, c] * w[:, :, c]
-        o = o + acc[:, :, c] * w[:, :, c, None]
-    return (o / torch.clamp(gl, min=1e-30)[..., None])[:, :, None].to(q.dtype)
+    return _merge_chunks(m, l, acc, D).to(q.dtype)
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
@@ -164,6 +208,18 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     if t is None or t.numel() < n:
         t = _TICKETS[device] = torch.zeros(n, dtype=torch.int32, device=device)
     return t
+
+
+def _partials(device, B: int, H: int, Hkv: int, n: int, D: int):
+    """The split kernels' scratch: (the buffer, which the caller keeps until
+    the launch, then pointers to the chunks' acc [B, H, n, D] and (m, l)
+    [B, H, n, 2] in it and to the tickets); all None where one chunk covers
+    a row (each block finishes its row)."""
+    if n <= 1:
+        return None, None, None, None
+    part = torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=device)
+    acc = part.data_ptr()
+    return part, acc, acc + B * H * n * D * 4, _tickets(device, B * Hkv).data_ptr()
 
 
 def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
@@ -193,13 +249,7 @@ def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
                 torch.int32),
     )
     out = torch.empty_like(q2)
-    n = -(-S // B2_CHUNK)
-    acc = ml = tk = None  # one chunk a row: each block finishes its row
-    if n > 1:
-        # the chunks' (acc [B, H, n, D], then (m, l) [B, H, n, 2]) in one buffer
-        part = torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=q.device)
-        acc, ml = part.data_ptr(), part.data_ptr() + B * H * n * D * 4
-        tk = _tickets(q.device, B * Hkv).data_ptr()
+    _part, acc, ml, tk = _partials(q.device, B, H, Hkv, -(-S // B2_CHUNK), D)
     kernels.launch(
         "flash_decode_int8",
         q2.data_ptr(), kv.k_q.data_ptr(), kv.v_q.data_ptr(), kv.k_scale.data_ptr(),

@@ -1,7 +1,8 @@
 """Device times of B1 (``bfp_linear``), T1 (``bfp_linear_bf16``), B5
-(``sbfp_linear``), B3 (``flash_attention``), T2 (``bfp_cast`` /
-``fp16_cast``) and B2 (``flash_decode_int8``) of one checkout of the port,
-at OPT-125m's shapes, for comparing two versions.
+(``sbfp_linear``: SBFP12_16 as "B5", its f32 route as "B5f32"), B3
+(``flash_attention``), T2 (``bfp_cast`` / ``fp16_cast``), B2
+(``flash_decode_int8``) and B4 (``flash_decode``) of one checkout of the
+port, at OPT-125m's shapes, for comparing two versions.
 
 Two versions of a kernel compare fairly only within one call on one card (a
 card set below its power maximum runs slower under load, and clocks differ
@@ -29,7 +30,11 @@ the BASIC path's cast sites (the S-blocked tail-v cast, the prefill's
 of the fused step: one composed call where the checkout has
 ``fp16_first``, else its two calls) and over one BASIC decode step's casts;
 B2 at the weights path's decode attention (S 256, lengths 160), at
-bench.py's long leg (S 2048, lengths 2016) and with GQA.
+bench.py's long leg (S 2048, lengths 2016) and with GQA; B4 likewise on f32
+K/V at the baseline path's shape, the long leg, one row of 8000 keys, GQA
+(rep 4, ragged) and ragged rows; B5f32 at the SBFP formats off bf16 (a 5-bit scale, a 13-bit
+one, blocks of 8 and 24) at M 8 and 1024, and per launch over one decode
+step of the SBFP path's shapes at the 5-bit scale (73 launches).
 ``--kernels`` picks the kernels (default all).  Each shape is also held
 against its plain version at the kernel's tolerance (T2: bit for bit).
 It imports only ``torch`` and the package under ``--root``, and needs a
@@ -51,7 +56,8 @@ L2_BYTES = 50 * 2**20
 TOL = dict(rtol=1e-5, atol=1e-4)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
 B2_TOL = dict(rtol=1e-5, atol=2e-5)
-KERNELS = ("B1", "T1", "B5", "B3", "T2", "B2")
+B4_TOL = dict(rtol=1e-5, atol=2e-5)
+KERNELS = ("B1", "T1", "B5", "B3", "T2", "B2", "B4", "B5f32")
 D, F, V, L = 768, 3072, 50272, 12  # OPT-125m: hidden, ffn, vocabulary, layers
 H, HEAD = 12, 64  # its heads and head dim
 # (K, N, launches per decode step): the weights path's, the SBFP path's
@@ -93,8 +99,9 @@ def measure(root: Path, label: str, which=KERNELS) -> dict:
     if not Path(kernels.__file__).resolve().is_relative_to(root.resolve()):
         raise SystemExit(f"imported {kernels.__file__}, not the package under {root}")
     names = {"B1": "bfp_linear", "T1": "bfp_linear_bf16", "B5": "sbfp_linear",
-             "B3": "flash_attention", "T2": "bfp_cast", "B2": "flash_decode_int8"}
-    kernels.build([names[k] for k in which])
+             "B3": "flash_attention", "T2": "bfp_cast", "B2": "flash_decode_int8",
+             "B4": "flash_decode", "B5f32": "sbfp_linear"}
+    kernels.build(sorted({names[k] for k in which}))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
 
@@ -114,6 +121,10 @@ def measure(root: Path, label: str, which=KERNELS) -> dict:
         out["T2"] = _t2(torch, dev, g)
     if "B2" in which:
         out["B2"] = _b2(torch, dev, g)
+    if "B4" in which:
+        out["B4"] = _b4(torch, dev, g)
+    if "B5f32" in which:
+        out["B5f32"] = _b5f32(torch, dev, g)
     return out
 
 
@@ -262,6 +273,64 @@ def _b2(torch, dev, g) -> dict:
         torch.testing.assert_close(tfd.flash_decode_int8(*sets[0]),
                                    tfd.flash_decode_int8_ref(*sets[0]), **B2_TOL)
         times[key] = _device_ms(torch, tfd.flash_decode_int8, sets)
+    return times
+
+
+def _b4(torch, dev, g) -> dict:
+    from dmx_compressor_tpu_torch.ops import flash_decode as tfd
+
+    shapes = {"path: B 8, H 12, S 256, lengths 160": (8, H, H, 256, [160] * 8),
+              "long: B 8, H 12, S 2048, lengths 2016": (8, H, H, 2048, [2016] * 8),
+              "long, batch 1: B 1, H 12, S 8192, lengths 8000": (1, H, H, 8192, [8000]),
+              "GQA: B 3, H 8, Hkv 2, S 256, lengths 17, 256, 130": (3, 8, 2, 256, [17, 256, 130]),
+              "ragged: B 8, H 12, S 200, lengths 1..200":
+                  (8, H, H, 200, [1 + (199 * i) // 7 for i in range(8)])}
+    times = {}
+    for key, (B, H_, Hkv, S, lengths) in shapes.items():
+        per_set = 2 * B * Hkv * S * HEAD * 4
+        sets = [(torch.randn(B, H_, 1, HEAD, generator=g, device=dev),
+                 torch.randn(B, Hkv, S, HEAD, generator=g, device=dev),
+                 torch.randn(B, Hkv, S, HEAD, generator=g, device=dev),
+                 torch.tensor(lengths, dtype=torch.int32, device=dev))
+                for _ in range(max(2, math.ceil(2 * L2_BYTES / per_set)))]
+        torch.testing.assert_close(tfd.flash_decode(*sets[0]), tfd.flash_decode_ref(*sets[0]),
+                                   **B4_TOL)
+        times[key] = _device_ms(torch, tfd.flash_decode, sets)
+    return times
+
+
+# (shorthand, K, N) of B5's f32 route: OPT-125m's out_proj at a 5-bit and a
+# 13-bit scale, blocks of 8 and 24 at small K
+B5F32_FORMATS = [("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", D, D),
+                 ("SBFP<XP[4,0](CSN)><FP[0|4|13,16](FN)>{16}", D, D),
+                 ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}", 40, 48),
+                 ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{24}", 72, 200)]
+
+
+def _b5f32(torch, dev, g) -> dict:
+    from dmx_compressor_tpu_torch.numerics.format import Format
+    from dmx_compressor_tpu_torch.ops.bfp_linear import sbfp_linear, sbfp_linear_ref
+    from dmx_compressor_tpu_torch.ops.bfp_pack import sbfp_pack
+
+    def payloads(fmt, M, K, N):
+        nbytes = N * K // 2 + N * K // fmt.block_size * 4 + N * 4 + M * (K + N) * 4
+        return [(torch.randn(M, K, generator=g, device=dev),
+                 sbfp_pack(torch.randn(N, K, generator=g, device=dev) * 0.05, fmt),
+                 torch.randn(N, generator=g, device=dev))
+                for _ in range(max(2, min(64, math.ceil(2 * L2_BYTES / nbytes))))]
+
+    times = {}
+    for shorthand, K, N in B5F32_FORMATS:
+        fmt = Format.from_shorthand(shorthand)
+        for M in (M_DECODE, M_PREFILL):
+            sets = payloads(fmt, M, K, N)
+            torch.testing.assert_close(sbfp_linear(*sets[0]), sbfp_linear_ref(*sets[0]), **TOL)
+            times[f"{shorthand} {M}x{K}x{N}"] = _device_ms(torch, sbfp_linear, sets)
+    fmt = Format.from_shorthand(B5F32_FORMATS[0][0])
+    sets_of = {(K, N): payloads(fmt, M_DECODE, K, N) for K, N, _ in SBFP_STEP}
+    step = [sets_of[K, N][i % len(sets_of[K, N])] for K, N, n in SBFP_STEP for i in range(n)]
+    times["5-bit scale, decode step, per launch"] = _device_ms(
+        torch, lambda: [sbfp_linear(*a) for a in step], [()]) / len(step)
     return times
 
 

@@ -209,21 +209,33 @@ def test_sbfp_linear_kernel_extreme_x_on_card(cuda, M):
 
 
 # the SBFP formats beyond SBFP12_16 that the JAX package serves (a 5-bit
-# scale: not exact in bf16; blocks of 8 and 24): B5's f32 GEMM at every M
+# scale: not exact in bf16, two weight planes; a 13-bit scale, three; blocks
+# of 8 and 24): B5's f32 route, the GEMV up to 16 rows, the weight planes
+# above where K % 32 == 0 and the block is a multiple of 16, else the SIMT
+# GEMM; then K no multiple of 8 (one-byte loads) and K > 8192 (x tiled along
+# K in the GEMV)
 SBFP_OTHER = [("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", 768, 768),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", 3072, 768),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|13,16](FN)>{16}", 768, 768),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|13,16](FN)>{32}", 3072, 200),
               ("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", 80, 130),
               ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}", 40, 48),
-              ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{24}", 72, 200)]
+              ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{24}", 72, 200),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}", 768, 300),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{2}", 46, 70),
+              ("SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}", 9216, 40)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt,K,N", SBFP_OTHER)
-@pytest.mark.parametrize("M", [8, 1024])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 1024])
 def test_sbfp_linear_f32_route_other_formats_on_card(cuda, fmt, K, N, M):
     g = torch.Generator(device=cuda).manual_seed(7)
     w = tpack.sbfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05,
                         Format.from_shorthand(fmt))
     assert not tbl.sbfp_tensor_cores(w, K)
+    route = tbl.sbfp_route(w, M, K)
+    assert route == ("gemv" if M <= 16 else "planes" if tbl.sbfp_weight_planes(w, K) else "simt")
     x = torch.randn(M, K, generator=g, device=cuda)
     b = torch.randn(N, generator=g, device=cuda)
     n0 = kernels.LAUNCHES["sbfp_linear"]
@@ -231,25 +243,103 @@ def test_sbfp_linear_f32_route_other_formats_on_card(cuda, fmt, K, N, M):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["sbfp_linear"] == n0 + 1
     torch.testing.assert_close(got, tbl.sbfp_linear_ref(x, w, b), rtol=1e-5, atol=1e-4)
+    # the GEMV's K splits meet in rank order: the same bits again
+    assert torch.equal(tbl.sbfp_linear(x, w, b), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(8, 768, 768), (8, 3072, 768), (8, 768, 3072),
+                                   (1024, 768, 768), (1024, 768, 3072), (17, 127, 768)])
+def test_sbfp12_16_keeps_its_tensor_core_routes_on_card(cuda, M, N, K):
+    """SBFP12_16 stays on the tensor-core decode GEMV and wgmma mainloop
+    (route 0) at the sbfp path's shapes, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    w = tpack.sbfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05,
+                        Format.from_shorthand(SBFP12_16))
+    assert w.bf16_exact and w.planes == 1 and tbl.sbfp_route(w, M, K) == "tensor_cores"
+    x = torch.randn(M, K, generator=g, device=cuda)
+    n0 = kernels.LAUNCHES["sbfp_linear"]
+    got = tbl.sbfp_linear(x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sbfp_linear"] == n0 + 1
+    torch.testing.assert_close(got, tbl.sbfp_linear_ref(x, w), rtol=1e-5, atol=1e-4)
+
+
+def _b4_inputs(cuda, B, H, Hkv, S, D, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(B, H, 1, D, generator=g, device=cuda),
+            torch.randn(B, Hkv, S, D, generator=g, device=cuda),
+            torch.randn(B, Hkv, S, D, generator=g, device=cuda), g)
+
+
+def _check_b4(q, k, v, lengths):
+    """One launch, within rtol 1e-5 / atol 2e-5 of the plain version and
+    of the split transcription, the same bits on a second call (the chunks
+    merge in chunk order), the merge tickets left at zero."""
+    n0 = kernels.LAUNCHES["flash_decode"]
+    got = tfd.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode"] == n0 + 1
+    torch.testing.assert_close(got, tfd.flash_decode_ref(q, k, v, lengths), rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(got, tfd.flash_decode_split_ref(q, k, v, lengths), rtol=1e-5,
+                               atol=2e-5)
+    assert torch.equal(tfd.flash_decode(q, k, v, lengths), got)
+    tickets = tfd._TICKETS.get(torch.device("cuda", torch.cuda.current_device()))
+    assert tickets is None or not tickets.any()
+    return got
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,Hkv,S,D,scalar", [
     (8, 12, 12, 256, 64, False), (3, 8, 2, 256, 64, False), (2, 4, 4, 192, 32, True),
     (2, 8, 8, 200, 128, False), (3, 12, 4, 77, 128, True), (2, 6, 6, 33, 32, False),
+    (2, 64, 1, 300, 64, False), (2, 24, 1, 2500, 128, True), (3, 12, 4, 2500, 32, False),
+    (2, 8, 2, 3000, 64, False),
 ])
 def test_flash_decode_kernel_matches_plain_on_card(cuda, B, H, Hkv, S, D, scalar):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(B, H, 1, D, generator=g, device=cuda)
-    k = torch.randn(B, Hkv, S, D, generator=g, device=cuda)
-    v = torch.randn(B, Hkv, S, D, generator=g, device=cuda)
+    """Ragged rows, GQA (rep 3, 4, 24 and 64), scalar lengths, every
+    head_dim, caches of one chunk and of three."""
+    q, k, v, g = _b4_inputs(cuda, B, H, Hkv, S, D)
     lengths = (S * 2 // 3 if scalar else
                torch.randint(1, S + 1, (B,), generator=g, device=cuda, dtype=torch.int32))
-    n0 = kernels.LAUNCHES["flash_decode"]
-    got = tfd.flash_decode(q, k, v, lengths)
+    _check_b4(q, k, v, lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_decode_kernel_chunk_edges_and_long_on_card(cuda, D):
+    """Rows ending at the chunk edges (CHUNK - 1, CHUNK, CHUNK + 1) and at S,
+    then bench.py's long shape (batch 8, 12 heads, S 2048, lengths 2016) and
+    one row of 8000 keys in 8192 slots."""
+    C = tfd.B4_CHUNK
+    S = 3 * C + 5
+    q, k, v, _ = _b4_inputs(cuda, 4, 8, 4, S, D, seed=1)
+    _check_b4(q, k, v, torch.tensor([C - 1, C, C + 1, S], dtype=torch.int32, device=cuda))
+    q, k, v, _ = _b4_inputs(cuda, 8, 12, 12, 2048, D, seed=2)
+    _check_b4(q, k, v, torch.full((8,), 2016, dtype=torch.int32, device=cuda))
+    q, k, v, _ = _b4_inputs(cuda, 1, 12, 12, 8192, D, seed=4)
+    _check_b4(q, k, v, torch.full((1,), 8000, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+def test_flash_decode_b2_and_b4_interleaved_share_the_tickets_on_card(cuda):
+    """B2 and B4 take their merge tickets from one buffer per device;
+    launches of the two interleaved on one stream, each merging chunks,
+    leave every result right and the tickets at zero."""
+    B, H, Hkv, S, D = 4, 12, 4, 2 * tfd.B4_CHUNK + 100, 64
+    le = torch.tensor([S, tfd.B4_CHUNK + 1, 257, 3], dtype=torch.int32, device=cuda)
+    q, k, v, _ = _b4_inputs(cuda, B, H, Hkv, S, D, seed=3)
+    q8, kv, le8 = _b2_inputs(cuda, B, H, Hkv, S, D, [S, 600, 255, 999])
+    outs = []
+    for _ in range(3):
+        outs.append((tfd.flash_decode(q, k, v, le), tfd.flash_decode_int8(q8, kv, le8)))
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_decode"] == n0 + 1
-    torch.testing.assert_close(got, tfd.flash_decode_ref(q, k, v, lengths), rtol=1e-5, atol=2e-5)
+    want, want8 = tfd.flash_decode_ref(q, k, v, le), tfd.flash_decode_int8_ref(q8, kv, le8)
+    for got, got8 in outs:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+        torch.testing.assert_close(got8, want8, rtol=1e-5, atol=2e-5)
+        assert torch.equal(got, outs[0][0]) and torch.equal(got8, outs[0][1])
+    assert not tfd._TICKETS[torch.device("cuda", torch.cuda.current_device())].any()
 
 
 @pytest.mark.gpu

@@ -529,6 +529,124 @@ def test_sbfp_linear_three_plane_product_matches_ref_and_jax(M, N, K):
     np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
+# B5's f32 route on the card: up to 16 rows a split-K f32 GEMV (the plain
+# version's arithmetic, summed in another order); above, where K % 32 == 0
+# and the block is a multiple of 16, the wgmma mainloop on three exact bf16
+# planes of x times the weight's own exact bf16 planes (two up to a 12-bit
+# scale mantissa, three beyond, six of the nine products kept); else the
+# SIMT GEMM.  SBFP_PLANES_FORMATS: (shorthand, the planes the packer records)
+SBFP_SCALE13 = "SBFP<XP[4,0](CSN)><FP[0|4|13,16](FN)>{16}"
+SBFP_PLANES_FORMATS = [(SBFP_WIDE_SCALE, 2), ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{8}", 1),
+                       ("SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{24}", 1),
+                       ("SBFP<XP[4,0](CSN)><FP[0|5|12,16](FN)>{16}", 2), (SBFP_SCALE13, 3),
+                       ("SBFP<XP[4,0](CSN)><FP[0|5|20,16](FN)>{32}", 3)]
+
+
+@pytest.mark.parametrize("fmt,planes", SBFP_PLANES_FORMATS)
+def test_sbfp_w_planes_sum_to_the_weight(fmt, planes):
+    """The packer records the plane count that the format gives, and the
+    weight's bf16 planes sum to sbfp_unpack(w) bit for bit (a zero block, a
+    x100 block and blocks at 1e-3 among them), in f32, in plane order; with
+    two planes recorded, a third would be zero everywhere."""
+    rs = np.random.RandomState(25)
+    N, K = 32, 96
+    w = rand(rs, N, K, scale=0.3)
+    w[0, :48] = 0.0
+    w[1] *= 100.0
+    w[2] *= 1e-3
+    jp = jpack.sbfp_pack(jnp.asarray(w), JFormat.from_shorthand(fmt))
+    tp = tpack.sbfp_pack(torch.from_numpy(w), TFormat.from_shorthand(fmt))
+    np.testing.assert_array_equal(tp.nibbles.numpy(), np.asarray(jp.nibbles))
+    np.testing.assert_array_equal(tp.scale.numpy().view(np.uint32),
+                                  np.asarray(jp.scale).view(np.uint32))
+    assert tp.planes == planes
+    deq = tpack.sbfp_unpack(tp)
+    np.testing.assert_array_equal(deq.numpy(), np.asarray(jpack.sbfp_unpack(jp)))
+    pl = [p.float() for p in tbl.sbfp_w_planes_ref(tp, 3)]
+    total = pl[0]
+    for p in pl[1:max(2, planes)]:
+        total = total + p
+    assert torch.equal(total.view(torch.int32), (deq + 0.0).view(torch.int32))
+    if planes <= 2:
+        assert not pl[2].any()
+    else:
+        assert pl[2].any()
+
+
+@pytest.mark.parametrize("fmt", [SBFP_WIDE_SCALE, "SBFP<XP[4,0](CSN)><FP[0|5|12,16](FN)>{32}",
+                                 SBFP_SCALE13])
+@pytest.mark.parametrize("M,N,K", [(40, 48, 64), (130, 100, 192)])
+def test_sbfp_planes_product_matches_jax(fmt, M, N, K):
+    """The planes route's product: each of x's three bf16 planes times each
+    of the weight's (sbfp_weight_planes: 2, or 3 with the three products
+    below 2^-20 |x| |w| dropped), summed in f32 (+ bias), against the JAX
+    sbfp_linear_ref and the JAX kernel in interpret mode at B5's tolerance
+    (rtol 1e-5, atol 1e-4); a seventh of x is scaled by 1e-3."""
+    rs = np.random.RandomState(26)
+    w = rand(rs, N, K, scale=0.3)
+    x = rand(rs, M, K)
+    x[:, ::7] *= 1e-3
+    b = rand(rs, N)
+    jp = jpack.sbfp_pack(jnp.asarray(w), JFormat.from_shorthand(fmt))
+    tp = tpack.sbfp_pack(torch.from_numpy(w), TFormat.from_shorthand(fmt))
+    P = tbl.sbfp_weight_planes(tp, K)
+    assert P == max(2, tp.planes) and tbl.sbfp_route(tp, M, K) == "planes"
+    xs = [p.float() for p in tbl.split_bf16x3_ref(torch.from_numpy(x))]
+    ws = [p.float() for p in tbl.sbfp_w_planes_ref(tp, P)]
+    y = torch.zeros(M, N)
+    for i, xp in enumerate(xs):
+        for j, wp in enumerate(ws):
+            if P < 3 or i + j <= 2:
+                y = y + xp @ wp.T
+    y = y + torch.from_numpy(b)
+    want = np.asarray(jbl.sbfp_linear_ref(jnp.asarray(x), jp, jnp.asarray(b)))
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-4)
+    kern = np.asarray(jbl.sbfp_linear(jnp.asarray(x), jp, jnp.asarray(b),
+                                      use_pallas=True, interpret=True))
+    np.testing.assert_allclose(y.numpy(), kern, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(y, tbl.sbfp_linear(torch.from_numpy(x), tp, torch.from_numpy(b)),
+                               rtol=1e-5, atol=1e-4)
+
+
+# (shorthand, plane count): bf16-exact (1; blocks of 8 and 24 too, which
+# the tensor cores do not take), 5- and 12-bit scales (2), 13- and 23-bit
+# (3); none where the scale grid falls below bf16's last subnormal bit
+# (2^-133) or the scale cast never clips (8 exponent bits: 7 x the largest
+# scale is not finite)
+PLANE_COUNTS = [(SBFP, 1), (SBFP_OTHER_FORMATS[2][0], 1), (SBFP_OTHER_FORMATS[3][0], 1),
+                (SBFP_WIDE_SCALE, 2), ("SBFP<XP[4,0](CSN)><FP[0|4|12,16](FN)>{16}", 2),
+                (SBFP_SCALE13, 3), ("SBFP<XP[4,0](CSN)><FP[0|7|23,63](FN)>{16}", 3),
+                ("SBFP<XP[3,0](CSN)><FP[0|4|5,16](FN)>{16}", 1),
+                ("SBFP<XP[4,0](CSN)><FP[0|7|20,120](FN)>{16}", 0),
+                ("SBFP<XP[4,0](CSN)><FP[0|8|5,127](FN)>{16}", 0)]
+
+
+@pytest.mark.parametrize("fmt,planes", PLANE_COUNTS)
+def test_sbfp_plane_count_and_route(fmt, planes):
+    """sbfp_bf16_planes decides the plane count from the format; the route
+    follows from it, M, K and the block: SBFP12_16 keeps its tensor-core
+    kernels; any other payload takes the f32 GEMV up to 16 rows, the planes
+    route above (K % 32 == 0, block of 16; one plane served as two) and the
+    SIMT GEMM where neither applies (K % 32 != 0, a block of 8 or 24, no
+    exact split).  K 96 and 48: multiples of every block here."""
+    f = TFormat.from_shorthand(fmt)
+    assert tpack.sbfp_bf16_planes(f) == planes
+    w = tpack.sbfp_pack(torch.from_numpy(rand(np.random.RandomState(27), 8, 96)), f)
+    assert w.planes == planes and w.bf16_exact == tpack.sbfp_bf16_exact(f)
+    route = tbl.sbfp_route
+    if tbl.sbfp_tensor_cores(w, 96):
+        assert route(w, 8, 96) == "tensor_cores" and route(w, 17, 96) == "tensor_cores"
+        assert route(w, 17, 48) == "simt" and tbl.sbfp_weight_planes(w, 96) == 0
+        return
+    assert route(w, 1, 96) == route(w, 16, 48) == "gemv"
+    assert route(w, 17, 48) == "simt"
+    if planes and w.block_size % 16 == 0:
+        assert route(w, 17, 96) == "planes"
+        assert tbl.sbfp_weight_planes(w, 96) == max(2, planes)
+    else:
+        assert route(w, 17, 96) == "simt" and tbl.sbfp_weight_planes(w, 96) == 0
+
+
 def test_sbfp_linear_leading_dims_and_cpu_dispatch():
     rs = np.random.RandomState(1)
     jp, tp = sbfp_pair(rand(rs, 40, 64))
@@ -562,6 +680,43 @@ def test_flash_decode_matches_jax_pallas_interpret(rep):
     ref = np.asarray(jfd.flash_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                           jnp.asarray(lengths)))
     np.testing.assert_allclose(got, ref, atol=2e-6, rtol=1e-5)
+
+
+# B4 splits S into chunks of B4_CHUNK keys, one CUDA block each, and merges
+# the chunks' (m, l, acc) in chunk order (csrc/flash_decode.cu);
+# flash_decode_split_ref transcribes that arithmetic.  (B, H, Hkv, S, D,
+# lengths): GQA with rep 4 and ragged rows (a single key, a multiple of the
+# chunk, the full cache of three chunks), rows on either side of a chunk
+# edge at D 32, a row of one chunk beside one of three at D 128, the
+# baseline path's shape (lengths 160 in 256 slots, one chunk) at batch 3
+_C = tfd.B4_CHUNK
+B4_SPLIT_CASES = [(3, 8, 2, 3 * _C, 64, [1, _C, 3 * _C]),
+                  (3, 4, 4, _C + 44, 32, [_C - 1, _C + 1, _C + 44]),
+                  (2, 4, 1, 2 * _C + 60, 128, [77, 2 * _C + 60]),
+                  (3, 12, 12, 256, 64, [160] * 3)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,lengths", B4_SPLIT_CASES)
+def test_flash_decode_split_matches_jax(B, H, Hkv, S, D, lengths):
+    """The split-and-merge transcription against the JAX flash_decode_ref and
+    the JAX kernel in interpret mode (rtol 1e-5, atol 2e-6); on the CPU the
+    port's wrapper runs the plain version, held the same way."""
+    rs = np.random.RandomState(29)
+    q = rand(rs, B, H, 1, D)
+    k, v = rand(rs, B, Hkv, S, D), rand(rs, B, Hkv, S, D)
+    le = np.array(lengths, np.int32)
+    args = [jnp.asarray(a) for a in (q, k, v, le)]
+    got = tfd.flash_decode_split_ref(*(torch.from_numpy(a) for a in (q, k, v, le))).numpy()
+    ref = np.asarray(jfd.flash_decode_ref(*args))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-6)
+    kern = np.asarray(jfd.flash_decode(*args, use_pallas=True, interpret=True))
+    np.testing.assert_allclose(got, kern, rtol=1e-5, atol=2e-6)
+    plain = tfd.flash_decode(*(torch.from_numpy(a) for a in (q, k, v, le))).numpy()
+    np.testing.assert_allclose(plain, ref, rtol=1e-5, atol=2e-6)
+    # a single-key row is its value row
+    for b in np.flatnonzero(le == 1):
+        np.testing.assert_allclose(got[b, :, 0], np.repeat(v[b, :, 0], H // Hkv, 0),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_flash_decode_scalar_length_d32():
