@@ -63,7 +63,27 @@ Phases (any failure exits non-zero):
    rest), the device busy/idle split of a profiled decode step and a host
    cProfile of the same steps.  The JAX bench's ratios (weights, SBFP,
    sbfp_wide and basic over baseline tokens/s) follow.
-4. A ``kernels`` JSON line, then the last line
+4. Three paths of the continuous-batching engine (serving/engine.py) at
+   examples/serving_bench.py's defaults: OPT-125m at full width from seed
+   0, 8 slots, bursts of 16, 32 requests of a 96-token prompt and 64 new
+   tokens, one bucket of 96, max_len 176:
+   - engine_weights: weights mode (BFP16_64, an int8 row cache);
+   - engine_weights_chunked: the same with chunked prefill (chunks of 32);
+   - engine_raw: the raw model with an f32 row cache.
+   Each runs warmup(), then the closed loop with the launch counters set to
+   0 just before and read just after; the counts are derived from the
+   engine's admissions and chunks and its decode dispatches: each
+   monolithic admission 4L+1 B1 + L B3 (raw: L B3), each decode forward
+   4L+1 B1 + L B2 (raw: L B4), each chunk 4L+1 B1 and the chunk at offset 0
+   L B3 besides.  Its first steady dispatch (no admission, no chunk) runs
+   under torch.cuda.set_sync_debug_mode("error").  Every request's tokens
+   are held against isolated generation on the card (greedy_prefill and
+   greedy_decode on a batch-1 cache) and against the same engine run with
+   the model on the CPU, by the margin rule of phase 3.  Each path prints
+   tokens/s, slot utilization, p50/p99 step times and the device's share
+   of a steady step.
+5. A ``kernels`` JSON line (launches by path, the engine paths included),
+   then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 The script imports nothing of JAX and nothing of the JAX package.  Without a
@@ -72,6 +92,7 @@ CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -121,6 +142,29 @@ B5_PLANE_PRODUCTS = 6
 # B3's bf16 plane products per f32 product (csrc/flash_attention.cu)
 B3_PLANE_PRODUCTS = 6
 LINEAR_KERNELS = ("bfp_linear", "sbfp_linear", "bfp_linear_bf16")
+
+# the engine paths' traffic: examples/serving_bench.py's defaults (8 slots,
+# bursts of 16 tokens, 32 requests of a 96-token prompt and 64 new tokens,
+# one prompt bucket, max_len 96 + 64 + 16 = 176, pipeline depth 1); the
+# chunked path prefills 32 tokens a chunk
+ENGINE = dict(slots=8, burst=16, requests=32, prompt=96, gen=64)
+ENGINE_CHUNK = 32
+ENGINE_LEN = ENGINE["prompt"] + ENGINE["gen"] + ENGINE["burst"]  # the row cache's max_len
+# per-slot lengths of a steady decode step on the engine's row cache: slots
+# spread over their requests' decode, and an idle slot past max_len (its
+# kernel reads max_len keys)
+ENGINE_ROWS = [ENGINE["prompt"] + 1 + (ENGINE["gen"] * i) // ENGINE["slots"]
+               for i in range(ENGINE["slots"] - 1)] + [ENGINE_LEN + 24]
+# the int8 engine paths' tokens, card vs CPU and against isolated
+# generation: an int8 K/V payload that rounds one step apart on the card
+# (f32 sums in another order) moves later logits by more than the f32
+# paths' 1e-3
+KV8_TOL = 1e-2
+# the chunked path against isolated generation: the chunks after the first
+# attend over the int8 cache (up to 1/254 of a row's largest value per
+# element) where a monolithic prefill attends over the f32 K/V; the run
+# measures that gap in a prompt's last logits and fails if it exceeds this
+CHUNK_TOL = 5e-2
 
 
 def log(*args):
@@ -322,7 +366,9 @@ def check_b1(torch, dev, cfg):
     step, cases = check_linear(
         torch, dev, "B1 bfp_linear", bfp_linear, bfp_linear_ref, lambda w: bfp_pack(w, 8, 64),
         bfp_unpack, b1_bytes, linear_shapes(cfg),
-        [(5, 192, 200), (12, 192, 129), (17, 768, 127), (65, 192, 129), (129, 256, 300)],
+        [(5, 192, 200), (12, 192, 129), (17, 768, 127), (65, 192, 129), (129, 256, 300)]
+        # the engine's admission prefill (batch 1 at the bucket) and chunks
+        + [(m, K, N) for m in (ENGINE["prompt"], ENGINE_CHUNK) for K, N, _ in linear_shapes(cfg)],
         B1_TOL, seed=11,
         planes=3)
     # the three-plane split at its edges: x near +-FLT_MAX (one per row, so
@@ -650,15 +696,17 @@ def check_b2(torch, dev, cfg):
     # (Hkv, S, lengths): the main path's shape (its cache capacity at the
     # mean fill of its decode steps), ragged per-row lengths over an S that
     # is no multiple of a chunk, bench.py's long leg (prompt 1984 in a
-    # 2048-slot cache, lengths 2016 half way through its 64 steps) and GQA
-    # (12 query heads on 4 KV heads, ragged)
+    # 2048-slot cache, lengths 2016 half way through its 64 steps), GQA
+    # (12 query heads on 4 KV heads, ragged) and the engine's row cache
+    # (ENGINE_ROWS)
     B, H = BATCH, cfg.num_attention_heads
     D = cfg.hidden_size // H
     mean_fill = PROMPT + GEN // 2
     for Hkv, S, lengths in [(H, CAPACITY, [mean_fill] * B),
                             (H, 200, [1 + (199 * i) // (B - 1) for i in range(B)]),
                             (H, 2048, [2016] * B),
-                            (max(1, H // 3), 300, [1 + (299 * i) // (B - 1) for i in range(B)])]:
+                            (max(1, H // 3), 300, [1 + (299 * i) // (B - 1) for i in range(B)]),
+                            (H, ENGINE_LEN, ENGINE_ROWS)]:
         per_set = B * Hkv * S * (2 * D + 8) + 2 * B * H * D * 4
         sets = []
         for _ in range(copies_for(per_set)):
@@ -683,7 +731,7 @@ def check_b2(torch, dev, cfg):
             lib_sets.append((q_, k, v, mask))
         lib_ms = time_ms(torch, lambda q_, k, v, m: F.scaled_dot_product_attention(
             q_, k, v, attn_mask=m, enable_gqa=Hkv != H), lib_sets)
-        bound_ms, by = bound(*b2_bytes_flops(B, H, Hkv, D, lengths))
+        bound_ms, by = bound(*b2_bytes_flops(B, H, Hkv, D, [min(n, S) for n in lengths]))
         cases.append(dict(shape=[B, H, Hkv, S, D], lengths=lengths, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
         log(f"B2 flash_decode_int8 B={B} H={H} Hkv={Hkv} S={S} D={D} lengths={lengths}: "
@@ -703,10 +751,14 @@ def check_b3(torch, dev, cfg):
     g = torch.Generator(device=dev).manual_seed(13)
     cases = []
     # the main path's prefill (L = S = prompt, causal), L < S with the
-    # diagonal at S - L, and an additive bias
-    B, H = BATCH, cfg.num_attention_heads
+    # diagonal at S - L, an additive bias, and the engine's batch-1 prefill
+    # at its bucket and its first chunk
+    H = cfg.num_attention_heads
     D = cfg.hidden_size // H
-    for L, S, with_bias in [(PROMPT, PROMPT, False), (64, 192, False), (100, 160, True)]:
+    for B, L, S, with_bias in [(BATCH, PROMPT, PROMPT, False), (BATCH, 64, 192, False),
+                               (BATCH, 100, 160, True),
+                               (1, ENGINE["prompt"], ENGINE["prompt"], False),
+                               (1, ENGINE_CHUNK, ENGINE_CHUNK, False)]:
         per_set = 4 * B * H * D * (2 * L + 2 * S) + (4 * B * H * L * S if with_bias else 0)
         sets = []
         for _ in range(copies_for(per_set)):
@@ -770,11 +822,12 @@ def check_b4(torch, dev, cfg):
     # (prompt 1984 in a 2048-slot cache, lengths 2016 half way through its
     # 64 steps) at the path's batch and at batch 1 with 8000 keys, GQA with
     # rep 4 and ragged lengths, a scalar length at D 32, and D 128 over an S
-    # that is no multiple of a tile
+    # that is no multiple of a tile, and the engine's row cache (ENGINE_ROWS)
     H = cfg.num_attention_heads
     D = cfg.hidden_size // H
     for B, H_, Hkv, S, D_, lengths in [
         (BATCH, H, H, CAPACITY, D, [PROMPT + GEN // 2] * BATCH),
+        (ENGINE["slots"], H, H, ENGINE_LEN, D, ENGINE_ROWS),
         (BATCH, H, H, 2048, D, [2016] * BATCH),
         (1, H, H, 8192, D, [8000]),
         (3, 8, 2, 256, 64, [17, 256, 130]),
@@ -808,7 +861,7 @@ def check_b4(torch, dev, cfg):
 
         lib_err = (library(*lib_sets[0]) - flash_decode_ref(*sets[0])).abs().max().item()
         lib_ms = time_ms(torch, library, lib_sets)
-        bound_ms, by = bound(*b4_bytes_flops(B, H_, Hkv, D_, rows))
+        bound_ms, by = bound(*b4_bytes_flops(B, H_, Hkv, D_, [min(n, S) for n in rows]))
         cases.append(dict(shape=[B, H_, Hkv, S, D_], lengths=lengths, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
         log(f"B4 flash_decode B={B} H={H_} Hkv={Hkv} S={S} D={D_} lengths={lengths}: "
@@ -1087,6 +1140,262 @@ def serve_path(torch, dev, kernels, cfg, spec):
     return launches, tok_s
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+def engine_specs(cfg):
+    """The three engine paths: name, serving_bench mode, chunk, the kernels
+    of a monolithic admission, of a decode forward, of every chunk and of
+    the chunk at offset 0 besides, the profiler's marks per kernel of a
+    decode forward, and the token tolerances (against isolated generation
+    on the card; card vs CPU)."""
+    L = cfg.num_hidden_layers
+    weights = dict(mode="weights", admission={"bfp_linear": 4 * L + 1, "flash_attention": L},
+                   step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
+                   chunk_each={"bfp_linear": 4 * L + 1}, chunk_first={"flash_attention": L},
+                   marks={"bfp_linear": ("bfp_decode_kernel",),
+                          "flash_decode_int8": ("flash_decode_int8_kernel",)},
+                   iso_tol=KV8_TOL, cpu_tol=KV8_TOL)
+    return [
+        dict(weights, name="engine_weights", chunk=None),
+        dict(weights, name="engine_weights_chunked", chunk=ENGINE_CHUNK, iso_tol=CHUNK_TOL),
+        dict(name="engine_raw", mode="raw", chunk=None, admission={"flash_attention": L},
+             step={"flash_decode": L}, chunk_each={}, chunk_first={},
+             marks={"flash_decode": ("flash_decode_kernel",)}, iso_tol=LOGIT_TOL,
+             cpu_tol=LOGIT_TOL),
+    ]
+
+
+def hold_tokens(name, what, got, want, margins, tol):
+    """``got`` against ``want`` (request id -> tokens) where the reference's
+    top-1/top-2 margin exceeds ``tol``; a request's tokens after its first
+    near-tie are not held.  Returns the number held."""
+    held = 0
+    for rid, ref in want.items():
+        if len(got[rid]) != len(ref):
+            raise AssertionError(f"{name}: request {rid} has {len(got[rid])} tokens, "
+                                 f"{what} {len(ref)}")
+        for s, (a, b) in enumerate(zip(got[rid], ref)):
+            if margins[rid][s] <= tol:
+                break
+            if a != b:
+                raise AssertionError(f"{name}: token {s} of request {rid} differs from {what}")
+            held += 1
+    total = sum(len(t) for t in want.values())
+    log(f"{name}: tokens against {what}: {held} of {total} held (top-1/top-2 margin > {tol}), "
+        f"all equal")
+    return held
+
+
+def isolated_generation(torch, model, requests, capacity, quantized, dev):
+    """Each request alone: greedy_prefill and greedy_decode on a batch-1
+    cache at the prompt's true length.  Returns (tokens, the top-1/top-2
+    margin of each token's logits), by request id."""
+    from dmx_compressor_tpu_torch.models.opt import greedy_decode, greedy_prefill
+
+    toks, margins = {}, {}
+    for rid, (prompt, gen) in enumerate(requests):
+        caches = model.init_cache(1, capacity, quantized=quantized, device=dev)
+        logits, tok = greedy_prefill(model, caches, torch.from_numpy(prompt[None]).to(dev))
+        rows = [logits[0, -1]]
+        seq = [tok]
+        if gen > 1:
+            more, steps = greedy_decode(model, caches, tok, int(prompt.size), gen - 1)
+            seq.append(more[0])
+            rows.extend(steps[:, 0])
+        top2 = torch.stack(rows).topk(2, dim=-1).values
+        toks[rid] = torch.cat([t.reshape(-1) for t in seq]).tolist()
+        margins[rid] = (top2[:, 0] - top2[:, 1]).tolist()
+    return toks, margins
+
+
+@contextlib.contextmanager
+def memo_unpack():
+    """Within this context the plain B1 version unpacks each payload once
+    (keyed by its storage), so the CPU reference engine runs do not unpack
+    the whole model at every forward: the same values, bit for bit."""
+    from dmx_compressor_tpu_torch.ops import bfp_linear
+
+    real, memo = bfp_linear.bfp_unpack, {}
+
+    def unpack(p):
+        key = (p.mantissa.data_ptr(), p.exponent.data_ptr(), tuple(p.mantissa.shape),
+               p.precision, p.block_size)
+        if key not in memo:
+            memo[key] = real(p)
+        return memo[key]
+
+    bfp_linear.bfp_unpack = unpack
+    try:
+        yield
+    finally:
+        bfp_linear.bfp_unpack = real
+
+
+def chunk_gap(torch, model, prompt, quantized, dev):
+    """Max abs difference of a prompt's last-position logits between a
+    chunked prefill (ENGINE_CHUNK tokens a call) and a monolithic one."""
+    ids = torch.from_numpy(prompt[None]).to(dev)
+    caches = model.init_cache(1, prompt.size, quantized=quantized, device=dev)
+    mono = model(ids, caches=caches, position_offset=0)[0, -1]
+    caches = model.init_cache(1, prompt.size, quantized=quantized, device=dev)
+    for off in range(0, prompt.size, ENGINE_CHUNK):
+        last = model(ids[:, off:off + ENGINE_CHUNK], caches=caches, position_offset=off)
+    return (last[0, -1] - mono).abs().max().item()
+
+
+def engine_paths(torch, dev, kernels, cfg, card):
+    """The engine paths of one serving_bench mode after another: the model
+    built once per mode (OPT at full width, seed 0); per path an engine on
+    the card, its warmup, then the closed loop with the launch counters set
+    to 0 just before and read just after (each path's counts derived from
+    the engine's admission and chunk counters and its decode dispatches;
+    its first steady dispatch under torch.cuda.set_sync_debug_mode
+    ("error")), then one steady dispatch under torch.profiler; isolated
+    generation on the card; the model moved to the CPU and each path's
+    engine run again there.  Returns the launch counts by path."""
+    from dmx_compressor_tpu_torch.examples import serving_bench as sb
+
+    by_path = {}
+    specs = engine_specs(cfg)
+    for mode in ("weights", "raw"):
+        group = [sp for sp in specs if sp["mode"] == mode]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model, quantized = sb.build_model("opt-125m", mode, device=dev, seed=0)
+        torch.cuda.synchronize()
+        log(f"engine {mode}: OPT {cfg.hidden_size}x{cfg.num_hidden_layers} built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        requests = sb.make_requests(cfg.vocab_size, ENGINE["requests"], ENGINE["prompt"],
+                                    ENGINE["gen"], spread=False)
+        got, capacity = {}, None
+        for sp in group:
+            name, chunk, burst = sp["name"], sp["chunk"], ENGINE["burst"]
+            cps = max(1, burst // chunk) if chunk else 1
+            eng = sb.make_engine(model, quantized, requests, ENGINE["prompt"], ENGINE["slots"],
+                                 burst, chunk, cps, depth=1)
+            capacity = eng.max_len
+            t0 = time.perf_counter()
+            eng.warmup(burst)
+            torch.cuda.synchronize()
+            log(f"{name}: warmup {time.perf_counter() - t0:.2f} s")
+            dispatches, synced = [0], []
+            real_dispatch = eng._dispatch
+
+            def dispatch(b, sampling, eng=eng, real=real_dispatch):
+                dispatches[0] += 1
+                if synced or eng.last_step_admissions or eng.last_step_chunks:
+                    return real(b, sampling)
+                # a steady-state dispatch: no host sync allowed
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = real(b, sampling)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                synced.append(True)
+                return out
+
+            eng._dispatch = dispatch
+            kernels.reset_launches()
+            stats = sb.closed_loop(eng, requests, burst)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            eng._dispatch = real_dispatch
+            if not synced:
+                raise AssertionError(f"{name}: no steady-state dispatch ran")
+            log(f"{name}: one steady-state dispatch ({burst} decode forwards) ran under "
+                f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+            adm = sum(st["admissions"] for st in stats["steps"])
+            chunks = sum(st["chunks"] for st in stats["steps"])
+            first = adm if chunk and ENGINE["prompt"] > chunk else 0
+            forwards = dispatches[0] * burst
+            want = dict.fromkeys(kernels.LAUNCHES, 0)
+            for counts, n in ((sp["admission"], adm - first), (sp["step"], forwards),
+                              (sp["chunk_each"], chunks), (sp["chunk_first"], first)):
+                for k, v in counts.items():
+                    want[k] += v * n
+            log(f"{name}: {adm} admissions ({first} chunked), {chunks} chunks, "
+                f"{dispatches[0]} decode dispatches of {burst} forwards; launches {launches} "
+                f"(expected {want})")
+            if launches != want:
+                raise AssertionError(f"the {name} path did not launch the kernels the expected "
+                                     f"number of times")
+            by_path[name] = launches
+            fin = {r.request_id: r for r in eng.finished}
+            if sorted(fin) != stats["rids"] or any(
+                    r.finish_reason != "length" or len(r.tokens) != g
+                    for r, (_, g) in zip((fin[i] for i in stats["rids"]), requests)):
+                raise AssertionError(f"{name}: a request did not finish with its tokens")
+            got[name] = {i: fin[rid].tokens for i, rid in enumerate(stats["rids"])}
+            flat = [t for v in got[name].values() for t in v]
+            if min(flat) < 0 or max(flat) >= cfg.vocab_size:
+                raise AssertionError(f"{name}: tokens out of range")
+            sm = sb.summary(stats)
+
+            # the device's share of a steady step: one steady dispatch (all
+            # slots decoding) under torch.profiler, against the closed
+            # loop's steady step on the host clock
+            for prompt, _ in requests[:ENGINE["slots"]]:
+                eng.submit(prompt, max_new_tokens=ENGINE["gen"])
+            eng.step(burst)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                events = device_events(torch, lambda: eng._dispatch(burst, False))
+            busy_ms = sum(us for _, us in events) / 1e3
+            steady_ms = sm["steady_p50_step_ms"]
+            log(f"{name} on {card}: {sm['tokens_per_s']:.1f} tokens/s, slot utilization "
+                f"{sm['slot_utilization']:.3f}, step p50 {sm['p50_step_ms']:.3f} ms / p99 "
+                f"{sm['p99_step_ms']:.3f} ms, steady step p50 {steady_ms:.3f} ms / p99 "
+                f"{sm['steady_p99_step_ms']:.3f} ms over {sm['steady_steps']} steady steps of "
+                f"{len(stats['steps'])}; a steady dispatch's device busy {busy_ms:.3f} ms "
+                f"(idle share {1 - busy_ms / steady_ms:.3f} of the steady p50 step)")
+            for kern, names in sp["marks"].items():
+                us = sum(t for n, t in events if any(m in n for m in names))
+                n = burst * sp["step"][kern]
+                log(f"  {kern} on the {name} path: {us / 1e3 / n:.4f} ms per launch "
+                    f"(its kernel's device time over {n} launches)")
+            for ev, us in sorted(events, key=lambda e: -e[1])[:6]:
+                log(f"  device per steady dispatch: {us / 1e3:.4f} ms  {ev[:110]}")
+            del eng
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        iso, margins = isolated_generation(torch, model, requests, capacity, quantized, dev)
+        log(f"engine {mode}: isolated generation of {len(requests)} requests on the card "
+            f"{time.perf_counter() - t0:.1f} s")
+        for sp in group:
+            hold_tokens(sp["name"], "isolated generation on the card", got[sp["name"]], iso,
+                        margins, sp["iso_tol"])
+            if sp["chunk"]:
+                gap = chunk_gap(torch, model, requests[0][0], quantized, dev)
+                log(f"{sp['name']}: chunked vs monolithic prefill, last-position logits "
+                    f"max_abs_diff={gap:.3g} (tolerance {CHUNK_TOL})")
+                if not gap <= CHUNK_TOL:
+                    raise AssertionError(f"{sp['name']}: the chunked prefill moved the logits "
+                                         f"beyond the tolerance its tokens are held to")
+
+        # the same engine runs with the model on the CPU
+        model.to("cpu")
+        torch.cuda.empty_cache()
+        for sp in group:
+            chunk, burst = sp["chunk"], ENGINE["burst"]
+            t0 = time.perf_counter()
+            with memo_unpack(), torch.no_grad():
+                eng = sb.make_engine(model, quantized, requests, ENGINE["prompt"],
+                                     ENGINE["slots"], burst, chunk,
+                                     max(1, burst // chunk) if chunk else 1, depth=1)
+                eng.warmup(burst)
+                stats = sb.closed_loop(eng, requests, burst)
+            fin = {r.request_id: r.tokens for r in eng.finished}
+            cpu = {i: fin[rid] for i, rid in enumerate(stats["rids"])}
+            log(f"{sp['name']}: CPU engine run {time.perf_counter() - t0:.1f} s")
+            hold_tokens(sp["name"], "the CPU engine run", got[sp["name"]], cpu, margins,
+                        sp["cpu_tol"])
+        del model
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1133,6 +1442,7 @@ def main() -> int:
         f"sbfp / baseline {tok_s['sbfp'] / tok_s['baseline']:.4f}, "
         f"sbfp_wide / baseline {tok_s['sbfp_wide'] / tok_s['baseline']:.4f}, "
         f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}")
+    by_path.update(engine_paths(torch, dev, kernels, cfg, card))
 
     def launches(kern):
         """The kernel's launches over the paths' runs, in all and per path."""

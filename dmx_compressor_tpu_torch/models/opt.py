@@ -1,7 +1,8 @@
-"""OPT decoder-only transformer (facebook/opt-125m shapes).
+"""OPT decoder-only transformer (facebook/opt-125m .. opt-1.3b shapes).
 
 Port of ``dmx_compressor_tpu/models/opt.py`` for the serving paths of the
-JAX bench.  Authored with torch modules and ``rawnn`` op wrappers so the Dmx
+JAX bench and of the continuous-batching engine (``serving/engine.py``).
+Authored with torch modules and ``rawnn`` op wrappers so the Dmx
 substitution pass intercepts every op; module paths mirror the HF checkpoint
 layout (``model.decoder.layers.N.self_attn.q_proj``).
 
@@ -15,8 +16,16 @@ is transparent (no cast, no surrogate):
   int8 payload, masked by the cache's per-row lengths;
 - decode (T == 1) with a float cache: ``flash_decode`` (B4) over the f32
   buffers, masked the same way;
-- otherwise, and whenever the SDPA is not transparent, the modular compound
-  SDPA (dequantized K/V for an int8 cache).
+- otherwise the modular compound SDPA (dequantized K/V for an int8 cache),
+  except that a non-transparent decode step in the BASIC shape over a whole
+  cache runs the fused ``basic_sdpa_decode``, as the JAX package does.
+
+``position_offset`` is a Python int (one offset for the batch) or an int
+tensor [B] of per-row offsets (the engine's row caches).  The embeddings
+are looked up with ``jnp.take``'s default semantics, as in the JAX package:
+an index in [-n, n) wraps and any other gives a row of NaN, so an idle slot
+of the engine whose position has run past the table (it keeps decoding
+garbage) yields NaN in its own row instead of failing the lookup.
 
 A prefill/decode split cache (``SplitKVCache``, the BASIC mode's float16
 cache) takes its own branch (``_attend_split``): prefill writes the base
@@ -44,7 +53,7 @@ from torch import nn
 from .. import rawnn
 from ..kernels import resolve_device
 from ..ops.compress import merge_parallel_linears
-from ..ops.basic_attention import basic_sdpa_decode_split, basic_sdpa_shape
+from ..ops.basic_attention import basic_sdpa_decode, basic_sdpa_decode_split, basic_sdpa_shape
 from ..ops.basic_layer import basic_head_plan, basic_layer_plan, fused_ln_linear
 from ..ops.basic_linear import fused_basic_linear
 from ..ops.flash_attention import flash_attention, sdpa_transparent
@@ -67,6 +76,15 @@ class OPTConfig:
     @classmethod
     def opt_125m(cls):
         return cls()
+
+    @classmethod
+    def opt_350m(cls):
+        return cls(hidden_size=1024, ffn_dim=4096, num_hidden_layers=24, num_attention_heads=16,
+                   do_layer_norm_before=False)
+
+    @classmethod
+    def opt_1_3b(cls):
+        return cls(hidden_size=2048, ffn_dim=8192, num_hidden_layers=24, num_attention_heads=32)
 
     @classmethod
     def tiny(cls):  # test-sized
@@ -183,9 +201,16 @@ class OPTAttention(nn.Module):
             out = flash_decode(q, cache.k, cache.v, post_update_lengths(cache),
                                scale=self.scaling)
         else:
+            out = None
             if cache is not None:
                 k, v, _ = cache.update(k, v)  # an int8 cache dequantizes here
-            out = self.sdpa(q, k, v, attn_mask=attn_mask, scale=self.scaling)
+                if T == 1 and attn_mask is not None:
+                    # the BASIC compound SDPA over the whole cache, fused
+                    p = basic_sdpa_shape(self.sdpa, self.head_dim, k.shape[2])
+                    if p is not None:
+                        out = basic_sdpa_decode(q, k, v, attn_mask, scale=self.scaling, params=p)
+            if out is None:
+                out = self.sdpa(q, k, v, attn_mask=attn_mask, scale=self.scaling)
         return out.transpose(1, 2).reshape(B, T, D)
 
 
@@ -252,6 +277,14 @@ class OPTDecoderLayer(nn.Module):
         )
 
 
+def take_rows(embed: nn.Module, idx: torch.Tensor) -> torch.Tensor:
+    """``embed``'s rows at ``idx`` with ``jnp.take``'s default semantics: an
+    index in [-n, n) wraps, any other gives a row of NaN."""
+    n = embed.num_embeddings
+    rows = embed(torch.remainder(idx, n))
+    return rows.masked_fill(((idx < -n) | (idx >= n))[..., None], float("nan"))
+
+
 class OPTDecoder(nn.Module):
     def __init__(self, cfg: OPTConfig, device):
         super().__init__()
@@ -272,9 +305,9 @@ class OPTDecoder(nn.Module):
     def forward(self, input_ids, caches=None, position_offset=0, apply_final_ln=True):
         B, T = input_ids.shape
         device = input_ids.device
-        x = self.embed_tokens(input_ids)
+        x = take_rows(self.embed_tokens, input_ids)
         positions, _ = resolve_positions(T, position_offset, device)
-        x = x + self.embed_positions(positions + 2)
+        x = x + take_rows(self.embed_positions, positions + 2)
         if caches is not None:
             # with a cache, queries attend to all filled slots
             mask = causal_mask(T, cache_seq_len(caches[0]), position_offset, x.dtype, device)
@@ -336,15 +369,16 @@ class OPTForCausalLM(nn.Module):
         return self.lm_head(h)
 
     def init_cache(self, batch: int, max_len: int, dtype=None, quantized: bool = False,
-                   split_base_len: Optional[int] = None, device=None):
+                   split_base_len: Optional[int] = None, device=None, per_row: bool = False):
         """One cache per layer, on the card unless ``device='cpu'``; with
+        ``per_row`` a row cache (one fill point per batch row); with
         ``split_base_len`` a SplitKVCache whose base holds that many slots
         and whose tail the rest of ``max_len``."""
         cfg = self.cfg
         return make_caches(
             cfg.num_hidden_layers, batch, cfg.num_attention_heads, max_len,
             cfg.hidden_size // cfg.num_attention_heads, dtype or cfg.dtype,
-            quantized=quantized, split_base_len=split_base_len, device=device,
+            quantized=quantized, split_base_len=split_base_len, device=device, per_row=per_row,
         )
 
 

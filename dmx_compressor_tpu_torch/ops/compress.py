@@ -2,8 +2,8 @@
 modules, and the serving configurations of the JAX bench built on them.
 
 Port of ``PackedBFPLinear``, ``PackedSBFPLinear``, ``merge_parallel_linears``,
-``compress_for_inference``, ``release_dead_originals`` and
-``set_inference_mode`` of ``dmx_compressor_tpu/ops/compress.py``, and of the
+``compress_for_inference``, ``release_dead_originals``, ``inference_mode``
+and ``set_inference_mode`` of ``dmx_compressor_tpu/ops/compress.py``, and of the
 ``weights``, ``sbfp``, ``basic`` and ``baseline`` recipes of
 ``bench.py:_build_host``.  Every Linear whose weight format is BFP becomes a
 :class:`PackedBFPLinear` holding int8 mantissas + per-block exponents; it
@@ -24,6 +24,7 @@ an SBFP12_16 one 0.375 of them.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import List, Optional
 
 import torch
@@ -236,6 +237,18 @@ def merge_parallel_linears(mods: List[nn.Module]) -> Optional[PackedBFPLinear]:
     merged = PackedBFPLinear(packed, bias, src=mods[0])
     merged.out_features = sum(m.out_features for m in mods)
     return merged
+
+
+@contextmanager
+def inference_mode():
+    """Within this context, approximated ops compute only the surrogate
+    (identical values, no gradient path)."""
+    prev = DmxModule.inference_mode
+    DmxModule.inference_mode = True
+    try:
+        yield
+    finally:
+        DmxModule.inference_mode = prev
 
 
 def set_inference_mode(enabled: bool = True) -> None:

@@ -51,7 +51,8 @@ def _lengths_1d(lengths, B: int, device) -> torch.Tensor:
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
                      scale: Optional[float] = None) -> torch.Tensor:
     """Plain version: unblocked masked softmax attention for T == 1 queries.
-    q [B, H, 1, D]; K/V [B, Hkv, S, D]."""
+    q [B, H, 1, D]; K/V [B, Hkv, S, D].  Keys and values at col >= lengths[b]
+    take no part, whatever they hold (the kernel does not read them)."""
     B, H, _, D = q.shape
     scale = (D**-0.5) if scale is None else scale
     if k.shape[-3] != H:
@@ -63,7 +64,8 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
     mask = torch.arange(k.shape[-2], device=q.device)[None, :] < le[:, None]  # [B, S]
     logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
     w = torch.softmax(logits, dim=-1)
-    return torch.matmul(w, v.to(torch.float32)).to(q.dtype)
+    vf = v.to(torch.float32).masked_fill(~mask[:, None, :, None], 0.0)
+    return torch.matmul(w, vf).to(q.dtype)
 
 
 def _merge_chunks(m, l, acc, D: int) -> torch.Tensor:
@@ -154,7 +156,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
 def flash_decode_int8_ref(q: torch.Tensor, kv: QuantKV, lengths,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Plain version: unblocked, with quantized_sdpa's factorization.
-    q [B, H, 1, D]; payloads [B, Hkv, S, D]; scales [B, Hkv, S]."""
+    q [B, H, 1, D]; payloads [B, Hkv, S, D]; scales [B, Hkv, S].  Positions
+    at col >= lengths[b] take no part, whatever they hold (the kernel does
+    not read them)."""
     B, H, _, D = q.shape
     scale = (D**-0.5) if scale is None else scale
     k_q, v_q, k_s, v_s = kv
@@ -171,6 +175,7 @@ def flash_decode_int8_ref(q: torch.Tensor, kv: QuantKV, lengths,
     mask = torch.arange(k_q.shape[-2], device=q.device)[None, :] < le[:, None]  # [B, S]
     logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
     w = torch.softmax(logits, dim=-1)
+    v_s = v_s.masked_fill(~mask[:, None, :], 0.0)
     return torch.matmul(w * v_s[:, :, None, :], v_q.to(torch.float32)).to(q.dtype)
 
 

@@ -1,8 +1,9 @@
 """KV caches: full-precision and int8 static-capacity buffers.
 
 Port of ``KVCache``, ``QuantizedKVCache``, ``SplitKVCache`` (its D-minor
-form), ``QuantKV``, ``quantized_sdpa``, ``make_caches`` and ``cache_seq_len``
-of ``dmx_compressor_tpu/ops/kv_cache.py``.
+form), ``RowKVCache``, ``RowQuantizedKVCache``, ``QuantKV``,
+``quantized_sdpa``, ``make_caches`` and ``cache_seq_len`` of
+``dmx_compressor_tpu/ops/kv_cache.py``.
 
 Layout: the port keeps caches D-minor, ``[B, H, S, D]`` (the JAX package
 stores them ``[B, H, D, S]``, a TPU lane-tiling choice).  A key row of D int8
@@ -11,9 +12,14 @@ The int8 cache quantizes symmetrically over the head dim with one f32 scale
 per (batch, head, position): ``scale = max(amax / 127, 1e-10)``,
 ``q = clip(round(x / scale), -127, 127)``.
 
-The caches are updated in place (the JAX package returns new arrays);
-``length`` is a host integer, and ``lengths`` is the same fill point as an
-int32 device tensor [B] for the decode kernel.
+The caches are updated in place (the JAX package returns new arrays).  In
+the static caches ``length`` is a host integer, and ``lengths`` is the same
+fill point as an int32 device tensor [B] for the decode kernel; a write past
+the capacity raises.  The row caches of the serving engine keep one fill
+point per row in ``lengths`` alone, on the device, and write there by
+scatter, so that a decode step never reads it back; a row past its capacity
+(an idle slot that keeps decoding) writes its last window and its fill point
+keeps growing, as the JAX package's ``dynamic_update_slice`` does.
 """
 
 from __future__ import annotations
@@ -226,12 +232,143 @@ class SplitKVCache(_StaticCache):
         return k, v, self.length
 
 
+class _RowCache:
+    """Capacity and the per-row fill points [B] (int32, on the device) of
+    the row caches."""
+
+    quantized = False
+    row = True
+
+    def __init__(self, batch: int, max_len: int, head_dim: int, device: torch.device):
+        self.max_len = max_len
+        self.head_dim = head_dim
+        self.lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+
+    @property
+    def seq_len(self) -> int:
+        return self.max_len
+
+    @property
+    def length(self) -> torch.Tensor:
+        """The largest fill point, a device scalar (per-row readers use
+        ``lengths``)."""
+        return torch.amax(self.lengths)
+
+    def _positions(self, T: int) -> torch.Tensor:
+        """Where each row's T new entries go, int64 [B, T]: at its fill point,
+        clamped to the last window (``dynamic_update_slice``'s start clamp)."""
+        start = torch.clamp(self.lengths, max=self.max_len - T).to(torch.int64)
+        return start[:, None] + torch.arange(T, device=start.device)
+
+    def _set_length(self, b: int, length) -> None:
+        self.lengths[b:b + 1].fill_(length)
+
+
+def _scatter_rows(buf: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """buf [B, H, S(, D)] at each row's positions pos [B, T] <- new [B, H, T(, D)]."""
+    idx = pos[:, None, :, None] if buf.ndim == 4 else pos[:, None, :]
+    buf.scatter_(2, idx.expand(new.shape), new.to(buf.dtype))
+
+
+class RowKVCache(_RowCache):
+    """Continuous-batching cache, [B, H, S_max, D]: every row has its own
+    fill point (``lengths``), so one decode step serves slots at different
+    sequence positions.  The engine installs a prefilled batch-1 cache row
+    with :meth:`write_row`."""
+
+    def __init__(self, batch: int, heads: int, max_len: int, head_dim: int,
+                 dtype=torch.float32, device=None):
+        device = resolve_device(device)
+        super().__init__(batch, max_len, head_dim, device)
+        self.k = torch.zeros((batch, heads, max_len, head_dim), dtype=dtype, device=device)
+        self.v = torch.zeros_like(self.k)
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor):
+        """Append [B, H, T, D] at each row's fill point (a row past the
+        capacity writes its last window; its outputs are garbage by
+        construction); returns the full buffers and the new lengths."""
+        pos = self._positions(k_new.shape[2])
+        _scatter_rows(self.k, pos, k_new)
+        _scatter_rows(self.v, pos, v_new)
+        self.lengths += k_new.shape[2]
+        return self.k, self.v, self.lengths
+
+    def write_row(self, b: int, k_row: torch.Tensor, v_row: torch.Tensor,
+                  length=None) -> None:
+        """Install a prefilled row: ``k_row`` / ``v_row`` [H, T, D] from a
+        batch-1 cache.  ``length`` resets the row's fill point (default T);
+        bucket padding beyond it is masked, and later appends overwrite it."""
+        T = k_row.shape[1]
+        self.k[b, :, :T] = k_row.to(self.k.dtype)
+        self.v[b, :, :T] = v_row.to(self.v.dtype)
+        self._set_length(b, T if length is None else length)
+
+
+class RowQuantizedKVCache(_RowCache):
+    """INT8 continuous-batching cache: :class:`QuantizedKVCache` payloads
+    and scales with :class:`RowKVCache` per-row fill points."""
+
+    quantized = True
+
+    def __init__(self, batch: int, heads: int, max_len: int, head_dim: int,
+                 dtype=torch.float32, device=None):
+        device = resolve_device(device)
+        super().__init__(batch, max_len, head_dim, device)
+        self.out_dtype = dtype
+        self.k_q = torch.zeros((batch, heads, max_len, head_dim), dtype=torch.int8, device=device)
+        self.v_q = torch.zeros_like(self.k_q)
+        self.k_scale = torch.zeros((batch, heads, max_len), dtype=torch.float32, device=device)
+        self.v_scale = torch.zeros_like(self.k_scale)
+
+    def update_payload(self, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        kq, ks = QuantizedKVCache._quantize(k_new.to(torch.float32))
+        vq, vs = QuantizedKVCache._quantize(v_new.to(torch.float32))
+        pos = self._positions(k_new.shape[2])
+        _scatter_rows(self.k_q, pos, kq)
+        _scatter_rows(self.v_q, pos, vq)
+        _scatter_rows(self.k_scale, pos, ks)
+        _scatter_rows(self.v_scale, pos, vs)
+        self.lengths += k_new.shape[2]
+
+    def update_quantized(self, k_new: torch.Tensor, v_new: torch.Tensor) -> QuantKV:
+        """Append and return the int8 payloads and scales (no dequantization)."""
+        self.update_payload(k_new, v_new)
+        return QuantKV(self.k_q, self.v_q, self.k_scale, self.v_scale)
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor):
+        """Append and return dequantized full buffers and the new lengths."""
+        self.update_payload(k_new, v_new)
+        k = (self.k_q.to(torch.float32) * self.k_scale[..., None]).to(self.out_dtype)
+        v = (self.v_q.to(torch.float32) * self.v_scale[..., None]).to(self.out_dtype)
+        return k, v, self.lengths
+
+    def write_row(self, b: int, k_q_row: torch.Tensor, v_q_row: torch.Tensor,
+                  k_scale_row: torch.Tensor, v_scale_row: torch.Tensor, length=None) -> None:
+        """Install a prefilled row's int8 payloads [H, T, D] and scales
+        [H, T], from a batch-1 :class:`QuantizedKVCache`."""
+        T = k_q_row.shape[1]
+        self.k_q[b, :, :T] = k_q_row
+        self.v_q[b, :, :T] = v_q_row
+        self.k_scale[b, :, :T] = k_scale_row.to(torch.float32)
+        self.v_scale[b, :, :T] = v_scale_row.to(torch.float32)
+        self._set_length(b, T if length is None else length)
+
+
 def make_caches(n_layers: int, batch: int, heads: int, max_len: int, head_dim: int,
                 dtype=torch.float32, quantized: bool = False,
-                split_base_len: Optional[int] = None, device=None) -> List:
+                split_base_len: Optional[int] = None, device=None,
+                per_row: bool = False) -> List:
     """One cache per layer, on the card unless ``device='cpu'``; with
-    ``split_base_len`` a float :class:`SplitKVCache` whose base holds
-    ``split_base_len`` slots and whose tail the rest of ``max_len``."""
+    ``per_row`` a row cache (a fill point per batch row, the serving
+    engine's); with ``split_base_len`` a float :class:`SplitKVCache` whose
+    base holds ``split_base_len`` slots and whose tail the rest of
+    ``max_len``."""
+    if per_row:
+        if split_base_len is not None:
+            raise ValueError("a row cache is not split")
+        cls = RowQuantizedKVCache if quantized else RowKVCache
+        return [cls(batch, heads, max_len, head_dim, dtype, device=device)
+                for _ in range(n_layers)]
     if split_base_len is not None:
         if quantized:
             raise ValueError("a split cache is not quantized")

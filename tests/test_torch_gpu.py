@@ -513,3 +513,79 @@ def test_bfp_cast_composed_matches_plain_bit_for_bit_on_card(cuda, site):
     assert kernels.LAUNCHES["bfp_cast"] == n0 + 1
     _same_bits(got, T2.bfp_cast_ref(T2.fp16_cast_ref(x), 8, 64, axis))
     _same_bits(got, T2.bfp_cast(T2.fp16_cast(x), 8, 64, axis))
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching engine on the card
+# ---------------------------------------------------------------------------
+
+# a tiny OPT whose head_dim (64) the decode and prefill kernels take
+ENGINE_CFG = dict(vocab_size=512, hidden_size=128, ffn_dim=256, num_hidden_layers=2,
+                  num_attention_heads=2, max_position_embeddings=256)
+# tokens are held where isolated generation's top-1/top-2 margin exceeds
+# this: the engine's bucket prefill and batched decode sum in another order,
+# and an int8 cache entry that rounds one step apart moves later logits
+ENGINE_TOL = 1e-2
+
+
+def _isolated_on_card(model, prompt, n_new, quantized, max_len, dev):
+    from dmx_compressor_tpu_torch.models.opt import greedy_decode, greedy_prefill
+
+    caches = model.init_cache(1, max_len, quantized=quantized, device=dev)
+    logits, tok = greedy_prefill(model, caches, torch.from_numpy(prompt[None]).to(dev))
+    toks, rows = greedy_decode(model, caches, tok, int(prompt.size), n_new - 1)
+    top2 = torch.cat([logits[:, -1], rows[:, 0]]).topk(2, dim=-1).values
+    return [int(tok[0])] + toks[0].tolist(), (top2[:, 0] - top2[:, 1]).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,chunk", [("raw", None), ("weights", None), ("weights", 8)])
+def test_engine_matches_isolated_generation_on_card(cuda, mode, chunk):
+    """A tiny engine on the card (3 slots, bursts of 4, mixed prompt
+    lengths, slot reuse, idle rows past max_len) against isolated generation
+    on the card; its kernels launched, and a steady dispatch makes no host
+    sync."""
+    import numpy as np
+    from dmx_compressor_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
+    from dmx_compressor_tpu_torch.serving import ContinuousBatchingEngine
+
+    with torch.no_grad():
+        model = OPTForCausalLM(OPTConfig(**ENGINE_CFG), device=cuda, seed=0)
+        if mode == "weights":
+            build_weights_mode(model)
+    quantized = mode == "weights"
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(1, 512, (n,)).astype(np.int32), g)
+            for n, g in ((5, 58), (30, 6), (17, 4), (9, 8), (24, 5))]
+    max_len = 64
+    eng = ContinuousBatchingEngine(model, max_slots=3, max_len=max_len, prompt_buckets=(16, 32),
+                                   quantized_kv=quantized, prefill_chunk=chunk)
+    real, synced = eng._dispatch, []
+
+    def dispatch(burst, sampling):
+        if synced or eng.last_step_admissions or eng.last_step_chunks:
+            return real(burst, sampling)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(burst, sampling)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            synced.append(True)
+
+    eng._dispatch = dispatch
+    kernels.reset_launches()
+    rids = [eng.submit(p, max_new_tokens=g) for p, g in reqs]
+    res = {r.request_id: r for r in eng.run(burst=4)}
+    assert synced
+    decode = "flash_decode_int8" if quantized else "flash_decode"
+    assert kernels.LAUNCHES[decode] > 0 and kernels.LAUNCHES["flash_attention"] > 0
+    assert (kernels.LAUNCHES["bfp_linear"] > 0) == quantized
+    assert max(eng.caches[0].lengths.tolist()) > max_len  # an idle row ran past the cache
+    for rid, (p, g) in zip(rids, reqs):
+        want, margins = _isolated_on_card(model, p, g, quantized, max_len, cuda)
+        assert res[rid].finish_reason == "length" and len(res[rid].tokens) == g
+        for s, (a, b) in enumerate(zip(res[rid].tokens, want)):
+            if margins[s] <= ENGINE_TOL:
+                break
+            assert a == b, f"request {rid}, token {s}"
