@@ -11,7 +11,9 @@ Phases (any failure exits non-zero):
    every kernel of ``dmx_compressor_tpu_torch/csrc`` (one nvcc per source,
    started together).
 2. The seven kernels against their plain PyTorch versions on the card, at
-   the paths' shapes and at ragged ones: max abs error against the stated
+   the paths' shapes (OPT-125m's; TinyLlama-1.1B's: B1 and T1 at its five
+   linears, B2 and B4 at (8, 32, 4, 256, 64), B3 at BH 256, L = S = 128) and
+   at ragged ones: max abs error against the stated
    tolerance (T2: bit for bit), the kernel's time, its plain version's, one
    library call's where there is one (a yardstick the port never calls) and
    the bound (bytes, or operations over the H100 SXM's published f32 or
@@ -56,13 +58,38 @@ Phases (any failure exits non-zero):
      4L+1 = 49 T1 + 34L+6 = 414 T2, prepare_split_decode 2L = 24 T2, each
      decode step 49 T1 + 16L+3 = 195 T2 (19L+4 casts: 3L+1 launches are a
      FLOAT16 cast and the BFP cast of its output in one).
-   Each path's prefill logits and first 8 greedy tokens are held against the
-   same model moved to the CPU (``.to("cpu")``); each prints its decode
+   Each path's prefill logits and the logits of its first 7 decode steps are
+   held against the same model moved to the CPU (``.to("cpu")``), the CPU
+   fed the card's tokens (teacher-forced), and each of the 8 greedy tokens
+   against the CPU's choice on the same inputs where the CPU's top-1/top-2
+   margin exceeds the path's tolerance; each prints its decode
    tokens/s, the device time of one warm prefill (a second prefill call
    under torch.profiler, split into its packed linears' kernel, B3 and the
    rest), the device busy/idle split of a profiled decode step and a host
    cProfile of the same steps.  The JAX bench's ratios (weights, SBFP,
    sbfp_wide and basic over baseline tokens/s) follow.
+   Then three paths of bench.py's ``llama-1.1b`` (TinyLlama-1.1B at full
+   width and depth: 22 layers of 2048, MLP 5632, GQA 32 query heads over 4
+   KV heads, vocab 32000, an untied head) from seed 0, at the same batch,
+   prompt and steps (L = 22):
+   - llama_weights (BFP16_64 packed weights, int8 KV cache): prefill
+     4L+1 = 89 B1 and no B3 (an int8 prefill attends over the dequantized
+     cache through quantized_sdpa, as in the JAX package), each decode step
+     89 B1 + 22 B2 (8 query heads a KV head);
+   - llama_baseline (BASELINE rules, f32 KV cache): prefill 22 B3 (BH 256,
+     the KV heads repeated to the query heads), each decode step 22 B4;
+   - llama_basic (BASIC rules, packed BFP16_64 weights, a float16 split
+     cache of 128 + 64): prefill 89 T1 + 40L+5 = 885 T2, prepare 2L = 44 T2,
+     each decode step 89 T1 + 21L+2 = 464 T2 (24L+3 casts: 3L+1 launches
+     are a FLOAT16 cast and the BFP cast of its output in one), every layer
+     through the fused step.
+   Their CPU check runs the same build cut to ``LLAMA_CPU_LAYERS`` layers
+   (full width, seed 0) on the card and on the CPU, prefill and 7 steps.
+   The llama_basic card run of that check records every T2 launch's shape
+   and axis: T2 is then held bit for bit at each distinct site (the BFP,
+   FLOAT16 and composed modes) and timed per launch over one recorded
+   decode step.  B3's Llama case times flash_prefill's K/V head repeat
+   apart; the llama_baseline prefill split shows it beside B3.
 4. Three paths of the continuous-batching engine (serving/engine.py) at
    examples/serving_bench.py's defaults: OPT-125m at full width from seed
    0, 8 slots, bursts of 16, 32 requests of a 96-token prompt and 64 new
@@ -93,6 +120,7 @@ CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -121,6 +149,16 @@ LOGIT_TOL = 1e-3  # f32 logits, GPU vs CPU: the same math summed in another orde
 # and reductions summed in float64 moves a prefill logit by up to 0.0574;
 # 0.15 leaves room for the full vocabulary's 25x more logits.
 BASIC_LOGIT_TOL = 0.15
+# the Llama paths' CPU check: the same build cut to this many layers (full
+# width, seed 0), run on the card and on the CPU
+LLAMA_CPU_LAYERS = 4
+# the llama_basic path's logits, GPU vs CPU at that depth, fixed before its
+# first run on the card: tools/order_sensitivity.py --family llama at
+# TinyLlama-1.1B's width, 4 layers, vocab cut to 2048, seeds 0 and 1, moves
+# a prefill logit by up to 0.1533 (0.1376) when the sums run in float64;
+# 0.4 keeps OPT's ratio of bound to measurement (0.15 / 0.0574) for the
+# full vocabulary's 16x more logits
+LLAMA_BASIC_LOGIT_TOL = 0.4
 B1_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of up to 3072 terms, another order
 B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
@@ -183,18 +221,14 @@ def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_events(torch, run, calls: int = 0):
-    """(name, device microseconds) of every device activity of ``run()``,
-    from torch.profiler, the one timing source of this script.  The profiler
-    now and then hands back an empty trace, or one that lost some of its
-    kernels; an empty one, or with ``calls`` (``run`` makes that many calls
-    that each launch the same kernels) one where a kernel's count is no
-    multiple of ``calls``, is taken again, up to five times in all.  Returns
-    the last non-empty trace (logged when it stayed uneven), empty if all
-    five were."""
+def device_trace(torch, run):
+    """(name, device microseconds, launches) of every device kernel of
+    ``run()``, from torch.profiler, the one timing source of this script.
+    The profiler now and then hands back an empty trace (taken again, up to
+    five times in all; empty if all five were) or one that lost some of its
+    kernels' records (see :func:`time_ms`)."""
     from torch.profiler import ProfilerActivity, profile
 
-    events = []
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
@@ -202,20 +236,24 @@ def device_events(torch, run, calls: int = 0):
         taken = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and e.self_device_time_total > 0]
-        events = [(key, us) for key, us, _ in taken] or events
-        if taken and not (calls and any(n % calls for _, _, n in taken)):
-            return events
-    if events:
-        log(f"  (torch.profiler: no trace with every kernel {calls} times in five tries; "
-            f"the last one is used)")
-    return events
+        if taken:
+            return taken
+    return []
+
+
+def device_events(torch, run):
+    """(name, device microseconds) of every device kernel of ``run()``."""
+    return [(key, us) for key, us, _ in device_trace(torch, run)]
 
 
 def time_ms(torch, fn, arg_sets, min_iters: int = 20) -> float:
     """Device ms per call of ``fn``: the device time of all the work the
     calls launched (torch.profiler), cycling through ``arg_sets`` whose
     inputs together exceed L2, so each call finds its inputs cold as on the
-    main path.  Raises if the profiler saw no device time."""
+    main path.  Each kernel counts its mean time a launch times its launches
+    a call (its launches over the calls, rounded), so a trace that lost a
+    few of a kernel's records is not taken again.  Raises if the profiler
+    saw no device time."""
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
@@ -225,10 +263,12 @@ def time_ms(torch, fn, arg_sets, min_iters: int = 20) -> float:
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
 
-    events = device_events(torch, run, calls=iters)
-    if not events:
-        raise RuntimeError(f"torch.profiler recorded no whole trace of {fn}")
-    return sum(us for _, us in events) / 1e3 / iters
+    trace = device_trace(torch, run)
+    if not trace:
+        raise RuntimeError(f"torch.profiler recorded no trace of {fn}")
+    us = sum(t / n * round(n / iters) if round(n / iters) else t / iters
+             for _, t, n in trace)
+    return us / 1e3
 
 
 def copies_for(nbytes: int) -> int:
@@ -267,6 +307,21 @@ def sbfp_linear_shapes(cfg):
     v (never merged) and out_proj, fc1 and fc2 per layer, then the LM head."""
     d, f, L = cfg.hidden_size, cfg.ffn_dim, cfg.num_hidden_layers
     return [(d, d, 4 * L), (d, f, L), (f, d, L), (d, cfg.vocab_size, 1)]
+
+
+def llama_linear_shapes(cfg):
+    """(K, N, launches per forward) of the Llama paths' packed linears:
+    merged q/k/v (GQA widths), o_proj, merged gate/up and down_proj per
+    layer, then the untied LM head."""
+    d, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    kv = cfg.num_key_value_heads * (d // cfg.num_attention_heads)
+    return [(d, d + 2 * kv, L), (d, d, L), (d, 2 * m, L), (m, d, L), (d, cfg.vocab_size, 1)]
+
+
+def llama_heads(cfg):
+    """(query heads, KV heads, head_dim) of a Llama config."""
+    return (cfg.num_attention_heads, cfg.num_key_value_heads,
+            cfg.hidden_size // cfg.num_attention_heads)
 
 
 def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shapes, ragged,
@@ -470,6 +525,33 @@ def check_b5(torch, dev, cfg):
     return step, cases, wide_step
 
 
+def check_llama_linears(torch, dev, lcfg):
+    """B1 and T1 at the Llama paths' five linear shapes (M = batch and batch
+    x prompt), and per launch over one Llama decode step's 4L+1 launches;
+    T1's library yardstick a bf16 torch.matmul.  Returns ((B1's per-step
+    numbers, cases), (T1's per-step numbers, cases)), each case marked
+    ``path="llama"``."""
+    from dmx_compressor_tpu_torch.ops.bfp_linear import (
+        bfp_linear,
+        bfp_linear_bf16,
+        bfp_linear_bf16_ref,
+        bfp_linear_ref,
+    )
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
+
+    shapes = llama_linear_shapes(lcfg)
+    b1 = check_linear(torch, dev, "B1 bfp_linear (llama)", bfp_linear, bfp_linear_ref,
+                      lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, shapes, [], B1_TOL,
+                      seed=22, planes=3)
+    t1 = check_linear(torch, dev, "T1 bfp_linear_bf16 (llama)", bfp_linear_bf16,
+                      bfp_linear_bf16_ref, lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes,
+                      shapes, [], B1_TOL, seed=23, peak_flop_s=PEAK_BF16_FLOP_S,
+                      lib_dtype=torch.bfloat16)
+    for case in b1[1] + t1[1]:
+        case["path"] = "llama"
+    return b1, t1
+
+
 # T1's own shapes: diag_bfpkernel_ab.py:177-183, OPT-1.3B decode at M = 8
 T1_TPU_SHAPES = [(8, 2048, 6144), (8, 2048, 2048), (8, 2048, 8192), (8, 8192, 2048),
                  (8, 2048, 50272)]
@@ -567,6 +649,107 @@ def special_blocks(torch, n: int = 10):
     return torch.cat(blocks[:n])
 
 
+def t2_run(mode, x, axis, plain=False, wl=8, block=64):
+    """One T2 cast of ``x`` in ``mode`` ("bfp", "fp16" or the composed
+    "fp16bfp"), by the kernel's wrapper or its plain version."""
+    from dmx_compressor_tpu_torch.ops import bfp_cast as T2
+
+    if mode == "fp16":
+        return (T2.fp16_cast_ref if plain else T2.fp16_cast)(x)
+    if mode == "fp16bfp":
+        if plain:
+            return T2.bfp_cast_ref(T2.fp16_cast_ref(x), wl, block, axis)
+        return T2.bfp_cast(x, wl, block, axis, fp16_first=True)
+    return (T2.bfp_cast_ref if plain else T2.bfp_cast)(x, wl, block, axis)
+
+
+def t2_check(torch, label, mode, x, axis, wl=8, block=64):
+    """T2 against its plain version on ``x``, bit for bit."""
+    got = t2_run(mode, x, axis, wl=wl, block=block)
+    want = t2_run(mode, x, axis, plain=True, wl=wl, block=block)
+    if not same_bits(torch, got, want):
+        bad = (got.view(torch.int32) != want.view(torch.int32)).sum().item()
+        raise AssertionError(f"T2 {label}: {bad} elements differ from the plain version")
+
+
+def heavy_tailed(torch, shape, g, dev):
+    """randn scaled by exp(3 randn): values from f32 subnormals to past the
+    FLOAT16 range, for the casts' rounding, flush and clamp."""
+    return (torch.randn(shape, generator=g, device=dev)
+            * torch.exp(3 * torch.randn(shape, generator=g, device=dev)))
+
+
+def t2_per_launch(torch, dev, g, step):
+    """T2's time per launch over one decode step's launches ``step``
+    ((mode, shape, axis[, wl, block]) each; BFP16_64 where wl and block are
+    left out), the kernel's and the plain version's, on random inputs of
+    those shapes, and the bytes bound."""
+    inputs = [torch.randn(shape, generator=g, device=dev) for _, shape, *_ in step]
+    runs = {}
+    for what, plain in (("ms", False), ("plain_ms", True)):
+        runs[what] = time_ms(torch, lambda: [t2_run(m, x, a, plain, *wb) for (m, _, a, *wb), x
+                                             in zip(step, inputs)], [()]) / len(step)
+    runs["launches_per_step"] = len(step)
+    runs["library_ms"] = None
+    runs["bound_ms"], runs["bound_by"] = bound(
+        sum(8 * math.prod(shape) for _, shape, *_ in step) / len(step), 0)
+    return runs
+
+
+@contextlib.contextmanager
+def record_t2(into: list):
+    """Appends (mode, shape, axis, wl, block) of every T2 call made inside
+    the block to ``into``: each is one launch on the card.  The model's
+    modules call the casts through the module (``T2.bfp_cast``), so the
+    wrappers are swapped there for the block's length."""
+    from dmx_compressor_tpu_torch.ops import bfp_cast as T2
+
+    bfp, fp16 = T2.bfp_cast, T2.fp16_cast
+
+    def rec_bfp(x, wl, block, axis=-1, fp16_first=False):
+        into.append(("fp16bfp" if fp16_first else "bfp", tuple(x.shape),
+                     axis % x.ndim - x.ndim, wl, block))
+        return bfp(x, wl, block, axis, fp16_first)
+
+    def rec_fp16(x):
+        into.append(("fp16", tuple(x.shape), -1, 8, 64))
+        return fp16(x)
+
+    T2.bfp_cast, T2.fp16_cast = rec_bfp, rec_fp16
+    try:
+        yield
+    finally:
+        T2.bfp_cast, T2.fp16_cast = bfp, fp16
+
+
+def check_t2_sites(torch, dev, sites, step, what):
+    """T2 against its plain version, bit for bit, at every cast site that a
+    path's run recorded (``sites``: (mode, shape, axis, wl, block) from
+    :func:`record_t2`): each distinct shape and axis in the BFP, FLOAT16 and
+    composed modes (the FLOAT16 mode alone where the axis takes no block),
+    on heavy-tailed inputs; then the time per launch over the recorded
+    decode step ``step``.  Returns (the per-step numbers, the cases)."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    counts = {}
+    for _, shape, axis, wl, block in sites:
+        counts[shape, axis, wl, block] = counts.get((shape, axis, wl, block), 0) + 1
+    cases = []
+    for (shape, axis, wl, block), n in sorted(counts.items()):
+        x = heavy_tailed(torch, shape, g, dev)
+        modes = ("bfp", "fp16", "fp16bfp") if shape[axis] % block == 0 else ("fp16",)
+        for mode in modes:
+            t2_check(torch, f"{what} {mode} {list(shape)} axis {axis}", mode, x, axis, wl, block)
+        cases.append(dict(site=what, shape=list(shape), axis=axis, wl=wl, block=block,
+                          modes=list(modes), recorded_calls=n, max_abs_err=0.0))
+        log(f"T2 bfp_cast at a {what} site {list(shape)} axis {axis} (BFP wl {wl} block "
+            f"{block}; {n} of the recorded launches), modes {', '.join(modes)}: bit-exact")
+    runs = t2_per_launch(torch, dev, g, step)
+    log(f"T2 bfp_cast, a {what} decode step's {len(step)} launches, per launch: "
+        f"kernel_ms={runs['ms']:.4f} plain_ms={runs['plain_ms']:.4f} "
+        f"bound_ms={runs['bound_ms']:.6f} (bytes)")
+    return runs, cases
+
+
 def check_t2(torch, dev, cfg):
     """T2 against its plain version, bit for bit, at the BASIC path's cast
     sites (the BFP, FLOAT16 and composed FLOAT16-then-BFP modes at each; the
@@ -577,21 +760,7 @@ def check_t2(torch, dev, cfg):
     cases)."""
     from dmx_compressor_tpu_torch.ops import bfp_cast as T2
 
-    def run(mode, x, axis, plain=False):
-        if mode == "fp16":
-            return (T2.fp16_cast_ref if plain else T2.fp16_cast)(x)
-        if mode == "fp16bfp":
-            if plain:
-                return T2.bfp_cast_ref(T2.fp16_cast_ref(x), 8, 64, axis)
-            return T2.bfp_cast(x, 8, 64, axis, fp16_first=True)
-        return (T2.bfp_cast_ref if plain else T2.bfp_cast)(x, 8, 64, axis)
-
-    def check(label, mode, x, axis):
-        got, want = run(mode, x, axis), run(mode, x, axis, plain=True)
-        if not same_bits(torch, got, want):
-            bad = (got.view(torch.int32) != want.view(torch.int32)).sum().item()
-            raise AssertionError(f"T2 {label}: {bad} elements differ from the plain version")
-
+    run, check = t2_run, functools.partial(t2_check, torch)
     g = torch.Generator(device=dev).manual_seed(19)
     d, f, H = cfg.hidden_size, cfg.ffn_dim, cfg.num_attention_heads
     D, B = d // H, BATCH
@@ -602,9 +771,7 @@ def check_t2(torch, dev, cfg):
     cases = []
     for label, shape, axis in sites:
         n = math.prod(shape)
-        sets = [(torch.randn(shape, generator=g, device=dev)
-                 * torch.exp(3 * torch.randn(shape, generator=g, device=dev)),)
-                for _ in range(copies_for(8 * n))]
+        sets = [(heavy_tailed(torch, shape, g, dev),) for _ in range(copies_for(8 * n))]
         for mode in ("bfp", "fp16", "fp16bfp"):
             check(f"{mode} {label} {list(shape)} axis {axis}", mode, sets[0][0], axis)
             ms = time_ms(torch, lambda x: run(mode, x, axis), sets)
@@ -645,15 +812,8 @@ def check_t2(torch, dev, cfg):
     log(f"T2 probes ({', '.join(T2.PROBES)}) at [{B}, {d}]: bit-exact")
 
     step = t2_step_launches(cfg)
-    inputs = [torch.randn(shape, generator=g, device=dev) for _, shape, _ in step]
-    runs = {}
-    for what, plain in (("ms", False), ("plain_ms", True)):
-        runs[what] = time_ms(torch, lambda: [run(m, x, a, plain) for (m, _, a), x
-                                             in zip(step, inputs)], [()]) / len(step)
+    runs = t2_per_launch(torch, dev, g, step)
     runs["step_ms"] = runs["ms"] * len(step)
-    runs["library_ms"] = None
-    runs["bound_ms"], runs["bound_by"] = bound(
-        sum(8 * math.prod(shape) for _, shape, _ in step) / len(step), 0)
     log(f"T2 bfp_cast, one decode step's {len(step)} launches, per launch: "
         f"kernel_ms={runs['ms']:.4f} plain_ms={runs['plain_ms']:.4f} "
         f"bound_ms={runs['bound_ms']:.6f} (bytes); the step's T2 device time "
@@ -685,7 +845,7 @@ def b4_bytes_flops(B, H, Hkv, D, lengths):
     return 2 * B * H * D * 4 + keys * Hkv * 2 * D * 4 + B * 4, 4 * keys * H * D
 
 
-def check_b2(torch, dev, cfg):
+def check_b2(torch, dev, cfg, lcfg):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_decode import flash_decode_int8, flash_decode_int8_ref
@@ -693,20 +853,23 @@ def check_b2(torch, dev, cfg):
 
     g = torch.Generator(device=dev).manual_seed(12)
     cases = []
-    # (Hkv, S, lengths): the main path's shape (its cache capacity at the
-    # mean fill of its decode steps), ragged per-row lengths over an S that
+    # (H, Hkv, S, D, lengths): the main path's shape (its cache capacity at
+    # the mean fill of its decode steps), ragged per-row lengths over an S that
     # is no multiple of a chunk, bench.py's long leg (prompt 1984 in a
     # 2048-slot cache, lengths 2016 half way through its 64 steps), GQA
     # (12 query heads on 4 KV heads, ragged) and the engine's row cache
-    # (ENGINE_ROWS)
+    # (ENGINE_ROWS); and the llama_weights path's (8 query heads a KV head)
     B, H = BATCH, cfg.num_attention_heads
     D = cfg.hidden_size // H
     mean_fill = PROMPT + GEN // 2
-    for Hkv, S, lengths in [(H, CAPACITY, [mean_fill] * B),
-                            (H, 200, [1 + (199 * i) // (B - 1) for i in range(B)]),
-                            (H, 2048, [2016] * B),
-                            (max(1, H // 3), 300, [1 + (299 * i) // (B - 1) for i in range(B)]),
-                            (H, ENGINE_LEN, ENGINE_ROWS)]:
+    Hq, Hkv_l, D_l = llama_heads(lcfg)
+    shapes = [(H, H, CAPACITY, D, [mean_fill] * B),
+              (H, H, 200, D, [1 + (199 * i) // (B - 1) for i in range(B)]),
+              (H, H, 2048, D, [2016] * B),
+              (H, max(1, H // 3), 300, D, [1 + (299 * i) // (B - 1) for i in range(B)]),
+              (H, H, ENGINE_LEN, D, ENGINE_ROWS),
+              (Hq, Hkv_l, CAPACITY, D_l, [mean_fill] * B)]
+    for H, Hkv, S, D, lengths in shapes:
         per_set = B * Hkv * S * (2 * D + 8) + 2 * B * H * D * 4
         sets = []
         for _ in range(copies_for(per_set)):
@@ -743,7 +906,7 @@ def check_b2(torch, dev, cfg):
     return cases
 
 
-def check_b3(torch, dev, cfg):
+def check_b3(torch, dev, cfg, lcfg):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
@@ -752,21 +915,30 @@ def check_b3(torch, dev, cfg):
     cases = []
     # the main path's prefill (L = S = prompt, causal), L < S with the
     # diagonal at S - L, an additive bias, and the engine's batch-1 prefill
-    # at its bucket and its first chunk
+    # at its bucket and its first chunk; and the llama_baseline path's
+    # prefill (its 32 query heads over 4 KV heads: flash_prefill repeats
+    # the K/V heads to the query heads before the kernel, a copy timed here
+    # apart; the bound counts the K/V of the KV heads, as the function
+    # flash_prefill computes reads them)
     H = cfg.num_attention_heads
     D = cfg.hidden_size // H
-    for B, L, S, with_bias in [(BATCH, PROMPT, PROMPT, False), (BATCH, 64, 192, False),
-                               (BATCH, 100, 160, True),
-                               (1, ENGINE["prompt"], ENGINE["prompt"], False),
-                               (1, ENGINE_CHUNK, ENGINE_CHUNK, False)]:
-        per_set = 4 * B * H * D * (2 * L + 2 * S) + (4 * B * H * L * S if with_bias else 0)
-        sets = []
+    Hq, Hkv_l, D_l = llama_heads(lcfg)
+    for B, H, Hkv, L, S, D, with_bias in [(BATCH, H, H, PROMPT, PROMPT, D, False),
+                                          (BATCH, H, H, 64, 192, D, False),
+                                          (BATCH, H, H, 100, 160, D, True),
+                                          (1, H, H, ENGINE["prompt"], ENGINE["prompt"], D, False),
+                                          (1, H, H, ENGINE_CHUNK, ENGINE_CHUNK, D, False),
+                                          (BATCH, Hq, Hkv_l, PROMPT, PROMPT, D_l, False)]:
+        per_set = 4 * B * D * (2 * H * L + 2 * Hkv * S) + (4 * B * H * L * S if with_bias else 0)
+        sets, kv_sets = [], []
         for _ in range(copies_for(per_set)):
             q = torch.randn(B, H, L, D, generator=g, device=dev)
-            k = torch.randn(B, H, S, D, generator=g, device=dev)
-            v = torch.randn(B, H, S, D, generator=g, device=dev)
+            k = torch.randn(B, Hkv, S, D, generator=g, device=dev)
+            v = torch.randn(B, Hkv, S, D, generator=g, device=dev)
             bias = torch.randn(B, H, L, S, generator=g, device=dev) if with_bias else None
-            sets.append((q, k, v, bias))
+            kv_sets.append((k, v))
+            sets.append((q, torch.repeat_interleave(k, H // Hkv, dim=1),
+                         torch.repeat_interleave(v, H // Hkv, dim=1), bias))
 
         def kern(q, k, v, bias):
             return flash_attention(q, k, v, bias, causal=True)
@@ -782,12 +954,13 @@ def check_b3(torch, dev, cfg):
         # beforehand, that carries the bias and the causal diagonal at S - L
         allowed = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
         lib_sets = []
-        for q, k, v, bias in sets[:copies_for(per_set + 4 * B * H * L * S)]:
+        for (q, _, _, bias), (k, v) in list(zip(sets, kv_sets))[:copies_for(
+                per_set + 4 * B * H * L * S)]:
             mask = torch.zeros(L, S, device=dev) if bias is None else bias
             lib_sets.append((q, k, v, mask.masked_fill(~allowed, -math.inf)))
 
-        def library(q, k, v, mask):
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        def library(q, k, v, mask, _gqa=H != Hkv):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=_gqa)
 
         lib_err = (library(*lib_sets[0]) - plain(*sets[0])).abs().max().item()
         lib_ms = time_ms(torch, library, lib_sets)
@@ -799,7 +972,18 @@ def check_b3(torch, dev, cfg):
         cases.append(dict(shape=[B * H, L, S, D], bias=with_bias, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
                           bound_f32_ms=bound_f32_ms))
-        log(f"B3 flash_attention BH={B * H} L={L} S={S} D={D} causal bias={with_bias}: "
+        gqa = ""
+        if Hkv != H:
+            # flash_prefill's head repeat of K and V, one layer's
+            cases[-1]["kv_heads"] = Hkv
+            cases[-1]["repeat_ms"] = time_ms(
+                torch, lambda k, v: (torch.repeat_interleave(k, H // Hkv, dim=-3),
+                                     torch.repeat_interleave(v, H // Hkv, dim=-3)), kv_sets)
+            gqa = (f" ({Hkv} KV heads; the bound reads their K/V once; flash_prefill's "
+                   f"repeat of K and V to {H} heads before the kernel: "
+                   f"repeat_ms={cases[-1]['repeat_ms']:.4f} a layer, library_ms is SDPA "
+                   f"with enable_gqa on the {Hkv} heads)")
+        log(f"B3 flash_attention BH={B * H} L={L} S={S} D={D} causal bias={with_bias}{gqa}: "
             f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms(F.scaled_dot_product_attention, float mask)={lib_ms:.4f} "
             f"(its max_abs_err against the plain version {lib_err:.3g}) "
@@ -810,7 +994,7 @@ def check_b3(torch, dev, cfg):
     return cases
 
 
-def check_b4(torch, dev, cfg):
+def check_b4(torch, dev, cfg, lcfg):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
@@ -822,7 +1006,8 @@ def check_b4(torch, dev, cfg):
     # (prompt 1984 in a 2048-slot cache, lengths 2016 half way through its
     # 64 steps) at the path's batch and at batch 1 with 8000 keys, GQA with
     # rep 4 and ragged lengths, a scalar length at D 32, and D 128 over an S
-    # that is no multiple of a tile, and the engine's row cache (ENGINE_ROWS)
+    # that is no multiple of a tile, the engine's row cache (ENGINE_ROWS),
+    # and the llama_baseline path's (8 query heads a KV head)
     H = cfg.num_attention_heads
     D = cfg.hidden_size // H
     for B, H_, Hkv, S, D_, lengths in [
@@ -833,6 +1018,8 @@ def check_b4(torch, dev, cfg):
         (3, 8, 2, 256, 64, [17, 256, 130]),
         (2, 4, 4, 192, 32, 100),
         (2, 8, 8, 200, 128, [57, 200]),
+        (BATCH, *llama_heads(lcfg)[:2], CAPACITY, llama_heads(lcfg)[2],
+         [PROMPT + GEN // 2] * BATCH),
     ]:
         rows = lengths if isinstance(lengths, list) else [lengths] * B
         per_set = 2 * B * Hkv * S * D_ * 4 + 2 * B * H_ * D_ * 4
@@ -879,6 +1066,15 @@ def check_b4(torch, dev, cfg):
 # ---------------------------------------------------------------------------
 
 
+# the profiler's name marks of the kernels a decode step launches
+T1_MARKS = ("bfp_decode_kernel", "bfp_wgmma_kernel", "split_planes_kernel",
+            "bfp_bf16_ragged_kernel")
+T2_MARKS = ("bfp_rows_kernel", "bfp_rows_vec_kernel", "bfp_tile_kernel", "fp16_kernel",
+            "fp16_vec_kernel")
+B1_MARKS = ("bfp_decode_kernel", "bfp_gemm_kernel", "bfp_wgmma_kernel", "split_planes_kernel")
+B2_MARKS = ("flash_decode_int8_kernel",)
+
+
 def path_specs(cfg):
     """The five serving paths: name, build function, init_cache arguments,
     the launches at prefill, in prepare_split_decode (None: not called) and
@@ -893,19 +1089,12 @@ def path_specs(cfg):
     )
 
     L = cfg.num_hidden_layers
-    t1_marks = ("bfp_decode_kernel", "bfp_wgmma_kernel", "split_planes_kernel",
-                "bfp_bf16_ragged_kernel")
-    t2_marks = ("bfp_rows_kernel", "bfp_rows_vec_kernel", "bfp_tile_kernel", "fp16_kernel",
-                "fp16_vec_kernel")
-    b2_marks = ("flash_decode_int8_kernel",)
     return [
         dict(name="weights", build=build_weights_mode,
              cache=dict(max_len=CAPACITY, quantized=True),
              prefill={"bfp_linear": 4 * L + 1, "flash_attention": L}, prepare=None,
              step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
-             marks={"bfp_linear": ("bfp_decode_kernel", "bfp_gemm_kernel", "bfp_wgmma_kernel",
-                                   "split_planes_kernel"),
-                    "flash_decode_int8": b2_marks},
+             marks={"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS},
              logit_tol=LOGIT_TOL),
         dict(name="sbfp", build=build_sbfp_mode, cache=dict(max_len=CAPACITY, quantized=True),
              prefill={"sbfp_linear": 6 * L + 1, "flash_attention": L}, prepare=None,
@@ -913,7 +1102,7 @@ def path_specs(cfg):
              routes=({"tensor_cores": 6 * L + 1}, {"tensor_cores": 6 * L + 1}),
              marks={"sbfp_linear": ("bfp_decode_kernel", "sbfp_gemm_kernel", "bfp_wgmma_kernel",
                                     "split_planes_kernel"),
-                    "flash_decode_int8": b2_marks},
+                    "flash_decode_int8": B2_MARKS},
              logit_tol=LOGIT_TOL),
         # a user's SBFP format off bf16 on every Linear: B5's f32 route, the
         # weight planes at prefill (K 768 and 3072, blocks of 16) and the
@@ -925,7 +1114,7 @@ def path_specs(cfg):
              routes=({"planes": 6 * L + 1}, {"gemv": 6 * L + 1}),
              marks={"sbfp_linear": ("sbfp_gemv_kernel", "bfp_wgmma_kernel",
                                     "split_planes_kernel"),
-                    "flash_decode_int8": b2_marks},
+                    "flash_decode_int8": B2_MARKS},
              logit_tol=LOGIT_TOL),
         dict(name="baseline", build=build_baseline_mode, cache=dict(max_len=CAPACITY),
              prefill={"flash_attention": L}, prepare=None, step={"flash_decode": L},
@@ -945,8 +1134,70 @@ def path_specs(cfg):
              prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 34 * L + 6},
              prepare={"bfp_cast": 2 * L},
              step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 16 * L + 3},
-             marks={"bfp_linear_bf16": t1_marks, "bfp_cast": t2_marks},
+             marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
              logit_tol=BASIC_LOGIT_TOL),
+    ]
+
+
+def llama_path_specs(lcfg):
+    """The three Llama paths (bench.py's llama-1.1b legs), as
+    :func:`path_specs`: the launches at prefill, in prepare_split_decode and
+    per decode step (L = 22), the CPU check at ``LLAMA_CPU_LAYERS`` layers,
+    the logits' tolerance (f32 1e-3, int8 KV8_TOL, BASIC
+    LLAMA_BASIC_LOGIT_TOL), and for llama_basic the check that every layer
+    and the head take the fused decode step."""
+    import dataclasses
+
+    from dmx_compressor_tpu_torch.models.llama import LlamaForCausalLM
+    from dmx_compressor_tpu_torch.ops.basic_layer import (
+        basic_llama_layer_plan,
+        basic_rms_head_plan,
+    )
+    from dmx_compressor_tpu_torch.ops.compress import (
+        build_baseline_mode,
+        build_basic_mode,
+        build_weights_mode,
+    )
+
+    L = lcfg.num_hidden_layers
+    common = dict(model=LlamaForCausalLM,
+                  cpu_cfg=dataclasses.replace(lcfg, num_hidden_layers=LLAMA_CPU_LAYERS))
+
+    def fused_everywhere(model):
+        if any(basic_llama_layer_plan(layer) is None for layer in model.model.layers) or (
+                basic_rms_head_plan(model.model.norm, model.lm_head) is None):
+            raise AssertionError("llama_basic: a layer or the head would not take the fused "
+                                 "decode step")
+        log(f"llama_basic path: basic_llama_layer_plan holds for all {L} layers and "
+            f"basic_rms_head_plan for the head: every decode step takes the fused step")
+
+    return [
+        # an int8 prefill attends over the dequantized cache (quantized_sdpa,
+        # plain torch): no B3
+        dict(common, name="llama_weights", build=build_weights_mode,
+             cache=dict(max_len=CAPACITY, quantized=True),
+             prefill={"bfp_linear": 4 * L + 1}, prepare=None,
+             step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
+             marks={"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}, logit_tol=KV8_TOL),
+        dict(common, name="llama_baseline", build=build_baseline_mode,
+             cache=dict(max_len=CAPACITY), prefill={"flash_attention": L}, prepare=None,
+             step={"flash_decode": L}, marks={"flash_decode": ("flash_decode_kernel",)},
+             logit_tol=LOGIT_TOL),
+        # the modular prefill: per layer 40 FLOAT16 / BFP casts (RMSNorm 2,
+        # qkv 2, RoPE 6, SDPA 14, o_proj 2, resadd 3, RMSNorm 2, gate-up 2,
+        # SiLU 2, down 2, resadd 3; Mul SAME), + the embedding's 1, the final
+        # norm's 2 and the head's 2; a decode step's fused layer 21 launches
+        # (RMS input 1, RMS output with qkv input 1, RoPE cos / sin / q / k
+        # 4, the decode attention 9, o_proj 1, resadd 2, RMS output with
+        # gate-up input 1, SiLU 1, down 1), + the embedding's 1 and the
+        # head's composed 1
+        dict(common, name="llama_basic", build=build_basic_mode,
+             cache=dict(max_len=PROMPT + GEN, dtype="float16", split_base_len=PROMPT),
+             prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 40 * L + 5},
+             prepare={"bfp_cast": 2 * L},
+             step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 21 * L + 2},
+             marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
+             check_built=fused_everywhere, logit_tol=LLAMA_BASIC_LOGIT_TOL, record_t2=True),
     ]
 
 
@@ -973,24 +1224,30 @@ def host_profile(torch, name, run, steps):
 
 
 def serve_path(torch, dev, kernels, cfg, spec):
-    """One serving path: OPT at full width from seed 0, built by
-    ``spec["build"]``, prefill, [prepare_split_decode,] then GEN - 1 greedy
-    decode steps with the launch counters set to 0 just before and read
-    after each part; its profile; the CPU check.  Returns (the launch
+    """One serving path: the model (``spec["model"]``, OPT by default) at
+    full width from seed 0, built by ``spec["build"]``, prefill,
+    [prepare_split_decode,] then GEN - 1 greedy decode steps with the launch
+    counters set to 0 just before and read after each part; its profile;
+    the CPU check (with ``spec["cpu_cfg"]``, of the same build at that
+    config's depth, run on the card and on the CPU).  Returns (the launch
     counts, decode tokens/s)."""
-    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM, greedy_decode, greedy_prefill
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill, greedy_token
     from dmx_compressor_tpu_torch.ops.split_decode import prepare_split_decode
 
     name = spec["name"]
+    make = spec.get("model", OPTForCausalLM)
     cache_kw = dict(spec["cache"])
     if "dtype" in cache_kw:
         cache_kw["dtype"] = getattr(torch, cache_kw["dtype"])
     t0 = time.perf_counter()
-    model = OPTForCausalLM(cfg, device=dev, seed=0)
+    model = make(cfg, device=dev, seed=0)
     spec["build"](model)
     torch.cuda.synchronize()
-    log(f"{name} path: OPT {cfg.hidden_size}x{cfg.num_hidden_layers} built in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"{name} path: {type(model).__name__} {cfg.hidden_size}x{cfg.num_hidden_layers} built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    if "check_built" in spec:
+        spec["check_built"](model)
     ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                         generator=torch.Generator().manual_seed(1))
 
@@ -1013,7 +1270,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
     t_prefill = time.perf_counter() - t0
     after_prepare = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
-    toks, _ = greedy_decode(model, caches, tok, PROMPT, GEN - 1)
+    toks, rows = greedy_decode(model, caches, tok, PROMPT, GEN - 1)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1064,8 +1321,12 @@ def serve_path(torch, dev, kernels, cfg, spec):
     b3 = ""
     if "flash_attention" in spec["prefill"]:
         b3_ms = sum(us for n, us in pre_events if "flash_attention_kernel" in n) / 1e3
-        b3 = (f", flash_attention {b3_ms:.4f} ms over {spec['prefill']['flash_attention']} "
-              f"launches")
+        nb3 = spec["prefill"]["flash_attention"]
+        b3 = f", flash_attention {b3_ms:.4f} ms over {nb3} launches"
+        if "kv_repeat_ms" in spec:
+            b3 += (f", flash_prefill's K/V head repeat before them {nb3} x "
+                   f"{spec['kv_repeat_ms']:.4f} = {nb3 * spec['kv_repeat_ms']:.4f} ms (its "
+                   f"time a layer from the B3 phase, at this path's shapes)")
     linear = next((k for k in spec["prefill"] if k in LINEAR_KERNELS), None)
     if linear is None:
         log(f"{name} prefill, warm: device time {pre_ms:.4f} ms (its linears run cuBLAS){b3}")
@@ -1105,37 +1366,76 @@ def serve_path(torch, dev, kernels, cfg, spec):
     host_profile(torch, name, lambda: greedy_decode(model, prof_caches, ptok, PROMPT, 8), 8)
     del prof_caches
 
-    # the same model on the CPU: the plain PyTorch versions of the kernels
-    gpu_logits, gpu_tokens = logits.float().cpu(), tokens.cpu()
-    del logits, caches
+    # the same model on the CPU: the plain PyTorch versions of the kernels,
+    # teacher-forced: each decode step takes the card's token, so that every
+    # step's logits are held (and a token only where the CPU's top-1/top-2
+    # margin exceeds the tolerance)
+    n = min(8, GEN)  # the prefill and n - 1 decode steps are held
+    gpu_logits, gpu_tokens = logits.float().cpu(), tokens[:, :n].cpu()
+    gpu_rows = rows[:n - 1].float().cpu()
+    del logits, rows, caches
+    if spec.get("cpu_cfg") is not None:
+        # the full-depth model stays on the card: the same build at the CPU
+        # check's depth runs on the card (its T2 launches recorded where the
+        # spec asks), then on the CPU
+        del model
+        torch.cuda.empty_cache()
+        model = make(spec["cpu_cfg"], device=dev, seed=0)
+        spec["build"](model)
+        gcaches = model.init_cache(BATCH, device=dev, **cache_kw)
+        pre_sites, step_sites = [], []
+        recording = spec.get("record_t2", False)
+        kernels.reset_launches()
+        with record_t2(pre_sites) if recording else contextlib.nullcontext():
+            glogits, gtok, _ = prefill(gcaches, ids.to(dev))
+        n_pre = kernels.LAUNCHES["bfp_cast"]
+        with record_t2(step_sites) if recording else contextlib.nullcontext():
+            gtoks, grows = greedy_decode(model, gcaches, gtok, PROMPT, n - 1)
+        if recording and torch.device(dev).type == "cuda" and (
+                len(pre_sites), len(step_sites)) != (n_pre, kernels.LAUNCHES["bfp_cast"] - n_pre):
+            raise AssertionError(f"{name} path: the T2 calls recorded are not the T2 launches")
+        gpu_logits = glogits.float().cpu()
+        gpu_tokens = torch.cat([gtok[:, None], gtoks], dim=1).cpu()
+        gpu_rows = grows.float().cpu()
+        del glogits, grows, gcaches
+        if recording:
+            spec["t2_sites"] = pre_sites + step_sites
+            spec["t2_step"] = step_sites[:len(step_sites) // (n - 1)]
+            log(f"{name} path: recorded {len(pre_sites)} T2 launches at prefill and prepare, "
+                f"{len(step_sites) // (n - 1)} a decode step, at "
+                f"{spec['cpu_cfg'].num_hidden_layers} layers")
+        log(f"{name} path: the CPU check runs the same build at "
+            f"{spec['cpu_cfg'].num_hidden_layers} layers (full width), on the card and the CPU")
     model.to("cpu")
     torch.cuda.empty_cache()
     cpu_caches = model.init_cache(BATCH, device="cpu", **cache_kw)
     t0 = time.perf_counter()
-    cpu_logits, ctok, _ = prefill(cpu_caches, ids)
-    n = min(8, GEN)  # the first n greedy tokens are held
-    ctoks, rows = greedy_decode(model, cpu_caches, ctok, PROMPT, n - 1)
+    with memo_unpack(), torch.no_grad():
+        cpu_logits, ctok, _ = prefill(cpu_caches, ids)
+        cpu_rows = torch.stack([model(gpu_tokens[:, s:s + 1], caches=cpu_caches,
+                                      position_offset=PROMPT + s)[:, -1]
+                                for s in range(n - 1)])
     log(f"{name} path: CPU reference run {time.perf_counter() - t0:.1f} s")
     tol = spec["logit_tol"]
     err = (gpu_logits - cpu_logits).abs().max().item()
     log(f"{name} path: prefill logits GPU vs CPU: max_abs_err={err:.3g} (tolerance {tol})")
     if not err <= tol:
         raise AssertionError(f"{name} path: prefill logits disagree with the CPU run")
-    cpu_tokens = torch.cat([ctok[:, None], ctoks], dim=1)
-    step_rows = torch.cat([cpu_logits[:, -1][None], rows])  # [n, B, V]
+    errs = (gpu_rows - cpu_rows).abs().amax(dim=(1, 2)).tolist()
+    log(f"{name} path: decode logits GPU vs CPU, the CPU fed the card's tokens, per step: "
+        f"max_abs_err {', '.join(f'{e:.3g}' for e in errs)} (tolerance {tol})")
+    if not max(errs) <= tol:
+        raise AssertionError(f"{name} path: decode logits disagree with the CPU run")
+    step_rows = torch.cat([cpu_logits[:, -1][None], cpu_rows])  # [n, B, V]
     top2 = step_rows.topk(2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]  # [n, B]
-    held = 0
-    for b in range(BATCH):
-        for s in range(n):
-            if margin[s, b] <= tol:
-                break  # a near-tie: this row's later tokens are not held
-            if gpu_tokens[b, s] != cpu_tokens[b, s]:
-                raise AssertionError(f"{name} path: greedy token {s} of row {b} differs "
-                                     f"from the CPU run")
-            held += 1
-    log(f"{name} path: greedy tokens GPU vs CPU: {held} of {BATCH * n} held (top-1/top-2 "
-        f"margin > {tol}), all equal")
+    clear = (top2[..., 0] - top2[..., 1] > tol).T  # [B, n]
+    cpu_choice = torch.stack([greedy_token(r) for r in step_rows], dim=1)  # [B, n]
+    if (clear & (cpu_choice != gpu_tokens)).any():
+        b, s = (clear & (cpu_choice != gpu_tokens)).nonzero()[0].tolist()
+        raise AssertionError(f"{name} path: greedy token {s} of row {b} differs from the "
+                             f"CPU's choice on the same inputs")
+    log(f"{name} path: greedy tokens GPU vs CPU on the same inputs: {int(clear.sum())} of "
+        f"{BATCH * n} held (top-1/top-2 margin > {tol}), all equal")
     del model, cpu_caches
     return launches, tok_s
 
@@ -1396,6 +1696,16 @@ def engine_paths(torch, dev, kernels, cfg, card):
     return by_path
 
 
+@contextlib.contextmanager
+def phase(name: str, seconds: dict):
+    """Log and record the wall seconds of one phase of the run (the whole
+    script has 1200 s)."""
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = round(time.perf_counter() - t0, 1)
+    log(f"phase {name}: {seconds[name]} s")
+
+
 def main() -> int:
     import torch
 
@@ -1403,6 +1713,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from dmx_compressor_tpu_torch import kernels
+    from dmx_compressor_tpu_torch.models.llama import LlamaConfig
     from dmx_compressor_tpu_torch.models.opt import OPTConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1413,9 +1724,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
         f"device count {torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
+    t0, took = time.perf_counter(), {}
     seconds = kernels.build()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s wall "
+    took_build = time.perf_counter() - t0
+    log(f"kernels built in {took_build:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
     for name in kernels.SIGNATURES:
         build_log = kernels.BUILD_DIR / f"{name}.log"
@@ -1424,25 +1736,54 @@ def main() -> int:
                 log(f"  ptxas {name}: {ln.strip()}")
 
     cfg = OPTConfig.opt_125m()
-    b1_step, b1 = check_b1(torch, dev, cfg)
-    b2 = check_b2(torch, dev, cfg)
-    b3 = check_b3(torch, dev, cfg)
-    b4 = check_b4(torch, dev, cfg)
-    b5_step, b5, b5_wide_step = check_b5(torch, dev, cfg)
-    t1_step, t1, t1_flush = check_t1(torch, dev, cfg)
-    t2_step, t2 = check_t2(torch, dev, cfg)
+    lcfg = LlamaConfig.llama_1_1b()
+    with phase("B1", took):
+        b1_step, b1 = check_b1(torch, dev, cfg)
+    with phase("B2", took):
+        b2 = check_b2(torch, dev, cfg, lcfg)
+    with phase("B3", took):
+        b3 = check_b3(torch, dev, cfg, lcfg)
+    with phase("B4", took):
+        b4 = check_b4(torch, dev, cfg, lcfg)
+    with phase("B5", took):
+        b5_step, b5, b5_wide_step = check_b5(torch, dev, cfg)
+    with phase("T1", took):
+        t1_step, t1, t1_flush = check_t1(torch, dev, cfg)
+    with phase("T2", took):
+        t2_step, t2 = check_t2(torch, dev, cfg)
+    with phase("B1 and T1 at the Llama shapes", took):
+        (b1_llama_step, b1_llama), (t1_llama_step, t1_llama) = check_llama_linears(
+            torch, dev, lcfg)
 
     by_path, tok_s = {}, {}
     for spec in path_specs(cfg):
         name = spec["name"]
-        by_path[name], tok_s[name] = serve_path(torch, dev, kernels, cfg, spec)
+        with phase(f"{name} path", took):
+            by_path[name], tok_s[name] = serve_path(torch, dev, kernels, cfg, spec)
         log(f"{name} path: decode {tok_s[name]:.1f} tokens/s on {card}")
     log(f"bench.py's ratio, for information (host clock, batch {BATCH}, {card}): "
         f"weights / baseline {tok_s['weights'] / tok_s['baseline']:.4f}, "
         f"sbfp / baseline {tok_s['sbfp'] / tok_s['baseline']:.4f}, "
         f"sbfp_wide / baseline {tok_s['sbfp_wide'] / tok_s['baseline']:.4f}, "
         f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}")
-    by_path.update(engine_paths(torch, dev, kernels, cfg, card))
+    kv_repeat_ms = next(c["repeat_ms"] for c in b3 if "repeat_ms" in c)
+    for spec in llama_path_specs(lcfg):
+        name = spec["name"]
+        if "flash_attention" in spec["prefill"]:
+            spec["kv_repeat_ms"] = kv_repeat_ms
+        with phase(f"{name} path", took):
+            by_path[name], tok_s[name] = serve_path(torch, dev, kernels, lcfg, spec)
+        log(f"{name} path: decode {tok_s[name]:.1f} tokens/s on {card}")
+        if spec.get("record_t2"):
+            with phase(f"T2 at the {name} sites", took):
+                t2_llama_step, t2_llama = check_t2_sites(torch, dev, spec["t2_sites"],
+                                                         spec["t2_step"], name)
+    log(f"bench.py's ratio for llama-1.1b, for information (host clock, batch {BATCH}, {card}): "
+        f"weights / baseline {tok_s['llama_weights'] / tok_s['llama_baseline']:.4f}, "
+        f"basic / baseline {tok_s['llama_basic'] / tok_s['llama_baseline']:.4f}")
+    with phase("engine paths", took):
+        by_path.update(engine_paths(torch, dev, kernels, cfg, card))
+    log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
 
     def launches(kern):
         """The kernel's launches over the paths' runs, in all and per path."""
@@ -1454,12 +1795,14 @@ def main() -> int:
 
     # top-level times: B1, B5, T1 and T2 per launch over one decode step's
     # launches (B5's on the sbfp path, its tensor-core route; its f32 route's
-    # over a sbfp_wide step under f32_route_step), B2, B3 and B4
-    # at their path's shape (their first case)
+    # over a sbfp_wide step under f32_route_step; B1's, T1's and T2's over a
+    # Llama step under llama_step), B2, B3 and B4 at their OPT path's shape
+    # (their first case)
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:53", **launches("bfp_linear"),
-             max_abs_err=max(c["max_abs_err"] for c in b1), **b1_step, cases=b1),
+             max_abs_err=max(c["max_abs_err"] for c in b1 + b1_llama), **b1_step,
+             llama_step=b1_llama_step, cases=b1 + b1_llama),
         dict(name="flash_decode_int8", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_decode_int8.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",
@@ -1483,11 +1826,11 @@ def main() -> int:
         dict(name="bfp_linear_bf16", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/bfp_linear_bf16.cu",
              replaces="tools/diag_bfpkernel_ab.py:30", **launches("bfp_linear_bf16"),
-             max_abs_err=max(c["max_abs_err"] for c in t1), **t1_step,
-             subnormal_weights=t1_flush, cases=t1),
+             max_abs_err=max(c["max_abs_err"] for c in t1 + t1_llama), **t1_step,
+             llama_step=t1_llama_step, subnormal_weights=t1_flush, cases=t1 + t1_llama),
         dict(name="bfp_cast", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_cast.cu",
              replaces="tools/probe_fused_cast.py:9", **launches("bfp_cast"),
-             max_abs_err=0.0, **t2_step, cases=t2),
+             max_abs_err=0.0, **t2_step, llama_step=t2_llama_step, cases=t2 + t2_llama),
     ]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

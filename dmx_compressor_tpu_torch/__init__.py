@@ -43,8 +43,11 @@ _A = ApproximationFunction.from_shorthand
 
 default_approx = SimpleNamespace(
     RELU=_A("NONE"),
+    SILU=_A("SILU[vsimd]{}()"),
     SOFTMAX=_A("SOFTMAX[vsimd]{input_clamp=-100}(max_adjust=0.1141)"),
     LAYER_NORM=_A("LAYER_NORM[vsimd]{}()"),
+    RMS_NORM=_A("RMS_NORM[vsimd]{}()"),
+    APPLY_LLAMA_ROPE=_A("APPLY_LLAMA_ROPE[vsimd]{}()"),
     NONE=_A("NONE"),
 )
 
@@ -74,24 +77,28 @@ def _rules_for(io_fmt, linear_fmt, bias_fmt, out_fmt, approx):
         DmxConfigRule(
             module_types=types,
             module_config=dict(
-                input_formats=[io_fmt], output_formats=[io_fmt], approximation_function=fn,
+                input_formats=[io_fmt] * n_in, output_formats=[io_fmt] * n_out,
+                approximation_function=fn,
             ),
         )
-        for types, fn in approx
+        for types, fn, n_in, n_out in approx
     ]
 
 
 config_rules = SimpleNamespace(
     BASELINE=_rules_for(
         format.SAME, format.SAME, format.SAME, format.SAME,
-        approx=[((nn.ReLU, nn.Softmax, nn.LayerNorm), default_approx.NONE)],
+        approx=[((nn.ReLU, nn.SiLU, nn.Softmax, nn.LayerNorm), default_approx.NONE, 1, 1)],
     ),
     BASIC=_rules_for(
         format.FLOAT16, format.BFP16_64, format.BFP32_1, format.FLOAT16,
         approx=[
-            ((nn.ReLU,), default_approx.RELU),
-            ((nn.Softmax,), default_approx.SOFTMAX),
-            ((nn.LayerNorm,), default_approx.LAYER_NORM),
+            ((nn.ReLU,), default_approx.RELU, 1, 1),
+            ((nn.SiLU,), default_approx.SILU, 1, 1),
+            ((nn.Softmax,), default_approx.SOFTMAX, 1, 1),
+            ((nn.LayerNorm,), default_approx.LAYER_NORM, 1, 1),
+            ((nn.RMSNorm,), default_approx.RMS_NORM, 1, 1),
+            ((nn.ApplyRotaryPosEmb,), default_approx.APPLY_LLAMA_ROPE, 4, 2),
         ],
     ),
 )

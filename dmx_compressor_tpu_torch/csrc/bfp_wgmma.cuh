@@ -53,8 +53,9 @@
 // per warpgroup can.
 //
 // Shape.  A block is 3 warpgroups: two consumers (64 weight rows each, a
-// 128-feature tile; BM / 2 f32 accumulators per thread, 232 registers by
-// setmaxnreg) and a producer whose one thread keeps a ring of STAGES tiles
+// 128-feature tile; BM / 2 f32 accumulators per thread, twice that where x
+// or the weight has more than one plane: the largest product in one set,
+// the smaller ones in the other; 232 registers by setmaxnreg) and a producer whose one thread keeps a ring of STAGES tiles
 // in flight with TMA (x planes: BM x 64 bf16 each, 128-byte swizzle; W:
 // 128 rows of 64 int8 (BFP) or 32 bytes of nibbles (SBFP)), completed on
 // mbarriers.  A consumer issues a stage's P x PW x 4 wgmmas (PW = 3: 6 x 4),
@@ -636,7 +637,17 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  // acc takes the largest product (x's high plane by the weight's); acc_lo
+  // the smaller ones, where there are any.  The tensor cores add each
+  // product into the accumulator truncated to the accumulator's precision,
+  // so products 2^-8 and 2^-16 the size of the sum, added into it, lose
+  // their low bits every K step, all the same way (at K 5632, the three
+  // planes' 1056 steps moved B1's outputs by up to 4e-4 of |y| ~ 10); in
+  // acc_lo, whose magnitude is theirs, they keep them.  acc += acc_lo once,
+  // after a tile's last stage.
+  constexpr bool LO = P * W::PLANES > 1;
   float acc[C::ACC];
+  float acc_lo[C::ACC];
   float* obuf =
       reinterpret_cast<float*>(smem + C::OUT_OFFSET) + (threadIdx.x >> 5) * 8 * OUT_PITCH;
   {
@@ -681,6 +692,7 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       warpgroup_sync(wg);
       pin(acc);
+      if constexpr (LO) pin(acc_lo);
       wgmma_fence();
 #pragma unroll
       for (int p = 0; p < P; ++p) {
@@ -690,12 +702,18 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           if (PW == 3 && p + pw > 2) continue;  // the three smallest products
           const uint64_t adesc = desc_sw128(at + pw * C::A_BYTES);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) wgmma_m64k16(acc, adesc + 2 * q, bdesc + 2 * q);
+          for (int q = 0; q < 4; ++q) {
+            if (p + pw == 0)
+              wgmma_m64k16(acc, adesc + 2 * q, bdesc + 2 * q);
+            else
+              wgmma_m64k16(acc_lo, adesc + 2 * q, bdesc + 2 * q);
+          }
         }
       }
       wgmma_commit();
       wgmma_wait1();
       pin(acc);
+      if constexpr (LO) pin(acc_lo);
       ++it;
     };
     auto release = [&](int done) {  // the stage of iteration `done`
@@ -722,7 +740,7 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile % mt) * BM, n0 = (tile / mt) * BN;
 #pragma unroll
-      for (int i = 0; i < C::ACC; ++i) acc[i] = 0.f;
+      for (int i = 0; i < C::ACC; ++i) acc[i] = acc_lo[i] = 0.f;
       for (int kc = 0; kc < nk; kc += EXP_AHEAD) {
 #pragma unroll
         for (int u = 0; u < EXP_AHEAD; ++u) {
@@ -739,6 +757,11 @@ bfp_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       }
       wgmma_wait0();
       pin(acc);
+      if constexpr (LO) {
+        pin(acc_lo);
+#pragma unroll
+        for (int i = 0; i < C::ACC; ++i) acc[i] += acc_lo[i];
+      }
       if (nk > 0) release(it - 1);
       if (ks == 1) store_tile(acc, obuf, bias, res, out, M, N, out_fp16, m0, n0, row, t);
     }

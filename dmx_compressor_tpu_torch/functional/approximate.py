@@ -3,8 +3,9 @@
 Port of ``dmx_compressor_tpu/functional/approximate.py``.  Shorthand grammar
 ``FUNC[algorithm]{wrapper_params}(extra_params)``.  A configured
 approximation executes the vsimd surrogate of the same name in
-``simd_ops.FUNCTIONS`` (softmax, exp and layer_norm, the ones OPT's BASIC
-rules configure); the others are not ported and raise
+``simd_ops.FUNCTIONS`` (softmax, exp, layer_norm, rms_norm, silu and
+apply_rotary_pos_emb: the ones the BASIC rules configure for OPT and
+Llama); the others (gelu, quick_gelu) are not ported and raise
 ``NotImplementedError``.
 
 Value replacement with the exact op's gradient is
@@ -135,7 +136,8 @@ class _FunctionApproximation(ApproximationFunction):
         fn = simd_ops.FUNCTIONS.get(self.func_name)
         if fn is None:
             raise NotImplementedError(
-                f"{self!r}: the {self.func_name} surrogate is not ported (OPT does not use it)"
+                f"{self!r}: the {self.func_name} surrogate is not ported (neither OPT nor "
+                f"Llama uses it)"
             )
         return fn(*args, **kwargs, **self.extra_params)
 

@@ -1,12 +1,13 @@
-"""SIMD-accurate surrogates of the nonlinear ops (the OPT subset).
+"""SIMD-accurate surrogates of the nonlinear ops (the OPT and Llama subset).
 
-Port of ``poly2exp``, ``exp``, ``softmax``, ``_tiled_moments`` and
-``layer_norm`` of ``dmx_compressor_tpu/functional/simd_ops.py``: the same
-f32 arithmetic written with torch ops (``torch.round`` rounds half to even,
-as ``jnp.round`` does).  They run as plain tensor code on the CPU and on the
-card; the JAX package fuses them with XLA, not with a Pallas kernel.
-``rms_norm``, ``silu``, ``gelu`` and the RoPE surrogate are not ported: OPT
-does not use them.
+Port of ``poly2exp``, ``exp``, ``softmax``, ``_tiled_moments``,
+``layer_norm``, ``rms_norm``, ``_sigmoid_via_exp``, ``silu`` and
+``apply_rotary_pos_emb`` of ``dmx_compressor_tpu/functional/simd_ops.py``:
+the same f32 arithmetic written with torch ops (``torch.round`` rounds half
+to even, as ``jnp.round`` does).  They run as plain tensor code on the CPU
+and on the card; the JAX package fuses them with XLA, not with a Pallas
+kernel.  ``gelu`` and ``quick_gelu`` are not ported: neither OPT nor Llama
+uses them.
 
 Each function returns the approximated output; callers combine it with the
 exact op by value replacement (see approximate.py).
@@ -99,8 +100,64 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight: Optional[torch.Tensor]
     return y.to(x.dtype)
 
 
+def rms_norm(x: torch.Tensor, normalized_shape, weight: Optional[torch.Tensor] = None,
+             eps: float = 1e-6, tile_size: Optional[int] = None,
+             norm: Optional[float] = None) -> torch.Tensor:
+    """RMSNorm surrogate: the mean square (tiled as layer_norm's moments),
+    rsqrt refined by one Newton step."""
+    xf = x.to(torch.float32)
+    if norm is not None:
+        xf = xf * norm
+    n = x.shape[-1]
+    if tile_size is not None and n % tile_size == 0 and tile_size < n:
+        t = xf.reshape(*xf.shape[:-1], n // tile_size, tile_size)
+        ms = torch.sum(torch.sum(torch.square(t), dim=-1), dim=-1, keepdim=True) / n
+    else:
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    r0 = torch.rsqrt(ms + eps)
+    r = r0 * (1.5 - 0.5 * (ms + eps) * r0 * r0)
+    y = xf * r
+    if weight is not None:
+        y = y * weight.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def _sigmoid_via_exp(x: torch.Tensor, **exp_kw) -> torch.Tensor:
+    e = poly2exp(-torch.abs(x), **exp_kw)
+    pos = 1.0 / (1.0 + e)
+    return torch.where(x >= 0, pos, 1.0 - pos)
+
+
+def silu(x: torch.Tensor, knorm: int = 0, kmax: int = 15) -> torch.Tensor:
+    """SiLU surrogate: x * sigmoid(x) with the poly2 exponential."""
+    xf = x.to(torch.float32)
+    return (xf * _sigmoid_via_exp(xf, knorm=knorm, kmax=kmax)).to(x.dtype)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    """The last axis split into halves (x1, x2), returned as (-x2, x1)."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor, unsqueeze_dim: int = 1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Llama-style RoPE surrogate (APPLY_LLAMA_ROPE): the rotate-half form
+    evaluated in f32."""
+    cos = cos.unsqueeze(unsqueeze_dim).to(torch.float32)
+    sin = sin.unsqueeze(unsqueeze_dim).to(torch.float32)
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    q_out = qf * cos + rotate_half(qf) * sin
+    k_out = kf * cos + rotate_half(kf) * sin
+    return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
 FUNCTIONS = {
     "softmax": softmax,
     "exp": exp,
     "layer_norm": layer_norm,
+    "rms_norm": rms_norm,
+    "silu": silu,
+    "apply_rotary_pos_emb": apply_rotary_pos_emb,
 }

@@ -44,7 +44,7 @@ PackedBFPLinear or ``sbfp_linear`` (B5) through PackedSBFPLinear.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -56,10 +56,13 @@ from ..ops.compress import merge_parallel_linears
 from ..ops.basic_attention import basic_sdpa_decode, basic_sdpa_decode_split, basic_sdpa_shape
 from ..ops.basic_layer import basic_head_plan, basic_layer_plan, fused_ln_linear
 from ..ops.basic_linear import fused_basic_linear
-from ..ops.flash_attention import flash_attention, sdpa_transparent
+from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode, flash_decode_int8, post_update_lengths
 from ..ops.kv_cache import cache_seq_len, make_caches, quantized_sdpa
 from .positions import causal_mask, resolve_positions
+# greedy decoding is shared by every family; OPT's callers import it here
+from .shared import FrozenRouting, take_rows
+from .shared import greedy_decode, greedy_prefill, greedy_token  # noqa: F401
 
 
 @dataclasses.dataclass
@@ -92,7 +95,7 @@ class OPTConfig:
                    num_attention_heads=4, max_position_embeddings=64)
 
 
-class OPTAttention(nn.Module):
+class OPTAttention(FrozenRouting, nn.Module):
     def __init__(self, cfg: OPTConfig, device):
         super().__init__()
         d = cfg.hidden_size
@@ -105,9 +108,6 @@ class OPTAttention(nn.Module):
         self.out_proj = nn.Linear(d, d, device=device)
         self.sdpa = rawnn.ScaledDotProductAttention()
         self.qkv_merged = None
-        # sdpa_transparent(self.sdpa), frozen by freeze_routing; None until
-        # then, and attend asks the casts on every call
-        self.sdpa_is_transparent = None
 
     def _split(self, x):
         B, T, _ = x.shape
@@ -122,11 +122,6 @@ class OPTAttention(nn.Module):
             self.qkv_merged = merged
         self.freeze_routing()
 
-    def freeze_routing(self) -> None:
-        """Freeze the routing's transparency check: the casts are fixed from
-        here on, so decode steps need not walk them."""
-        self.sdpa_is_transparent = sdpa_transparent(self.sdpa)
-
     def _project_qkv(self, x):
         if self.qkv_merged is not None:
             qkv = self.qkv_merged(x)
@@ -137,11 +132,6 @@ class OPTAttention(nn.Module):
     def forward(self, x, attn_mask=None, cache=None, position_offset=0):
         _q, _k, _v = self._project_qkv(x)
         return self.out_proj(self.attend(_q, _k, _v, attn_mask, cache, position_offset))
-
-    def _transparent(self) -> bool:
-        if self.sdpa_is_transparent is None:
-            return sdpa_transparent(self.sdpa)
-        return self.sdpa_is_transparent
 
     def _attend_split(self, q, k, v, attn_mask, cache, position_offset):
         """Attention over a SplitKVCache, [B, H, T, D] in and out."""
@@ -277,14 +267,6 @@ class OPTDecoderLayer(nn.Module):
         )
 
 
-def take_rows(embed: nn.Module, idx: torch.Tensor) -> torch.Tensor:
-    """``embed``'s rows at ``idx`` with ``jnp.take``'s default semantics: an
-    index in [-n, n) wraps, any other gives a row of NaN."""
-    n = embed.num_embeddings
-    rows = embed(torch.remainder(idx, n))
-    return rows.masked_fill(((idx < -n) | (idx >= n))[..., None], float("nan"))
-
-
 class OPTDecoder(nn.Module):
     def __init__(self, cfg: OPTConfig, device):
         super().__init__()
@@ -414,38 +396,3 @@ def load_jax_params(model: OPTForCausalLM, params: Dict[str, np.ndarray]) -> Non
     missing = set(own) - seen
     if missing:
         raise KeyError(f"parameters not in params: {sorted(missing)}")
-
-
-# ---------------------------------------------------------------------------
-# greedy prefill / decode (bench.py:252-302)
-# ---------------------------------------------------------------------------
-
-
-def greedy_token(logits_row: torch.Tensor) -> torch.Tensor:
-    """Greedy choice with the JAX bench's tie rule: the LARGEST index among
-    the maxima (``torch.argmax`` returns the first).  int32 [B]."""
-    mx = torch.amax(logits_row, dim=-1, keepdim=True)
-    idx = torch.arange(logits_row.shape[-1], device=logits_row.device)
-    return torch.amax(torch.where(logits_row == mx, idx, -1), dim=-1).to(torch.int32)
-
-
-@torch.no_grad()
-def greedy_prefill(model: nn.Module, caches: List, ids: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill at offset 0; returns (logits [B, T, V], first token [B])."""
-    logits = model(ids, caches=caches, position_offset=0)
-    return logits, greedy_token(logits[:, -1])
-
-
-@torch.no_grad()
-def greedy_decode(model: nn.Module, caches: List, tok: torch.Tensor, start: int,
-                  n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``n_steps`` single-token steps from position ``start``; returns
-    (tokens [B, n_steps], last-position logits [n_steps, B, V])."""
-    toks, rows = [], []
-    for i in range(n_steps):
-        logits = model(tok[:, None], caches=caches, position_offset=start + i)
-        rows.append(logits[:, -1])
-        tok = greedy_token(logits[:, -1])
-        toks.append(tok)
-    return torch.stack(toks, dim=1), torch.stack(rows)

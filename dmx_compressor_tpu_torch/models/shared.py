@@ -1,0 +1,68 @@
+"""What the decoder families share: the embedding lookup with ``jnp.take``'s
+semantics, the attention modules' frozen routing check, and greedy prefill /
+decode (bench.py:252-302) over any model called as
+``model(ids, caches=, position_offset=)``."""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.flash_attention import sdpa_transparent
+
+
+def take_rows(embed: nn.Module, idx: torch.Tensor) -> torch.Tensor:
+    """``embed``'s rows at ``idx`` with ``jnp.take``'s default semantics: an
+    index in [-n, n) wraps, any other gives a row of NaN."""
+    n = embed.num_embeddings
+    rows = embed(torch.remainder(idx, n))
+    return rows.masked_fill(((idx < -n) | (idx >= n))[..., None], float("nan"))
+
+
+class FrozenRouting:
+    """Mixed into an attention module with an ``sdpa``: its routing's
+    transparency check, asked on every call until :meth:`freeze_routing`
+    (called by ``fuse_for_inference``, once the casts are fixed) stores
+    it, so decode steps need not walk the casts."""
+
+    sdpa_is_transparent = None
+
+    def freeze_routing(self) -> None:
+        self.sdpa_is_transparent = sdpa_transparent(self.sdpa)
+
+    def _transparent(self) -> bool:
+        if self.sdpa_is_transparent is None:
+            return sdpa_transparent(self.sdpa)
+        return self.sdpa_is_transparent
+
+
+def greedy_token(logits_row: torch.Tensor) -> torch.Tensor:
+    """Greedy choice with the JAX bench's tie rule: the LARGEST index among
+    the maxima (``torch.argmax`` returns the first).  int32 [B]."""
+    mx = torch.amax(logits_row, dim=-1, keepdim=True)
+    idx = torch.arange(logits_row.shape[-1], device=logits_row.device)
+    return torch.amax(torch.where(logits_row == mx, idx, -1), dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def greedy_prefill(model: nn.Module, caches: List, ids: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill at offset 0; returns (logits [B, T, V], first token [B])."""
+    logits = model(ids, caches=caches, position_offset=0)
+    return logits, greedy_token(logits[:, -1])
+
+
+@torch.no_grad()
+def greedy_decode(model: nn.Module, caches: List, tok: torch.Tensor, start: int,
+                  n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n_steps`` single-token steps from position ``start``; returns
+    (tokens [B, n_steps], last-position logits [n_steps, B, V])."""
+    toks, rows = [], []
+    for i in range(n_steps):
+        logits = model(tok[:, None], caches=caches, position_offset=start + i)
+        rows.append(logits[:, -1])
+        tok = greedy_token(logits[:, -1])
+        toks.append(tok)
+    return torch.stack(toks, dim=1), torch.stack(rows)

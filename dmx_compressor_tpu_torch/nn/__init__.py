@@ -1,8 +1,9 @@
-"""Dmx op modules (the OPT subset of the JAX package's zoo)."""
+"""Dmx op modules (the OPT and Llama subset of the JAX package's zoo)."""
 
 from .core import DmxModule
 from .modules import (
     ActActMatMul,
+    ApplyRotaryPosEmb,
     Dropout,
     Embedding,
     LayerNorm,
@@ -10,6 +11,9 @@ from .modules import (
     Mul,
     ReLU,
     ResAdd,
+    RMSNorm,
+    RotaryEmbedding,
     ScaledDotProductAttention,
+    SiLU,
     Softmax,
 )

@@ -1,8 +1,9 @@
-"""The Dmx op modules of the OPT subset.
+"""The Dmx op modules of the OPT and Llama subset.
 
-Port of the OPT subset of ``dmx_compressor_tpu/nn/modules.py``: Linear,
-Embedding, LayerNorm, ResAdd, Mul, ActActMatMul, Softmax, Dropout, ReLU and
-the compound ScaledDotProductAttention.  Each follows the DmxModule pipeline
+Port of the OPT and Llama subset of ``dmx_compressor_tpu/nn/modules.py``:
+Linear, Embedding, LayerNorm, RMSNorm, ResAdd, Mul, ActActMatMul, Softmax,
+Dropout, ReLU, SiLU, ApplyRotaryPosEmb, RotaryEmbedding and the compound
+ScaledDotProductAttention.  Each follows the DmxModule pipeline
 (nn/core.py) and declares the same cast topology as its JAX counterpart:
 
 - Linear: weight [out, in]; input and weight casts block along the last
@@ -18,7 +19,9 @@ from typing import Sequence, Union
 import torch
 from torch import nn
 
+from ..functional.simd_ops import rotate_half
 from ..numerics.format import Same
+from .. import rawnn
 from .core import DmxModule
 
 
@@ -170,6 +173,11 @@ class ReLU(_Activation):
         return torch.relu(x)
 
 
+class SiLU(_Activation):
+    def _raw_forward(self, x):
+        return torch.nn.functional.silu(x)
+
+
 class Softmax(DmxModule):
     """Softmax with an approximation hook."""
 
@@ -265,6 +273,95 @@ class LayerNorm(DmxModule):
             mod.bias = raw.bias if raw.bias is not None else nn.Parameter(
                 torch.zeros_like(raw.weight)
             )
+        return mod
+
+
+class RMSNorm(DmxModule):
+    """RMSNorm computed in f32, with an approximation hook."""
+
+    has_weight = True
+
+    def __init__(self, normalized_shape: Union[int, Sequence[int]], eps: float = 1e-6,
+                 device=None):
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.eps = eps
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(self.normalized_shape, device=device))
+
+    def functional_forward(self, x, normalized_shape, weight, eps):
+        xf = x.to(torch.float32)
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps)
+        if weight is not None:
+            y = y * weight.to(torch.float32)
+        return y.to(x.dtype)
+
+    def _forward(self, _input):
+        return self.approx_forward((_input,), self.normalized_shape, self._weight, self.eps)
+
+    @classmethod
+    def from_raw(cls, raw: rawnn.RMSNorm) -> "RMSNorm":
+        mod = cls(raw.weight.shape[-1], eps=raw.eps, device="meta")
+        mod.weight = raw.weight
+        return mod
+
+
+class ApplyRotaryPosEmb(DmxModule):
+    """RoPE application with four input casts (q, k, cos, sin) and two
+    output casts (the rotated q and k)."""
+
+    input_cast_names = ("q_cast", "k_cast", "cos_cast", "sin_cast")
+    output_cast_names = ("q_embed_cast", "k_embed_cast")
+
+    def _raw_forward(self, q, k, cos, sin, unsqueeze_dim=1):
+        cos_e = cos.unsqueeze(unsqueeze_dim)
+        sin_e = sin.unsqueeze(unsqueeze_dim)
+        return q * cos_e + rotate_half(q) * sin_e, k * cos_e + rotate_half(k) * sin_e
+
+    def _forward(self, q, k, cos, sin, unsqueeze_dim=1):
+        return self.approx_forward((q, k, cos, sin), unsqueeze_dim)
+
+    def forward(self, q, k, cos, sin, unsqueeze_dim=1):
+        self._check_hooks()
+        q = self.input_casts["q_cast"](q)
+        k = self.input_casts["k_cast"](k)
+        cos = self.input_casts["cos_cast"](cos)
+        sin = self.input_casts["sin_cast"](sin)
+        return self.output_casts(self._forward(q, k, cos, sin, unsqueeze_dim), output=True)
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls()
+
+
+class RotaryEmbedding(DmxModule):
+    """The rotary cos / sin table generator (no cast: its single output
+    cast name does not match its two outputs, as in the JAX package)."""
+
+    def __init__(self, dim: int, max_position_embeddings: int = 2048, base: float = 10000.0,
+                 attention_scaling: float = 1.0, device=None):
+        self.dim = dim
+        self.max_position_embeddings = max_position_embeddings
+        self.base = base
+        self.attention_scaling = attention_scaling
+        super().__init__()
+        self.register_buffer("inv_freq", rawnn.inv_freq(dim, base, device), persistent=False)
+
+    def _forward(self, x, position_ids):
+        return rawnn.rotary_cos_sin(self.inv_freq, position_ids, self.attention_scaling, x.dtype)
+
+    def forward(self, x, position_ids):
+        self._check_hooks()
+        out = self._forward(x, position_ids)
+        return self.output_casts(out, output=True) if len(self.output_casts) == 2 else out
+
+    @classmethod
+    def from_raw(cls, raw: rawnn.RotaryEmbedding) -> "RotaryEmbedding":
+        mod = cls(raw.dim, raw.max_position_embeddings, raw.base, raw.attention_scaling,
+                  device="meta")
+        mod.inv_freq = raw.inv_freq  # shared
         return mod
 
 

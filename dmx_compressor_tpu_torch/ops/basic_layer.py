@@ -1,8 +1,12 @@
-"""Decode-regime fused layer steps for BASIC mode (the OPT subset).
+"""Decode-regime fused layer steps for BASIC mode (the OPT and Llama subset).
 
 Port of ``layer_norm_surrogate_fp16``, ``resadd_fp16``, ``fused_ln_linear``,
+``rms_norm_surrogate_fp16``, ``silu_surrogate_fp16``,
+``rope_surrogate_fp16``, ``fused_rms_linear``, ``fused_llama_family_step``,
 ``BasicLayerPlan``, ``_linear_basic_ok``, ``_fp16_io_ok``, ``BasicHeadPlan``,
-``basic_head_plan`` and ``basic_layer_plan`` of
+``basic_head_plan``, ``fused_rms_head``, ``basic_rms_head_plan``,
+``BasicLlamaPlan``, ``_casts_same_ok``, ``_llama_family_plan``,
+``basic_llama_layer_plan`` and ``basic_layer_plan`` of
 ``dmx_compressor_tpu/ops/basic_layer.py``.  One fused OPT decode step
 (models/opt.py ``OPTDecoderLayer._fused_basic_step``):
 
@@ -20,8 +24,14 @@ matmuls and their FLOAT16 / ResAdd epilogues through kernel T1, the
 LAYER_NORM[vsimd] surrogate as functional/simd_ops.layer_norm (tile_size
 None, the Newton-refined rsqrt) in plain torch, ReLU folded after fc1's
 output cast (max(., 0) of fp16-grid values stays on the grid, so the ReLU
-module's own FLOAT16 casts are identities).  The Llama, Gemma, Qwen3 and
-GPT-2 plans of the JAX module are not ported: the port serves OPT.
+module's own FLOAT16 casts are identities).  One fused Llama decode step
+(:func:`fused_llama_family_step`): RMS1 + merged qkv / the RoPE surrogate /
+the fused split-cache SDPA (GQA) / o_proj / resadd1 + RMS2 + merged gate-up
+/ SiLU * up / down_proj + resadd2, the RMS_NORM[vsimd] and SILU[vsimd]
+surrogates in plain torch.  The Gemma, Qwen3 and GPT-2 plans of the JAX
+module and ``gelu_tanh_fp16`` wait for their families; ``BasicLlamaPlan``
+carries their fields (``gemma_norm``, ``act``, ``qk_norm_eps``), which the
+fused step refuses.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..functional import simd_ops
 from ..numerics.format import _FLOAT16_REPR, BlockFloatingPoint
 from .basic_linear import _fp16_cast_f32, fused_basic_linear
 from .bfp_pack import PackedBFP
@@ -104,6 +115,124 @@ def fused_ln_linear(
     if emit_pre:
         return y, pre.to(x.dtype)
     return y
+
+
+def rms_norm_surrogate_fp16(x: torch.Tensor, w: torch.Tensor, eps: float,
+                            on_grid: bool = False, out_cast: bool = True) -> torch.Tensor:
+    """FLOAT16 input cast + RMS_NORM[vsimd] surrogate (tile_size None, the
+    Newton-refined rsqrt) + FLOAT16 output cast; ``on_grid`` and
+    ``out_cast`` as in :func:`layer_norm_surrogate_fp16`."""
+    x16 = x.to(torch.float32)
+    if not on_grid:
+        x16 = _fp16_cast_f32(x16)
+    y = simd_ops.rms_norm(x16, x16.shape[-1:], w, eps)
+    return _fp16_cast_f32(y) if out_cast else y
+
+
+def silu_surrogate_fp16(x: torch.Tensor, kmax: int = 15, on_grid: bool = False) -> torch.Tensor:
+    """FLOAT16 input cast + SILU[vsimd] surrogate (x * sigmoid(x) with the
+    poly2 exponential, knorm 0) + FLOAT16 output cast."""
+    x16 = x.to(torch.float32)
+    if not on_grid:
+        x16 = _fp16_cast_f32(x16)
+    return _fp16_cast_f32(simd_ops.silu(x16, 0, kmax))
+
+
+def rope_surrogate_fp16(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                        qk_on_grid: bool = False):
+    """ApplyRotaryPosEmb under the BASIC rule set: FLOAT16 casts on its four
+    inputs (q and k skipped when on the grid), the APPLY_LLAMA_ROPE[vsimd]
+    surrogate (rotate-half in f32, unsqueeze_dim 1), FLOAT16 casts on both
+    outputs."""
+    qf = q.to(torch.float32)
+    kf = k.to(torch.float32)
+    if not qk_on_grid:
+        qf = _fp16_cast_f32(qf)
+        kf = _fp16_cast_f32(kf)
+    q_out, k_out = simd_ops.apply_rotary_pos_emb(qf, kf, _fp16_cast_f32(cos.to(torch.float32)),
+                                                 _fp16_cast_f32(sin.to(torch.float32)))
+    return _fp16_cast_f32(q_out).to(q.dtype), _fp16_cast_f32(k_out).to(k.dtype)
+
+
+def fused_rms_linear(
+    x: torch.Tensor,
+    *,
+    packed: PackedBFP,
+    bias: Optional[torch.Tensor] = None,
+    rms_w: torch.Tensor,
+    eps: float,
+    wl: int,
+    in_block: int,
+    residual: Optional[torch.Tensor] = None,
+    emit_pre: bool = False,
+    input_on_grid: bool = False,
+    residual_on_grid: bool = False,
+):
+    """[resadd ->] RMS surrogate -> BFP cast -> dequant matmul [-> bias] ->
+    FLOAT16: the RMSNorm analogue of :func:`fused_ln_linear` (the RMS
+    output cast and the BFP input cast in one T2 launch).  With
+    ``emit_pre`` also returns the resadd output (the next residual)."""
+    h = x
+    on_grid = input_on_grid
+    if residual is not None:
+        h = resadd_fp16(h, residual, a_on_grid=input_on_grid, b_on_grid=residual_on_grid)
+        on_grid = True  # resadd's FLOAT16 output cast just ran
+    pre = h
+    h = rms_norm_surrogate_fp16(h, rms_w, eps, on_grid=on_grid, out_cast=False)
+    y = fused_basic_linear(h, packed=packed, bias=bias, in_wl=wl, in_block=in_block,
+                           out_fp16=True, in_fp16_first=True)
+    if emit_pre:
+        return y, pre.to(x.dtype)
+    return y
+
+
+def fused_llama_family_step(layer, x, cos, sin, attn_mask, cache, plan,
+                            plain_causal: bool = True) -> torch.Tensor:
+    """One fused BASIC decode step of a Llama-topology decoder layer:
+    RMS1 + qkv / RoPE surrogate / fused SDPA (split cache, GQA) / o_proj /
+    resadd1 + RMS2 + gate-up / SiLU * up / down_proj + resadd2, the modular
+    pipeline's numerics up to the f32 summation order of the RMS moments
+    and the matmuls.  The mask is applied additively throughout, so a
+    banded one fuses as a plain causal one does; ``plain_causal`` only
+    steers ``cached_attend``'s flash-decode routing, which BASIC's sdpa
+    never takes."""
+    from .flash_decode import cached_attend
+
+    if plan.gemma_norm or plan.act != "silu" or plan.qk_norm_eps is not None:
+        raise NotImplementedError("the fused step serves the Llama family; the Gemma and "
+                                  "Qwen3 deltas arrive with their families")
+    B, T, _ = x.shape
+    attn, mlp = layer.self_attn, layer.mlp
+    merged = attn.qkv_merged
+    qkv = fused_rms_linear(x, packed=merged.packed, bias=merged.bias,
+                           rms_w=layer.input_layernorm._weight, eps=plan.ln1_eps,
+                           wl=plan.wl, in_block=plan.block)
+    d = attn.num_heads * attn.head_dim
+    kv = attn.num_kv_heads * attn.head_dim
+    q = attn._split(qkv[..., :d], attn.num_heads)
+    k = attn._split(qkv[..., d:d + kv], attn.num_kv_heads)
+    v = attn._split(qkv[..., d + kv:], attn.num_kv_heads)
+    # q, k: qkv's FLOAT16 output cast, on the grid
+    q, k = rope_surrogate_fp16(q, k, cos, sin, qk_on_grid=True)
+    ctx = cached_attend(attn.sdpa, q, k, v, cache, attn_mask,
+                        enable_gqa=attn.num_kv_heads != attn.num_heads,
+                        plain_causal=plain_causal, transparent=attn._transparent())
+    y = attn.o_proj(ctx.transpose(1, 2).reshape(B, T, d))  # PackedBFPLinear's fused path
+    gateup = mlp.gateup_merged
+    gu, r = fused_rms_linear(
+        y, packed=gateup.packed, bias=gateup.bias,
+        rms_w=layer.post_attention_layernorm._weight, eps=plan.ln2_eps, wl=plan.wl,
+        in_block=plan.block, residual=x, emit_pre=True,
+        input_on_grid=True,  # y: o_proj's FLOAT16 output cast
+    )
+    m = mlp.intermediate_size
+    prod = silu_surrogate_fp16(gu[..., :m], on_grid=True) * gu[..., m:]  # Mul: SAME
+    down = mlp.down_proj
+    return fused_basic_linear(
+        prod, packed=down.packed, bias=down.bias, in_wl=plan.wl, in_block=plan.block,
+        out_fp16=True, res_out=r,
+        res_on_grid=True,  # r: resadd's FLOAT16 output cast
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -228,3 +357,112 @@ def basic_layer_plan(layer) -> Optional[BasicLayerPlan]:
         return None
     return BasicLayerPlan(wl=ic.format.precision, block=ic.format.block_size,
                           ln1_eps=float(ln1.eps), ln2_eps=float(ln2.eps))
+
+
+def fused_rms_head(h, final_norm, lm_head, plan):
+    """The final RMSNorm and the LM head as one fused chain (the decode tail
+    of the Llama family), the modular ``lm_head(norm(h))``'s numerics.
+    Gemma's (1 + w) variant waits for its family."""
+    return fused_rms_linear(
+        h, packed=lm_head.packed, bias=lm_head.bias, rms_w=final_norm._weight,
+        eps=plan.ln_eps, wl=plan.wl, in_block=plan.block,
+        # h: the decoder's final residual, a FLOAT16 resadd output cast on
+        # the fused and the modular layer paths
+        input_on_grid=True,
+    )
+
+
+def basic_rms_head_plan(final_norm, lm_head) -> Optional[BasicHeadPlan]:
+    """The RMSNorm analogue of :func:`basic_head_plan`: fuse the decoder's
+    final RMSNorm into the LM head (an exact type match on the norm); None:
+    the modular path."""
+    from ..nn import modules as dmxnn
+    from ..nn.core import DmxModule
+
+    if not DmxModule.inference_mode or DmxModule.plugins:
+        return None
+    if type(final_norm) is not dmxnn.RMSNorm or not _fp16_io_ok(final_norm, "rms_norm"):
+        return None
+    if final_norm.weight is None or not _linear_basic_ok(lm_head, require_bias=False):
+        return None
+    ic = lm_head.input_casts["input_cast"]
+    return BasicHeadPlan(wl=ic.format.precision, block=ic.format.block_size,
+                         ln_eps=float(final_norm.eps))
+
+
+class BasicLlamaPlan(NamedTuple):
+    """Static parameters proving a Llama-family decoder layer is in the
+    exact BASIC decode shape the fused step reproduces.  The other
+    families' deltas are fields: Gemma's ``gemma_norm`` ((1 + w) RMSNorm)
+    and ``act`` ("gelu_tanh"), Qwen3's ``qk_norm_eps`` (per-head q / k
+    RMSNorm before RoPE)."""
+
+    wl: int
+    block: int
+    ln1_eps: float
+    ln2_eps: float
+    gemma_norm: bool = False
+    act: str = "silu"
+    qk_norm_eps: Optional[float] = None
+
+
+def _casts_same_ok(m) -> bool:
+    """Every io cast SAME and no approximation (a module the BASIC rule set
+    does not configure, such as Mul)."""
+    from ..functional.approximate import NoApproximation
+    from ..numerics.format import Same
+
+    casts = [m.input_casts[n] for n in m.input_cast_names] + [
+        m.output_casts[n] for n in m.output_cast_names]
+    return (all(isinstance(c.format, Same) for c in casts)
+            and isinstance(m.approximator.function, NoApproximation))
+
+
+def _llama_family_plan(layer) -> Optional[BasicLlamaPlan]:
+    """The plan check of a Llama-topology layer: :func:`basic_layer_plan`'s
+    surface plus the family's modules: RMSNorms with the RMS_NORM[vsimd]
+    surrogate (an exact type match), SiLU with SILU[vsimd], Mul left SAME,
+    RoPE with APPLY_LLAMA_ROPE[vsimd] and FLOAT16 io on its four inputs and
+    two outputs, merged bias-free qkv and gate-up linears with one shared
+    input format."""
+    from ..nn import modules as dmxnn
+    from ..nn.core import DmxModule
+
+    if not DmxModule.inference_mode or DmxModule.plugins:
+        return None
+    attn = getattr(layer, "self_attn", None)
+    mlp = getattr(layer, "mlp", None)
+    merged = getattr(attn, "qkv_merged", None)
+    gateup = getattr(mlp, "gateup_merged", None)
+    if not all(_linear_basic_ok(m, require_bias=False)
+               for m in (merged, gateup, getattr(attn, "o_proj", None),
+                         getattr(mlp, "down_proj", None))):
+        return None
+    ln1, ln2 = layer.input_layernorm, layer.post_attention_layernorm
+    for ln in (ln1, ln2):
+        if type(ln) is not dmxnn.RMSNorm or not _fp16_io_ok(ln, "rms_norm") or ln.weight is None:
+            return None
+    for ra in (layer.resadd1, layer.resadd2):
+        if not isinstance(ra, dmxnn.ResAdd) or not _fp16_io_ok(ra, None):
+            return None
+    if not isinstance(mlp.act_fn, dmxnn.SiLU) or not _fp16_io_ok(mlp.act_fn, "silu"):
+        return None
+    if not isinstance(mlp.mul, dmxnn.Mul) or not _casts_same_ok(mlp.mul):
+        return None
+    rope = attn.apply_rope
+    if not isinstance(rope, dmxnn.ApplyRotaryPosEmb) or not _fp16_io_ok(
+            rope, "apply_rotary_pos_emb"):
+        return None
+    ic = merged.input_casts["input_cast"]
+    if any(m.input_casts["input_cast"].format != ic.format
+           for m in (gateup, mlp.down_proj, attn.o_proj)):
+        return None
+    return BasicLlamaPlan(wl=ic.format.precision, block=ic.format.block_size,
+                          ln1_eps=float(ln1.eps), ln2_eps=float(ln2.eps))
+
+
+def basic_llama_layer_plan(layer) -> Optional[BasicLlamaPlan]:
+    """The fused step's plan when a LlamaDecoderLayer (after
+    compress_for_inference: merged qkv and gate-up) is in the BASIC decode
+    shape; None: the modular path."""
+    return _llama_family_plan(layer)

@@ -285,9 +285,9 @@ def _replace_linears(parent: nn.Module) -> int:
 def compress_for_inference(dm, keep_originals: bool = False) -> int:
     """Replace BFP-weight Linears of a DmxModel with PackedBFPLinear and
     SBFP-stored ones with PackedSBFPLinear, then let composite modules fuse
-    their packed children (merged BFP q/k/v) and freeze their routing.  The merged
-    originals' payloads are released unless ``keep_originals``.  Returns the
-    number of modules converted."""
+    their packed children (merged BFP q/k/v, and gate/up) and freeze their
+    routing.  The merged originals' payloads are released unless
+    ``keep_originals``.  Returns the number of modules converted."""
     model = dm.module if hasattr(dm, "module") else dm
     count = _replace_linears(model)
     for m in list(model.modules()):
@@ -298,20 +298,25 @@ def compress_for_inference(dm, keep_originals: bool = False) -> int:
     return count
 
 
+# merged module -> the projections it supersedes
+_MERGED = {"qkv_merged": ("q_proj", "k_proj", "v_proj"), "gateup_merged": ("gate_proj", "up_proj")}
+
+
 def release_dead_originals(model: nn.Module) -> int:
     """Free the payloads of projections superseded by a merged module
-    (``qkv_merged``).  The modules stay attached, but calling them raises.
-    Returns the number released."""
+    (``qkv_merged``, ``gateup_merged``).  The modules stay attached, but
+    calling them raises.  Returns the number released."""
     released = 0
     for m in model.modules():
-        if getattr(m, "qkv_merged", None) is None:
-            continue
-        for name in ("q_proj", "k_proj", "v_proj"):
-            p = getattr(m, name, None)
-            if isinstance(p, PackedBFPLinear) and p.weight_mantissa is not None:
-                p.weight_mantissa = None
-                p.weight_exponent = None
-                released += 1
+        for merged, names in _MERGED.items():
+            if getattr(m, merged, None) is None:
+                continue
+            for name in names:
+                p = getattr(m, name, None)
+                if isinstance(p, PackedBFPLinear) and p.weight_mantissa is not None:
+                    p.weight_mantissa = None
+                    p.weight_exponent = None
+                    released += 1
     return released
 
 

@@ -1,13 +1,16 @@
 """Blockwise (flash) attention (kernel B3).
 
-Port of ``flash_attention_ref``, ``flash_attention`` and ``sdpa_transparent``
-of ``dmx_compressor_tpu/ops/flash_attention.py``.  The CUDA kernel
+Port of ``flash_attention_ref``, ``flash_attention``, ``sdpa_transparent``,
+``flash_prefill`` and ``flash_chunked_prefill`` of
+``dmx_compressor_tpu/ops/flash_attention.py``.  The CUDA kernel
 (``csrc/flash_attention.cu``) streams K/V tiles through shared memory with
 an online softmax in f32, so the [L, S] logits never reach device memory;
 its two products run on the bf16 tensor cores over exact planes of their
 f32 operands (:func:`flash_attention_planes_ref` transcribes them).
 ``flash_attention`` launches it for CUDA tensors and runs the plain version
-for CPU tensors.
+for CPU tensors.  ``flash_prefill`` and ``flash_chunked_prefill`` route a
+decoder family's prefill (Llama's; OPT has its own routing) through it, the
+KV heads repeated to the query heads first (the kernel has no GQA).
 """
 
 from __future__ import annotations
@@ -142,3 +145,57 @@ def sdpa_transparent(sdpa) -> bool:
         if getattr(sdpa, name, None) is not None
     ]
     return module_transparent(sdpa) and all(module_transparent(s) for s in subs)
+
+
+def _repeat_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """K/V [..., Hkv, S, D] repeated to q's query heads (each KV head
+    ``rep`` times in a row, ``jnp.repeat``'s order)."""
+    if k.shape[-3] != q.shape[-3]:
+        rep = q.shape[-3] // k.shape[-3]
+        k = torch.repeat_interleave(k, rep, dim=-3)
+        v = torch.repeat_interleave(v, rep, dim=-3)
+    return k, v
+
+
+def flash_prefill(sdpa, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: Optional[float] = None, cache=None,
+                  transparent: Optional[bool] = None) -> Optional[torch.Tensor]:
+    """A whole causal prefill from position 0 through the flash kernel when
+    ``sdpa`` is transparent; None where the routing does not apply (the
+    caller runs the masked sdpa).  ``cache`` (optional) is filled with k / v
+    on the way.  A quantized cache is refused: its contract attends over the
+    dequantized K/V even at prefill, so the fresh values would change the
+    numerics.  ``transparent`` is the frozen ``sdpa_transparent(sdpa)``
+    (None: asked here)."""
+    if transparent is None:
+        transparent = sdpa_transparent(sdpa)
+    if q.shape[-2] <= 1 or not transparent:
+        return None
+    if cache is not None and cache.quantized:
+        return None
+    if cache is not None:
+        if hasattr(cache, "write_base"):
+            cache.write_base(k, v)
+        else:
+            cache.update(k, v)
+    k, v = _repeat_kv(q, k, v)
+    return flash_attention(q, k, v, causal=True, scale=scale)
+
+
+def flash_chunked_prefill(sdpa, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, cache,
+                          offset: int, scale: Optional[float] = None,
+                          transparent: Optional[bool] = None) -> Optional[torch.Tensor]:
+    """A prefill chunk: queries at [offset, offset + T) attend the cache's
+    prefix [0, offset) and the fresh chunk, the kernel's causal diagonal at
+    S - L.  Fills the cache.  None where the routing does not apply (a
+    quantized or split cache, no cache, T == 1, an sdpa with casts)."""
+    if transparent is None:
+        transparent = sdpa_transparent(sdpa)
+    T = q.shape[-2]
+    if T <= 1 or not transparent:
+        return None
+    if cache is None or cache.quantized or hasattr(cache, "write_base"):
+        return None
+    kf, vf, _ = cache.update(k, v)
+    kf, vf = _repeat_kv(q, kf[..., :offset + T, :], vf[..., :offset + T, :])
+    return flash_attention(q, kf, vf, causal=True, scale=scale)

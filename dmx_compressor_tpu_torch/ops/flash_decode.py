@@ -2,8 +2,8 @@
 (kernel B2).
 
 Port of ``flash_decode_ref``, ``flash_decode``, ``flash_decode_int8_ref``,
-``flash_decode_int8`` and ``post_update_lengths`` of
-``dmx_compressor_tpu/ops/flash_decode.py``.  The CUDA kernels
+``flash_decode_int8``, ``post_update_lengths``, ``cached_attend`` and
+``_split_cache_attend`` of ``dmx_compressor_tpu/ops/flash_decode.py``.  The CUDA kernels
 (``csrc/flash_decode.cu``, ``csrc/flash_decode_int8.cu``) split the keys
 below each row's length into chunks, one CUDA block each, and merge the
 chunks' softmax states in chunk order (``csrc/decode_split.cuh``); the int8
@@ -12,7 +12,9 @@ one dequantizes with the per-position scales after the dot products
 ``flash_decode_int8_split_ref`` transcribe that arithmetic for the tests.
 ``flash_decode`` and ``flash_decode_int8`` launch their kernel for CUDA
 tensors and run the plain version for CPU tensors.  The port has no routing floor: every transparent
-T == 1 decode step goes through one of them.  The JAX package's
+plain-causal T == 1 decode step goes through one of them (the JAX package's
+``flash_decode_viable`` is a TPU floor; OPT's attention routes itself,
+``cached_attend`` routes the other families).  The JAX package's
 ``s_minor`` variants are a TPU layout; the port's caches are D-minor.
 """
 
@@ -262,3 +264,87 @@ def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
         scale,
     )
     return out.to(q.dtype)
+
+
+def cached_attend(sdpa, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache, attn_mask,
+                  *, scale: Optional[float] = None, enable_gqa: bool = False,
+                  plain_causal: bool = True, transparent: Optional[bool] = None
+                  ) -> torch.Tensor:
+    """The cached-attention tail shared by the decoder families other than
+    OPT: q [B, H, T, D] (RoPE applied), the fresh k / v [B, Hkv, T, D].
+
+    - a quantized cache under an sdpa with casts is dequantized and goes
+      through the module's cast / surrogate pipeline (the fused BASIC decode
+      where the shapes match): int8 changes the storage, never the cast
+      points;
+    - a transparent T == 1 step with the plain causal mask runs B2 (int8
+      cache) or B4 (float cache) on the card, their plain versions on the
+      CPU; query head h reads KV head h // rep, no repeat;
+    - a transparent int8 step otherwise runs ``quantized_sdpa``;
+    - a split cache takes :func:`_split_cache_attend`.
+
+    ``transparent`` is the frozen ``sdpa_transparent(sdpa)`` (None: asked
+    here)."""
+    from .basic_attention import basic_sdpa_decode, basic_sdpa_shape
+    from .flash_attention import sdpa_transparent
+    from .kv_cache import quantized_sdpa
+
+    T, D = q.shape[-2], q.shape[-1]
+    scale_v = (D**-0.5) if scale is None else float(scale)
+    if transparent is None:
+        transparent = sdpa_transparent(sdpa)
+    if cache is not None and getattr(cache, "split", False):
+        return _split_cache_attend(sdpa, q, k, v, cache, attn_mask, scale_v, transparent,
+                                   enable_gqa=enable_gqa)
+    if cache is not None and cache.quantized and transparent:
+        kv = cache.update_quantized(k, v)
+        if T == 1 and plain_causal and attn_mask is not None:
+            return flash_decode_int8(q, kv, post_update_lengths(cache), scale=scale_v)
+        return quantized_sdpa(q, kv, attn_mask=attn_mask, scale=scale, enable_gqa=enable_gqa)
+    if cache is not None:
+        k, v, _ = cache.update(k, v)  # an int8 cache dequantizes here
+    if transparent and cache is not None and T == 1 and plain_causal and attn_mask is not None:
+        return flash_decode(q, k, v, post_update_lengths(cache), scale=scale_v)
+    if (not transparent and cache is not None and T == 1 and attn_mask is not None
+            and attn_mask.is_floating_point()):
+        # query heads grouped per KV head inside, no repeat
+        p = basic_sdpa_shape(sdpa, D, k.shape[-2])
+        if p is not None:
+            return basic_sdpa_decode(q, k, v, attn_mask, scale=scale_v, params=p)
+    # a float16 cache in q's dtype (the JAX package's matmuls promote it)
+    return sdpa(q, k.to(q.dtype), v.to(q.dtype), attn_mask=attn_mask, scale=scale,
+                enable_gqa=enable_gqa)
+
+
+def _split_cache_attend(sdpa, q, k, v, cache, attn_mask, scale: float, transparent: bool,
+                        *, enable_gqa: bool = False) -> torch.Tensor:
+    """Attention over a SplitKVCache for any decoder family: a T > 1 call is
+    a fresh prefill from position 0 and writes the base (B3 over the fresh
+    K/V when transparent, the heads repeated; else the masked sdpa); a
+    T == 1 step appends to the tail and runs the fused BASIC split decode
+    over the base's precomputed casts where the shapes match; else the
+    modular sdpa over the concatenated segments."""
+    from .basic_attention import basic_sdpa_decode_split, basic_sdpa_shape
+    from .flash_attention import _repeat_kv, flash_attention
+
+    T = q.shape[-2]
+    if T > 1:
+        cache.write_base(k, v)
+        if transparent:
+            kf, vf = _repeat_kv(q, k, v) if enable_gqa else (k, v)
+            return flash_attention(q, kf, vf, causal=True, scale=scale)
+        m = attn_mask[..., :k.shape[-2]] if attn_mask is not None else None
+        return sdpa(q, k, v, attn_mask=m, scale=scale, enable_gqa=enable_gqa)
+    if attn_mask is not None:
+        p = basic_sdpa_shape(sdpa, q.shape[-1], cache.tail_len)
+        if p is not None and cache.base_len % p.block == 0:
+            bk, bv, tk, tv = cache.append_tail(k, v)
+            precast = cache.base_cast_key == (p.wl, p.block)
+            return basic_sdpa_decode_split(
+                q, bk, bv, tk, tv, attn_mask, scale=scale, params=p,
+                base_k_cast=cache.base_k_cast if precast else None,
+                base_v_cast=cache.base_v_cast if precast else None,
+            )
+    kf, vf, _ = cache.update(k, v)
+    return sdpa(q, kf.to(q.dtype), vf.to(q.dtype), attn_mask=attn_mask, scale=scale,
+                enable_gqa=enable_gqa)

@@ -168,8 +168,8 @@ class SplitKVCache(_StaticCache):
     base segment's BFP casts once (``set_base_cast``), so a decode step
     casts only the tail.  ``base_len`` and ``tail_len`` are multiples of
     the BASIC BFP block (64) so that sequence-blocked casts never straddle
-    the boundary.  Decoding beyond the tail (the JAX package's
-    ``merge_tail``, which raises there too) is not supported.  The JAX
+    the boundary.  Decoding beyond the tail is not supported:
+    :meth:`merge_tail` raises, as the JAX package's does.  The JAX
     package's ``s_minor`` layout (a TPU layout A/B) is not ported."""
 
     quantized = False
@@ -230,6 +230,12 @@ class SplitKVCache(_StaticCache):
         k = torch.cat([self.base_k, self.tail_k], dim=2)
         v = torch.cat([self.base_v, self.tail_v], dim=2)
         return k, v, self.length
+
+    def merge_tail(self) -> None:
+        """Fold the filled tail into the base, between decode windows: the
+        base holds the prefill's fixed capacity, so this cannot grow it, and
+        raises (callers size the tail for the whole generation)."""
+        raise NotImplementedError("decode beyond tail_len: allocate a larger tail or re-prefill")
 
 
 class _RowCache:

@@ -43,7 +43,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..models.opt import greedy_token
+from ..models.shared import greedy_token
 from ..numerics.cast import CastTo
 
 

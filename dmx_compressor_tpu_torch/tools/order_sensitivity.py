@@ -7,19 +7,23 @@ through the layers.  A card sums in another order than the CPU, so the
 BASIC path's logits on the card can only be held against a CPU run at a
 tolerance of that size.
 
-This script serves OPT in BASIC mode (``build_basic_mode``, a float16 split
-cache) twice from the same seeded weights and prompt: as is, and with every
-T1 matmul and every LayerNorm, softmax and attention reduction summed in
-float64 and rounded once.  It prints the largest difference of the prefill
-logits between the two, and how many of the greedy tokens agree (a token
-that differs where the top two logits nearly tie changes every later step):
+This script serves OPT or Llama in BASIC mode (``build_basic_mode``, a
+float16 split cache) twice from the same seeded weights and prompt: as is,
+and with every T1 matmul and every LayerNorm, RMSNorm, softmax and
+attention reduction summed in float64 and rounded once.  It prints the
+largest difference of the prefill logits between the two, and how many of
+the greedy tokens agree (a token that differs where the top two logits
+nearly tie changes every later step):
 
     python -m dmx_compressor_tpu_torch.tools.order_sensitivity --device cpu \\
         --layers 12 --vocab 2048 --seeds 0 1
+    python -m dmx_compressor_tpu_torch.tools.order_sensitivity --family llama \\
+        --device cpu --layers 4 --vocab 2048 --seeds 0 1
 
-Widths are OPT-125m's; ``--layers`` and ``--vocab`` cut depth and the
-vocabulary.  Without ``--device`` it runs on the card (the first run then
-goes through the kernels).
+Widths are OPT-125m's, or with ``--family llama`` TinyLlama-1.1B's (bench.py's
+``llama-1.1b``); ``--layers`` and ``--vocab`` cut depth and the vocabulary.
+Without ``--device`` it runs on the card (the first run then goes through
+the kernels).
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from unittest import mock
 import torch
 
 from ..functional import simd_ops
-from ..models.opt import OPTConfig, OPTForCausalLM, greedy_decode, greedy_prefill
+from ..models.llama import LlamaConfig, LlamaForCausalLM
+from ..models.opt import OPTConfig, OPTForCausalLM
+from ..models.shared import greedy_decode, greedy_prefill
 from ..ops import basic_attention, basic_layer, basic_linear, compress
 from ..ops.bfp_cast import fp16_cast_ref
 from ..ops.bfp_pack import bfp_unpack
@@ -76,10 +82,16 @@ def float64_sums():
         yield
 
 
-def serve(cfg, seed, device, batch, prompt, steps):
+FAMILIES = {
+    "opt": (OPTConfig, OPTForCausalLM),
+    "llama": (LlamaConfig.llama_1_1b, LlamaForCausalLM),
+}
+
+
+def serve(family, cfg, seed, device, batch, prompt, steps):
     """BASIC mode from ``seed``: the prefill logits and the greedy tokens
     (the prefill's, then ``steps`` decode steps')."""
-    model = OPTForCausalLM(cfg, device=device, seed=seed)
+    model = FAMILIES[family][1](cfg, device=device, seed=seed)
     build_basic_mode(model)
     caches = model.init_cache(batch, prompt + 64, dtype=torch.float16, split_base_len=prompt,
                               device=device)
@@ -93,21 +105,25 @@ def serve(cfg, seed, device, batch, prompt, steps):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--family", choices=sorted(FAMILIES), default="opt")
     ap.add_argument("--device", default=None, help="cpu, or the card (default)")
     ap.add_argument("--layers", type=int, default=12)
-    ap.add_argument("--vocab", type=int, default=50272)
+    ap.add_argument("--vocab", type=int, default=None, help="default: the family's")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=128)
     ap.add_argument("--steps", type=int, default=7)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     a = ap.parse_args(argv)
-    cfg = OPTConfig(vocab_size=a.vocab, num_hidden_layers=a.layers)
+    cfg = FAMILIES[a.family][0]()
+    cfg.num_hidden_layers = a.layers
+    cfg.vocab_size = a.vocab or cfg.vocab_size
     for seed in a.seeds:
-        base = serve(cfg, seed, a.device, a.batch, a.prompt, a.steps)
+        base = serve(a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)
         with float64_sums():
-            other = serve(cfg, seed, a.device, a.batch, a.prompt, a.steps)
+            other = serve(a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)
         d = (base[0] - other[0]).abs()
-        print(f"seed {seed}, {a.layers} layers, vocab {a.vocab}, batch {a.batch} x prompt "
+        print(f"{a.family} seed {seed}, {a.layers} layers, vocab {cfg.vocab_size}, batch "
+              f"{a.batch} x prompt "
               f"{a.prompt}, on {a.device or 'cuda'}: prefill logits max |diff| {d.max().item():.4g}"
               f" (share of logits that differ {(d > 0).float().mean().item():.4f}, largest "
               f"|logit| {base[0].abs().max().item():.4g}); greedy tokens equal "

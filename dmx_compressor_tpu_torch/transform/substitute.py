@@ -27,9 +27,14 @@ DMX_AWARE_MAPPING: Dict[Type, Callable] = {
 # rawnn functional-op wrappers -> Dmx modules
 RAW_OP_MAPPING: Dict[Type, Callable] = {
     rawnn.ResAdd: dmxnn.ResAdd.from_raw,
+    rawnn.Mul: dmxnn.Mul.from_raw,
     rawnn.TiedLinear: dmxnn.Linear.from_tied,
     rawnn.ReLU: dmxnn.ReLU.from_raw,
+    rawnn.SiLU: dmxnn.SiLU.from_raw,
     rawnn.ScaledDotProductAttention: dmxnn.ScaledDotProductAttention.from_raw,
+    rawnn.ApplyRotaryPosEmb: dmxnn.ApplyRotaryPosEmb.from_raw,
+    rawnn.RotaryEmbedding: dmxnn.RotaryEmbedding.from_raw,
+    rawnn.RMSNorm: dmxnn.RMSNorm.from_raw,
 }
 
 

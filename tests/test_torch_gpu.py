@@ -589,3 +589,154 @@ def test_engine_matches_isolated_generation_on_card(cuda, mode, chunk):
             if margins[s] <= ENGINE_TOL:
                 break
             assert a == b, f"request {rid}, token {s}"
+
+
+# ---------------------------------------------------------------------------
+# the Llama family on the card
+# ---------------------------------------------------------------------------
+
+# (M, N, K): TinyLlama-1.1B's linears (merged q/k/v at GQA widths, o_proj,
+# merged gate/up, down_proj, the 32000-wide head) at decode and prefill
+LLAMA_LINEARS = [(M, N, K) for M in (8, 1024)
+                 for N, K in ((2560, 2048), (2048, 2048), (11264, 2048), (2048, 5632),
+                              (32000, 2048))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["B1", "T1"])
+@pytest.mark.parametrize("M,N,K", LLAMA_LINEARS)
+def test_llama_linears_match_plain_on_card(cuda, kind, M, N, K):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = tpack.bfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05, 8, 64)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    name, kern, plain = (("bfp_linear", tbl.bfp_linear, tbl.bfp_linear_ref) if kind == "B1" else
+                         ("bfp_linear_bf16", tbl.bfp_linear_bf16, tbl.bfp_linear_bf16_ref))
+    n0 = kernels.LAUNCHES[name]
+    got = kern(x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 1
+    torch.testing.assert_close(got, plain(x, w), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["BFP16_64", SBFP12_16, "SBFP<XP[4,0](CSN)><FP[0|4|5,16](FN)>{16}"])
+def test_prefill_mainloop_keeps_the_small_products_at_large_k_on_card(cuda, fmt):
+    """The shared wgmma mainloop at Llama's down_proj prefill (M 1024, K
+    5632, N 2048): the products of x's low planes (and of the weight's,
+    for a format off bf16) accumulate apart from the largest one, so the
+    tensor cores' truncating adds do not drop their low bits every K step
+    (one accumulator moved B1's outputs by up to 4e-4)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    wf = torch.randn(2048, 5632, generator=g, device=cuda) * 0.05
+    x = torch.randn(1024, 5632, generator=g, device=cuda)
+    if fmt == "BFP16_64":
+        w = tpack.bfp_pack(wf, 8, 64)
+        got, want = tbl.bfp_linear(x, w), tbl.bfp_linear_ref(x, w)
+    else:
+        w = tpack.sbfp_pack(wf, Format.from_shorthand(fmt))
+        assert tbl.sbfp_route(w, 1024, 5632) in ("tensor_cores", "planes")
+        got, want = tbl.sbfp_linear(x, w), tbl.sbfp_linear_ref(x, w)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lengths", [[160] * 8, None])
+def test_llama_decode_attention_matches_plain_on_card(cuda, lengths):
+    """B2 and B4 at the Llama paths' shape: 32 query heads over 4 KV heads
+    (8 a KV head, read without a repeat), 256 slots, head_dim 64; the
+    paths' mean fill and ragged lengths."""
+    q, kv, le = _b2_inputs(cuda, 8, 32, 4, 256, 64, lengths)
+    n0 = kernels.LAUNCHES["flash_decode_int8"]
+    got = tfd.flash_decode_int8(q, kv, le)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode_int8"] == n0 + 1
+    torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q, kv, le), rtol=1e-5, atol=2e-5)
+    q, k, v, _ = _b4_inputs(cuda, 8, 32, 4, 256, 64, seed=2)
+    _check_b4(q, k, v, le)
+
+
+@pytest.mark.gpu
+def test_llama_prefill_attention_matches_plain_on_card(cuda):
+    """B3 at the llama_baseline prefill: K/V of 4 heads repeated to the 32
+    query heads by flash_prefill (BH 256, L = S = 128, D 64)."""
+    from dmx_compressor_tpu_torch.nn.modules import ScaledDotProductAttention
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(8, 32, 128, 64, generator=g, device=cuda)
+    k = torch.randn(8, 4, 128, 64, generator=g, device=cuda)
+    v = torch.randn(8, 4, 128, 64, generator=g, device=cuda)
+    n0 = kernels.LAUNCHES["flash_attention"]
+    got = tfa.flash_prefill(ScaledDotProductAttention(), q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == n0 + 1
+    want = tfa.flash_attention_ref(q, torch.repeat_interleave(k, 8, dim=1),
+                                   torch.repeat_interleave(v, 8, dim=1), causal=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+
+
+# a Llama whose head_dim (64) the decode and prefill kernels take, GQA 4:1
+LLAMA_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=1, max_position_embeddings=256)
+# the legs' logits and tokens, card against CPU: f32 sums in another order
+# (1e-3), an int8 K/V entry one step apart (1e-2), and BASIC's casts landing
+# a step apart (chip_smoke.py's LLAMA_BASIC_LOGIT_TOL, measured at
+# TinyLlama-1.1B's width by tools/order_sensitivity.py)
+LLAMA_TOL = {"weights": 1e-2, "baseline": 1e-3, "basic": 0.4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["weights", "baseline", "basic"])
+def test_llama_leg_on_card_matches_cpu(cuda, leg):
+    """A small Llama's weights, baseline and BASIC legs on the card against
+    the same model on the CPU, the CPU fed the card's tokens: prefill logits
+    and every decode step's logits within the leg's tolerance, each greedy
+    token equal to the CPU's choice on the same inputs where the CPU's
+    top-1/top-2 margin exceeds it; the leg's kernels launched, and BASIC
+    decode through the fused step."""
+    from dmx_compressor_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill, greedy_token
+    from dmx_compressor_tpu_torch.ops import compress as tc
+    from dmx_compressor_tpu_torch.ops.basic_layer import basic_llama_layer_plan
+    from dmx_compressor_tpu_torch.ops.split_decode import prepare_split_decode
+
+    B, P, steps = 5, 64, 6  # 320 prefill rows: the BASIC linears' modular path
+    build = {"weights": tc.build_weights_mode, "baseline": tc.build_baseline_mode,
+             "basic": tc.build_basic_mode}[leg]
+    cache_kw = {"weights": dict(quantized=True), "baseline": {},
+                "basic": dict(dtype=torch.float16, split_base_len=P)}[leg]
+    model = LlamaForCausalLM(LlamaConfig(**LLAMA_CFG), device=cuda, seed=0)
+    build(model)
+    if leg == "basic":
+        assert all(basic_llama_layer_plan(layer) is not None for layer in model.model.layers)
+    ids = torch.randint(0, 512, (B, P), generator=torch.Generator().manual_seed(4))
+
+    def prefill(dev):
+        caches = model.init_cache(B, P + 64, device=dev, **cache_kw)
+        logits, tok = greedy_prefill(model, caches, ids.to(dev))
+        if leg == "basic":
+            prepare_split_decode(model, caches)
+        return caches, logits, tok
+
+    kernels.reset_launches()
+    caches, logits, tok = prefill(cuda)
+    toks, rows = greedy_decode(model, caches, tok, P, steps - 1)
+    got_logits, got_rows = logits.float().cpu(), rows.float().cpu()
+    got_toks = torch.cat([tok[:, None], toks], 1).cpu()
+    want_kernels = {"weights": ("bfp_linear", "flash_decode_int8"),
+                    "baseline": ("flash_attention", "flash_decode"),
+                    "basic": ("bfp_linear_bf16", "bfp_cast")}[leg]
+    assert all(kernels.LAUNCHES[k] > 0 for k in want_kernels), kernels.LAUNCHES
+    model.to("cpu")
+    caches, want_logits, _ = prefill("cpu")
+    with torch.no_grad():
+        want_rows = torch.stack([model(got_toks[:, s:s + 1], caches=caches,
+                                       position_offset=P + s)[:, -1]
+                                 for s in range(steps - 1)])
+    tol = LLAMA_TOL[leg]
+    assert (got_logits - want_logits).abs().max().item() <= tol
+    assert (got_rows - want_rows).abs().max().item() <= tol
+    step_rows = torch.cat([want_logits[:, -1][None], want_rows])  # [steps, B, V]
+    top2 = step_rows.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > tol).T  # [B, steps]
+    choice = torch.stack([greedy_token(r) for r in step_rows], dim=1)
+    assert not (clear & (choice != got_toks)).any(), (leg, (clear & (choice != got_toks)))
