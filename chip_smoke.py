@@ -11,9 +11,11 @@ Phases (any failure exits non-zero):
    every kernel of ``dmx_compressor_tpu_torch/csrc`` (one nvcc per source,
    started together).
 2. The seven kernels against their plain PyTorch versions on the card, at
-   the paths' shapes (OPT-125m's; TinyLlama-1.1B's: B1 and T1 at its five
-   linears, B2 and B4 at (8, 32, 4, 256, 64), B3 at BH 256, L = S = 128) and
-   at ragged ones: max abs error against the stated
+   the paths' shapes (OPT-125m's; and each Llama-topology family's:
+   TinyLlama-1.1B, Qwen3-0.6B and Gemma-2B: B1 and T1 at its five linears,
+   B2 and B4 at (8, 32, 4, 256, 64), (8, 16, 8, 256, 128) and (8, 8, 1,
+   256, 256), B3 at BH 256 (D 64), 128 (D 128) and 64 (D 256), L = S = 128,
+   the K/V heads repeated) and at ragged ones: max abs error against the stated
    tolerance (T2: bit for bit), the kernel's time, its plain version's, one
    library call's where there is one (a yardstick the port never calls) and
    the bound (bytes, or operations over the H100 SXM's published f32 or
@@ -68,10 +70,16 @@ Phases (any failure exits non-zero):
    rest), the device busy/idle split of a profiled decode step and a host
    cProfile of the same steps.  The JAX bench's ratios (weights, SBFP,
    sbfp_wide and basic over baseline tokens/s) follow.
-   Then three paths of bench.py's ``llama-1.1b`` (TinyLlama-1.1B at full
-   width and depth: 22 layers of 2048, MLP 5632, GQA 32 query heads over 4
-   KV heads, vocab 32000, an untied head) from seed 0, at the same batch,
-   prompt and steps (L = 22):
+   Then three paths of each of bench.py's Llama-topology families at full
+   width and depth, from seed 0, at the same batch, prompt and steps:
+   ``llama-1.1b`` (TinyLlama-1.1B: 22 layers of 2048, MLP 5632, GQA 32
+   query heads over 4 KV heads, vocab 32000, an untied head), ``qwen3-0.6b``
+   (Qwen3-0.6B: 28 layers of 1024, 16 query heads over 8 KV heads of 128,
+   per-head q / k norms, MLP 3072, vocab 151936, tied) and ``gemma-2b``
+   (Gemma-2B: 18 layers of 2048, 8 query heads over one KV head of 256,
+   (1 + w) norms, a GeGLU MLP of 16384, vocab 256000, tied).  Llama's (L =
+   22; Qwen3's and Gemma's the same counts at L = 28 and 18, Qwen3's q / k
+   norms adding 4L T2 a prefill and 2L a step):
    - llama_weights (BFP16_64 packed weights, int8 KV cache): prefill
      4L+1 = 89 B1 and no B3 (an int8 prefill attends over the dequantized
      cache through quantized_sdpa, as in the JAX package), each decode step
@@ -83,13 +91,13 @@ Phases (any failure exits non-zero):
      each decode step 89 T1 + 21L+2 = 464 T2 (24L+3 casts: 3L+1 launches
      are a FLOAT16 cast and the BFP cast of its output in one), every layer
      through the fused step.
-   Their CPU check runs the same build cut to ``LLAMA_CPU_LAYERS`` layers
+   Their CPU check runs the same build cut to ``FAMILY_CPU_LAYERS`` layers
    (full width, seed 0) on the card and on the CPU, prefill and 7 steps.
-   The llama_basic card run of that check records every T2 launch's shape
-   and axis: T2 is then held bit for bit at each distinct site (the BFP,
-   FLOAT16 and composed modes) and timed per launch over one recorded
-   decode step.  B3's Llama case times flash_prefill's K/V head repeat
-   apart; the llama_baseline prefill split shows it beside B3.
+   Each BASIC path's card run of that check records every T2 launch's
+   shape and axis: T2 is then held bit for bit at each distinct site (the
+   BFP, FLOAT16 and composed modes) and timed per launch over one recorded
+   decode step.  B3's family cases time flash_prefill's K/V head repeat
+   apart; each baseline prefill split shows it beside B3.
 4. Three paths of the continuous-batching engine (serving/engine.py) at
    examples/serving_bench.py's defaults: OPT-125m at full width from seed
    0, 8 slots, bursts of 16, 32 requests of a 96-token prompt and 64 new
@@ -149,16 +157,19 @@ LOGIT_TOL = 1e-3  # f32 logits, GPU vs CPU: the same math summed in another orde
 # and reductions summed in float64 moves a prefill logit by up to 0.0574;
 # 0.15 leaves room for the full vocabulary's 25x more logits.
 BASIC_LOGIT_TOL = 0.15
-# the Llama paths' CPU check: the same build cut to this many layers (full
-# width, seed 0), run on the card and on the CPU
-LLAMA_CPU_LAYERS = 4
-# the llama_basic path's logits, GPU vs CPU at that depth, fixed before its
-# first run on the card: tools/order_sensitivity.py --family llama at
-# TinyLlama-1.1B's width, 4 layers, vocab cut to 2048, seeds 0 and 1, moves
-# a prefill logit by up to 0.1533 (0.1376) when the sums run in float64;
-# 0.4 keeps OPT's ratio of bound to measurement (0.15 / 0.0574) for the
-# full vocabulary's 16x more logits
-LLAMA_BASIC_LOGIT_TOL = 0.4
+# the Llama-topology paths' CPU check (Llama, Qwen3, Gemma): the same build
+# cut to this many layers (full width, seed 0), run on the card and on the
+# CPU
+FAMILY_CPU_LAYERS = 4
+# each family's BASIC path's logits, GPU vs CPU at that depth, fixed before
+# the family's first run on the card from tools/order_sensitivity.py
+# --family <family> at the family's width, 4 layers, vocab cut to 2048,
+# seeds 0 and 1 (the largest move of a prefill logit when the sums run in
+# float64): llama 0.1533 (0.1376) -> 0.4, which keeps OPT's ratio of bound
+# to measurement (0.15 / 0.0574) for the full vocabulary's 16x more
+# logits; qwen3 0.0796 (0.0756) -> 0.25 and gemma 0.1475 (0.0940) -> 0.5,
+# about 3.1 and 3.4 times, for their 74x and 125x more logits
+BASIC_FAMILY_TOL = {"llama": 0.4, "qwen3": 0.25, "gemma": 0.5}
 B1_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of up to 3072 terms, another order
 B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
@@ -309,19 +320,21 @@ def sbfp_linear_shapes(cfg):
     return [(d, d, 4 * L), (d, f, L), (f, d, L), (d, cfg.vocab_size, 1)]
 
 
-def llama_linear_shapes(cfg):
-    """(K, N, launches per forward) of the Llama paths' packed linears:
-    merged q/k/v (GQA widths), o_proj, merged gate/up and down_proj per
-    layer, then the untied LM head."""
+def family_linear_shapes(cfg):
+    """(K, N, launches per forward) of a Llama-topology family's packed
+    linears (Llama, Qwen3, Gemma): merged q/k/v (GQA widths), o_proj, merged
+    gate/up and down_proj per layer, then the LM head."""
     d, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
-    kv = cfg.num_key_value_heads * (d // cfg.num_attention_heads)
-    return [(d, d + 2 * kv, L), (d, d, L), (d, 2 * m, L), (m, d, L), (d, cfg.vocab_size, 1)]
+    H, Hkv, D = family_heads(cfg)
+    return [(d, (H + 2 * Hkv) * D, L), (H * D, d, L), (d, 2 * m, L), (m, d, L),
+            (d, cfg.vocab_size, 1)]
 
 
-def llama_heads(cfg):
-    """(query heads, KV heads, head_dim) of a Llama config."""
-    return (cfg.num_attention_heads, cfg.num_key_value_heads,
-            cfg.hidden_size // cfg.num_attention_heads)
+def family_heads(cfg):
+    """(query heads, KV heads, head_dim) of a Llama-topology config."""
+    from dmx_compressor_tpu_torch.models.llama import head_dim_of
+
+    return cfg.num_attention_heads, cfg.num_key_value_heads, head_dim_of(cfg)
 
 
 def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shapes, ragged,
@@ -525,12 +538,12 @@ def check_b5(torch, dev, cfg):
     return step, cases, wide_step
 
 
-def check_llama_linears(torch, dev, lcfg):
-    """B1 and T1 at the Llama paths' five linear shapes (M = batch and batch
-    x prompt), and per launch over one Llama decode step's 4L+1 launches;
-    T1's library yardstick a bf16 torch.matmul.  Returns ((B1's per-step
-    numbers, cases), (T1's per-step numbers, cases)), each case marked
-    ``path="llama"``."""
+def check_family_linears(torch, dev, fcfg, family, seed):
+    """B1 and T1 at a Llama-topology family's five linear shapes (M = batch
+    and batch x prompt), and per launch over one of its decode steps' 4L+1
+    launches; T1's library yardstick a bf16 torch.matmul.  Returns ((B1's
+    per-step numbers, cases), (T1's per-step numbers, cases)), each case
+    marked ``path=family``."""
     from dmx_compressor_tpu_torch.ops.bfp_linear import (
         bfp_linear,
         bfp_linear_bf16,
@@ -539,16 +552,16 @@ def check_llama_linears(torch, dev, lcfg):
     )
     from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
 
-    shapes = llama_linear_shapes(lcfg)
-    b1 = check_linear(torch, dev, "B1 bfp_linear (llama)", bfp_linear, bfp_linear_ref,
+    shapes = family_linear_shapes(fcfg)
+    b1 = check_linear(torch, dev, f"B1 bfp_linear ({family})", bfp_linear, bfp_linear_ref,
                       lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, shapes, [], B1_TOL,
-                      seed=22, planes=3)
-    t1 = check_linear(torch, dev, "T1 bfp_linear_bf16 (llama)", bfp_linear_bf16,
+                      seed=seed, planes=3)
+    t1 = check_linear(torch, dev, f"T1 bfp_linear_bf16 ({family})", bfp_linear_bf16,
                       bfp_linear_bf16_ref, lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes,
-                      shapes, [], B1_TOL, seed=23, peak_flop_s=PEAK_BF16_FLOP_S,
+                      shapes, [], B1_TOL, seed=seed + 1, peak_flop_s=PEAK_BF16_FLOP_S,
                       lib_dtype=torch.bfloat16)
     for case in b1[1] + t1[1]:
-        case["path"] = "llama"
+        case["path"] = family
     return b1, t1
 
 
@@ -845,7 +858,7 @@ def b4_bytes_flops(B, H, Hkv, D, lengths):
     return 2 * B * H * D * 4 + keys * Hkv * 2 * D * 4 + B * 4, 4 * keys * H * D
 
 
-def check_b2(torch, dev, cfg, lcfg):
+def check_b2(torch, dev, cfg, fams):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_decode import flash_decode_int8, flash_decode_int8_ref
@@ -858,18 +871,23 @@ def check_b2(torch, dev, cfg, lcfg):
     # is no multiple of a chunk, bench.py's long leg (prompt 1984 in a
     # 2048-slot cache, lengths 2016 half way through its 64 steps), GQA
     # (12 query heads on 4 KV heads, ragged) and the engine's row cache
-    # (ENGINE_ROWS); and the llama_weights path's (8 query heads a KV head)
+    # (ENGINE_ROWS); and each Llama-topology family's weights path (llama:
+    # 8 query heads a KV head; qwen3: 2 at head_dim 128; gemma: 8 over its
+    # one KV head at head_dim 256); then a ragged Gemma case, S no multiple
+    # of a chunk
     B, H = BATCH, cfg.num_attention_heads
     D = cfg.hidden_size // H
     mean_fill = PROMPT + GEN // 2
-    Hq, Hkv_l, D_l = llama_heads(lcfg)
-    shapes = [(H, H, CAPACITY, D, [mean_fill] * B),
-              (H, H, 200, D, [1 + (199 * i) // (B - 1) for i in range(B)]),
-              (H, H, 2048, D, [2016] * B),
-              (H, max(1, H // 3), 300, D, [1 + (299 * i) // (B - 1) for i in range(B)]),
-              (H, H, ENGINE_LEN, D, ENGINE_ROWS),
-              (Hq, Hkv_l, CAPACITY, D_l, [mean_fill] * B)]
-    for H, Hkv, S, D, lengths in shapes:
+    shapes = [(H, H, CAPACITY, D, [mean_fill] * B, None),
+              (H, H, 200, D, [1 + (199 * i) // (B - 1) for i in range(B)], None),
+              (H, H, 2048, D, [2016] * B, None),
+              (H, max(1, H // 3), 300, D, [1 + (299 * i) // (B - 1) for i in range(B)], None),
+              (H, H, ENGINE_LEN, D, ENGINE_ROWS, None)]
+    shapes += [(*family_heads(f)[:2], CAPACITY, family_heads(f)[2], [mean_fill] * B, name)
+               for name, f in fams.items()]
+    Hg, Hkv_g, D_g = family_heads(fams["gemma"])
+    shapes.append((Hg, Hkv_g, 600, D_g, [1 + (599 * i) // (B - 1) for i in range(B)], None))
+    for H, Hkv, S, D, lengths, path in shapes:
         per_set = B * Hkv * S * (2 * D + 8) + 2 * B * H * D * 4
         sets = []
         for _ in range(copies_for(per_set)):
@@ -897,6 +915,8 @@ def check_b2(torch, dev, cfg, lcfg):
         bound_ms, by = bound(*b2_bytes_flops(B, H, Hkv, D, [min(n, S) for n in lengths]))
         cases.append(dict(shape=[B, H, Hkv, S, D], lengths=lengths, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+        if path is not None:
+            cases[-1]["path"] = path
         log(f"B2 flash_decode_int8 B={B} H={H} Hkv={Hkv} S={S} D={D} lengths={lengths}: "
             f"max_abs_err={err:.3g} (the same bits on a second call) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} "
@@ -906,7 +926,7 @@ def check_b2(torch, dev, cfg, lcfg):
     return cases
 
 
-def check_b3(torch, dev, cfg, lcfg):
+def check_b3(torch, dev, cfg, fams):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
@@ -915,20 +935,24 @@ def check_b3(torch, dev, cfg, lcfg):
     cases = []
     # the main path's prefill (L = S = prompt, causal), L < S with the
     # diagonal at S - L, an additive bias, and the engine's batch-1 prefill
-    # at its bucket and its first chunk; and the llama_baseline path's
-    # prefill (its 32 query heads over 4 KV heads: flash_prefill repeats
-    # the K/V heads to the query heads before the kernel, a copy timed here
-    # apart; the bound counts the K/V of the KV heads, as the function
-    # flash_prefill computes reads them)
+    # at its bucket and its first chunk; and each Llama-topology family's
+    # baseline prefill (llama: 32 query heads over 4 KV heads at head_dim
+    # 64; qwen3: 16 over 8 at 128; gemma: 8 over 1 at 256; flash_prefill
+    # repeats the K/V heads to the query heads before the kernel, a copy
+    # timed here apart; the bound counts the K/V of the KV heads, as the
+    # function flash_prefill computes reads them); then the wide kernel
+    # (head_dim 128 and 256) at L < S with a bias
     H = cfg.num_attention_heads
     D = cfg.hidden_size // H
-    Hq, Hkv_l, D_l = llama_heads(lcfg)
-    for B, H, Hkv, L, S, D, with_bias in [(BATCH, H, H, PROMPT, PROMPT, D, False),
-                                          (BATCH, H, H, 64, 192, D, False),
-                                          (BATCH, H, H, 100, 160, D, True),
-                                          (1, H, H, ENGINE["prompt"], ENGINE["prompt"], D, False),
-                                          (1, H, H, ENGINE_CHUNK, ENGINE_CHUNK, D, False),
-                                          (BATCH, Hq, Hkv_l, PROMPT, PROMPT, D_l, False)]:
+    shapes = [(BATCH, H, H, PROMPT, PROMPT, D, False, None),
+              (BATCH, H, H, 64, 192, D, False, None),
+              (BATCH, H, H, 100, 160, D, True, None),
+              (1, H, H, ENGINE["prompt"], ENGINE["prompt"], D, False, None),
+              (1, H, H, ENGINE_CHUNK, ENGINE_CHUNK, D, False, None)]
+    shapes += [(BATCH, *family_heads(f)[:2], PROMPT, PROMPT, family_heads(f)[2], False, name)
+               for name, f in fams.items()]
+    shapes += [(2, 3, 3, 100, 160, d, True, None) for d in (128, 256)]
+    for B, H, Hkv, L, S, D, with_bias, path in shapes:
         per_set = 4 * B * D * (2 * H * L + 2 * Hkv * S) + (4 * B * H * L * S if with_bias else 0)
         sets, kv_sets = [], []
         for _ in range(copies_for(per_set)):
@@ -972,6 +996,8 @@ def check_b3(torch, dev, cfg, lcfg):
         cases.append(dict(shape=[B * H, L, S, D], bias=with_bias, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
                           bound_f32_ms=bound_f32_ms))
+        if path is not None:
+            cases[-1]["path"] = path
         gqa = ""
         if Hkv != H:
             # flash_prefill's head repeat of K and V, one layer's
@@ -994,7 +1020,7 @@ def check_b3(torch, dev, cfg, lcfg):
     return cases
 
 
-def check_b4(torch, dev, cfg, lcfg):
+def check_b4(torch, dev, cfg, fams):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
@@ -1007,9 +1033,15 @@ def check_b4(torch, dev, cfg, lcfg):
     # 64 steps) at the path's batch and at batch 1 with 8000 keys, GQA with
     # rep 4 and ragged lengths, a scalar length at D 32, and D 128 over an S
     # that is no multiple of a tile, the engine's row cache (ENGINE_ROWS),
-    # and the llama_baseline path's (8 query heads a KV head)
+    # and each Llama-topology family's baseline path (llama: 8 query heads a
+    # KV head; qwen3: 2 at head_dim 128; gemma: 8 over its one KV head at
+    # 256), then Gemma's head_dim over ragged rows in two chunks
     H = cfg.num_attention_heads
     D = cfg.hidden_size // H
+    paths = {}
+    for name, f in fams.items():
+        paths[BATCH, *family_heads(f)[:2], CAPACITY, family_heads(f)[2]] = name
+    Hg, Hkv_g, D_g = family_heads(fams["gemma"])
     for B, H_, Hkv, S, D_, lengths in [
         (BATCH, H, H, CAPACITY, D, [PROMPT + GEN // 2] * BATCH),
         (ENGINE["slots"], H, H, ENGINE_LEN, D, ENGINE_ROWS),
@@ -1018,8 +1050,8 @@ def check_b4(torch, dev, cfg, lcfg):
         (3, 8, 2, 256, 64, [17, 256, 130]),
         (2, 4, 4, 192, 32, 100),
         (2, 8, 8, 200, 128, [57, 200]),
-        (BATCH, *llama_heads(lcfg)[:2], CAPACITY, llama_heads(lcfg)[2],
-         [PROMPT + GEN // 2] * BATCH),
+        *[(*key, [PROMPT + GEN // 2] * BATCH) for key in paths],
+        (3, Hg, Hkv_g, 1500, D_g, [1500, 1025, 7]),
     ]:
         rows = lengths if isinstance(lengths, list) else [lengths] * B
         per_set = 2 * B * Hkv * S * D_ * 4 + 2 * B * H_ * D_ * 4
@@ -1051,6 +1083,8 @@ def check_b4(torch, dev, cfg, lcfg):
         bound_ms, by = bound(*b4_bytes_flops(B, H_, Hkv, D_, [min(n, S) for n in rows]))
         cases.append(dict(shape=[B, H_, Hkv, S, D_], lengths=lengths, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+        if (B, H_, Hkv, S, D_) in paths:
+            cases[-1]["path"] = paths[B, H_, Hkv, S, D_]
         log(f"B4 flash_decode B={B} H={H_} Hkv={Hkv} S={S} D={D_} lengths={lengths}: "
             f"max_abs_err={err:.3g} (the same bits on a second call) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} "
@@ -1073,6 +1107,7 @@ T2_MARKS = ("bfp_rows_kernel", "bfp_rows_vec_kernel", "bfp_tile_kernel", "fp16_k
             "fp16_vec_kernel")
 B1_MARKS = ("bfp_decode_kernel", "bfp_gemm_kernel", "bfp_wgmma_kernel", "split_planes_kernel")
 B2_MARKS = ("flash_decode_int8_kernel",)
+B3_MARKS = ("flash_attention_kernel", "flash_attention_wide_kernel")
 
 
 def path_specs(cfg):
@@ -1139,18 +1174,23 @@ def path_specs(cfg):
     ]
 
 
-def llama_path_specs(lcfg):
-    """The three Llama paths (bench.py's llama-1.1b legs), as
-    :func:`path_specs`: the launches at prefill, in prepare_split_decode and
-    per decode step (L = 22), the CPU check at ``LLAMA_CPU_LAYERS`` layers,
-    the logits' tolerance (f32 1e-3, int8 KV8_TOL, BASIC
-    LLAMA_BASIC_LOGIT_TOL), and for llama_basic the check that every layer
-    and the head take the fused decode step."""
+def family_path_specs(fcfg, family):
+    """The three paths of a Llama-topology family (bench.py's llama-1.1b,
+    qwen3-0.6b and gemma-2b legs), as :func:`path_specs`: the launches at
+    prefill, in prepare_split_decode and per decode step (L layers), the
+    CPU check at ``FAMILY_CPU_LAYERS`` layers, the logits' tolerance (f32
+    1e-3, int8 KV8_TOL, BASIC the family's from BASIC_FAMILY_TOL), and for
+    the BASIC path the check that every layer and the head take the fused
+    decode step."""
     import dataclasses
 
+    from dmx_compressor_tpu_torch.models.gemma import GemmaForCausalLM
     from dmx_compressor_tpu_torch.models.llama import LlamaForCausalLM
+    from dmx_compressor_tpu_torch.models.qwen3 import Qwen3ForCausalLM
     from dmx_compressor_tpu_torch.ops.basic_layer import (
+        basic_gemma_layer_plan,
         basic_llama_layer_plan,
+        basic_qwen3_layer_plan,
         basic_rms_head_plan,
     )
     from dmx_compressor_tpu_torch.ops.compress import (
@@ -1159,45 +1199,55 @@ def llama_path_specs(lcfg):
         build_weights_mode,
     )
 
-    L = lcfg.num_hidden_layers
-    common = dict(model=LlamaForCausalLM,
-                  cpu_cfg=dataclasses.replace(lcfg, num_hidden_layers=LLAMA_CPU_LAYERS))
+    # the model, the fused step's plan, and the T2 casts a layer adds to
+    # Llama's at prefill and a decode step: Qwen3's q / k norms take 2
+    # FLOAT16 casts each at prefill (the modular RMSNorm) and one each in a
+    # fused step (the output cast; q and k arrive on the grid)
+    model, plan, extra_prefill, extra_step = {
+        "llama": (LlamaForCausalLM, basic_llama_layer_plan, 0, 0),
+        "qwen3": (Qwen3ForCausalLM, basic_qwen3_layer_plan, 4, 2),
+        "gemma": (GemmaForCausalLM, basic_gemma_layer_plan, 0, 0),
+    }[family]
+    L = fcfg.num_hidden_layers
+    common = dict(model=model,
+                  cpu_cfg=dataclasses.replace(fcfg, num_hidden_layers=FAMILY_CPU_LAYERS))
 
-    def fused_everywhere(model):
-        if any(basic_llama_layer_plan(layer) is None for layer in model.model.layers) or (
-                basic_rms_head_plan(model.model.norm, model.lm_head) is None):
-            raise AssertionError("llama_basic: a layer or the head would not take the fused "
-                                 "decode step")
-        log(f"llama_basic path: basic_llama_layer_plan holds for all {L} layers and "
+    def fused_everywhere(m):
+        if any(plan(layer) is None for layer in m.model.layers) or basic_rms_head_plan(
+                m.model.norm, m.lm_head, gemma_norm=m.gemma_norm) is None:
+            raise AssertionError(f"{family}_basic: a layer or the head would not take the fused "
+                                 f"decode step")
+        log(f"{family}_basic path: {plan.__name__} holds for all {L} layers and "
             f"basic_rms_head_plan for the head: every decode step takes the fused step")
 
     return [
         # an int8 prefill attends over the dequantized cache (quantized_sdpa,
         # plain torch): no B3
-        dict(common, name="llama_weights", build=build_weights_mode,
+        dict(common, name=f"{family}_weights", build=build_weights_mode,
              cache=dict(max_len=CAPACITY, quantized=True),
              prefill={"bfp_linear": 4 * L + 1}, prepare=None,
              step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
              marks={"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}, logit_tol=KV8_TOL),
-        dict(common, name="llama_baseline", build=build_baseline_mode,
+        dict(common, name=f"{family}_baseline", build=build_baseline_mode,
              cache=dict(max_len=CAPACITY), prefill={"flash_attention": L}, prepare=None,
              step={"flash_decode": L}, marks={"flash_decode": ("flash_decode_kernel",)},
              logit_tol=LOGIT_TOL),
         # the modular prefill: per layer 40 FLOAT16 / BFP casts (RMSNorm 2,
         # qkv 2, RoPE 6, SDPA 14, o_proj 2, resadd 3, RMSNorm 2, gate-up 2,
-        # SiLU 2, down 2, resadd 3; Mul SAME), + the embedding's 1, the final
-        # norm's 2 and the head's 2; a decode step's fused layer 21 launches
-        # (RMS input 1, RMS output with qkv input 1, RoPE cos / sin / q / k
-        # 4, the decode attention 9, o_proj 1, resadd 2, RMS output with
-        # gate-up input 1, SiLU 1, down 1), + the embedding's 1 and the
+        # SiLU or GELU 2, down 2, resadd 3; Mul SAME; Qwen3's q / k norms 4
+        # more), + the embedding's 1, the final norm's 2 and the head's 2; a
+        # decode step's fused layer 21 launches (RMS input 1, RMS output with
+        # qkv input 1, RoPE cos / sin / q / k 4, the decode attention 9,
+        # o_proj 1, resadd 2, RMS output with gate-up input 1, SiLU or GELU
+        # 1, down 1; Qwen3's q / k norms 2 more), + the embedding's 1 and the
         # head's composed 1
-        dict(common, name="llama_basic", build=build_basic_mode,
+        dict(common, name=f"{family}_basic", build=build_basic_mode,
              cache=dict(max_len=PROMPT + GEN, dtype="float16", split_base_len=PROMPT),
-             prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 40 * L + 5},
+             prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": (40 + extra_prefill) * L + 5},
              prepare={"bfp_cast": 2 * L},
-             step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 21 * L + 2},
+             step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": (21 + extra_step) * L + 2},
              marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
-             check_built=fused_everywhere, logit_tol=LLAMA_BASIC_LOGIT_TOL, record_t2=True),
+             check_built=fused_everywhere, logit_tol=BASIC_FAMILY_TOL[family], record_t2=True),
     ]
 
 
@@ -1320,7 +1370,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
     pre_ms = sum(us for _, us in pre_events) / 1e3
     b3 = ""
     if "flash_attention" in spec["prefill"]:
-        b3_ms = sum(us for n, us in pre_events if "flash_attention_kernel" in n) / 1e3
+        b3_ms = sum(us for n, us in pre_events if any(m in n for m in B3_MARKS)) / 1e3
         nb3 = spec["prefill"]["flash_attention"]
         b3 = f", flash_attention {b3_ms:.4f} ms over {nb3} launches"
         if "kv_repeat_ms" in spec:
@@ -1713,8 +1763,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from dmx_compressor_tpu_torch import kernels
+    from dmx_compressor_tpu_torch.models.gemma import GemmaConfig
     from dmx_compressor_tpu_torch.models.llama import LlamaConfig
     from dmx_compressor_tpu_torch.models.opt import OPTConfig
+    from dmx_compressor_tpu_torch.models.qwen3 import Qwen3Config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1736,24 +1788,27 @@ def main() -> int:
                 log(f"  ptxas {name}: {ln.strip()}")
 
     cfg = OPTConfig.opt_125m()
-    lcfg = LlamaConfig.llama_1_1b()
+    # bench.py's Llama-topology families at full width and depth
+    fams = {"llama": LlamaConfig.llama_1_1b(), "qwen3": Qwen3Config.qwen3_0_6b(),
+            "gemma": GemmaConfig.gemma_2b()}
     with phase("B1", took):
         b1_step, b1 = check_b1(torch, dev, cfg)
     with phase("B2", took):
-        b2 = check_b2(torch, dev, cfg, lcfg)
+        b2 = check_b2(torch, dev, cfg, fams)
     with phase("B3", took):
-        b3 = check_b3(torch, dev, cfg, lcfg)
+        b3 = check_b3(torch, dev, cfg, fams)
     with phase("B4", took):
-        b4 = check_b4(torch, dev, cfg, lcfg)
+        b4 = check_b4(torch, dev, cfg, fams)
     with phase("B5", took):
         b5_step, b5, b5_wide_step = check_b5(torch, dev, cfg)
     with phase("T1", took):
         t1_step, t1, t1_flush = check_t1(torch, dev, cfg)
     with phase("T2", took):
         t2_step, t2 = check_t2(torch, dev, cfg)
-    with phase("B1 and T1 at the Llama shapes", took):
-        (b1_llama_step, b1_llama), (t1_llama_step, t1_llama) = check_llama_linears(
-            torch, dev, lcfg)
+    fam_linears = {}  # family -> ((B1 step, cases), (T1 step, cases))
+    for seed, (family, fcfg) in zip((22, 24, 26), fams.items()):
+        with phase(f"B1 and T1 at the {family} shapes", took):
+            fam_linears[family] = check_family_linears(torch, dev, fcfg, family, seed)
 
     by_path, tok_s = {}, {}
     for spec in path_specs(cfg):
@@ -1766,21 +1821,24 @@ def main() -> int:
         f"sbfp / baseline {tok_s['sbfp'] / tok_s['baseline']:.4f}, "
         f"sbfp_wide / baseline {tok_s['sbfp_wide'] / tok_s['baseline']:.4f}, "
         f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}")
-    kv_repeat_ms = next(c["repeat_ms"] for c in b3 if "repeat_ms" in c)
-    for spec in llama_path_specs(lcfg):
-        name = spec["name"]
-        if "flash_attention" in spec["prefill"]:
-            spec["kv_repeat_ms"] = kv_repeat_ms
-        with phase(f"{name} path", took):
-            by_path[name], tok_s[name] = serve_path(torch, dev, kernels, lcfg, spec)
-        log(f"{name} path: decode {tok_s[name]:.1f} tokens/s on {card}")
-        if spec.get("record_t2"):
-            with phase(f"T2 at the {name} sites", took):
-                t2_llama_step, t2_llama = check_t2_sites(torch, dev, spec["t2_sites"],
-                                                         spec["t2_step"], name)
-    log(f"bench.py's ratio for llama-1.1b, for information (host clock, batch {BATCH}, {card}): "
-        f"weights / baseline {tok_s['llama_weights'] / tok_s['llama_baseline']:.4f}, "
-        f"basic / baseline {tok_s['llama_basic'] / tok_s['llama_baseline']:.4f}")
+    kv_repeat_ms = {c["path"]: c["repeat_ms"] for c in b3 if "repeat_ms" in c}
+    fam_t2 = {}  # family -> (T2's per-step numbers, cases) at its BASIC path's sites
+    for family, fcfg in fams.items():
+        for spec in family_path_specs(fcfg, family):
+            name = spec["name"]
+            if "flash_attention" in spec["prefill"]:
+                spec["kv_repeat_ms"] = kv_repeat_ms[family]
+            with phase(f"{name} path", took):
+                by_path[name], tok_s[name] = serve_path(torch, dev, kernels, fcfg, spec)
+            log(f"{name} path: decode {tok_s[name]:.1f} tokens/s on {card}")
+            if spec.get("record_t2"):
+                with phase(f"T2 at the {name} sites", took):
+                    fam_t2[family] = check_t2_sites(torch, dev, spec["t2_sites"],
+                                                    spec["t2_step"], name)
+        log(f"bench.py's ratio for the {family} family, for information (host clock, batch "
+            f"{BATCH}, {card}): weights / baseline "
+            f"{tok_s[f'{family}_weights'] / tok_s[f'{family}_baseline']:.4f}, basic / baseline "
+            f"{tok_s[f'{family}_basic'] / tok_s[f'{family}_baseline']:.4f}")
     with phase("engine paths", took):
         by_path.update(engine_paths(torch, dev, kernels, cfg, card))
     log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
@@ -1796,13 +1854,16 @@ def main() -> int:
     # top-level times: B1, B5, T1 and T2 per launch over one decode step's
     # launches (B5's on the sbfp path, its tensor-core route; its f32 route's
     # over a sbfp_wide step under f32_route_step; B1's, T1's and T2's over a
-    # Llama step under llama_step), B2, B3 and B4 at their OPT path's shape
-    # (their first case)
+    # step of each Llama-topology family under <family>_step), B2, B3 and B4
+    # at their OPT path's shape (their first case)
+    b1_fam = [c for f in fams for c in fam_linears[f][0][1]]
+    t1_fam = [c for f in fams for c in fam_linears[f][1][1]]
+    t2_fam = [c for f in fams for c in fam_t2[f][1]]
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:53", **launches("bfp_linear"),
-             max_abs_err=max(c["max_abs_err"] for c in b1 + b1_llama), **b1_step,
-             llama_step=b1_llama_step, cases=b1 + b1_llama),
+             max_abs_err=max(c["max_abs_err"] for c in b1 + b1_fam), **b1_step,
+             **{f"{f}_step": fam_linears[f][0][0] for f in fams}, cases=b1 + b1_fam),
         dict(name="flash_decode_int8", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_decode_int8.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",
@@ -1826,11 +1887,13 @@ def main() -> int:
         dict(name="bfp_linear_bf16", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/bfp_linear_bf16.cu",
              replaces="tools/diag_bfpkernel_ab.py:30", **launches("bfp_linear_bf16"),
-             max_abs_err=max(c["max_abs_err"] for c in t1 + t1_llama), **t1_step,
-             llama_step=t1_llama_step, subnormal_weights=t1_flush, cases=t1 + t1_llama),
+             max_abs_err=max(c["max_abs_err"] for c in t1 + t1_fam), **t1_step,
+             **{f"{f}_step": fam_linears[f][1][0] for f in fams}, subnormal_weights=t1_flush,
+             cases=t1 + t1_fam),
         dict(name="bfp_cast", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_cast.cu",
              replaces="tools/probe_fused_cast.py:9", **launches("bfp_cast"),
-             max_abs_err=0.0, **t2_step, llama_step=t2_llama_step, cases=t2 + t2_llama),
+             max_abs_err=0.0, **t2_step, **{f"{f}_step": fam_t2[f][0] for f in fams},
+             cases=t2 + t2_fam),
     ]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -44,6 +44,9 @@ _A = ApproximationFunction.from_shorthand
 default_approx = SimpleNamespace(
     RELU=_A("NONE"),
     SILU=_A("SILU[vsimd]{}()"),
+    GELU=_A("NONE"),
+    QUICK_GELU=_A("QUICK_GELU[vsimd]{}()"),
+    TANH=_A("NONE"),
     SOFTMAX=_A("SOFTMAX[vsimd]{input_clamp=-100}(max_adjust=0.1141)"),
     LAYER_NORM=_A("LAYER_NORM[vsimd]{}()"),
     RMS_NORM=_A("RMS_NORM[vsimd]{}()"),
@@ -88,13 +91,17 @@ def _rules_for(io_fmt, linear_fmt, bias_fmt, out_fmt, approx):
 config_rules = SimpleNamespace(
     BASELINE=_rules_for(
         format.SAME, format.SAME, format.SAME, format.SAME,
-        approx=[((nn.ReLU, nn.SiLU, nn.Softmax, nn.LayerNorm), default_approx.NONE, 1, 1)],
+        approx=[((nn.ReLU, nn.GELUBase, nn.SiLU, nn.Tanh, nn.Softmax, nn.LayerNorm),
+                 default_approx.NONE, 1, 1)],
     ),
     BASIC=_rules_for(
         format.FLOAT16, format.BFP16_64, format.BFP32_1, format.FLOAT16,
         approx=[
             ((nn.ReLU,), default_approx.RELU, 1, 1),
+            ((nn.GELUBase,), default_approx.GELU, 1, 1),
+            ((nn.QuickGELU,), default_approx.QUICK_GELU, 1, 1),
             ((nn.SiLU,), default_approx.SILU, 1, 1),
+            ((nn.Tanh,), default_approx.TANH, 1, 1),
             ((nn.Softmax,), default_approx.SOFTMAX, 1, 1),
             ((nn.LayerNorm,), default_approx.LAYER_NORM, 1, 1),
             ((nn.RMSNorm,), default_approx.RMS_NORM, 1, 1),

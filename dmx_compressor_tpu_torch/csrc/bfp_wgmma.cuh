@@ -106,6 +106,13 @@ constexpr int CONSUMER_REGS = 232;  // to the consumers (128 x 40 + 256 x 232 <=
 constexpr int SMS = 132;  // H100 SXM
 constexpr int MAX_CLUSTER = 8;
 constexpr int EXP_AHEAD = 4;  // stages ahead that a consumer loads its exponents
+// the most K chunks (of BK) that one block's accumulators take: the tensor
+// cores truncate every add into an accumulator, so its error grows with the
+// adds it takes (at Gemma's down_proj prefill, K 16384 in one block, B1 was
+// 4.7e-4 off its plain version against 1e-4 + 1e-5 |y|); a longer K is
+// split over the cluster, whose partial tiles are summed in rounded f32
+// adds.  96 chunks (K 6144) leave every OPT, Llama and Qwen3 shape as it was
+constexpr int ACC_CHUNKS = 96;
 // each consumer warp's epilogue buffer: 8 tokens x 16 features, rows padded
 // to 20 floats (the lanes' writes fall in distinct banks, rows stay 16-byte
 // aligned)
@@ -1069,6 +1076,9 @@ cudaError_t launch_main(EncodeTiled encode, const void* man, const typename W::S
   const int tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);
   const int nchunks = Kp / BK;
   int ks = k_splits(tiles, nchunks, SMS);
+  const int acc_splits = (nchunks + ACC_CHUNKS - 1) / ACC_CHUNKS;
+  if (acc_splits > MAX_CLUSTER) return cudaErrorInvalidValue;
+  ks = ks > acc_splits ? ks : acc_splits;
   const int per = (nchunks + ks - 1) / ks;
   ks = (nchunks + per - 1) / per;
 

@@ -5,7 +5,7 @@
 // TPU Pallas kernel behind flash_attention).
 //
 // out = softmax(q . k^T * scale + bias) . v over [BH, L, D] queries and
-// [BH, S, D] keys/values, D 32 or 64, optionally causal with the diagonal at
+// [BH, S, D] keys/values, D 32, 64, 128 or 256, optionally causal with the diagonal at
 // offset S - L (row i sees keys j <= i + S - L), optional additive bias
 // [BH, L, S].
 //
@@ -39,6 +39,27 @@
 // shared memory.  Causal key tiles past the block's last row are skipped,
 // and a warp skips the 8-key column groups and 16-key steps past its own
 // last row.  The output is divided by max(l, 1e-30).
+//
+// Head dims 128 and 256 (Qwen3, Gemma) take flash_attention_wide_kernel:
+// the q planes of a warp in registers would take 96 (D 128) or 192 (D 256)
+// registers a thread on top of the output accumulator's 64 / 128, and the
+// f32 staging and planes of 64-key tiles 333 KB of shared memory at D 256.
+// So the wide kernel keeps the block's q planes in shared memory (read as
+// A fragments with ldmatrix at each k16 step), takes 32-key tiles split
+// straight from global memory into planes (no f32 staging, no cp.async;
+// each thread issues all of its K and V loads of a tile before its first
+// split, which took 28-30 % off the kernel on an H100 against a load, split
+// and store per float4 (PERF.md); keeping the next tile's rows in
+// registers through the products as well gained 0-4 % more at 255
+// registers, and was left out), and gives each warp 128 output columns: at D 256 two warps share a
+// group of 16 query rows, each computing the group's logits and softmax
+// (the same values) and half of P . v.  A block is 8 warps over 128 (D 128)
+// or 64 (D 256) queries, 153 or 198 KB of shared memory, one block an SM.
+// Over 16 k16 steps (D 256) the largest plane product (hh) accumulates
+// apart from the five smaller ones: the tensor cores truncate each add
+// into an f32 accumulator, and the small products' sum carries that loss
+// only at 2^-8 of the logit's size (the wgmma mainloop's repair, ROADMAP
+// Queue C fault 2).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -326,6 +347,261 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// head dims 128 and 256
+// ---------------------------------------------------------------------------
+
+constexpr int WBKEY = 32;  // keys per tile
+
+template <int D>
+struct Wide {
+  static constexpr int DS = D / 128;            // warps sharing a group of 16 rows
+  static constexpr int DO = D / DS;             // output columns a warp: 128
+  static constexpr int BQ = 16 * WARPS / DS;    // queries a block
+  static constexpr int ROW = D + PAD;           // bf16 per plane row
+  static constexpr int QPLANE = BQ * ROW;       // bf16 per q plane
+  static constexpr int KPLANE = WBKEY * ROW;    // bf16 per K or V plane
+  static constexpr int BYTES = (3 * QPLANE + 6 * KPLANE) * 2;
+};
+
+// rows n0 .. n0 + ROWS - 1 of each of the N sources src[n] [*, D] f32
+// (zero at and beyond `limit`) split into their three planes at dst[n]
+// (planes `plane` bf16 apart, rows ROW apart)
+template <int D, int ROWS, int N>
+__device__ __forceinline__ void split_rows(const float* const (&src)[N], int n0, int limit,
+                                           uint16_t* const (&dst)[N], int plane) {
+  constexpr int ROW = D + PAD;
+  constexpr int PER = ROWS * D / 4 / THREADS;  // float4 a thread and source
+  static_assert(ROWS * D / 4 % THREADS == 0, "whole float4 a thread");
+  // every load first, so that all of a thread's rows are in flight at once
+  // (a shared-memory store between two loads would order them: the
+  // compiler cannot tell the generic pointers apart)
+  float4 f[N][PER];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      f[n][it] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n0 + r < limit)
+        f[n][it] = __ldg(reinterpret_cast<const float4*>(src[n] + (size_t)(n0 + r) * D + c));
+    }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      uint32_t a[3], b[3];
+      split_pair(f[n][it].x, f[n][it].y, a);
+      split_pair(f[n][it].z, f[n][it].w, b);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint2*>(dst[n] + p * plane + r * ROW + c) = make_uint2(a[p], b[p]);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ bias,
+                            float* __restrict__ out, int L, int S, float scale, int causal,
+                            int offset) {
+  using W = Wide<D>;
+  constexpr int KD = D / 16;      // k16 steps over the head dim
+  constexpr int NO = W::DO / 8;   // n8 output tiles of a warp
+  constexpr int ROW = W::ROW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* qpl = reinterpret_cast<uint16_t*>(smem);  // q h, m, l
+  uint16_t* kvpl = qpl + 3 * W::QPLANE;                 // K h, m, l, then V h, m, l
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * W::BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, mi = lane >> 3;
+  const int rg = warp / W::DS;      // the warp's group of 16 rows in the block
+  const int c0 = (warp % W::DS) * W::DO;  // the warp's first output column
+  const int r0 = q0 + 16 * rg;
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  const float* kb = k + (size_t)bh * S * D;
+  const float* vb = v + (size_t)bh * S * D;
+  const int kend = causal ? min(S, min(q0 + W::BQ, L) + offset) : S;
+  const int wkend = r0 >= L ? 0 : causal ? min(S, min(r0 + 16, L) + offset) : S;
+
+  {
+    const float* const qs[1] = {q + (size_t)bh * L * D};
+    uint16_t* const qd[1] = {qpl};
+    split_rows<D, W::BQ>(qs, q0, L, qd, W::QPLANE);
+  }
+  // the warp's q rows: A fragments of plane p at k16 step kk from here
+  const uint16_t* qa_base = qpl + (16 * rg + (lane & 15)) * ROW + 8 * (lane >> 4);
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+  for (int t0 = 0; t0 < kend; t0 += WBKEY) {
+    __syncthreads();  // the last tile's planes are read (and the q planes written)
+    {
+      const float* const kvs[2] = {kb, vb};
+      uint16_t* const kvd[2] = {kvpl, kvpl + 3 * W::KPLANE};
+      split_rows<D, WBKEY>(kvs, t0, S, kvd, W::KPLANE);
+    }
+    __syncthreads();
+    const int nk = min(WBKEY, wkend - t0);  // keys of this tile this warp can see
+    if (nk <= 0) continue;                  // warp-uniform
+
+    // s = q . k^T: hh in sh, the five smaller products in sl
+    float sh[4][4], sl[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sh[j][e] = sl[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; kk += 2) {
+      uint32_t a[3][2][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        ldsm_x4(a[p][0], qa_base + p * W::QPLANE + 16 * kk);
+        ldsm_x4(a[p][1], qa_base + p * W::QPLANE + 16 * (kk + 1));
+      }
+#pragma unroll
+      for (int kp = 0; kp < 3; ++kp) {  // k's plane
+        uint32_t b[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (8 * j < nk)
+            ldsm_x4(b[j], kvpl + kp * W::KPLANE + (8 * j + (lane & 7)) * ROW +
+                              16 * (kk + (mi >> 1)) + 8 * (mi & 1));
+#pragma unroll
+        for (int qp = 0; qp + kp < 3; ++qp) {  // q's plane
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (8 * j >= nk) continue;
+            if (qp + kp == 0) {
+              mma_m16n8k16(sh[j], a[qp][0], b[j][0], b[j][1]);
+              mma_m16n8k16(sh[j], a[qp][1], b[j][2], b[j][3]);
+            } else {
+              mma_m16n8k16(sl[j], a[qp][0], b[j][0], b[j][1]);
+              mma_m16n8k16(sl[j], a[qp][1], b[j][2], b[j][3]);
+            }
+          }
+        }
+      }
+    }
+
+    // online softmax, as flash_attention_kernel's
+    float s[4][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rows[e >> 1];
+        const int col = t0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = col < S && (!causal || col <= row + offset);
+        float x = __fmul_rn(__fadd_rn(sl[j][e], sh[j][e]), scale);
+        if (bias != nullptr && ok && row < L)
+          x = __fadd_rn(x, bias[((size_t)bh * L + row) * S + col]);
+        s[j][e] = ok ? x : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(mrow[r], mx[r]);
+      ms[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key so far
+      alpha[r] = expf(mrow[r] - ms[r]);
+      mrow[r] = m_new;
+      lrow[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - ms[e >> 1]);
+        lrow[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+    // o += P . v over this warp's output columns
+#pragma unroll
+    for (int kk = 0; kk < WBKEY / 16; ++kk) {
+      if (16 * kk >= nk) continue;
+      uint32_t pa[3][4];
+      {
+        uint32_t w[4][3];
+        split_finite_pair(s[2 * kk][0], s[2 * kk][1], w[0]);
+        split_finite_pair(s[2 * kk][2], s[2 * kk][3], w[1]);
+        split_finite_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], w[2]);
+        split_finite_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], w[3]);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pa[p][i] = w[i][p];
+      }
+#pragma unroll
+      for (int vp = 0; vp < 3; ++vp) {  // v's plane
+#pragma unroll
+        for (int j = 0; j < NO / 2; ++j) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, kvpl + (3 + vp) * W::KPLANE +
+                               (16 * kk + 8 * (mi & 1) + (lane & 7)) * ROW + c0 +
+                               8 * (2 * j + (mi >> 1)));
+#pragma unroll
+          for (int pp = 0; pp + vp < 3; ++pp) {  // P's plane
+            mma_m16n8k16(o[2 * j], pa[pp], b[0], b[1]);
+            mma_m16n8k16(o[2 * j + 1], pa[pp], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= L) continue;
+    const float inv = 1.f / fmaxf(lrow[r], 1e-30f);
+    float* op = out + ((size_t)bh * L + rows[r]) * D + c0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<float2*>(op + 8 * j) =
+          make_float2(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_wide(const float* q, const float* k, const float* v, const float* bias,
+                        float* out, int BH, int L, int S, float scale, int causal, int offset,
+                        cudaStream_t s) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_attention_wide_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Wide<D>::BYTES);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid((L + Wide<D>::BQ - 1) / Wide<D>::BQ, BH);
+  flash_attention_wide_kernel<D><<<grid, THREADS, Wide<D>::BYTES, s>>>(q, k, v, bias, out, L, S,
+                                                                        scale, causal, offset);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* bias, float* out,
                    int BH, int L, int S, float scale, int causal, int offset, cudaStream_t s) {
@@ -359,6 +635,10 @@ extern "C" int dmx_flash_attention(const void* q, const void* k, const void* v,
       return (int)launch<32>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);
     case 64:
       return (int)launch<64>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);
+    case 128:
+      return (int)launch_wide<128>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);
+    case 256:
+      return (int)launch_wide<256>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -45,7 +45,9 @@
 //   writes its chunk's (m, l, acc[D]) per query head and the last block of
 //   the row to finish (an atomic ticket) merges the chunks in chunk order
 //   (decode_split.cuh): one launch, the same bits on every run.
-// head_dim 32, 64 or 128; CHUNK keys a block, chosen by measurement on the
+// head_dim 32, 64, 128 or 256 (a lane always holds 16 dims of a row, so
+// the registers a thread do not grow with D; at 256 a warp step covers 2
+// keys); CHUNK keys a block, chosen by measurement on the
 // H100 (PERF.md), mirrored by the wrapper's B4_CHUNK.  lengths[b] must be >=
 // 1 (a decode step always has its own key).  The launch error is returned to
 // the caller (cudaGetLastError).
@@ -265,6 +267,9 @@ extern "C" int dmx_flash_decode(const void* q, const void* k, const void* v,
       break;
     case 128:
       launch_d<128>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
+      break;
+    case 256:
+      launch_d<256>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;

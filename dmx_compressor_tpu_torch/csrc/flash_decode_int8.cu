@@ -40,7 +40,9 @@
 //   (decode_split.cuh): one launch.  A merge by a second launch was
 //   measured beside it on the H100 and was slower at the main path's shape
 //   (PERF.md), so it was removed.
-// head_dim 32, 64 or 128; CHUNK = 256 keys, chosen by measurement on the
+// head_dim 32, 64, 128 or 256 (at 256 at most 16 query heads a KV head:
+// the chunk's K and V rows take 139 KB of shared memory there, and each
+// query head 3 KB more); CHUNK = 256 keys, chosen by measurement on the
 // H100 (PERF.md: 64 and 128 were slower at every shape timed), mirrored by
 // the wrapper's B2_CHUNK.  lengths[b] must be >= 1 (a decode step always
 // has its own key).  The launch error is returned to the caller
@@ -265,7 +267,8 @@ extern "C" int dmx_flash_decode_int8(const void* q, const void* k_q, const void*
                                      const void* lengths, void* out, void* part_acc,
                                      void* part_ml, void* tickets, int B, int H, int Hkv, int S,
                                      int D, float scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > 32) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > (D == 256 ? 16 : 32))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
   const int8_t* kp = static_cast<const int8_t*>(k_q);
@@ -287,6 +290,9 @@ extern "C" int dmx_flash_decode_int8(const void* q, const void* k_q, const void*
       break;
     case 128:
       err = launch<128>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, scale, s);
+      break;
+    case 256:
+      err = launch<256>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, scale, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

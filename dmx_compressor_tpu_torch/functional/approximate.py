@@ -3,10 +3,7 @@
 Port of ``dmx_compressor_tpu/functional/approximate.py``.  Shorthand grammar
 ``FUNC[algorithm]{wrapper_params}(extra_params)``.  A configured
 approximation executes the vsimd surrogate of the same name in
-``simd_ops.FUNCTIONS`` (softmax, exp, layer_norm, rms_norm, silu and
-apply_rotary_pos_emb: the ones the BASIC rules configure for OPT and
-Llama); the others (gelu, quick_gelu) are not ported and raise
-``NotImplementedError``.
+``simd_ops.FUNCTIONS``.
 
 Value replacement with the exact op's gradient is
 ``exact + (approx - exact).detach()``.
@@ -133,13 +130,7 @@ class _FunctionApproximation(ApproximationFunction):
             raise ValueError(
                 f"unknown approximation algorithm {self.algorithm} for {self.func_id}"
             )
-        fn = simd_ops.FUNCTIONS.get(self.func_name)
-        if fn is None:
-            raise NotImplementedError(
-                f"{self!r}: the {self.func_name} surrogate is not ported (neither OPT nor "
-                f"Llama uses it)"
-            )
-        return fn(*args, **kwargs, **self.extra_params)
+        return simd_ops.FUNCTIONS[self.func_name](*args, **kwargs, **self.extra_params)
 
     def __repr__(self):
         return (

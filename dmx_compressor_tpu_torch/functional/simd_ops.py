@@ -1,13 +1,12 @@
-"""SIMD-accurate surrogates of the nonlinear ops (the OPT and Llama subset).
+"""SIMD-accurate surrogates of the nonlinear ops.
 
 Port of ``poly2exp``, ``exp``, ``softmax``, ``_tiled_moments``,
-``layer_norm``, ``rms_norm``, ``_sigmoid_via_exp``, ``silu`` and
-``apply_rotary_pos_emb`` of ``dmx_compressor_tpu/functional/simd_ops.py``:
-the same f32 arithmetic written with torch ops (``torch.round`` rounds half
-to even, as ``jnp.round`` does).  They run as plain tensor code on the CPU
-and on the card; the JAX package fuses them with XLA, not with a Pallas
-kernel.  ``gelu`` and ``quick_gelu`` are not ported: neither OPT nor Llama
-uses them.
+``layer_norm``, ``rms_norm``, ``_sigmoid_via_exp``, ``silu``,
+``quick_gelu``, ``gelu`` and ``apply_rotary_pos_emb`` of
+``dmx_compressor_tpu/functional/simd_ops.py``: the same f32 arithmetic
+written with torch ops (``torch.round`` rounds half to even, as
+``jnp.round`` does).  They run as plain tensor code on the CPU and on the
+card; the JAX package fuses them with XLA, not with a Pallas kernel.
 
 Each function returns the approximated output; callers combine it with the
 exact op by value replacement (see approximate.py).
@@ -134,6 +133,24 @@ def silu(x: torch.Tensor, knorm: int = 0, kmax: int = 15) -> torch.Tensor:
     return (xf * _sigmoid_via_exp(xf, knorm=knorm, kmax=kmax)).to(x.dtype)
 
 
+def quick_gelu(x: torch.Tensor, knorm: int = 0, kmax: int = 15) -> torch.Tensor:
+    """QuickGELU surrogate: x * sigmoid(1.702 x) with the poly2 exponential."""
+    xf = x.to(torch.float32)
+    return (xf * _sigmoid_via_exp(1.702 * xf, knorm=knorm, kmax=kmax)).to(x.dtype)
+
+
+def gelu(x: torch.Tensor, approximate: str = "tanh") -> torch.Tensor:
+    """GELU surrogate: the tanh form, tanh(u) = (1 - e) / (1 + e) with e the
+    poly2 exponential of -2|u|."""
+    xf = x.to(torch.float32)
+    c = 0.7978845608028654  # sqrt(2 / pi)
+    u = c * (xf + 0.044715 * xf * xf * xf)
+    e = poly2exp(-2.0 * torch.abs(u))
+    t = (1.0 - e) / (1.0 + e)
+    t = torch.where(u >= 0, t, -t)
+    return (0.5 * xf * (1.0 + t)).to(x.dtype)
+
+
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
     """The last axis split into halves (x1, x2), returned as (-x2, x1)."""
     x1, x2 = torch.chunk(x, 2, dim=-1)
@@ -159,5 +176,7 @@ FUNCTIONS = {
     "layer_norm": layer_norm,
     "rms_norm": rms_norm,
     "silu": silu,
+    "quick_gelu": quick_gelu,
+    "gelu": gelu,
     "apply_rotary_pos_emb": apply_rotary_pos_emb,
 }

@@ -28,14 +28,19 @@ through kernel T1.  Otherwise every packed linear runs ``bfp_linear`` (B1,
 or T1 on bf16-exact activations) or ``sbfp_linear`` (B5).  Under SBFP the
 q/k/v and gate/up projections stay unmerged (``merge_parallel_linears``
 merges only packed BFP linears).
+
+The classes are the Llama-topology base of models/qwen3.py and
+models/gemma.py: a config's ``head_dim`` (where it has one) decouples the
+heads' width from ``hidden_size / num_attention_heads``, and each family
+names its layer plan, norm, MLP and the hooks its deltas need
+(``_qk_norm``, ``_embed_scale``, ``_mask``, ``_plain_causal``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -52,7 +57,10 @@ from ..ops.flash_attention import flash_chunked_prefill, flash_prefill
 from ..ops.flash_decode import cached_attend
 from ..ops.kv_cache import cache_seq_len, make_caches
 from .positions import causal_mask, resolve_positions
-from .shared import FrozenRouting, take_rows
+from .shared import FrozenRouting, load_jax_params, take_rows
+
+__all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
+           "LlamaForCausalLM", "load_jax_params"]
 
 
 @dataclasses.dataclass
@@ -99,18 +107,25 @@ class LlamaConfig:
                    num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64)
 
 
+def head_dim_of(cfg) -> int:
+    """The heads' width: the config's ``head_dim`` where it has one (Qwen3,
+    Gemma), else hidden / heads."""
+    return getattr(cfg, "head_dim", None) or cfg.hidden_size // cfg.num_attention_heads
+
+
 class LlamaAttention(FrozenRouting, nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         d = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
         self.num_kv_heads = cfg.num_key_value_heads
-        self.head_dim = d // cfg.num_attention_heads
+        self.head_dim = head_dim_of(cfg)
+        q_dim = self.num_heads * self.head_dim
         kv_dim = self.num_kv_heads * self.head_dim
-        self.q_proj = nn.Linear(d, d, bias=False, device=device)
+        self.q_proj = nn.Linear(d, q_dim, bias=False, device=device)
         self.k_proj = nn.Linear(d, kv_dim, bias=False, device=device)
         self.v_proj = nn.Linear(d, kv_dim, bias=False, device=device)
-        self.o_proj = nn.Linear(d, d, bias=False, device=device)
+        self.o_proj = nn.Linear(q_dim, d, bias=False, device=device)
         self.apply_rope = rawnn.ApplyRotaryPosEmb()
         self.sdpa = rawnn.ScaledDotProductAttention()
         self.qkv_merged = None
@@ -136,12 +151,19 @@ class LlamaAttention(FrozenRouting, nn.Module):
             return qkv[..., :d], qkv[..., d:d + kv], qkv[..., d + kv:]
         return self.q_proj(x), self.k_proj(x), self.v_proj(x)
 
+    def _qk_norm(self, q, k):
+        """q [B, T, H, D] and k [B, T, Hkv, D] before RoPE: as they are
+        (Qwen3 normalizes them here)."""
+        return q, k
+
     def forward(self, x, cos, sin, attn_mask=None, cache=None,
                 prefill_offset: Optional[int] = None, plain_causal: bool = True):
-        B, T, D = x.shape
+        B, T, _ = x.shape
+        D = self.num_heads * self.head_dim
         _q, _k, _v = self._project_qkv(x)
-        q = self._split(_q, self.num_heads)
-        k = self._split(_k, self.num_kv_heads)
+        q, k = self._qk_norm(_q.reshape(B, T, self.num_heads, self.head_dim),
+                             _k.reshape(B, T, self.num_kv_heads, self.head_dim))
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
         v = self._split(_v, self.num_kv_heads)
         q, k = self.apply_rope(q, k, cos, sin)
         transparent = self.sdpa_is_transparent  # None until frozen: the ops ask
@@ -189,13 +211,18 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
+    attention = LlamaAttention
+    mlp_class = LlamaMLP
+    norm = rawnn.RMSNorm
+    layer_plan = staticmethod(basic_llama_layer_plan)  # the fused BASIC step's check
+
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         d = cfg.hidden_size
-        self.self_attn = LlamaAttention(cfg, device)
-        self.mlp = LlamaMLP(cfg, device)
-        self.input_layernorm = rawnn.RMSNorm(d, eps=cfg.rms_norm_eps, device=device)
-        self.post_attention_layernorm = rawnn.RMSNorm(d, eps=cfg.rms_norm_eps, device=device)
+        self.self_attn = self.attention(cfg, device)
+        self.mlp = self.mlp_class(cfg, device)
+        self.input_layernorm = self.norm(d, eps=cfg.rms_norm_eps, device=device)
+        self.post_attention_layernorm = self.norm(d, eps=cfg.rms_norm_eps, device=device)
         self.resadd1 = rawnn.ResAdd()
         self.resadd2 = rawnn.ResAdd()
 
@@ -203,7 +230,7 @@ class LlamaDecoderLayer(nn.Module):
                 prefill_offset: Optional[int] = None, plain_causal: bool = True):
         if (x.shape[1] == 1 and cache is not None and attn_mask is not None
                 and attn_mask.is_floating_point()):
-            plan = basic_llama_layer_plan(self)
+            plan = self.layer_plan(self)
             if plan is not None:
                 return fused_llama_family_step(self, x, cos, sin, attn_mask, cache, plan,
                                                plain_causal=plain_causal)
@@ -214,39 +241,55 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    decoder_layer = LlamaDecoderLayer
+
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(cfg, device) for _ in range(cfg.num_hidden_layers))
-        self.norm = rawnn.RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, device=device)
+            self.decoder_layer(cfg, device) for _ in range(cfg.num_hidden_layers))
+        self.norm = self.decoder_layer.norm(cfg.hidden_size, eps=cfg.rms_norm_eps, device=device)
         self.rotary_emb = rawnn.RotaryEmbedding(
-            cfg.hidden_size // cfg.num_attention_heads, cfg.max_position_embeddings,
-            base=cfg.rope_theta, device=device)
+            head_dim_of(cfg), cfg.max_position_embeddings, base=cfg.rope_theta, device=device)
+
+    def _embed_scale(self, x):
+        """The embedding's output as it enters the first layer (Gemma
+        scales it)."""
+        return x
+
+    def _mask(self, T, S, position_offset, dtype, device):
+        """The additive mask (Qwen3 bands it with its sliding window)."""
+        return causal_mask(T, S, position_offset, dtype, device)
+
+    def _plain_causal(self) -> bool:
+        """Whether the mask is the plain causal one, so the flash kernels
+        may serve it (False under a sliding window)."""
+        return True
 
     def forward(self, input_ids, caches=None, position_offset=0,
                 apply_final_norm: bool = True):
         B, T = input_ids.shape
         device = input_ids.device
-        x = take_rows(self.embed_tokens, input_ids)
+        x = self._embed_scale(take_rows(self.embed_tokens, input_ids))
         pos, _ = resolve_positions(T, position_offset, device)
         cos, sin = self.rotary_emb(x, pos)
         if caches is not None:
-            mask = causal_mask(T, cache_seq_len(caches[0]), position_offset, x.dtype, device)
+            mask = self._mask(T, cache_seq_len(caches[0]), position_offset, x.dtype, device)
         else:
-            mask = causal_mask(T, T, 0, x.dtype, device)
+            mask = self._mask(T, T, 0, x.dtype, device)
+        plain = self._plain_causal()
         # a prefill (T > 1 at one offset for the batch) from 0, or a chunk
-        # at a later offset over a cache
+        # at a later offset over a cache; a banded mask takes neither
         prefill_offset = (
             position_offset
-            if (T > 1 and isinstance(position_offset, int)
+            if (plain and T > 1 and isinstance(position_offset, int)
                 and (position_offset == 0 or caches is not None))
             else None
         )
         for i, layer in enumerate(self.layers):
             x = layer(x, cos, sin, attn_mask=mask, cache=None if caches is None else caches[i],
-                      prefill_offset=prefill_offset)
+                      prefill_offset=prefill_offset, plain_causal=plain)
         return self.norm(x) if apply_final_norm else x
 
 
@@ -259,12 +302,15 @@ class LlamaForCausalLM(nn.Module):
     embedding, unit RMSNorm scales); :func:`load_jax_params` replaces
     them."""
 
+    base_model = LlamaModel
+    gemma_norm = False  # the final norm's (1 + w) form, for the fused head
+
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.model = LlamaModel(cfg, device)
-        if cfg.tie_word_embeddings:
+        self.model = self.base_model(cfg, device)
+        if getattr(cfg, "tie_word_embeddings", True):
             self.lm_head = rawnn.TiedLinear(self.model.embed_tokens)
         else:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, device=device)
@@ -280,12 +326,14 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, caches=None, position_offset=0):
         if input_ids.shape[1] == 1 and caches is not None:
-            plan = basic_rms_head_plan(self.model.norm, self.lm_head)
+            plan = basic_rms_head_plan(self.model.norm, self.lm_head,
+                                       gemma_norm=self.gemma_norm)
             if plan is not None:
                 # BASIC decode: the final RMSNorm folds into the head
                 h = self.model(input_ids, caches=caches, position_offset=position_offset,
                                apply_final_norm=False)
-                return fused_rms_head(h, self.model.norm, self.lm_head, plan)
+                return fused_rms_head(h, self.model.norm, self.lm_head, plan,
+                                      gemma_norm=self.gemma_norm)
         h = self.model(input_ids, caches=caches, position_offset=position_offset)
         return self.lm_head(h)
 
@@ -297,46 +345,6 @@ class LlamaForCausalLM(nn.Module):
         cfg = self.cfg
         return make_caches(
             cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len,
-            cfg.hidden_size // cfg.num_attention_heads, dtype or cfg.dtype,
+            head_dim_of(cfg), dtype or cfg.dtype,
             quantized=quantized, split_base_len=split_base_len, device=device, per_row=per_row,
         )
-
-
-def load_jax_params(model: LlamaForCausalLM, params: Dict[str, np.ndarray]) -> None:
-    """Copy the raw JAX Llama's weights into a raw port model, in place.
-
-    ``params`` is the JAX model's flattened nnx state, dotted path -> numpy
-    array (``model.layers.0.self_attn.q_proj.kernel`` ...).
-    ``nnx.Linear.kernel`` [in, out] becomes ``weight`` [out, in];
-    ``Embed.embedding`` and ``RMSNorm.weight`` are copied as they are, and
-    ``rotary_emb.inv_freq`` into its buffer.  A tied head stays tied to
-    ``embed_tokens`` (nnx may list the shared table under
-    ``lm_head.embed_ref``).  Every parameter of the port must be covered,
-    and every array must be used."""
-    own = dict(model.named_parameters())
-    buffers = dict(model.named_buffers())
-    seen = set()
-    with torch.no_grad():
-        for path, arr in params.items():
-            *mod, leaf = path.split(".")
-            if mod == ["lm_head", "embed_ref"]:
-                mod = ["model", "embed_tokens"]
-            value = torch.tensor(np.asarray(arr, dtype=np.float32))
-            if leaf == "inv_freq":
-                name, target = path, buffers.get(path)
-            else:
-                if leaf == "kernel":
-                    value = value.T
-                elif leaf not in ("weight", "embedding"):
-                    raise KeyError(f"{path}: unknown leaf {leaf!r}")
-                name = ".".join(mod + ["weight"])
-                target = own.get(name)
-            if target is None:
-                raise KeyError(f"{path}: no parameter {name} in the port model")
-            if tuple(value.shape) != tuple(target.shape):
-                raise ValueError(f"{path}: shape {tuple(value.shape)} != {tuple(target.shape)}")
-            target.copy_(value)
-            seen.add(name)
-    missing = (set(own) | {b for b in buffers if b.endswith("inv_freq")}) - seen
-    if missing:
-        raise KeyError(f"parameters not in params: {sorted(missing)}")

@@ -22,9 +22,10 @@ def resolve_positions(T: int, position_offset, device=None):
     return (torch.arange(T, device=device) + position_offset)[None], False
 
 
-def causal_mask(T: int, S: int, position_offset, dtype, device=None):
+def causal_mask(T: int, S: int, position_offset, dtype, device=None, sliding_window=None):
     """Additive causal mask: [T, S] for a shared offset, [B, 1, T, S] for
-    per-row offsets."""
+    per-row offsets; banded where ``sliding_window`` is set (a query at p
+    sees the keys in (p - sliding_window, p], Mistral's window)."""
     if is_per_row(position_offset):
         off = position_offset.to(torch.int64)
         device = off.device
@@ -34,5 +35,7 @@ def causal_mask(T: int, S: int, position_offset, dtype, device=None):
         qpos = (torch.arange(T, device=device) + position_offset)[:, None]
         k = torch.arange(S, device=device)[None, :]
     keep = k <= qpos
+    if sliding_window is not None:
+        keep = keep & (k > qpos - sliding_window)
     zeros = torch.zeros(keep.shape, dtype=dtype, device=device)
     return zeros.masked_fill(~keep, -1e4)

@@ -1,12 +1,14 @@
 """What the decoder families share: the embedding lookup with ``jnp.take``'s
-semantics, the attention modules' frozen routing check, and greedy prefill /
+semantics, the attention modules' frozen routing check, greedy prefill /
 decode (bench.py:252-302) over any model called as
-``model(ids, caches=, position_offset=)``."""
+``model(ids, caches=, position_offset=)``, and the loading of a raw JAX
+Llama-topology model's weights."""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -66,3 +68,44 @@ def greedy_decode(model: nn.Module, caches: List, tok: torch.Tensor, start: int,
         tok = greedy_token(logits[:, -1])
         toks.append(tok)
     return torch.stack(toks, dim=1), torch.stack(rows)
+
+
+def load_jax_params(model: nn.Module, params: Dict[str, np.ndarray]) -> None:
+    """Copy a raw JAX Llama-topology model's weights (Llama, Qwen3, Gemma)
+    into the raw port model of its family, in place.
+
+    ``params`` is the JAX model's flattened nnx state, dotted path -> numpy
+    array (``model.layers.0.self_attn.q_proj.kernel`` ...).
+    ``nnx.Linear.kernel`` [in, out] becomes ``weight`` [out, in];
+    ``Embed.embedding`` and ``RMSNorm.weight`` are copied as they are, and
+    ``rotary_emb.inv_freq`` into its buffer.  A tied head stays tied to
+    ``embed_tokens`` (nnx may list the shared table under
+    ``lm_head.embed_ref``).  Every parameter of the port must be covered,
+    and every array must be used."""
+    own = dict(model.named_parameters())
+    buffers = dict(model.named_buffers())
+    seen = set()
+    with torch.no_grad():
+        for path, arr in params.items():
+            *mod, leaf = path.split(".")
+            if mod == ["lm_head", "embed_ref"]:
+                mod = ["model", "embed_tokens"]
+            value = torch.tensor(np.asarray(arr, dtype=np.float32))
+            if leaf == "inv_freq":
+                name, target = path, buffers.get(path)
+            else:
+                if leaf == "kernel":
+                    value = value.T
+                elif leaf not in ("weight", "embedding"):
+                    raise KeyError(f"{path}: unknown leaf {leaf!r}")
+                name = ".".join(mod + ["weight"])
+                target = own.get(name)
+            if target is None:
+                raise KeyError(f"{path}: no parameter {name} in the port model")
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f"{path}: shape {tuple(value.shape)} != {tuple(target.shape)}")
+            target.copy_(value)
+            seen.add(name)
+    missing = (set(own) | {b for b in buffers if b.endswith("inv_freq")}) - seen
+    if missing:
+        raise KeyError(f"parameters not in params: {sorted(missing)}")

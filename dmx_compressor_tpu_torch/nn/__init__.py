@@ -1,14 +1,22 @@
-"""Dmx op modules (the OPT and Llama subset of the JAX package's zoo)."""
+"""Dmx op modules (the subset of the JAX package's zoo that the ported families use)."""
 
 from .core import DmxModule
 from .modules import (
     ActActMatMul,
     ApplyRotaryPosEmb,
     Dropout,
+    BloomGELU,
+    ClippedGELU,
     Embedding,
+    FastGELU,
+    GELU,
+    GELUBase,
+    GemmaRMSNorm,
     LayerNorm,
     Linear,
     Mul,
+    NewGELU,
+    QuickGELU,
     ReLU,
     ResAdd,
     RMSNorm,
@@ -16,4 +24,5 @@ from .modules import (
     ScaledDotProductAttention,
     SiLU,
     Softmax,
+    Tanh,
 )

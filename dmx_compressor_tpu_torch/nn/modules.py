@@ -1,9 +1,10 @@
-"""The Dmx op modules of the OPT and Llama subset.
+"""The Dmx op modules of the ported families (OPT, Llama, Qwen3, Gemma).
 
-Port of the OPT and Llama subset of ``dmx_compressor_tpu/nn/modules.py``:
-Linear, Embedding, LayerNorm, RMSNorm, ResAdd, Mul, ActActMatMul, Softmax,
-Dropout, ReLU, SiLU, ApplyRotaryPosEmb, RotaryEmbedding and the compound
-ScaledDotProductAttention.  Each follows the DmxModule pipeline
+Port of that subset of ``dmx_compressor_tpu/nn/modules.py``: Linear,
+Embedding, LayerNorm, RMSNorm, GemmaRMSNorm, ResAdd, Mul, ActActMatMul,
+Softmax, Dropout, ReLU, SiLU, Tanh, the GELU family (GELUBase, GELU,
+NewGELU, FastGELU, QuickGELU, BloomGELU, ClippedGELU), ApplyRotaryPosEmb,
+RotaryEmbedding and the compound ScaledDotProductAttention.  Each follows the DmxModule pipeline
 (nn/core.py) and declares the same cast topology as its JAX counterpart:
 
 - Linear: weight [out, in]; input and weight casts block along the last
@@ -178,6 +179,65 @@ class SiLU(_Activation):
         return torch.nn.functional.silu(x)
 
 
+class Tanh(_Activation):
+    def _raw_forward(self, x):
+        return rawnn.tanh(x)
+
+
+class GELUBase(_Activation):
+    """The base of every GELU flavour: ``jax.nn.gelu``'s tanh form where
+    ``approximate`` is "tanh", else the exact (erfc) one (``rawnn.gelu``:
+    its tanh is XLA's, bit for bit)."""
+
+    approximate: str = "none"
+
+    def _raw_forward(self, x):
+        return rawnn.gelu(x, self.approximate == "tanh")
+
+
+class GELU(GELUBase):
+    def __init__(self, approximate: str = "none"):
+        self.approximate = approximate
+        super().__init__()
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls(approximate=getattr(raw, "approximate", "none"))
+
+
+class NewGELU(GELUBase):
+    approximate = "tanh"
+
+
+class FastGELU(GELUBase):
+    def _raw_forward(self, x):
+        return 0.5 * x * (1.0 + rawnn.tanh(x * 0.7978845608 * (1.0 + 0.044715 * x * x)))
+
+
+class QuickGELU(GELUBase):
+    def _raw_forward(self, x):
+        return x * torch.sigmoid(1.702 * x)
+
+
+class BloomGELU(GELUBase):
+    approximate = "tanh"
+
+
+class ClippedGELU(GELUBase):
+    def __init__(self, min=-10, max=10):
+        self.min, self.max = min, max
+        super().__init__()
+
+    def _raw_forward(self, x):
+        return torch.clamp(rawnn.gelu(x, True), self.min, self.max)
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        if raw is not None and hasattr(raw, "min"):
+            return cls(raw.min, raw.max)
+        return cls()
+
+
 class Softmax(DmxModule):
     """Softmax with an approximation hook."""
 
@@ -303,6 +363,39 @@ class RMSNorm(DmxModule):
 
     @classmethod
     def from_raw(cls, raw: rawnn.RMSNorm) -> "RMSNorm":
+        mod = cls(raw.weight.shape[-1], eps=raw.eps, device="meta")
+        mod.weight = raw.weight
+        return mod
+
+
+class GemmaRMSNorm(RMSNorm):
+    """The (1 + weight) RMSNorm of Gemma; the weight starts at zero."""
+
+    def __init__(self, normalized_shape: Union[int, Sequence[int]], eps: float = 1e-6,
+                 device=None):
+        super().__init__(normalized_shape, eps=eps, device=device)
+        with torch.no_grad():
+            self.weight.zero_()
+
+    def functional_forward(self, x, normalized_shape, weight, eps):
+        xf = x.to(torch.float32)
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps)
+        if weight is not None:
+            y = y * (1.0 + weight.to(torch.float32))
+        return y.to(x.dtype)
+
+    def approximator_wrapper(self, inputs, approx_args, approx_kwargs, **wrapper_kwargs):
+        """The RMS_NORM surrogate multiplies by its weight argument, so it is
+        handed 1 + w (w through the weight casts first, as the exact branch
+        sees it)."""
+        normalized_shape, weight, eps = approx_args
+        if weight is not None:
+            weight = 1.0 + weight.to(torch.float32)
+        return self.approximator(*inputs, normalized_shape, weight, eps, **approx_kwargs)
+
+    @classmethod
+    def from_raw(cls, raw: rawnn.GemmaRMSNorm) -> "GemmaRMSNorm":
         mod = cls(raw.weight.shape[-1], eps=raw.eps, device="meta")
         mod.weight = raw.weight
         return mod

@@ -1,12 +1,14 @@
-"""Decode-regime fused layer steps for BASIC mode (the OPT and Llama subset).
+"""Decode-regime fused layer steps for BASIC mode (the OPT and the
+Llama-topology families: Llama, Qwen3, Gemma).
 
 Port of ``layer_norm_surrogate_fp16``, ``resadd_fp16``, ``fused_ln_linear``,
-``rms_norm_surrogate_fp16``, ``silu_surrogate_fp16``,
+``rms_norm_surrogate_fp16``, ``silu_surrogate_fp16``, ``gelu_tanh_fp16``,
 ``rope_surrogate_fp16``, ``fused_rms_linear``, ``fused_llama_family_step``,
 ``BasicLayerPlan``, ``_linear_basic_ok``, ``_fp16_io_ok``, ``BasicHeadPlan``,
 ``basic_head_plan``, ``fused_rms_head``, ``basic_rms_head_plan``,
 ``BasicLlamaPlan``, ``_casts_same_ok``, ``_llama_family_plan``,
-``basic_llama_layer_plan`` and ``basic_layer_plan`` of
+``basic_llama_layer_plan``, ``basic_gemma_layer_plan``,
+``basic_qwen3_layer_plan`` and ``basic_layer_plan`` of
 ``dmx_compressor_tpu/ops/basic_layer.py``.  One fused OPT decode step
 (models/opt.py ``OPTDecoderLayer._fused_basic_step``):
 
@@ -24,14 +26,14 @@ matmuls and their FLOAT16 / ResAdd epilogues through kernel T1, the
 LAYER_NORM[vsimd] surrogate as functional/simd_ops.layer_norm (tile_size
 None, the Newton-refined rsqrt) in plain torch, ReLU folded after fc1's
 output cast (max(., 0) of fp16-grid values stays on the grid, so the ReLU
-module's own FLOAT16 casts are identities).  One fused Llama decode step
-(:func:`fused_llama_family_step`): RMS1 + merged qkv / the RoPE surrogate /
-the fused split-cache SDPA (GQA) / o_proj / resadd1 + RMS2 + merged gate-up
-/ SiLU * up / down_proj + resadd2, the RMS_NORM[vsimd] and SILU[vsimd]
-surrogates in plain torch.  The Gemma, Qwen3 and GPT-2 plans of the JAX
-module and ``gelu_tanh_fp16`` wait for their families; ``BasicLlamaPlan``
-carries their fields (``gemma_norm``, ``act``, ``qk_norm_eps``), which the
-fused step refuses.
+module's own FLOAT16 casts are identities).  One fused decode step of a
+Llama-topology layer (:func:`fused_llama_family_step`): RMS1 + merged qkv /
+[Qwen3: the per-head q / k RMS surrogates] / the RoPE surrogate / the
+fused split-cache SDPA (GQA) / o_proj / resadd1 + RMS2 + merged gate-up /
+SiLU (Gemma: tanh-GELU) * up / down_proj + resadd2, the RMS_NORM[vsimd]
+and SILU[vsimd] surrogates in plain torch, Gemma's (1 + w) norm weights
+folded as its module folds them.  The GPT-2 plan of the JAX module waits
+for its family.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import rawnn
 from ..functional import simd_ops
 from ..numerics.format import _FLOAT16_REPR, BlockFloatingPoint
 from .basic_linear import _fp16_cast_f32, fused_basic_linear
@@ -138,6 +141,17 @@ def silu_surrogate_fp16(x: torch.Tensor, kmax: int = 15, on_grid: bool = False) 
     return _fp16_cast_f32(simd_ops.silu(x16, 0, kmax))
 
 
+def gelu_tanh_fp16(x: torch.Tensor, on_grid: bool = False) -> torch.Tensor:
+    """FLOAT16 input cast + the exact tanh-GELU + FLOAT16 output cast: the
+    BASIC rule set leaves GELUBase at approximation NONE, so the module
+    computes the raw function (``jax.nn.gelu``'s tanh form) between its
+    FLOAT16 io casts (Gemma's ``gelu_pytorch_tanh`` MLP)."""
+    x16 = x.to(torch.float32)
+    if not on_grid:
+        x16 = _fp16_cast_f32(x16)
+    return _fp16_cast_f32(rawnn.gelu(x16, True))
+
+
 def rope_surrogate_fp16(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                         qk_on_grid: bool = False):
     """ApplyRotaryPosEmb under the BASIC rule set: FLOAT16 casts on its four
@@ -188,31 +202,41 @@ def fused_rms_linear(
 
 def fused_llama_family_step(layer, x, cos, sin, attn_mask, cache, plan,
                             plain_causal: bool = True) -> torch.Tensor:
-    """One fused BASIC decode step of a Llama-topology decoder layer:
-    RMS1 + qkv / RoPE surrogate / fused SDPA (split cache, GQA) / o_proj /
-    resadd1 + RMS2 + gate-up / SiLU * up / down_proj + resadd2, the modular
-    pipeline's numerics up to the f32 summation order of the RMS moments
-    and the matmuls.  The mask is applied additively throughout, so a
-    banded one fuses as a plain causal one does; ``plain_causal`` only
-    steers ``cached_attend``'s flash-decode routing, which BASIC's sdpa
-    never takes."""
+    """One fused BASIC decode step of a Llama-topology decoder layer (Llama,
+    Qwen3, Gemma), driven by the family fields of ``plan``: RMS1 + qkv /
+    [the per-head q / k RMS surrogates (Qwen3)] / RoPE surrogate / fused
+    SDPA (split cache, GQA) / o_proj / resadd1 + RMS2 + gate-up / act * up
+    / down_proj + resadd2, the modular pipeline's numerics up to the f32
+    summation order of the RMS moments and the matmuls.  Gemma's (1 + w)
+    norm weights fold here as its module's approximator_wrapper folds them
+    (the weight through its casts, then 1 + w).  The mask is applied
+    additively throughout, so a banded one fuses as a plain causal one
+    does; ``plain_causal`` only steers ``cached_attend``'s flash-decode
+    routing, which BASIC's sdpa never takes."""
     from .flash_decode import cached_attend
 
-    if plan.gemma_norm or plan.act != "silu" or plan.qk_norm_eps is not None:
-        raise NotImplementedError("the fused step serves the Llama family; the Gemma and "
-                                  "Qwen3 deltas arrive with their families")
+    def norm_w(ln):
+        w = ln._weight
+        return 1.0 + w.to(torch.float32) if plan.gemma_norm else w
+
     B, T, _ = x.shape
     attn, mlp = layer.self_attn, layer.mlp
     merged = attn.qkv_merged
     qkv = fused_rms_linear(x, packed=merged.packed, bias=merged.bias,
-                           rms_w=layer.input_layernorm._weight, eps=plan.ln1_eps,
+                           rms_w=norm_w(layer.input_layernorm), eps=plan.ln1_eps,
                            wl=plan.wl, in_block=plan.block)
     d = attn.num_heads * attn.head_dim
     kv = attn.num_kv_heads * attn.head_dim
     q = attn._split(qkv[..., :d], attn.num_heads)
     k = attn._split(qkv[..., d:d + kv], attn.num_kv_heads)
     v = attn._split(qkv[..., d + kv:], attn.num_kv_heads)
-    # q, k: qkv's FLOAT16 output cast, on the grid
+    if plan.qk_norm_eps is not None:
+        # Qwen3's per-head q / k RMSNorm before RoPE (over head_dim, so the
+        # layout does not matter); q, k: qkv's FLOAT16 output cast, on the
+        # grid, so their input casts are identities and skipped, as RoPE's
+        q = rms_norm_surrogate_fp16(q, attn.q_norm._weight, plan.qk_norm_eps, on_grid=True)
+        k = rms_norm_surrogate_fp16(k, attn.k_norm._weight, plan.qk_norm_eps, on_grid=True)
+    # q, k: on the grid (qkv's, or the q / k norms', FLOAT16 output cast)
     q, k = rope_surrogate_fp16(q, k, cos, sin, qk_on_grid=True)
     ctx = cached_attend(attn.sdpa, q, k, v, cache, attn_mask,
                         enable_gqa=attn.num_kv_heads != attn.num_heads,
@@ -221,12 +245,13 @@ def fused_llama_family_step(layer, x, cos, sin, attn_mask, cache, plan,
     gateup = mlp.gateup_merged
     gu, r = fused_rms_linear(
         y, packed=gateup.packed, bias=gateup.bias,
-        rms_w=layer.post_attention_layernorm._weight, eps=plan.ln2_eps, wl=plan.wl,
+        rms_w=norm_w(layer.post_attention_layernorm), eps=plan.ln2_eps, wl=plan.wl,
         in_block=plan.block, residual=x, emit_pre=True,
         input_on_grid=True,  # y: o_proj's FLOAT16 output cast
     )
     m = mlp.intermediate_size
-    prod = silu_surrogate_fp16(gu[..., :m], on_grid=True) * gu[..., m:]  # Mul: SAME
+    act = silu_surrogate_fp16 if plan.act == "silu" else gelu_tanh_fp16
+    prod = act(gu[..., :m], on_grid=True) * gu[..., m:]  # Mul: SAME
     down = mlp.down_proj
     return fused_basic_linear(
         prod, packed=down.packed, bias=down.bias, in_wl=plan.wl, in_block=plan.block,
@@ -359,12 +384,15 @@ def basic_layer_plan(layer) -> Optional[BasicLayerPlan]:
                           ln1_eps=float(ln1.eps), ln2_eps=float(ln2.eps))
 
 
-def fused_rms_head(h, final_norm, lm_head, plan):
-    """The final RMSNorm and the LM head as one fused chain (the decode tail
-    of the Llama family), the modular ``lm_head(norm(h))``'s numerics.
-    Gemma's (1 + w) variant waits for its family."""
+def fused_rms_head(h, final_norm, lm_head, plan, *, gemma_norm: bool = False):
+    """The final (Gemma)RMSNorm and the LM head as one fused chain (the
+    decode tail of the Llama-topology families), the modular
+    ``lm_head(norm(h))``'s numerics; Gemma's (1 + w) folds as its module
+    folds it."""
+    w = final_norm._weight
     return fused_rms_linear(
-        h, packed=lm_head.packed, bias=lm_head.bias, rms_w=final_norm._weight,
+        h, packed=lm_head.packed, bias=lm_head.bias,
+        rms_w=1.0 + w.to(torch.float32) if gemma_norm else w,
         eps=plan.ln_eps, wl=plan.wl, in_block=plan.block,
         # h: the decoder's final residual, a FLOAT16 resadd output cast on
         # the fused and the modular layer paths
@@ -372,16 +400,19 @@ def fused_rms_head(h, final_norm, lm_head, plan):
     )
 
 
-def basic_rms_head_plan(final_norm, lm_head) -> Optional[BasicHeadPlan]:
+def basic_rms_head_plan(final_norm, lm_head, *, gemma_norm: bool = False
+                        ) -> Optional[BasicHeadPlan]:
     """The RMSNorm analogue of :func:`basic_head_plan`: fuse the decoder's
-    final RMSNorm into the LM head (an exact type match on the norm); None:
-    the modular path."""
+    final (Gemma)RMSNorm into the LM head (an exact type match on the norm,
+    so the (1 + w) variant never crosses with the plain one); None: the
+    modular path."""
     from ..nn import modules as dmxnn
     from ..nn.core import DmxModule
 
     if not DmxModule.inference_mode or DmxModule.plugins:
         return None
-    if type(final_norm) is not dmxnn.RMSNorm or not _fp16_io_ok(final_norm, "rms_norm"):
+    norm_t = dmxnn.GemmaRMSNorm if gemma_norm else dmxnn.RMSNorm
+    if type(final_norm) is not norm_t or not _fp16_io_ok(final_norm, "rms_norm"):
         return None
     if final_norm.weight is None or not _linear_basic_ok(lm_head, require_bias=False):
         return None
@@ -391,11 +422,11 @@ def basic_rms_head_plan(final_norm, lm_head) -> Optional[BasicHeadPlan]:
 
 
 class BasicLlamaPlan(NamedTuple):
-    """Static parameters proving a Llama-family decoder layer is in the
-    exact BASIC decode shape the fused step reproduces.  The other
-    families' deltas are fields: Gemma's ``gemma_norm`` ((1 + w) RMSNorm)
-    and ``act`` ("gelu_tanh"), Qwen3's ``qk_norm_eps`` (per-head q / k
-    RMSNorm before RoPE)."""
+    """Static parameters proving a Llama-topology decoder layer is in the
+    exact BASIC decode shape the fused step reproduces.  The families'
+    deltas are fields: Gemma's ``gemma_norm`` ((1 + w) RMSNorm) and ``act``
+    ("gelu_tanh"), Qwen3's ``qk_norm_eps`` (per-head q / k RMSNorm before
+    RoPE)."""
 
     wl: int
     block: int
@@ -418,13 +449,16 @@ def _casts_same_ok(m) -> bool:
             and isinstance(m.approximator.function, NoApproximation))
 
 
-def _llama_family_plan(layer) -> Optional[BasicLlamaPlan]:
+def _llama_family_plan(layer, *, gemma_norm: bool = False, act: str = "silu",
+                       qk_norm: bool = False) -> Optional[BasicLlamaPlan]:
     """The plan check of a Llama-topology layer: :func:`basic_layer_plan`'s
     surface plus the family's modules: RMSNorms with the RMS_NORM[vsimd]
-    surrogate (an exact type match), SiLU with SILU[vsimd], Mul left SAME,
-    RoPE with APPLY_LLAMA_ROPE[vsimd] and FLOAT16 io on its four inputs and
-    two outputs, merged bias-free qkv and gate-up linears with one shared
-    input format."""
+    surrogate (GemmaRMSNorm where ``gemma_norm``: an exact type match, so
+    the two never cross), the gate activation (SiLU with SILU[vsimd], or
+    tanh-GELU left at approximation NONE by the BASIC rules), Mul left
+    SAME, RoPE with APPLY_LLAMA_ROPE[vsimd] and FLOAT16 io on its four
+    inputs and two outputs, for Qwen3 the per-head q / k RMSNorms, merged
+    bias-free qkv and gate-up linears with one shared input format."""
     from ..nn import modules as dmxnn
     from ..nn.core import DmxModule
 
@@ -438,14 +472,22 @@ def _llama_family_plan(layer) -> Optional[BasicLlamaPlan]:
                for m in (merged, gateup, getattr(attn, "o_proj", None),
                          getattr(mlp, "down_proj", None))):
         return None
+    norm_t = dmxnn.GemmaRMSNorm if gemma_norm else dmxnn.RMSNorm
     ln1, ln2 = layer.input_layernorm, layer.post_attention_layernorm
     for ln in (ln1, ln2):
-        if type(ln) is not dmxnn.RMSNorm or not _fp16_io_ok(ln, "rms_norm") or ln.weight is None:
+        if type(ln) is not norm_t or not _fp16_io_ok(ln, "rms_norm") or ln.weight is None:
             return None
     for ra in (layer.resadd1, layer.resadd2):
         if not isinstance(ra, dmxnn.ResAdd) or not _fp16_io_ok(ra, None):
             return None
-    if not isinstance(mlp.act_fn, dmxnn.SiLU) or not _fp16_io_ok(mlp.act_fn, "silu"):
+    if act == "silu":
+        if not isinstance(mlp.act_fn, dmxnn.SiLU) or not _fp16_io_ok(mlp.act_fn, "silu"):
+            return None
+    elif act == "gelu_tanh":
+        if (not isinstance(mlp.act_fn, dmxnn.GELUBase) or mlp.act_fn.approximate != "tanh"
+                or not _fp16_io_ok(mlp.act_fn, None)):
+            return None
+    else:
         return None
     if not isinstance(mlp.mul, dmxnn.Mul) or not _casts_same_ok(mlp.mul):
         return None
@@ -453,12 +495,22 @@ def _llama_family_plan(layer) -> Optional[BasicLlamaPlan]:
     if not isinstance(rope, dmxnn.ApplyRotaryPosEmb) or not _fp16_io_ok(
             rope, "apply_rotary_pos_emb"):
         return None
+    qk_eps = None
+    if qk_norm:
+        qn, kn = getattr(attn, "q_norm", None), getattr(attn, "k_norm", None)
+        for n in (qn, kn):
+            if type(n) is not dmxnn.RMSNorm or not _fp16_io_ok(n, "rms_norm") or n.weight is None:
+                return None
+        if float(qn.eps) != float(kn.eps):
+            return None
+        qk_eps = float(qn.eps)
     ic = merged.input_casts["input_cast"]
     if any(m.input_casts["input_cast"].format != ic.format
            for m in (gateup, mlp.down_proj, attn.o_proj)):
         return None
     return BasicLlamaPlan(wl=ic.format.precision, block=ic.format.block_size,
-                          ln1_eps=float(ln1.eps), ln2_eps=float(ln2.eps))
+                          ln1_eps=float(ln1.eps), ln2_eps=float(ln2.eps),
+                          gemma_norm=gemma_norm, act=act, qk_norm_eps=qk_eps)
 
 
 def basic_llama_layer_plan(layer) -> Optional[BasicLlamaPlan]:
@@ -466,3 +518,15 @@ def basic_llama_layer_plan(layer) -> Optional[BasicLlamaPlan]:
     compress_for_inference: merged qkv and gate-up) is in the BASIC decode
     shape; None: the modular path."""
     return _llama_family_plan(layer)
+
+
+def basic_gemma_layer_plan(layer) -> Optional[BasicLlamaPlan]:
+    """Gemma's: (1 + w) GemmaRMSNorms and the tanh-GELU gate activation
+    (left at approximation NONE by the BASIC rules)."""
+    return _llama_family_plan(layer, gemma_norm=True, act="gelu_tanh")
+
+
+def basic_qwen3_layer_plan(layer) -> Optional[BasicLlamaPlan]:
+    """Qwen3's: the Llama layer chain plus the per-head q / k RMSNorms
+    before RoPE."""
+    return _llama_family_plan(layer, qk_norm=True)

@@ -24,6 +24,9 @@ from .. import kernels
 from .bfp_linear import split_bf16x3_ref
 
 NEG_INF = -1e30
+# the head dims the kernel takes (32 and 64 one kernel, 128 and 256 its wide
+# form); any other raises on the card
+HEAD_DIMS = (32, 64, 128, 256)
 # the plane products (a's plane, b's plane; 0 = h, 1 = m, 2 = l) that the
 # kernel takes of each of its two products: ml, lm and ll lie below 2^-21
 # of |a||b| per term and are dropped
@@ -87,8 +90,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: [..., L, D]; k, v: [..., S, D]; bias broadcastable to [..., L, S].
     Causal masking puts the diagonal at S - L and needs S >= L.  The kernel
-    takes float32 q, k, v and bias and head_dim 32 or 64, and raises on
-    anything else.
+    takes float32 q, k, v and bias and head_dim 32, 64, 128 or 256, and
+    raises on anything else.
     """
     *lead, L, D = q.shape
     S = k.shape[-2]
@@ -96,8 +99,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"causal attention needs S >= L, got L={L}, S={S}")
     if not kernels.plain_or_kernel(q):
         return flash_attention_ref(q, k, v, bias, scale, causal)
-    if D not in (32, 64):
-        raise ValueError(f"the flash attention kernel takes head_dim 32 or 64, got {D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the flash attention kernel takes head_dim 32, 64, 128 or 256, "
+                         f"got {D}")
     BH = math.prod(lead)
     scale = (D**-0.5) if scale is None else float(scale)
     q2 = q.reshape(BH, L, D).contiguous()

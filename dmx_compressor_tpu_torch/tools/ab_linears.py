@@ -24,7 +24,9 @@ and T1 at the weights path's decode (M = 8) and prefill (M = 1024) shapes
 (merged qkv, out_proj, fc1, fc2, the LM head) and per launch over one
 decode step's 49 launches; B5 likewise at the SBFP path's shapes (q, k, v
 and out_proj unmerged, fc1, fc2, the head; 73 launches a step); B3 at the
-prefill's attention (batch 8 x 12 heads, L = S = 128, D 64, causal); T2 at
+prefill's attention (batch 8 x 12 heads, L = S = 128, D 64, causal) and
+at Qwen3-0.6B's and Gemma-2B's (8 x 16 heads of 128, 8 x 8 of 256) where
+the checkout takes them; T2 at
 the BASIC path's cast sites (the S-blocked tail-v cast, the prefill's
 [1024, 3072] and scores casts, the decode casts, the FLOAT16-then-BFP pairs
 of the fused step: one composed call where the checkout has
@@ -182,14 +184,22 @@ def _linears(torch, dev, g, which) -> dict:
 def _b3(torch, dev, g) -> dict:
     from dmx_compressor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
 
-    shape = (M_PREFILL // 128, H, 128, HEAD)
-    attn_sets = [tuple(torch.randn(shape, generator=g, device=dev) for _ in range(3))
-                 for _ in range(max(2, math.ceil(2 * L2_BYTES / (4 * 4 * math.prod(shape)))))]
-    q, k, v = attn_sets[0]
-    torch.testing.assert_close(flash_attention(q, k, v, causal=True),
-                               flash_attention_ref(q, k, v, causal=True), **B3_TOL)
-    return {"B3": {"x".join(map(str, shape)) + " causal": _device_ms(
-        torch, lambda q, k, v: flash_attention(q, k, v, causal=True), attn_sets)}}
+    times = {}
+    # OPT's prefill, then Qwen3-0.6B's (16 heads of 128) and Gemma-2B's (8
+    # of 256) after flash_prefill's head repeat, where the checkout's kernel
+    # takes that head_dim
+    for shape in [(M_PREFILL // 128, H, 128, HEAD), (8, 16, 128, 128), (8, 8, 128, 256)]:
+        attn_sets = [tuple(torch.randn(shape, generator=g, device=dev) for _ in range(3))
+                     for _ in range(max(2, math.ceil(2 * L2_BYTES / (4 * 4 * math.prod(shape)))))]
+        q, k, v = attn_sets[0]
+        try:
+            got = flash_attention(q, k, v, causal=True)
+        except ValueError:  # a checkout whose kernel refuses this head_dim
+            continue
+        torch.testing.assert_close(got, flash_attention_ref(q, k, v, causal=True), **B3_TOL)
+        times["x".join(map(str, shape)) + " causal"] = _device_ms(
+            torch, lambda q, k, v: flash_attention(q, k, v, causal=True), attn_sets)
+    return {"B3": times}
 
 
 # one BASIC decode step's casts at OPT-125m (batch 8, a 192-slot cache whose

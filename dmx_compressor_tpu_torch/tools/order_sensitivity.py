@@ -7,7 +7,7 @@ through the layers.  A card sums in another order than the CPU, so the
 BASIC path's logits on the card can only be held against a CPU run at a
 tolerance of that size.
 
-This script serves OPT or Llama in BASIC mode (``build_basic_mode``, a
+This script serves OPT, Llama, Qwen3 or Gemma in BASIC mode (``build_basic_mode``, a
 float16 split cache) twice from the same seeded weights and prompt: as is,
 and with every T1 matmul and every LayerNorm, RMSNorm, softmax and
 attention reduction summed in float64 and rounded once.  It prints the
@@ -20,8 +20,10 @@ nearly tie changes every later step):
     python -m dmx_compressor_tpu_torch.tools.order_sensitivity --family llama \\
         --device cpu --layers 4 --vocab 2048 --seeds 0 1
 
-Widths are OPT-125m's, or with ``--family llama`` TinyLlama-1.1B's (bench.py's
-``llama-1.1b``); ``--layers`` and ``--vocab`` cut depth and the vocabulary.
+Widths are OPT-125m's, or bench.py's ``llama-1.1b`` (TinyLlama-1.1B),
+``qwen3-0.6b`` (Qwen3-0.6B) or ``gemma-2b`` (Gemma-2B) with ``--family
+llama``, ``qwen3`` or ``gemma``; ``--layers`` and ``--vocab`` cut depth and
+the vocabulary.
 Without ``--device`` it runs on the card (the first run then goes through
 the kernels).
 """
@@ -35,8 +37,10 @@ from unittest import mock
 import torch
 
 from ..functional import simd_ops
+from ..models.gemma import GemmaConfig, GemmaForCausalLM
 from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..models.opt import OPTConfig, OPTForCausalLM
+from ..models.qwen3 import Qwen3Config, Qwen3ForCausalLM
 from ..models.shared import greedy_decode, greedy_prefill
 from ..ops import basic_attention, basic_layer, basic_linear, compress
 from ..ops.bfp_cast import fp16_cast_ref
@@ -85,6 +89,8 @@ def float64_sums():
 FAMILIES = {
     "opt": (OPTConfig, OPTForCausalLM),
     "llama": (LlamaConfig.llama_1_1b, LlamaForCausalLM),
+    "qwen3": (Qwen3Config.qwen3_0_6b, Qwen3ForCausalLM),
+    "gemma": (GemmaConfig.gemma_2b, GemmaForCausalLM),
 }
 
 

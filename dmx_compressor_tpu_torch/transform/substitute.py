@@ -31,10 +31,18 @@ RAW_OP_MAPPING: Dict[Type, Callable] = {
     rawnn.TiedLinear: dmxnn.Linear.from_tied,
     rawnn.ReLU: dmxnn.ReLU.from_raw,
     rawnn.SiLU: dmxnn.SiLU.from_raw,
+    rawnn.Tanh: dmxnn.Tanh.from_raw,
+    rawnn.GELU: dmxnn.GELU.from_raw,
+    rawnn.NewGELU: dmxnn.NewGELU.from_raw,
+    rawnn.FastGELU: dmxnn.FastGELU.from_raw,
+    rawnn.QuickGELU: dmxnn.QuickGELU.from_raw,
+    rawnn.BloomGELU: dmxnn.BloomGELU.from_raw,
     rawnn.ScaledDotProductAttention: dmxnn.ScaledDotProductAttention.from_raw,
     rawnn.ApplyRotaryPosEmb: dmxnn.ApplyRotaryPosEmb.from_raw,
     rawnn.RotaryEmbedding: dmxnn.RotaryEmbedding.from_raw,
     rawnn.RMSNorm: dmxnn.RMSNorm.from_raw,
+    rawnn.GemmaRMSNorm: dmxnn.GemmaRMSNorm.from_raw,
+    rawnn.ClippedGELU: dmxnn.ClippedGELU.from_raw,
 }
 
 

@@ -93,7 +93,9 @@ B2_SHAPES = [(8, 12, 12, 200, 64, None), (2, 8, 4, 77, 128, None), (3, 4, 4, 33,
              (8, 12, 12, 256, 64, [160] * 8), (8, 12, 12, 2048, 64, [2016 - i for i in range(8)]),
              (8, 12, 12, 256, 64, [1] * 8), (4, 12, 4, 300, 64, [1, 129, 256, 300]),
              (2, 32, 1, 1000, 128, [999, 513]), (4, 12, 4, 600, 64, [1, 200, 599, 600]),
-             (2, 8, 8, 520, 128, [520, 64]), (3, 4, 2, 600, 32, [600, 257, 3])]
+             (2, 8, 8, 520, 128, [520, 64]), (3, 4, 2, 600, 32, [600, 257, 3]),
+             (8, 16, 8, 256, 128, [160] * 8), (8, 8, 1, 256, 256, [160] * 8),
+             (3, 8, 1, 600, 256, None), (2, 16, 1, 300, 256, [300, 1])]
 
 
 def _b2_inputs(cuda, B, H, Hkv, S, D, lengths):
@@ -128,13 +130,19 @@ def test_flash_decode_int8_kernel_matches_plain_on_card(cuda, B, H, Hkv, S, D, l
 # (B, H, L, S, D, causal, with_bias, c): ragged and bias cases, the main
 # path's prefill (8 x 12 heads, L = S = 128, D 64), L and S no multiples of
 # 16 or 64 (one key tile, one ragged 8-key group), and q, k scaled by c = 2
-# so that |q . k| reaches ~100
+# so that |q . k| reaches ~100; then the wide kernel (head_dim 128 and 256):
+# the Qwen3 and Gemma prefills (BH 128 and 64, L = S = 128), ragged, biased,
+# non-causal and scaled cases
 B3_SHAPES = [(4, 3, 128, 128, 64, True, False, 1.0), (4, 3, 48, 200, 64, True, True, 1.0),
              (4, 3, 70, 70, 64, False, False, 1.0), (4, 3, 90, 130, 32, True, False, 1.0),
              (4, 3, 33, 33, 32, False, True, 1.0), (8, 12, 128, 128, 64, True, False, 1.0),
              (2, 3, 7, 9, 64, True, False, 1.0), (2, 3, 13, 61, 32, False, True, 1.0),
              (2, 3, 77, 77, 64, True, True, 1.0), (8, 12, 128, 128, 64, True, False, 2.0),
-             (2, 3, 100, 160, 32, True, True, 2.0)]
+             (2, 3, 100, 160, 32, True, True, 2.0),
+             (8, 16, 128, 128, 128, True, False, 1.0), (8, 8, 128, 128, 256, True, False, 1.0),
+             (2, 3, 7, 9, 128, True, False, 1.0), (2, 3, 77, 130, 256, True, True, 2.0),
+             (2, 3, 50, 50, 128, False, False, 1.0), (1, 2, 200, 333, 256, False, True, 1.0),
+             (2, 3, 90, 130, 128, True, True, 2.0), (8, 8, 128, 128, 256, True, False, 2.0)]
 
 
 @pytest.mark.gpu
@@ -154,8 +162,8 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, L, S, D, causa
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 128), (torch.bfloat16, 64),
-                                     (torch.float16, 64)])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 96), (torch.bfloat16, 64),
+                                     (torch.float16, 64), (torch.float32, 512)])
 def test_flash_attention_kernel_raises_rather_than_falling_back(cuda, dtype, D):
     q = torch.randn(2, 4, 16, D, device=cuda).to(dtype)
     n0 = kernels.LAUNCHES["flash_attention"]
@@ -294,7 +302,8 @@ def _check_b4(q, k, v, lengths):
     (8, 12, 12, 256, 64, False), (3, 8, 2, 256, 64, False), (2, 4, 4, 192, 32, True),
     (2, 8, 8, 200, 128, False), (3, 12, 4, 77, 128, True), (2, 6, 6, 33, 32, False),
     (2, 64, 1, 300, 64, False), (2, 24, 1, 2500, 128, True), (3, 12, 4, 2500, 32, False),
-    (2, 8, 2, 3000, 64, False),
+    (2, 8, 2, 3000, 64, False), (8, 16, 8, 256, 128, False), (8, 8, 1, 256, 256, False),
+    (3, 16, 1, 2500, 256, True), (2, 6, 3, 77, 256, False),
 ])
 def test_flash_decode_kernel_matches_plain_on_card(cuda, B, H, Hkv, S, D, scalar):
     """Ragged rows, GQA (rep 3, 4, 24 and 64), scalar lengths, every
@@ -306,7 +315,7 @@ def test_flash_decode_kernel_matches_plain_on_card(cuda, B, H, Hkv, S, D, scalar
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_flash_decode_kernel_chunk_edges_and_long_on_card(cuda, D):
     """Rows ending at the chunk edges (CHUNK - 1, CHUNK, CHUNK + 1) and at S,
     then bench.py's long shape (batch 8, 12 heads, S 2048, lengths 2016) and
@@ -343,7 +352,20 @@ def test_flash_decode_b2_and_b4_interleaved_share_the_tickets_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float32, 80)])
+@pytest.mark.parametrize("D,H", [(96, 4), (256, 32)])
+def test_flash_decode_int8_kernel_raises_outside_its_head_dims(cuda, D, H):
+    """A head_dim outside 32 / 64 / 128 / 256, or more than 16 query heads a
+    KV head at 256 (the chunk's shared memory), raises before a launch."""
+    q, kv, le = _b2_inputs(cuda, 2, H, 1, 40, D, [40, 7])
+    n0 = kernels.LAUNCHES["flash_decode_int8"]
+    with pytest.raises(ValueError):
+        tfd.flash_decode_int8(q, kv, le)
+    assert kernels.LAUNCHES["flash_decode_int8"] == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float32, 80),
+                                     (torch.float32, 512)])
 def test_flash_decode_kernel_raises_rather_than_falling_back(cuda, dtype, D):
     q = torch.randn(2, 4, 1, D, device=cuda)
     k = torch.randn(2, 4, 16, D, device=cuda, dtype=dtype)
@@ -640,6 +662,28 @@ def test_prefill_mainloop_keeps_the_small_products_at_large_k_on_card(cuda, fmt)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["B1", "T1", SBFP12_16])
+def test_prefill_mainloop_splits_a_long_k_on_card(cuda, kind):
+    """Gemma's down_proj prefill (M 1024, K 16384, N 2048): one block's
+    accumulators take at most 6144 of K (``ACC_CHUNKS``), the rest split
+    over the cluster, so the truncating adds of one accumulator stay within
+    the tolerance (K 16384 in one block was 4.7e-4 off)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    wf = torch.randn(2048, 16384, generator=g, device=cuda) * 0.05
+    x = torch.randn(1024, 16384, generator=g, device=cuda)
+    if kind == "B1":
+        w = tpack.bfp_pack(wf, 8, 64)
+        got, want = tbl.bfp_linear(x, w), tbl.bfp_linear_ref(x, w)
+    elif kind == "T1":
+        w = tpack.bfp_pack(wf, 8, 64)
+        got, want = tbl.bfp_linear_bf16(x, w), tbl.bfp_linear_bf16_ref(x, w)
+    else:
+        w = tpack.sbfp_pack(wf, Format.from_shorthand(kind))
+        got, want = tbl.sbfp_linear(x, w), tbl.sbfp_linear_ref(x, w)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("lengths", [[160] * 8, None])
 def test_llama_decode_attention_matches_plain_on_card(cuda, lengths):
     """B2 and B4 at the Llama paths' shape: 32 query heads over 4 KV heads
@@ -694,9 +738,68 @@ def test_llama_leg_on_card_matches_cpu(cuda, leg):
     top-1/top-2 margin exceeds it; the leg's kernels launched, and BASIC
     decode through the fused step."""
     from dmx_compressor_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from dmx_compressor_tpu_torch.ops.basic_layer import basic_llama_layer_plan
+
+    _leg_on_card_matches_cpu(cuda, leg, LlamaForCausalLM(LlamaConfig(**LLAMA_CFG), device=cuda,
+                                                         seed=0),
+                             basic_llama_layer_plan, LLAMA_TOL)
+
+
+# a small Qwen3 (head_dim 128, GQA 2:1, tied) and Gemma (head_dim 256, MQA):
+# the widths at which the prefill and decode kernels run the families'
+# bench configs; the BASIC tolerance is chip_smoke.py's for the family
+# (tools/order_sensitivity.py at the family's width)
+FAMILY_CFG = {
+    "qwen3": dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+                  max_position_embeddings=256, tie_word_embeddings=True),
+    "gemma": dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                  num_attention_heads=2, num_key_value_heads=1, head_dim=256,
+                  max_position_embeddings=256),
+}
+FAMILY_BASIC_TOL = {"qwen3": 0.25, "gemma": 0.5}
+
+
+def _family(family):
+    """(model class, config class, the fused step's plan function)."""
+    from dmx_compressor_tpu_torch.models import gemma, qwen3
+    from dmx_compressor_tpu_torch.ops import basic_layer
+
+    if family == "qwen3":
+        return qwen3.Qwen3ForCausalLM, qwen3.Qwen3Config, basic_layer.basic_qwen3_layer_plan
+    return gemma.GemmaForCausalLM, gemma.GemmaConfig, basic_layer.basic_gemma_layer_plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["weights", "baseline", "basic"])
+@pytest.mark.parametrize("family", ["qwen3", "gemma"])
+def test_qwen3_gemma_leg_on_card_matches_cpu(cuda, family, leg):
+    """As test_llama_leg_on_card_matches_cpu, for small Qwen3 and Gemma
+    models at the head dims of their bench configs (the wide prefill kernel,
+    the decode kernels at 128 and 256)."""
+    model_cls, cfg_cls, plan = _family(family)
+    model = model_cls(cfg_cls(**FAMILY_CFG[family]), device=cuda, seed=0)
+    _leg_on_card_matches_cpu(cuda, leg, model, plan,
+                             dict(LLAMA_TOL, basic=FAMILY_BASIC_TOL[family]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["qwen3", "gemma"])
+def test_qwen3_gemma_build_on_the_card_by_default(cuda, family):
+    """Built, and their caches made, on the card unless asked for the CPU."""
+    model_cls, cfg_cls, _ = _family(family)
+    model = model_cls(cfg_cls.tiny())
+    assert all(p.is_cuda for p in model.parameters())
+    caches = model.init_cache(1, 16, quantized=True)
+    assert caches[0].k_q.is_cuda
+    assert not next(model_cls(cfg_cls.tiny(), device="cpu").parameters()).is_cuda
+
+
+def _leg_on_card_matches_cpu(cuda, leg, model, plan, tols):
+    """A leg of ``model`` (built on the card) against the same model on the
+    CPU; see test_llama_leg_on_card_matches_cpu."""
     from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill, greedy_token
     from dmx_compressor_tpu_torch.ops import compress as tc
-    from dmx_compressor_tpu_torch.ops.basic_layer import basic_llama_layer_plan
     from dmx_compressor_tpu_torch.ops.split_decode import prepare_split_decode
 
     B, P, steps = 5, 64, 6  # 320 prefill rows: the BASIC linears' modular path
@@ -704,11 +807,11 @@ def test_llama_leg_on_card_matches_cpu(cuda, leg):
              "basic": tc.build_basic_mode}[leg]
     cache_kw = {"weights": dict(quantized=True), "baseline": {},
                 "basic": dict(dtype=torch.float16, split_base_len=P)}[leg]
-    model = LlamaForCausalLM(LlamaConfig(**LLAMA_CFG), device=cuda, seed=0)
     build(model)
     if leg == "basic":
-        assert all(basic_llama_layer_plan(layer) is not None for layer in model.model.layers)
-    ids = torch.randint(0, 512, (B, P), generator=torch.Generator().manual_seed(4))
+        assert all(plan(layer) is not None for layer in model.model.layers)
+    vocab = model.cfg.vocab_size
+    ids = torch.randint(0, vocab, (B, P), generator=torch.Generator().manual_seed(4))
 
     def prefill(dev):
         caches = model.init_cache(B, P + 64, device=dev, **cache_kw)
@@ -732,7 +835,7 @@ def test_llama_leg_on_card_matches_cpu(cuda, leg):
         want_rows = torch.stack([model(got_toks[:, s:s + 1], caches=caches,
                                        position_offset=P + s)[:, -1]
                                  for s in range(steps - 1)])
-    tol = LLAMA_TOL[leg]
+    tol = tols[leg]
     assert (got_logits - want_logits).abs().max().item() <= tol
     assert (got_rows - want_rows).abs().max().item() <= tol
     step_rows = torch.cat([want_logits[:, -1][None], want_rows])  # [steps, B, V]
