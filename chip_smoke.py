@@ -15,7 +15,9 @@ Phases (any failure exits non-zero):
    TinyLlama-1.1B, Qwen3-0.6B and Gemma-2B: B1 and T1 at its five linears,
    B2 and B4 at (8, 32, 4, 256, 64), (8, 16, 8, 256, 128) and (8, 8, 1,
    256, 256), B3 at BH 256 (D 64), 128 (D 128) and 64 (D 256), L = S = 128,
-   the K/V heads repeated) and at ragged ones: max abs error against the stated
+   the K/V heads repeated; B1 and T1 also at GPT-2's five linears, its
+   tied head N 50257 (odd) at M 8, 1024 and 3, and at Mistral-1b's, its
+   merged q/k/v N 3072) and at ragged ones: max abs error against the stated
    tolerance (T2: bit for bit), the kernel's time, its plain version's, one
    library call's where there is one (a yardstick the port never calls) and
    the bound (bytes, or operations over the H100 SXM's published f32 or
@@ -98,6 +100,24 @@ Phases (any failure exits non-zero):
    BFP, FLOAT16 and composed modes) and timed per launch over one recorded
    decode step.  B3's family cases time flash_prefill's K/V head repeat
    apart; each baseline prefill split shows it beside B3.
+   Then three paths each of bench.py's ``gpt2`` (GPT-2 124M: 12 blocks of
+   768, 12 heads of 64, a head tied to the 50257-wide vocabulary; its CPU
+   check at full depth) and ``mistral-1b`` (16 layers of 2048, 32 query
+   heads over 8 KV heads of 64, MLP 5632, vocab 32000, untied, a sliding
+   window of 128; its CPU check at ``FAMILY_CPU_LAYERS``):
+   - gpt2_weights: prefill 4L+1 = 49 B1 and no B3 (an int8 prefill attends
+     through quantized_sdpa, as for the families), each step 49 B1 + 12 B2;
+   - gpt2_baseline: prefill 12 B3, each step 12 B4;
+   - gpt2_basic: prefill 49 T1 + 34L+6 = 414 T2, prepare 2L = 24 T2, each
+     step 49 T1 + 17L+3 = 207 T2 (OPT's 16L+3 and the tanh-GELU's FLOAT16
+     output cast a block), every block through the fused GPT-2 step;
+   - mistral_weights: prefill and each step 4L+1 = 65 B1, no B2 or B3 (the
+     band keeps the flash kernels away: quantized_sdpa);
+   - mistral_baseline: no kernel of the port (cuBLAS f32 and the masked
+     sdpa, as the JAX package routes a banded model);
+   - mistral_basic: prefill 65 T1 + 40L+5 = 645 T2, prepare 32 T2, each
+     step 65 T1 + 21L+2 = 338 T2, every layer through the fused step under
+     the banded mask; no B2, B3 or B4 on any Mistral path.
 4. Three paths of the continuous-batching engine (serving/engine.py) at
    examples/serving_bench.py's defaults: OPT-125m at full width from seed
    0, 8 slots, bursts of 16, 32 requests of a 96-token prompt and 64 new
@@ -168,8 +188,11 @@ FAMILY_CPU_LAYERS = 4
 # float64): llama 0.1533 (0.1376) -> 0.4, which keeps OPT's ratio of bound
 # to measurement (0.15 / 0.0574) for the full vocabulary's 16x more
 # logits; qwen3 0.0796 (0.0756) -> 0.25 and gemma 0.1475 (0.0940) -> 0.5,
-# about 3.1 and 3.4 times, for their 74x and 125x more logits
-BASIC_FAMILY_TOL = {"llama": 0.4, "qwen3": 0.25, "gemma": 0.5}
+# about 3.1 and 3.4 times, for their 74x and 125x more logits; gpt2 (its
+# check at full depth: 12 layers) 0.0768 (0.0635) -> 0.25 and mistral
+# 0.1675 (0.1248) -> 0.5, about 3.3 and 3.0 times, for 25x and 16x more
+# logits (a tanh-GELU on the card may land a FLOAT16 step from the CPU's)
+BASIC_FAMILY_TOL = {"llama": 0.4, "qwen3": 0.25, "gemma": 0.5, "gpt2": 0.25, "mistral": 0.5}
 B1_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of up to 3072 terms, another order
 B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
@@ -538,12 +561,20 @@ def check_b5(torch, dev, cfg):
     return step, cases, wide_step
 
 
-def check_family_linears(torch, dev, fcfg, family, seed):
-    """B1 and T1 at a Llama-topology family's five linear shapes (M = batch
-    and batch x prompt), and per launch over one of its decode steps' 4L+1
-    launches; T1's library yardstick a bf16 torch.matmul.  Returns ((B1's
-    per-step numbers, cases), (T1's per-step numbers, cases)), each case
-    marked ``path=family``."""
+def gpt2_linear_shapes(cfg):
+    """(K, N, launches per forward) of GPT-2's packed linears: c_attn (born
+    merged), attn.c_proj, c_fc and mlp.c_proj per block, then the tied head
+    (N 50257 at gpt2: odd)."""
+    d, L = cfg.n_embd, cfg.n_layer
+    return [(d, 3 * d, L), (d, d, L), (d, 4 * d, L), (4 * d, d, L), (d, cfg.vocab_size, 1)]
+
+
+def check_family_linears(torch, dev, shapes, family, seed, ragged=()):
+    """B1 and T1 at a family's five linear shapes ``shapes`` (M = batch and
+    batch x prompt) and at ``ragged`` (M, K, N) ones, and per launch over
+    one of its decode steps' 4L+1 launches; T1's library yardstick a bf16
+    torch.matmul.  Returns ((B1's per-step numbers, cases), (T1's per-step
+    numbers, cases)), each case marked ``path=family``."""
     from dmx_compressor_tpu_torch.ops.bfp_linear import (
         bfp_linear,
         bfp_linear_bf16,
@@ -552,13 +583,12 @@ def check_family_linears(torch, dev, fcfg, family, seed):
     )
     from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
 
-    shapes = family_linear_shapes(fcfg)
     b1 = check_linear(torch, dev, f"B1 bfp_linear ({family})", bfp_linear, bfp_linear_ref,
-                      lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, shapes, [], B1_TOL,
-                      seed=seed, planes=3)
+                      lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, shapes, list(ragged),
+                      B1_TOL, seed=seed, planes=3)
     t1 = check_linear(torch, dev, f"T1 bfp_linear_bf16 ({family})", bfp_linear_bf16,
                       bfp_linear_bf16_ref, lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes,
-                      shapes, [], B1_TOL, seed=seed + 1, peak_flop_s=PEAK_BF16_FLOP_S,
+                      shapes, list(ragged), B1_TOL, seed=seed + 1, peak_flop_s=PEAK_BF16_FLOP_S,
                       lib_dtype=torch.bfloat16)
     for case in b1[1] + t1[1]:
         case["path"] = family
@@ -1186,6 +1216,7 @@ def family_path_specs(fcfg, family):
 
     from dmx_compressor_tpu_torch.models.gemma import GemmaForCausalLM
     from dmx_compressor_tpu_torch.models.llama import LlamaForCausalLM
+    from dmx_compressor_tpu_torch.models.mistral import MistralForCausalLM
     from dmx_compressor_tpu_torch.models.qwen3 import Qwen3ForCausalLM
     from dmx_compressor_tpu_torch.ops.basic_layer import (
         basic_gemma_layer_plan,
@@ -1207,7 +1238,12 @@ def family_path_specs(fcfg, family):
         "llama": (LlamaForCausalLM, basic_llama_layer_plan, 0, 0),
         "qwen3": (Qwen3ForCausalLM, basic_qwen3_layer_plan, 4, 2),
         "gemma": (GemmaForCausalLM, basic_gemma_layer_plan, 0, 0),
+        "mistral": (MistralForCausalLM, basic_llama_layer_plan, 0, 0),
     }[family]
+    # a banded model (Mistral's sliding window) never reaches B2, B3 or B4:
+    # its attention runs quantized_sdpa or the masked sdpa, as in the JAX
+    # package, and its BASIC decode the fused split decode under the band
+    banded = getattr(fcfg, "sliding_window", None) is not None
     L = fcfg.num_hidden_layers
     common = dict(model=model,
                   cpu_cfg=dataclasses.replace(fcfg, num_hidden_layers=FAMILY_CPU_LAYERS))
@@ -1220,18 +1256,22 @@ def family_path_specs(fcfg, family):
         log(f"{family}_basic path: {plan.__name__} holds for all {L} layers and "
             f"basic_rms_head_plan for the head: every decode step takes the fused step")
 
+    weights_step = {"bfp_linear": 4 * L + 1, "flash_decode_int8": L}
+    baseline = dict(prefill={"flash_attention": L}, step={"flash_decode": L},
+                    marks={"flash_decode": ("flash_decode_kernel",)})
+    if banded:
+        weights_step = {"bfp_linear": 4 * L + 1}
+        baseline = dict(prefill={}, step={}, marks={})  # cuBLAS f32 and the masked sdpa
     return [
         # an int8 prefill attends over the dequantized cache (quantized_sdpa,
         # plain torch): no B3
         dict(common, name=f"{family}_weights", build=build_weights_mode,
              cache=dict(max_len=CAPACITY, quantized=True),
-             prefill={"bfp_linear": 4 * L + 1}, prepare=None,
-             step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
-             marks={"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}, logit_tol=KV8_TOL),
+             prefill={"bfp_linear": 4 * L + 1}, prepare=None, step=weights_step,
+             marks={k: {"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}[k]
+                    for k in weights_step}, logit_tol=KV8_TOL),
         dict(common, name=f"{family}_baseline", build=build_baseline_mode,
-             cache=dict(max_len=CAPACITY), prefill={"flash_attention": L}, prepare=None,
-             step={"flash_decode": L}, marks={"flash_decode": ("flash_decode_kernel",)},
-             logit_tol=LOGIT_TOL),
+             cache=dict(max_len=CAPACITY), prepare=None, logit_tol=LOGIT_TOL, **baseline),
         # the modular prefill: per layer 40 FLOAT16 / BFP casts (RMSNorm 2,
         # qkv 2, RoPE 6, SDPA 14, o_proj 2, resadd 3, RMSNorm 2, gate-up 2,
         # SiLU or GELU 2, down 2, resadd 3; Mul SAME; Qwen3's q / k norms 4
@@ -1248,6 +1288,56 @@ def family_path_specs(fcfg, family):
              step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": (21 + extra_step) * L + 2},
              marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
              check_built=fused_everywhere, logit_tol=BASIC_FAMILY_TOL[family], record_t2=True),
+    ]
+
+
+def gpt2_path_specs(gcfg):
+    """The three paths of GPT-2 (bench.py's gpt2 legs), as
+    :func:`family_path_specs`, at full width and depth, its CPU check at
+    full depth too (the basic path's check rebuilds it on the card to record
+    its T2 sites).  Its attention routes as the families' (an int8 prefill
+    through quantized_sdpa: no B3); a block is OPT's with NewGELU for ReLU,
+    whose FLOAT16 pair takes ReLU's two casts at prefill and adds its output
+    cast to a fused decode step."""
+    from dmx_compressor_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from dmx_compressor_tpu_torch.ops.basic_layer import basic_gpt2_block_plan, basic_head_plan
+    from dmx_compressor_tpu_torch.ops.compress import (
+        build_baseline_mode,
+        build_basic_mode,
+        build_weights_mode,
+    )
+
+    L = gcfg.n_layer
+
+    def fused_everywhere(m):
+        if any(basic_gpt2_block_plan(b) is None for b in m.transformer.h) or basic_head_plan(
+                m.transformer.ln_f, m.lm_head) is None:
+            raise AssertionError("gpt2_basic: a block or the head would not take the fused "
+                                 "decode step")
+        log(f"gpt2_basic path: basic_gpt2_block_plan holds for all {L} blocks and "
+            f"basic_head_plan for the head: every decode step takes the fused step")
+
+    return [
+        dict(name="gpt2_weights", model=GPT2LMHeadModel, build=build_weights_mode,
+             cache=dict(max_len=CAPACITY, quantized=True),
+             prefill={"bfp_linear": 4 * L + 1}, prepare=None,
+             step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
+             marks={"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}, logit_tol=KV8_TOL),
+        dict(name="gpt2_baseline", model=GPT2LMHeadModel, build=build_baseline_mode,
+             cache=dict(max_len=CAPACITY), prefill={"flash_attention": L}, prepare=None,
+             step={"flash_decode": L}, marks={"flash_decode": ("flash_decode_kernel",)},
+             logit_tol=LOGIT_TOL),
+        # the modular prefill: OPT's 34 casts a layer (GELU's pair for
+        # ReLU's), + the two embeddings', the final LN's 2 and the head's 2;
+        # a fused decode step 17 launches a block (OPT's 16 and the GELU's
+        # output cast; its input is c_fc's FLOAT16 output) + 3
+        dict(name="gpt2_basic", model=GPT2LMHeadModel, build=build_basic_mode,
+             cache=dict(max_len=PROMPT + GEN, dtype="float16", split_base_len=PROMPT),
+             prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 34 * L + 6},
+             prepare={"bfp_cast": 2 * L},
+             step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 17 * L + 3},
+             marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS}, cpu_cfg=gcfg,
+             check_built=fused_everywhere, logit_tol=BASIC_FAMILY_TOL["gpt2"], record_t2=True),
     ]
 
 
@@ -1764,7 +1854,9 @@ def main() -> int:
         return 2
     from dmx_compressor_tpu_torch import kernels
     from dmx_compressor_tpu_torch.models.gemma import GemmaConfig
+    from dmx_compressor_tpu_torch.models.gpt2 import GPT2Config
     from dmx_compressor_tpu_torch.models.llama import LlamaConfig
+    from dmx_compressor_tpu_torch.models.mistral import MistralConfig
     from dmx_compressor_tpu_torch.models.opt import OPTConfig
     from dmx_compressor_tpu_torch.models.qwen3 import Qwen3Config
 
@@ -1791,6 +1883,12 @@ def main() -> int:
     # bench.py's Llama-topology families at full width and depth
     fams = {"llama": LlamaConfig.llama_1_1b(), "qwen3": Qwen3Config.qwen3_0_6b(),
             "gemma": GemmaConfig.gemma_2b()}
+    # bench.py's gpt2 (GPT-2 124M, full width and depth) and mistral-1b (its
+    # sliding window of 128 active within the 192 tokens: no attention
+    # kernel on its paths, so it stays out of the B2-B4 phases)
+    gcfg, mcfg = GPT2Config.gpt2(), MistralConfig.mistral_1b()
+    linear_shapes_of = {**{f: family_linear_shapes(c) for f, c in fams.items()},
+                        "mistral": family_linear_shapes(mcfg), "gpt2": gpt2_linear_shapes(gcfg)}
     with phase("B1", took):
         b1_step, b1 = check_b1(torch, dev, cfg)
     with phase("B2", took):
@@ -1806,9 +1904,11 @@ def main() -> int:
     with phase("T2", took):
         t2_step, t2 = check_t2(torch, dev, cfg)
     fam_linears = {}  # family -> ((B1 step, cases), (T1 step, cases))
-    for seed, (family, fcfg) in zip((22, 24, 26), fams.items()):
+    for seed, (family, shapes) in zip((22, 24, 26, 28, 30), linear_shapes_of.items()):
+        # GPT-2's head (N 50257) also at a ragged M
+        ragged = [(3, gcfg.n_embd, gcfg.vocab_size)] if family == "gpt2" else []
         with phase(f"B1 and T1 at the {family} shapes", took):
-            fam_linears[family] = check_family_linears(torch, dev, fcfg, family, seed)
+            fam_linears[family] = check_family_linears(torch, dev, shapes, family, seed, ragged)
 
     by_path, tok_s = {}, {}
     for spec in path_specs(cfg):
@@ -1823,10 +1923,13 @@ def main() -> int:
         f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}")
     kv_repeat_ms = {c["path"]: c["repeat_ms"] for c in b3 if "repeat_ms" in c}
     fam_t2 = {}  # family -> (T2's per-step numbers, cases) at its BASIC path's sites
-    for family, fcfg in fams.items():
-        for spec in family_path_specs(fcfg, family):
+    fam_paths = {**{f: (c, family_path_specs(c, f)) for f, c in fams.items()},
+                 "gpt2": (gcfg, gpt2_path_specs(gcfg)),
+                 "mistral": (mcfg, family_path_specs(mcfg, "mistral"))}
+    for family, (fcfg, specs) in fam_paths.items():
+        for spec in specs:
             name = spec["name"]
-            if "flash_attention" in spec["prefill"]:
+            if "flash_attention" in spec["prefill"] and family in kv_repeat_ms:
                 spec["kv_repeat_ms"] = kv_repeat_ms[family]
             with phase(f"{name} path", took):
                 by_path[name], tok_s[name] = serve_path(torch, dev, kernels, fcfg, spec)
@@ -1856,14 +1959,14 @@ def main() -> int:
     # over a sbfp_wide step under f32_route_step; B1's, T1's and T2's over a
     # step of each Llama-topology family under <family>_step), B2, B3 and B4
     # at their OPT path's shape (their first case)
-    b1_fam = [c for f in fams for c in fam_linears[f][0][1]]
-    t1_fam = [c for f in fams for c in fam_linears[f][1][1]]
-    t2_fam = [c for f in fams for c in fam_t2[f][1]]
+    b1_fam = [c for f in fam_linears for c in fam_linears[f][0][1]]
+    t1_fam = [c for f in fam_linears for c in fam_linears[f][1][1]]
+    t2_fam = [c for f in fam_t2 for c in fam_t2[f][1]]
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:53", **launches("bfp_linear"),
              max_abs_err=max(c["max_abs_err"] for c in b1 + b1_fam), **b1_step,
-             **{f"{f}_step": fam_linears[f][0][0] for f in fams}, cases=b1 + b1_fam),
+             **{f"{f}_step": fam_linears[f][0][0] for f in fam_linears}, cases=b1 + b1_fam),
         dict(name="flash_decode_int8", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_decode_int8.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",
@@ -1888,11 +1991,12 @@ def main() -> int:
              source="dmx_compressor_tpu_torch/csrc/bfp_linear_bf16.cu",
              replaces="tools/diag_bfpkernel_ab.py:30", **launches("bfp_linear_bf16"),
              max_abs_err=max(c["max_abs_err"] for c in t1 + t1_fam), **t1_step,
-             **{f"{f}_step": fam_linears[f][1][0] for f in fams}, subnormal_weights=t1_flush,
+             **{f"{f}_step": fam_linears[f][1][0] for f in fam_linears},
+             subnormal_weights=t1_flush,
              cases=t1 + t1_fam),
         dict(name="bfp_cast", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_cast.cu",
              replaces="tools/probe_fused_cast.py:9", **launches("bfp_cast"),
-             max_abs_err=0.0, **t2_step, **{f"{f}_step": fam_t2[f][0] for f in fams},
+             max_abs_err=0.0, **t2_step, **{f"{f}_step": fam_t2[f][0] for f in fam_t2},
              cases=t2 + t2_fam),
     ]
     log(json.dumps({"kernels": entries}))

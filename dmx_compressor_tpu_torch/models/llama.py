@@ -29,11 +29,13 @@ or T1 on bf16-exact activations) or ``sbfp_linear`` (B5).  Under SBFP the
 q/k/v and gate/up projections stay unmerged (``merge_parallel_linears``
 merges only packed BFP linears).
 
-The classes are the Llama-topology base of models/qwen3.py and
-models/gemma.py: a config's ``head_dim`` (where it has one) decouples the
-heads' width from ``hidden_size / num_attention_heads``, and each family
-names its layer plan, norm, MLP and the hooks its deltas need
-(``_qk_norm``, ``_embed_scale``, ``_mask``, ``_plain_causal``).
+The classes are the Llama-topology base of models/qwen3.py,
+models/gemma.py and models/mistral.py: a config's ``head_dim`` (where it
+has one) decouples the heads' width from ``hidden_size /
+num_attention_heads``, its ``sliding_window`` (where it has one) bands the
+mask and keeps the flash kernels away, and each family names its layer
+plan, norm, MLP and the hooks its deltas need (``_qk_norm``,
+``_embed_scale``).
 """
 
 from __future__ import annotations
@@ -259,13 +261,15 @@ class LlamaModel(nn.Module):
         return x
 
     def _mask(self, T, S, position_offset, dtype, device):
-        """The additive mask (Qwen3 bands it with its sliding window)."""
-        return causal_mask(T, S, position_offset, dtype, device)
+        """The additive mask, banded where the config has a sliding window
+        (Mistral's, a Qwen3's)."""
+        return causal_mask(T, S, position_offset, dtype, device,
+                           sliding_window=getattr(self.cfg, "sliding_window", None))
 
     def _plain_causal(self) -> bool:
         """Whether the mask is the plain causal one, so the flash kernels
         may serve it (False under a sliding window)."""
-        return True
+        return getattr(self.cfg, "sliding_window", None) is None
 
     def forward(self, input_ids, caches=None, position_offset=0,
                 apply_final_norm: bool = True):

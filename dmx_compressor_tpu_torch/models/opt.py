@@ -61,7 +61,7 @@ from ..ops.flash_decode import flash_decode, flash_decode_int8, post_update_leng
 from ..ops.kv_cache import cache_seq_len, make_caches, quantized_sdpa
 from .positions import causal_mask, resolve_positions
 # greedy decoding is shared by every family; OPT's callers import it here
-from .shared import FrozenRouting, take_rows
+from .shared import FrozenRouting, load_jax_biased_params, take_rows
 from .shared import greedy_decode, greedy_prefill, greedy_token  # noqa: F401
 
 
@@ -368,31 +368,7 @@ def load_jax_params(model: OPTForCausalLM, params: Dict[str, np.ndarray]) -> Non
     """Copy the raw JAX OPT's weights into a raw port model, in place.
 
     ``params`` is the JAX model's flattened nnx state, dotted path -> numpy
-    array (``model.decoder.layers.0.self_attn.q_proj.kernel`` ...).
-    ``nnx.Linear.kernel`` [in, out] becomes ``weight`` [out, in],
-    ``LayerNorm.scale`` and ``Embed.embedding`` become ``weight``; the LM head
-    stays tied to ``embed_tokens`` (nnx may list the shared table under the
-    head's ``lm_head.embed_ref``).  Every parameter of the port must be
-    covered, and every array must be used."""
-    own = dict(model.named_parameters())
-    seen = set()
-    with torch.no_grad():
-        for path, arr in params.items():
-            *mod, leaf = path.split(".")
-            if mod == ["lm_head", "embed_ref"]:
-                mod = ["model", "decoder", "embed_tokens"]
-            name = ".".join(mod + ["bias" if leaf == "bias" else "weight"])
-            if name not in own:
-                raise KeyError(f"{path}: no parameter {name} in the port model")
-            value = torch.tensor(np.asarray(arr, dtype=np.float32))
-            if leaf == "kernel":
-                value = value.T
-            elif leaf not in ("bias", "scale", "embedding"):
-                raise KeyError(f"{path}: unknown leaf {leaf!r}")
-            if tuple(value.shape) != tuple(own[name].shape):
-                raise ValueError(f"{path}: shape {tuple(value.shape)} != {tuple(own[name].shape)}")
-            own[name].copy_(value)
-            seen.add(name)
-    missing = set(own) - seen
-    if missing:
-        raise KeyError(f"parameters not in params: {sorted(missing)}")
+    array (``model.decoder.layers.0.self_attn.q_proj.kernel`` ...); the LM
+    head stays tied to ``embed_tokens``.  See
+    :func:`.shared.load_jax_biased_params`."""
+    load_jax_biased_params(model, params, "model.decoder.embed_tokens")

@@ -27,7 +27,6 @@ import torch
 from .. import rawnn
 from ..ops.basic_layer import basic_qwen3_layer_plan
 from .llama import LlamaAttention, LlamaDecoderLayer, LlamaForCausalLM, LlamaMLP, LlamaModel
-from .positions import causal_mask
 from .shared import load_jax_params
 
 __all__ = ["Qwen3Config", "Qwen3Attention", "Qwen3DecoderLayer", "Qwen3Model",
@@ -102,14 +101,7 @@ class Qwen3DecoderLayer(LlamaDecoderLayer):
 
 
 class Qwen3Model(LlamaModel):
-    decoder_layer = Qwen3DecoderLayer
-
-    def _mask(self, T, S, position_offset, dtype, device):
-        return causal_mask(T, S, position_offset, dtype, device,
-                           sliding_window=self.cfg.sliding_window)
-
-    def _plain_causal(self) -> bool:
-        return self.cfg.sliding_window is None
+    decoder_layer = Qwen3DecoderLayer  # LlamaModel bands the mask by the sliding window
 
 
 class Qwen3ForCausalLM(LlamaForCausalLM):

@@ -2,7 +2,7 @@
 semantics, the attention modules' frozen routing check, greedy prefill /
 decode (bench.py:252-302) over any model called as
 ``model(ids, caches=, position_offset=)``, and the loading of a raw JAX
-Llama-topology model's weights."""
+model's weights (the Llama topology's; OPT's and GPT-2's, with biases)."""
 
 from __future__ import annotations
 
@@ -107,5 +107,40 @@ def load_jax_params(model: nn.Module, params: Dict[str, np.ndarray]) -> None:
             target.copy_(value)
             seen.add(name)
     missing = (set(own) | {b for b in buffers if b.endswith("inv_freq")}) - seen
+    if missing:
+        raise KeyError(f"parameters not in params: {sorted(missing)}")
+
+
+def load_jax_biased_params(model: nn.Module, params: Dict[str, np.ndarray], embed: str) -> None:
+    """Copy a raw JAX model with biased Linears and LayerNorms (OPT, GPT-2)
+    into the raw port model of its family, in place.
+
+    ``params`` is the JAX model's flattened nnx state, dotted path -> numpy
+    array.  ``nnx.Linear.kernel`` [in, out] becomes ``weight`` [out, in],
+    ``LayerNorm.scale`` and ``Embed.embedding`` become ``weight``, a
+    ``bias`` stays ``bias``; the LM head stays tied to the embedding at the
+    dotted path ``embed`` (nnx may list the shared table under the head's
+    ``lm_head.embed_ref``).  Every parameter of the port must be covered,
+    and every array must be used."""
+    own = dict(model.named_parameters())
+    seen = set()
+    with torch.no_grad():
+        for path, arr in params.items():
+            *mod, leaf = path.split(".")
+            if mod == ["lm_head", "embed_ref"]:
+                mod = embed.split(".")
+            name = ".".join(mod + ["bias" if leaf == "bias" else "weight"])
+            if name not in own:
+                raise KeyError(f"{path}: no parameter {name} in the port model")
+            value = torch.tensor(np.asarray(arr, dtype=np.float32))
+            if leaf == "kernel":
+                value = value.T
+            elif leaf not in ("bias", "scale", "embedding"):
+                raise KeyError(f"{path}: unknown leaf {leaf!r}")
+            if tuple(value.shape) != tuple(own[name].shape):
+                raise ValueError(f"{path}: shape {tuple(value.shape)} != {tuple(own[name].shape)}")
+            own[name].copy_(value)
+            seen.add(name)
+    missing = set(own) - seen
     if missing:
         raise KeyError(f"parameters not in params: {sorted(missing)}")

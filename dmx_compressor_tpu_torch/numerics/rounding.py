@@ -89,7 +89,9 @@ def _round_int_on_grid(
         return torch.round(scaled + r - 0.5)
     if rounding == "up":
         if bit_mode:
-            return torch.sign(scaled) * (torch.floor(torch.abs(scaled)) + 1.0)
+            # a NaN keeps its own bits, sign included, as under jnp.sign
+            up = torch.sign(scaled) * (torch.floor(torch.abs(scaled)) + 1.0)
+            return torch.where(torch.isnan(scaled), scaled, up)
         return torch.ceil(scaled)
     if rounding == "down":
         if bit_mode:
@@ -163,8 +165,9 @@ def float_quantize(
     # bias (the reference's clip_exponent quirk)
     emax = 2 ** (exp - 1)
     maxv = (2.0 - 2.0 ** (-man)) * 2.0**emax if emax + 1 <= 127 else float("inf")
+    # NaN's exponent passes the test; it keeps its value (jnp.sign keeps NaN)
     q_norm = torch.where(
-        (_exponent_of(q_norm) > emax) & ~_is_zero(q_norm),
+        (_exponent_of(q_norm) > emax) & ~_is_zero(q_norm) & ~torch.isnan(q_norm),
         torch.sign(q_norm) * maxv,
         q_norm,
     )

@@ -1,5 +1,5 @@
-"""Decode-regime fused layer steps for BASIC mode (the OPT and the
-Llama-topology families: Llama, Qwen3, Gemma).
+"""Decode-regime fused layer steps for BASIC mode (OPT, GPT-2 and the
+Llama-topology families: Llama, Qwen3, Gemma, Mistral).
 
 Port of ``layer_norm_surrogate_fp16``, ``resadd_fp16``, ``fused_ln_linear``,
 ``rms_norm_surrogate_fp16``, ``silu_surrogate_fp16``, ``gelu_tanh_fp16``,
@@ -8,7 +8,7 @@ Port of ``layer_norm_surrogate_fp16``, ``resadd_fp16``, ``fused_ln_linear``,
 ``basic_head_plan``, ``fused_rms_head``, ``basic_rms_head_plan``,
 ``BasicLlamaPlan``, ``_casts_same_ok``, ``_llama_family_plan``,
 ``basic_llama_layer_plan``, ``basic_gemma_layer_plan``,
-``basic_qwen3_layer_plan`` and ``basic_layer_plan`` of
+``basic_qwen3_layer_plan``, ``basic_gpt2_block_plan`` and ``basic_layer_plan`` of
 ``dmx_compressor_tpu/ops/basic_layer.py``.  One fused OPT decode step
 (models/opt.py ``OPTDecoderLayer._fused_basic_step``):
 
@@ -32,8 +32,10 @@ Llama-topology layer (:func:`fused_llama_family_step`): RMS1 + merged qkv /
 fused split-cache SDPA (GQA) / o_proj / resadd1 + RMS2 + merged gate-up /
 SiLU (Gemma: tanh-GELU) * up / down_proj + resadd2, the RMS_NORM[vsimd]
 and SILU[vsimd] surrogates in plain torch, Gemma's (1 + w) norm weights
-folded as its module folds them.  The GPT-2 plan of the JAX module waits
-for its family.
+folded as its module folds them.  GPT-2's fused block
+(models/gpt2.py ``GPT2Block._fused_basic_step``, its plan
+:func:`basic_gpt2_block_plan`) is OPT's step with the ReLU replaced by the
+exact tanh-GELU between FLOAT16 casts (:func:`gelu_tanh_fp16`).
 """
 
 from __future__ import annotations
@@ -379,6 +381,43 @@ def basic_layer_plan(layer) -> Optional[BasicLayerPlan]:
     ic = merged.input_casts["input_cast"]
     if (layer.fc1.input_casts["input_cast"].format != ic.format
             or layer.fc2.input_casts["input_cast"].format != ic.format):
+        return None
+    return BasicLayerPlan(wl=ic.format.precision, block=ic.format.block_size,
+                          ln1_eps=float(ln1.eps), ln2_eps=float(ln2.eps))
+
+
+def basic_gpt2_block_plan(block) -> Optional[BasicLayerPlan]:
+    """The fused step's plan when a GPT2Block (after compress_for_inference)
+    is in the BASIC decode shape; None: the modular path.  ``c_attn`` is
+    born merged, so only the cast surface needs proving: LayerNorms with the
+    LAYER_NORM[vsimd] surrogate, the tanh-GELU left at approximation NONE
+    by the BASIC rules, biased PackedBFPLinears with one shared input
+    format."""
+    from ..nn import modules as dmxnn
+    from ..nn.core import DmxModule
+
+    if not DmxModule.inference_mode or DmxModule.plugins:
+        return None
+    attn, mlp = getattr(block, "attn", None), getattr(block, "mlp", None)
+    linears = [getattr(attn, "c_attn", None), getattr(attn, "c_proj", None),
+               getattr(mlp, "c_fc", None), getattr(mlp, "c_proj", None)]
+    if not all(_linear_basic_ok(m) for m in linears):
+        return None
+    ln1, ln2 = block.ln_1, block.ln_2
+    for ln in (ln1, ln2):
+        if not isinstance(ln, dmxnn.LayerNorm) or not _fp16_io_ok(ln, "layer_norm"):
+            return None
+        if ln.weight is None or ln.bias is None:
+            return None
+    for ra in (block.resadd1, block.resadd2):
+        if not isinstance(ra, dmxnn.ResAdd) or not _fp16_io_ok(ra, None):
+            return None
+    act = mlp.act
+    if (not isinstance(act, dmxnn.GELUBase) or act.approximate != "tanh"
+            or not _fp16_io_ok(act, None)):
+        return None
+    ic = linears[0].input_casts["input_cast"]
+    if any(m.input_casts["input_cast"].format != ic.format for m in linears[1:]):
         return None
     return BasicLayerPlan(wl=ic.format.precision, block=ic.format.block_size,
                           ln1_eps=float(ln1.eps), ln2_eps=float(ln2.eps))

@@ -7,7 +7,7 @@ through the layers.  A card sums in another order than the CPU, so the
 BASIC path's logits on the card can only be held against a CPU run at a
 tolerance of that size.
 
-This script serves OPT, Llama, Qwen3 or Gemma in BASIC mode (``build_basic_mode``, a
+This script serves OPT, GPT-2, Llama, Qwen3, Gemma or Mistral in BASIC mode (``build_basic_mode``, a
 float16 split cache) twice from the same seeded weights and prompt: as is,
 and with every T1 matmul and every LayerNorm, RMSNorm, softmax and
 attention reduction summed in float64 and rounded once.  It prints the
@@ -20,10 +20,11 @@ nearly tie changes every later step):
     python -m dmx_compressor_tpu_torch.tools.order_sensitivity --family llama \\
         --device cpu --layers 4 --vocab 2048 --seeds 0 1
 
-Widths are OPT-125m's, or bench.py's ``llama-1.1b`` (TinyLlama-1.1B),
-``qwen3-0.6b`` (Qwen3-0.6B) or ``gemma-2b`` (Gemma-2B) with ``--family
-llama``, ``qwen3`` or ``gemma``; ``--layers`` and ``--vocab`` cut depth and
-the vocabulary.
+Widths are OPT-125m's, or bench.py's ``gpt2`` (GPT-2 124M),
+``llama-1.1b`` (TinyLlama-1.1B), ``qwen3-0.6b`` (Qwen3-0.6B), ``gemma-2b``
+(Gemma-2B) or ``mistral-1b`` with ``--family gpt2``, ``llama``, ``qwen3``,
+``gemma`` or ``mistral``; ``--layers`` and ``--vocab`` cut depth and the
+vocabulary.
 Without ``--device`` it runs on the card (the first run then goes through
 the kernels).
 """
@@ -38,7 +39,9 @@ import torch
 
 from ..functional import simd_ops
 from ..models.gemma import GemmaConfig, GemmaForCausalLM
+from ..models.gpt2 import GPT2Config, GPT2LMHeadModel
 from ..models.llama import LlamaConfig, LlamaForCausalLM
+from ..models.mistral import MistralConfig, MistralForCausalLM
 from ..models.opt import OPTConfig, OPTForCausalLM
 from ..models.qwen3 import Qwen3Config, Qwen3ForCausalLM
 from ..models.shared import greedy_decode, greedy_prefill
@@ -91,6 +94,8 @@ FAMILIES = {
     "llama": (LlamaConfig.llama_1_1b, LlamaForCausalLM),
     "qwen3": (Qwen3Config.qwen3_0_6b, Qwen3ForCausalLM),
     "gemma": (GemmaConfig.gemma_2b, GemmaForCausalLM),
+    "gpt2": (GPT2Config.gpt2, GPT2LMHeadModel),
+    "mistral": (MistralConfig.mistral_1b, MistralForCausalLM),
 }
 
 
@@ -121,7 +126,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     a = ap.parse_args(argv)
     cfg = FAMILIES[a.family][0]()
-    cfg.num_hidden_layers = a.layers
+    setattr(cfg, "n_layer" if a.family == "gpt2" else "num_hidden_layers", a.layers)
     cfg.vocab_size = a.vocab or cfg.vocab_size
     for seed in a.seeds:
         base = serve(a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)

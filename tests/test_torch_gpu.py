@@ -795,9 +795,12 @@ def test_qwen3_gemma_build_on_the_card_by_default(cuda, family):
     assert not next(model_cls(cfg_cls.tiny(), device="cpu").parameters()).is_cuda
 
 
-def _leg_on_card_matches_cpu(cuda, leg, model, plan, tols):
+def _leg_on_card_matches_cpu(cuda, leg, model, plan, tols, layers=None, banded=False):
     """A leg of ``model`` (built on the card) against the same model on the
-    CPU; see test_llama_leg_on_card_matches_cpu."""
+    CPU; see test_llama_leg_on_card_matches_cpu.  ``layers(model)``: the
+    blocks the BASIC plan must hold for (default ``model.model.layers``);
+    ``banded``: a sliding-window model, which launches no attention
+    kernel."""
     from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill, greedy_token
     from dmx_compressor_tpu_torch.ops import compress as tc
     from dmx_compressor_tpu_torch.ops.split_decode import prepare_split_decode
@@ -809,7 +812,8 @@ def _leg_on_card_matches_cpu(cuda, leg, model, plan, tols):
                 "basic": dict(dtype=torch.float16, split_base_len=P)}[leg]
     build(model)
     if leg == "basic":
-        assert all(plan(layer) is not None for layer in model.model.layers)
+        assert all(plan(layer) is not None
+                   for layer in (layers(model) if layers else model.model.layers))
     vocab = model.cfg.vocab_size
     ids = torch.randint(0, vocab, (B, P), generator=torch.Generator().manual_seed(4))
 
@@ -828,6 +832,10 @@ def _leg_on_card_matches_cpu(cuda, leg, model, plan, tols):
     want_kernels = {"weights": ("bfp_linear", "flash_decode_int8"),
                     "baseline": ("flash_attention", "flash_decode"),
                     "basic": ("bfp_linear_bf16", "bfp_cast")}[leg]
+    attention = ("flash_attention", "flash_decode", "flash_decode_int8")
+    if banded:
+        assert all(kernels.LAUNCHES[k] == 0 for k in attention), kernels.LAUNCHES
+        want_kernels = tuple(k for k in want_kernels if k not in attention)
     assert all(kernels.LAUNCHES[k] > 0 for k in want_kernels), kernels.LAUNCHES
     model.to("cpu")
     caches, want_logits, _ = prefill("cpu")
@@ -843,3 +851,144 @@ def _leg_on_card_matches_cpu(cuda, leg, model, plan, tols):
     clear = (top2[..., 0] - top2[..., 1] > tol).T  # [B, steps]
     choice = torch.stack([greedy_token(r) for r in step_rows], dim=1)
     assert not (clear & (choice != got_toks)).any(), (leg, (clear & (choice != got_toks)))
+
+
+# ---------------------------------------------------------------------------
+# GPT-2 and Mistral on the card
+# ---------------------------------------------------------------------------
+
+# (M, N, K): GPT-2's tied head (N 50257, odd: the scalar epilogue, rows of
+# 201028 bytes off 16-byte alignment, the last tile's weight rows out of
+# bounds) at decode, prefill and a ragged M; Mistral-1b's merged q/k/v (N
+# 3072 at 8 KV heads of 64)
+ODD_HEAD_LINEARS = [(8, 50257, 768), (1024, 50257, 768), (3, 50257, 768), (8, 3072, 2048),
+                    (1024, 3072, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["B1", "T1"])
+@pytest.mark.parametrize("M,N,K", ODD_HEAD_LINEARS)
+def test_gpt2_head_and_mistral_linears_match_plain_on_card(cuda, kind, M, N, K):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    w = tpack.bfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05, 8, 64)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    b = torch.randn(N, generator=g, device=cuda)
+    name, kern, plain = (("bfp_linear", tbl.bfp_linear, tbl.bfp_linear_ref) if kind == "B1" else
+                         ("bfp_linear_bf16", tbl.bfp_linear_bf16, tbl.bfp_linear_bf16_ref))
+    n0 = kernels.LAUNCHES[name]
+    got = kern(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 1
+    torch.testing.assert_close(got, plain(x, w, b), rtol=1e-5, atol=1e-4)
+
+
+# a small GPT-2 (heads of 64, as gpt2's) and a small Mistral (heads of 64,
+# GQA 2:1, a window of 16 within the 64-token prompt); the BASIC tolerance
+# is chip_smoke.py's for the family
+GPT2_CFG = dict(vocab_size=509, n_embd=256, n_layer=2, n_head=4, n_positions=256)
+MISTRAL_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                   num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256,
+                   sliding_window=16)
+GPT2_MISTRAL_BASIC_TOL = {"gpt2": 0.25, "mistral": 0.5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["weights", "baseline", "basic"])
+def test_gpt2_leg_on_card_matches_cpu(cuda, leg):
+    """As test_llama_leg_on_card_matches_cpu, for a small GPT-2 with an odd
+    vocabulary (its tied head's N off 4, as gpt2's 50257), every BASIC
+    block through the fused step."""
+    from dmx_compressor_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+    from dmx_compressor_tpu_torch.ops.basic_layer import basic_gpt2_block_plan
+
+    model = GPT2LMHeadModel(GPT2Config(**GPT2_CFG), device=cuda, seed=0)
+    _leg_on_card_matches_cpu(cuda, leg, model, basic_gpt2_block_plan,
+                             dict(LLAMA_TOL, basic=GPT2_MISTRAL_BASIC_TOL["gpt2"]),
+                             layers=lambda m: m.transformer.h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["weights", "baseline", "basic"])
+def test_mistral_leg_on_card_matches_cpu(cuda, leg):
+    """As test_llama_leg_on_card_matches_cpu, for a small banded Mistral:
+    no B2, B3 or B4 launches on any leg (the band keeps the flash kernels
+    away, as in the JAX package), the BASIC decode through the fused step
+    with the banded mask."""
+    from dmx_compressor_tpu_torch.models.mistral import MistralConfig, MistralForCausalLM
+    from dmx_compressor_tpu_torch.ops.basic_layer import basic_llama_layer_plan
+
+    model = MistralForCausalLM(MistralConfig(**MISTRAL_CFG), device=cuda, seed=0)
+    _leg_on_card_matches_cpu(cuda, leg, model, basic_llama_layer_plan,
+                             dict(LLAMA_TOL, basic=GPT2_MISTRAL_BASIC_TOL["mistral"]),
+                             banded=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [True, False])
+def test_banded_mistral_decode_launches_no_attention_kernel_on_card(cuda, quantized):
+    """A raw banded Mistral prefilled and decoded past its window over an
+    int8 or an f32 cache: no B2, B3 or B4 launch; with the window removed,
+    the same model's decode launches B2 or B4."""
+    import dataclasses
+
+    from dmx_compressor_tpu_torch.models.mistral import MistralConfig, MistralForCausalLM
+    from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill
+
+    cfg = MistralConfig(**MISTRAL_CFG)
+    model = MistralForCausalLM(cfg, device=cuda, seed=0)
+    ids = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
+    attention = ("flash_attention", "flash_decode", "flash_decode_int8")
+    kernels.reset_launches()
+    caches = model.init_cache(2, 64, quantized=quantized)
+    _, tok = greedy_prefill(model, caches, ids)
+    greedy_decode(model, caches, tok, 24, 4)
+    torch.cuda.synchronize()
+    assert all(kernels.LAUNCHES[k] == 0 for k in attention), kernels.LAUNCHES
+    model.model.cfg = dataclasses.replace(cfg, sliding_window=None)
+    caches = model.init_cache(2, 64, quantized=quantized)
+    _, tok = greedy_prefill(model, caches, ids)
+    greedy_decode(model, caches, tok, 24, 4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode_int8" if quantized else "flash_decode"] == 4 * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["gpt2", "mistral"])
+def test_gpt2_mistral_build_on_the_card_by_default(cuda, family):
+    """Built, and their caches made, on the card unless asked for the CPU."""
+    from dmx_compressor_tpu_torch.models import gpt2, mistral
+
+    model_cls, cfg_cls = ((gpt2.GPT2LMHeadModel, gpt2.GPT2Config) if family == "gpt2" else
+                          (mistral.MistralForCausalLM, mistral.MistralConfig))
+    model = model_cls(cfg_cls.tiny())
+    assert all(p.is_cuda for p in model.parameters())
+    caches = model.init_cache(1, 16, quantized=True)
+    assert caches[0].k_q.is_cuda
+    assert not next(model_cls(cfg_cls.tiny(), device="cpu").parameters()).is_cuda
+
+
+# the float formats of ROADMAP Queue C fault 4 (tests/test_torch_numerics.py
+# holds them against the JAX package on the CPU)
+NAN_SHORTHANDS = ["FP[1|4|3,7](_N)", "FP[1|5|2,15](_N)", "FP[0|4|4,7](FN)", "FP[1|4|3,7](FU)",
+                  "FP[1|4|3,7](FD)", "FP[1|3|2,3](FN)", "FP[1|5|10,15](_U)"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sh", NAN_SHORTHANDS)
+@pytest.mark.parametrize("mode", ["N", "U", "D"])
+def test_float_cast_keeps_nan_and_inf_on_card(cuda, sh, mode):
+    """``Format.cast`` of NaN, -NaN, +-inf, 2.5 and a value past the
+    format's largest on the card: NaN where the CPU (and JAX) keep NaN, and
+    every other element bit for bit the CPU's, along both block dims.  The
+    card's arithmetic makes its own NaN payload, so NaN is held by
+    position."""
+    fmt = Format.from_shorthand(sh[:-2] + mode + ")")
+    nan = float("nan")
+    x = torch.tensor([[1.0, nan, -nan, float("inf"), float("-inf"), 2.5, 3.0e38]] * 4)
+    for block_dim, xx in ((-1, x), (0, x.T.contiguous())):
+        want = fmt.cast(xx, block_dim)
+        got = fmt.cast(xx.to(cuda), block_dim).cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert int(torch.isnan(want).sum()) == 8
+        keep = ~torch.isnan(want)
+        assert torch.equal(got[keep].view(torch.int32), want[keep].view(torch.int32))

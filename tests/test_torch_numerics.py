@@ -205,6 +205,44 @@ def test_other_format_casts_match_jax(sh):
     )
 
 
+# the float formats whose overflow clip met NaN (ROADMAP Queue C fault 4:
+# NaN's exponent passed the clip's test and torch.sign(NaN) is 0, so the port
+# cast NaN to 0.0), with NaN, -NaN, +-inf, 2.5 and a value past every
+# format's largest, in every rounding mode (U, D, N; S by NaN positions and
+# bits, its streams differ) and along both block dims
+NAN_SHORTHANDS = ["FP[1|4|3,7](_N)", "FP[1|5|2,15](_N)", "FP[0|4|4,7](FN)", "FP[1|4|3,7](FU)",
+                  "FP[1|4|3,7](FD)", "FP[1|3|2,3](FN)", "FP[1|5|10,15](_U)"]
+
+
+def nan_inf_rows(rows=4):
+    nan = np.float32(np.nan)
+    return np.array([[1.0, nan, -nan, np.inf, -np.inf, 2.5, 3.0e38]] * rows, np.float32)
+
+
+@pytest.mark.parametrize("sh", NAN_SHORTHANDS)
+@pytest.mark.parametrize("mode", ["N", "U", "D", "S"])
+@pytest.mark.parametrize("block_dim", [-1, 0])
+def test_float_cast_keeps_nan_and_inf_as_jax(sh, mode, block_dim):
+    sh = sh[:-2] + mode + ")"
+    x = nan_inf_rows()
+    if block_dim == 0:
+        x = np.ascontiguousarray(x.T)
+    kw_t, kw_j = {}, {}
+    if mode == "S":
+        kw_t, kw_j = dict(generator=torch.Generator().manual_seed(0)), dict(key=jax.random.key(0))
+    got = TFormat.from_shorthand(sh).cast(torch.from_numpy(x), block_dim, **kw_t).numpy()
+    want = np.asarray(JFormat.from_shorthand(sh).cast(jnp.asarray(x), block_dim, **kw_j))
+    nan = np.isnan(want)
+    assert nan.sum() == 8  # JAX keeps the two NaNs of each row
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    assert_bits_equal(got[nan], want[nan])  # NaN's sign and payload
+    if mode != "S":
+        assert_bits_equal(got, want)
+    else:  # +-inf and the value past the largest saturate alike
+        sat = np.isinf(x) | (np.abs(x) > 1e38)
+        assert_bits_equal(got[sat], want[sat])
+
+
 # ---------------------------------------------------------------------------
 # casts
 # ---------------------------------------------------------------------------

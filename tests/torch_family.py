@@ -1,10 +1,11 @@
-"""What tests/test_torch_qwen3.py and tests/test_torch_gemma.py share: the
-Qwen3 and Gemma families of the port held against the JAX package on the
-CPU (the JAX package is the reference), end to end and through the fused
-BASIC step, as tests/test_torch_llama.py holds Llama.
+"""What tests/test_torch_qwen3.py, test_torch_gemma.py,
+test_torch_mistral.py and test_torch_gpt2.py share: the families of the
+port held against the JAX package on the CPU (the JAX package is the
+reference), end to end and through the fused BASIC step, as
+tests/test_torch_llama.py holds Llama.
 
-Each function takes the family ("qwen3" or "gemma"); the test files call
-them with their own.  Configs:
+Each function takes the family ("qwen3", "gemma", "mistral"; the legs also
+"gpt2"); the test files call them with their own.  Configs:
 
 - "tiny": the family's ``tiny()`` (2 layers, head_dim 32 decoupled from
   hidden / heads), prompt 8 in 32 slots: the weights and baseline legs;
@@ -15,6 +16,13 @@ them with their own.  Configs:
   (Qwen3 128, Gemma 256), prompt 16 in 32 slots: the weights and baseline
   legs, so that the plain versions of B2 (int8 decode), B3 (prefill) and
   B4 (f32 decode) and the routing around them run at that head_dim.
+
+Mistral has no ``head_dim`` field (hidden / heads): its "tiny" is
+``MistralConfig.tiny()`` (sliding window 16) with a prompt of 20 in 32
+slots, and its "d64" tests/test_mistral_basic.py's config (128 wide, 2
+heads of 64 over 1 KV head, window 16); the band is active in both.
+GPT-2's "tiny" is ``GPT2Config.tiny()`` (head_dim 16) and its "d64"
+tests/test_gpt2_basic.py's (128 wide, 2 heads of 64).
 """
 
 import functools
@@ -28,6 +36,10 @@ from flax import nnx
 from dmx_compressor_tpu.modeling.model import DmxModel as JDmxModel
 from dmx_compressor_tpu.models.gemma import GemmaConfig as JGemmaConfig
 from dmx_compressor_tpu.models.gemma import GemmaForCausalLM as JGemma
+from dmx_compressor_tpu.models.gpt2 import GPT2Config as JGPT2Config
+from dmx_compressor_tpu.models.gpt2 import GPT2LMHeadModel as JGPT2
+from dmx_compressor_tpu.models.mistral import MistralConfig as JMistralConfig
+from dmx_compressor_tpu.models.mistral import MistralForCausalLM as JMistral
 from dmx_compressor_tpu.models.qwen3 import Qwen3Config as JQwen3Config
 from dmx_compressor_tpu.models.qwen3 import Qwen3ForCausalLM as JQwen3
 from dmx_compressor_tpu.nn.core import DmxModule as JDmxModule
@@ -37,7 +49,10 @@ from dmx_compressor_tpu.ops.compress import set_inference_mode as j_set_inferenc
 from dmx_compressor_tpu.ops.split_decode import prepare_split_decode as j_prepare
 
 from dmx_compressor_tpu_torch.modeling.model import DmxModel
+from dmx_compressor_tpu_torch.models import gpt2 as tgpt2
 from dmx_compressor_tpu_torch.models.gemma import GemmaConfig, GemmaForCausalLM
+from dmx_compressor_tpu_torch.models.llama import head_dim_of
+from dmx_compressor_tpu_torch.models.mistral import MistralConfig, MistralForCausalLM
 from dmx_compressor_tpu_torch.models.qwen3 import Qwen3Config, Qwen3ForCausalLM
 from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill, load_jax_params
 from dmx_compressor_tpu_torch.nn.core import DmxModule
@@ -56,7 +71,13 @@ B = 2
 FAMILIES = {
     "qwen3": (JQwen3Config, JQwen3, Qwen3Config, Qwen3ForCausalLM, "basic_qwen3_layer_plan", 128),
     "gemma": (JGemmaConfig, JGemma, GemmaConfig, GemmaForCausalLM, "basic_gemma_layer_plan", 256),
+    "mistral": (JMistralConfig, JMistral, MistralConfig, MistralForCausalLM,
+                "basic_llama_layer_plan", 64),
+    "gpt2": (JGPT2Config, JGPT2, tgpt2.GPT2Config, tgpt2.GPT2LMHeadModel,
+             "basic_gpt2_block_plan", 64),
 }
+# the loader of a raw JAX model's weights into the port model, by family
+LOADERS = {"gpt2": tgpt2.load_jax_params}
 
 
 def rng(seed):
@@ -68,7 +89,13 @@ def _fields(family, kind):
     tc, wide_d = FAMILIES[family][2], FAMILIES[family][5]
     if kind == "tiny":
         base = {k: v for k, v in vars(tc.tiny()).items() if k != "dtype"}
-        return base, 8, 32
+        return base, 20 if family == "mistral" else 8, 32
+    if family == "gpt2":  # d64
+        return dict(vocab_size=256, n_embd=128, n_layer=2, n_head=2, n_positions=256), 64, 128
+    if family == "mistral":  # d64
+        return dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                    num_attention_heads=2, num_key_value_heads=1, max_position_embeddings=256,
+                    sliding_window=16), 64, 128
     base = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_attention_heads=2,
                 num_key_value_heads=1, max_position_embeddings=256)
     if family == "qwen3":
@@ -126,7 +153,7 @@ def port_leg(family, leg, kind):
     loaded, built as the leg builds it, and its caches."""
     _, tcfg, prompt, cap = configs(family, kind)
     tm = FAMILIES[family][3](tcfg, device="cpu")
-    load_jax_params(tm, jax_leg(family, leg, kind)[0])
+    LOADERS.get(family, load_jax_params)(tm, jax_leg(family, leg, kind)[0])
     PORT_BUILD[leg](tm)
     kw = _cache_kw(leg, prompt)
     if leg == "basic":
@@ -172,7 +199,7 @@ def packed_weights_equal(family, leg):
     tm = FAMILIES[family][3](tcfg, device="cpu")
     load_jax_params(tm, params)
     PORT_BUILD[leg](tm)
-    H, Hkv, D = tcfg.num_attention_heads, tcfg.num_key_value_heads, tcfg.head_dim
+    H, Hkv, D = tcfg.num_attention_heads, tcfg.num_key_value_heads, head_dim_of(tcfg)
     pairs = [(jm.lm_head, tm.lm_head)]
     for jl, tl in zip(jm.model.layers, tm.model.layers):
         assert tl.self_attn.qkv_merged.out_features == (H + 2 * Hkv) * D
@@ -269,7 +296,9 @@ def leg_calls_the_kernel_wrappers(monkeypatch, family, leg):
     T1 + (40 + q) L + 5 - (4L+1) T2 at prefill, 2L in prepare_split_decode,
     4L+1 T1 + (21 + q') L + 2 T2 a step (3L+1 of them composed), every layer
     through the fused step; Qwen3's q / k norms add q = 4 casts a layer at
-    prefill and q' = 2 a step, Gemma's GELU takes SiLU's."""
+    prefill and q' = 2 a step, Gemma's GELU takes SiLU's.  A banded Mistral
+    launches no attention kernel: its weights leg 4L+1 B1 at prefill and a
+    step, its baseline nothing, its BASIC leg Llama's counts."""
     tm, caches = port_leg(family, leg, "d64")
     L = tm.cfg.num_hidden_layers
     prompt = configs(family, "d64")[2]
@@ -287,10 +316,13 @@ def leg_calls_the_kernel_wrappers(monkeypatch, family, leg):
     want = {
         "weights": ({"b1": 4 * L + 1}, {}, {"b1": 4 * L + 1, "b2": L}),
         "baseline": ({"b3": L}, {}, {"b4": L}),
+        # a banded model: quantized_sdpa or the masked sdpa, no kernel
+        "banded_weights": ({"b1": 4 * L + 1}, {}, {"b1": 4 * L + 1}),
+        "banded_baseline": ({}, {}, {}),
         "basic": ({"t1": 4 * L + 1, "t2": (40 + q) * L + 5 - (4 * L + 1)}, {"t2": 2 * L},
                   {"t1": 4 * L + 1, "t2": (21 + q1) * L + 2, "composed": 3 * L + 1,
                    "fused_step": L}),
-    }[leg]
+    }[f"banded_{leg}" if family == "mistral" and leg != "basic" else leg]
     assert prefill == want[0]
     assert prepare == want[1]
     assert counts == {k: 2 * v for k, v in want[2].items()}
@@ -306,4 +338,4 @@ def builds_on_the_card_unless_asked_for_the_cpu(monkeypatch, family):
         m.init_cache(1, 16)
     caches = m.init_cache(1, 16, quantized=True, device="cpu")
     # the KV heads at the decoupled head_dim
-    assert caches[0].k_q.shape == (1, tc.tiny().num_key_value_heads, 16, tc.tiny().head_dim)
+    assert caches[0].k_q.shape == (1, tc.tiny().num_key_value_heads, 16, head_dim_of(tc.tiny()))
