@@ -17,7 +17,10 @@ Phases (any failure exits non-zero):
    256, 256), B3 at BH 256 (D 64), 128 (D 128) and 64 (D 256), L = S = 128,
    the K/V heads repeated; B1 and T1 also at GPT-2's five linears, its
    tied head N 50257 (odd) at M 8, 1024 and 3, and at Mistral-1b's, its
-   merged q/k/v N 3072) and at ragged ones: max abs error against the stated
+   merged q/k/v N 3072; B5 (SBFP12_16) at every family's sbfp path shapes,
+   q/k/v and gate/up unmerged: the GQA k/v widths 256 and 512, K 5632 and
+   16384, the heads N 32000, 50257, 151936 and 256000, M 8 and 1024 and a
+   ragged M 130 over each family's longest K) and at ragged ones: max abs error against the stated
    tolerance (T2: bit for bit), the kernel's time, its plain version's, one
    library call's where there is one (a yardstick the port never calls) and
    the bound (bytes, or operations over the H100 SXM's published f32 or
@@ -56,6 +59,13 @@ Phases (any failure exits non-zero):
      prefill, the f32 GEMV at decode);
    - fp32 baseline (BASELINE rules, plain Linears, f32 KV cache): prefill
      12 B3, each decode step 12 B4;
+   - fp8 (the JAX package's FP8 rules, ``DmxModel.to_fp8_mode``: AFLOAT8
+     Linear and ActActMatMul inputs and weights through float_quantize,
+     plain torch as in the JAX package; FLOAT16 boundaries; f32 KV cache):
+     prefill and each decode step 28L+5 = 341 T2 (FLOAT16 casts), no
+     attention kernel (the SDPA is not transparent: the modular path); its
+     CPU check at ``FAMILY_CPU_LAYERS`` layers, T2 held at every recorded
+     site;
    - BASIC mode (BFP16_64 casts on Linear and ActActMatMul inputs, FLOAT16
      module boundaries, the SOFTMAX and LAYER_NORM surrogates, packed
      BFP16_64 weights, a float16 split cache of 128 + 64 slots): prefill
@@ -93,6 +103,10 @@ Phases (any failure exits non-zero):
      each decode step 89 T1 + 21L+2 = 464 T2 (24L+3 casts: 3L+1 launches
      are a FLOAT16 cast and the BFP cast of its output in one), every layer
      through the fused step.
+   - llama_sbfp (bench.py's sbfp leg: SBFP12_16, scale bias 16, on every
+     Linear, the tied heads included; int8 KV): prefill 7L+1 = 155 B5 (q, k,
+     v and gate, up unmerged) and no B3, each step 155 B5 + 22 B2, every B5
+     launch on its tensor-core route (Qwen3 197 / 28, Gemma 127 / 18).
    Their CPU check runs the same build cut to ``FAMILY_CPU_LAYERS`` layers
    (full width, seed 0) on the card and on the CPU, prefill and 7 steps.
    Each BASIC path's card run of that check records every T2 launch's
@@ -107,12 +121,15 @@ Phases (any failure exits non-zero):
    window of 128; its CPU check at ``FAMILY_CPU_LAYERS``):
    - gpt2_weights: prefill 4L+1 = 49 B1 and no B3 (an int8 prefill attends
      through quantized_sdpa, as for the families), each step 49 B1 + 12 B2;
+   - gpt2_sbfp: prefill 4L+1 = 49 B5 (c_attn born merged, the odd tied
+     head), each step 49 B5 + 12 B2;
    - gpt2_baseline: prefill 12 B3, each step 12 B4;
    - gpt2_basic: prefill 49 T1 + 34L+6 = 414 T2, prepare 2L = 24 T2, each
      step 49 T1 + 17L+3 = 207 T2 (OPT's 16L+3 and the tanh-GELU's FLOAT16
      output cast a block), every block through the fused GPT-2 step;
    - mistral_weights: prefill and each step 4L+1 = 65 B1, no B2 or B3 (the
      band keeps the flash kernels away: quantized_sdpa);
+   - mistral_sbfp: prefill and each step 7L+1 = 113 B5, no B2 or B3;
    - mistral_baseline: no kernel of the port (cuBLAS f32 and the masked
      sdpa, as the JAX package routes a banded model);
    - mistral_basic: prefill 65 T1 + 40L+5 = 645 T2, prepare 32 T2, each
@@ -125,6 +142,14 @@ Phases (any failure exits non-zero):
    - engine_weights: weights mode (BFP16_64, an int8 row cache);
    - engine_weights_chunked: the same with chunked prefill (chunks of 32);
    - engine_raw: the raw model with an f32 row cache.
+   Then engine_llama_weights: the same traffic over TinyLlama-1.1B (full
+   width and depth, seed 0) in weights mode with int8 row caches of its 4
+   KV heads: each admission 4L+1 = 89 B1 (M 96) and no B3 (an int8 prefill
+   attends through quantized_sdpa), each decode forward 89 B1 + 22 B2 over
+   the GQA row caches.  Its tokens are held against isolated generation on
+   the card for every fourth request, and its CPU check runs those
+   requests through the same build cut to ``FAMILY_CPU_LAYERS`` layers in
+   an engine on the card and one on the CPU.
    Each runs warmup(), then the closed loop with the launch counters set to
    0 just before and read just after; the counts are derived from the
    engine's admissions and chunks and its decode dispatches: each
@@ -193,6 +218,15 @@ FAMILY_CPU_LAYERS = 4
 # 0.1675 (0.1248) -> 0.5, about 3.3 and 3.0 times, for 25x and 16x more
 # logits (a tanh-GELU on the card may land a FLOAT16 step from the CPU's)
 BASIC_FAMILY_TOL = {"llama": 0.4, "qwen3": 0.25, "gemma": 0.5, "gpt2": 0.25, "mistral": 0.5}
+# the fp8 path's logits, GPU vs CPU at FAMILY_CPU_LAYERS layers, from
+# tools/order_sensitivity.py --mode fp8 --layers 4 at OPT-125m's width,
+# seeds 0 and 1 (the whole model in float64 against f32 moves a prefill
+# logit by up to 0 / 0.1262 at vocab 2048 and 0.0667 / 0 at the full
+# vocabulary: lumpy, as where a cast lands a step apart or none does):
+# twice the largest reading; no factor for more logits, the full
+# vocabulary was measured.  Each AFLOAT8 cast itself is held bit
+# for bit, card against CPU (check_fp8_casts)
+FP8_LOGIT_TOL = 0.25
 B1_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of up to 3072 terms, another order
 B2_TOL = dict(rtol=1e-5, atol=2e-5)
 B3_TOL = dict(rtol=1e-5, atol=2e-5)
@@ -222,6 +256,10 @@ LINEAR_KERNELS = ("bfp_linear", "sbfp_linear", "bfp_linear_bf16")
 ENGINE = dict(slots=8, burst=16, requests=32, prompt=96, gen=64)
 ENGINE_CHUNK = 32
 ENGINE_LEN = ENGINE["prompt"] + ENGINE["gen"] + ENGINE["burst"]  # the row cache's max_len
+# the requests of engine_llama_weights held against isolated generation and
+# the CPU: every fourth, two of each wave of eight admissions (the first
+# wave's, and readmissions into freed slots)
+ENGINE_HELD = list(range(0, ENGINE["requests"], 4))
 # per-slot lengths of a steady decode step on the engine's row cache: slots
 # spread over their requests' decode, and an idle slot past max_len (its
 # kernel reads max_len keys)
@@ -232,6 +270,19 @@ ENGINE_ROWS = [ENGINE["prompt"] + 1 + (ENGINE["gen"] * i) // ENGINE["slots"]
 # (f32 sums in another order) moves later logits by more than the f32
 # paths' 1e-3
 KV8_TOL = 1e-2
+# each family's sbfp path's logits, GPU vs CPU (at FAMILY_CPU_LAYERS layers,
+# GPT-2 at full depth), from tools/order_sensitivity.py --mode sbfp at the
+# family's width, vocab cut to 2048, seeds 0 and 1 (every packed linear
+# summed in float64 against f32 moves a prefill logit by up to: llama
+# 0.0123, qwen3 0.0139, gemma 0.0014, mistral 0.0159, gpt2 0.0127 at 12
+# layers): about 3 times that, as BASIC_FAMILY_TOL, and never below the
+# int8 paths' KV8_TOL.  llama_sbfp held at KV8_TOL read 0.0134 at prefill on
+# an H100 (B5 held its plain version at every family shape within B5_TOL);
+# where a family's tolerance exceeds KV8_TOL, serve_path prints the witness
+# of where the gap comes from (kv_witness): the prompt's int8 K/V entries
+# apart, card against CPU, and the same prefill's gap over an f32 cache
+SBFP_FAMILY_TOL = {"llama": 0.04, "qwen3": 0.05, "gemma": KV8_TOL, "mistral": 0.05,
+                   "gpt2": 0.04}
 # the chunked path against isolated generation: the chunks after the first
 # attend over the int8 cache (up to 1/254 of a row's largest value per
 # element) where a monolithic prefill attends over the f32 K/V; the run
@@ -353,6 +404,20 @@ def family_linear_shapes(cfg):
             (d, cfg.vocab_size, 1)]
 
 
+def family_sbfp_linear_shapes(cfg):
+    """(K, N, launches per forward) of a Llama-topology family's SBFP
+    linears: q, k, v (never merged: the GQA widths), o_proj, gate and up
+    (never merged) and down_proj per layer, then the LM head; shapes that
+    coincide are counted together."""
+    d, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    H, Hkv, D = family_heads(cfg)
+    shapes = {}
+    for K, N, n in [(d, H * D, L), (d, Hkv * D, 2 * L), (H * D, d, L), (d, m, 2 * L),
+                    (m, d, L), (d, cfg.vocab_size, 1)]:
+        shapes[K, N] = shapes.get((K, N), 0) + n
+    return [(K, N, n) for (K, N), n in shapes.items()]
+
+
 def family_heads(cfg):
     """(query heads, KV heads, head_dim) of a Llama-topology config."""
     from dmx_compressor_tpu_torch.models.llama import head_dim_of
@@ -376,6 +441,7 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
     figure kept as ``bound_f32_ms``.  ``route_of(M, K, w)`` -> (route, plane
     products or None), where the kernel picks its route per shape, records
     each case's route and bounds it by its own products (None: f32 SIMT).
+    The per-step bound counts each launch's operations in the same way.
     Returns (the per-step numbers, the cases)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     cases, sets_of, deq_of = [], {}, {}
@@ -432,6 +498,16 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
     per_launch_bytes = sum(nbytes(M, K, N) for M, K, N, _ in step) / len(step)
     flops = sum(2 * M * N * K for M, K, N, _ in step) / len(step)
     runs["bound_ms"], runs["bound_by"] = bound(per_launch_bytes, flops, peak_flop_s)
+    # each launch's operations at the rate of the type it computes in: its
+    # route's bf16 plane products on the tensor cores, or f32
+    products = [route_of(M, K, sets_of[M, K, N][0][1])[1] if route_of else planes
+                for M, K, N, _ in step]
+    if any(p is not None for p in products):
+        op_s = sum(2 * M * N * K * (p / PEAK_BF16_FLOP_S if p else 1 / peak_flop_s)
+                   for (M, K, N, _), p in zip(step, products)) / len(step)
+        runs["bound_f32_ms"] = runs["bound_ms"]
+        runs["bound_ms"], runs["bound_by"] = bound(per_launch_bytes, op_s * PEAK_BF16_FLOP_S,
+                                                   PEAK_BF16_FLOP_S)
     log(f"{label}, one decode step's {len(step)} launches, per launch: "
         + " ".join(f"{k}={v:.4f}" for k, v in runs.items() if k != "bound_by")
         + f" ({runs['bound_by']})")
@@ -522,7 +598,7 @@ def check_b5(torch, dev, cfg):
     # the SBFP formats beyond SBFP12_16 that the JAX package packs and
     # serves, on B5's f32 route: the f32 GEMV at M = 8, the weight planes on
     # tensor cores at M = 1024 (the SIMT GEMM for blocks off 16); the library
-    # yardstick is torch.addmm (bias + x W^T) on the dequantized weight
+    # yardstick is torch.matmul on the dequantized weight, as at every B5 case
     for shorthand, K, N in SBFP_OTHER_FORMATS:
         ofmt = Format.from_shorthand(shorthand)
         for M in (BATCH, BATCH * PROMPT):
@@ -539,8 +615,8 @@ def check_b5(torch, dev, cfg):
                 raise AssertionError(f"B5 f32 route ({route}) gave other bits on the same inputs")
             ms = time_ms(torch, sbfp_linear, sets)
             plain_ms = time_ms(torch, sbfp_linear_ref, sets)
-            deq = [(b, x, sbfp_unpack(w).T.contiguous()) for x, w, b in sets]
-            lib_ms = time_ms(torch, torch.addmm, deq)
+            deq = [(x, sbfp_unpack(w).T.contiguous()) for x, w, _ in sets]
+            lib_ms = time_ms(torch, torch.matmul, deq)
             bound_ms, by = bound(b5_bytes(M, K, N), 2 * M * N * K)
             case = dict(shape=[M, K, N], format=shorthand, planes=sets[0][1].planes, route=route,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -556,7 +632,7 @@ def check_b5(torch, dev, cfg):
             log(f"B5 sbfp_linear f32 route ({route}) {shorthand} M={M} K={K} N={N}: "
                 f"max_abs_err={err:.3g} (tolerance {B5_TOL}; the same bits on a second call) "
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms(torch.addmm, dequantized W, f32)={lib_ms:.4f} "
+                f"library_ms(torch.matmul, dequantized W, f32)={lib_ms:.4f} "
                 f"bound_ms={bound_ms:.4f} ({by}; {extra})")
     return step, cases, wide_step
 
@@ -569,19 +645,29 @@ def gpt2_linear_shapes(cfg):
     return [(d, 3 * d, L), (d, d, L), (d, 4 * d, L), (4 * d, d, L), (d, cfg.vocab_size, 1)]
 
 
-def check_family_linears(torch, dev, shapes, family, seed, ragged=()):
+def check_family_linears(torch, dev, shapes, sbfp_shapes, family, seed, ragged=(),
+                         sbfp_ragged=()):
     """B1 and T1 at a family's five linear shapes ``shapes`` (M = batch and
     batch x prompt) and at ``ragged`` (M, K, N) ones, and per launch over
     one of its decode steps' 4L+1 launches; T1's library yardstick a bf16
-    torch.matmul.  Returns ((B1's per-step numbers, cases), (T1's per-step
-    numbers, cases)), each case marked ``path=family``."""
+    torch.matmul.  Then B5 at the SBFP12_16 path's shapes ``sbfp_shapes``
+    (q/k/v and gate/up unmerged) and at ``sbfp_ragged`` ones, each case
+    with its route, and per launch over one of that path's decode steps;
+    its library yardstick torch.matmul on the dequantized weight.  Returns
+    ((B1's per-step numbers, cases), (T1's ...), (B5's ...)), each case
+    marked ``path=family``."""
+    from dmx_compressor_tpu_torch.numerics.format import Format
     from dmx_compressor_tpu_torch.ops.bfp_linear import (
         bfp_linear,
         bfp_linear_bf16,
         bfp_linear_bf16_ref,
         bfp_linear_ref,
+        sbfp_linear,
+        sbfp_linear_ref,
+        sbfp_route,
     )
-    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack, sbfp_pack, sbfp_unpack
+    from dmx_compressor_tpu_torch.ops.compress import SBFP12_16
 
     b1 = check_linear(torch, dev, f"B1 bfp_linear ({family})", bfp_linear, bfp_linear_ref,
                       lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, shapes, list(ragged),
@@ -590,9 +676,20 @@ def check_family_linears(torch, dev, shapes, family, seed, ragged=()):
                       bfp_linear_bf16_ref, lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes,
                       shapes, list(ragged), B1_TOL, seed=seed + 1, peak_flop_s=PEAK_BF16_FLOP_S,
                       lib_dtype=torch.bfloat16)
-    for case in b1[1] + t1[1]:
+    fmt = Format.from_shorthand(SBFP12_16)
+
+    def b5_route(M, K, w):
+        route = sbfp_route(w, M, K)
+        if route != "tensor_cores":
+            raise AssertionError(f"B5 ({family}) {M}x{K}: SBFP12_16 took the {route} route")
+        return route, 3
+
+    b5 = check_linear(torch, dev, f"B5 sbfp_linear ({family})", sbfp_linear, sbfp_linear_ref,
+                      lambda w: sbfp_pack(w, fmt), sbfp_unpack, b5_bytes, sbfp_shapes,
+                      list(sbfp_ragged), B5_TOL, seed=seed + 100, route_of=b5_route)
+    for case in b1[1] + t1[1] + b5[1]:
         case["path"] = family
-    return b1, t1
+    return b1, t1, b5
 
 
 # T1's own shapes: diag_bfpkernel_ab.py:177-183, OPT-1.3B decode at M = 8
@@ -903,8 +1000,8 @@ def check_b2(torch, dev, cfg, fams):
     # (12 query heads on 4 KV heads, ragged) and the engine's row cache
     # (ENGINE_ROWS); and each Llama-topology family's weights path (llama:
     # 8 query heads a KV head; qwen3: 2 at head_dim 128; gemma: 8 over its
-    # one KV head at head_dim 256); then a ragged Gemma case, S no multiple
-    # of a chunk
+    # one KV head at head_dim 256), engine_llama_weights' GQA row cache;
+    # then a ragged Gemma case, S no multiple of a chunk
     B, H = BATCH, cfg.num_attention_heads
     D = cfg.hidden_size // H
     mean_fill = PROMPT + GEN // 2
@@ -915,6 +1012,8 @@ def check_b2(torch, dev, cfg, fams):
               (H, H, ENGINE_LEN, D, ENGINE_ROWS, None)]
     shapes += [(*family_heads(f)[:2], CAPACITY, family_heads(f)[2], [mean_fill] * B, name)
                for name, f in fams.items()]
+    Hl, Hkv_l, D_l = family_heads(fams["llama"])
+    shapes.append((Hl, Hkv_l, ENGINE_LEN, D_l, ENGINE_ROWS, "engine_llama_weights"))
     Hg, Hkv_g, D_g = family_heads(fams["gemma"])
     shapes.append((Hg, Hkv_g, 600, D_g, [1 + (599 * i) // (B - 1) for i in range(B)], None))
     for H, Hkv, S, D, lengths, path in shapes:
@@ -1138,6 +1237,82 @@ T2_MARKS = ("bfp_rows_kernel", "bfp_rows_vec_kernel", "bfp_tile_kernel", "fp16_k
 B1_MARKS = ("bfp_decode_kernel", "bfp_gemm_kernel", "bfp_wgmma_kernel", "split_planes_kernel")
 B2_MARKS = ("flash_decode_int8_kernel",)
 B3_MARKS = ("flash_attention_kernel", "flash_attention_wide_kernel")
+B5_MARKS = ("bfp_decode_kernel", "sbfp_gemm_kernel", "bfp_wgmma_kernel", "split_planes_kernel")
+
+
+def sbfp_spec(name, n_linear, attention_layers, model=None, **extra):
+    """bench.py's sbfp leg of a family (``build_sbfp_mode``: SBFP12_16,
+    scale bias 16, on every Linear, the tied head included; int8 KV): prefill
+    ``n_linear`` B5 and no B3 (an int8 prefill attends through
+    quantized_sdpa), each step ``n_linear`` B5 + ``attention_layers`` B2,
+    every B5 launch on its tensor-core route; its logits held against the CPU
+    at the family's SBFP_FAMILY_TOL, and where that exceeds KV8_TOL the
+    witness of where the gap comes from (``kv_witness``: serve_path)."""
+    from dmx_compressor_tpu_torch.ops.compress import build_sbfp_mode
+
+    step = {"sbfp_linear": n_linear}
+    family = name.split("_")[0]
+    if attention_layers:
+        step["flash_decode_int8"] = attention_layers
+    spec = dict(name=name, build=build_sbfp_mode, cache=dict(max_len=CAPACITY, quantized=True),
+                prefill={"sbfp_linear": n_linear}, prepare=None, step=step,
+                routes=({"tensor_cores": n_linear}, {"tensor_cores": n_linear}),
+                marks={k: {"sbfp_linear": B5_MARKS, "flash_decode_int8": B2_MARKS}[k]
+                       for k in step}, logit_tol=SBFP_FAMILY_TOL[family],
+                kv_witness=SBFP_FAMILY_TOL[family] > KV8_TOL, **extra)
+    if model is not None:
+        spec["model"] = model
+    return spec
+
+
+def build_fp8_mode(model):
+    """The JAX package's FP8 configuration: ``DmxModel.from_raw(model)
+    .to_fp8_mode()`` (AFLOAT8 Linear and ActActMatMul inputs and weights,
+    FLOAT32 biases, FLOAT16 boundaries, no surrogate); the Linears stay
+    plain (no packing: AFLOAT8 is no block format)."""
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+
+    return DmxModel.from_raw(model).to_fp8_mode()
+
+
+def check_fp8_casts(model):
+    """The fp8 path's AFLOAT8 casts (plain torch: float_quantize) on the card
+    against the same casts on the CPU, bit for bit: each weight cast of the
+    built model on its weight, and each distinct format of its casts but
+    FLOAT16 (T2's, held at its sites by check_t2_sites) on a seeded
+    activation tensor whose values span 2^-30 to 2^20 (past AFLOAT8's range
+    both ways), with zeros, -0.0, f32 subnormals, +-inf and NaN among
+    them."""
+    import torch
+
+    from dmx_compressor_tpu_torch import format as formats
+    from dmx_compressor_tpu_torch.numerics.cast import CastTo
+    from dmx_compressor_tpu_torch.numerics.format import Same
+
+    n_weights = 0
+    for name, m in model.named_modules():
+        cast = getattr(m, "weight_cast", None)
+        if cast is None or isinstance(cast.format, Same):
+            continue
+        w = m.weight.detach()
+        if not same_bits(torch, cast.format.cast(w).cpu(), cast.format.cast(w.cpu())):
+            raise AssertionError(f"fp8 path: {name}'s weight cast {cast.format} differs on the "
+                                 f"card from the CPU")
+        n_weights += 1
+    fmts = {repr(c.format): c.format for c in model.modules()
+            if isinstance(c, CastTo) and not isinstance(c.format, Same)
+            and repr(c.format) != repr(formats.FLOAT16)}
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn(BATCH, PROMPT, 3072, generator=g) * torch.exp2(
+        torch.randint(-30, 21, (BATCH, PROMPT, 3072), generator=g).float())
+    x.view(-1)[:8] = torch.tensor([0.0, -0.0, 1e-40, -1e-42, float("inf"), -float("inf"),
+                                   float("nan"), 2.0**-126])
+    dev = next(model.parameters()).device
+    for shorthand, fmt in sorted(fmts.items()):
+        if not same_bits(torch, fmt.cast(x.to(dev)).cpu(), fmt.cast(x)):
+            raise AssertionError(f"fp8 path: the cast {shorthand} differs on the card from the CPU")
+    log(f"fp8 path: {n_weights} weight casts and {len(fmts)} cast formats "
+        f"({', '.join(sorted(fmts))}) on {x.numel()} activations, card against CPU: bit for bit")
 
 
 def path_specs(cfg):
@@ -1146,6 +1321,8 @@ def path_specs(cfg):
     per decode step (``routes``: B5's by route at prefill and per step), the
     profiler's name marks of each kernel launched per step, and the logits'
     tolerance GPU vs CPU."""
+    import dataclasses
+
     from dmx_compressor_tpu_torch.ops.compress import (
         build_baseline_mode,
         build_basic_mode,
@@ -1184,6 +1361,24 @@ def path_specs(cfg):
         dict(name="baseline", build=build_baseline_mode, cache=dict(max_len=CAPACITY),
              prefill={"flash_attention": L}, prepare=None, step={"flash_decode": L},
              marks={"flash_decode": ("flash_decode_kernel",)}, logit_tol=LOGIT_TOL),
+        # the JAX package's FP8 mode: every FLOAT16 cast of f32 is one T2
+        # launch, 28 a layer (each Linear's output, LayerNorm's and ReLU's
+        # input and output, each ResAdd's two inputs and output, the
+        # attention's two products' outputs, its mask add, softmax's input
+        # and output) + 5 (the two embeddings', the final LayerNorm's two and
+        # the head's output), at prefill and at every step alike; the
+        # AFLOAT8 casts are plain torch (float_quantize, jnp in the JAX
+        # package too); the attention is not transparent (AFLOAT8 inputs):
+        # the modular SDPA over the f32 cache, no B3 or B4.  Its CPU check
+        # runs the same build cut to FAMILY_CPU_LAYERS layers (the AFLOAT8
+        # casts are slow on the CPU: ~37 s at full depth), on the card,
+        # where its T2 sites are recorded, and on the CPU.
+        dict(name="fp8", build=build_fp8_mode, cache=dict(max_len=CAPACITY),
+             prefill={"bfp_cast": 28 * L + 5}, prepare=None, step={"bfp_cast": 28 * L + 5},
+             marks={"bfp_cast": T2_MARKS},
+             cpu_cfg=dataclasses.replace(cfg, num_hidden_layers=FAMILY_CPU_LAYERS),
+             check_built=check_fp8_casts, cpu_fold=True, logit_tol=FP8_LOGIT_TOL,
+             record_t2=True),
         # bench.py's basic mode: a float16 split cache, base = prompt, tail =
         # the 64 decode slots (PROMPT + GEN = 192 slots; the tail is a
         # multiple of the BFP block, so not CAPACITY).  The prefill runs the
@@ -1259,6 +1454,9 @@ def family_path_specs(fcfg, family):
     weights_step = {"bfp_linear": 4 * L + 1, "flash_decode_int8": L}
     baseline = dict(prefill={"flash_attention": L}, step={"flash_decode": L},
                     marks={"flash_decode": ("flash_decode_kernel",)})
+    # bench.py's sbfp leg: q, k, v, o_proj, gate, up and down_proj each
+    # their own B5 launch (7L+1 with the head); no B2 under the band
+    sbfp = sbfp_spec(f"{family}_sbfp", 7 * L + 1, 0 if banded else L, **common)
     if banded:
         weights_step = {"bfp_linear": 4 * L + 1}
         baseline = dict(prefill={}, step={}, marks={})  # cuBLAS f32 and the masked sdpa
@@ -1270,6 +1468,7 @@ def family_path_specs(fcfg, family):
              prefill={"bfp_linear": 4 * L + 1}, prepare=None, step=weights_step,
              marks={k: {"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}[k]
                     for k in weights_step}, logit_tol=KV8_TOL),
+        sbfp,
         dict(common, name=f"{family}_baseline", build=build_baseline_mode,
              cache=dict(max_len=CAPACITY), prepare=None, logit_tol=LOGIT_TOL, **baseline),
         # the modular prefill: per layer 40 FLOAT16 / BFP casts (RMSNorm 2,
@@ -1323,6 +1522,9 @@ def gpt2_path_specs(gcfg):
              prefill={"bfp_linear": 4 * L + 1}, prepare=None,
              step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
              marks={"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}, logit_tol=KV8_TOL),
+        # bench.py's sbfp leg: c_attn (born merged), attn.c_proj, c_fc and
+        # mlp.c_proj a block and the tied head N 50257 (odd), 4L+1 B5
+        sbfp_spec("gpt2_sbfp", 4 * L + 1, L, model=GPT2LMHeadModel),
         dict(name="gpt2_baseline", model=GPT2LMHeadModel, build=build_baseline_mode,
              cache=dict(max_len=CAPACITY), prefill={"flash_attention": L}, prepare=None,
              step={"flash_decode": L}, marks={"flash_decode": ("flash_decode_kernel",)},
@@ -1381,11 +1583,14 @@ def serve_path(torch, dev, kernels, cfg, spec):
     if "dtype" in cache_kw:
         cache_kw["dtype"] = getattr(torch, cache_kw["dtype"])
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     model = make(cfg, device=dev, seed=0)
     spec["build"](model)
     torch.cuda.synchronize()
     log(f"{name} path: {type(model).__name__} {cfg.hidden_size}x{cfg.num_hidden_layers} built "
-        f"in {time.perf_counter() - t0:.2f} s")
+        f"in {time.perf_counter() - t0:.2f} s; peak device memory while building "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held after")
     if "check_built" in spec:
         spec["check_built"](model)
     ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
@@ -1513,6 +1718,8 @@ def serve_path(torch, dev, kernels, cfg, spec):
     n = min(8, GEN)  # the prefill and n - 1 decode steps are held
     gpu_logits, gpu_tokens = logits.float().cpu(), tokens[:, :n].cpu()
     gpu_rows = rows[:n - 1].float().cpu()
+    witness = spec.get("kv_witness", False)
+    card_kv = kv_prefix(caches) if witness else None
     del logits, rows, caches
     if spec.get("cpu_cfg") is not None:
         # the full-depth model stays on the card: the same build at the CPU
@@ -1537,6 +1744,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
         gpu_logits = glogits.float().cpu()
         gpu_tokens = torch.cat([gtok[:, None], gtoks], dim=1).cpu()
         gpu_rows = grows.float().cpu()
+        card_kv = kv_prefix(gcaches) if witness else None
         del glogits, grows, gcaches
         if recording:
             spec["t2_sites"] = pre_sites + step_sites
@@ -1546,8 +1754,16 @@ def serve_path(torch, dev, kernels, cfg, spec):
                 f"{spec['cpu_cfg'].num_hidden_layers} layers")
         log(f"{name} path: the CPU check runs the same build at "
             f"{spec['cpu_cfg'].num_hidden_layers} layers (full width), on the card and the CPU")
+    if witness:
+        # the same model's prefill over an f32 cache, on the card
+        f32_caches = model.init_cache(BATCH, max_len=CAPACITY, device=dev)
+        card_f32 = greedy_prefill(model, f32_caches, ids.to(dev))[0].float().cpu()
+        del f32_caches
     model.to("cpu")
     torch.cuda.empty_cache()
+    if spec.get("cpu_fold"):
+        # the CPU reference casts each weight once, not at every forward
+        fold_untied(torch, model)
     cpu_caches = model.init_cache(BATCH, device="cpu", **cache_kw)
     t0 = time.perf_counter()
     with memo_unpack(), torch.no_grad():
@@ -1576,6 +1792,18 @@ def serve_path(torch, dev, kernels, cfg, spec):
                              f"CPU's choice on the same inputs")
     log(f"{name} path: greedy tokens GPU vs CPU on the same inputs: {int(clear.sum())} of "
         f"{BATCH * n} held (top-1/top-2 margin > {tol}), all equal")
+    if witness:
+        # where the prefill's gap comes from: the int8 K/V the prefill
+        # wrote, card against CPU, and the same prefill over an f32 cache
+        with memo_unpack(), torch.no_grad():
+            cpu_f32 = greedy_prefill(model, model.init_cache(BATCH, max_len=CAPACITY,
+                                                             device="cpu"), ids)[0]
+        f32_err = (card_f32 - cpu_f32).abs().max().item()
+        apart, total, steps, s_apart, s_total, rel = kv_gap(torch, card_kv, kv_prefix(cpu_caches))
+        log(f"{name} path: witness of the int8 cache: the prompt's int8 K/V, card vs CPU, "
+            f"{apart} of {total} entries apart, by at most {steps} step(s); {s_apart} of "
+            f"{s_total} row scales apart (largest relative {rel:.3g}); the same prefill over "
+            f"an f32 cache: logits GPU vs CPU max_abs_err={f32_err:.3g} (int8 cache {err:.3g})")
     del model, cpu_caches
     return launches, tok_s
 
@@ -1650,27 +1878,75 @@ def isolated_generation(torch, model, requests, capacity, quantized, dev):
     return toks, margins
 
 
+def fold_untied(torch, model):
+    """``DmxModel.fold_weights_and_biases`` on ``model``, a weight shared by
+    two modules (OPT's head, tied to the token embedding) first given its
+    own copy in each, so that folding the head's weight cast leaves the
+    embedding's table as it was: the same function, bit for bit."""
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+
+    seen = set()
+    for m in model.modules():
+        w = m._parameters.get("weight")
+        if w is not None and id(w) in seen:
+            m.weight = torch.nn.Parameter(w.detach().clone())
+        elif w is not None:
+            seen.add(id(w))
+    DmxModel(model).fold_weights_and_biases()
+
+
+def kv_prefix(caches):
+    """Each layer's int8 K and V payloads and row scales at the prompt's
+    positions (a QuantizedKVCache each), on the CPU."""
+    return [tuple(getattr(c, a)[:, :, :PROMPT].cpu() for a in ("k_q", "v_q", "k_scale", "v_scale"))
+            for c in caches]
+
+
+def kv_gap(torch, a, b):
+    """Two runs' :func:`kv_prefix`: (int8 entries apart, entries, the
+    largest difference in int8 steps, row scales apart, row scales, their
+    largest relative difference)."""
+    apart = total = steps = s_apart = s_total = 0
+    rel = 0.0
+    for x, y in zip(a, b):
+        for p, q in zip(x[:2], y[:2]):
+            d = (p.int() - q.int()).abs()
+            apart, total = apart + int((d > 0).sum()), total + d.numel()
+            steps = max(steps, int(d.max()))
+        for p, q in zip(x[2:], y[2:]):
+            s_apart, s_total = s_apart + int((p != q).sum()), s_total + p.numel()
+            rel = max(rel, ((p - q).abs() / q.abs().clamp_min(1e-30)).max().item())
+    return apart, total, steps, s_apart, s_total, rel
+
+
 @contextlib.contextmanager
 def memo_unpack():
-    """Within this context the plain B1 version unpacks each payload once
-    (keyed by its storage), so the CPU reference engine runs do not unpack
-    the whole model at every forward: the same values, bit for bit."""
+    """Within this context the plain B1 and B5 versions unpack each payload
+    once (keyed by its storage), so the CPU reference runs do not unpack the
+    whole model at every forward: the same values, bit for bit."""
     from dmx_compressor_tpu_torch.ops import bfp_linear
 
-    real, memo = bfp_linear.bfp_unpack, {}
+    real_b1, real_b5, memo = bfp_linear.bfp_unpack, bfp_linear.sbfp_unpack, {}
 
-    def unpack(p):
-        key = (p.mantissa.data_ptr(), p.exponent.data_ptr(), tuple(p.mantissa.shape),
+    def unpack_b1(p):
+        key = ("b1", p.mantissa.data_ptr(), p.exponent.data_ptr(), tuple(p.mantissa.shape),
                p.precision, p.block_size)
         if key not in memo:
-            memo[key] = real(p)
+            memo[key] = real_b1(p)
         return memo[key]
 
-    bfp_linear.bfp_unpack = unpack
+    def unpack_b5(p):
+        key = ("b5", p.nibbles.data_ptr(), p.scale.data_ptr(), tuple(p.nibbles.shape),
+               p.block_size)
+        if key not in memo:
+            memo[key] = real_b5(p)
+        return memo[key]
+
+    bfp_linear.bfp_unpack, bfp_linear.sbfp_unpack = unpack_b1, unpack_b5
     try:
         yield
     finally:
-        bfp_linear.bfp_unpack = real
+        bfp_linear.bfp_unpack, bfp_linear.sbfp_unpack = real_b1, real_b5
 
 
 def chunk_gap(torch, model, prompt, quantized, dev):
@@ -1685,16 +1961,120 @@ def chunk_gap(torch, model, prompt, quantized, dev):
     return (last[0, -1] - mono).abs().max().item()
 
 
+def engine_closed_loop(torch, kernels, eng, sp, requests, vocab, card):
+    """One engine path's run on the card: warmup, then the closed loop with
+    the launch counters set to 0 just before and read just after (the
+    counts derived from the engine's admission and chunk counters and its
+    decode dispatches; its first steady dispatch under
+    torch.cuda.set_sync_debug_mode("error")), then one steady dispatch
+    under torch.profiler.  Returns (the launch counts, the tokens by
+    request index)."""
+    from dmx_compressor_tpu_torch.examples import serving_bench as sb
+
+    name, chunk, burst = sp["name"], sp["chunk"], ENGINE["burst"]
+    t0 = time.perf_counter()
+    eng.warmup(burst)
+    torch.cuda.synchronize()
+    log(f"{name}: warmup {time.perf_counter() - t0:.2f} s")
+    dispatches, synced = [0], []
+    real_dispatch = eng._dispatch
+
+    def dispatch(b, sampling, eng=eng, real=real_dispatch):
+        dispatches[0] += 1
+        if synced or eng.last_step_admissions or eng.last_step_chunks:
+            return real(b, sampling)
+        # a steady-state dispatch: no host sync allowed
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(b, sampling)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        synced.append(True)
+        return out
+
+    eng._dispatch = dispatch
+    kernels.reset_launches()
+    stats = sb.closed_loop(eng, requests, burst)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    eng._dispatch = real_dispatch
+    if not synced:
+        raise AssertionError(f"{name}: no steady-state dispatch ran")
+    log(f"{name}: one steady-state dispatch ({burst} decode forwards) ran under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+    adm = sum(st["admissions"] for st in stats["steps"])
+    chunks = sum(st["chunks"] for st in stats["steps"])
+    first = adm if chunk and ENGINE["prompt"] > chunk else 0
+    forwards = dispatches[0] * burst
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for counts, n in ((sp["admission"], adm - first), (sp["step"], forwards),
+                      (sp["chunk_each"], chunks), (sp["chunk_first"], first)):
+        for k, v in counts.items():
+            want[k] += v * n
+    log(f"{name}: {adm} admissions ({first} chunked), {chunks} chunks, "
+        f"{dispatches[0]} decode dispatches of {burst} forwards; launches {launches} "
+        f"(expected {want})")
+    if launches != want:
+        raise AssertionError(f"the {name} path did not launch the kernels the expected "
+                             f"number of times")
+    fin = {r.request_id: r for r in eng.finished}
+    if sorted(fin) != stats["rids"] or any(
+            r.finish_reason != "length" or len(r.tokens) != g
+            for r, (_, g) in zip((fin[i] for i in stats["rids"]), requests)):
+        raise AssertionError(f"{name}: a request did not finish with its tokens")
+    got = {i: fin[rid].tokens for i, rid in enumerate(stats["rids"])}
+    flat = [t for v in got.values() for t in v]
+    if min(flat) < 0 or max(flat) >= vocab:
+        raise AssertionError(f"{name}: tokens out of range")
+    sm = sb.summary(stats)
+
+    # the device's share of a steady step: one steady dispatch (all slots
+    # decoding) under torch.profiler, against the closed loop's steady step
+    # on the host clock
+    for prompt, _ in requests[:ENGINE["slots"]]:
+        eng.submit(prompt, max_new_tokens=ENGINE["gen"])
+    eng.step(burst)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        events = device_events(torch, lambda: eng._dispatch(burst, False))
+    busy_ms = sum(us for _, us in events) / 1e3
+    steady_ms = sm["steady_p50_step_ms"]
+    log(f"{name} on {card}: {sm['tokens_per_s']:.1f} tokens/s, slot utilization "
+        f"{sm['slot_utilization']:.3f}, step p50 {sm['p50_step_ms']:.3f} ms / p99 "
+        f"{sm['p99_step_ms']:.3f} ms, steady step p50 {steady_ms:.3f} ms / p99 "
+        f"{sm['steady_p99_step_ms']:.3f} ms over {sm['steady_steps']} steady steps of "
+        f"{len(stats['steps'])}; a steady dispatch's device busy {busy_ms:.3f} ms "
+        f"(idle share {1 - busy_ms / steady_ms:.3f} of the steady p50 step)")
+    for kern, names in sp["marks"].items():
+        us = sum(t for n, t in events if any(m in n for m in names))
+        n = burst * sp["step"][kern]
+        log(f"  {kern} on the {name} path: {us / 1e3 / n:.4f} ms per launch "
+            f"(its kernel's device time over {n} launches)")
+    for ev, us in sorted(events, key=lambda e: -e[1])[:6]:
+        log(f"  device per steady dispatch: {us / 1e3:.4f} ms  {ev[:110]}")
+    return launches, got
+
+
+def engine_run(torch, sb, model, quantized, requests, chunk=None):
+    """The tokens of an engine run of ``requests`` (closed loop, serving_bench's
+    engine at ``ENGINE``'s slots and burst) wherever ``model`` lives, by
+    request index."""
+    burst = ENGINE["burst"]
+    with memo_unpack(), torch.no_grad():
+        eng = sb.make_engine(model, quantized, requests, ENGINE["prompt"], ENGINE["slots"],
+                             burst, chunk, max(1, burst // chunk) if chunk else 1, depth=1)
+        eng.warmup(burst)
+        stats = sb.closed_loop(eng, requests, burst)
+    fin = {r.request_id: r.tokens for r in eng.finished}
+    return {i: fin[rid] for i, rid in enumerate(stats["rids"])}
+
+
 def engine_paths(torch, dev, kernels, cfg, card):
     """The engine paths of one serving_bench mode after another: the model
     built once per mode (OPT at full width, seed 0); per path an engine on
-    the card, its warmup, then the closed loop with the launch counters set
-    to 0 just before and read just after (each path's counts derived from
-    the engine's admission and chunk counters and its decode dispatches;
-    its first steady dispatch under torch.cuda.set_sync_debug_mode
-    ("error")), then one steady dispatch under torch.profiler; isolated
-    generation on the card; the model moved to the CPU and each path's
-    engine run again there.  Returns the launch counts by path."""
+    the card and :func:`engine_closed_loop`; isolated generation on the
+    card; the model moved to the CPU and each path's engine run again
+    there.  Returns the launch counts by path."""
     from dmx_compressor_tpu_torch.examples import serving_bench as sb
 
     by_path = {}
@@ -1711,92 +2091,12 @@ def engine_paths(torch, dev, kernels, cfg, card):
                                     ENGINE["gen"], spread=False)
         got, capacity = {}, None
         for sp in group:
-            name, chunk, burst = sp["name"], sp["chunk"], ENGINE["burst"]
-            cps = max(1, burst // chunk) if chunk else 1
+            chunk, burst = sp["chunk"], ENGINE["burst"]
             eng = sb.make_engine(model, quantized, requests, ENGINE["prompt"], ENGINE["slots"],
-                                 burst, chunk, cps, depth=1)
+                                 burst, chunk, max(1, burst // chunk) if chunk else 1, depth=1)
             capacity = eng.max_len
-            t0 = time.perf_counter()
-            eng.warmup(burst)
-            torch.cuda.synchronize()
-            log(f"{name}: warmup {time.perf_counter() - t0:.2f} s")
-            dispatches, synced = [0], []
-            real_dispatch = eng._dispatch
-
-            def dispatch(b, sampling, eng=eng, real=real_dispatch):
-                dispatches[0] += 1
-                if synced or eng.last_step_admissions or eng.last_step_chunks:
-                    return real(b, sampling)
-                # a steady-state dispatch: no host sync allowed
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    out = real(b, sampling)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                synced.append(True)
-                return out
-
-            eng._dispatch = dispatch
-            kernels.reset_launches()
-            stats = sb.closed_loop(eng, requests, burst)
-            torch.cuda.synchronize()
-            launches = dict(kernels.LAUNCHES)
-            eng._dispatch = real_dispatch
-            if not synced:
-                raise AssertionError(f"{name}: no steady-state dispatch ran")
-            log(f"{name}: one steady-state dispatch ({burst} decode forwards) ran under "
-                f"torch.cuda.set_sync_debug_mode('error'): no host sync")
-            adm = sum(st["admissions"] for st in stats["steps"])
-            chunks = sum(st["chunks"] for st in stats["steps"])
-            first = adm if chunk and ENGINE["prompt"] > chunk else 0
-            forwards = dispatches[0] * burst
-            want = dict.fromkeys(kernels.LAUNCHES, 0)
-            for counts, n in ((sp["admission"], adm - first), (sp["step"], forwards),
-                              (sp["chunk_each"], chunks), (sp["chunk_first"], first)):
-                for k, v in counts.items():
-                    want[k] += v * n
-            log(f"{name}: {adm} admissions ({first} chunked), {chunks} chunks, "
-                f"{dispatches[0]} decode dispatches of {burst} forwards; launches {launches} "
-                f"(expected {want})")
-            if launches != want:
-                raise AssertionError(f"the {name} path did not launch the kernels the expected "
-                                     f"number of times")
-            by_path[name] = launches
-            fin = {r.request_id: r for r in eng.finished}
-            if sorted(fin) != stats["rids"] or any(
-                    r.finish_reason != "length" or len(r.tokens) != g
-                    for r, (_, g) in zip((fin[i] for i in stats["rids"]), requests)):
-                raise AssertionError(f"{name}: a request did not finish with its tokens")
-            got[name] = {i: fin[rid].tokens for i, rid in enumerate(stats["rids"])}
-            flat = [t for v in got[name].values() for t in v]
-            if min(flat) < 0 or max(flat) >= cfg.vocab_size:
-                raise AssertionError(f"{name}: tokens out of range")
-            sm = sb.summary(stats)
-
-            # the device's share of a steady step: one steady dispatch (all
-            # slots decoding) under torch.profiler, against the closed
-            # loop's steady step on the host clock
-            for prompt, _ in requests[:ENGINE["slots"]]:
-                eng.submit(prompt, max_new_tokens=ENGINE["gen"])
-            eng.step(burst)
-            torch.cuda.synchronize()
-            with torch.no_grad():
-                events = device_events(torch, lambda: eng._dispatch(burst, False))
-            busy_ms = sum(us for _, us in events) / 1e3
-            steady_ms = sm["steady_p50_step_ms"]
-            log(f"{name} on {card}: {sm['tokens_per_s']:.1f} tokens/s, slot utilization "
-                f"{sm['slot_utilization']:.3f}, step p50 {sm['p50_step_ms']:.3f} ms / p99 "
-                f"{sm['p99_step_ms']:.3f} ms, steady step p50 {steady_ms:.3f} ms / p99 "
-                f"{sm['steady_p99_step_ms']:.3f} ms over {sm['steady_steps']} steady steps of "
-                f"{len(stats['steps'])}; a steady dispatch's device busy {busy_ms:.3f} ms "
-                f"(idle share {1 - busy_ms / steady_ms:.3f} of the steady p50 step)")
-            for kern, names in sp["marks"].items():
-                us = sum(t for n, t in events if any(m in n for m in names))
-                n = burst * sp["step"][kern]
-                log(f"  {kern} on the {name} path: {us / 1e3 / n:.4f} ms per launch "
-                    f"(its kernel's device time over {n} launches)")
-            for ev, us in sorted(events, key=lambda e: -e[1])[:6]:
-                log(f"  device per steady dispatch: {us / 1e3:.4f} ms  {ev[:110]}")
+            by_path[sp["name"]], got[sp["name"]] = engine_closed_loop(
+                torch, kernels, eng, sp, requests, cfg.vocab_size, card)
             del eng
             torch.cuda.empty_cache()
 
@@ -1819,21 +2119,84 @@ def engine_paths(torch, dev, kernels, cfg, card):
         model.to("cpu")
         torch.cuda.empty_cache()
         for sp in group:
-            chunk, burst = sp["chunk"], ENGINE["burst"]
             t0 = time.perf_counter()
-            with memo_unpack(), torch.no_grad():
-                eng = sb.make_engine(model, quantized, requests, ENGINE["prompt"],
-                                     ENGINE["slots"], burst, chunk,
-                                     max(1, burst // chunk) if chunk else 1, depth=1)
-                eng.warmup(burst)
-                stats = sb.closed_loop(eng, requests, burst)
-            fin = {r.request_id: r.tokens for r in eng.finished}
-            cpu = {i: fin[rid] for i, rid in enumerate(stats["rids"])}
+            cpu = engine_run(torch, sb, model, quantized, requests, sp["chunk"])
             log(f"{sp['name']}: CPU engine run {time.perf_counter() - t0:.1f} s")
             hold_tokens(sp["name"], "the CPU engine run", got[sp["name"]], cpu, margins,
                         sp["cpu_tol"])
         del model
     return by_path
+
+
+def engine_family_path(torch, dev, kernels, fcfg, card):
+    """engine_llama_weights: the engine over TinyLlama-1.1B (bench.py's
+    llama-1.1b at full width and depth, seed 0) in weights mode with int8
+    row caches of its 4 KV heads, serving_bench's traffic (``ENGINE``) as
+    the OPT engine paths; :func:`engine_closed_loop` on the card.  Its
+    tokens are held against isolated generation on the card for the
+    requests ``ENGINE_HELD`` (isolated generation at this depth takes ~2.5
+    s a request).  The CPU check runs the same build cut to
+    ``FAMILY_CPU_LAYERS`` layers: the ``ENGINE_HELD`` requests through an
+    engine on the card and one on the CPU, held by the margins of isolated
+    generation on the card at that depth.  Returns the launch counts."""
+    import dataclasses
+
+    from dmx_compressor_tpu_torch.examples import serving_bench as sb
+    from dmx_compressor_tpu_torch.models.llama import LlamaForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
+
+    L = fcfg.num_hidden_layers
+    sp = dict(name="engine_llama_weights", chunk=None,
+              admission={"bfp_linear": 4 * L + 1},
+              step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
+              chunk_each={}, chunk_first={},
+              marks={"bfp_linear": ("bfp_decode_kernel",),
+                     "flash_decode_int8": ("flash_decode_int8_kernel",)})
+    requests = sb.make_requests(fcfg.vocab_size, ENGINE["requests"], ENGINE["prompt"],
+                                ENGINE["gen"], spread=False)
+    held = [requests[i] for i in ENGINE_HELD]
+
+    def build(cfg_):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model = LlamaForCausalLM(cfg_, device=dev, seed=0)
+            build_weights_mode(model)
+        torch.cuda.synchronize()
+        log(f"engine_llama_weights: Llama {cfg_.hidden_size}x{cfg_.num_hidden_layers} built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return model
+
+    model = build(fcfg)
+    eng = sb.make_engine(model, True, requests, ENGINE["prompt"], ENGINE["slots"],
+                         ENGINE["burst"], None, 1, depth=1)
+    capacity = eng.max_len
+    launches, got = engine_closed_loop(torch, kernels, eng, sp, requests, fcfg.vocab_size, card)
+    del eng
+    t0 = time.perf_counter()
+    iso, margins = isolated_generation(torch, model, held, capacity, True, dev)
+    log(f"engine_llama_weights: isolated generation of requests {ENGINE_HELD} on the card "
+        f"{time.perf_counter() - t0:.1f} s")
+    hold_tokens(sp["name"], f"isolated generation on the card (requests {ENGINE_HELD})",
+                {j: got[i] for j, i in enumerate(ENGINE_HELD)}, iso, margins, KV8_TOL)
+    del model
+    torch.cuda.empty_cache()
+
+    # the CPU check at FAMILY_CPU_LAYERS layers: the held requests through
+    # an engine on the card and one on the CPU
+    model = build(dataclasses.replace(fcfg, num_hidden_layers=FAMILY_CPU_LAYERS))
+    card_toks = engine_run(torch, sb, model, True, held)
+    _, margins = isolated_generation(torch, model, held, capacity, True, dev)
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = engine_run(torch, sb, model, True, held)
+    log(f"engine_llama_weights: CPU engine run of requests {ENGINE_HELD} at "
+        f"{FAMILY_CPU_LAYERS} layers {time.perf_counter() - t0:.1f} s")
+    hold_tokens(sp["name"], f"the CPU engine run at {FAMILY_CPU_LAYERS} layers (requests "
+                f"{ENGINE_HELD}, the card's engine at that depth)", card_toks, cpu, margins,
+                KV8_TOL)
+    del model
+    return launches
 
 
 @contextlib.contextmanager
@@ -1889,6 +2252,11 @@ def main() -> int:
     gcfg, mcfg = GPT2Config.gpt2(), MistralConfig.mistral_1b()
     linear_shapes_of = {**{f: family_linear_shapes(c) for f, c in fams.items()},
                         "mistral": family_linear_shapes(mcfg), "gpt2": gpt2_linear_shapes(gcfg)}
+    # the sbfp paths' B5 shapes: q/k/v and gate/up unmerged (GPT-2's c_attn
+    # born merged: its B1 shapes)
+    sbfp_shapes_of = {**{f: family_sbfp_linear_shapes(c) for f, c in fams.items()},
+                      "mistral": family_sbfp_linear_shapes(mcfg),
+                      "gpt2": gpt2_linear_shapes(gcfg)}
     with phase("B1", took):
         b1_step, b1 = check_b1(torch, dev, cfg)
     with phase("B2", took):
@@ -1903,26 +2271,35 @@ def main() -> int:
         t1_step, t1, t1_flush = check_t1(torch, dev, cfg)
     with phase("T2", took):
         t2_step, t2 = check_t2(torch, dev, cfg)
-    fam_linears = {}  # family -> ((B1 step, cases), (T1 step, cases))
+    fam_linears = {}  # family -> ((B1 step, cases), (T1 step, cases), (B5 step, cases))
     for seed, (family, shapes) in zip((22, 24, 26, 28, 30), linear_shapes_of.items()):
-        # GPT-2's head (N 50257) also at a ragged M
+        # GPT-2's head (N 50257) also at a ragged M; B5 at a ragged M over
+        # each family's longest K (its down_proj: Gemma's 16384)
         ragged = [(3, gcfg.n_embd, gcfg.vocab_size)] if family == "gpt2" else []
-        with phase(f"B1 and T1 at the {family} shapes", took):
-            fam_linears[family] = check_family_linears(torch, dev, shapes, family, seed, ragged)
+        K, N, _ = max(sbfp_shapes_of[family], key=lambda s: s[0])
+        with phase(f"B1, T1 and B5 at the {family} shapes", took):
+            fam_linears[family] = check_family_linears(
+                torch, dev, shapes, sbfp_shapes_of[family], family, seed, ragged,
+                ragged + [(130, K, N)])
 
     by_path, tok_s = {}, {}
+    fam_t2 = {}  # family or path -> (T2's per-step numbers, cases) at its recorded sites
     for spec in path_specs(cfg):
         name = spec["name"]
         with phase(f"{name} path", took):
             by_path[name], tok_s[name] = serve_path(torch, dev, kernels, cfg, spec)
         log(f"{name} path: decode {tok_s[name]:.1f} tokens/s on {card}")
+        if spec.get("record_t2"):
+            with phase(f"T2 at the {name} sites", took):
+                fam_t2[name] = check_t2_sites(torch, dev, spec["t2_sites"], spec["t2_step"],
+                                              name)
     log(f"bench.py's ratio, for information (host clock, batch {BATCH}, {card}): "
         f"weights / baseline {tok_s['weights'] / tok_s['baseline']:.4f}, "
         f"sbfp / baseline {tok_s['sbfp'] / tok_s['baseline']:.4f}, "
         f"sbfp_wide / baseline {tok_s['sbfp_wide'] / tok_s['baseline']:.4f}, "
-        f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}")
+        f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}, "
+        f"fp8 / baseline {tok_s['fp8'] / tok_s['baseline']:.4f}")
     kv_repeat_ms = {c["path"]: c["repeat_ms"] for c in b3 if "repeat_ms" in c}
-    fam_t2 = {}  # family -> (T2's per-step numbers, cases) at its BASIC path's sites
     fam_paths = {**{f: (c, family_path_specs(c, f)) for f, c in fams.items()},
                  "gpt2": (gcfg, gpt2_path_specs(gcfg)),
                  "mistral": (mcfg, family_path_specs(mcfg, "mistral"))}
@@ -1939,11 +2316,14 @@ def main() -> int:
                     fam_t2[family] = check_t2_sites(torch, dev, spec["t2_sites"],
                                                     spec["t2_step"], name)
         log(f"bench.py's ratio for the {family} family, for information (host clock, batch "
-            f"{BATCH}, {card}): weights / baseline "
-            f"{tok_s[f'{family}_weights'] / tok_s[f'{family}_baseline']:.4f}, basic / baseline "
-            f"{tok_s[f'{family}_basic'] / tok_s[f'{family}_baseline']:.4f}")
+            f"{BATCH}, {card}): " + ", ".join(
+                f"{mode} / baseline {tok_s[f'{family}_{mode}'] / tok_s[f'{family}_baseline']:.4f}"
+                for mode in ("weights", "sbfp", "basic")))
     with phase("engine paths", took):
         by_path.update(engine_paths(torch, dev, kernels, cfg, card))
+    with phase("engine_llama_weights path", took):
+        by_path["engine_llama_weights"] = engine_family_path(torch, dev, kernels, fams["llama"],
+                                                             card)
     log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
 
     def launches(kern):
@@ -1961,6 +2341,7 @@ def main() -> int:
     # at their OPT path's shape (their first case)
     b1_fam = [c for f in fam_linears for c in fam_linears[f][0][1]]
     t1_fam = [c for f in fam_linears for c in fam_linears[f][1][1]]
+    b5_fam = [c for f in fam_linears for c in fam_linears[f][2][1]]
     t2_fam = [c for f in fam_t2 for c in fam_t2[f][1]]
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
@@ -1985,8 +2366,9 @@ def main() -> int:
         dict(name="sbfp_linear", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/sbfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:199", **launches("sbfp_linear"),
-             max_abs_err=max(c["max_abs_err"] for c in b5), **b5_step,
-             f32_route_step=b5_wide_step, cases=b5),
+             max_abs_err=max(c["max_abs_err"] for c in b5 + b5_fam), **b5_step,
+             f32_route_step=b5_wide_step,
+             **{f"{f}_step": fam_linears[f][2][0] for f in fam_linears}, cases=b5 + b5_fam),
         dict(name="bfp_linear_bf16", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/bfp_linear_bf16.cu",
              replaces="tools/diag_bfpkernel_ab.py:30", **launches("bfp_linear_bf16"),

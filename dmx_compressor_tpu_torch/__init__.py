@@ -8,9 +8,15 @@ the card unless the caller passes ``device="cpu"``; they never fall back to
 the CPU on their own.  The package imports neither ``jax`` nor
 ``dmx_compressor_tpu``.
 
-Top-level namespaces mirror the JAX package's: ``format.*`` presets,
-``default_approx.*`` and ``config_rules.{BASELINE, BASIC}`` (restricted to
-the module types this port has).
+Top-level namespaces mirror the JAX package's: the ``format.*`` presets,
+``default_approx.*`` and ``config_rules.{BASELINE, FP8, BASIC,
+SBFP_WEIGHT_STORAGE}`` (the rules restricted to the module types this port
+has: no conv, pool, ReLU6, BatchNorm2d, GroupNorm or Exp module yet).
+
+``format.SBFP12_16`` is the JAX package's preset, scale bias 7.  The serving
+recipe ``ops.compress.build_sbfp_mode`` stores bench.py's SBFP12_16 instead,
+scale bias 16 (``ops.compress.SBFP12_16``, ``format.SBFP12_16_16`` here);
+neither replaces the other.
 """
 
 from types import SimpleNamespace
@@ -38,18 +44,37 @@ format = SimpleNamespace(
 for _p, _pname in ((16, "24"), (8, "16"), (6, "14"), (4, "12")):
     for _b in (128, 64, 32, 16):
         setattr(format, f"BFP{_pname}_{_b}", _F(f"BFP[{_p}|8]{{{_b}}}(SN)"))
+for _pname, _p in (("16A", 8), ("14A", 6), ("12A", 4)):
+    for _b in (128, 64, 32, 16):
+        # the nominal precision for every A-variant, BFP16A_16 included, as
+        # the JAX package has it
+        setattr(format, f"BFP{_pname}_{_b}", _F(f"BFP[{_p}|8]{{{_b}}}(_N)"))
+format.SBFP12_16 = _F("SBFP<XP[4,0](CSN)><FP[0|4|4,7](FN)>{16}")
+for _bias in range(4, 19):
+    setattr(format, f"SBFP12_16_{_bias}", _F(f"SBFP<XP[4,0](CSN)><FP[0|4|4,{_bias}](FN)>{{16}}"))
+for _sh, _name in (("E4M3", "MXFP8"), ("E5M2", "MXFP8"), ("E2M3", "MXFP6"), ("E3M2", "MXFP6"),
+                   ("E2M1", "MXFP4")):
+    for _b in (128, 64, 32):
+        setattr(format, f"{_name}_{_sh}K{_b}", _F(f"{_name}[{_sh}]{{{_b}}}"))
+for _p in (8, 6, 4):
+    for _b in (128, 64, 32):
+        setattr(format, f"MXINT{_p}_K{_b}", _F(f"MXINT{_p}{{{_b}}}"))
 
 _A = ApproximationFunction.from_shorthand
 
 default_approx = SimpleNamespace(
     RELU=_A("NONE"),
+    RELU6=_A("NONE"),
     SILU=_A("SILU[vsimd]{}()"),
+    SOFTMAX=_A("SOFTMAX[vsimd]{input_clamp=-100}(max_adjust=0.1141)"),
     GELU=_A("NONE"),
     QUICK_GELU=_A("QUICK_GELU[vsimd]{}()"),
     TANH=_A("NONE"),
-    SOFTMAX=_A("SOFTMAX[vsimd]{input_clamp=-100}(max_adjust=0.1141)"),
+    BATCH_NORM_2D=_A("NONE"),
     LAYER_NORM=_A("LAYER_NORM[vsimd]{}()"),
     RMS_NORM=_A("RMS_NORM[vsimd]{}()"),
+    GROUP_NORM=_A("NONE"),
+    EXP=_A("EXP[vsimd]{}(knorm=0,kmax=15,use_exp_large=True)"),
     APPLY_LLAMA_ROPE=_A("APPLY_LLAMA_ROPE[vsimd]{}()"),
     NONE=_A("NONE"),
 )
@@ -94,6 +119,14 @@ config_rules = SimpleNamespace(
         approx=[((nn.ReLU, nn.GELUBase, nn.SiLU, nn.Tanh, nn.Softmax, nn.LayerNorm),
                  default_approx.NONE, 1, 1)],
     ),
+    FP8=_rules_for(
+        format.FLOAT16, format.AFLOAT8, format.FLOAT32, format.FLOAT16,
+        approx=[
+            ((nn.ReLU, nn.GELUBase, nn.QuickGELU, nn.SiLU, nn.Tanh, nn.Softmax, nn.LayerNorm,
+              nn.RMSNorm), default_approx.NONE, 1, 1),
+            ((nn.ApplyRotaryPosEmb,), default_approx.NONE, 4, 2),
+        ],
+    ),
     BASIC=_rules_for(
         format.FLOAT16, format.BFP16_64, format.BFP32_1, format.FLOAT16,
         approx=[
@@ -108,6 +141,10 @@ config_rules = SimpleNamespace(
             ((nn.ApplyRotaryPosEmb,), default_approx.APPLY_LLAMA_ROPE, 4, 2),
         ],
     ),
+    SBFP_WEIGHT_STORAGE=[
+        DmxConfigRule(module_types=(nn.Linear,),
+                      module_config=dict(weight_storage_format=format.SBFP12_16)),
+    ],
 )
 
 __all__ = [

@@ -83,7 +83,19 @@ class DmxModel:
 
         return self.configure(None, *config_rules.BASELINE)
 
-    def to_basic_mode(self) -> "DmxModel":
+    def to_basic_mode(self, sbfp_weight_storage: bool = False) -> "DmxModel":
         from .. import config_rules
 
-        return self.configure(None, *config_rules.BASIC)
+        self.configure(None, *config_rules.BASIC)
+        if sbfp_weight_storage:
+            self.configure(None, *config_rules.SBFP_WEIGHT_STORAGE)
+        return self
+
+    def to_fp8_mode(self) -> "DmxModel":
+        from .. import config_rules
+
+        return self.configure(None, *config_rules.FP8)
+
+    def fold_weights_and_biases(self) -> None:
+        for _, m in self.named_dmx_modules():
+            m.fold_weight_and_bias()

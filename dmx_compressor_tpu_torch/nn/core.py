@@ -5,7 +5,8 @@ with the co-design surface
 
     input casts -> _forward -> output casts -> caller-dtype realignment
 
-and a weight pipeline (storage cast -> weight cast).  The smoothquant, OBC,
+and a weight pipeline (storage cast -> weight cast), which
+``fold_weight_and_bias`` bakes into the parameters.  The smoothquant, OBC,
 AFT, sparsity and plugin hooks of the JAX package are not ported yet: they
 stay ``None`` (plugins: empty) and a module that finds one set raises.
 """
@@ -24,7 +25,7 @@ from ..functional.approximate import (
     approx_blend,
 )
 from ..numerics.cast import CastTo, CastToDict
-from ..numerics.format import Format
+from ..numerics.format import Format, Same
 
 _HOOKS_TODO = (
     "smoothquant / OBC / AFT / sparsity / plugin hooks arrive with the "
@@ -144,6 +145,24 @@ class DmxModule(nn.Module):
         if getattr(self, "bias", None) is None:
             return None
         return self.bias_cast(self.bias) if self.bias_cast is not None else None
+
+    def fold_weight_and_bias(self) -> None:
+        """Bake the bias cast, then the weight storage cast, then the weight
+        cast into the parameters, each cast SAME afterwards: the forward
+        computes the same values.  A weight Parameter that another module
+        shares (a head tied to the token embedding) is cast for both, as in
+        the JAX package.  The sparsifier and SmoothQuant branches of the JAX
+        package arrive with those hooks (``_check_hooks`` refuses them)."""
+        self._check_hooks()
+        with torch.no_grad():
+            if getattr(self, "bias", None) is not None and self.bias_cast is not None and (
+                    not isinstance(self.bias_format, Same)):
+                self.bias.copy_(self.bias_cast(self.bias))
+                self.bias_cast.set_format("SAME")
+            for cast in (self.weight_storage_cast, self.weight_cast):
+                if cast is not None and not isinstance(cast.format, Same):
+                    self.weight.copy_(cast(self.weight))
+                    cast.set_format("SAME")
 
     # ----------------------------------------------------------- forward
 

@@ -42,7 +42,10 @@ from ..numerics.format import (
 from .bfp_linear import bfp_linear, bfp_linear_bf16, sbfp_linear
 from .bfp_pack import PackedBFP, PackedSBFP, bfp_pack, sbfp_pack
 
-# the SBFP12_16 weight storage of the JAX bench's sbfp mode (bench.py:163-183)
+# the SBFP12_16 weight storage of the JAX bench's sbfp mode (bench.py:163-183),
+# scale bias 16; the package's preset ``format.SBFP12_16`` is the JAX
+# package's, scale bias 7 (``format.SBFP12_16_16`` is this one): neither
+# replaces the other
 SBFP12_16 = "SBFP<XP[4,0](CSN)><FP[0|4|4,16](FN)>{16}"
 
 
@@ -363,7 +366,9 @@ def build_sbfp_mode(model: nn.Module, fmt: str = SBFP12_16):
     """The SBFP serving configuration (SBFP weight storage served from packed
     int4 payloads, activations in their own precision):
     ``DmxModel.from_raw`` -> every Linear (the tied LM head included) gets
-    weight storage ``fmt`` (bench.py's SBFP12_16 by default) ->
+    weight storage ``fmt`` (bench.py's SBFP12_16 by default, scale bias 16,
+    not the bias-7 preset ``format.SBFP12_16`` that ``to_basic_mode(
+    sbfp_weight_storage=True)`` stores) ->
     ``compress_for_inference`` -> inference mode.  Returns the DmxModel;
     ``model`` is transformed in place."""
     from ..modeling.model import DmxConfigRule, DmxModel

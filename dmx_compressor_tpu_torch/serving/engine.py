@@ -128,11 +128,13 @@ class _Slot:
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching over an OPT-family causal LM.
+    """Slot-based continuous batching over a causal LM of the port's zoo.
 
     The model must expose ``init_cache(..., per_row=True)`` and accept a
-    per-row ``position_offset`` tensor (models/opt.py).  Any Dmx
-    configuration applies: the engine runs the live module tree.
+    per-row ``position_offset`` tensor: OPT and GPT-2 (learned positions,
+    looked up per row), Llama, Qwen3 and Gemma (per-row RoPE) and Mistral
+    (per-row banded masks).  Any Dmx configuration applies: the engine runs
+    the live module tree.
 
     ``pipeline_depth=N`` reads a decode step's tokens back only after later
     steps were dispatched.  As in the JAX package, the in-flight results

@@ -1,4 +1,5 @@
-"""How far the BASIC path's logits move when its sums run in another order.
+"""How far the BASIC and FP8 paths' logits move when their sums run in
+another order.
 
 The BASIC path's FLOAT16 and BFP casts round values that come out of f32
 sums: the matmuls, the LayerNorm moments, the softmax sums.  Where a sum's
@@ -19,6 +20,21 @@ nearly tie changes every later step):
         --layers 12 --vocab 2048 --seeds 0 1
     python -m dmx_compressor_tpu_torch.tools.order_sensitivity --family llama \\
         --device cpu --layers 4 --vocab 2048 --seeds 0 1
+
+``--mode weights`` and ``--mode sbfp`` serve bench.py's int8-cache legs
+(``build_weights_mode``, ``build_sbfp_mode``: packed BFP16_64 or SBFP12_16
+weights, activations in f32), as is and with every packed linear summed in
+float64 and rounded once: where a K or V value lands by one int8 step apart,
+the step propagates in the same way.
+
+``--mode fp8`` serves the model in FP8 mode (``DmxModel.to_fp8_mode``: AFLOAT8
+Linear and ActActMatMul inputs and weights, FLOAT16 boundaries, an f32
+cache) instead, as is and with the whole model in float64 (every sum in
+float64, each value rounded to f32 before each cast), and compares the two
+in the same way:
+
+    python -m dmx_compressor_tpu_torch.tools.order_sensitivity --mode fp8 \\
+        --device cpu --layers 12 --vocab 2048 --seeds 0 1
 
 Widths are OPT-125m's, or bench.py's ``gpt2`` (GPT-2 124M),
 ``llama-1.1b`` (TinyLlama-1.1B), ``qwen3-0.6b`` (Qwen3-0.6B), ``gemma-2b``
@@ -44,11 +60,12 @@ from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..models.mistral import MistralConfig, MistralForCausalLM
 from ..models.opt import OPTConfig, OPTForCausalLM
 from ..models.qwen3 import Qwen3Config, Qwen3ForCausalLM
+from ..modeling.model import DmxModel
 from ..models.shared import greedy_decode, greedy_prefill
 from ..ops import basic_attention, basic_layer, basic_linear, compress
 from ..ops.bfp_cast import fp16_cast_ref
-from ..ops.bfp_pack import bfp_unpack
-from ..ops.compress import build_basic_mode
+from ..ops.bfp_pack import bfp_unpack, sbfp_unpack
+from ..ops.compress import build_basic_mode, build_sbfp_mode, build_weights_mode
 from ..ops.split_decode import prepare_split_decode
 
 
@@ -62,6 +79,28 @@ def _matmul_f64(x, w, bias=None, out_fp16=False, residual=None):
     if residual is not None:
         y = fp16_cast_ref(y + residual.float())
     return y
+
+
+def _linear_f64(unpack):
+    """A packed linear's function (B1's or B5's) with its products summed in
+    float64, rounded once."""
+
+    def linear(x, w, bias=None):
+        y = torch.matmul(x.double(), unpack(w).double().T)
+        if bias is not None:
+            y = y + bias.double()
+        return y.to(x.dtype)
+
+    return linear
+
+
+@contextlib.contextmanager
+def float64_linears():
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(compress, "bfp_linear", _linear_f64(bfp_unpack)))
+        stack.enter_context(mock.patch.object(compress, "sbfp_linear",
+                                              _linear_f64(sbfp_unpack)))
+        yield
 
 
 class _Float64Sums:
@@ -114,9 +153,39 @@ def serve(family, cfg, seed, device, batch, prompt, steps):
     return logits.float().cpu(), torch.cat([tok[:, None], toks], dim=1).cpu()
 
 
+def serve_fp8(family, cfg, seed, device, batch, prompt, steps, dtype=torch.float32):
+    """FP8 mode from ``seed`` with the model's parameters and cache in
+    ``dtype``: the prefill logits and the greedy tokens."""
+    model = FAMILIES[family][1](cfg, device=device, seed=seed)
+    DmxModel.from_raw(model).to_fp8_mode()
+    model.to(dtype)
+    caches = model.init_cache(batch, prompt + steps, dtype=dtype, device=device)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                        generator=torch.Generator().manual_seed(seed + 1)).to(device)
+    with torch.no_grad():
+        logits, tok = greedy_prefill(model, caches, ids)
+        toks, _ = greedy_decode(model, caches, tok, prompt, steps)
+    return logits.float().cpu(), torch.cat([tok[:, None], toks], dim=1).cpu()
+
+
+def serve_int8(family, cfg, seed, device, batch, prompt, steps, mode):
+    """bench.py's ``mode`` leg (weights or sbfp, int8 cache) from ``seed``:
+    the prefill logits and the greedy tokens."""
+    model = FAMILIES[family][1](cfg, device=device, seed=seed)
+    (build_weights_mode if mode == "weights" else build_sbfp_mode)(model)
+    caches = model.init_cache(batch, prompt + steps, quantized=True, device=device)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                        generator=torch.Generator().manual_seed(seed + 1)).to(device)
+    with torch.no_grad():
+        logits, tok = greedy_prefill(model, caches, ids)
+        toks, _ = greedy_decode(model, caches, tok, prompt, steps)
+    return logits.float().cpu(), torch.cat([tok[:, None], toks], dim=1).cpu()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--family", choices=sorted(FAMILIES), default="opt")
+    ap.add_argument("--mode", choices=("basic", "weights", "sbfp", "fp8"), default="basic")
     ap.add_argument("--device", default=None, help="cpu, or the card (default)")
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--vocab", type=int, default=None, help="default: the family's")
@@ -129,11 +198,19 @@ def main(argv=None) -> None:
     setattr(cfg, "n_layer" if a.family == "gpt2" else "num_hidden_layers", a.layers)
     cfg.vocab_size = a.vocab or cfg.vocab_size
     for seed in a.seeds:
-        base = serve(a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)
-        with float64_sums():
-            other = serve(a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)
+        run = (a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)
+        if a.mode == "fp8":
+            base, other = serve_fp8(*run), serve_fp8(*run, dtype=torch.float64)
+        elif a.mode in ("weights", "sbfp"):
+            base = serve_int8(*run, a.mode)
+            with float64_linears():
+                other = serve_int8(*run, a.mode)
+        else:
+            base = serve(*run)
+            with float64_sums():
+                other = serve(*run)
         d = (base[0] - other[0]).abs()
-        print(f"{a.family} seed {seed}, {a.layers} layers, vocab {cfg.vocab_size}, batch "
+        print(f"{a.mode} {a.family} seed {seed}, {a.layers} layers, vocab {cfg.vocab_size}, batch "
               f"{a.batch} x prompt "
               f"{a.prompt}, on {a.device or 'cuda'}: prefill logits max |diff| {d.max().item():.4g}"
               f" (share of logits that differ {(d > 0).float().mean().item():.4f}, largest "

@@ -39,7 +39,11 @@ from dmx_compressor_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel, lo
 from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill
 from dmx_compressor_tpu_torch.nn.core import DmxModule
 from dmx_compressor_tpu_torch.ops import basic_layer as tbl
-from dmx_compressor_tpu_torch.ops.compress import PackedBFPLinear, compress_for_inference
+from dmx_compressor_tpu_torch.ops.compress import (
+    PackedBFPLinear,
+    PackedSBFPLinear,
+    compress_for_inference,
+)
 from dmx_compressor_tpu_torch.ops.split_decode import prepare_split_decode
 from test_torch_llama import CHAIN_TOL, _j_build, _spy
 from test_torch_opt import flat_params
@@ -121,7 +125,7 @@ def test_load_jax_params_covers_every_parameter():
 
 @pytest.mark.parametrize("leg,kind", [("baseline", "tiny"), ("weights", "tiny"),
                                       ("basic", "d64"), ("baseline", "d64"),
-                                      ("weights", "d64")])
+                                      ("weights", "d64"), ("sbfp", "tiny")])
 def test_leg_matches_jax(leg, kind):
     fam.leg_matches_jax(FAMILY, leg, kind)
 
@@ -139,20 +143,23 @@ def _built_pair(leg, seed=8):
     return jm, tm
 
 
-@pytest.mark.parametrize("leg", ["weights", "basic"])
+@pytest.mark.parametrize("leg", ["weights", "sbfp", "basic"])
 def test_packed_weights_equal_bit_for_bit(leg):
     """The packed payloads of both sides are equal bit for bit: c_attn (born
     merged), attn.c_proj, c_fc, mlp.c_proj and the tied head (N 256 here,
-    50257 at bench.py's gpt2)."""
+    50257 at bench.py's gpt2), BFP mantissas and exponents or SBFP nibbles
+    and scales, and the biases."""
     jm, tm = _built_pair(leg)
     pairs = [(jm.lm_head, tm.lm_head)]
     for jb, tb in zip(jm.transformer.h, tm.transformer.h):
         pairs += [(jb.attn.c_attn, tb.attn.c_attn), (jb.attn.c_proj, tb.attn.c_proj),
                   (jb.mlp.c_fc, tb.mlp.c_fc), (jb.mlp.c_proj, tb.mlp.c_proj)]
         assert tb.attn.c_attn.out_features == 3 * 128
+    cls, fields = ((PackedSBFPLinear, ("weight_nibbles", "weight_block_scale")) if leg == "sbfp"
+                   else (PackedBFPLinear, ("weight_mantissa", "weight_exponent")))
     for jp, tp in pairs:
-        assert isinstance(tp, PackedBFPLinear)
-        for f in ("weight_mantissa", "weight_exponent"):
+        assert isinstance(tp, cls)
+        for f in fields:
             np.testing.assert_array_equal(getattr(tp, f).numpy(),
                                           np.asarray(getattr(jp, f).get_value()))
         if tp.bias is not None:
@@ -276,13 +283,14 @@ def test_fused_block_step_matches_jax():
                                   np.asarray(jc[0].tail_k.get_value()[:, :, 0]))
 
 
-@pytest.mark.parametrize("leg", ["weights", "baseline", "basic"])
+@pytest.mark.parametrize("leg", ["weights", "baseline", "sbfp", "basic"])
 def test_leg_calls_the_kernel_wrappers(monkeypatch, leg):
     """The counts chip_smoke.py asserts on the card, at the d64 config (L
     blocks; the prefill's 128 rows are within the fused linear's 256, so
     each linear takes one T2 fewer than at chip_smoke.py's 1024): weights
     4L+1 B1 and no B3 (an int8 prefill attends through quantized_sdpa) /
-    4L+1 B1 + L B2; baseline L B3 / L B4; BASIC 4L+1 T1 + 34L+6 - (4L+1) T2
+    4L+1 B1 + L B2; baseline L B3 / L B4; SBFP 4L+1 B5 (c_attn born merged)
+    and no B3 / 4L+1 B5 + L B2; BASIC 4L+1 T1 + 34L+6 - (4L+1) T2
     at prefill (OPT's casts, GELU's pair for ReLU's, two embeddings), 2L in
     prepare_split_decode, 4L+1 T1 + 17L+3 T2 a step (3L+1 of them
     composed: OPT's 16L+3 and the GELU's output cast), every block through
@@ -310,6 +318,7 @@ def test_leg_calls_the_kernel_wrappers(monkeypatch, leg):
     want = {
         "weights": ({"b1": 4 * L + 1}, {}, {"b1": 4 * L + 1, "b2": L}),
         "baseline": ({"b3": L}, {}, {"b4": L}),
+        "sbfp": ({"b5": 4 * L + 1}, {}, {"b5": 4 * L + 1, "b2": L}),
         "basic": ({"t1": 4 * L + 1, "t2": 34 * L + 6 - (4 * L + 1)}, {"t2": 2 * L},
                   {"t1": 4 * L + 1, "t2": 17 * L + 3, "composed": 3 * L + 1,
                    "fused_step": L}),

@@ -992,3 +992,79 @@ def test_float_cast_keeps_nan_and_inf_on_card(cuda, sh, mode):
         assert int(torch.isnan(want).sum()) == 8
         keep = ~torch.isnan(want)
         assert torch.equal(got[keep].view(torch.int32), want[keep].view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# bench.py's sbfp leg of the families, and the engine over Llama, on the card
+# ---------------------------------------------------------------------------
+
+# (M, N, K): B5 (SBFP12_16) at the families' shapes where trouble is likely:
+# Gemma's down_proj (K 16384, split over the cluster beyond 6144) at decode,
+# prefill and a ragged M; GPT-2's tied head (N 50257, odd: the scalar
+# epilogue) at M 3, 8 and 1024; the GQA k/v projections below a tile's width
+# (Gemma's N 256, Mistral's 512)
+FAMILY_SBFP_LINEARS = [(8, 2048, 16384), (1024, 2048, 16384), (130, 2048, 16384),
+                       (3, 50257, 768), (8, 50257, 768), (1024, 50257, 768),
+                       (8, 256, 2048), (1024, 256, 2048), (8, 512, 2048), (1024, 512, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", FAMILY_SBFP_LINEARS)
+def test_sbfp_linear_at_family_shapes_on_card(cuda, M, N, K):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = tpack.sbfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05,
+                        Format.from_shorthand(SBFP12_16))
+    x = torch.randn(M, K, generator=g, device=cuda)
+    b = torch.randn(N, generator=g, device=cuda)
+    assert tbl.sbfp_route(w, M, K) == "tensor_cores"
+    n0 = kernels.LAUNCHES["sbfp_linear"]
+    got = tbl.sbfp_linear(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sbfp_linear"] == n0 + 1
+    torch.testing.assert_close(got, tbl.sbfp_linear_ref(x, w, b), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_engine_over_llama_on_card_matches_cpu(cuda):
+    """One burst-decoding engine run over a 2-layer Llama (GQA 2:1, heads of
+    64) in weights mode with int8 row caches, on the card and on the CPU:
+    B1 at every admission and forward, B2 over the GQA row caches, no B3 (an
+    int8 prefill attends through quantized_sdpa); tokens equal where the
+    CPU engine's isolated generation has a top-1/top-2 margin above
+    ENGINE_TOL."""
+    import numpy as np
+    from dmx_compressor_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
+    from dmx_compressor_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=256)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(1, 512, (n,)).astype(np.int32), g)
+            for n, g in ((5, 20), (30, 6), (17, 9), (9, 12), (24, 5))]
+    with torch.no_grad():
+        model = LlamaForCausalLM(cfg, device=cuda, seed=0)
+        build_weights_mode(model)
+
+    def run(dev):
+        eng = ContinuousBatchingEngine(model, max_slots=3, max_len=64, prompt_buckets=(16, 32),
+                                       quantized_kv=True)
+        rids = [eng.submit(p, max_new_tokens=g) for p, g in reqs]
+        res = {r.request_id: r.tokens for r in eng.run(burst=4)}
+        return [res[r] for r in rids]
+
+    kernels.reset_launches()
+    card = run(cuda)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bfp_linear"] > 0 and kernels.LAUNCHES["flash_decode_int8"] > 0
+    assert kernels.LAUNCHES["flash_attention"] == 0
+    model.to("cpu")
+    cpu = run("cpu")
+    for i, ((p, g), a, b) in enumerate(zip(reqs, card, cpu)):
+        _, margins = _isolated_on_card(model, p, g, True, 64, "cpu")
+        assert len(a) == len(b) == g
+        for s in range(g):
+            if margins[s] <= ENGINE_TOL:
+                break
+            assert a[s] == b[s], f"request {i}, token {s}"

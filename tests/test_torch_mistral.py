@@ -61,12 +61,12 @@ def _restore_inference_mode():
 
 @pytest.mark.parametrize("leg,kind", [("baseline", "tiny"), ("weights", "tiny"),
                                       ("basic", "d64"), ("baseline", "d64"),
-                                      ("weights", "d64")])
+                                      ("weights", "d64"), ("sbfp", "tiny")])
 def test_leg_matches_jax(leg, kind):
     fam.leg_matches_jax(FAMILY, leg, kind)
 
 
-@pytest.mark.parametrize("leg", ["weights", "basic"])
+@pytest.mark.parametrize("leg", ["weights", "sbfp", "basic"])
 def test_packed_weights_equal_bit_for_bit(leg):
     fam.packed_weights_equal(FAMILY, leg)
 
@@ -123,7 +123,7 @@ def test_fused_layer_step_matches_jax(window):
                                   np.asarray(jc[0].tail_k.get_value()[:, :, 0]))
 
 
-@pytest.mark.parametrize("leg", ["weights", "baseline", "basic"])
+@pytest.mark.parametrize("leg", ["weights", "baseline", "sbfp", "basic"])
 def test_leg_calls_the_kernel_wrappers(monkeypatch, leg):
     fam.leg_calls_the_kernel_wrappers(monkeypatch, FAMILY, leg)
 

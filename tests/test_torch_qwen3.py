@@ -155,12 +155,12 @@ def test_flash_prefill_matches_jax_at_head_dim(D):
 
 @pytest.mark.parametrize("leg,kind", [("baseline", "tiny"), ("weights", "tiny"),
                                       ("basic", "d64"), ("baseline", "wide"),
-                                      ("weights", "wide")])
+                                      ("weights", "wide"), ("sbfp", "tiny"), ("sbfp", "wide")])
 def test_leg_matches_jax(leg, kind):
     fam.leg_matches_jax(FAMILY, leg, kind)
 
 
-@pytest.mark.parametrize("leg", ["weights", "basic"])
+@pytest.mark.parametrize("leg", ["weights", "sbfp", "basic"])
 def test_packed_weights_equal_bit_for_bit(leg):
     fam.packed_weights_equal(FAMILY, leg)
 
@@ -173,7 +173,7 @@ def test_fused_layer_step_matches_jax():
     fam.fused_step_matches_jax(FAMILY)
 
 
-@pytest.mark.parametrize("leg", ["weights", "baseline", "basic"])
+@pytest.mark.parametrize("leg", ["weights", "baseline", "sbfp", "basic"])
 def test_leg_calls_the_kernel_wrappers(monkeypatch, leg):
     fam.leg_calls_the_kernel_wrappers(monkeypatch, FAMILY, leg)
 

@@ -58,7 +58,11 @@ from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill
 from dmx_compressor_tpu_torch.nn.core import DmxModule
 from dmx_compressor_tpu_torch.ops import basic_layer as tbl
 from dmx_compressor_tpu_torch.ops import kv_cache as tkv
-from dmx_compressor_tpu_torch.ops.compress import PackedBFPLinear, compress_for_inference
+from dmx_compressor_tpu_torch.ops.compress import (
+    PackedBFPLinear,
+    PackedSBFPLinear,
+    compress_for_inference,
+)
 from dmx_compressor_tpu_torch.ops.split_decode import prepare_split_decode
 from test_torch_llama import CHAIN_TOL, LEG_TOL, PORT_BUILD, _cache_kw, _j_build, _spy
 from test_torch_opt import flat_params, jgreedy
@@ -78,6 +82,15 @@ FAMILIES = {
 }
 # the loader of a raw JAX model's weights into the port model, by family
 LOADERS = {"gpt2": tgpt2.load_jax_params}
+
+
+# the prompts' seed (47) by (family, leg) where another is taken: the JAX
+# package's own Mistral run under SBFP12_16 has near-ties at prompt seed 47
+# (top-1/top-2 margins 0.0082 at "tiny", 0.0032 at "d64", below the int8
+# legs' 1e-2, where a token may follow either logit), while the port stays
+# within 3.1e-6 of it with the same tokens; prompt seed 42 clears the guard
+# at "tiny" (margin 0.055), so the tokens are held there
+PROMPT_SEEDS = {("mistral", "sbfp"): 42}
 
 
 def rng(seed):
@@ -111,9 +124,10 @@ def configs(family, kind):
     return jc(**fields), tc(**fields), prompt, cap
 
 
-def prompt_ids(family, kind):
+def prompt_ids(family, kind, leg=None):
     jcfg, _, prompt, _ = configs(family, kind)
-    return rng(47).integers(0, jcfg.vocab_size, (B, prompt)).astype(np.int32)
+    seed = PROMPT_SEEDS.get((family, leg), 47)
+    return rng(seed).integers(0, jcfg.vocab_size, (B, prompt)).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,7 +149,7 @@ def jax_leg(family, leg, kind):
     caches = jm.init_cache(B, cap, **kw)
     prefill = nnx.jit(lambda m, x, c: m(x, caches=c, position_offset=0))
     step = nnx.jit(lambda m, x, c, off: m(x, caches=c, position_offset=off))
-    lg = prefill(jm, jnp.asarray(prompt_ids(family, kind)), caches)
+    lg = prefill(jm, jnp.asarray(prompt_ids(family, kind, leg)), caches)
     if leg == "basic":
         j_prepare(jm, caches)
     rows, toks = [lg[:, -1]], [jgreedy(lg[:, -1])]
@@ -165,14 +179,15 @@ def leg_matches_jax(family, leg, kind):
     """Greedy tokens identical to the JAX package's (every JAX top-1/top-2
     margin exceeds the tolerance, so none is a near-tie), prefill logits and
     every step's logits within the leg's tolerance (LEG_TOL of
-    tests/test_torch_llama.py: f32 1e-3, int8 KV 1e-2, BASIC 4e-3)."""
+    tests/test_torch_llama.py: f32 1e-3, int8 KV 1e-2 (weights and SBFP),
+    BASIC 4e-3)."""
     _, jlogits, jrows, jtoks = jax_leg(family, leg, kind)
     tm, caches = port_leg(family, leg, kind)
     prompt = configs(family, kind)[2]
     if leg == "basic":
         assert all(isinstance(c, tkv.SplitKVCache) and c.base_k.dtype == torch.float16
                    for c in caches)
-    logits, tok = greedy_prefill(tm, caches, torch.from_numpy(prompt_ids(family, kind)))
+    logits, tok = greedy_prefill(tm, caches, torch.from_numpy(prompt_ids(family, kind, leg)))
     if leg == "basic":
         prepare_split_decode(tm, caches)
     toks, rows = greedy_decode(tm, caches, tok, prompt, STEPS - 1)
@@ -188,8 +203,11 @@ def leg_matches_jax(family, leg, kind):
 
 def packed_weights_equal(family, leg):
     """The packed payloads of both sides are equal bit for bit at the d64
-    config: merged q/k/v (at the decoupled head_dim) and gate/up, o_proj,
-    down_proj and the tied head, the merged originals released."""
+    config.  BFP: merged q/k/v (at the decoupled head_dim) and gate/up,
+    o_proj, down_proj and the tied head, the merged originals released.
+    SBFP: every projection unmerged (q, k, v, o_proj, gate, up, down_proj;
+    GPT-2's c_attn, born merged, attn.c_proj, c_fc, mlp.c_proj) and the
+    head, nibbles and scales."""
     jcfg, tcfg, _, _ = configs(family, "d64")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DMX_DECODE_FUSED", "1")
@@ -197,21 +215,36 @@ def packed_weights_equal(family, leg):
         params = flat_params(jm)
         _j_build(leg, jm)
     tm = FAMILIES[family][3](tcfg, device="cpu")
-    load_jax_params(tm, params)
+    LOADERS.get(family, load_jax_params)(tm, params)
     PORT_BUILD[leg](tm)
-    H, Hkv, D = tcfg.num_attention_heads, tcfg.num_key_value_heads, head_dim_of(tcfg)
     pairs = [(jm.lm_head, tm.lm_head)]
-    for jl, tl in zip(jm.model.layers, tm.model.layers):
-        assert tl.self_attn.qkv_merged.out_features == (H + 2 * Hkv) * D
-        assert tl.mlp.gateup_merged.out_features == 2 * tcfg.intermediate_size
-        assert tl.self_attn.q_proj.weight_mantissa is None
-        assert tl.mlp.up_proj.weight_mantissa is None
-        for a, b in (("self_attn", "qkv_merged"), ("self_attn", "o_proj"),
-                     ("mlp", "gateup_merged"), ("mlp", "down_proj")):
+    if family == "gpt2":
+        layers = zip(jm.transformer.h, tm.transformer.h)
+        names = ["attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj"]
+    else:
+        layers = zip(jm.model.layers, tm.model.layers)
+        names = (["self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                  "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"]
+                 if leg == "sbfp" else
+                 ["self_attn.qkv_merged", "self_attn.o_proj", "mlp.gateup_merged",
+                  "mlp.down_proj"])
+    for jl, tl in layers:
+        if family != "gpt2" and leg == "sbfp":
+            assert tl.self_attn.qkv_merged is None and tl.mlp.gateup_merged is None
+        elif family != "gpt2":
+            H, Hkv, D = tcfg.num_attention_heads, tcfg.num_key_value_heads, head_dim_of(tcfg)
+            assert tl.self_attn.qkv_merged.out_features == (H + 2 * Hkv) * D
+            assert tl.mlp.gateup_merged.out_features == 2 * tcfg.intermediate_size
+            assert tl.self_attn.q_proj.weight_mantissa is None
+            assert tl.mlp.up_proj.weight_mantissa is None
+        for n in names:
+            a, b = n.split(".")
             pairs.append((getattr(getattr(jl, a), b), getattr(getattr(tl, a), b)))
+    cls, fields = ((PackedSBFPLinear, ("weight_nibbles", "weight_block_scale")) if leg == "sbfp"
+                   else (PackedBFPLinear, ("weight_mantissa", "weight_exponent")))
     for jp, tp in pairs:
-        assert isinstance(tp, PackedBFPLinear)
-        for f in ("weight_mantissa", "weight_exponent"):
+        assert isinstance(tp, cls)
+        for f in fields:
             np.testing.assert_array_equal(getattr(tp, f).numpy(),
                                           np.asarray(getattr(jp, f).get_value()))
 
@@ -298,13 +331,14 @@ def leg_calls_the_kernel_wrappers(monkeypatch, family, leg):
     through the fused step; Qwen3's q / k norms add q = 4 casts a layer at
     prefill and q' = 2 a step, Gemma's GELU takes SiLU's.  A banded Mistral
     launches no attention kernel: its weights leg 4L+1 B1 at prefill and a
-    step, its baseline nothing, its BASIC leg Llama's counts."""
+    step, its SBFP leg 7L+1 B5, its baseline nothing, its BASIC leg Llama's
+    counts."""
     tm, caches = port_leg(family, leg, "d64")
     L = tm.cfg.num_hidden_layers
     prompt = configs(family, "d64")[2]
     counts = {}
     _spy(monkeypatch, counts)
-    _, tok = greedy_prefill(tm, caches, torch.from_numpy(prompt_ids(family, "d64")))
+    _, tok = greedy_prefill(tm, caches, torch.from_numpy(prompt_ids(family, "d64", leg)))
     prefill = dict(counts)
     counts.clear()
     if leg == "basic":
@@ -316,8 +350,10 @@ def leg_calls_the_kernel_wrappers(monkeypatch, family, leg):
     want = {
         "weights": ({"b1": 4 * L + 1}, {}, {"b1": 4 * L + 1, "b2": L}),
         "baseline": ({"b3": L}, {}, {"b4": L}),
+        "sbfp": ({"b5": 7 * L + 1}, {}, {"b5": 7 * L + 1, "b2": L}),
         # a banded model: quantized_sdpa or the masked sdpa, no kernel
         "banded_weights": ({"b1": 4 * L + 1}, {}, {"b1": 4 * L + 1}),
+        "banded_sbfp": ({"b5": 7 * L + 1}, {}, {"b5": 7 * L + 1}),
         "banded_baseline": ({}, {}, {}),
         "basic": ({"t1": 4 * L + 1, "t2": (40 + q) * L + 5 - (4 * L + 1)}, {"t2": 2 * L},
                   {"t1": 4 * L + 1, "t2": (21 + q1) * L + 2, "composed": 3 * L + 1,
