@@ -61,11 +61,11 @@ Phases (any failure exits non-zero):
      12 B3, each decode step 12 B4;
    - fp8 (the JAX package's FP8 rules, ``DmxModel.to_fp8_mode``: AFLOAT8
      Linear and ActActMatMul inputs and weights through float_quantize,
-     plain torch as in the JAX package; FLOAT16 boundaries; f32 KV cache):
-     prefill and each decode step 28L+5 = 341 T2 (FLOAT16 casts), no
-     attention kernel (the SDPA is not transparent: the modular path); its
-     CPU check at ``FAMILY_CPU_LAYERS`` layers, T2 held at every recorded
-     site;
+     plain torch as in the JAX package; FLOAT16 boundaries; f32 KV cache),
+     at ``FP8_LAYERS`` (2) layers: prefill and each decode step 28L+5 = 61
+     T2 (FLOAT16 casts), no attention kernel (the SDPA is not transparent:
+     the modular path); its CPU check at the same depth, T2 held at every
+     recorded site;
    - BASIC mode (BFP16_64 casts on Linear and ActActMatMul inputs, FLOAT16
      module boundaries, the SOFTMAX and LAYER_NORM surrogates, packed
      BFP16_64 weights, a float16 split cache of 128 + 64 slots): prefill
@@ -83,42 +83,47 @@ Phases (any failure exits non-zero):
    cProfile of the same steps.  The JAX bench's ratios (weights, SBFP,
    sbfp_wide and basic over baseline tokens/s) follow.
    Then three paths of each of bench.py's Llama-topology families at full
-   width and depth, from seed 0, at the same batch, prompt and steps:
+   width, cut to ``FAMILY_PATH_LAYERS`` (4) layers, from seed 0, at the same
+   batch, prompt and steps:
    ``llama-1.1b`` (TinyLlama-1.1B: 22 layers of 2048, MLP 5632, GQA 32
    query heads over 4 KV heads, vocab 32000, an untied head), ``qwen3-0.6b``
    (Qwen3-0.6B: 28 layers of 1024, 16 query heads over 8 KV heads of 128,
    per-head q / k norms, MLP 3072, vocab 151936, tied) and ``gemma-2b``
    (Gemma-2B: 18 layers of 2048, 8 query heads over one KV head of 256,
-   (1 + w) norms, a GeGLU MLP of 16384, vocab 256000, tied).  Llama's (L =
-   22; Qwen3's and Gemma's the same counts at L = 28 and 18, Qwen3's q / k
-   norms adding 4L T2 a prefill and 2L a step):
+   (1 + w) norms, a GeGLU MLP of 16384, vocab 256000, tied).  Llama's at L
+   = 4 (Qwen3's and Gemma's the same counts, Qwen3's q / k norms adding 4L
+   T2 a prefill and 2L a step):
    - llama_weights (BFP16_64 packed weights, int8 KV cache): prefill
-     4L+1 = 89 B1 and no B3 (an int8 prefill attends over the dequantized
+     4L+1 = 17 B1 and no B3 (an int8 prefill attends over the dequantized
      cache through quantized_sdpa, as in the JAX package), each decode step
-     89 B1 + 22 B2 (8 query heads a KV head);
-   - llama_baseline (BASELINE rules, f32 KV cache): prefill 22 B3 (BH 256,
-     the KV heads repeated to the query heads), each decode step 22 B4;
+     17 B1 + 4 B2 (8 query heads a KV head);
+   - llama_baseline (BASELINE rules, f32 KV cache): prefill 4 B3 (BH 256,
+     the KV heads repeated to the query heads), each decode step 4 B4;
    - llama_basic (BASIC rules, packed BFP16_64 weights, a float16 split
-     cache of 128 + 64): prefill 89 T1 + 40L+5 = 885 T2, prepare 2L = 44 T2,
-     each decode step 89 T1 + 21L+2 = 464 T2 (24L+3 casts: 3L+1 launches
+     cache of 128 + 64): prefill 17 T1 + 40L+5 = 165 T2, prepare 2L = 8 T2,
+     each decode step 17 T1 + 21L+2 = 86 T2 (24L+3 casts: 3L+1 launches
      are a FLOAT16 cast and the BFP cast of its output in one), every layer
      through the fused step.
    - llama_sbfp (bench.py's sbfp leg: SBFP12_16, scale bias 16, on every
-     Linear, the tied heads included; int8 KV): prefill 7L+1 = 155 B5 (q, k,
-     v and gate, up unmerged) and no B3, each step 155 B5 + 22 B2, every B5
-     launch on its tensor-core route (Qwen3 197 / 28, Gemma 127 / 18).
-   Their CPU check runs the same build cut to ``FAMILY_CPU_LAYERS`` layers
-   (full width, seed 0) on the card and on the CPU, prefill and 7 steps.
+     Linear, the tied heads included; int8 KV): prefill 7L+1 = 29 B5 (q, k,
+     v and gate, up unmerged) and no B3, each step 29 B5 + 4 B2, every B5
+     launch on its tensor-core route.
+   Their CPU check runs the same build at ``FAMILY_CPU_LAYERS`` layers (the
+   path's own depth: the card's run moved to the CPU; the basic path's
+   rebuilt on the card, where its T2 sites are recorded), prefill and 7
+   steps.
    Each BASIC path's card run of that check records every T2 launch's
    shape and axis: T2 is then held bit for bit at each distinct site (the
    BFP, FLOAT16 and composed modes) and timed per launch over one recorded
    decode step.  B3's family cases time flash_prefill's K/V head repeat
    apart; each baseline prefill split shows it beside B3.
    Then three paths each of bench.py's ``gpt2`` (GPT-2 124M: 12 blocks of
-   768, 12 heads of 64, a head tied to the 50257-wide vocabulary; its CPU
-   check at full depth) and ``mistral-1b`` (16 layers of 2048, 32 query
-   heads over 8 KV heads of 64, MLP 5632, vocab 32000, untied, a sliding
-   window of 128; its CPU check at ``FAMILY_CPU_LAYERS``):
+   768, 12 heads of 64, a head tied to the 50257-wide vocabulary, at full
+   depth; its CPU checks at full depth, the basic path's at
+   ``FAMILY_CPU_LAYERS``) and ``mistral-1b`` (2048 wide, 32 query heads
+   over 8 KV heads of 64, MLP 5632, vocab 32000, untied, a sliding window
+   of 128; cut to ``FAMILY_PATH_LAYERS`` (4) of its 16 layers, L = 4 below;
+   its CPU check at ``FAMILY_CPU_LAYERS``):
    - gpt2_weights: prefill 4L+1 = 49 B1 and no B3 (an int8 prefill attends
      through quantized_sdpa, as for the families), each step 49 B1 + 12 B2;
    - gpt2_sbfp: prefill 4L+1 = 49 B5 (c_attn born merged, the odd tied
@@ -127,26 +132,28 @@ Phases (any failure exits non-zero):
    - gpt2_basic: prefill 49 T1 + 34L+6 = 414 T2, prepare 2L = 24 T2, each
      step 49 T1 + 17L+3 = 207 T2 (OPT's 16L+3 and the tanh-GELU's FLOAT16
      output cast a block), every block through the fused GPT-2 step;
-   - mistral_weights: prefill and each step 4L+1 = 65 B1, no B2 or B3 (the
+   - mistral_weights: prefill and each step 4L+1 = 17 B1, no B2 or B3 (the
      band keeps the flash kernels away: quantized_sdpa);
-   - mistral_sbfp: prefill and each step 7L+1 = 113 B5, no B2 or B3;
+   - mistral_sbfp: prefill and each step 7L+1 = 29 B5, no B2 or B3;
    - mistral_baseline: no kernel of the port (cuBLAS f32 and the masked
      sdpa, as the JAX package routes a banded model);
-   - mistral_basic: prefill 65 T1 + 40L+5 = 645 T2, prepare 32 T2, each
-     step 65 T1 + 21L+2 = 338 T2, every layer through the fused step under
+   - mistral_basic: prefill 17 T1 + 40L+5 = 165 T2, prepare 8 T2, each
+     step 17 T1 + 21L+2 = 86 T2, every layer through the fused step under
      the banded mask; no B2, B3 or B4 on any Mistral path.
 4. Three paths of the continuous-batching engine (serving/engine.py) at
    examples/serving_bench.py's defaults: OPT-125m at full width from seed
    0, 8 slots, bursts of 16, 32 requests of a 96-token prompt and 64 new
    tokens, one bucket of 96, max_len 176:
    - engine_weights: weights mode (BFP16_64, an int8 row cache);
-   - engine_weights_chunked: the same with chunked prefill (chunks of 32);
-   - engine_raw: the raw model with an f32 row cache.
+   - engine_weights_chunked: the same with chunked prefill (chunks of 32),
+     cut to ``ENGINE_CUT_LAYERS`` (4) layers;
+   - engine_raw: the raw model, cut to ``ENGINE_CUT_LAYERS`` (4) layers,
+     with an f32 row cache.
    Then engine_llama_weights: the same traffic over TinyLlama-1.1B (full
-   width and depth, seed 0) in weights mode with int8 row caches of its 4
-   KV heads: each admission 4L+1 = 89 B1 (M 96) and no B3 (an int8 prefill
-   attends through quantized_sdpa), each decode forward 89 B1 + 22 B2 over
-   the GQA row caches.  Its tokens are held against isolated generation on
+   width, seed 0, cut to ``ENGINE_LLAMA_LAYERS`` (8) layers) in weights
+   mode with int8 row caches of its 4 KV heads: each admission 4L+1 = 33 B1
+   (M 96) and no B3 (an int8 prefill attends through quantized_sdpa), each
+   decode forward 33 B1 + 8 B2 over the GQA row caches.  Its tokens are held against isolated generation on
    the card for every fourth request, and its CPU check runs those
    requests through the same build cut to ``FAMILY_CPU_LAYERS`` layers in
    an engine on the card and one on the CPU.
@@ -158,11 +165,36 @@ Phases (any failure exits non-zero):
    L B3 besides.  Its first steady dispatch (no admission, no chunk) runs
    under torch.cuda.set_sync_debug_mode("error").  Every request's tokens
    are held against isolated generation on the card (greedy_prefill and
-   greedy_decode on a batch-1 cache) and against the same engine run with
+   greedy_decode on a static cache outside the engine, the requests of one
+   prompt length side by side, up to 8 a batch) and against the same engine run with
    the model on the CPU, by the margin rule of phase 3.  Each path prints
    tokens/s, slot utilization, p50/p99 step times and the device's share
    of a steady step.
-5. A ``kernels`` JSON line (launches by path, the engine paths included),
+5. The encoder-decoder families at full width and depth, from seed 0:
+   t5-small (6 + 6 layers of 512, 8 heads of 64, ReLU feed-forward 2048,
+   vocab 32128, the head tied to the shared table; its attention unscaled,
+   with a bucketed relative-position bias, through the modular SDPA) and
+   whisper-small (12 + 12 layers of 768, 12 heads of 64, vocab 51865 tied,
+   the encoder's Conv1dUnfold front end over [80, 3000] features).  B1 and
+   T1 at their packed linears' shapes (the encoder's and the cross K/V's M
+   8 x 128 and 8 x 1500 = 12000, the decoder's 8 and 8 x start, the heads N
+   32128 and 51865); B2, B3 and B4 at Whisper's (in phase 2).  Three paths
+   each, batch 8, the start tokens (T5 one; Whisper four: its
+   <|startoftranscript|><|en|><|transcribe|><|notimestamps|>) prefilled
+   over the encoder output into caches of start + 64 slots, 63 steps
+   (seq2seq_path_specs: weights 16L+1 B1 / 10L+1 B1, Whisper + L B2, no
+   B3; baseline T5 nothing, Whisper L B3 / L B4; basic 16L+1 / 10L+1 T1
+   and T5 90L+9 / 52L+5, Whisper 83L+11 / 50L+5 T2), every cross-attention
+   K/V recomputed at every step as in the JAX package; their CPU checks at
+   T5's full depth and batch, Whisper's FAMILY_CPU_LAYERS and first 2 rows;
+   the basic paths' T2 sites held bit for bit.  Then engine_t5_weights and
+   engine_whisper_weights: the seq2seq engine at serving_bench's traffic
+   (T5 ragged inputs of 32-128 tokens padded to 128 and masked; Whisper a
+   [80, 3000] row and 4 start tokens a request), int8 row caches: each
+   admission 16L+1 B1, each forward 10L+1 B1 (+ L B2), no host sync in a
+   steady dispatch; tokens held against isolated generation and a CPU
+   engine run.
+6. A ``kernels`` JSON line (launches by path, the engine paths included),
    then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -216,8 +248,14 @@ FAMILY_CPU_LAYERS = 4
 # about 3.1 and 3.4 times, for their 74x and 125x more logits; gpt2 (its
 # check at full depth: 12 layers) 0.0768 (0.0635) -> 0.25 and mistral
 # 0.1675 (0.1248) -> 0.5, about 3.3 and 3.0 times, for 25x and 16x more
-# logits (a tanh-GELU on the card may land a FLOAT16 step from the CPU's)
-BASIC_FAMILY_TOL = {"llama": 0.4, "qwen3": 0.25, "gemma": 0.5, "gpt2": 0.25, "mistral": 0.5}
+# logits (a tanh-GELU on the card may land a FLOAT16 step from the CPU's);
+# t5 and whisper twice the largest reading of --family t5 / whisper (the
+# prefill's and 7 teacher-forced steps' logits, vocab 2048 and the full
+# vocabulary, seeds 0 and 1; t5 at its check's full depth and batch: 0.0957
+# / 0.0820, 0.1016 / 0.1030 -> 0.21; whisper at its check's 4 layers and
+# batch 2: 0.0538 / 0.0606, 0.0686 / 0.0640 -> 0.14)
+BASIC_FAMILY_TOL = {"llama": 0.4, "qwen3": 0.25, "gemma": 0.5, "gpt2": 0.25, "mistral": 0.5,
+                    "t5": 0.21, "whisper": 0.14}
 # the fp8 path's logits, GPU vs CPU at FAMILY_CPU_LAYERS layers, from
 # tools/order_sensitivity.py --mode fp8 --layers 4 at OPT-125m's width,
 # seeds 0 and 1 (the whole model in float64 against f32 moves a prefill
@@ -283,6 +321,34 @@ KV8_TOL = 1e-2
 # apart, card against CPU, and the same prefill's gap over an f32 cache
 SBFP_FAMILY_TOL = {"llama": 0.04, "qwen3": 0.05, "gemma": KV8_TOL, "mistral": 0.05,
                    "gpt2": 0.04}
+# the encoder-decoder paths: T5's encoder inputs (128 token ids; the engine's
+# ragged 32-128, padded to this capacity), each family's decoder start tokens
+# (T5's decoder_start_token_id; Whisper's <|startoftranscript|><|en|>
+# <|transcribe|><|notimestamps|> in whisper-small's vocabulary), and the
+# rows of the card's batch that Whisper's CPU references run (its encoder
+# over 1500 positions and the cross-attention K/V of every step, at M 1500 a
+# row, make the CPU slow)
+S2S_ENC = 128
+# the depth cuts that buy back the time of the encoder-decoder paths: the
+# fp8 path and its CPU check (the AFLOAT8 casts are host-bound torch ops,
+# ~57 ms of host time a step at 12 layers), engine_weights_chunked and
+# engine_raw (the OPT engine's chunked and f32 legs; engine_weights stays at
+# full depth) and engine_llama_weights at these depths; widths, traffic and
+# every check stay
+FP8_LAYERS = 2
+ENGINE_CUT_LAYERS = 4  # engine_weights_chunked and engine_raw
+ENGINE_LLAMA_LAYERS = 8
+# the paths of bench.py's Llama-topology families (llama, qwen3, gemma,
+# mistral) at this depth (full width), that of their CPU checks; GPT-2's
+# BASIC CPU check at FAMILY_CPU_LAYERS
+FAMILY_PATH_LAYERS = 4
+S2S_START = {"t5": [0], "whisper": [50258, 50259, 50359, 50363]}
+S2S_CPU_BATCH = 1
+# the least calls of each timing in the encoder-decoder families' kernel
+# phases (B1 and T1 at their shapes, whose M 12000 cases take ~0.3-1.7 ms a
+# call; the T2 sites over a recorded step of 200-320 launches): every other
+# phase takes time_ms's 20
+S2S_TIMED = 5
 # the chunked path against isolated generation: the chunks after the first
 # attend over the int8 cache (up to 1/254 of a row's largest value per
 # element) where a monolithic prefill attends over the f32 K/V; the run
@@ -427,7 +493,7 @@ def family_heads(cfg):
 
 def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shapes, ragged,
                  tol, seed, peak_flop_s=PEAK_F32_FLOP_S, lib_dtype=None, ab=None, planes=None,
-                 route_of=None):
+                 route_of=None, step_launches=None, min_iters=20):
     """A dequant-matmul kernel against its plain version at the decode (M =
     batch) and prefill (M = batch x prompt) shapes of ``step_shapes`` and at
     ``ragged`` (M, K, N) shapes; then its time per launch over one decode
@@ -442,7 +508,12 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
     products or None), where the kernel picks its route per shape, records
     each case's route and bounds it by its own products (None: f32 SIMT).
     The per-step bound counts each launch's operations in the same way.
-    Returns (the per-step numbers, the cases)."""
+    ``step_launches`` ((M, K, N, launches) each, shapes among the cases)
+    replaces the decode step's launches at M = batch where a step's linears
+    take other rows (an encoder-decoder step's cross-attention K/V).  Each
+    timing takes at least ``min_iters`` calls.  Returns (the per-step
+    numbers, the cases)."""
+    time = functools.partial(time_ms, min_iters=min_iters)
     g = torch.Generator(device=dev).manual_seed(seed)
     cases, sets_of, deq_of = [], {}, {}
     shapes = [(M, K, N) for M in (BATCH, BATCH * PROMPT) for K, N, _ in step_shapes]
@@ -457,11 +528,11 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
                          torch.randn(N, generator=g, device=dev) * 0.1))
         x, w, b = sets[0]
         err = max_err(torch, kern(x, w, b), plain(x, w, b), tol, f"{label} {M}x{K}x{N}")
-        ms = time_ms(torch, kern, sets)
-        plain_ms = time_ms(torch, plain, sets)
+        ms = time(torch, kern, sets)
+        plain_ms = time(torch, plain, sets)
         deq = [(s[0].to(lib_dtype), unpack(s[1]).T.contiguous().to(lib_dtype))
                for s in sets[:copies_for((M * K + N * K + M * N) * lib_size)]]
-        lib_ms = time_ms(torch, torch.matmul, deq)
+        lib_ms = time(torch, torch.matmul, deq)
         sets_of[M, K, N], deq_of[M, K, N] = sets, deq
         bound_ms, by = bound(per_set, 2 * M * N * K, peak_flop_s)
         case = dict(shape=[M, K, N], max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -478,7 +549,7 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
             extra += (f" bound_f32_ms={case['bound_f32_ms']:.4f} (f32 SIMT; bound_ms is "
                       f"{products} bf16 tensor-core products)")
         if ab is not None:
-            case[f"{ab[0]}_ms"] = time_ms(torch, ab[1], sets)
+            case[f"{ab[0]}_ms"] = time(torch, ab[1], sets)
             extra += f" {ab[0]}_ms(same payload)={case[f'{ab[0]}_ms']:.4f}"
         cases.append(case)
         log(f"{label} M={M} K={K} N={N}: max_abs_err={err:.3g} kernel_ms={ms:.4f} "
@@ -486,7 +557,9 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
             f"{lib_ms:.4f}{extra} bound_ms={bound_ms:.4f} ({by}; {PEAK_BYTES_S/1e12} TB/s, "
             f"{peak_flop_s/1e12} TFLOP/s)")
 
-    step = [(BATCH, K, N, i) for K, N, n in step_shapes for i in range(n)]
+    step = [(M, K, N, i) for M, K, N, n in (step_launches or [(BATCH, K, N, n) for K, N, n
+                                                                in step_shapes])
+            for i in range(n)]
     runs = {}
     timed = [("ms", kern, sets_of), ("plain_ms", plain, sets_of),
              ("library_ms", torch.matmul, deq_of)]
@@ -494,7 +567,7 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
         timed.append((f"{ab[0]}_ms", ab[1], sets_of))
     for what, fn, arg_of in timed:
         args = [arg_of[M, K, N][i % len(arg_of[M, K, N])] for M, K, N, i in step]
-        runs[what] = time_ms(torch, lambda: [fn(*a) for a in args], [()]) / len(step)
+        runs[what] = time(torch, lambda: [fn(*a) for a in args], [()]) / len(step)
     per_launch_bytes = sum(nbytes(M, K, N) for M, K, N, _ in step) / len(step)
     flops = sum(2 * M * N * K for M, K, N, _ in step) / len(step)
     runs["bound_ms"], runs["bound_by"] = bound(per_launch_bytes, flops, peak_flop_s)
@@ -819,16 +892,17 @@ def heavy_tailed(torch, shape, g, dev):
             * torch.exp(3 * torch.randn(shape, generator=g, device=dev)))
 
 
-def t2_per_launch(torch, dev, g, step):
+def t2_per_launch(torch, dev, g, step, steps=20):
     """T2's time per launch over one decode step's launches ``step``
     ((mode, shape, axis[, wl, block]) each; BFP16_64 where wl and block are
     left out), the kernel's and the plain version's, on random inputs of
-    those shapes, and the bytes bound."""
+    those shapes, over ``steps`` steps, and the bytes bound."""
     inputs = [torch.randn(shape, generator=g, device=dev) for _, shape, *_ in step]
     runs = {}
     for what, plain in (("ms", False), ("plain_ms", True)):
         runs[what] = time_ms(torch, lambda: [t2_run(m, x, a, plain, *wb) for (m, _, a, *wb), x
-                                             in zip(step, inputs)], [()]) / len(step)
+                                             in zip(step, inputs)], [()],
+                             min_iters=steps) / len(step)
     runs["launches_per_step"] = len(step)
     runs["library_ms"] = None
     runs["bound_ms"], runs["bound_by"] = bound(
@@ -862,13 +936,14 @@ def record_t2(into: list):
         T2.bfp_cast, T2.fp16_cast = bfp, fp16
 
 
-def check_t2_sites(torch, dev, sites, step, what):
+def check_t2_sites(torch, dev, sites, step, what, steps=20):
     """T2 against its plain version, bit for bit, at every cast site that a
     path's run recorded (``sites``: (mode, shape, axis, wl, block) from
     :func:`record_t2`): each distinct shape and axis in the BFP, FLOAT16 and
     composed modes (the FLOAT16 mode alone where the axis takes no block),
     on heavy-tailed inputs; then the time per launch over the recorded
-    decode step ``step``.  Returns (the per-step numbers, the cases)."""
+    decode step ``step`` (over ``steps`` steps).  Returns (the per-step
+    numbers, the cases)."""
     g = torch.Generator(device=dev).manual_seed(20)
     counts = {}
     for _, shape, axis, wl, block in sites:
@@ -883,7 +958,7 @@ def check_t2_sites(torch, dev, sites, step, what):
                           modes=list(modes), recorded_calls=n, max_abs_err=0.0))
         log(f"T2 bfp_cast at a {what} site {list(shape)} axis {axis} (BFP wl {wl} block "
             f"{block}; {n} of the recorded launches), modes {', '.join(modes)}: bit-exact")
-    runs = t2_per_launch(torch, dev, g, step)
+    runs = t2_per_launch(torch, dev, g, step, steps)
     log(f"T2 bfp_cast, a {what} decode step's {len(step)} launches, per launch: "
         f"kernel_ms={runs['ms']:.4f} plain_ms={runs['plain_ms']:.4f} "
         f"bound_ms={runs['bound_ms']:.6f} (bytes)")
@@ -985,7 +1060,20 @@ def b4_bytes_flops(B, H, Hkv, D, lengths):
     return 2 * B * H * D * 4 + keys * Hkv * 2 * D * 4 + B * 4, 4 * keys * H * D
 
 
-def check_b2(torch, dev, cfg, fams):
+def whisper_decode_shape(wcfg):
+    """(H, Hkv, S, D, lengths) of whisper-small's decode steps over the
+    weights path's int8 cache (its mean fill over the 63 steps), and the
+    engine's row cache (max_len and per-slot lengths as ENGINE_ROWS, an idle
+    slot past max_len)."""
+    H = wcfg.decoder_attention_heads
+    D, T0 = wcfg.d_model // H, len(S2S_START["whisper"])
+    S, eng_len = T0 + GEN, T0 + ENGINE["gen"] + ENGINE["burst"]
+    rows = [T0 + 1 + (ENGINE["gen"] * i) // ENGINE["slots"]
+            for i in range(ENGINE["slots"] - 1)] + [eng_len + 24]
+    return (H, H, S, D, [T0 + GEN // 2] * BATCH), (H, H, eng_len, D, rows)
+
+
+def check_b2(torch, dev, cfg, fams, wcfg):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_decode import flash_decode_int8, flash_decode_int8_ref
@@ -1016,6 +1104,9 @@ def check_b2(torch, dev, cfg, fams):
     shapes.append((Hl, Hkv_l, ENGINE_LEN, D_l, ENGINE_ROWS, "engine_llama_weights"))
     Hg, Hkv_g, D_g = family_heads(fams["gemma"])
     shapes.append((Hg, Hkv_g, 600, D_g, [1 + (599 * i) // (B - 1) for i in range(B)], None))
+    # whisper-small's decode step (whisper_weights) and its engine's row cache
+    path_shape, engine_shape = whisper_decode_shape(wcfg)
+    shapes += [(*path_shape, "whisper_weights"), (*engine_shape, "engine_whisper_weights")]
     for H, Hkv, S, D, lengths, path in shapes:
         per_set = B * Hkv * S * (2 * D + 8) + 2 * B * H * D * 4
         sets = []
@@ -1055,7 +1146,7 @@ def check_b2(torch, dev, cfg, fams):
     return cases
 
 
-def check_b3(torch, dev, cfg, fams):
+def check_b3(torch, dev, cfg, fams, wcfg):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
@@ -1081,6 +1172,9 @@ def check_b3(torch, dev, cfg, fams):
     shapes += [(BATCH, *family_heads(f)[:2], PROMPT, PROMPT, family_heads(f)[2], False, name)
                for name, f in fams.items()]
     shapes += [(2, 3, 3, 100, 160, d, True, None) for d in (128, 256)]
+    # whisper_baseline's decoder prefill: its 4 start tokens over the f32 cache
+    Hw, T0 = wcfg.decoder_attention_heads, len(S2S_START["whisper"])
+    shapes.append((BATCH, Hw, Hw, T0, T0, wcfg.d_model // Hw, False, "whisper_baseline"))
     for B, H, Hkv, L, S, D, with_bias, path in shapes:
         per_set = 4 * B * D * (2 * H * L + 2 * Hkv * S) + (4 * B * H * L * S if with_bias else 0)
         sets, kv_sets = [], []
@@ -1149,7 +1243,7 @@ def check_b3(torch, dev, cfg, fams):
     return cases
 
 
-def check_b4(torch, dev, cfg, fams):
+def check_b4(torch, dev, cfg, fams, wcfg):
     import torch.nn.functional as F
 
     from dmx_compressor_tpu_torch.ops.flash_decode import flash_decode, flash_decode_ref
@@ -1171,7 +1265,12 @@ def check_b4(torch, dev, cfg, fams):
     for name, f in fams.items():
         paths[BATCH, *family_heads(f)[:2], CAPACITY, family_heads(f)[2]] = name
     Hg, Hkv_g, D_g = family_heads(fams["gemma"])
+    # whisper_baseline's decode step over its f32 cache
+    Hw, _, Sw, Dw, lw = whisper_decode_shape(wcfg)[0]
+    family_keys = list(paths)
+    paths[BATCH, Hw, Hw, Sw, Dw] = "whisper_baseline"
     for B, H_, Hkv, S, D_, lengths in [
+        (BATCH, Hw, Hw, Sw, Dw, lw),
         (BATCH, H, H, CAPACITY, D, [PROMPT + GEN // 2] * BATCH),
         (ENGINE["slots"], H, H, ENGINE_LEN, D, ENGINE_ROWS),
         (BATCH, H, H, 2048, D, [2016] * BATCH),
@@ -1179,7 +1278,7 @@ def check_b4(torch, dev, cfg, fams):
         (3, 8, 2, 256, 64, [17, 256, 130]),
         (2, 4, 4, 192, 32, 100),
         (2, 8, 8, 200, 128, [57, 200]),
-        *[(*key, [PROMPT + GEN // 2] * BATCH) for key in paths],
+        *[(*key, [PROMPT + GEN // 2] * BATCH) for key in family_keys],
         (3, Hg, Hkv_g, 1500, D_g, [1500, 1025, 7]),
     ]:
         rows = lengths if isinstance(lengths, list) else [lengths] * B
@@ -1372,11 +1471,14 @@ def path_specs(cfg):
         # the modular SDPA over the f32 cache, no B3 or B4.  Its CPU check
         # runs the same build cut to FAMILY_CPU_LAYERS layers (the AFLOAT8
         # casts are slow on the CPU: ~37 s at full depth), on the card,
-        # where its T2 sites are recorded, and on the CPU.
+        # where its T2 sites are recorded, and on the CPU.  The path and its
+        # check run at FP8_LAYERS (2: 61 T2 a forward); its host-bound steps
+        # at 12 layers took 72 s of the script
         dict(name="fp8", build=build_fp8_mode, cache=dict(max_len=CAPACITY),
-             prefill={"bfp_cast": 28 * L + 5}, prepare=None, step={"bfp_cast": 28 * L + 5},
-             marks={"bfp_cast": T2_MARKS},
-             cpu_cfg=dataclasses.replace(cfg, num_hidden_layers=FAMILY_CPU_LAYERS),
+             prefill={"bfp_cast": 28 * FP8_LAYERS + 5}, prepare=None,
+             step={"bfp_cast": 28 * FP8_LAYERS + 5}, marks={"bfp_cast": T2_MARKS},
+             run_cfg=dataclasses.replace(cfg, num_hidden_layers=FP8_LAYERS),
+             cpu_cfg=dataclasses.replace(cfg, num_hidden_layers=FP8_LAYERS),
              check_built=check_fp8_casts, cpu_fold=True, logit_tol=FP8_LOGIT_TOL,
              record_t2=True),
         # bench.py's basic mode: a float16 split cache, base = prompt, tail =
@@ -1440,8 +1542,11 @@ def family_path_specs(fcfg, family):
     # package, and its BASIC decode the fused split decode under the band
     banded = getattr(fcfg, "sliding_window", None) is not None
     L = fcfg.num_hidden_layers
-    common = dict(model=model,
-                  cpu_cfg=dataclasses.replace(fcfg, num_hidden_layers=FAMILY_CPU_LAYERS))
+    # the CPU check's build at FAMILY_CPU_LAYERS; a path already at that
+    # depth is moved to the CPU as it is (the basic path rebuilds it on the
+    # card, where its T2 sites are recorded)
+    check_cfg = dataclasses.replace(fcfg, num_hidden_layers=FAMILY_CPU_LAYERS)
+    common = dict(model=model, cpu_cfg=None if fcfg == check_cfg else check_cfg)
 
     def fused_everywhere(m):
         if any(plan(layer) is None for layer in m.model.layers) or basic_rms_head_plan(
@@ -1486,18 +1591,21 @@ def family_path_specs(fcfg, family):
              prepare={"bfp_cast": 2 * L},
              step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": (21 + extra_step) * L + 2},
              marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
-             check_built=fused_everywhere, logit_tol=BASIC_FAMILY_TOL[family], record_t2=True),
+             check_built=fused_everywhere, logit_tol=BASIC_FAMILY_TOL[family], record_t2=True,
+             cpu_cfg=check_cfg),
     ]
 
 
 def gpt2_path_specs(gcfg):
     """The three paths of GPT-2 (bench.py's gpt2 legs), as
-    :func:`family_path_specs`, at full width and depth, its CPU check at
-    full depth too (the basic path's check rebuilds it on the card to record
-    its T2 sites).  Its attention routes as the families' (an int8 prefill
+    :func:`family_path_specs`, at full width and depth, its CPU checks at
+    full depth but the basic path's, which rebuilds it at FAMILY_CPU_LAYERS
+    on the card to record its T2 sites.  Its attention routes as the families' (an int8 prefill
     through quantized_sdpa: no B3); a block is OPT's with NewGELU for ReLU,
     whose FLOAT16 pair takes ReLU's two casts at prefill and adds its output
     cast to a fused decode step."""
+    import dataclasses
+
     from dmx_compressor_tpu_torch.models.gpt2 import GPT2LMHeadModel
     from dmx_compressor_tpu_torch.ops.basic_layer import basic_gpt2_block_plan, basic_head_plan
     from dmx_compressor_tpu_torch.ops.compress import (
@@ -1538,7 +1646,8 @@ def gpt2_path_specs(gcfg):
              prefill={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 34 * L + 6},
              prepare={"bfp_cast": 2 * L},
              step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 17 * L + 3},
-             marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS}, cpu_cfg=gcfg,
+             marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
+             cpu_cfg=dataclasses.replace(gcfg, n_layer=FAMILY_CPU_LAYERS),
              check_built=fused_everywhere, logit_tol=BASIC_FAMILY_TOL["gpt2"], record_t2=True),
     ]
 
@@ -1578,7 +1687,11 @@ def serve_path(torch, dev, kernels, cfg, spec):
     from dmx_compressor_tpu_torch.ops.split_decode import prepare_split_decode
 
     name = spec["name"]
+    cfg = spec.get("run_cfg", cfg)  # a path cut in depth
     make = spec.get("model", OPTForCausalLM)
+    # the decoder's prompt (an encoder-decoder path's start tokens) and the
+    # CPU reference's batch (the first rows of the card's)
+    prompt, nb = spec.get("prompt", PROMPT), spec.get("cpu_batch", BATCH)
     cache_kw = dict(spec["cache"])
     if "dtype" in cache_kw:
         cache_kw["dtype"] = getattr(torch, cache_kw["dtype"])
@@ -1593,8 +1706,9 @@ def serve_path(torch, dev, kernels, cfg, spec):
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held after")
     if "check_built" in spec:
         spec["check_built"](model)
-    ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
-                        generator=torch.Generator().manual_seed(1))
+    ids = (spec["ids"]() if "ids" in spec else
+           torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                         generator=torch.Generator().manual_seed(1)))
 
     def prefill(caches, ids_):
         """Prefill [and prepare]; (logits, first token, launches after the
@@ -1608,6 +1722,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
 
     caches = model.init_cache(BATCH, device=dev, **cache_kw)
     routes = {}
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     logits, tok, after_prefill = prefill(caches, ids.to(dev))
@@ -1615,10 +1730,12 @@ def serve_path(torch, dev, kernels, cfg, spec):
     t_prefill = time.perf_counter() - t0
     after_prepare = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
-    toks, rows = greedy_decode(model, caches, tok, PROMPT, GEN - 1)
+    toks, rows = greedy_decode(model, caches, tok, prompt, GEN - 1)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    log(f"{name} path: peak device memory over the prefill and decode "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     zero = dict.fromkeys(kernels.LAUNCHES, 0)
     want_prefill = {**zero, **spec["prefill"]}
@@ -1640,7 +1757,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
         if routes["prefill"] != pre or kernels.ROUTE_LAUNCHES != want_routes:
             raise AssertionError(f"the {name} path's B5 launches took other routes")
     tokens = torch.cat([tok[:, None], toks], dim=1)
-    if logits.shape != (BATCH, PROMPT, cfg.vocab_size) or not torch.isfinite(logits).all():
+    if logits.shape != (BATCH, prompt, cfg.vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite or misshapen")
     if tokens.shape != (BATCH, GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
         raise AssertionError("greedy tokens out of range")
@@ -1691,7 +1808,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
     # where a decode step's time goes: 8 more steps from that prefill,
     # device time from torch.profiler against the unprofiled step time above
     events = sorted(device_events(torch, lambda: greedy_decode(model, prof_caches, ptok,
-                                                               PROMPT, 8)),
+                                                               prompt, 8)),
                     key=lambda e: -e[1])
     busy_ms = sum(us for _, us in events) / 1e3 / 8
     step_ms = t_decode * 1e3 / (GEN - 1)
@@ -1708,7 +1825,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
             f"(empty profile)")
     for ev, us in events[:8]:
         log(f"  device per step: {us / 1e3 / 8:.4f} ms  {ev[:110]}")
-    host_profile(torch, name, lambda: greedy_decode(model, prof_caches, ptok, PROMPT, 8), 8)
+    host_profile(torch, name, lambda: greedy_decode(model, prof_caches, ptok, prompt, 8), 8)
     del prof_caches
 
     # the same model on the CPU: the plain PyTorch versions of the kernels,
@@ -1737,7 +1854,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
             glogits, gtok, _ = prefill(gcaches, ids.to(dev))
         n_pre = kernels.LAUNCHES["bfp_cast"]
         with record_t2(step_sites) if recording else contextlib.nullcontext():
-            gtoks, grows = greedy_decode(model, gcaches, gtok, PROMPT, n - 1)
+            gtoks, grows = greedy_decode(model, gcaches, gtok, prompt, n - 1)
         if recording and torch.device(dev).type == "cuda" and (
                 len(pre_sites), len(step_sites)) != (n_pre, kernels.LAUNCHES["bfp_cast"] - n_pre):
             raise AssertionError(f"{name} path: the T2 calls recorded are not the T2 launches")
@@ -1764,14 +1881,19 @@ def serve_path(torch, dev, kernels, cfg, spec):
     if spec.get("cpu_fold"):
         # the CPU reference casts each weight once, not at every forward
         fold_untied(torch, model)
-    cpu_caches = model.init_cache(BATCH, device="cpu", **cache_kw)
+    if nb < BATCH:
+        # the CPU reference runs the card's first nb rows (every row is
+        # computed on its own)
+        gpu_logits, gpu_tokens, gpu_rows = gpu_logits[:nb], gpu_tokens[:nb], gpu_rows[:, :nb]
+    cpu_caches = model.init_cache(nb, device="cpu", **cache_kw)
     t0 = time.perf_counter()
     with memo_unpack(), torch.no_grad():
-        cpu_logits, ctok, _ = prefill(cpu_caches, ids)
+        cpu_logits, ctok, _ = prefill(cpu_caches, ids[:nb])
         cpu_rows = torch.stack([model(gpu_tokens[:, s:s + 1], caches=cpu_caches,
-                                      position_offset=PROMPT + s)[:, -1]
+                                      position_offset=prompt + s)[:, -1]
                                 for s in range(n - 1)])
-    log(f"{name} path: CPU reference run {time.perf_counter() - t0:.1f} s")
+    log(f"{name} path: CPU reference run {time.perf_counter() - t0:.1f} s"
+        + (f" (the card's first {nb} rows)" if nb < BATCH else ""))
     tol = spec["logit_tol"]
     err = (gpu_logits - cpu_logits).abs().max().item()
     log(f"{name} path: prefill logits GPU vs CPU: max_abs_err={err:.3g} (tolerance {tol})")
@@ -1791,7 +1913,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
         raise AssertionError(f"{name} path: greedy token {s} of row {b} differs from the "
                              f"CPU's choice on the same inputs")
     log(f"{name} path: greedy tokens GPU vs CPU on the same inputs: {int(clear.sum())} of "
-        f"{BATCH * n} held (top-1/top-2 margin > {tol}), all equal")
+        f"{nb * n} held (top-1/top-2 margin > {tol}), all equal")
     if witness:
         # where the prefill's gap comes from: the int8 K/V the prefill
         # wrote, card against CPU, and the same prefill over an f32 cache
@@ -1857,24 +1979,36 @@ def hold_tokens(name, what, got, want, margins, tol):
 
 
 def isolated_generation(torch, model, requests, capacity, quantized, dev):
-    """Each request alone: greedy_prefill and greedy_decode on a batch-1
-    cache at the prompt's true length.  Returns (tokens, the top-1/top-2
-    margin of each token's logits), by request id."""
+    """Each request outside the engine: greedy_prefill and greedy_decode on
+    a static cache at the prompt's true length, the requests of one prompt
+    length in batches of up to ``ENGINE["slots"]`` rows (every row is
+    computed on its own: a batch is the batch-1 runs side by side).
+    Returns (tokens, the top-1/top-2 margin of each token's logits), by
+    request id."""
+    import numpy as np
+
     from dmx_compressor_tpu_torch.models.opt import greedy_decode, greedy_prefill
 
     toks, margins = {}, {}
+    by_len = {}
     for rid, (prompt, gen) in enumerate(requests):
-        caches = model.init_cache(1, capacity, quantized=quantized, device=dev)
-        logits, tok = greedy_prefill(model, caches, torch.from_numpy(prompt[None]).to(dev))
-        rows = [logits[0, -1]]
-        seq = [tok]
-        if gen > 1:
-            more, steps = greedy_decode(model, caches, tok, int(prompt.size), gen - 1)
-            seq.append(more[0])
-            rows.extend(steps[:, 0])
-        top2 = torch.stack(rows).topk(2, dim=-1).values
-        toks[rid] = torch.cat([t.reshape(-1) for t in seq]).tolist()
-        margins[rid] = (top2[:, 0] - top2[:, 1]).tolist()
+        by_len.setdefault(int(prompt.size), []).append(rid)
+    for n, rids in by_len.items():
+        for i in range(0, len(rids), ENGINE["slots"]):
+            group = rids[i:i + ENGINE["slots"]]
+            gen = max(requests[r][1] for r in group)
+            ids = torch.from_numpy(np.stack([requests[r][0] for r in group])).to(dev)
+            caches = model.init_cache(len(group), capacity, quantized=quantized, device=dev)
+            logits, tok = greedy_prefill(model, caches, ids)
+            seq, rows = tok[:, None], logits[:, -1][None]
+            if gen > 1:
+                more, steps = greedy_decode(model, caches, tok, n, gen - 1)
+                seq, rows = torch.cat([seq, more], dim=1), torch.cat([rows, steps])
+            top2 = rows.topk(2, dim=-1).values  # [gen, rows, 2]
+            for j, r in enumerate(group):
+                g = requests[r][1]
+                toks[r] = seq[j, :g].tolist()
+                margins[r] = (top2[:g, j, 0] - top2[:g, j, 1]).tolist()
     return toks, margins
 
 
@@ -1973,7 +2107,7 @@ def engine_closed_loop(torch, kernels, eng, sp, requests, vocab, card):
 
     name, chunk, burst = sp["name"], sp["chunk"], ENGINE["burst"]
     t0 = time.perf_counter()
-    eng.warmup(burst)
+    eng.warmup(burst, **sp.get("warmup", {}))
     torch.cuda.synchronize()
     log(f"{name}: warmup {time.perf_counter() - t0:.2f} s")
     dispatches, synced = [0], []
@@ -2032,7 +2166,7 @@ def engine_closed_loop(torch, kernels, eng, sp, requests, vocab, card):
     # decoding) under torch.profiler, against the closed loop's steady step
     # on the host clock
     for prompt, _ in requests[:ENGINE["slots"]]:
-        eng.submit(prompt, max_new_tokens=ENGINE["gen"])
+        sb.submit(eng, prompt, ENGINE["gen"])
     eng.step(burst)
     torch.cuda.synchronize()
     with torch.no_grad():
@@ -2070,22 +2204,31 @@ def engine_run(torch, sb, model, quantized, requests, chunk=None):
 
 
 def engine_paths(torch, dev, kernels, cfg, card):
-    """The engine paths of one serving_bench mode after another: the model
-    built once per mode (OPT at full width, seed 0); per path an engine on
-    the card and :func:`engine_closed_loop`; isolated generation on the
-    card; the model moved to the CPU and each path's engine run again
-    there.  Returns the launch counts by path."""
+    """The OPT engine paths, one model after another (OPT at full width,
+    seed 0; engine_weights at full depth, engine_weights_chunked and
+    engine_raw cut to ``ENGINE_CUT_LAYERS``): per path an engine on the card
+    and :func:`engine_closed_loop`; isolated generation on the card; the
+    model moved to the CPU and the path's engine run again there.  Returns
+    the launch counts by path."""
+    import dataclasses
+
     from dmx_compressor_tpu_torch.examples import serving_bench as sb
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
 
     by_path = {}
-    specs = engine_specs(cfg)
-    for mode in ("weights", "raw"):
-        group = [sp for sp in specs if sp["mode"] == mode]
+    cut = dataclasses.replace(cfg, num_hidden_layers=ENGINE_CUT_LAYERS)
+    for name, cfg in (("engine_weights", cfg), ("engine_weights_chunked", cut),
+                      ("engine_raw", cut)):
+        group = [sp for sp in engine_specs(cfg) if sp["name"] == name]
+        mode = group[0]["mode"]
         t0 = time.perf_counter()
         with torch.no_grad():
-            model, quantized = sb.build_model("opt-125m", mode, device=dev, seed=0)
+            model, quantized = OPTForCausalLM(cfg, device=dev, seed=0), mode == "weights"
+            if quantized:
+                build_weights_mode(model)
         torch.cuda.synchronize()
-        log(f"engine {mode}: OPT {cfg.hidden_size}x{cfg.num_hidden_layers} built in "
+        log(f"{name}: OPT {cfg.hidden_size}x{cfg.num_hidden_layers} ({mode}) built in "
             f"{time.perf_counter() - t0:.2f} s")
         requests = sb.make_requests(cfg.vocab_size, ENGINE["requests"], ENGINE["prompt"],
                                     ENGINE["gen"], spread=False)
@@ -2102,7 +2245,7 @@ def engine_paths(torch, dev, kernels, cfg, card):
 
         t0 = time.perf_counter()
         iso, margins = isolated_generation(torch, model, requests, capacity, quantized, dev)
-        log(f"engine {mode}: isolated generation of {len(requests)} requests on the card "
+        log(f"{name}: isolated generation of {len(requests)} requests on the card "
             f"{time.perf_counter() - t0:.1f} s")
         for sp in group:
             hold_tokens(sp["name"], "isolated generation on the card", got[sp["name"]], iso,
@@ -2130,12 +2273,11 @@ def engine_paths(torch, dev, kernels, cfg, card):
 
 def engine_family_path(torch, dev, kernels, fcfg, card):
     """engine_llama_weights: the engine over TinyLlama-1.1B (bench.py's
-    llama-1.1b at full width and depth, seed 0) in weights mode with int8
+    llama-1.1b at full width, seed 0, cut to ENGINE_LLAMA_LAYERS) in weights mode with int8
     row caches of its 4 KV heads, serving_bench's traffic (``ENGINE``) as
     the OPT engine paths; :func:`engine_closed_loop` on the card.  Its
     tokens are held against isolated generation on the card for the
-    requests ``ENGINE_HELD`` (isolated generation at this depth takes ~2.5
-    s a request).  The CPU check runs the same build cut to
+    requests ``ENGINE_HELD``.  The CPU check runs the same build cut to
     ``FAMILY_CPU_LAYERS`` layers: the ``ENGINE_HELD`` requests through an
     engine on the card and one on the CPU, held by the margins of isolated
     generation on the card at that depth.  Returns the launch counts."""
@@ -2145,6 +2287,7 @@ def engine_family_path(torch, dev, kernels, fcfg, card):
     from dmx_compressor_tpu_torch.models.llama import LlamaForCausalLM
     from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
 
+    fcfg = dataclasses.replace(fcfg, num_hidden_layers=ENGINE_LLAMA_LAYERS)
     L = fcfg.num_hidden_layers
     sp = dict(name="engine_llama_weights", chunk=None,
               admission={"bfp_linear": 4 * L + 1},
@@ -2199,6 +2342,327 @@ def engine_family_path(torch, dev, kernels, fcfg, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the encoder-decoder families
+# ---------------------------------------------------------------------------
+
+
+class Seq2SeqLM:
+    """An encoder-decoder model served as a causal LM over its decoder, so
+    that serve_path and greedy_prefill / greedy_decode drive it: a call at
+    position 0 (the prefill) encodes the first B rows of ``inputs`` (B the
+    start ids' batch, on the model's device) and keeps the encoder output
+    for the decode steps after it."""
+
+    def __init__(self, model, inputs):
+        self.model, self.inputs, self.enc = model, inputs, None
+
+    def __call__(self, ids, caches=None, position_offset=0):
+        import torch
+
+        if isinstance(position_offset, int) and position_offset == 0:
+            x = torch.from_numpy(self.inputs[:ids.shape[0]]).to(ids.device)
+            self.enc = self.model.encode(x)
+        return self.model.decode(ids, self.enc, caches=caches, position_offset=position_offset)
+
+    def __getattr__(self, name):  # init_cache, to, cfg
+        return getattr(self.model, name)
+
+
+def on_model(build):
+    """``build`` applied to a :class:`Seq2SeqLM`'s model (its module tree)."""
+    return lambda lm: build(lm.model)
+
+
+def seq2seq_configs():
+    """t5-small and whisper-small at full width and depth."""
+    from dmx_compressor_tpu_torch.models.t5 import T5Config
+    from dmx_compressor_tpu_torch.models.whisper import WhisperConfig
+
+    return {"t5": T5Config.t5_small(), "whisper": WhisperConfig.small()}
+
+
+def seq2seq_inputs(family, cfg, n=BATCH, seed=0):
+    """The encoder inputs of the seq2seq paths, from ``seed`` with numpy: T5
+    ``S2S_ENC`` token ids uniform in [1, vocab); Whisper standard-normal
+    features [n, 80, 3000] (examples/benchmarking/benchmark_whisper.py's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if family == "t5":
+        return rng.integers(1, cfg.vocab_size, (n, S2S_ENC)).astype(np.int32)
+    return rng.standard_normal((n, cfg.num_mel_bins, 2 * cfg.max_source_positions),
+                               np.float32)
+
+
+def seq2seq_layers(cfg, family, L):
+    """``cfg`` cut to ``L`` layers in each stack."""
+    import dataclasses
+
+    if family == "t5":
+        return dataclasses.replace(cfg, num_layers=L, num_decoder_layers=L)
+    return dataclasses.replace(cfg, encoder_layers=L, decoder_layers=L)
+
+
+def seq2seq_path_specs(cfg, family):
+    """The three paths of an encoder-decoder family (t5-small, whisper-small)
+    at full width and depth, as :func:`path_specs`: batch 8, the start
+    tokens (T5 one, Whisper four) prefilled over the encoder output into
+    caches of start + GEN slots (JAX ``generate``'s size), 63 decode steps.
+    The launches, L layers a stack (derived from the code: the encoder's 6
+    packed linears a layer, the decoder's 10 (self and cross q, k, v, o, the
+    feed-forward's 2), the tied head; every cross-attention K/V recomputed
+    at every step, as in the JAX package):
+
+    - weights: a prefill 16L+1 B1 (the encoder's at M 8 x its length, the
+      cross K/V at the same M), a step 10L+1 B1; T5 no attention kernel (its
+      attention is the modular SDPA over ``cache.update``), Whisper L B2 a
+      step and no B3 (an int8 prefill attends through quantized_sdpa);
+    - baseline: T5 none (cuBLAS f32, the modular SDPA); Whisper L B3 at the
+      4-token prefill over the f32 cache, L B4 a step;
+    - basic (f32 cache, as JAX's ``generate``): 16L+1 T1 a prefill and 10L+1
+      a step, and the T2 casts of the modular pipeline: T5 the encoder's
+      38L+4 and the decoder's 52L+5 a prefill, 52L+5 a step; Whisper 33L+6
+      and 50L+5, 50L+5 (casts along an axis no multiple of the block, as the
+      cross-attention's 1500 keys, are plain torch: the JAX package's jnp
+      path).
+
+    CPU checks: T5 at full depth and batch; Whisper at FAMILY_CPU_LAYERS and
+    the card's first S2S_CPU_BATCH rows."""
+    import numpy as np
+    import torch
+
+    from dmx_compressor_tpu_torch.models.t5 import T5ForConditionalGeneration
+    from dmx_compressor_tpu_torch.models.whisper import WhisperForConditionalGeneration
+    from dmx_compressor_tpu_torch.ops.compress import (
+        build_baseline_mode,
+        build_basic_mode,
+        build_weights_mode,
+    )
+
+    L = cfg.num_hidden_layers
+    start = S2S_START[family]
+    inputs = seq2seq_inputs(family, cfg)
+    model_cls = T5ForConditionalGeneration if family == "t5" else WhisperForConditionalGeneration
+
+    def make(cfg_, device=None, seed=0):
+        return Seq2SeqLM(model_cls(cfg_, device=device, seed=seed), inputs)
+
+    whisper = family == "whisper"
+    common = dict(model=make, prompt=len(start),
+                  ids=lambda: torch.from_numpy(np.tile(np.asarray(start, np.int32), (BATCH, 1))),
+                  cpu_cfg=seq2seq_layers(cfg, family, FAMILY_CPU_LAYERS) if whisper else None,
+                  cpu_batch=S2S_CPU_BATCH if whisper else BATCH)
+    cache = dict(max_len=len(start) + GEN)
+    t2_pre, t2_step = ((33 * L + 6) + (50 * L + 5), 50 * L + 5) if whisper else (
+        (38 * L + 4) + (52 * L + 5), 52 * L + 5)
+    weights_step = {"bfp_linear": 10 * L + 1}
+    if whisper:
+        weights_step["flash_decode_int8"] = L
+        baseline = dict(prefill={"flash_attention": L}, step={"flash_decode": L},
+                        marks={"flash_decode": ("flash_decode_kernel",)})
+    else:
+        baseline = dict(prefill={}, step={}, marks={})
+    return [
+        dict(common, name=f"{family}_weights", build=on_model(build_weights_mode),
+             cache=dict(cache, quantized=True), prefill={"bfp_linear": 16 * L + 1},
+             prepare=None, step=weights_step,
+             marks={k: {"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}[k]
+                    for k in weights_step}, logit_tol=KV8_TOL),
+        dict(common, name=f"{family}_baseline", build=on_model(build_baseline_mode), cache=cache,
+             prepare=None, logit_tol=LOGIT_TOL, **baseline),
+        dict(common, name=f"{family}_basic", build=on_model(build_basic_mode), cache=cache,
+             prefill={"bfp_linear_bf16": 16 * L + 1, "bfp_cast": t2_pre}, prepare=None,
+             step={"bfp_linear_bf16": 10 * L + 1, "bfp_cast": t2_step},
+             marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
+             logit_tol=BASIC_FAMILY_TOL[family], record_t2=True, t2_steps=S2S_TIMED,
+             **({} if whisper else dict(cpu_cfg=cfg))),
+    ]
+
+
+def seq2seq_linear_shapes(cfg, family):
+    """(M, K, N, launches) of an encoder-decoder family's packed linears at a
+    prefill and a decode step, M the rows each launch takes: the encoder's
+    q/k/v/o and feed-forward at M = 8 x its length, the decoder's at 8 x
+    the start tokens (prefill) or 8 (a step), the cross-attention's K/V at
+    the encoder's M at every step, the tied head."""
+    L = cfg.num_hidden_layers
+    if family == "t5":
+        d, f, V, S = cfg.d_model, cfg.d_ff, cfg.vocab_size, S2S_ENC
+    else:
+        d, f, V, S = cfg.d_model, cfg.decoder_ffn_dim, cfg.vocab_size, cfg.max_source_positions
+    Me = BATCH * S
+    T0 = len(S2S_START[family])
+    prefill = [(Me, d, d, 4 * L), (Me, d, f, L), (Me, f, d, L), (Me, d, d, 2 * L)]
+    step = [(Me, d, d, 2 * L), (BATCH, d, d, 6 * L), (BATCH, d, f, L), (BATCH, f, d, L),
+            (BATCH, d, V, 1)]
+    prefill += [(BATCH * T0, K, N, n) for _, K, N, n in step[1:]]
+    return prefill, step
+
+
+def check_seq2seq_linears(torch, dev, cfg, family, seed):
+    """B1 and T1 at an encoder-decoder family's packed linear shapes
+    (:func:`seq2seq_linear_shapes`: the encoder's and the cross K/V's M,
+    whisper-small's 12000 x 768 x 768 among them; the decoder's M 8 and 8 x
+    start; the tied head, whisper-small's N 51865 odd) against their plain
+    versions, each case's time, plain time, library time (torch.matmul on
+    the dequantized weight, bf16 for T1) and bound; then per launch over one
+    decode step's launches as the path makes them.  Returns ((B1's per-step
+    numbers, cases), (T1's ...)), each case marked ``path=family``."""
+    from dmx_compressor_tpu_torch.ops.bfp_linear import (
+        bfp_linear,
+        bfp_linear_bf16,
+        bfp_linear_bf16_ref,
+        bfp_linear_ref,
+    )
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
+
+    prefill, step = seq2seq_linear_shapes(cfg, family)
+    shapes = sorted({(M, K, N) for M, K, N, _ in prefill + step})
+    out = []
+    for label, kern, plain, s, peak, lib in (
+            ("B1 bfp_linear", bfp_linear, bfp_linear_ref, seed, PEAK_F32_FLOP_S, None),
+            ("T1 bfp_linear_bf16", bfp_linear_bf16, bfp_linear_bf16_ref, seed + 1,
+             PEAK_BF16_FLOP_S, torch.bfloat16)):
+        out.append(check_linear(
+            torch, dev, f"{label} ({family})", kern, plain, lambda w: bfp_pack(w, 8, 64),
+            bfp_unpack, b1_bytes, [], shapes, B1_TOL, seed=s, peak_flop_s=peak, lib_dtype=lib,
+            planes=3 if lib is None else None, step_launches=step, min_iters=S2S_TIMED))
+        for case in out[-1][1]:
+            case["path"] = family
+    return out
+
+
+def engine_seq2seq_path(torch, dev, kernels, cfg, family, card):
+    """engine_<family>_weights: the seq2seq engine (serving/engine.py
+    Seq2SeqBatchingEngine) over t5-small or whisper-small at full width and
+    depth (seed 0) in weights mode with int8 row caches, serving_bench's
+    traffic (``ENGINE``: 8 slots, bursts of 16, 32 requests of 64 new
+    tokens, warmup first): T5 ragged encoder inputs of 32-128 token ids
+    padded to ``enc_capacity`` 128 and masked, one start token; Whisper one
+    [80, 3000] feature row a request and its 4 start tokens.  Each
+    admission encodes its request (batch 1) and prefills: 16L+1 B1 (no B3:
+    an int8 prefill); each decode forward 10L+1 B1 (+ L B2 over the row
+    caches' per-row lengths for Whisper), the encoder mask built on the
+    device from the slots' encoder lengths.  Tokens are held against
+    isolated generation on the card (``ENGINE_HELD``) and, through engines
+    on the card and on the CPU, at T5's full depth (the held requests, 8
+    slots) or Whisper's FAMILY_CPU_LAYERS (its first S2S_CPU_BATCH held
+    requests, as many slots).  Returns the launch counts."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.examples import serving_bench as sb
+    from dmx_compressor_tpu_torch.models.shared import seq2seq_greedy
+    from dmx_compressor_tpu_torch.models.t5 import T5ForConditionalGeneration
+    from dmx_compressor_tpu_torch.models.whisper import WhisperForConditionalGeneration
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
+
+    name = f"engine_{family}_weights"
+    L = cfg.num_hidden_layers
+    whisper = family == "whisper"
+    step = {"bfp_linear": 10 * L + 1}
+    marks = {"bfp_linear": ("bfp_decode_kernel",)}
+    if whisper:
+        step["flash_decode_int8"] = L
+        marks["flash_decode_int8"] = ("flash_decode_int8_kernel",)
+    sp = dict(name=name, chunk=None, admission={"bfp_linear": 16 * L + 1}, step=step,
+              chunk_each={}, chunk_first={}, marks=marks)
+    rng = np.random.default_rng(0)
+    start = np.asarray(S2S_START[family], np.int32)
+    if whisper:
+        feats = seq2seq_inputs(family, cfg, ENGINE["requests"])
+        requests = [(dict(encoder_input=f, decoder_start_ids=start), ENGINE["gen"])
+                    for f in feats]
+        sp["warmup"] = dict(encoder_input=feats[0])
+    else:
+        lens = rng.integers(S2S_ENC // 4, S2S_ENC + 1, ENGINE["requests"])
+        requests = [(dict(encoder_input=rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32),
+                          decoder_start_ids=start), ENGINE["gen"]) for n in lens]
+    enc_cap = None if whisper else S2S_ENC
+    model_cls = WhisperForConditionalGeneration if whisper else T5ForConditionalGeneration
+
+    def build(cfg_):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model = model_cls(cfg_, device=dev, seed=0)
+            build_weights_mode(model)
+        torch.cuda.synchronize()
+        log(f"{name}: {model_cls.__name__} {cfg_.hidden_size}x{cfg_.num_hidden_layers} built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return model
+
+    def isolated(model, reqs, capacity):
+        """The requests outside the engine, side by side in one batch on a
+        static int8 cache (every row computed on its own; T5's inputs padded
+        to S2S_ENC and masked as the engine pads them): the model's greedy
+        loop.  Returns (tokens, each token's top-1/top-2 margin) by index."""
+        d = next(model.parameters()).device
+        gen = max(g for _, g in reqs)
+        ids = torch.from_numpy(np.stack([r["decoder_start_ids"] for r, _ in reqs])).to(d)
+        caches = model.init_cache(len(reqs), ids.shape[1] + gen, quantized=True, device=d)
+        with torch.no_grad():
+            if whisper:
+                x = torch.from_numpy(np.stack([r["encoder_input"] for r, _ in reqs])).to(d)
+                t, rows = seq2seq_greedy(model, caches, model.encode(x), ids, gen)
+            else:
+                x = np.zeros((len(reqs), S2S_ENC), np.int32)
+                lens = torch.tensor([r["encoder_input"].size for r, _ in reqs], device=d)
+                for i, (r, _) in enumerate(reqs):
+                    x[i, :r["encoder_input"].size] = r["encoder_input"]
+                keep = torch.arange(S2S_ENC, device=d)[None, :] < lens[:, None]
+                emask = torch.where(keep, 0.0, -1e4)[:, None, None, :]
+                enc = model.encode(torch.from_numpy(x).to(d), attn_mask=emask)
+                t, rows = seq2seq_greedy(model, caches, enc, ids, gen, enc_mask=emask)
+        top2 = rows.topk(2, dim=-1).values  # [gen, rows, 2]
+        toks = {i: t[i, :g].tolist() for i, (_, g) in enumerate(reqs)}
+        margins = {i: (top2[:g, i, 0] - top2[:g, i, 1]).tolist() for i, (_, g) in enumerate(reqs)}
+        return toks, margins
+
+    def run(model, reqs, slots):
+        with memo_unpack(), torch.no_grad():
+            eng = sb.make_seq2seq_engine(model, True, reqs, slots, ENGINE["burst"],
+                                         enc_capacity=enc_cap)
+            eng.warmup(ENGINE["burst"], **sp.get("warmup", {}))
+            stats = sb.closed_loop(eng, reqs, ENGINE["burst"])
+        fin = {r.request_id: r.tokens for r in eng.finished}
+        return {i: fin[rid] for i, rid in enumerate(stats["rids"])}
+
+    model = build(cfg)
+    eng = sb.make_seq2seq_engine(model, True, requests, ENGINE["slots"], ENGINE["burst"],
+                                 enc_capacity=enc_cap)
+    capacity = eng.max_len
+    launches, got = engine_closed_loop(torch, kernels, eng, sp, requests, cfg.vocab_size, card)
+    del eng
+    held = [requests[i] for i in ENGINE_HELD]
+    t0 = time.perf_counter()
+    iso, margins = isolated(model, held, capacity)
+    log(f"{name}: isolated generation of requests {ENGINE_HELD} on the card "
+        f"{time.perf_counter() - t0:.1f} s")
+    hold_tokens(name, f"isolated generation on the card (requests {ENGINE_HELD})",
+                {j: got[i] for j, i in enumerate(ENGINE_HELD)}, iso, margins, KV8_TOL)
+    if whisper:
+        # the CPU check at FAMILY_CPU_LAYERS: the first held requests through
+        # an engine of as many slots on the card and one on the CPU
+        del model
+        torch.cuda.empty_cache()
+        held = held[:S2S_CPU_BATCH]
+        model = build(seq2seq_layers(cfg, family, FAMILY_CPU_LAYERS))
+        _, margins = isolated(model, held, capacity)
+    slots = len(held) if whisper else ENGINE["slots"]
+    card_toks = run(model, held, slots)
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = run(model, held, slots)
+    depth = model.cfg.num_hidden_layers
+    log(f"{name}: CPU engine run of {len(held)} held requests in {slots} slots at {depth} "
+        f"layers {time.perf_counter() - t0:.1f} s")
+    hold_tokens(name, f"the CPU engine run at {depth} layers ({len(held)} held requests, the "
+                f"card's engine at that depth)", card_toks, cpu, margins, KV8_TOL)
+    del model
+    return launches
+
+
 @contextlib.contextmanager
 def phase(name: str, seconds: dict):
     """Log and record the wall seconds of one phase of the run (the whole
@@ -2210,6 +2674,8 @@ def phase(name: str, seconds: dict):
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2257,14 +2723,15 @@ def main() -> int:
     sbfp_shapes_of = {**{f: family_sbfp_linear_shapes(c) for f, c in fams.items()},
                       "mistral": family_sbfp_linear_shapes(mcfg),
                       "gpt2": gpt2_linear_shapes(gcfg)}
+    s2s = seq2seq_configs()  # t5-small, whisper-small
     with phase("B1", took):
         b1_step, b1 = check_b1(torch, dev, cfg)
     with phase("B2", took):
-        b2 = check_b2(torch, dev, cfg, fams)
+        b2 = check_b2(torch, dev, cfg, fams, s2s["whisper"])
     with phase("B3", took):
-        b3 = check_b3(torch, dev, cfg, fams)
+        b3 = check_b3(torch, dev, cfg, fams, s2s["whisper"])
     with phase("B4", took):
-        b4 = check_b4(torch, dev, cfg, fams)
+        b4 = check_b4(torch, dev, cfg, fams, s2s["whisper"])
     with phase("B5", took):
         b5_step, b5, b5_wide_step = check_b5(torch, dev, cfg)
     with phase("T1", took):
@@ -2281,6 +2748,10 @@ def main() -> int:
             fam_linears[family] = check_family_linears(
                 torch, dev, shapes, sbfp_shapes_of[family], family, seed, ragged,
                 ragged + [(130, K, N)])
+    s2s_linears = {}  # family -> ((B1 step, cases), (T1 step, cases))
+    for seed, (family, scfg) in zip((32, 34), s2s.items()):
+        with phase(f"B1 and T1 at the {family} shapes", took):
+            s2s_linears[family] = check_seq2seq_linears(torch, dev, scfg, family, seed)
 
     by_path, tok_s = {}, {}
     fam_t2 = {}  # family or path -> (T2's per-step numbers, cases) at its recorded sites
@@ -2300,9 +2771,12 @@ def main() -> int:
         f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}, "
         f"fp8 / baseline {tok_s['fp8'] / tok_s['baseline']:.4f}")
     kv_repeat_ms = {c["path"]: c["repeat_ms"] for c in b3 if "repeat_ms" in c}
-    fam_paths = {**{f: (c, family_path_specs(c, f)) for f, c in fams.items()},
+    cut = {f: dataclasses.replace(c, num_hidden_layers=FAMILY_PATH_LAYERS)
+           for f, c in {**fams, "mistral": mcfg}.items()}
+    fam_paths = {**{f: (cut[f], family_path_specs(cut[f], f)) for f in fams},
                  "gpt2": (gcfg, gpt2_path_specs(gcfg)),
-                 "mistral": (mcfg, family_path_specs(mcfg, "mistral"))}
+                 "mistral": (cut["mistral"], family_path_specs(cut["mistral"], "mistral")),
+                 **{f: (c, seq2seq_path_specs(c, f)) for f, c in s2s.items()}}
     for family, (fcfg, specs) in fam_paths.items():
         for spec in specs:
             name = spec["name"]
@@ -2314,17 +2788,24 @@ def main() -> int:
             if spec.get("record_t2"):
                 with phase(f"T2 at the {name} sites", took):
                     fam_t2[family] = check_t2_sites(torch, dev, spec["t2_sites"],
-                                                    spec["t2_step"], name)
+                                                    spec["t2_step"], name,
+                                                    spec.get("t2_steps", 20))
+        modes = ("weights", "basic") + (() if family in s2s else ("sbfp",))
         log(f"bench.py's ratio for the {family} family, for information (host clock, batch "
             f"{BATCH}, {card}): " + ", ".join(
-                f"{mode} / baseline {tok_s[f'{family}_{mode}'] / tok_s[f'{family}_baseline']:.4f}"
-                for mode in ("weights", "sbfp", "basic")))
+                f"{m} / baseline {tok_s[f'{family}_{m}'] / tok_s[f'{family}_baseline']:.4f}"
+                for m in modes))
     with phase("engine paths", took):
         by_path.update(engine_paths(torch, dev, kernels, cfg, card))
     with phase("engine_llama_weights path", took):
-        by_path["engine_llama_weights"] = engine_family_path(torch, dev, kernels, fams["llama"],
-                                                             card)
+        by_path["engine_llama_weights"] = engine_family_path(torch, dev, kernels,
+                                                             fams["llama"], card)
+    for family, scfg in s2s.items():
+        name = f"engine_{family}_weights"
+        with phase(f"{name} path", took):
+            by_path[name] = engine_seq2seq_path(torch, dev, kernels, scfg, family, card)
     log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
+    log(f"kernel builds and phases: {took_build + sum(took.values()):.1f} s")
 
     def launches(kern):
         """The kernel's launches over the paths' runs, in all and per path."""
@@ -2340,14 +2821,17 @@ def main() -> int:
     # step of each Llama-topology family under <family>_step), B2, B3 and B4
     # at their OPT path's shape (their first case)
     b1_fam = [c for f in fam_linears for c in fam_linears[f][0][1]]
+    b1_fam += [c for f in s2s_linears for c in s2s_linears[f][0][1]]
     t1_fam = [c for f in fam_linears for c in fam_linears[f][1][1]]
+    t1_fam += [c for f in s2s_linears for c in s2s_linears[f][1][1]]
     b5_fam = [c for f in fam_linears for c in fam_linears[f][2][1]]
     t2_fam = [c for f in fam_t2 for c in fam_t2[f][1]]
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:53", **launches("bfp_linear"),
              max_abs_err=max(c["max_abs_err"] for c in b1 + b1_fam), **b1_step,
-             **{f"{f}_step": fam_linears[f][0][0] for f in fam_linears}, cases=b1 + b1_fam),
+             **{f"{f}_step": fam_linears[f][0][0] for f in fam_linears},
+             **{f"{f}_step": s2s_linears[f][0][0] for f in s2s_linears}, cases=b1 + b1_fam),
         dict(name="flash_decode_int8", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_decode_int8.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",
@@ -2374,6 +2858,7 @@ def main() -> int:
              replaces="tools/diag_bfpkernel_ab.py:30", **launches("bfp_linear_bf16"),
              max_abs_err=max(c["max_abs_err"] for c in t1 + t1_fam), **t1_step,
              **{f"{f}_step": fam_linears[f][1][0] for f in fam_linears},
+             **{f"{f}_step": s2s_linears[f][1][0] for f in s2s_linears},
              subnormal_weights=t1_flush,
              cases=t1 + t1_fam),
         dict(name="bfp_cast", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_cast.cu",

@@ -35,7 +35,7 @@ import torch
 
 from ..models.opt import OPTConfig, OPTForCausalLM
 from ..ops.compress import build_weights_mode
-from ..serving import ContinuousBatchingEngine
+from ..serving import ContinuousBatchingEngine, Seq2SeqBatchingEngine
 
 CONFIGS = {"opt-125m": OPTConfig.opt_125m, "opt-350m": OPTConfig.opt_350m,
            "opt-1.3b": OPTConfig.opt_1_3b}
@@ -81,12 +81,34 @@ def make_engine(model, quantized_kv: bool, requests, prompt_len: int, slots: int
     )
 
 
+def make_seq2seq_engine(model, quantized_kv: bool, requests, slots: int, burst: int,
+                        enc_capacity: Optional[int] = None) -> Seq2SeqBatchingEngine:
+    """The encoder-decoder engine for ``requests`` (``(dict(encoder_input=,
+    decoder_start_ids=), max_new_tokens)`` each): one prompt bucket of the
+    start tokens' length, ``max_len`` = start + the longest generation +
+    burst; ragged token-id inputs padded to ``enc_capacity``."""
+    start = max(np.asarray(r.get("decoder_start_ids", [0])).size for r, _ in requests)
+    max_gen = max(g for _, g in requests)
+    return Seq2SeqBatchingEngine(
+        model, max_slots=slots, max_len=start + max_gen + burst, prompt_buckets=(start,),
+        quantized_kv=quantized_kv, enc_capacity=enc_capacity,
+    )
+
+
+def submit(eng: ContinuousBatchingEngine, prompt, gen: int) -> int:
+    """Queue one request: ``prompt`` is a causal LM's prompt ids, or an
+    encoder-decoder request's submit arguments (a dict)."""
+    if isinstance(prompt, dict):
+        return eng.submit(**prompt, max_new_tokens=gen)
+    return eng.submit(prompt, max_new_tokens=gen)
+
+
 def closed_loop(eng: ContinuousBatchingEngine, requests, burst: int) -> Dict:
     """Queue every request, then step the engine until all have finished.
     Returns the request ids, each step's wall time (host clock), whether it
     was steady (no admission and no chunk), its admissions and chunks, the
     busy and total slot-steps, the tokens emitted and the wall time."""
-    rids = [eng.submit(p, max_new_tokens=g) for p, g in requests]
+    rids = [submit(eng, p, g) for p, g in requests]
 
     def emitted():
         return (sum(len(r.tokens) for r in eng.finished)

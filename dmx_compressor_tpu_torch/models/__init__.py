@@ -1,1 +1,12 @@
-"""Model zoo of the port: OPT, GPT-2, Llama, Qwen3, Gemma and Mistral."""
+"""Model zoo of the port: OPT, GPT-2, Llama, Qwen3, Gemma, Mistral, T5 and
+Whisper, authored with transformable modules in HF-checkpoint layouts."""
+
+from ..ops.kv_cache import KVCache, QuantizedKVCache  # noqa: F401
+from .gemma import GemmaConfig, GemmaForCausalLM  # noqa: F401
+from .gpt2 import GPT2Config, GPT2LMHeadModel  # noqa: F401
+from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
+from .mistral import MistralConfig, MistralForCausalLM  # noqa: F401
+from .opt import OPTConfig, OPTForCausalLM  # noqa: F401
+from .qwen3 import Qwen3Config, Qwen3ForCausalLM  # noqa: F401
+from .t5 import T5Config, T5ForConditionalGeneration  # noqa: F401
+from .whisper import WhisperConfig, WhisperForConditionalGeneration  # noqa: F401

@@ -1,12 +1,14 @@
-"""What the decoder families share: the embedding lookup with ``jnp.take``'s
+"""What the model families share: the embedding lookup with ``jnp.take``'s
 semantics, the attention modules' frozen routing check, greedy prefill /
 decode (bench.py:252-302) over any model called as
-``model(ids, caches=, position_offset=)``, and the loading of a raw JAX
-model's weights (the Llama topology's; OPT's and GPT-2's, with biases)."""
+``model(ids, caches=, position_offset=)``, the encoder-decoder families'
+greedy loop (T5's and Whisper's ``generate``), and the loading of a raw JAX
+model's weights (the Llama topology's; OPT's and GPT-2's, with biases; T5's
+and Whisper's)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,5 +144,103 @@ def load_jax_biased_params(model: nn.Module, params: Dict[str, np.ndarray], embe
             own[name].copy_(value)
             seen.add(name)
     missing = set(own) - seen
+    if missing:
+        raise KeyError(f"parameters not in params: {sorted(missing)}")
+
+
+@torch.no_grad()
+def seq2seq_greedy(model: nn.Module, caches: List, enc: torch.Tensor, ids: torch.Tensor,
+                   n_new: int, enc_mask: Optional[torch.Tensor] = None,
+                   eos_token_id: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An encoder-decoder model's greedy loop over its encoder output
+    ``enc``: the start ids [B, T0] prefilled into ``caches`` at offset 0,
+    then ``n_new - 1`` single-token steps, each through ``model.decode(ids,
+    enc, caches=, position_offset=[, enc_mask=])``.  The choice is
+    ``torch.argmax`` (the first index among maxima: ``jnp.argmax`` in the
+    JAX package's ``generate``); after ``eos_token_id`` a row repeats it.
+    Returns (tokens [B, n_new] int32, each step's last-position logits
+    [n_new, B, V])."""
+    kw = {} if enc_mask is None else {"enc_mask": enc_mask}
+    T0 = ids.shape[1]
+    logits = model.decode(ids, enc, caches=caches, position_offset=0, **kw)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    done = None if eos_token_id is None else tok == eos_token_id
+    toks, rows = [tok], [logits[:, -1]]
+    for i in range(n_new - 1):
+        logits = model.decode(tok[:, None], enc, caches=caches, position_offset=T0 + i, **kw)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        if done is not None:
+            tok = torch.where(done, eos_token_id, tok)
+            done = done | (tok == eos_token_id)
+        toks.append(tok)
+        rows.append(logits[:, -1])
+    return torch.stack(toks, dim=1).to(torch.int32), torch.stack(rows)
+
+
+@torch.no_grad()
+def seq2seq_generate(model: nn.Module, encoder_input, decoder_start_ids, max_new_tokens: int,
+                     eos_token_id: Optional[int] = None,
+                     quantized_cache: bool = False) -> torch.Tensor:
+    """Greedy seq2seq generation, the JAX package's ``generate`` of T5 and
+    Whisper: encode once, prefill the start ids [B, T0] into fresh caches
+    of T0 + ``max_new_tokens`` slots (int8 with ``quantized_cache``), then
+    decode greedily (:func:`seq2seq_greedy`).  Runs where the model's
+    parameters are.  Returns [B, T0 + max_new_tokens] int32 token ids."""
+    dev = next(model.parameters()).device
+    x = torch.as_tensor(np.asarray(encoder_input) if not torch.is_tensor(encoder_input)
+                        else encoder_input).to(dev)
+    ids = torch.as_tensor(np.asarray(decoder_start_ids, dtype=np.int32)
+                          if not torch.is_tensor(decoder_start_ids)
+                          else decoder_start_ids).to(device=dev, dtype=torch.int32)
+    B, T0 = ids.shape
+    caches = model.init_cache(B, T0 + max_new_tokens, quantized=quantized_cache, device=dev)
+    toks, _ = seq2seq_greedy(model, caches, model.encode(x), ids, max_new_tokens,
+                             eos_token_id=eos_token_id)
+    return torch.cat([ids, toks], dim=1)
+
+
+def load_jax_seq2seq_params(model: nn.Module, params: Dict[str, np.ndarray],
+                            aliases: Dict[str, str], buffers: Tuple[str, ...] = ()) -> None:
+    """Copy a raw JAX encoder-decoder model's weights (T5, Whisper) into the
+    raw port model of its family, in place.
+
+    ``params`` is the JAX model's flattened nnx state, dotted path -> numpy
+    array.  ``nnx.Linear.kernel`` [in, out] becomes ``weight`` [out, in];
+    ``LayerNorm.scale``, ``Embed.embedding`` and a Dmx module's ``weight``
+    become ``weight``, a ``bias`` stays ``bias``.  ``aliases`` maps the
+    module path under which nnx lists a shared table to the port module
+    that owns its Parameter (written once, read by every site); the paths
+    in ``buffers`` (fixed tables) are copied into the port buffer
+    ``<path>.weight``; a Dmx module's cast state is not a weight and is
+    skipped.  Every parameter and listed buffer of the port must be
+    covered, and every weight array used."""
+    own = dict(model.named_parameters())  # a shared Parameter once
+    bufs = {f"{b}.weight": dict(model.named_buffers())[f"{b}.weight"] for b in buffers}
+    seen = set()
+    with torch.no_grad():
+        for path, arr in params.items():
+            *mod, leaf = path.split(".")
+            if any(p.endswith(("_cast", "_casts")) or p in ("smoothquant", "weight_sparsifier")
+                   for p in mod):
+                continue
+            value = torch.tensor(np.asarray(arr, dtype=np.float32))
+            if path in buffers:
+                name, target = f"{path}.weight", bufs[f"{path}.weight"]
+            else:
+                prefix = ".".join(mod)
+                mod = aliases.get(prefix, prefix).split(".")
+                if leaf == "kernel":
+                    value = value.T
+                elif leaf not in ("weight", "bias", "scale", "embedding"):
+                    raise KeyError(f"{path}: unknown leaf {leaf!r}")
+                name = ".".join(mod + ["bias" if leaf == "bias" else "weight"])
+                target = own.get(name)
+            if target is None:
+                raise KeyError(f"{path}: no parameter {name} in the port model")
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f"{path}: shape {tuple(value.shape)} != {tuple(target.shape)}")
+            target.copy_(value)
+            seen.add(name)
+    missing = (set(own) | set(bufs)) - seen
     if missing:
         raise KeyError(f"parameters not in params: {sorted(missing)}")

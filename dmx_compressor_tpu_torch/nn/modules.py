@@ -4,7 +4,9 @@ Port of that subset of ``dmx_compressor_tpu/nn/modules.py``: Linear,
 Embedding, LayerNorm, RMSNorm, GemmaRMSNorm, ResAdd, Mul, ActActMatMul,
 Softmax, Dropout, ReLU, SiLU, Tanh, the GELU family (GELUBase, GELU,
 NewGELU, FastGELU, QuickGELU, BloomGELU, ClippedGELU), ApplyRotaryPosEmb,
-RotaryEmbedding and the compound ScaledDotProductAttention.  Each follows the DmxModule pipeline
+RotaryEmbedding and the compound ScaledDotProductAttention, and the helpers of the
+unfold-lowered convolutions of ``nn/experimental.py`` (``_init_weight``, ``_pair``,
+``_im2col``).  Each module follows the DmxModule pipeline
 (nn/core.py) and declares the same cast topology as its JAX counterpart:
 
 - Linear: weight [out, in]; input and weight casts block along the last
@@ -24,6 +26,37 @@ from ..functional.simd_ops import rotate_half
 from ..numerics.format import Same
 from .. import rawnn
 from .core import DmxModule
+
+
+def _init_weight(gen: torch.Generator, shape, fan_in: int, device=None) -> torch.Tensor:
+    """Uniform in [-1/sqrt(fan_in), 1/sqrt(fan_in)] (1 for fan_in 0), drawn
+    from ``gen``: the JAX package's conv initialisation."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 1.0
+    return torch.empty(shape, device=device).uniform_(-bound, bound, generator=gen)
+
+
+def _pair(v, n: int) -> tuple:
+    """``v`` as an n-tuple (a scalar repeated)."""
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+
+def _im2col(x: torch.Tensor, kernel_size, stride, padding, dilation) -> torch.Tensor:
+    """Sliding patches of ``x`` [B, C, *spatial] (1-d or 2-d), zero-padded:
+    [B, C * prod(k), L], the patch axis channel-major and tap-minor (channel
+    c, tap t at c * prod(k) + t), as ``lax.conv_general_dilated_patches``
+    lays it out and as a torch conv weight [out, in, *k] flattens."""
+    nd = len(kernel_size)
+    if nd == 2:
+        return torch.nn.functional.unfold(x, kernel_size, dilation=dilation, padding=padding,
+                                          stride=stride)
+    if nd != 1:
+        raise ValueError(f"_im2col takes 1-d or 2-d inputs, got {nd}-d kernels")
+    (k,), (s,), (p,), (d,) = kernel_size, stride, padding, dilation
+    xp = torch.nn.functional.pad(x, (p, p))
+    span = d * (k - 1) + 1
+    win = xp.unfold(2, span, s)[..., ::d]  # [B, C, L, k]
+    B, C, L, _ = win.shape
+    return win.permute(0, 1, 3, 2).reshape(B, C * k, L)
 
 
 class ResAdd(DmxModule):

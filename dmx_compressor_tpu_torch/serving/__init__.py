@@ -1,1 +1,5 @@
-from .engine import ContinuousBatchingEngine, GenerationResult  # noqa: F401
+from .engine import (  # noqa: F401
+    ContinuousBatchingEngine,
+    GenerationResult,
+    Seq2SeqBatchingEngine,
+)

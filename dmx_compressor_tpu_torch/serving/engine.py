@@ -1,8 +1,8 @@
 """Continuous-batching serving engine (slot-based, static shapes).
 
-Port of ``ContinuousBatchingEngine``, ``GenerationResult`` and their helpers
-(``_slot_layout``, ``_write_rows``, ``_greedy``, ``_pick``) of
-``dmx_compressor_tpu/serving/engine.py``.  The design is the JAX package's:
+Port of ``ContinuousBatchingEngine``, ``Seq2SeqBatchingEngine``,
+``GenerationResult`` and their helpers (``_slot_layout``, ``_write_rows``,
+``_greedy``, ``_pick``) of ``dmx_compressor_tpu/serving/engine.py``.  The design is the JAX package's:
 
 - **Fixed slots.**  The engine owns ``max_slots`` batch rows and a row KV
   cache of ``max_len`` positions per layer (``ops/kv_cache.RowKVCache`` or
@@ -36,6 +36,7 @@ model was built or moved to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import itertools
 from collections import deque
 from typing import List, Optional
@@ -231,13 +232,17 @@ class ContinuousBatchingEngine:
             headroom = self.max_len - bucket
             if headroom < 1:
                 continue
-            self.submit(np.ones((bucket,), np.int32), max_new_tokens=min(2, headroom))
+            self._warmup_submit(bucket, min(2, headroom))
             guard = 0
             while self._busy():
                 self.step(burst)
                 guard += 1
                 assert guard < 10_000, "warmup request failed to finish"
         self.finished.clear()
+
+    def _warmup_submit(self, bucket: int, max_new_tokens: int) -> None:
+        """Queue :meth:`warmup`'s synthetic full-bucket request."""
+        self.submit(np.ones((bucket,), np.int32), max_new_tokens=max_new_tokens)
 
     # ------------------------------------------------------------ prefill
 
@@ -463,3 +468,158 @@ class ContinuousBatchingEngine:
         while self._busy():
             self.step(burst)
         return self.finished
+
+
+@dataclasses.dataclass
+class _Seq2SeqRequest(_Request):
+    encoder_input: Optional[np.ndarray] = None
+
+
+class Seq2SeqBatchingEngine(ContinuousBatchingEngine):
+    """Continuous batching for the encoder-decoder families of the port's
+    zoo: T5 (ragged token-id encoder inputs, padded to ``enc_capacity`` and
+    masked) and Whisper (fixed-shape feature inputs).
+
+    Each slot also owns a row of an encoder-output buffer ``[max_slots,
+    S_enc, D]`` on the device: an admission encodes the request's input
+    once (batch 1, with its prefill) and writes its row; a decode step
+    recomputes the cross-attention K/V from each slot's row per token (the
+    model's own decode semantics).  The decoder's self-attention uses the
+    causal-LM engine's row caches.  A T5 decode builds the additive ``-1e4``
+    mask over the encoder keys on the device from the slots' encoder lengths
+    (``_enc_lens``, on the device): a steady dispatch makes no host sync.
+
+    The model must expose ``encode(features)`` and ``decode(ids, enc,
+    caches, position_offset)`` with per-row ``position_offset`` support; a
+    model whose ``encode`` takes ``attn_mask`` and ``decode`` ``enc_mask``
+    (T5) takes ragged token ids.  Chunked prefill is refused: a seq2seq
+    decoder prompt is its start tokens, and the encoder pass is one
+    fixed-shape call.
+    """
+
+    def __init__(self, model, *, enc_capacity: Optional[int] = None, **kwargs):
+        if kwargs.get("prefill_chunk") is not None:
+            raise ValueError(
+                "chunked prefill applies to decoder-only engines (a seq2seq decoder "
+                "prompt is its start tokens; the encoder pass is one fixed-shape call)")
+        super().__init__(model, **kwargs)
+        self._enc = None  # [max_slots, S_enc, D], allocated at the first admission
+        # ragged token-id encoder inputs (T5) are right-padded to enc_capacity
+        # and masked; fixed-shape feature inputs (Whisper) must share one shape
+        self.enc_capacity = enc_capacity
+        self._enc_lens = torch.zeros((self.max_slots,), dtype=torch.int32, device=self.device)
+        self._warm_input = None
+        self._masked_encoder = (
+            "enc_mask" in inspect.signature(model.decode).parameters
+            and "attn_mask" in inspect.signature(model.encode).parameters
+        )
+
+    # ------------------------------------------------------------- intake
+
+    def submit(self, encoder_input, decoder_start_ids=None, max_new_tokens: int = 16,
+               eos_token_id: Optional[int] = None, temperature: float = 0.0) -> int:
+        feats = np.asarray(encoder_input)  # audio features or token ids
+        if feats.ndim == 1:
+            assert self._masked_encoder, (
+                "ragged token-id encoder inputs need a model with "
+                "encode(attn_mask) / decode(enc_mask) support")
+            if self.enc_capacity is None:
+                self.enc_capacity = int(feats.size)
+            assert feats.size <= self.enc_capacity, (
+                f"encoder input length {feats.size} exceeds enc_capacity={self.enc_capacity}")
+        if decoder_start_ids is None:
+            decoder_start_ids = np.zeros((1,), np.int32)
+        prompt = np.asarray(decoder_start_ids, np.int32).reshape(-1)
+        assert prompt.size > 0
+        assert prompt.size <= max(self.prompt_buckets)
+        assert prompt.size + max_new_tokens <= self.max_len
+        if self._warm_input is None:
+            self._warm_input = feats
+        rid = next(self._ids)
+        self.queue.append(_Seq2SeqRequest(rid, prompt, max_new_tokens, eos_token_id,
+                                          float(temperature), encoder_input=feats))
+        return rid
+
+    def warmup(self, burst: int = 1, encoder_input=None) -> None:
+        """:meth:`ContinuousBatchingEngine.warmup` with ``encoder_input``
+        (default: ones of ``enc_capacity`` for a token-id model) as every
+        synthetic request's encoder input."""
+        if encoder_input is None:
+            assert self._masked_encoder and self.enc_capacity, (
+                "warmup() of a feature-input model needs an example encoder_input")
+            encoder_input = np.ones((self.enc_capacity,), np.int32)
+        self._warm_input = np.asarray(encoder_input)
+        super().warmup(burst)
+
+    def _warmup_submit(self, bucket: int, max_new_tokens: int) -> None:
+        self.submit(self._warm_input, np.ones((bucket,), np.int32),
+                    max_new_tokens=max_new_tokens)
+
+    # ------------------------------------------------------------ prefill
+
+    def _enc_mask(self, S: int, enc_lens: torch.Tensor) -> torch.Tensor:
+        """The additive mask over the encoder keys, [B, 1, 1, S] f32: 0
+        below each row's encoder length, -1e4 past it."""
+        keep = torch.arange(S, device=enc_lens.device)[None, :] < enc_lens[:, None]
+        return torch.where(keep, 0.0, -1e4).to(torch.float32)[:, None, None, :]
+
+    def _prefill(self, b: int, req: _Request) -> None:
+        """Encode the request's input (batch 1), prefill its start ids at
+        their bucket into a fresh batch-1 cache, install both into slot
+        ``b``: the cache rows, and the encoder row and length."""
+        n = int(req.prompt.size)
+        bucket = self._bucket_for(n)
+        ids = np.full((1, bucket), self.pad_id, np.int32)
+        ids[0, :n] = req.prompt
+        feats = req.encoder_input
+        enc_len = feats.shape[-1]
+        if feats.ndim == 1:  # ragged token ids: pad to capacity
+            enc_len = feats.size
+            padded = np.full((self.enc_capacity,), self.pad_id, feats.dtype)
+            padded[:feats.size] = feats
+            feats = padded
+        x = torch.from_numpy(np.ascontiguousarray(feats[None])).to(self.device)
+        caches = self.model.init_cache(1, bucket, quantized=self.quantized_kv, device=self.device)
+        if self._masked_encoder:
+            lens = torch.full((1,), enc_len, dtype=torch.int32, device=self.device)
+            emask = self._enc_mask(x.shape[-1], lens)
+            enc = self.model.encode(x, attn_mask=emask)  # [1, S_enc, D]
+            logits = self.model.decode(self._ids_tensor(ids), enc, caches=caches,
+                                       position_offset=0, enc_mask=emask)
+        else:
+            enc = self.model.encode(x)  # [1, S_enc, D]
+            logits = self.model.decode(self._ids_tensor(ids), enc, caches=caches,
+                                       position_offset=0)
+        self._install(b, req, caches, logits[0, n - 1:n])
+        if self._enc is None:
+            self._enc = torch.zeros((self.max_slots, *enc.shape[1:]), dtype=enc.dtype,
+                                    device=self.device)
+        self._enc[b] = enc[0]
+        self._enc_lens[b:b + 1].fill_(enc_len)
+
+    # ------------------------------------------------------------- decode
+
+    def _dispatch(self, burst: int, sampling: bool) -> torch.Tensor:
+        """The causal-LM dispatch over the slots' encoder rows: ``burst``
+        decode steps of every slot, each through ``model.decode`` with the
+        slots' per-row offsets (and, for a masked encoder, the mask built
+        once on the device from ``_enc_lens``); returns the (not yet read
+        back) tokens [B, burst]."""
+        if (burst, sampling) not in self._checked:
+            self._assert_serving_safe()
+            self._checked.add((burst, sampling))
+        kw = ({"enc_mask": self._enc_mask(self._enc.shape[1], self._enc_lens)}
+              if self._masked_encoder else {})
+        toks, cols = self._dtoks, []
+        for _ in range(burst):
+            off = self.caches[0].lengths.clone()  # [B] per-row positions
+            logits = self.model.decode(toks, self._enc, caches=self.caches,
+                                       position_offset=off, **kw)
+            if sampling:
+                nxt = _pick(logits[:, -1], self._gen, self._dtemps, self.top_k)
+            else:
+                nxt = _greedy(logits[:, -1])
+            toks = nxt[:, None]
+            cols.append(nxt)
+        self._dtoks = toks
+        return torch.stack(cols, dim=1)

@@ -36,6 +36,18 @@ in the same way:
     python -m dmx_compressor_tpu_torch.tools.order_sensitivity --mode fp8 \\
         --device cpu --layers 12 --vocab 2048 --seeds 0 1
 
+``--family t5`` and ``--family whisper`` serve the encoder-decoder families
+(t5-small, whisper-small) in BASIC mode over an f32 cache, as chip_smoke.py's
+t5_basic and whisper_basic paths do: encode seeded inputs (T5: ``--prompt``
+token ids; Whisper: standard-normal features [80, 3000]), prefill the start
+tokens (T5 one, Whisper four) and decode; the float64 run is fed the first
+run's tokens (teacher-forced, as chip_smoke.py holds the card against the
+CPU), and the largest difference over the prefill's and every step's
+logits is printed:
+
+    python -m dmx_compressor_tpu_torch.tools.order_sensitivity --family whisper \
+        --device cpu --layers 4 --vocab 2048 --batch 2 --seeds 0 1
+
 Widths are OPT-125m's, or bench.py's ``gpt2`` (GPT-2 124M),
 ``llama-1.1b`` (TinyLlama-1.1B), ``qwen3-0.6b`` (Qwen3-0.6B), ``gemma-2b``
 (Gemma-2B) or ``mistral-1b`` with ``--family gpt2``, ``llama``, ``qwen3``,
@@ -61,7 +73,9 @@ from ..models.mistral import MistralConfig, MistralForCausalLM
 from ..models.opt import OPTConfig, OPTForCausalLM
 from ..models.qwen3 import Qwen3Config, Qwen3ForCausalLM
 from ..modeling.model import DmxModel
-from ..models.shared import greedy_decode, greedy_prefill
+from ..models.shared import greedy_decode, greedy_prefill, greedy_token
+from ..models.t5 import T5Config, T5ForConditionalGeneration
+from ..models.whisper import WhisperConfig, WhisperForConditionalGeneration
 from ..ops import basic_attention, basic_layer, basic_linear, compress
 from ..ops.bfp_cast import fp16_cast_ref
 from ..ops.bfp_pack import bfp_unpack, sbfp_unpack
@@ -135,7 +149,38 @@ FAMILIES = {
     "gemma": (GemmaConfig.gemma_2b, GemmaForCausalLM),
     "gpt2": (GPT2Config.gpt2, GPT2LMHeadModel),
     "mistral": (MistralConfig.mistral_1b, MistralForCausalLM),
+    "t5": (T5Config.t5_small, T5ForConditionalGeneration),
+    "whisper": (WhisperConfig.small, WhisperForConditionalGeneration),
 }
+SEQ2SEQ = ("t5", "whisper")
+
+
+def serve_seq2seq(family, cfg, seed, device, batch, prompt, steps, forced=None):
+    """An encoder-decoder family in BASIC mode over an f32 cache from
+    ``seed``: every step's last-position logits [steps + 1, B, V] (the
+    prefill's first) and the greedy tokens; with ``forced`` (tokens [B,
+    steps + 1]) each step takes the forced token instead of its own."""
+    model = FAMILIES[family][1](cfg, device=device, seed=seed)
+    build_basic_mode(model)
+    g = torch.Generator().manual_seed(seed + 1)
+    if family == "t5":
+        x = torch.randint(1, cfg.vocab_size, (batch, prompt), generator=g)
+        start = torch.zeros((batch, 1), dtype=torch.int64)
+    else:
+        x = torch.randn(batch, cfg.num_mel_bins, 2 * cfg.max_source_positions, generator=g)
+        start = torch.randint(0, cfg.vocab_size, (batch, 4), generator=g)
+    T0 = start.shape[1]
+    caches = model.init_cache(batch, T0 + steps + 1, device=device)
+    with torch.no_grad():
+        enc = model.encode(x.to(device))
+        logits = model.decode(start.to(device), enc, caches=caches)
+        rows, toks = [logits[:, -1]], [greedy_token(logits[:, -1])]
+        for i in range(steps):
+            tok = toks[-1] if forced is None else forced[:, i].to(device)
+            logits = model.decode(tok[:, None], enc, caches=caches, position_offset=T0 + i)
+            rows.append(logits[:, -1])
+            toks.append(greedy_token(logits[:, -1]))
+    return torch.stack(rows).float().cpu(), torch.stack(toks, dim=1).cpu()
 
 
 def serve(family, cfg, seed, device, batch, prompt, steps):
@@ -195,10 +240,29 @@ def main(argv=None) -> None:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     a = ap.parse_args(argv)
     cfg = FAMILIES[a.family][0]()
-    setattr(cfg, "n_layer" if a.family == "gpt2" else "num_hidden_layers", a.layers)
+    if a.family == "t5":
+        cfg.num_layers = cfg.num_decoder_layers = a.layers
+    elif a.family == "whisper":
+        cfg.encoder_layers = cfg.decoder_layers = a.layers
+    else:
+        setattr(cfg, "n_layer" if a.family == "gpt2" else "num_hidden_layers", a.layers)
     cfg.vocab_size = a.vocab or cfg.vocab_size
     for seed in a.seeds:
         run = (a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)
+        if a.family in SEQ2SEQ:
+            if a.mode != "basic":
+                raise SystemExit(f"--family {a.family} takes --mode basic")
+            base = serve_seq2seq(*run)
+            with float64_sums():
+                other = serve_seq2seq(*run, forced=base[1])
+            d = (base[0] - other[0]).abs()
+            print(f"basic {a.family} seed {seed}, {a.layers} layers, vocab {cfg.vocab_size}, "
+                  f"batch {a.batch}, on {a.device or 'cuda'}: the prefill's and {a.steps} "
+                  f"teacher-forced steps' logits max |diff| {d.max().item():.4g} (prefill "
+                  f"{d[0].max().item():.4g}; share of logits that differ "
+                  f"{(d > 0).float().mean().item():.4f}, largest |logit| "
+                  f"{base[0].abs().max().item():.4g})")
+            continue
         if a.mode == "fp8":
             base, other = serve_fp8(*run), serve_fp8(*run, dtype=torch.float64)
         elif a.mode in ("weights", "sbfp"):

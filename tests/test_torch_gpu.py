@@ -1068,3 +1068,154 @@ def test_engine_over_llama_on_card_matches_cpu(cuda):
             if margins[s] <= ENGINE_TOL:
                 break
             assert a[s] == b[s], f"request {i}, token {s}"
+
+
+# (M, N, K) of the encoder-decoder paths' packed linears that no other case
+# takes: whisper-small's cross-attention K/V and encoder q/k/v/o (M 8 x 1500
+# = 12000, 768 x 768) and its fc1 / fc2 there, its tied head (N 51865, odd)
+# at decode and at the 4-token prefill (M 32), t5-small's tied head (N
+# 32128, K 512) at decode and its encoder's M 1024 x 512 x 2048
+SEQ2SEQ_LINEARS = [(12000, 768, 768), (12000, 3072, 768), (12000, 768, 3072), (8, 51865, 768),
+                   (32, 51865, 768), (8, 32128, 512), (1024, 2048, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["B1", "T1"])
+@pytest.mark.parametrize("M,N,K", SEQ2SEQ_LINEARS)
+def test_seq2seq_linears_match_plain_on_card(cuda, kind, M, N, K):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = tpack.bfp_pack(torch.randn(N, K, generator=g, device=cuda) * 0.05, 8, 64)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    b = torch.randn(N, generator=g, device=cuda)
+    name, kern, plain = (("bfp_linear", tbl.bfp_linear, tbl.bfp_linear_ref) if kind == "B1" else
+                         ("bfp_linear_bf16", tbl.bfp_linear_bf16, tbl.bfp_linear_bf16_ref))
+    n0 = kernels.LAUNCHES[name]
+    got = kern(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 1
+    torch.testing.assert_close(got, plain(x, w, b), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_whisper_prefill_attention_matches_plain_on_card(cuda):
+    """B3 at whisper_baseline's decoder prefill: its 4 start tokens (BH 96,
+    L = S = 4, D 64) through flash_prefill."""
+    from dmx_compressor_tpu_torch.nn.modules import ScaledDotProductAttention
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(8, 12, 4, 64, generator=g, device=cuda) for _ in range(3))
+    n0 = kernels.LAUNCHES["flash_attention"]
+    got = tfa.flash_prefill(ScaledDotProductAttention(), q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == n0 + 1
+    torch.testing.assert_close(got, tfa.flash_attention_ref(q, k, v, causal=True, scale=0.125),
+                               rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lengths", [[36] * 8, None])
+def test_whisper_decode_attention_matches_plain_on_card(cuda, lengths):
+    """B2 and B4 at whisper-small's decode step: 12 heads of 64, a cache of
+    4 start tokens + 64 slots, its mean fill and ragged lengths."""
+    q, kv, le = _b2_inputs(cuda, 8, 12, 12, 68, 64, lengths)
+    n0 = kernels.LAUNCHES["flash_decode_int8"]
+    got = tfd.flash_decode_int8(q, kv, le, scale=0.125)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode_int8"] == n0 + 1
+    torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q, kv, le, scale=0.125),
+                               rtol=1e-5, atol=2e-5)
+    q, k, v, _ = _b4_inputs(cuda, 8, 12, 12, 68, 64, seed=5)
+    _check_b4(q, k, v, le)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_t5_buckets_on_card_equal_the_cpu(cuda, bidirectional):
+    """T5's relative-position buckets over [-512, 512] (32 buckets, distance
+    128) and a per-row bias (offsets on the card), card against CPU, bit
+    for bit."""
+    from dmx_compressor_tpu_torch.models.t5 import (
+        T5Attention,
+        T5Config,
+        position_buckets,
+        relative_position_bucket,
+    )
+
+    rel = torch.arange(-512, 513, dtype=torch.int32)
+    want = relative_position_bucket(rel, bidirectional, 32, 128)
+    assert torch.equal(position_buckets(rel.to(cuda), bidirectional, 32, 128).cpu(),
+                       want.long())
+    cfg = T5Config.tiny()
+    att = T5Attention(cfg, has_relative_attention_bias=True, bidirectional=bidirectional,
+                      device="cpu")
+    off = torch.tensor([0, 7, 130, 600], dtype=torch.int32)
+    cpu = att.compute_bias(1, 700, off)
+    card = att.to(cuda).compute_bias(1, 700, off.to(cuda))
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["t5", "whisper"])
+def test_seq2seq_engine_on_card_matches_cpu(cuda, family):
+    """One burst-decoding seq2seq engine run over a 2-layer T5 (heads of 64;
+    ragged encoder inputs padded to 32) or Whisper (heads of 64, 4 start
+    tokens) in weights mode with int8 row caches, on the card and on the
+    CPU: B1 at every admission and forward, B2 (Whisper) over the row
+    caches' per-row lengths, no B3; tokens equal where the CPU's isolated
+    generation has a top-1/top-2 margin above ENGINE_TOL."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.models.shared import seq2seq_greedy
+    from dmx_compressor_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
+    from dmx_compressor_tpu_torch.models.whisper import (
+        WhisperConfig,
+        WhisperForConditionalGeneration,
+    )
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
+    from dmx_compressor_tpu_torch.serving import Seq2SeqBatchingEngine
+
+    rng = np.random.default_rng(2)
+    if family == "t5":
+        cfg = T5Config(vocab_size=512, d_model=256, d_kv=64, d_ff=512, num_layers=2,
+                       num_decoder_layers=2, num_heads=4)
+        model_cls, start, cap = T5ForConditionalGeneration, np.zeros(1, np.int32), 32
+        inputs = [rng.integers(1, 512, (n,)).astype(np.int32) for n in (9, 32, 17, 5)]
+    else:
+        cfg = WhisperConfig(vocab_size=509, num_mel_bins=80, d_model=256, encoder_layers=2,
+                            decoder_layers=2, encoder_attention_heads=4,
+                            decoder_attention_heads=4, encoder_ffn_dim=512, decoder_ffn_dim=512,
+                            max_source_positions=100, max_target_positions=64)
+        model_cls, start, cap = WhisperForConditionalGeneration, np.arange(4, dtype=np.int32), None
+        inputs = [rng.standard_normal((80, 200)).astype(np.float32) for _ in range(4)]
+    gens = [12, 5, 9, 7]
+    with torch.no_grad():
+        model = model_cls(cfg, device=cuda, seed=0)
+        build_weights_mode(model)
+
+    def run():
+        eng = Seq2SeqBatchingEngine(model, max_slots=3, max_len=start.size + 16,
+                                    prompt_buckets=(start.size,), quantized_kv=True,
+                                    enc_capacity=cap)
+        rids = [eng.submit(x, start, max_new_tokens=g) for x, g in zip(inputs, gens)]
+        res = {r.request_id: r.tokens for r in eng.run(burst=4)}
+        return [res[r] for r in rids]
+
+    kernels.reset_launches()
+    card = run()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bfp_linear"] > 0 and kernels.LAUNCHES["flash_attention"] == 0
+    assert (kernels.LAUNCHES["flash_decode_int8"] > 0) == (family == "whisper")
+    model.to("cpu")
+    cpu = run()
+    for i, (x, g, a, b) in enumerate(zip(inputs, gens, card, cpu)):
+        caches = model.init_cache(1, start.size + g, quantized=True, device="cpu")
+        with torch.no_grad():
+            _, rows = seq2seq_greedy(model, caches, model.encode(torch.from_numpy(x[None])),
+                                     torch.from_numpy(start[None]), g)
+        top2 = rows[:, 0].topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).tolist()
+        assert len(a) == len(b) == g
+        for s in range(g):
+            if margins[s] <= ENGINE_TOL:
+                break
+            assert a[s] == b[s], f"request {i}, token {s}"
