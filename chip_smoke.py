@@ -170,12 +170,14 @@ Phases (any failure exits non-zero):
    the model on the CPU, by the margin rule of phase 3.  Each path prints
    tokens/s, slot utilization, p50/p99 step times and the device's share
    of a steady step.
-5. The encoder-decoder families at full width and depth, from seed 0:
-   t5-small (6 + 6 layers of 512, 8 heads of 64, ReLU feed-forward 2048,
-   vocab 32128, the head tied to the shared table; its attention unscaled,
-   with a bucketed relative-position bias, through the modular SDPA) and
+5. The encoder-decoder families at full width, from seed 0: t5-small (6 +
+   6 layers of 512, 8 heads of 64, ReLU feed-forward 2048, vocab 32128, the
+   head tied to the shared table; its attention unscaled, with a bucketed
+   relative-position bias, through the modular SDPA) at full depth and
    whisper-small (12 + 12 layers of 768, 12 heads of 64, vocab 51865 tied,
-   the encoder's Conv1dUnfold front end over [80, 3000] features).  B1 and
+   the encoder's Conv1dUnfold front end over [80, 3000] features) cut to
+   ``WHISPER_LAYERS`` (4) layers a stack on its paths and engine path, the
+   depth of its CPU checks (L = 4 in its counts below).  B1 and
    T1 at their packed linears' shapes (the encoder's and the cross K/V's M
    8 x 128 and 8 x 1500 = 12000, the decoder's 8 and 8 x start, the heads N
    32128 and 51865); B2, B3 and B4 at Whisper's (in phase 2).  Three paths
@@ -186,7 +188,7 @@ Phases (any failure exits non-zero):
    B3; baseline T5 nothing, Whisper L B3 / L B4; basic 16L+1 / 10L+1 T1
    and T5 90L+9 / 52L+5, Whisper 83L+11 / 50L+5 T2), every cross-attention
    K/V recomputed at every step as in the JAX package; their CPU checks at
-   T5's full depth and batch, Whisper's FAMILY_CPU_LAYERS and first 2 rows;
+   T5's full depth and batch, Whisper's FAMILY_CPU_LAYERS and first row;
    the basic paths' T2 sites held bit for bit.  Then engine_t5_weights and
    engine_whisper_weights: the seq2seq engine at serving_bench's traffic
    (T5 ragged inputs of 32-128 tokens padded to 128 and masked; Whisper a
@@ -194,7 +196,28 @@ Phases (any failure exits non-zero):
    admission 16L+1 B1, each forward 10L+1 B1 (+ L B2), no host sync in a
    steady dispatch; tokens held against isolated generation and a CPU
    engine run.
-6. A ``kernels`` JSON line (launches by path, the engine paths included),
+6. The vision families and the op zoo: CLIP ViT-B/32 at full width and
+   depth (vision 12 layers of 768, 12 heads of 64, 32 x 32 patches through
+   the Conv2dUnfold patch embedding; text 12 layers of 512, 8 heads of 64,
+   77 positions; projections to 512), seed 0, over
+   examples/benchmarking/benchmark_clip.py's inputs (8 standard-normal
+   images [3, 224, 224] and 8 prompts of 77 token ids from numpy seed 0):
+   B1 and T1 at its eight linear shapes (M 400, 616 and 8), then three
+   paths, each ``zero_shot_classify`` and ``__call__`` with the counters
+   set to 0 just before and read just after (clip_launches a forward):
+   clip_weights 146 B1, clip_baseline none (cuBLAS f32, the modular SDPA),
+   clip_basic 146 T1 + (33L+5) + (36L+4) + 2 = 839 T2; each its warm
+   forward's device time and peak memory, and its embeddings, logits and
+   probabilities held against the model moved to the CPU (LOGIT_TOL;
+   clip_basic CLIP_BASIC_TOL), each image's class by the margin rule;
+   clip_basic's T2 sites bit for bit.  LeNet-5 over 256 images:
+   lenet_baseline no launch, lenet_basic 17 T2 (FLOAT16 casts), its logits
+   against the CPU.  The zoo phase: Conv2d, BatchNorm2d, GroupNorm, the
+   pools, ReLU6 at a ResNet-50 stage, Conv1d at Whisper's [8, 80, 3000],
+   ConvTranspose2d 64 -> 64 at stride 2, Exp, BAddBMM and the experimental
+   convs, each under BASELINE and BASIC on the card (cuDNN's TF32 flag on)
+   against the CPU, its T2 launches held (43 over the BASIC forwards).
+7. A ``kernels`` JSON line (launches by path, the engine paths included),
    then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -342,13 +365,49 @@ ENGINE_LLAMA_LAYERS = 8
 # mistral) at this depth (full width), that of their CPU checks; GPT-2's
 # BASIC CPU check at FAMILY_CPU_LAYERS
 FAMILY_PATH_LAYERS = 4
+# the depth cut that buys back the vision families' and the op zoo's time:
+# whisper-small's paths (weights, baseline, basic) and its engine path at
+# this many layers a stack (full width), that of their CPU checks; its
+# kernel phases' shapes stay whisper-small's
+WHISPER_LAYERS = 4
 S2S_START = {"t5": [0], "whisper": [50258, 50259, 50359, 50363]}
 S2S_CPU_BATCH = 1
-# the least calls of each timing in the encoder-decoder families' kernel
-# phases (B1 and T1 at their shapes, whose M 12000 cases take ~0.3-1.7 ms a
-# call; the T2 sites over a recorded step of 200-320 launches): every other
-# phase takes time_ms's 20
+# the least calls of each timing in the families' kernel phases (B1, T1
+# and B5 at the bench.py families' shapes since the vision paths, whose
+# heads take up to ~40 ms a call on their plain versions; B1 and T1 at the
+# encoder-decoder and CLIP shapes, whose M 12000 cases take ~0.3-1.7 ms; the
+# T2 sites over a recorded step of 200-320 launches): every other phase
+# takes time_ms's 20
 S2S_TIMED = 5
+# clip_basic's T2 sites are timed over this many recorded forwards (839
+# launches each; the plain versions' ~30 torch ops a cast are host-bound)
+CLIP_T2_TIMED = 2
+# the vision families: CLIP ViT-B/32's batch of images and prompts
+# (examples/benchmarking/benchmark_clip.py's BATCH) and LeNet-5's
+CLIP_BATCH = 8
+LENET_BATCH = 256
+# the zoo phase's batch (a ResNet-50 stage's, Whisper's 8 feature rows)
+ZOO_BATCH = 8
+# the clip_basic path's embeddings, logits and probabilities, GPU vs CPU:
+# twice the largest reading of tools/order_sensitivity.py --family clip
+# --layers 12 --batch 8 --seeds 0 1 on an H100 (the same build with its T1
+# matmuls, its modules' activation matmuls and its means and sums in
+# float64 moves an image / text embedding by up to 0.0388 / 0.0400, a logit
+# by 0.0273, a probability by 0.0028)
+CLIP_BASIC_TOL = 0.08
+# lenet_basic's logits, GPU vs CPU: tools/order_sensitivity.py --family
+# lenet reads 0 (its BFP-cast products and their sums are exact in f32,
+# whatever the order), so the f32 paths' tolerance
+LENET_BASIC_TOL = LOGIT_TOL
+# LeNet-5's launches a forward: none in the baseline; BASIC's FLOAT16 casts
+# only, 17 (each conv, pool, ReLU and linear's FLOAT16 output, the pools'
+# and ReLUs' FLOAT16 inputs; the BFP casts of the 1 and 6 conv channels and
+# of fc1's 400 inputs are off the block, plain torch, and no linear packs)
+LENET_LAUNCHES = {"baseline": {}, "basic": {"bfp_cast": 17}}
+# the zoo phase's BASIC outputs, GPU vs CPU: a FLOAT16 output whose f32 sum
+# ran in another order may land one fp16 step (2^-10 relative) apart;
+# twice that
+ZOO_BASIC_TOL = dict(rtol=2e-3, atol=1e-4)
 # the chunked path against isolated generation: the chunks after the first
 # attend over the int8 cache (up to 1/254 of a row's largest value per
 # element) where a monolithic prefill attends over the f32 K/V; the run
@@ -726,9 +785,10 @@ def check_family_linears(torch, dev, shapes, sbfp_shapes, family, seed, ragged=(
     torch.matmul.  Then B5 at the SBFP12_16 path's shapes ``sbfp_shapes``
     (q/k/v and gate/up unmerged) and at ``sbfp_ragged`` ones, each case
     with its route, and per launch over one of that path's decode steps;
-    its library yardstick torch.matmul on the dequantized weight.  Returns
-    ((B1's per-step numbers, cases), (T1's ...), (B5's ...)), each case
-    marked ``path=family``."""
+    its library yardstick torch.matmul on the dequantized weight.  Each
+    timing takes at least S2S_TIMED calls.  Returns ((B1's per-step
+    numbers, cases), (T1's ...), (B5's ...)), each case marked
+    ``path=family``."""
     from dmx_compressor_tpu_torch.numerics.format import Format
     from dmx_compressor_tpu_torch.ops.bfp_linear import (
         bfp_linear,
@@ -744,11 +804,11 @@ def check_family_linears(torch, dev, shapes, sbfp_shapes, family, seed, ragged=(
 
     b1 = check_linear(torch, dev, f"B1 bfp_linear ({family})", bfp_linear, bfp_linear_ref,
                       lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, shapes, list(ragged),
-                      B1_TOL, seed=seed, planes=3)
+                      B1_TOL, seed=seed, planes=3, min_iters=S2S_TIMED)
     t1 = check_linear(torch, dev, f"T1 bfp_linear_bf16 ({family})", bfp_linear_bf16,
                       bfp_linear_bf16_ref, lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes,
                       shapes, list(ragged), B1_TOL, seed=seed + 1, peak_flop_s=PEAK_BF16_FLOP_S,
-                      lib_dtype=torch.bfloat16)
+                      lib_dtype=torch.bfloat16, min_iters=S2S_TIMED)
     fmt = Format.from_shorthand(SBFP12_16)
 
     def b5_route(M, K, w):
@@ -759,7 +819,8 @@ def check_family_linears(torch, dev, shapes, sbfp_shapes, family, seed, ragged=(
 
     b5 = check_linear(torch, dev, f"B5 sbfp_linear ({family})", sbfp_linear, sbfp_linear_ref,
                       lambda w: sbfp_pack(w, fmt), sbfp_unpack, b5_bytes, sbfp_shapes,
-                      list(sbfp_ragged), B5_TOL, seed=seed + 100, route_of=b5_route)
+                      list(sbfp_ragged), B5_TOL, seed=seed + 100, route_of=b5_route,
+                      min_iters=S2S_TIMED)
     for case in b1[1] + t1[1] + b5[1]:
         case["path"] = family
     return b1, t1, b5
@@ -936,14 +997,14 @@ def record_t2(into: list):
         T2.bfp_cast, T2.fp16_cast = bfp, fp16
 
 
-def check_t2_sites(torch, dev, sites, step, what, steps=20):
+def check_t2_sites(torch, dev, sites, step, what, steps=20, unit="decode step"):
     """T2 against its plain version, bit for bit, at every cast site that a
     path's run recorded (``sites``: (mode, shape, axis, wl, block) from
     :func:`record_t2`): each distinct shape and axis in the BFP, FLOAT16 and
     composed modes (the FLOAT16 mode alone where the axis takes no block),
     on heavy-tailed inputs; then the time per launch over the recorded
-    decode step ``step`` (over ``steps`` steps).  Returns (the per-step
-    numbers, the cases)."""
+    decode step ``step`` (over ``steps`` steps; ``unit`` names what ``step``
+    is).  Returns (the per-step numbers, the cases)."""
     g = torch.Generator(device=dev).manual_seed(20)
     counts = {}
     for _, shape, axis, wl, block in sites:
@@ -959,7 +1020,7 @@ def check_t2_sites(torch, dev, sites, step, what, steps=20):
         log(f"T2 bfp_cast at a {what} site {list(shape)} axis {axis} (BFP wl {wl} block "
             f"{block}; {n} of the recorded launches), modes {', '.join(modes)}: bit-exact")
     runs = t2_per_launch(torch, dev, g, step, steps)
-    log(f"T2 bfp_cast, a {what} decode step's {len(step)} launches, per launch: "
+    log(f"T2 bfp_cast, a {what} {unit}'s {len(step)} launches, per launch: "
         f"kernel_ms={runs['ms']:.4f} plain_ms={runs['plain_ms']:.4f} "
         f"bound_ms={runs['bound_ms']:.6f} (bytes)")
     return runs, cases
@@ -2375,7 +2436,8 @@ def on_model(build):
 
 
 def seq2seq_configs():
-    """t5-small and whisper-small at full width and depth."""
+    """t5-small and whisper-small at full width and depth (the kernel
+    phases' shapes; whisper-small's paths run at WHISPER_LAYERS)."""
     from dmx_compressor_tpu_torch.models.t5 import T5Config
     from dmx_compressor_tpu_torch.models.whisper import WhisperConfig
 
@@ -2428,7 +2490,8 @@ def seq2seq_path_specs(cfg, family):
       path).
 
     CPU checks: T5 at full depth and batch; Whisper at FAMILY_CPU_LAYERS and
-    the card's first S2S_CPU_BATCH rows."""
+    the card's first S2S_CPU_BATCH rows (the path at that depth, WHISPER_LAYERS,
+    moves its model to the CPU but the basic one's)."""
     import numpy as np
     import torch
 
@@ -2449,9 +2512,13 @@ def seq2seq_path_specs(cfg, family):
         return Seq2SeqLM(model_cls(cfg_, device=device, seed=seed), inputs)
 
     whisper = family == "whisper"
+    # Whisper's CPU checks at FAMILY_CPU_LAYERS (a path at that depth moves
+    # its model to the CPU; the basic path rebuilds it on the card, where its
+    # T2 sites are recorded)
+    check_cfg = seq2seq_layers(cfg, family, FAMILY_CPU_LAYERS) if whisper else cfg
     common = dict(model=make, prompt=len(start),
                   ids=lambda: torch.from_numpy(np.tile(np.asarray(start, np.int32), (BATCH, 1))),
-                  cpu_cfg=seq2seq_layers(cfg, family, FAMILY_CPU_LAYERS) if whisper else None,
+                  cpu_cfg=None if check_cfg == cfg else check_cfg,
                   cpu_batch=S2S_CPU_BATCH if whisper else BATCH)
     cache = dict(max_len=len(start) + GEN)
     t2_pre, t2_step = ((33 * L + 6) + (50 * L + 5), 50 * L + 5) if whisper else (
@@ -2476,7 +2543,7 @@ def seq2seq_path_specs(cfg, family):
              step={"bfp_linear_bf16": 10 * L + 1, "bfp_cast": t2_step},
              marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
              logit_tol=BASIC_FAMILY_TOL[family], record_t2=True, t2_steps=S2S_TIMED,
-             **({} if whisper else dict(cpu_cfg=cfg))),
+             cpu_cfg=check_cfg),
     ]
 
 
@@ -2500,15 +2567,15 @@ def seq2seq_linear_shapes(cfg, family):
     return prefill, step
 
 
-def check_seq2seq_linears(torch, dev, cfg, family, seed):
-    """B1 and T1 at an encoder-decoder family's packed linear shapes
-    (:func:`seq2seq_linear_shapes`: the encoder's and the cross K/V's M,
-    whisper-small's 12000 x 768 x 768 among them; the decoder's M 8 and 8 x
-    start; the tied head, whisper-small's N 51865 odd) against their plain
-    versions, each case's time, plain time, library time (torch.matmul on
-    the dequantized weight, bf16 for T1) and bound; then per launch over one
-    decode step's launches as the path makes them.  Returns ((B1's per-step
-    numbers, cases), (T1's ...)), each case marked ``path=family``."""
+def check_path_linears(torch, dev, path, shapes, step, seed):
+    """B1 and T1 at a path's packed linear shapes ``shapes`` ((M, K, N),
+    each M the rows its launch takes) against their plain versions, each
+    case's time, plain time, library time (torch.matmul on the dequantized
+    weight, bf16 for T1) and bound; then per launch over ``step`` ((M, K,
+    N, launches): a decode step's launches, or a forward's, as the path
+    makes them).  Each timing takes at least S2S_TIMED calls.  Returns
+    ((B1's per-step numbers, cases), (T1's ...)), each case marked
+    ``path``."""
     from dmx_compressor_tpu_torch.ops.bfp_linear import (
         bfp_linear,
         bfp_linear_bf16,
@@ -2517,20 +2584,29 @@ def check_seq2seq_linears(torch, dev, cfg, family, seed):
     )
     from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
 
-    prefill, step = seq2seq_linear_shapes(cfg, family)
-    shapes = sorted({(M, K, N) for M, K, N, _ in prefill + step})
     out = []
     for label, kern, plain, s, peak, lib in (
             ("B1 bfp_linear", bfp_linear, bfp_linear_ref, seed, PEAK_F32_FLOP_S, None),
             ("T1 bfp_linear_bf16", bfp_linear_bf16, bfp_linear_bf16_ref, seed + 1,
              PEAK_BF16_FLOP_S, torch.bfloat16)):
         out.append(check_linear(
-            torch, dev, f"{label} ({family})", kern, plain, lambda w: bfp_pack(w, 8, 64),
+            torch, dev, f"{label} ({path})", kern, plain, lambda w: bfp_pack(w, 8, 64),
             bfp_unpack, b1_bytes, [], shapes, B1_TOL, seed=s, peak_flop_s=peak, lib_dtype=lib,
             planes=3 if lib is None else None, step_launches=step, min_iters=S2S_TIMED))
         for case in out[-1][1]:
-            case["path"] = family
+            case["path"] = path
     return out
+
+
+def check_seq2seq_linears(torch, dev, cfg, family, seed):
+    """B1 and T1 at an encoder-decoder family's packed linear shapes
+    (:func:`seq2seq_linear_shapes`: the encoder's and the cross K/V's M,
+    whisper-small's 12000 x 768 x 768 among them; the decoder's M 8 and 8 x
+    start; the tied head, whisper-small's N 51865 odd), per launch over one
+    decode step's launches (:func:`check_path_linears`)."""
+    prefill, step = seq2seq_linear_shapes(cfg, family)
+    shapes = sorted({(M, K, N) for M, K, N, _ in prefill + step})
+    return check_path_linears(torch, dev, family, shapes, step, seed)
 
 
 def engine_seq2seq_path(torch, dev, kernels, cfg, family, card):
@@ -2642,11 +2718,13 @@ def engine_seq2seq_path(torch, dev, kernels, cfg, family, card):
                 {j: got[i] for j, i in enumerate(ENGINE_HELD)}, iso, margins, KV8_TOL)
     if whisper:
         # the CPU check at FAMILY_CPU_LAYERS: the first held requests through
-        # an engine of as many slots on the card and one on the CPU
-        del model
-        torch.cuda.empty_cache()
+        # an engine of as many slots on the card and one on the CPU (the
+        # path's model where it runs at that depth)
         held = held[:S2S_CPU_BATCH]
-        model = build(seq2seq_layers(cfg, family, FAMILY_CPU_LAYERS))
+        if L != FAMILY_CPU_LAYERS:
+            del model
+            torch.cuda.empty_cache()
+            model = build(seq2seq_layers(cfg, family, FAMILY_CPU_LAYERS))
         _, margins = isolated(model, held, capacity)
     slots = len(held) if whisper else ENGINE["slots"]
     card_toks = run(model, held, slots)
@@ -2661,6 +2739,430 @@ def engine_seq2seq_path(torch, dev, kernels, cfg, family, card):
                 f"card's engine at that depth)", card_toks, cpu, margins, KV8_TOL)
     del model
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the vision families (CLIP ViT-B/32, LeNet-5) and the op zoo
+# ---------------------------------------------------------------------------
+
+def clip_launches(cfg):
+    """The kernel launches of one CLIP forward (a ``zero_shot_classify`` or
+    a ``__call__``: both towers, both projections) per build, derived from
+    the code: 6 packed linears a layer in each tower (q, k, v, out_proj,
+    fc1, fc2: CLIPAttention has no merged q/k/v) and the two projections,
+    B1 in weights mode, T1 in BASIC; no attention kernel (the modular SDPA,
+    as in the JAX package); the patch embedding (Conv2dUnfold) no rule
+    names, so its casts stay SAME.  BASIC's T2 launches: a vision layer 33
+    (LayerNorm in and out 2 + 2; q, k, v, out_proj, fc1, fc2 their BFP input
+    and FLOAT16 output cast, 12 (above 256 rows no linear fuses); QuickGELU
+    2; the two residual adds 3 + 3; the SDPA's scores matmul 3 (q along its
+    64 head dims, k^T along them too), its bias add 3, softmax 2, the
+    probabilities' matmul 1 (its FLOAT16 output: the BFP casts along the 50
+    keys are off the block, plain torch)), a text layer 36 (its additive
+    mask through one more add, 3), the vision tower's position embedding
+    and pre- / post-LayerNorm 5, the text tower's two embeddings and final
+    LayerNorm 4, each projection 1 (at 8 rows its linear fuses: the input
+    cast in T2, the FLOAT16 output in T1's epilogue)."""
+    Lv, Lt = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
+    n = 6 * Lv + 6 * Lt + 2
+    return {"weights": {"bfp_linear": n}, "baseline": {},
+            "basic": {"bfp_linear_bf16": n, "bfp_cast": (33 * Lv + 5) + (36 * Lt + 4) + 2}}
+
+
+def clip_inputs(cfg, n=CLIP_BATCH, seed=0):
+    """``n`` images [n, 3, 224, 224] (standard normal) and ``n`` prompts of
+    77 token ids (uniform in [0, vocab)), numpy from ``seed`` in
+    examples/benchmarking/benchmark_clip.py's order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v, t = cfg.vision, cfg.text
+    images = rng.standard_normal((n, 3, v.image_size, v.image_size), np.float32)
+    texts = rng.integers(0, t.vocab_size, (n, t.max_position_embeddings)).astype(np.int32)
+    return images, texts
+
+
+def clip_linear_shapes(cfg):
+    """(M, K, N, launches) of a CLIP forward's packed linears: the vision
+    tower's at M = batch x 50 tokens, the text tower's at batch x 77, the
+    projections at the batch."""
+    v, t, P = cfg.vision, cfg.text, cfg.projection_dim
+    Mv = CLIP_BATCH * ((v.image_size // v.patch_size) ** 2 + 1)
+    Mt = CLIP_BATCH * t.max_position_embeddings
+    dv, fv, Lv = v.hidden_size, v.intermediate_size, v.num_hidden_layers
+    dt, ft, Lt = t.hidden_size, t.intermediate_size, t.num_hidden_layers
+    return [(Mv, dv, dv, 4 * Lv), (Mv, dv, fv, Lv), (Mv, fv, dv, Lv),
+            (Mt, dt, dt, 4 * Lt), (Mt, dt, ft, Lt), (Mt, ft, dt, Lt),
+            (CLIP_BATCH, dv, P, 1), (CLIP_BATCH, dt, P, 1)]
+
+
+def clip_path_specs():
+    """The three CLIP paths: bench.py's weights, baseline and basic builds."""
+    from dmx_compressor_tpu_torch.ops.compress import (
+        build_baseline_mode,
+        build_basic_mode,
+        build_weights_mode,
+    )
+
+    return [dict(name="clip_weights", mode="weights", build=build_weights_mode, tol=LOGIT_TOL),
+            dict(name="clip_baseline", mode="baseline", build=build_baseline_mode,
+                 tol=LOGIT_TOL),
+            dict(name="clip_basic", mode="basic", build=build_basic_mode, tol=CLIP_BASIC_TOL,
+                 record_t2=True)]
+
+
+def clip_entry_points(torch, model, px, ids):
+    """``zero_shot_classify`` then ``__call__``: {image and text embeddings
+    (the call's projections' outputs, taken by forward hooks), logits per
+    image, probabilities} and the logits per text."""
+    feats = {}
+    hooks = [proj.register_forward_hook(lambda m, i, o, k=k: feats.__setitem__(k, o))
+             for k, proj in (("image", model.visual_projection),
+                             ("text", model.text_projection))]
+    try:
+        with torch.no_grad():
+            probs = model.zero_shot_classify(px, ids)
+            per_image, per_text = model(ids, px)
+    finally:
+        for h in hooks:
+            h.remove()
+    return dict(image=feats["image"], text=feats["text"], logits=per_image,
+                probs=probs), per_text
+
+
+def hold_classes(name, got, want, tol, what):
+    """Each image's class (the argmax of its logits) against ``want``'s,
+    where ``want``'s top-1 / top-2 margin exceeds ``tol`` (the margin rule
+    of the serving paths' tokens)."""
+    top2 = want.topk(2, dim=-1).values
+    clear = top2[:, 0] - top2[:, 1] > tol
+    differ = clear & (got.argmax(-1) != want.argmax(-1))
+    if differ.any():
+        raise AssertionError(f"{name}: image {int(differ.nonzero()[0])}'s class differs from "
+                             f"{what}'s")
+    log(f"{name}: each image's class against {what}: {int(clear.sum())} of {len(clear)} held "
+        f"(top-1/top-2 margin > {tol}), all equal")
+
+
+def clip_path(torch, dev, kernels, cfg, spec):
+    """One CLIP path: CLIP ViT-B/32 at full width and depth from seed 0,
+    built by ``spec["build"]``; ``zero_shot_classify`` and ``__call__`` over
+    clip_inputs' 8 images and 8 prompts with the launch counters set to 0
+    just before and read just after (twice :func:`clip_launches` a
+    forward); one warm forward's device time (torch.profiler) and the peak
+    device memory; the outputs' shapes, finiteness and agreement (the call's
+    two logits transposed, its probabilities the softmax of its logits);
+    then the model moved to the CPU (the kernels' plain versions) and the
+    embeddings, logits and probabilities held against it at
+    ``spec["tol"]``, each image's class by :func:`hold_classes`.  The basic
+    path records its T2 sites over one more forward.  Returns (the launch
+    counts, the path's numbers)."""
+    from dmx_compressor_tpu_torch.models.clip import CLIPModel
+
+    name = spec["name"]
+    images, texts = clip_inputs(cfg)
+    px, ids = torch.from_numpy(images), torch.from_numpy(texts)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = CLIPModel(cfg, device=dev, seed=0)
+    spec["build"](model)
+    torch.cuda.synchronize()
+    log(f"{name} path: CLIPModel vision {cfg.vision.hidden_size}x"
+        f"{cfg.vision.num_hidden_layers}, text {cfg.text.hidden_size}x"
+        f"{cfg.text.num_hidden_layers} built in {time.perf_counter() - t0:.2f} s; peak device "
+        f"memory while building {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    px_d, ids_d = px.to(dev), ids.to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, per_text = clip_entry_points(torch, model, px_d, ids_d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    forward = clip_launches(cfg)[spec["mode"]]
+    want = {**dict.fromkeys(launches, 0), **{k: 2 * n for k, n in forward.items()}}
+    log(f"{name} path: launches over zero_shot_classify and __call__ {launches} (expected "
+        f"{want}: {forward} a forward); {wall * 1e3:.1f} ms on the host clock (first calls); "
+        f"peak device memory {peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"the {name} path did not launch the kernels the expected number "
+                             f"of times")
+    n, P = CLIP_BATCH, cfg.projection_dim
+    shapes = dict(image=(n, P), text=(n, P), logits=(n, n), probs=(n, n))
+    for k, t in out.items():
+        if tuple(t.shape) != shapes[k] or not torch.isfinite(t).all():
+            raise AssertionError(f"{name} path: {k} {tuple(t.shape)} not finite or misshapen")
+    if not torch.equal(per_text, out["logits"].T):
+        raise AssertionError(f"{name} path: the logits per text are not the transposed "
+                             f"logits per image")
+    soft = torch.softmax(out["logits"], dim=-1)
+    if not torch.allclose(out["probs"], soft, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"{name} path: zero_shot_classify's probabilities are not the "
+                             f"softmax of __call__'s logits")
+
+    events = device_events(torch, lambda: clip_entry_points(torch, model, px_d, ids_d))
+    ms = sum(us for _, us in events) / 1e3 / 2
+    linear = next((k for k in forward if k in LINEAR_KERNELS), None)
+    if linear is None:
+        split = "(its linears run cuBLAS)"
+    else:
+        marks = B1_MARKS if linear == "bfp_linear" else T1_MARKS
+        lin_ms = sum(us for k, us in events if any(m in k for m in marks)) / 1e3 / 2
+        split = f"of which {linear} {lin_ms:.4f} ms over {forward[linear]} launches"
+    if "bfp_cast" in forward:
+        t2_ms = sum(us for k, us in events if any(m in k for m in T2_MARKS)) / 1e3 / 2
+        split += f", bfp_cast {t2_ms:.4f} ms over {forward['bfp_cast']} launches"
+    log(f"{name} forward, warm: device time {ms:.4f} ms {split} (the mean of a "
+        f"zero_shot_classify and a __call__)")
+    for ev, us in sorted(events, key=lambda e: -e[1])[:6]:
+        log(f"  device, warm forward: {us / 2e3:.4f} ms  {ev[:110]}")
+    if spec.get("record_t2"):
+        sites = []
+        with record_t2(sites), torch.no_grad():
+            model(ids_d, px_d)
+        spec["t2_sites"] = sites
+        log(f"{name} path: recorded {len(sites)} T2 launches over a __call__")
+
+    card = {k: t.float().cpu() for k, t in out.items()}
+    del out, per_text, px_d, ids_d
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with memo_unpack():
+        cpu, _ = clip_entry_points(torch, model, px, ids)
+    log(f"{name} path: CPU reference run {time.perf_counter() - t0:.1f} s")
+    tol = spec["tol"]
+    for k in ("image", "text", "logits", "probs"):
+        err = (card[k] - cpu[k]).abs().max().item()
+        log(f"{name} path: {k} GPU vs CPU: max_abs_err={err:.3g} (tolerance {tol})")
+        if not err <= tol:
+            raise AssertionError(f"{name} path: {k} disagree with the CPU run")
+    hold_classes(name, card["logits"], cpu["logits"], tol, "the CPU run")
+    del model
+    return launches, dict(forward_ms=ms, peak_gib=peak)
+
+
+def check_clip_linears(torch, dev, cfg, seed):
+    """B1 and T1 at CLIP ViT-B/32's eight packed linear shapes
+    (:func:`clip_linear_shapes`), per launch over a forward's 146."""
+    step = clip_linear_shapes(cfg)
+    return check_path_linears(torch, dev, "clip", sorted({s[:3] for s in step}), step, seed)
+
+
+def lenet_path(torch, dev, kernels, spec):
+    """One LeNet-5 path: the model from seed 0 built by ``spec["build"]``,
+    one forward over LENET_BATCH standard-normal [1, 28, 28] images (numpy,
+    seed 0) with the launch counters set to 0 just before and read just
+    after (LENET_LAUNCHES), its warm device time and peak device memory,
+    then the logits held against the model moved to the CPU at
+    ``spec["tol"]``, each image's class by :func:`hold_classes`.  Returns
+    (the launch counts, the path's numbers)."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.models.lenet import LeNet5
+
+    name = spec["name"]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (LENET_BATCH, 1, 28, 28), np.float32))
+    model = LeNet5(device=dev, seed=0)
+    spec["build"](model)
+    x_d = x.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with torch.no_grad():
+        logits = model(x_d)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {**dict.fromkeys(launches, 0), **LENET_LAUNCHES[spec["mode"]]}
+    log(f"{name} path: launches over a forward of {LENET_BATCH} images {launches} (expected "
+        f"{want}); peak device memory {peak:.3f} GiB")
+    if launches != want:
+        raise AssertionError(f"the {name} path did not launch the kernels the expected number "
+                             f"of times")
+    if tuple(logits.shape) != (LENET_BATCH, 10) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{name} path: logits {tuple(logits.shape)} not finite or "
+                             f"misshapen")
+    with torch.no_grad():
+        events = device_events(torch, lambda: model(x_d))
+    ms = sum(us for _, us in events) / 1e3
+    log(f"{name} forward, warm: device time {ms:.4f} ms")
+    for ev, us in sorted(events, key=lambda e: -e[1])[:4]:
+        log(f"  device, warm forward: {us / 1e3:.4f} ms  {ev[:110]}")
+    card = logits.float().cpu()
+    model.to("cpu")
+    with torch.no_grad():
+        cpu = model(x)
+    err = (card - cpu).abs().max().item()
+    log(f"{name} path: logits GPU vs CPU: max_abs_err={err:.3g} (tolerance {spec['tol']})")
+    if not err <= spec["tol"]:
+        raise AssertionError(f"{name} path: logits disagree with the CPU run")
+    hold_classes(name, card, cpu, spec["tol"], "the CPU run")
+    return launches, dict(forward_ms=ms, peak_gib=peak)
+
+
+def lenet_path_specs():
+    from dmx_compressor_tpu_torch.ops.compress import build_baseline_mode, build_basic_mode
+
+    return [dict(name="lenet_baseline", mode="baseline", build=build_baseline_mode,
+                 tol=LOGIT_TOL),
+            dict(name="lenet_basic", mode="basic", build=build_basic_mode, tol=LENET_BASIC_TOL)]
+
+
+def zoo_cases(torch):
+    """The op zoo's modules at shapes a user runs, on the CPU, each (label,
+    module, inputs, BASIC config or None for the type's BASIC rule, the T2
+    launches of its BASIC forward), ``ZOO_BATCH`` the batch (Exp's and
+    BAddBMM's 12 times it): a ResNet-50 stage (Conv2d 3 x 3, 256 -> 256, no bias, on [8, 256, 56,
+    56]) and on its output BatchNorm2d, GroupNorm(32), the pools and
+    ReLU6; Conv1d 80 -> 768 (k 3) on Whisper's [8, 80, 3000] (80 channels
+    off the BFP block: its BFP casts plain torch); ConvTranspose2d 64 ->
+    64, stride 2; Exp on [96, 128, 128] and BAddBMM on [96, 128, 64] x
+    [96, 64, 128] (no rule names BAddBMM: a BASIC-like set, FLOAT16 input
+    and output, BFP16_64 batches); the experimental convs at CLIP's patch
+    embedding (3 -> 768, k 32, stride 32 on [8, 3, 224, 224]) and Whisper's
+    conv2 (768 -> 768, k 3, stride 2 on [8, 768, 3000]) under a BASIC-like
+    set (BFP16_64 patches and weight, FLOAT16 output), beside the Dmx convs
+    they re-lower.  T2 a BASIC forward: a conv 3 (its input, weight and
+    output casts; 1 where its input channels, 80 or 3, are off the block),
+    a norm, pool, ReLU6 or Exp 2 (FLOAT16 in and out), BAddBMM 4, an
+    experimental conv 3."""
+    from dmx_compressor_tpu_torch.nn import experimental as ex
+    from dmx_compressor_tpu_torch.nn import modules as m
+
+    n = ZOO_BATCH
+    fp16, bfp = "FP[1|5|10,15](FN)", "BFP[8|8]{64}(SN)"
+    gemm = dict(input_formats=[bfp], weight_format=bfp, output_formats=[fp16])
+    g = torch.Generator().manual_seed(40)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g)
+
+    stage = randn(n, 256, 56, 56)
+    stage_conv = m.Conv2d(256, 256, 3, padding=1, bias=False, device="cpu", generator=g)
+    with torch.no_grad():
+        stage_out = stage_conv(stage)  # the norms', pools' and ReLU6's input
+    bn = m.BatchNorm2d(256, device="cpu")
+    with torch.no_grad():
+        bn.running_mean.copy_(stage_out.mean(dim=(0, 2, 3)) + 0.01 * randn(256))
+        bn.running_var.copy_(stage_out.var(dim=(0, 2, 3)) * (1 + 0.1 * torch.rand(256,
+                                                                                generator=g)))
+        bn.weight.copy_(1 + 0.1 * randn(256))
+        bn.bias.copy_(0.1 * randn(256))
+    patches = randn(n, 3, 224, 224)
+    mel, frames = randn(n, 80, 3000), randn(n, 768, 3000)
+    patch_conv = m.Conv2d(3, 768, 32, stride=32, bias=False, device="cpu", generator=g)
+    frame_conv = m.Conv1d(768, 768, 3, stride=2, padding=1, device="cpu", generator=g)
+    cases = [
+        ("Conv2d 3x3 256->256 (ResNet-50 stage)", stage_conv, (stage,), None, 3),
+        ("BatchNorm2d(256), running statistics", bn, (stage_out,), None, 2),
+        ("GroupNorm(32, 256)", m.GroupNorm(32, 256, device="cpu"), (stage_out,), None, 2),
+        ("MaxPool2d(3, 2, 1)", m.MaxPool2d(3, 2, 1), (stage_out,), None, 2),
+        ("AvgPool2d(3, 2, 1)", m.AvgPool2d(3, 2, 1), (stage_out,), None, 2),
+        ("AdaptiveAvgPool2d(1)", m.AdaptiveAvgPool2d(1), (stage_out,), None, 2),
+        ("AdaptiveAvgPool2d((5, 3)), adaptive windows", m.AdaptiveAvgPool2d((5, 3)),
+         (stage_out,), None, 2),
+        ("ReLU6", m.ReLU6(), (stage_out,), None, 2),
+        ("Conv1d 80->768 k3 (Whisper's conv1)",
+         m.Conv1d(80, 768, 3, padding=1, device="cpu", generator=g), (mel,), None, 1),
+        ("ConvTranspose2d 64->64 k3 stride 2",
+         m.ConvTranspose2d(64, 64, 3, stride=2, padding=1, output_padding=1, device="cpu",
+                           generator=g), (randn(n, 64, 56, 56),), None, 3),
+        ("Exp", m.Exp(), (randn(12 * n, 128, 128),), None, 2),
+        ("BAddBMM", m.BAddBMM(), (randn(12 * n, 128, 128), randn(12 * n, 128, 64),
+                                  randn(12 * n, 64, 128)),
+         dict(input_formats=[fp16, bfp, bfp], output_formats=[fp16]), 4),
+        ("Conv2d 3->768 k32 stride 32 (CLIP's patch conv)", patch_conv, (patches,), None, 1),
+        ("Conv1d 768->768 k3 stride 2 (Whisper's conv2)", frame_conv, (frames,), None, 3),
+        ("Conv2dUnfold (CLIP's patch embedding)", ex.Conv2dUnfold.from_conv(patch_conv),
+         (patches,), gemm, 3),
+        ("Conv2dGather (CLIP's patch embedding)", ex.Conv2dGather.from_conv(patch_conv),
+         (patches,), gemm, 3),
+        ("Conv1dUnfold (Whisper's conv2)", ex.Conv1dUnfold.from_conv(frame_conv), (frames,),
+         gemm, 3),
+        ("Conv1dScatter (Whisper's conv2)", ex.Conv1dScatter.from_conv(frame_conv), (frames,),
+         gemm, 3),
+    ]
+    return cases
+
+
+def zoo_phase(torch, dev, kernels):
+    """Each op-zoo module of :func:`zoo_cases` under BASELINE and BASIC (the
+    type's rules, or its BASIC-like set), on the card and on the CPU, the
+    same weights and inputs: the card's output against the CPU's (BASELINE
+    at B1_TOL's f32 tolerance; BASIC at ZOO_BASIC_TOL: a FLOAT16 output may
+    land one step apart), with ``torch.backends.cudnn.allow_tf32`` on, as a
+    library user has it (the Dmx convs run f32 whatever it says).  The
+    experimental convs also against each other and the Dmx conv they
+    re-lower, on the card.  The BASIC forwards' T2 launches are counted
+    (counters set to 0 before, read after each) and held to the cases'
+    counts.  Returns the launch counts over the BASIC forwards."""
+    import copy
+
+    import dmx_compressor_tpu_torch as tdmx
+
+    def rule(mod):
+        for r in tdmx.config_rules.BASIC:
+            if isinstance(mod, r.module_types):
+                return dict(r.module_config)
+        raise KeyError(type(mod).__name__)
+
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    card_out = {}
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for label, mod, xs, basic, t2 in zoo_cases(torch):
+            for mode in ("baseline", "basic"):
+                cpu_mod = copy.deepcopy(mod)
+                if mode == "basic":
+                    cpu_mod.configure(basic or rule(cpu_mod))
+                card_mod = copy.deepcopy(cpu_mod).to(dev)
+                xs_d = [x.to(dev) for x in xs]
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                with torch.no_grad():
+                    got = card_mod(*xs_d)
+                torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+                want_t2 = t2 if mode == "basic" else 0
+                if launches != {**dict.fromkeys(launches, 0), "bfp_cast": want_t2}:
+                    raise AssertionError(f"zoo {label} {mode}: launches {launches}, expected "
+                                         f"{want_t2} bfp_cast")
+                if mode == "basic":
+                    for k, v in launches.items():
+                        total[k] += v
+                with torch.no_grad():
+                    want = cpu_mod(*xs)
+                tol = B1_TOL if mode == "baseline" else ZOO_BASIC_TOL
+                got = got.float().cpu()
+                err = (got - want).abs().max().item()
+                ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
+                      and torch.allclose(got, want, **tol))
+                log(f"zoo {label} {mode} {[tuple(x.shape) for x in xs]} -> {tuple(got.shape)}: "
+                    f"card vs CPU max_abs_err={err:.3g} (tolerance {tol}); {want_t2} T2 launches")
+                if not ok:
+                    raise AssertionError(f"zoo {label} {mode}: the card disagrees with the CPU")
+                card_out[label, mode] = got
+        pairs = [(a, b, mode) for a, b in (("Conv2dGather", "Conv2dUnfold"),
+                                           ("Conv1dScatter", "Conv1dUnfold"))
+                 for mode in ("baseline", "basic")]
+        pairs += [("Conv2dUnfold", "Conv2d 3->768", "baseline"),
+                  ("Conv1dUnfold", "Conv1d 768->768", "baseline")]
+        for a, b, mode in pairs:
+            x, y = (next(v for (lab, md), v in card_out.items()
+                         if lab.startswith(c) and md == mode) for c in (a, b))
+            err = (x - y).abs().max().item()
+            tol = B1_TOL if mode == "baseline" else ZOO_BASIC_TOL
+            log(f"zoo {a} against {b} on the card, {mode}: max_abs_err={err:.3g} "
+                f"(tolerance {tol}; bit for bit: {torch.equal(x, y)})")
+            if not torch.allclose(x, y, **tol):
+                raise AssertionError(f"zoo {a} disagrees with {b} on the card")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    return total
 
 
 @contextlib.contextmanager
@@ -2682,6 +3184,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from dmx_compressor_tpu_torch import kernels
+    from dmx_compressor_tpu_torch.models.clip import CLIPConfig
     from dmx_compressor_tpu_torch.models.gemma import GemmaConfig
     from dmx_compressor_tpu_torch.models.gpt2 import GPT2Config
     from dmx_compressor_tpu_torch.models.llama import LlamaConfig
@@ -2724,6 +3227,10 @@ def main() -> int:
                       "mistral": family_sbfp_linear_shapes(mcfg),
                       "gpt2": gpt2_linear_shapes(gcfg)}
     s2s = seq2seq_configs()  # t5-small, whisper-small
+    # the paths' configs: whisper-small cut to WHISPER_LAYERS a stack
+    s2s_run = {f: seq2seq_layers(c, f, WHISPER_LAYERS) if f == "whisper" else c
+               for f, c in s2s.items()}
+    clip_cfg = CLIPConfig.vit_b_32()
     with phase("B1", took):
         b1_step, b1 = check_b1(torch, dev, cfg)
     with phase("B2", took):
@@ -2749,9 +3256,11 @@ def main() -> int:
                 torch, dev, shapes, sbfp_shapes_of[family], family, seed, ragged,
                 ragged + [(130, K, N)])
     s2s_linears = {}  # family -> ((B1 step, cases), (T1 step, cases))
-    for seed, (family, scfg) in zip((32, 34), s2s.items()):
+    for seed, (family, scfg) in zip((32, 34), s2s_run.items()):
         with phase(f"B1 and T1 at the {family} shapes", took):
             s2s_linears[family] = check_seq2seq_linears(torch, dev, scfg, family, seed)
+    with phase("B1 and T1 at the clip shapes", took):
+        s2s_linears["clip"] = check_clip_linears(torch, dev, clip_cfg, 36)
 
     by_path, tok_s = {}, {}
     fam_t2 = {}  # family or path -> (T2's per-step numbers, cases) at its recorded sites
@@ -2776,7 +3285,7 @@ def main() -> int:
     fam_paths = {**{f: (cut[f], family_path_specs(cut[f], f)) for f in fams},
                  "gpt2": (gcfg, gpt2_path_specs(gcfg)),
                  "mistral": (cut["mistral"], family_path_specs(cut["mistral"], "mistral")),
-                 **{f: (c, seq2seq_path_specs(c, f)) for f, c in s2s.items()}}
+                 **{f: (c, seq2seq_path_specs(c, f)) for f, c in s2s_run.items()}}
     for family, (fcfg, specs) in fam_paths.items():
         for spec in specs:
             name = spec["name"]
@@ -2795,12 +3304,28 @@ def main() -> int:
             f"{BATCH}, {card}): " + ", ".join(
                 f"{m} / baseline {tok_s[f'{family}_{m}'] / tok_s[f'{family}_baseline']:.4f}"
                 for m in modes))
+    vision = {}  # path -> its numbers
+    for spec in clip_path_specs():
+        name = spec["name"]
+        with phase(f"{name} path", took):
+            by_path[name], vision[name] = clip_path(torch, dev, kernels, clip_cfg, spec)
+        if spec.get("record_t2"):
+            with phase(f"T2 at the {name} sites", took):
+                fam_t2["clip"] = check_t2_sites(torch, dev, spec["t2_sites"], spec["t2_sites"],
+                                                name, CLIP_T2_TIMED, unit="forward")
+    for spec in lenet_path_specs():
+        name = spec["name"]
+        with phase(f"{name} path", took):
+            by_path[name], vision[name] = lenet_path(torch, dev, kernels, spec)
+    with phase("zoo", took):
+        by_path["zoo_basic"] = zoo_phase(torch, dev, kernels)
+    log(f"the vision paths on {card}: {json.dumps(vision)}")
     with phase("engine paths", took):
         by_path.update(engine_paths(torch, dev, kernels, cfg, card))
     with phase("engine_llama_weights path", took):
         by_path["engine_llama_weights"] = engine_family_path(torch, dev, kernels,
                                                              fams["llama"], card)
-    for family, scfg in s2s.items():
+    for family, scfg in s2s_run.items():
         name = f"engine_{family}_weights"
         with phase(f"{name} path", took):
             by_path[name] = engine_seq2seq_path(torch, dev, kernels, scfg, family, card)

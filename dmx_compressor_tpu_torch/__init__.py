@@ -10,8 +10,7 @@ the CPU on their own.  The package imports neither ``jax`` nor
 
 Top-level namespaces mirror the JAX package's: the ``format.*`` presets,
 ``default_approx.*`` and ``config_rules.{BASELINE, FP8, BASIC,
-SBFP_WEIGHT_STORAGE}`` (the rules restricted to the module types this port
-has: no conv, pool, ReLU6, BatchNorm2d, GroupNorm or Exp module yet).
+SBFP_WEIGHT_STORAGE}`` (the JAX package's rules, row for row).
 
 ``format.SBFP12_16`` is the JAX package's preset, scale bias 7.  The serving
 recipe ``ops.compress.build_sbfp_mode`` stores bench.py's SBFP12_16 instead,
@@ -93,6 +92,15 @@ def _rules_for(io_fmt, linear_fmt, bias_fmt, out_fmt, approx):
             ),
         ),
         DmxConfigRule(
+            module_types=(nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d),
+            module_config=dict(
+                input_formats=[linear_fmt],
+                weight_format=linear_fmt,
+                bias_format=bias_fmt,
+                output_formats=[out_fmt],
+            ),
+        ),
+        DmxConfigRule(
             module_types=(nn.ResAdd,),
             module_config=dict(input_formats=[io_fmt, io_fmt], output_formats=[io_fmt]),
         ),
@@ -101,6 +109,10 @@ def _rules_for(io_fmt, linear_fmt, bias_fmt, out_fmt, approx):
             module_config=dict(input_formats=[linear_fmt, linear_fmt], output_formats=[out_fmt]),
         ),
         DmxConfigRule(module_types=(nn.Embedding,), module_config=dict(output_formats=[out_fmt])),
+        DmxConfigRule(
+            module_types=(nn.MaxPool2d, nn.AdaptiveAvgPool2d, nn.AvgPool2d),
+            module_config=dict(input_formats=[io_fmt], output_formats=[io_fmt]),
+        ),
     ] + [
         DmxConfigRule(
             module_types=types,
@@ -116,14 +128,15 @@ def _rules_for(io_fmt, linear_fmt, bias_fmt, out_fmt, approx):
 config_rules = SimpleNamespace(
     BASELINE=_rules_for(
         format.SAME, format.SAME, format.SAME, format.SAME,
-        approx=[((nn.ReLU, nn.GELUBase, nn.SiLU, nn.Tanh, nn.Softmax, nn.LayerNorm),
-                 default_approx.NONE, 1, 1)],
+        approx=[((nn.ReLU, nn.ReLU6, nn.GELUBase, nn.SiLU, nn.Tanh, nn.Softmax, nn.LayerNorm,
+                  nn.BatchNorm2d, nn.GroupNorm, nn.Exp), default_approx.NONE, 1, 1)],
     ),
     FP8=_rules_for(
         format.FLOAT16, format.AFLOAT8, format.FLOAT32, format.FLOAT16,
         approx=[
-            ((nn.ReLU, nn.GELUBase, nn.QuickGELU, nn.SiLU, nn.Tanh, nn.Softmax, nn.LayerNorm,
-              nn.RMSNorm), default_approx.NONE, 1, 1),
+            ((nn.ReLU, nn.ReLU6, nn.GELUBase, nn.QuickGELU, nn.SiLU, nn.Tanh, nn.Softmax,
+              nn.LayerNorm, nn.RMSNorm, nn.BatchNorm2d, nn.GroupNorm, nn.Exp),
+             default_approx.NONE, 1, 1),
             ((nn.ApplyRotaryPosEmb,), default_approx.NONE, 4, 2),
         ],
     ),
@@ -131,6 +144,7 @@ config_rules = SimpleNamespace(
         format.FLOAT16, format.BFP16_64, format.BFP32_1, format.FLOAT16,
         approx=[
             ((nn.ReLU,), default_approx.RELU, 1, 1),
+            ((nn.ReLU6,), default_approx.RELU6, 1, 1),
             ((nn.GELUBase,), default_approx.GELU, 1, 1),
             ((nn.QuickGELU,), default_approx.QUICK_GELU, 1, 1),
             ((nn.SiLU,), default_approx.SILU, 1, 1),
@@ -138,11 +152,14 @@ config_rules = SimpleNamespace(
             ((nn.Softmax,), default_approx.SOFTMAX, 1, 1),
             ((nn.LayerNorm,), default_approx.LAYER_NORM, 1, 1),
             ((nn.RMSNorm,), default_approx.RMS_NORM, 1, 1),
+            ((nn.BatchNorm2d,), default_approx.BATCH_NORM_2D, 1, 1),
+            ((nn.GroupNorm,), default_approx.GROUP_NORM, 1, 1),
+            ((nn.Exp,), default_approx.EXP, 1, 1),
             ((nn.ApplyRotaryPosEmb,), default_approx.APPLY_LLAMA_ROPE, 4, 2),
         ],
     ),
     SBFP_WEIGHT_STORAGE=[
-        DmxConfigRule(module_types=(nn.Linear,),
+        DmxConfigRule(module_types=(nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d),
                       module_config=dict(weight_storage_format=format.SBFP12_16)),
     ],
 )

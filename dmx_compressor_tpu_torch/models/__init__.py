@@ -1,9 +1,12 @@
-"""Model zoo of the port: OPT, GPT-2, Llama, Qwen3, Gemma, Mistral, T5 and
-Whisper, authored with transformable modules in HF-checkpoint layouts."""
+"""Model zoo of the port: OPT, GPT-2, Llama, Qwen3, Gemma, Mistral, T5,
+Whisper, CLIP and LeNet-5, authored with transformable modules in
+HF-checkpoint layouts."""
 
 from ..ops.kv_cache import KVCache, QuantizedKVCache  # noqa: F401
+from .clip import CLIPConfig, CLIPModel  # noqa: F401
 from .gemma import GemmaConfig, GemmaForCausalLM  # noqa: F401
 from .gpt2 import GPT2Config, GPT2LMHeadModel  # noqa: F401
+from .lenet import LeNet5  # noqa: F401
 from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
 from .mistral import MistralConfig, MistralForCausalLM  # noqa: F401
 from .opt import OPTConfig, OPTForCausalLM  # noqa: F401

@@ -3,8 +3,8 @@ semantics, the attention modules' frozen routing check, greedy prefill /
 decode (bench.py:252-302) over any model called as
 ``model(ids, caches=, position_offset=)``, the encoder-decoder families'
 greedy loop (T5's and Whisper's ``generate``), and the loading of a raw JAX
-model's weights (the Llama topology's; OPT's and GPT-2's, with biases; T5's
-and Whisper's)."""
+model's weights (the Llama topology's; OPT's and GPT-2's, with biases; T5's,
+Whisper's and CLIP's)."""
 
 from __future__ import annotations
 
@@ -200,9 +200,10 @@ def seq2seq_generate(model: nn.Module, encoder_input, decoder_start_ids, max_new
 
 
 def load_jax_seq2seq_params(model: nn.Module, params: Dict[str, np.ndarray],
-                            aliases: Dict[str, str], buffers: Tuple[str, ...] = ()) -> None:
-    """Copy a raw JAX encoder-decoder model's weights (T5, Whisper) into the
-    raw port model of its family, in place.
+                            aliases: Dict[str, str], buffers: Tuple[str, ...] = (),
+                            as_is: Tuple[str, ...] = ()) -> None:
+    """Copy a raw JAX encoder-decoder model's weights (T5, Whisper; and
+    CLIP's two towers) into the raw port model of its family, in place.
 
     ``params`` is the JAX model's flattened nnx state, dotted path -> numpy
     array.  ``nnx.Linear.kernel`` [in, out] becomes ``weight`` [out, in];
@@ -211,8 +212,9 @@ def load_jax_seq2seq_params(model: nn.Module, params: Dict[str, np.ndarray],
     module path under which nnx lists a shared table to the port module
     that owns its Parameter (written once, read by every site); the paths
     in ``buffers`` (fixed tables) are copied into the port buffer
-    ``<path>.weight``; a Dmx module's cast state is not a weight and is
-    skipped.  Every parameter and listed buffer of the port must be
+    ``<path>.weight``, those in ``as_is`` (a bare ``nnx.Param``) into the
+    port Parameter of the same path; a Dmx module's cast state is not a
+    weight and is skipped.  Every parameter and listed buffer of the port must be
     covered, and every weight array used."""
     own = dict(model.named_parameters())  # a shared Parameter once
     bufs = {f"{b}.weight": dict(model.named_buffers())[f"{b}.weight"] for b in buffers}
@@ -226,6 +228,8 @@ def load_jax_seq2seq_params(model: nn.Module, params: Dict[str, np.ndarray],
             value = torch.tensor(np.asarray(arr, dtype=np.float32))
             if path in buffers:
                 name, target = f"{path}.weight", bufs[f"{path}.weight"]
+            elif path in as_is:
+                name, target = path, own.get(path)
             else:
                 prefix = ".".join(mod)
                 mod = aliases.get(prefix, prefix).split(".")

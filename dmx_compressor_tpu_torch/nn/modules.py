@@ -1,23 +1,34 @@
-"""The Dmx op modules of the ported families (OPT, Llama, Qwen3, Gemma).
+"""The Dmx op-module zoo.
 
-Port of that subset of ``dmx_compressor_tpu/nn/modules.py``: Linear,
-Embedding, LayerNorm, RMSNorm, GemmaRMSNorm, ResAdd, Mul, ActActMatMul,
-Softmax, Dropout, ReLU, SiLU, Tanh, the GELU family (GELUBase, GELU,
-NewGELU, FastGELU, QuickGELU, BloomGELU, ClippedGELU), ApplyRotaryPosEmb,
-RotaryEmbedding and the compound ScaledDotProductAttention, and the helpers of the
-unfold-lowered convolutions of ``nn/experimental.py`` (``_init_weight``, ``_pair``,
-``_im2col``).  Each module follows the DmxModule pipeline
-(nn/core.py) and declares the same cast topology as its JAX counterpart:
+Port of ``dmx_compressor_tpu/nn/modules.py``: Linear, Embedding, the
+convolutions (Conv1d, Conv2d, ConvTranspose2d), the pools (MaxPool2d,
+AvgPool2d, AdaptiveAvgPool2d), LayerNorm, RMSNorm, GemmaRMSNorm,
+BatchNorm2d, GroupNorm, ResAdd, Mul, ActActMatMul, BAddBMM, Exp, Softmax,
+Dropout, ReLU, ReLU6, SiLU, Tanh, the GELU family (GELUBase, GELU, NewGELU,
+FastGELU, QuickGELU, BloomGELU, ClippedGELU), ApplyRotaryPosEmb,
+RotaryEmbedding and the compound ScaledDotProductAttention, and the helpers
+of the unfold-lowered convolutions of ``nn/experimental.py``
+(``_init_weight``, ``_pair``, ``_im2col``).  Each module follows the
+DmxModule pipeline (nn/core.py) and declares the same cast topology as its
+JAX counterpart:
 
 - Linear: weight [out, in]; input and weight casts block along the last
   (input-channel) axis.
-- ActActMatMul: input blocks along -1, multiplier along -2.
+- Conv*: NCHW, channel axis 1; weight [out, in / groups, *k], its cast
+  blocked along its input channels (axis 1), as the input's.
+- ActActMatMul: input blocks along -1, multiplier along -2; BAddBMM's
+  batch1 along -1, batch2 along -2.
+
+The convolutions and pools are ``torch.nn.functional``'s (the JAX package
+computes them with ``lax`` outside any Pallas kernel); a conv on the card
+runs in full f32 whatever ``torch.backends.cudnn.allow_tf32`` says.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -31,8 +42,20 @@ from .core import DmxModule
 def _init_weight(gen: torch.Generator, shape, fan_in: int, device=None) -> torch.Tensor:
     """Uniform in [-1/sqrt(fan_in), 1/sqrt(fan_in)] (1 for fan_in 0), drawn
     from ``gen``: the JAX package's conv initialisation."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta")  # from_raw shares the raw weight
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 1.0
     return torch.empty(shape, device=device).uniform_(-bound, bound, generator=gen)
+
+
+def _generator(generator: Optional[torch.Generator], device) -> Optional[torch.Generator]:
+    """``generator``, or one of seed 0 on ``device`` (None on the meta
+    device: nothing is drawn there)."""
+    if generator is not None:
+        return generator
+    if device is not None and torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device or "cpu").manual_seed(0)
 
 
 def _pair(v, n: int) -> tuple:
@@ -98,6 +121,40 @@ class ActActMatMul(DmxModule):
 
     def _forward(self, _input, _multiplier):
         return torch.matmul(_input, _multiplier)
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls()
+
+
+class Exp(DmxModule):
+    """Elementwise exp with an approximation hook (the EXP surrogate)."""
+
+    def _raw_forward(self, _input):
+        return torch.exp(_input)
+
+    def _forward(self, _input):
+        return self.approx_forward((_input,))
+
+    @classmethod
+    def from_raw(cls, raw=None):
+        return cls()
+
+
+class BAddBMM(DmxModule):
+    """Batched add-matmul ``beta * input + alpha * batch1 @ batch2``, each
+    operand through its own cast: batch1 blocked along -1, batch2 along -2
+    (the contraction dim)."""
+
+    input_cast_names = ("input_cast", "batch1_cast", "batch2_cast")
+
+    def __init__(self):
+        super().__init__()
+        self.input_casts["batch1_cast"].block_dim = -1
+        self.input_casts["batch2_cast"].block_dim = -2
+
+    def _forward(self, _input, batch1, batch2, beta=1, alpha=1):
+        return beta * _input + alpha * torch.matmul(batch1, batch2)
 
     @classmethod
     def from_raw(cls, raw=None):
@@ -188,6 +245,229 @@ class Embedding(DmxModule):
         return mod
 
 
+@contextlib.contextmanager
+def _f32_convs(x: torch.Tensor):
+    """cuDNN convolutions in full f32 within (TF32 off while the global
+    flag ``torch.backends.cudnn.allow_tf32`` is on), as the JAX package's
+    f32 convs compute."""
+    cudnn = torch.backends.cudnn
+    if not x.is_cuda or not cudnn.allow_tf32:
+        yield
+        return
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = True
+
+
+class _ConvNd(DmxModule):
+    """A quantized convolution over NCHW (NCL) inputs, weight [out, in /
+    groups, *k]: the input cast blocks along the channel axis 1, the weight
+    cast along its input channels (axis 1), the bias cast along -1; the
+    conv runs in f32 (``torch.nn.functional``'s, where the JAX package runs
+    ``lax.conv_general_dilated``)."""
+
+    ch_axis = 1
+    win_ch_axis = 1
+    wout_ch_axis = 0
+    has_accum = True
+    has_weight = True
+    has_bias = True
+    _nd = 2
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1, padding=0,
+                 dilation=1, groups: int = 1, bias: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
+        nd = self._nd
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = _pair(kernel_size, nd)
+        self.stride = _pair(stride, nd)
+        self.padding = _pair(padding, nd)
+        self.dilation = _pair(dilation, nd)
+        self.groups = groups
+        self.has_bias = bias
+        super().__init__()
+        gen = _generator(generator, device)
+        fan_in = in_channels // groups * math.prod(self.kernel_size)
+        self.weight = nn.Parameter(_init_weight(
+            gen, (out_channels, in_channels // groups, *self.kernel_size), fan_in, device))
+        self.bias = (nn.Parameter(_init_weight(gen, (out_channels,), fan_in, device))
+                     if bias else None)
+        self.input_casts["input_cast"].block_dim = 1
+        self.input_casts["input_cast"].ch_axis = 1
+        self.weight_cast.block_dim = 1
+        if self.bias_cast is not None:
+            self.bias_cast.block_dim = -1
+
+    def _conv(self, x, w):
+        conv = torch.nn.functional.conv1d if self._nd == 1 else torch.nn.functional.conv2d
+        with _f32_convs(x):
+            return conv(x, w, None, self.stride, self.padding, self.dilation, self.groups)
+
+    def _forward(self, _input):
+        if isinstance(self.accum_format, Same):
+            # the weight in the input's dtype, the conv in f32 (JAX's
+            # preferred_element_type)
+            out = self._conv(_input.to(torch.float32),
+                             self._weight.to(_input.dtype).to(torch.float32))
+        else:
+            out = self.accum_cast(self._conv(_input.to(torch.float32),
+                                             self._weight.to(torch.float32)))
+        if self.bias is not None:
+            out = out + self._bias.reshape((1, -1) + (1,) * self._nd).to(out.dtype)
+        return out
+
+    def unfold_input_for_hessian(self, inp: torch.Tensor) -> torch.Tensor:
+        """im2col for GPTQ's Hessian: [C * prod(k), B * L]."""
+        patches = _im2col(inp, self.kernel_size, self.stride, self.padding, self.dilation)
+        return patches.transpose(0, 1).reshape(patches.shape[1], -1)
+
+    def _flops_for(self, input_shape, output_shape):
+        per_pos = math.prod(self.kernel_size) * self.in_channels * (
+            self.out_channels // self.groups)
+        return per_pos * input_shape[0] * math.prod(output_shape[2:])
+
+    @classmethod
+    def from_raw(cls, raw) -> "_ConvNd":
+        """Build from a torch ``nn.Conv1d`` / ``nn.Conv2d`` (weight [out,
+        in / groups, *k]: already this module's layout), sharing its
+        parameters.  Zero padding only; ``padding="same"`` where it pads
+        both sides alike."""
+        if raw.padding_mode != "zeros":
+            raise ValueError(f"padding_mode {raw.padding_mode!r}: the Dmx convs zero-pad")
+        pad = raw.padding
+        if pad == "valid":
+            pad = 0
+        elif pad == "same":
+            span = [d * (k - 1) for d, k in zip(raw.dilation, raw.kernel_size)]
+            if any(s % 2 for s in span):
+                raise ValueError("padding='same' over an even span pads one side more")
+            pad = tuple(s // 2 for s in span)
+        mod = cls(raw.in_channels, raw.out_channels, raw.kernel_size, stride=raw.stride,
+                  padding=pad, dilation=raw.dilation, groups=raw.groups,
+                  bias=raw.bias is not None, device="meta")
+        mod.weight = raw.weight
+        mod.bias = raw.bias
+        return mod
+
+
+class Conv1d(_ConvNd):
+    """Quantized 1d convolution."""
+
+    _nd = 1
+
+
+class Conv2d(_ConvNd):
+    """Quantized 2d convolution."""
+
+    _nd = 2
+
+
+class ConvTranspose2d(_ConvNd):
+    """Quantized transposed 2d convolution with the JAX package's weight and
+    arithmetic: the weight [out, in / groups, kH, kW], flipped and its first
+    two axes swapped, convolves the input dilated by the stride and padded
+    by k - 1 - padding (+ output_padding after).  That is torch's
+    ``conv_transpose2d`` where in_channels == out_channels and groups is 1,
+    and is defined only where in_channels == out_channels * groups: the
+    constructor refuses any other shape, where the JAX package raises at the
+    call."""
+
+    _nd = 2
+
+    def __init__(self, *args, output_padding=0, **kwargs):
+        self.output_padding = _pair(output_padding, 2)
+        super().__init__(*args, **kwargs)
+        if (self.in_channels != self.out_channels * self.groups
+                or self.out_channels % self.groups):
+            raise ValueError(
+                f"ConvTranspose2d({self.in_channels}, {self.out_channels}, groups="
+                f"{self.groups}): the JAX package's transposed conv computes only where "
+                "in_channels == out_channels * groups (its weight [out, in / groups, k, k] "
+                "is read as [in, out / groups, k, k])")
+
+    def _conv(self, x, w):
+        (kh, kw), (ph, pw), (oph, opw) = self.kernel_size, self.padding, self.output_padding
+        (sh, sw) = self.stride
+        B, C, H, W = x.shape
+        xd = x.new_zeros(B, C, (H - 1) * sh + 1, (W - 1) * sw + 1)
+        xd[:, :, ::sh, ::sw] = x
+        # a negative pad crops, as lax's does
+        xd = torch.nn.functional.pad(xd, (kw - 1 - pw, kw - 1 - pw + opw,
+                                          kh - 1 - ph, kh - 1 - ph + oph))
+        with _f32_convs(x):
+            return torch.nn.functional.conv2d(xd, torch.flip(w, (-2, -1)).transpose(0, 1),
+                                              None, 1, 0, self.dilation, self.groups)
+
+    @classmethod
+    def from_raw(cls, raw):
+        raise TypeError("no raw module maps to ConvTranspose2d (the JAX package maps none)")
+
+
+class MaxPool2d(DmxModule):
+    """Max pooling over NCHW windows, -inf padding."""
+
+    def __init__(self, kernel_size, stride=None, padding=0):
+        self.kernel_size = _pair(kernel_size, 2)
+        self.stride = _pair(stride if stride is not None else kernel_size, 2)
+        self.padding = _pair(padding, 2)
+        super().__init__()
+
+    def _forward(self, _input):
+        return torch.nn.functional.max_pool2d(_input, self.kernel_size, self.stride,
+                                              self.padding)
+
+    @classmethod
+    def from_raw(cls, raw):
+        return cls(raw.kernel_size, raw.stride, raw.padding)
+
+
+class AvgPool2d(DmxModule):
+    """Average pooling over NCHW windows, the zero padding counted."""
+
+    def __init__(self, kernel_size, stride=None, padding=0):
+        self.kernel_size = _pair(kernel_size, 2)
+        self.stride = _pair(stride if stride is not None else kernel_size, 2)
+        self.padding = _pair(padding, 2)
+        super().__init__()
+
+    def _forward(self, _input):
+        return torch.nn.functional.avg_pool2d(_input, self.kernel_size, self.stride,
+                                              self.padding, count_include_pad=True)
+
+    @classmethod
+    def from_raw(cls, raw):
+        return cls(raw.kernel_size, raw.stride, raw.padding)
+
+
+class AdaptiveAvgPool2d(DmxModule):
+    """Mean over adaptive windows: row i of ``output_size`` covers
+    [floor(i H / oh), ceil((i + 1) H / oh)), likewise the columns."""
+
+    def __init__(self, output_size):
+        self.output_size = _pair(output_size, 2)
+        super().__init__()
+
+    def _forward(self, _input):
+        B, C, H, W = _input.shape
+        oh, ow = self.output_size
+        if H % oh == 0 and W % ow == 0:
+            return _input.reshape(B, C, oh, H // oh, ow, W // ow).mean(dim=(3, 5))
+        out = _input.new_zeros(B, C, oh, ow)
+        for i in range(oh):
+            h0, h1 = (i * H) // oh, -(-((i + 1) * H) // oh)
+            for j in range(ow):
+                w0, w1 = (j * W) // ow, -(-((j + 1) * W) // ow)
+                out[:, :, i, j] = _input[:, :, h0:h1, w0:w1].mean(dim=(2, 3))
+        return out
+
+    @classmethod
+    def from_raw(cls, raw):
+        return cls(raw.output_size)
+
+
 class _Activation(DmxModule):
     """Unary activation with an approximation hook."""
 
@@ -205,6 +485,11 @@ class _Activation(DmxModule):
 class ReLU(_Activation):
     def _raw_forward(self, x):
         return torch.relu(x)
+
+
+class ReLU6(_Activation):
+    def _raw_forward(self, x):
+        return torch.clamp(x, 0.0, 6.0)
 
 
 class SiLU(_Activation):
@@ -395,7 +680,20 @@ class RMSNorm(DmxModule):
         return self.approx_forward((_input,), self.normalized_shape, self._weight, self.eps)
 
     @classmethod
-    def from_raw(cls, raw: rawnn.RMSNorm) -> "RMSNorm":
+    def from_raw(cls, raw) -> "RMSNorm":
+        """Build from ``rawnn.RMSNorm`` or torch's ``nn.RMSNorm`` (over its
+        last axis only, as the Dmx module normalizes; eps None is torch's
+        f32 machine epsilon; no affine weight, a weight of ones), sharing
+        the weight."""
+        if isinstance(raw, nn.RMSNorm):
+            if len(raw.normalized_shape) != 1:
+                raise ValueError("the Dmx RMSNorm normalizes over the last axis only")
+            eps = raw.eps if raw.eps is not None else torch.finfo(torch.float32).eps
+            mod = cls(raw.normalized_shape[0], eps=eps,
+                      device="meta" if raw.weight is not None else None)
+            if raw.weight is not None:
+                mod.weight = raw.weight
+            return mod
         mod = cls(raw.weight.shape[-1], eps=raw.eps, device="meta")
         mod.weight = raw.weight
         return mod
@@ -431,6 +729,129 @@ class GemmaRMSNorm(RMSNorm):
     def from_raw(cls, raw: rawnn.GemmaRMSNorm) -> "GemmaRMSNorm":
         mod = cls(raw.weight.shape[-1], eps=raw.eps, device="meta")
         mod.weight = raw.weight
+        return mod
+
+
+class BatchNorm2d(DmxModule):
+    """BatchNorm over NCHW with the running-statistics logic of the JAX
+    package: its own ``bn_training`` flag (False: the running statistics
+    normalize; torch's ``train()`` / ``eval()`` leave it alone, as nnx's
+    leave the JAX module's); with it set, or without running statistics,
+    the batch's biased moments normalize, and in training the running
+    mean and unbiased variance move by ``momentum`` (torch's convention:
+    new = (1 - m) old + m batch)."""
+
+    has_weight = True
+    has_bias = True
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 affine: bool = True, track_running_stats: bool = True, device=None):
+        self.num_features = num_features
+        self.eps = eps
+        self.momentum = momentum
+        self.affine = affine
+        self.has_weight = affine
+        self.has_bias = affine
+        self.track_running_stats = track_running_stats
+        self.bn_training = False
+        super().__init__()
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features, device=device))
+            self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        else:
+            self.weight = None
+            self.bias = None
+        if track_running_stats:
+            self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+            self.register_buffer("running_var", torch.ones(num_features, device=device))
+            self.register_buffer("num_batches_tracked",
+                                 torch.zeros((), dtype=torch.int32, device=device))
+        else:
+            self.running_mean = None
+            self.running_var = None
+
+    def _forward(self, _input):
+        x = _input
+        if self.bn_training or not self.track_running_stats:
+            mean = torch.mean(x, dim=(0, 2, 3))
+            var = torch.var(x, dim=(0, 2, 3), correction=0)
+            if self.bn_training and self.track_running_stats:
+                n = x.shape[0] * x.shape[2] * x.shape[3]
+                m = self.momentum
+                with torch.no_grad():
+                    self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1 - m) * self.running_var
+                                           + m * (var * n / max(n - 1, 1)))
+                    self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1, 1, 1)
+        y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + self.eps)
+        if self.affine:
+            y = y * self._weight.reshape(shape) + self._bias.reshape(shape)
+        return y
+
+    @classmethod
+    def from_raw(cls, raw: nn.BatchNorm2d) -> "BatchNorm2d":
+        """Build from a torch ``nn.BatchNorm2d``, sharing its parameters and
+        running statistics; its momentum is taken as it is (the same
+        convention), in the running statistics' mode."""
+        if raw.momentum is None:
+            raise ValueError("momentum=None (a cumulative average): the Dmx BatchNorm2d "
+                             "moves its statistics by a fixed momentum")
+        mod = cls(raw.num_features, eps=raw.eps, momentum=raw.momentum, affine=raw.affine,
+                  track_running_stats=raw.track_running_stats, device="meta")
+        if raw.affine:
+            mod.weight, mod.bias = raw.weight, raw.bias
+        if raw.track_running_stats:
+            mod.running_mean, mod.running_var = raw.running_mean, raw.running_var
+            mod.num_batches_tracked = raw.num_batches_tracked
+        return mod
+
+
+class GroupNorm(DmxModule):
+    """GroupNorm: each sample's channels in ``num_groups`` groups, each
+    normalized by its biased moments, then the per-channel affine."""
+
+    has_weight = True
+    has_bias = True
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 affine: bool = True, device=None):
+        self.num_groups = num_groups
+        self.num_channels = num_channels
+        self.eps = eps
+        self.affine = affine
+        self.has_weight = affine
+        self.has_bias = affine
+        super().__init__()
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_channels, device=device))
+            self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
+        else:
+            self.weight = None
+            self.bias = None
+
+    def _forward(self, _input):
+        x = _input
+        B, C = x.shape[0], x.shape[1]
+        xg = x.reshape(B, self.num_groups, C // self.num_groups, *x.shape[2:])
+        dims = tuple(range(2, xg.ndim))
+        mean = torch.mean(xg, dim=dims, keepdim=True)
+        var = torch.var(xg, dim=dims, keepdim=True, correction=0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        if self.affine:
+            shape = (1, C) + (1,) * (x.ndim - 2)
+            y = y * self._weight.reshape(shape) + self._bias.reshape(shape)
+        return y
+
+    @classmethod
+    def from_raw(cls, raw: nn.GroupNorm) -> "GroupNorm":
+        """Build from a torch ``nn.GroupNorm``, sharing its parameters."""
+        mod = cls(raw.num_groups, raw.num_channels, eps=raw.eps, affine=raw.affine,
+                  device="meta")
+        if raw.affine:
+            mod.weight, mod.bias = raw.weight, raw.bias
         return mod
 
 

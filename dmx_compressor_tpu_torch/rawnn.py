@@ -1,7 +1,6 @@
 """Raw (un-quantized) op modules for authoring transformable models.
 
-Port of the wrappers the ported families (OPT, Llama, Qwen3, Gemma) use
-from ``dmx_compressor_tpu/rawnn.py``, and the GELU family.  Models are
+Port of ``dmx_compressor_tpu/rawnn.py``.  Models are
 authored with these light wrappers at the places where a functional op
 would otherwise be invisible to the module tree; the substitution pass
 (transform/substitute.py) maps each to its Dmx-aware counterpart.  All
@@ -28,6 +27,13 @@ class Mul(nn.Module):
         return x * multiplier
 
 
+class MatMul(nn.Module):
+    """Activation x activation matmul (maps to dmxnn.ActActMatMul)."""
+
+    def forward(self, a, b):
+        return torch.matmul(a, b)
+
+
 class TiedLinear(nn.Module):
     """LM head tied to an embedding table: y = x @ E.T.
 
@@ -43,9 +49,33 @@ class TiedLinear(nn.Module):
         return x @ self.embed_ref.weight.T.to(x.dtype)
 
 
+class BAddBMM(nn.Module):
+    def forward(self, x, batch1, batch2, beta=1, alpha=1):
+        return beta * x + alpha * torch.matmul(batch1, batch2)
+
+
+class Exp(nn.Module):
+    def forward(self, x):
+        return torch.exp(x)
+
+
+class Softmax(nn.Module):
+    def __init__(self, dim: int = -1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        return torch.softmax(x, dim=self.dim)
+
+
 class ReLU(nn.Module):
     def forward(self, x):
         return torch.relu(x)
+
+
+class ReLU6(nn.Module):
+    def forward(self, x):
+        return torch.clamp(x, 0.0, 6.0)
 
 
 class SiLU(nn.Module):
@@ -149,6 +179,17 @@ class ClippedGELU(nn.Module):
 
     def forward(self, x):
         return torch.clamp(gelu(x, True), self.min, self.max)
+
+
+class Dropout(nn.Module):
+    """The inference-mode identity (the Dmx Dropout carries ``p``)."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return x
 
 
 class ScaledDotProductAttention(nn.Module):

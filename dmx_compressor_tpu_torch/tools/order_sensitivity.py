@@ -48,6 +48,26 @@ logits is printed:
     python -m dmx_compressor_tpu_torch.tools.order_sensitivity --family whisper \
         --device cpu --layers 4 --vocab 2048 --batch 2 --seeds 0 1
 
+``--family clip`` serves CLIP ViT-B/32 in BASIC mode as chip_smoke.py's
+clip_basic path does: ``zero_shot_classify`` and ``__call__`` over seeded
+standard-normal images [batch, 3, 224, 224] and ``batch`` prompts of 77
+token ids, as is and with every sum above in float64 (the modular
+attention's matmuls too); it prints the largest difference of the image and
+text embeddings, the logits and the probabilities (``--layers`` cuts both
+towers, ``--vocab`` the text vocabulary):
+
+    python -m dmx_compressor_tpu_torch.tools.order_sensitivity --family clip \
+        --layers 12 --batch 8 --seeds 0 1
+
+``--family lenet`` serves LeNet-5 in BASIC mode over ``--batch`` seeded
+standard-normal [1, 28, 28] images, as chip_smoke.py's lenet_basic path
+does, as is and with the whole model in float64 (its convs summed in
+float64, each value rounded to f32 before each cast, as ``--mode fp8``), and
+prints the largest difference of the logits:
+
+    python -m dmx_compressor_tpu_torch.tools.order_sensitivity --family lenet \
+        --device cpu --batch 256 --seeds 0 1
+
 Widths are OPT-125m's, or bench.py's ``gpt2`` (GPT-2 124M),
 ``llama-1.1b`` (TinyLlama-1.1B), ``qwen3-0.6b`` (Qwen3-0.6B), ``gemma-2b``
 (Gemma-2B) or ``mistral-1b`` with ``--family gpt2``, ``llama``, ``qwen3``,
@@ -66,8 +86,11 @@ from unittest import mock
 import torch
 
 from ..functional import simd_ops
+from ..kernels import resolve_device
+from ..models.clip import CLIPConfig, CLIPModel
 from ..models.gemma import GemmaConfig, GemmaForCausalLM
 from ..models.gpt2 import GPT2Config, GPT2LMHeadModel
+from ..models.lenet import LeNet5
 from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..models.mistral import MistralConfig, MistralForCausalLM
 from ..models.opt import OPTConfig, OPTForCausalLM
@@ -76,6 +99,7 @@ from ..modeling.model import DmxModel
 from ..models.shared import greedy_decode, greedy_prefill, greedy_token
 from ..models.t5 import T5Config, T5ForConditionalGeneration
 from ..models.whisper import WhisperConfig, WhisperForConditionalGeneration
+from ..nn import modules as dmx_modules
 from ..ops import basic_attention, basic_layer, basic_linear, compress
 from ..ops.bfp_cast import fp16_cast_ref
 from ..ops.bfp_pack import bfp_unpack, sbfp_unpack
@@ -132,13 +156,25 @@ class _Float64Sums:
         return torch.sum(x.double(), dim=dim, keepdim=keepdim).float()
 
 
+class _Float64Matmuls(_Float64Sums):
+    """... and matmul in float64 (the Dmx modules' activation matmuls)."""
+
+    @staticmethod
+    def matmul(a, b):
+        return torch.matmul(a.double(), b.double()).to(torch.promote_types(a.dtype, b.dtype))
+
+
 @contextlib.contextmanager
-def float64_sums():
+def float64_sums(matmuls: bool = False):
+    """T1 and the BASIC modules' means and sums in float64; with
+    ``matmuls`` the Dmx op modules' own matmuls too."""
     with contextlib.ExitStack() as stack:
         for mod in (compress, basic_linear):
             stack.enter_context(mock.patch.object(mod, "bfp_linear_bf16", _matmul_f64))
         for mod in (basic_layer, basic_attention, simd_ops):
             stack.enter_context(mock.patch.object(mod, "torch", _Float64Sums()))
+        if matmuls:
+            stack.enter_context(mock.patch.object(dmx_modules, "torch", _Float64Matmuls()))
         yield
 
 
@@ -151,6 +187,7 @@ FAMILIES = {
     "mistral": (MistralConfig.mistral_1b, MistralForCausalLM),
     "t5": (T5Config.t5_small, T5ForConditionalGeneration),
     "whisper": (WhisperConfig.small, WhisperForConditionalGeneration),
+    "clip": (CLIPConfig.vit_b_32, CLIPModel),
 }
 SEQ2SEQ = ("t5", "whisper")
 
@@ -181,6 +218,47 @@ def serve_seq2seq(family, cfg, seed, device, batch, prompt, steps, forced=None):
             rows.append(logits[:, -1])
             toks.append(greedy_token(logits[:, -1]))
     return torch.stack(rows).float().cpu(), torch.stack(toks, dim=1).cpu()
+
+
+def serve_clip(cfg, seed, device, batch):
+    """CLIP in BASIC mode from ``seed``: (image embeddings, text embeddings,
+    logits per image, probabilities), the embeddings those of the
+    ``__call__``, all f32 on the CPU."""
+    device = resolve_device(device)
+    model = CLIPModel(cfg, device=device, seed=seed)
+    build_basic_mode(model)
+    g = torch.Generator().manual_seed(seed + 1)
+    v = cfg.vision
+    px = torch.randn(batch, v.num_channels, v.image_size, v.image_size, generator=g).to(device)
+    ids = torch.randint(0, cfg.text.vocab_size, (batch, cfg.text.max_position_embeddings),
+                        generator=g).to(device)
+    feats = {}
+    hooks = [proj.register_forward_hook(lambda m, i, o, k=k: feats.__setitem__(k, o))
+             for k, proj in (("image", model.visual_projection),
+                             ("text", model.text_projection))]
+    with torch.no_grad():
+        probs = model.zero_shot_classify(px, ids)
+        logits = model(ids, px)[0]
+    for h in hooks:
+        h.remove()
+    return [t.float().cpu() for t in (feats["image"], feats["text"], logits, probs)]
+
+
+def serve_lenet(seed, device, batch, dtype=torch.float32):
+    """LeNet-5 in BASIC mode from ``seed`` with its parameters and inputs in
+    ``dtype``: the logits, f32 on the CPU."""
+    device = resolve_device(device)
+    model = LeNet5(device=device, seed=seed)
+    build_basic_mode(model)
+    model.to(dtype)
+    x = torch.randn(batch, 1, 28, 28, generator=torch.Generator().manual_seed(seed + 1))
+    conv = dmx_modules._ConvNd._conv
+
+    def conv_in(self, x_, w):  # the Dmx conv computes in f32: here in dtype
+        return conv(self, x_.to(dtype), w.to(dtype)).to(torch.float32)
+
+    with torch.no_grad(), mock.patch.object(dmx_modules._ConvNd, "_conv", conv_in):
+        return model(x.to(device=device, dtype=dtype)).float().cpu()
 
 
 def serve(family, cfg, seed, device, batch, prompt, steps):
@@ -229,7 +307,7 @@ def serve_int8(family, cfg, seed, device, batch, prompt, steps, mode):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--family", choices=sorted(FAMILIES), default="opt")
+    ap.add_argument("--family", choices=sorted([*FAMILIES, "lenet"]), default="opt")
     ap.add_argument("--mode", choices=("basic", "weights", "sbfp", "fp8"), default="basic")
     ap.add_argument("--device", default=None, help="cpu, or the card (default)")
     ap.add_argument("--layers", type=int, default=12)
@@ -239,15 +317,41 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=7)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     a = ap.parse_args(argv)
+    if a.family == "lenet":
+        for seed in a.seeds:
+            d = (serve_lenet(seed, a.device, a.batch)
+                 - serve_lenet(seed, a.device, a.batch, torch.float64)).abs()
+            print(f"basic lenet seed {seed}, batch {a.batch}, on {a.device or 'cuda'}: logits "
+                  f"max |diff| {d.max().item():.4g} (share of logits that differ "
+                  f"{(d > 0).float().mean().item():.4f})")
+        return
     cfg = FAMILIES[a.family][0]()
-    if a.family == "t5":
+    if a.family == "clip":
+        cfg.vision.num_hidden_layers = cfg.text.num_hidden_layers = a.layers
+        cfg.text.vocab_size = a.vocab or cfg.text.vocab_size
+    elif a.family == "t5":
         cfg.num_layers = cfg.num_decoder_layers = a.layers
     elif a.family == "whisper":
         cfg.encoder_layers = cfg.decoder_layers = a.layers
     else:
         setattr(cfg, "n_layer" if a.family == "gpt2" else "num_hidden_layers", a.layers)
-    cfg.vocab_size = a.vocab or cfg.vocab_size
+    if a.family != "clip":
+        cfg.vocab_size = a.vocab or cfg.vocab_size
     for seed in a.seeds:
+        if a.family == "clip":
+            if a.mode != "basic":
+                raise SystemExit("--family clip takes --mode basic")
+            base = serve_clip(cfg, seed, a.device, a.batch)
+            with float64_sums(matmuls=True):
+                other = serve_clip(cfg, seed, a.device, a.batch)
+            diffs = [(x - y).abs().max().item() for x, y in zip(base, other)]
+            print(f"basic clip seed {seed}, {a.layers} + {a.layers} layers, vocab "
+                  f"{cfg.text.vocab_size}, batch {a.batch}, on {a.device or 'cuda'}: max |diff| "
+                  f"image embeddings {diffs[0]:.4g}, text embeddings {diffs[1]:.4g}, logits "
+                  f"{diffs[2]:.4g}, probabilities {diffs[3]:.4g} (largest |logit| "
+                  f"{base[2].abs().max().item():.4g}); argmax classes equal "
+                  f"{(base[3].argmax(-1) == other[3].argmax(-1)).sum().item()} of {a.batch}")
+            continue
         run = (a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)
         if a.family in SEQ2SEQ:
             if a.mode != "basic":

@@ -17,19 +17,31 @@ from .. import rawnn
 from ..nn import modules as dmxnn
 from ..nn.core import DmxModule
 
-# torch standard modules -> Dmx modules
+# torch standard modules -> Dmx modules (JAX's rows for nnx's; torch's
+# transposed conv, like nnx's, maps to nothing)
 DMX_AWARE_MAPPING: Dict[Type, Callable] = {
     nn.Linear: dmxnn.Linear.from_raw,
+    nn.Conv1d: dmxnn.Conv1d.from_raw,
+    nn.Conv2d: dmxnn.Conv2d.from_raw,
     nn.Embedding: dmxnn.Embedding.from_raw,
     nn.LayerNorm: dmxnn.LayerNorm.from_raw,
+    nn.RMSNorm: dmxnn.RMSNorm.from_raw,
+    nn.BatchNorm2d: dmxnn.BatchNorm2d.from_raw,
+    nn.GroupNorm: dmxnn.GroupNorm.from_raw,
+    nn.Dropout: dmxnn.Dropout.from_raw,
 }
 
 # rawnn functional-op wrappers -> Dmx modules
 RAW_OP_MAPPING: Dict[Type, Callable] = {
     rawnn.ResAdd: dmxnn.ResAdd.from_raw,
     rawnn.Mul: dmxnn.Mul.from_raw,
+    rawnn.MatMul: dmxnn.ActActMatMul.from_raw,
     rawnn.TiedLinear: dmxnn.Linear.from_tied,
+    rawnn.BAddBMM: dmxnn.BAddBMM.from_raw,
+    rawnn.Exp: dmxnn.Exp.from_raw,
+    rawnn.Softmax: dmxnn.Softmax.from_raw,
     rawnn.ReLU: dmxnn.ReLU.from_raw,
+    rawnn.ReLU6: dmxnn.ReLU6.from_raw,
     rawnn.SiLU: dmxnn.SiLU.from_raw,
     rawnn.Tanh: dmxnn.Tanh.from_raw,
     rawnn.GELU: dmxnn.GELU.from_raw,
@@ -37,6 +49,7 @@ RAW_OP_MAPPING: Dict[Type, Callable] = {
     rawnn.FastGELU: dmxnn.FastGELU.from_raw,
     rawnn.QuickGELU: dmxnn.QuickGELU.from_raw,
     rawnn.BloomGELU: dmxnn.BloomGELU.from_raw,
+    rawnn.Dropout: dmxnn.Dropout.from_raw,
     rawnn.ScaledDotProductAttention: dmxnn.ScaledDotProductAttention.from_raw,
     rawnn.ApplyRotaryPosEmb: dmxnn.ApplyRotaryPosEmb.from_raw,
     rawnn.RotaryEmbedding: dmxnn.RotaryEmbedding.from_raw,

@@ -52,9 +52,9 @@ NEW_PRESETS = sorted(
 MISSING_NAMES = {"Sparseness", "sparseness", "DmxConfig", "DmxTransformation",
                  "DmxSimplePipeline", "Model"}
 # the module types of the JAX package's rules that the port has no module
-# for yet (ROADMAP Queue A item 7)
-MISSING_MODULE_TYPES = {"ReLU6", "BatchNorm2d", "GroupNorm", "Exp", "Conv1d", "Conv2d",
-                        "ConvTranspose2d", "MaxPool2d", "AdaptiveAvgPool2d", "AvgPool2d"}
+# for yet: none since the op zoo's rest (conv, pool, ReLU6, BatchNorm2d,
+# GroupNorm, Exp) was ported
+MISSING_MODULE_TYPES = set()
 B, PROMPT, CAP, STEPS = 2, 8, 32, 6
 # FP8 and BASIC with SBFP storage, port vs JAX: FLOAT16 boundaries, a value
 # may land one fp16 step apart (LEG_TOL's BASIC figure of

@@ -1219,3 +1219,162 @@ def test_seq2seq_engine_on_card_matches_cpu(cuda, family):
             if margins[s] <= ENGINE_TOL:
                 break
             assert a[s] == b[s], f"request {i}, token {s}"
+
+
+# the op zoo's modules on the card against the CPU (the same weights and
+# input): each at a small shape, its casts SAME and in its type's BASIC
+# rule; f32 sums in another order, and under BASIC a FLOAT16 output one
+# fp16 step (2^-10 relative) apart at most
+ZOO_TOL = {"same": dict(rtol=1e-5, atol=1e-4), "basic": dict(rtol=2e-3, atol=1e-4)}
+
+
+def _zoo_module(name):
+    from dmx_compressor_tpu_torch.nn import modules as m
+
+    g = torch.Generator().manual_seed(3)
+    return {
+        "Conv1d": lambda: m.Conv1d(64, 32, 3, stride=2, padding=1, device="cpu", generator=g),
+        "Conv2d": lambda: m.Conv2d(64, 32, 3, padding=2, dilation=2, device="cpu",
+                                   generator=g),
+        "Conv2d groups": lambda: m.Conv2d(128, 64, 3, padding=1, groups=2, device="cpu",
+                                          generator=g),
+        "ConvTranspose2d": lambda: m.ConvTranspose2d(64, 64, 3, stride=2, padding=1,
+                                                     output_padding=1, device="cpu",
+                                                     generator=g),
+        "MaxPool2d": lambda: m.MaxPool2d(3, 2, 1),
+        "AvgPool2d": lambda: m.AvgPool2d(3, 2, 1),
+        "AdaptiveAvgPool2d": lambda: m.AdaptiveAvgPool2d((3, 5)),
+        "BatchNorm2d": lambda: m.BatchNorm2d(64, device="cpu"),
+        "GroupNorm": lambda: m.GroupNorm(8, 64, device="cpu"),
+        "ReLU6": lambda: m.ReLU6(),
+        "Exp": lambda: m.Exp(),
+    }[name]()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["same", "basic"])
+@pytest.mark.parametrize("name", ["Conv1d", "Conv2d", "Conv2d groups", "ConvTranspose2d",
+                                  "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "BatchNorm2d",
+                                  "GroupNorm", "ReLU6", "Exp"])
+def test_zoo_module_on_card_matches_cpu(cuda, name, fmt):
+    import copy
+
+    import dmx_compressor_tpu_torch as tdmx
+
+    mod = _zoo_module(name)
+    if fmt == "basic":
+        for rule in tdmx.config_rules.BASIC:
+            if isinstance(mod, rule.module_types):
+                mod.configure(rule.module_config)
+    C = 128 if name == "Conv2d groups" else 64
+    shape = (4, C, 300) if name == "Conv1d" else (4, C, 17, 19)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        want = mod(x)
+        got = copy.deepcopy(mod).to(cuda)(x.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, **ZOO_TOL[fmt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["Conv2d", "ConvTranspose2d"])
+def test_zoo_conv_is_f32_with_tf32_left_on(cuda, name):
+    """With ``torch.backends.cudnn.allow_tf32`` on, as a library user has
+    it, a Dmx conv still computes in f32 (TF32's 10-bit mantissas would
+    miss this tolerance by far), and the flag is left as it was."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        mod = _zoo_module(name)
+        x = torch.randn(4, 64, 33, 35, generator=torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            want = mod(x)
+            got = mod.to(cuda)(x.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32
+        torch.testing.assert_close(got.cpu(), want, **ZOO_TOL["same"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls", ["Conv1dUnfold", "Conv1dScatter", "Conv2dUnfold",
+                                 "Conv2dGather"])
+def test_experimental_conv_on_card_matches_cpu(cuda, cls):
+    from dmx_compressor_tpu_torch.nn import experimental as ex
+
+    nd = 1 if cls.startswith("Conv1d") else 2
+    raw = getattr(torch.nn, f"Conv{nd}d")(16, 32, 4, stride=2, padding=1)
+    mod = getattr(ex, cls).from_raw(raw)
+    mod.configure(dict(input_formats=["BFP[8|8]{64}(SN)"], weight_format="BFP[8|8]{64}(SN)",
+                       output_formats=["FP[1|5|10,15](FN)"]))
+    x = torch.randn((2, 16) + (40,) * nd, generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        want = mod(x)
+        kernels.reset_launches()
+        got = mod.to(cuda)(x.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bfp_cast"] == 3  # the patches', the weight's and the output cast
+    torch.testing.assert_close(got.cpu(), want, **ZOO_TOL["basic"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["weights", "baseline", "basic"])
+def test_clip_leg_on_card_matches_cpu(cuda, leg):
+    """A 2-layer CLIP with heads of 64 (every linear's K a multiple of 64),
+    its zero-shot probabilities on the card against the CPU: B1 (weights)
+    or T1 and T2 (basic) launched, no attention kernel."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.models import clip as tc
+    from dmx_compressor_tpu_torch.ops.compress import (
+        build_baseline_mode,
+        build_basic_mode,
+        build_weights_mode,
+    )
+
+    cfg = tc.CLIPConfig(
+        vision=tc.CLIPVisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                                   num_attention_heads=2, image_size=64, patch_size=16),
+        text=tc.CLIPTextConfig(vocab_size=300, hidden_size=128, intermediate_size=256,
+                               num_hidden_layers=2, num_attention_heads=2,
+                               max_position_embeddings=16), projection_dim=128)
+    build = {"weights": build_weights_mode, "baseline": build_baseline_mode,
+             "basic": build_basic_mode}[leg]
+    model = tc.CLIPModel(cfg, device=cuda, seed=0)
+    build(model)
+    rng = np.random.default_rng(7)
+    px = torch.from_numpy(rng.standard_normal((20, 3, 64, 64), np.float32))
+    ids = torch.from_numpy(rng.integers(0, 300, (20, 16)).astype(np.int32))
+    kernels.reset_launches()
+    with torch.no_grad():
+        card = model.zero_shot_classify(px.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    want = {"weights": {"bfp_linear": 26}, "baseline": {},
+            "basic": {"bfp_linear_bf16": 26, "bfp_cast": 149}}[leg]
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == want
+    model.to("cpu")
+    with torch.no_grad():
+        cpu = model.zero_shot_classify(px, ids)
+    tol = 1e-3 if leg != "basic" else 2e-2
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["baseline", "basic"])
+def test_lenet_leg_on_card_matches_cpu(cuda, leg):
+    from dmx_compressor_tpu_torch.models.lenet import LeNet5
+    from dmx_compressor_tpu_torch.ops.compress import build_baseline_mode, build_basic_mode
+
+    model = LeNet5(device=cuda, seed=0)
+    (build_basic_mode if leg == "basic" else build_baseline_mode)(model)
+    x = torch.randn(32, 1, 28, 28, generator=torch.Generator().manual_seed(8))
+    kernels.reset_launches()
+    with torch.no_grad():
+        card = model(x.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bfp_cast"] == (17 if leg == "basic" else 0)
+    model.to("cpu")
+    with torch.no_grad():
+        cpu = model(x)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-3)
