@@ -83,7 +83,7 @@ Phases (any failure exits non-zero):
    cProfile of the same steps.  The JAX bench's ratios (weights, SBFP,
    sbfp_wide and basic over baseline tokens/s) follow.
    Then three paths of each of bench.py's Llama-topology families at full
-   width, cut to ``FAMILY_PATH_LAYERS`` (4) layers, from seed 0, at the same
+   width, cut to ``FAMILY_PATH_LAYERS`` (2) layers, from seed 0, at the same
    batch, prompt and steps:
    ``llama-1.1b`` (TinyLlama-1.1B: 22 layers of 2048, MLP 5632, GQA 32
    query heads over 4 KV heads, vocab 32000, an untied head), ``qwen3-0.6b``
@@ -91,22 +91,22 @@ Phases (any failure exits non-zero):
    per-head q / k norms, MLP 3072, vocab 151936, tied) and ``gemma-2b``
    (Gemma-2B: 18 layers of 2048, 8 query heads over one KV head of 256,
    (1 + w) norms, a GeGLU MLP of 16384, vocab 256000, tied).  Llama's at L
-   = 4 (Qwen3's and Gemma's the same counts, Qwen3's q / k norms adding 4L
+   = 2 (Qwen3's and Gemma's the same counts, Qwen3's q / k norms adding 4L
    T2 a prefill and 2L a step):
    - llama_weights (BFP16_64 packed weights, int8 KV cache): prefill
-     4L+1 = 17 B1 and no B3 (an int8 prefill attends over the dequantized
+     4L+1 = 9 B1 and no B3 (an int8 prefill attends over the dequantized
      cache through quantized_sdpa, as in the JAX package), each decode step
-     17 B1 + 4 B2 (8 query heads a KV head);
-   - llama_baseline (BASELINE rules, f32 KV cache): prefill 4 B3 (BH 256,
-     the KV heads repeated to the query heads), each decode step 4 B4;
+     9 B1 + 2 B2 (8 query heads a KV head);
+   - llama_baseline (BASELINE rules, f32 KV cache): prefill 2 B3 (BH 256,
+     the KV heads repeated to the query heads), each decode step 2 B4;
    - llama_basic (BASIC rules, packed BFP16_64 weights, a float16 split
-     cache of 128 + 64): prefill 17 T1 + 40L+5 = 165 T2, prepare 2L = 8 T2,
-     each decode step 17 T1 + 21L+2 = 86 T2 (24L+3 casts: 3L+1 launches
+     cache of 128 + 64): prefill 9 T1 + 40L+5 = 85 T2, prepare 2L = 4 T2,
+     each decode step 9 T1 + 21L+2 = 44 T2 (24L+3 casts: 3L+1 launches
      are a FLOAT16 cast and the BFP cast of its output in one), every layer
      through the fused step.
    - llama_sbfp (bench.py's sbfp leg: SBFP12_16, scale bias 16, on every
-     Linear, the tied heads included; int8 KV): prefill 7L+1 = 29 B5 (q, k,
-     v and gate, up unmerged) and no B3, each step 29 B5 + 4 B2, every B5
+     Linear, the tied heads included; int8 KV): prefill 7L+1 = 15 B5 (q, k,
+     v and gate, up unmerged) and no B3, each step 15 B5 + 2 B2, every B5
      launch on its tensor-core route.
    Their CPU check runs the same build at ``FAMILY_CPU_LAYERS`` layers (the
    path's own depth: the card's run moved to the CPU; the basic path's
@@ -122,7 +122,7 @@ Phases (any failure exits non-zero):
    depth; its CPU checks at full depth, the basic path's at
    ``FAMILY_CPU_LAYERS``) and ``mistral-1b`` (2048 wide, 32 query heads
    over 8 KV heads of 64, MLP 5632, vocab 32000, untied, a sliding window
-   of 128; cut to ``FAMILY_PATH_LAYERS`` (4) of its 16 layers, L = 4 below;
+   of 128; cut to ``FAMILY_PATH_LAYERS`` (2) of its 16 layers, L = 2 below;
    its CPU check at ``FAMILY_CPU_LAYERS``):
    - gpt2_weights: prefill 4L+1 = 49 B1 and no B3 (an int8 prefill attends
      through quantized_sdpa, as for the families), each step 49 B1 + 12 B2;
@@ -132,28 +132,27 @@ Phases (any failure exits non-zero):
    - gpt2_basic: prefill 49 T1 + 34L+6 = 414 T2, prepare 2L = 24 T2, each
      step 49 T1 + 17L+3 = 207 T2 (OPT's 16L+3 and the tanh-GELU's FLOAT16
      output cast a block), every block through the fused GPT-2 step;
-   - mistral_weights: prefill and each step 4L+1 = 17 B1, no B2 or B3 (the
+   - mistral_weights: prefill and each step 4L+1 = 9 B1, no B2 or B3 (the
      band keeps the flash kernels away: quantized_sdpa);
-   - mistral_sbfp: prefill and each step 7L+1 = 29 B5, no B2 or B3;
+   - mistral_sbfp: prefill and each step 7L+1 = 15 B5, no B2 or B3;
    - mistral_baseline: no kernel of the port (cuBLAS f32 and the masked
      sdpa, as the JAX package routes a banded model);
-   - mistral_basic: prefill 17 T1 + 40L+5 = 165 T2, prepare 8 T2, each
-     step 17 T1 + 21L+2 = 86 T2, every layer through the fused step under
+   - mistral_basic: prefill 9 T1 + 40L+5 = 85 T2, prepare 4 T2, each
+     step 9 T1 + 21L+2 = 44 T2, every layer through the fused step under
      the banded mask; no B2, B3 or B4 on any Mistral path.
 4. Three paths of the continuous-batching engine (serving/engine.py) at
    examples/serving_bench.py's defaults: OPT-125m at full width from seed
    0, 8 slots, bursts of 16, 32 requests of a 96-token prompt and 64 new
-   tokens, one bucket of 96, max_len 176:
+   tokens, one bucket of 96, max_len 176, cut to ``ENGINE_CUT_LAYERS`` (4)
+   layers:
    - engine_weights: weights mode (BFP16_64, an int8 row cache);
-   - engine_weights_chunked: the same with chunked prefill (chunks of 32),
-     cut to ``ENGINE_CUT_LAYERS`` (4) layers;
-   - engine_raw: the raw model, cut to ``ENGINE_CUT_LAYERS`` (4) layers,
-     with an f32 row cache.
+   - engine_weights_chunked: the same with chunked prefill (chunks of 32);
+   - engine_raw: the raw model, with an f32 row cache.
    Then engine_llama_weights: the same traffic over TinyLlama-1.1B (full
-   width, seed 0, cut to ``ENGINE_LLAMA_LAYERS`` (8) layers) in weights
-   mode with int8 row caches of its 4 KV heads: each admission 4L+1 = 33 B1
+   width, seed 0, cut to ``ENGINE_LLAMA_LAYERS`` (4) layers) in weights
+   mode with int8 row caches of its 4 KV heads: each admission 4L+1 = 17 B1
    (M 96) and no B3 (an int8 prefill attends through quantized_sdpa), each
-   decode forward 33 B1 + 8 B2 over the GQA row caches.  Its tokens are held against isolated generation on
+   decode forward 17 B1 + 4 B2 over the GQA row caches.  Its tokens are held against isolated generation on
    the card for every fourth request, and its CPU check runs those
    requests through the same build cut to ``FAMILY_CPU_LAYERS`` layers in
    an engine on the card and one on the CPU.
@@ -217,12 +216,29 @@ Phases (any failure exits non-zero):
    ConvTranspose2d 64 -> 64 at stride 2, Exp, BAddBMM and the experimental
    convs, each under BASELINE and BASIC on the card (cuDNN's TF32 flag on)
    against the CPU, its T2 launches held (43 over the BASIC forwards).
-7. A ``kernels`` JSON line (launches by path, the engine paths included),
+7. The PTQ recipes on OPT-125m (full width, seed 0): the recipes phase
+   (each piece at one layer's shapes, card vs CPU: the observers' qparams,
+   Quantize / DeQuantize, the N:M and TopK masks, FLOP totals and the
+   plugins' call log bit for bit; SmoothQuant scales, GPTQ at (64, 128) and
+   (128, 128), SLaNC norms and AFT at stated tolerances); ptq_weights (the
+   weights-mode rules, SmoothQuant fused, GPTQ, then compressed and served
+   as the weights path: the recipes 73 + 1308 T2, then 49 B1 + 12 B3 a
+   prefill and 49 B1 + 12 B2 a step; every payload the GPTQ weight bit for
+   bit; the recipe run on the card against the CPU at 4 layers);
+   calib_basic (examples/model_calibration.py: 16060 T2; perplexities and
+   INT8 scales card vs CPU at 4 layers); int8kv_example
+   (examples/opt_int8_smoothquant_kv.py: 12 B3 + 84 B2; tokens against the
+   CPU).  The SBFP legs of T5, Whisper and CLIP (t5_sbfp, whisper_sbfp,
+   clip_sbfp: the weights paths' counts with B5 for B1) run with their
+   families' paths, and B5 with B1 and T1 at their shapes.
+8. A ``kernels`` JSON line (launches by path, the engine paths included),
    then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-The script imports nothing of JAX and nothing of the JAX package.  Without a
-CUDA device it exits non-zero and prints no result.
+``--only word,word`` runs only the phases whose name (spaces as underscores)
+holds a word, and prints no kernels line.  The script imports nothing of JAX
+and nothing of the JAX package.  Without a CUDA device it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -260,7 +276,7 @@ BASIC_LOGIT_TOL = 0.15
 # the Llama-topology paths' CPU check (Llama, Qwen3, Gemma): the same build
 # cut to this many layers (full width, seed 0), run on the card and on the
 # CPU
-FAMILY_CPU_LAYERS = 4
+FAMILY_CPU_LAYERS = 2  # 4 before the PTQ phases joined
 # each family's BASIC path's logits, GPU vs CPU at that depth, fixed before
 # the family's first run on the card from tools/order_sensitivity.py
 # --family <family> at the family's width, 4 layers, vocab cut to 2048,
@@ -343,7 +359,12 @@ KV8_TOL = 1e-2
 # of where the gap comes from (kv_witness): the prompt's int8 K/V entries
 # apart, card against CPU, and the same prefill's gap over an f32 cache
 SBFP_FAMILY_TOL = {"llama": 0.04, "qwen3": 0.05, "gemma": KV8_TOL, "mistral": 0.05,
-                   "gpt2": 0.04}
+                   "gpt2": 0.04,
+                   # t5_sbfp read 0.0138 at prefill on an H100 (its int8 self-
+                   # attention cache is read at prefill): twice that; --family
+                   # t5 --mode weights --layers 6 --batch 8 read 0.0060 (a K/V
+                   # entry one int8 step apart), --mode sbfp 1.7e-6 (none)
+                   "t5": 0.03, "whisper": KV8_TOL}
 # the encoder-decoder paths: T5's encoder inputs (128 token ids; the engine's
 # ragged 32-128, padded to this capacity), each family's decoder start tokens
 # (T5's decoder_start_token_id; Whisper's <|startoftranscript|><|en|>
@@ -359,12 +380,14 @@ S2S_ENC = 128
 # full depth) and engine_llama_weights at these depths; widths, traffic and
 # every check stay
 FP8_LAYERS = 2
-ENGINE_CUT_LAYERS = 4  # engine_weights_chunked and engine_raw
-ENGINE_LLAMA_LAYERS = 8
+# every OPT engine path (engine_weights included) and engine_llama_weights
+# at 4 layers: the time of the PTQ paths and the seq2seq / CLIP SBFP legs
+ENGINE_CUT_LAYERS = 4
+ENGINE_LLAMA_LAYERS = 4
 # the paths of bench.py's Llama-topology families (llama, qwen3, gemma,
 # mistral) at this depth (full width), that of their CPU checks; GPT-2's
 # BASIC CPU check at FAMILY_CPU_LAYERS
-FAMILY_PATH_LAYERS = 4
+FAMILY_PATH_LAYERS = 2  # 4 before the PTQ phases joined
 # the depth cut that buys back the vision families' and the op zoo's time:
 # whisper-small's paths (weights, baseline, basic) and its engine path at
 # this many layers a stack (full width), that of their CPU checks; its
@@ -456,7 +479,7 @@ def device_events(torch, run):
     return [(key, us) for key, us, _ in device_trace(torch, run)]
 
 
-def time_ms(torch, fn, arg_sets, min_iters: int = 20) -> float:
+def time_ms(torch, fn, arg_sets, min_iters: int = 10) -> float:
     """Device ms per call of ``fn``: the device time of all the work the
     calls launched (torch.profiler), cycling through ``arg_sets`` whose
     inputs together exceed L2, so each call finds its inputs cold as on the
@@ -552,7 +575,7 @@ def family_heads(cfg):
 
 def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shapes, ragged,
                  tol, seed, peak_flop_s=PEAK_F32_FLOP_S, lib_dtype=None, ab=None, planes=None,
-                 route_of=None, step_launches=None, min_iters=20):
+                 route_of=None, step_launches=None, min_iters=10):
     """A dequant-matmul kernel against its plain version at the decode (M =
     batch) and prefill (M = batch x prompt) shapes of ``step_shapes`` and at
     ``ragged`` (M, K, N) shapes; then its time per launch over one decode
@@ -797,7 +820,6 @@ def check_family_linears(torch, dev, shapes, sbfp_shapes, family, seed, ragged=(
         bfp_linear_ref,
         sbfp_linear,
         sbfp_linear_ref,
-        sbfp_route,
     )
     from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack, sbfp_pack, sbfp_unpack
     from dmx_compressor_tpu_torch.ops.compress import SBFP12_16
@@ -810,17 +832,10 @@ def check_family_linears(torch, dev, shapes, sbfp_shapes, family, seed, ragged=(
                       shapes, list(ragged), B1_TOL, seed=seed + 1, peak_flop_s=PEAK_BF16_FLOP_S,
                       lib_dtype=torch.bfloat16, min_iters=S2S_TIMED)
     fmt = Format.from_shorthand(SBFP12_16)
-
-    def b5_route(M, K, w):
-        route = sbfp_route(w, M, K)
-        if route != "tensor_cores":
-            raise AssertionError(f"B5 ({family}) {M}x{K}: SBFP12_16 took the {route} route")
-        return route, 3
-
     b5 = check_linear(torch, dev, f"B5 sbfp_linear ({family})", sbfp_linear, sbfp_linear_ref,
                       lambda w: sbfp_pack(w, fmt), sbfp_unpack, b5_bytes, sbfp_shapes,
-                      list(sbfp_ragged), B5_TOL, seed=seed + 100, route_of=b5_route,
-                      min_iters=S2S_TIMED)
+                      list(sbfp_ragged), B5_TOL, seed=seed + 100,
+                      route_of=b5_tensor_core_route(family), min_iters=S2S_TIMED)
     for case in b1[1] + t1[1] + b5[1]:
         case["path"] = family
     return b1, t1, b5
@@ -953,7 +968,7 @@ def heavy_tailed(torch, shape, g, dev):
             * torch.exp(3 * torch.randn(shape, generator=g, device=dev)))
 
 
-def t2_per_launch(torch, dev, g, step, steps=20):
+def t2_per_launch(torch, dev, g, step, steps=10):
     """T2's time per launch over one decode step's launches ``step``
     ((mode, shape, axis[, wl, block]) each; BFP16_64 where wl and block are
     left out), the kernel's and the plain version's, on random inputs of
@@ -997,7 +1012,7 @@ def record_t2(into: list):
         T2.bfp_cast, T2.fp16_cast = bfp, fp16
 
 
-def check_t2_sites(torch, dev, sites, step, what, steps=20, unit="decode step"):
+def check_t2_sites(torch, dev, sites, step, what, steps=10, unit="decode step"):
     """T2 against its plain version, bit for bit, at every cast site that a
     path's run recorded (``sites``: (mode, shape, axis, wl, block) from
     :func:`record_t2`): each distinct shape and axis in the BFP, FLOAT16 and
@@ -1897,7 +1912,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
     gpu_logits, gpu_tokens = logits.float().cpu(), tokens[:, :n].cpu()
     gpu_rows = rows[:n - 1].float().cpu()
     witness = spec.get("kv_witness", False)
-    card_kv = kv_prefix(caches) if witness else None
+    card_kv = kv_prefix(caches, prompt) if witness else None
     del logits, rows, caches
     if spec.get("cpu_cfg") is not None:
         # the full-depth model stays on the card: the same build at the CPU
@@ -1922,7 +1937,7 @@ def serve_path(torch, dev, kernels, cfg, spec):
         gpu_logits = glogits.float().cpu()
         gpu_tokens = torch.cat([gtok[:, None], gtoks], dim=1).cpu()
         gpu_rows = grows.float().cpu()
-        card_kv = kv_prefix(gcaches) if witness else None
+        card_kv = kv_prefix(gcaches, prompt) if witness else None
         del glogits, grows, gcaches
         if recording:
             spec["t2_sites"] = pre_sites + step_sites
@@ -1982,7 +1997,8 @@ def serve_path(torch, dev, kernels, cfg, spec):
             cpu_f32 = greedy_prefill(model, model.init_cache(BATCH, max_len=CAPACITY,
                                                              device="cpu"), ids)[0]
         f32_err = (card_f32 - cpu_f32).abs().max().item()
-        apart, total, steps, s_apart, s_total, rel = kv_gap(torch, card_kv, kv_prefix(cpu_caches))
+        apart, total, steps, s_apart, s_total, rel = kv_gap(torch, card_kv,
+                                                            kv_prefix(cpu_caches, prompt))
         log(f"{name} path: witness of the int8 cache: the prompt's int8 K/V, card vs CPU, "
             f"{apart} of {total} entries apart, by at most {steps} step(s); {s_apart} of "
             f"{s_total} row scales apart (largest relative {rel:.3g}); the same prefill over "
@@ -2090,10 +2106,10 @@ def fold_untied(torch, model):
     DmxModel(model).fold_weights_and_biases()
 
 
-def kv_prefix(caches):
-    """Each layer's int8 K and V payloads and row scales at the prompt's
-    positions (a QuantizedKVCache each), on the CPU."""
-    return [tuple(getattr(c, a)[:, :, :PROMPT].cpu() for a in ("k_q", "v_q", "k_scale", "v_scale"))
+def kv_prefix(caches, n):
+    """Each layer's int8 K and V payloads and row scales at the ``n``
+    prompt positions (a QuantizedKVCache each), on the CPU."""
+    return [tuple(getattr(c, a)[:, :, :n].cpu() for a in ("k_q", "v_q", "k_scale", "v_scale"))
             for c in caches]
 
 
@@ -2266,8 +2282,7 @@ def engine_run(torch, sb, model, quantized, requests, chunk=None):
 
 def engine_paths(torch, dev, kernels, cfg, card):
     """The OPT engine paths, one model after another (OPT at full width,
-    seed 0; engine_weights at full depth, engine_weights_chunked and
-    engine_raw cut to ``ENGINE_CUT_LAYERS``): per path an engine on the card
+    seed 0, cut to ``ENGINE_CUT_LAYERS``): per path an engine on the card
     and :func:`engine_closed_loop`; isolated generation on the card; the
     model moved to the CPU and the path's engine run again there.  Returns
     the launch counts by path."""
@@ -2279,7 +2294,7 @@ def engine_paths(torch, dev, kernels, cfg, card):
 
     by_path = {}
     cut = dataclasses.replace(cfg, num_hidden_layers=ENGINE_CUT_LAYERS)
-    for name, cfg in (("engine_weights", cfg), ("engine_weights_chunked", cut),
+    for name, cfg in (("engine_weights", cut), ("engine_weights_chunked", cut),
                       ("engine_raw", cut)):
         group = [sp for sp in engine_specs(cfg) if sp["name"] == name]
         mode = group[0]["mode"]
@@ -2480,6 +2495,9 @@ def seq2seq_path_specs(cfg, family):
       cross K/V at the same M), a step 10L+1 B1; T5 no attention kernel (its
       attention is the modular SDPA over ``cache.update``), Whisper L B2 a
       step and no B3 (an int8 prefill attends through quantized_sdpa);
+    - sbfp (bench.py's sbfp leg, ``build_sbfp_mode``: SBFP12_16 on every
+      Linear, int8 caches): the weights path's counts with B5 for B1, every
+      B5 launch on its tensor-core route;
     - baseline: T5 none (cuBLAS f32, the modular SDPA); Whisper L B3 at the
       4-token prefill over the f32 cache, L B4 a step;
     - basic (f32 cache, as JAX's ``generate``): 16L+1 T1 a prefill and 10L+1
@@ -2500,6 +2518,7 @@ def seq2seq_path_specs(cfg, family):
     from dmx_compressor_tpu_torch.ops.compress import (
         build_baseline_mode,
         build_basic_mode,
+        build_sbfp_mode,
         build_weights_mode,
     )
 
@@ -2524,8 +2543,10 @@ def seq2seq_path_specs(cfg, family):
     t2_pre, t2_step = ((33 * L + 6) + (50 * L + 5), 50 * L + 5) if whisper else (
         (38 * L + 4) + (52 * L + 5), 52 * L + 5)
     weights_step = {"bfp_linear": 10 * L + 1}
+    sbfp_step = {"sbfp_linear": 10 * L + 1}
     if whisper:
         weights_step["flash_decode_int8"] = L
+        sbfp_step["flash_decode_int8"] = L
         baseline = dict(prefill={"flash_attention": L}, step={"flash_decode": L},
                         marks={"flash_decode": ("flash_decode_kernel",)})
     else:
@@ -2536,6 +2557,13 @@ def seq2seq_path_specs(cfg, family):
              prepare=None, step=weights_step,
              marks={k: {"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS}[k]
                     for k in weights_step}, logit_tol=KV8_TOL),
+        dict(common, name=f"{family}_sbfp", build=on_model(build_sbfp_mode),
+             cache=dict(cache, quantized=True), prefill={"sbfp_linear": 16 * L + 1},
+             prepare=None, step=sbfp_step,
+             routes=({"tensor_cores": 16 * L + 1}, {"tensor_cores": 10 * L + 1}),
+             marks={k: {"sbfp_linear": B5_MARKS, "flash_decode_int8": B2_MARKS}[k]
+                    for k in sbfp_step}, logit_tol=SBFP_FAMILY_TOL[family],
+             kv_witness=SBFP_FAMILY_TOL[family] > KV8_TOL),
         dict(common, name=f"{family}_baseline", build=on_model(build_baseline_mode), cache=cache,
              prepare=None, logit_tol=LOGIT_TOL, **baseline),
         dict(common, name=f"{family}_basic", build=on_model(build_basic_mode), cache=cache,
@@ -2567,39 +2595,63 @@ def seq2seq_linear_shapes(cfg, family):
     return prefill, step
 
 
+def b5_tensor_core_route(path):
+    """``route_of`` for SBFP12_16 payloads: every shape of ``path`` on B5's
+    tensor-core route (3 bf16 plane products), or the run fails."""
+    from dmx_compressor_tpu_torch.ops.bfp_linear import sbfp_route
+
+    def route_of(M, K, w):
+        route = sbfp_route(w, M, K)
+        if route != "tensor_cores":
+            raise AssertionError(f"B5 ({path}) {M}x{K}: SBFP12_16 took the {route} route")
+        return route, 3
+
+    return route_of
+
+
 def check_path_linears(torch, dev, path, shapes, step, seed):
-    """B1 and T1 at a path's packed linear shapes ``shapes`` ((M, K, N),
-    each M the rows its launch takes) against their plain versions, each
-    case's time, plain time, library time (torch.matmul on the dequantized
-    weight, bf16 for T1) and bound; then per launch over ``step`` ((M, K,
-    N, launches): a decode step's launches, or a forward's, as the path
-    makes them).  Each timing takes at least S2S_TIMED calls.  Returns
-    ((B1's per-step numbers, cases), (T1's ...)), each case marked
-    ``path``."""
+    """B1, T1 and B5 (SBFP12_16) at a path's packed linear shapes ``shapes``
+    ((M, K, N), each M the rows its launch takes) against their plain
+    versions, each case's time, plain time, library time (torch.matmul on
+    the dequantized weight, bf16 for T1) and bound; then per launch over
+    ``step`` ((M, K, N, launches): a decode step's launches, or a forward's,
+    as the path makes them; the sbfp path's are the weights path's).  Each
+    timing takes at least S2S_TIMED calls.  Returns ((B1's per-step
+    numbers, cases), (T1's ...), (B5's ...)), each case marked ``path``."""
+    from dmx_compressor_tpu_torch.numerics.format import Format
     from dmx_compressor_tpu_torch.ops.bfp_linear import (
         bfp_linear,
         bfp_linear_bf16,
         bfp_linear_bf16_ref,
         bfp_linear_ref,
+        sbfp_linear,
+        sbfp_linear_ref,
     )
-    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack, sbfp_pack, sbfp_unpack
+    from dmx_compressor_tpu_torch.ops.compress import SBFP12_16
 
+    fmt = Format.from_shorthand(SBFP12_16)
     out = []
-    for label, kern, plain, s, peak, lib in (
-            ("B1 bfp_linear", bfp_linear, bfp_linear_ref, seed, PEAK_F32_FLOP_S, None),
+    for label, kern, plain, s, peak, lib, pack, unpack, nbytes, tol, extra in (
+            ("B1 bfp_linear", bfp_linear, bfp_linear_ref, seed, PEAK_F32_FLOP_S, None,
+             lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, B1_TOL, dict(planes=3)),
             ("T1 bfp_linear_bf16", bfp_linear_bf16, bfp_linear_bf16_ref, seed + 1,
-             PEAK_BF16_FLOP_S, torch.bfloat16)):
+             PEAK_BF16_FLOP_S, torch.bfloat16, lambda w: bfp_pack(w, 8, 64), bfp_unpack,
+             b1_bytes, B1_TOL, {}),
+            ("B5 sbfp_linear", sbfp_linear, sbfp_linear_ref, seed + 100, PEAK_F32_FLOP_S, None,
+             lambda w: sbfp_pack(w, fmt), sbfp_unpack, b5_bytes, B5_TOL,
+             dict(route_of=b5_tensor_core_route(path)))):
         out.append(check_linear(
-            torch, dev, f"{label} ({path})", kern, plain, lambda w: bfp_pack(w, 8, 64),
-            bfp_unpack, b1_bytes, [], shapes, B1_TOL, seed=s, peak_flop_s=peak, lib_dtype=lib,
-            planes=3 if lib is None else None, step_launches=step, min_iters=S2S_TIMED))
+            torch, dev, f"{label} ({path})", kern, plain, pack, unpack, nbytes, [], shapes, tol,
+            seed=s, peak_flop_s=peak, lib_dtype=lib, step_launches=step, min_iters=S2S_TIMED,
+            **extra))
         for case in out[-1][1]:
             case["path"] = path
     return out
 
 
 def check_seq2seq_linears(torch, dev, cfg, family, seed):
-    """B1 and T1 at an encoder-decoder family's packed linear shapes
+    """B1, T1 and B5 at an encoder-decoder family's packed linear shapes
     (:func:`seq2seq_linear_shapes`: the encoder's and the cross K/V's M,
     whisper-small's 12000 x 768 x 768 among them; the decoder's M 8 and 8 x
     start; the tied head, whisper-small's N 51865 odd), per launch over one
@@ -2762,10 +2814,11 @@ def clip_launches(cfg):
     mask through one more add, 3), the vision tower's position embedding
     and pre- / post-LayerNorm 5, the text tower's two embeddings and final
     LayerNorm 4, each projection 1 (at 8 rows its linear fuses: the input
-    cast in T2, the FLOAT16 output in T1's epilogue)."""
+    cast in T2, the FLOAT16 output in T1's epilogue).  The sbfp build (SBFP12_16
+    on every Linear) launches B5 where weights launches B1."""
     Lv, Lt = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
     n = 6 * Lv + 6 * Lt + 2
-    return {"weights": {"bfp_linear": n}, "baseline": {},
+    return {"weights": {"bfp_linear": n}, "sbfp": {"sbfp_linear": n}, "baseline": {},
             "basic": {"bfp_linear_bf16": n, "bfp_cast": (33 * Lv + 5) + (36 * Lt + 4) + 2}}
 
 
@@ -2797,14 +2850,17 @@ def clip_linear_shapes(cfg):
 
 
 def clip_path_specs():
-    """The three CLIP paths: bench.py's weights, baseline and basic builds."""
+    """The four CLIP paths: bench.py's weights, sbfp, baseline and basic
+    builds."""
     from dmx_compressor_tpu_torch.ops.compress import (
         build_baseline_mode,
         build_basic_mode,
+        build_sbfp_mode,
         build_weights_mode,
     )
 
     return [dict(name="clip_weights", mode="weights", build=build_weights_mode, tol=LOGIT_TOL),
+            dict(name="clip_sbfp", mode="sbfp", build=build_sbfp_mode, tol=LOGIT_TOL),
             dict(name="clip_baseline", mode="baseline", build=build_baseline_mode,
                  tol=LOGIT_TOL),
             dict(name="clip_basic", mode="basic", build=build_basic_mode, tol=CLIP_BASIC_TOL,
@@ -2907,7 +2963,8 @@ def clip_path(torch, dev, kernels, cfg, spec):
     if linear is None:
         split = "(its linears run cuBLAS)"
     else:
-        marks = B1_MARKS if linear == "bfp_linear" else T1_MARKS
+        marks = {"bfp_linear": B1_MARKS, "sbfp_linear": B5_MARKS,
+                 "bfp_linear_bf16": T1_MARKS}[linear]
         lin_ms = sum(us for k, us in events if any(m in k for m in marks)) / 1e3 / 2
         split = f"of which {linear} {lin_ms:.4f} ms over {forward[linear]} launches"
     if "bfp_cast" in forward:
@@ -2944,7 +3001,7 @@ def clip_path(torch, dev, kernels, cfg, spec):
 
 
 def check_clip_linears(torch, dev, cfg, seed):
-    """B1 and T1 at CLIP ViT-B/32's eight packed linear shapes
+    """B1, T1 and B5 at CLIP ViT-B/32's eight packed linear shapes
     (:func:`clip_linear_shapes`), per launch over a forward's 146."""
     step = clip_linear_shapes(cfg)
     return check_path_linears(torch, dev, "clip", sorted({s[:3] for s in step}), step, seed)
@@ -3165,6 +3222,691 @@ def zoo_phase(torch, dev, kernels):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the PTQ recipes (calibration, SmoothQuant, GPTQ and the rest)
+# ---------------------------------------------------------------------------
+
+# the recipes' calibration batch: 4 x 128 token ids from numpy seed 1
+PTQ_CALIB = (4, 128)
+PTQ_GPTQ = dict(microblock_size=64, block_size=128, percdamp=0.01)
+# SmoothQuant scales, card vs CPU: the maxabs of f32 matmul outputs summed in
+# another order, and powf on CUDA against the CPU's (an ulp apart at ~1 % of
+# the channels, as XLA's against torch's)
+PTQ_SQ_RTOL = 1e-5
+# ... and over a whole model (ptq_recipe_parity, 4 layers): each deeper
+# Linear's input maxabs comes from activations summed in another order, and a
+# channel whose maxabs is small moves most relatively: an H100 read 1.75e-4,
+# twice that
+PTQ_MODEL_SQ_RTOL = 3.5e-4
+# ptq_weights' prefill logits, the recipe run on the card against the same
+# recipe run on the CPU (the same raw weights): the GPTQ weights that a last
+# bit of the Hessian's sums or of the float64 factorizations moves one BFP16
+# step apart (353 of 66.9M at 4 layers) shift them, and each step weighs
+# with an undivided input (the SmoothQuant-folded payloads, as in JAX): an
+# H100 read 0.1 at 4 layers, 0.0441 at 2, above LOGIT_TOL, so twice the larger
+PTQ_LOGIT_TOL = 0.2
+# ptq_weights' logits card vs CPU (the same build): its decode steps read the
+# int8 cache, whose entries card and CPU may round one step apart (the
+# weights path's case, KV8_TOL), and the SmoothQuant-folded payloads meet
+# undivided inputs (as in the JAX package), which widens the K/V rows; an
+# H100 read 0.0308 at a decode step at 4 layers and 0.105 at 2 (logits up to
+# ~18): twice the larger, the int8 cache's witness printed
+PTQ_PATH_TOL = 0.21
+# the calibration example, card vs CPU: an activation an ulp apart rounds to
+# the next INT8 step and the steps compound over the layers (the port
+# against the JAX package on the CPU: 0.3 %, tests/test_torch_recipes.py);
+# an H100 read 0.80 % at 4 layers, 0.63 % at 2: twice the larger
+CALIB_PPL_RTOL = 0.016
+CALIB_SCALE_RTOL = 1e-2
+# SLaNC's norms card vs CPU: f32 matmuls and cuSOLVER's f32 SVD against
+# LAPACK's (an H100 read 9.5e-5 apart, the card's 9.3e-5 off the float64
+# reference, printed beside)
+SLANC_RTOL = 1e-3
+# the calibration example's CPU check: its perplexities over 64 ids (two
+# windows), not 512: at 4 layers the CPU takes ~2 minutes over 512 (the
+# BASIC head's weight cast of 50272 x 768 at every forward)
+CALIB_CPU_IDS = 64
+# the recipes phase: each piece at one OPT-125m layer's shapes
+RECIPE_X = (8, 128)  # activations [8, 128, K]
+
+
+def ptq_recipe_launches(cfg):
+    """The launches of the ptq_weights recipes over one calibration batch,
+    derived from the code (weights_mode_rules: SAME activations, BFP16_64
+    weight casts; no cache: no attention kernel): the SmoothQuant forward
+    casts each of the 6L+1 Linears' weights once (T2); GPTQ's forward casts
+    nothing (its weight casts are off while the Hessian accumulates), and
+    its update casts each microblock of 64 input columns once: L(4d + d +
+    f) / 64 + d / 64 T2 (1308 at OPT-125m)."""
+    L, d, f = cfg.num_hidden_layers, cfg.hidden_size, cfg.ffn_dim
+    return {"SmoothQuant": {"bfp_cast": 6 * L + 1},
+            "GPTQ": {"bfp_cast": L * (5 * d + f) // PTQ_GPTQ["microblock_size"]
+                     + d // PTQ_GPTQ["microblock_size"]}}
+
+
+def ptq_recipes(torch, kernels, model, stats=None):
+    """The ptq_weights build before compression, in place: the weights-mode
+    rules, then SmoothQuant (migration 0.5, fused into the weights), then
+    GPTQ (microblock 64, block 128, damping 0.01), each over the PTQ_CALIB
+    batch.  With ``stats`` each recipe's wall seconds, peak device memory and
+    launches are recorded there.  Returns the DmxModel."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.advanced_recipe import (
+        DmxGPTQRecipe,
+        DmxSmoothQuantRecipe,
+        gptq_for_all_linears,
+        smoothquant_for_all_linears,
+    )
+    from dmx_compressor_tpu_torch.ops.compress import weights_mode_rules
+
+    dev = next(model.parameters()).device
+    on_card = dev.type == "cuda"
+    dm = weights_mode_rules(model)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, PTQ_CALIB)).to(dev)
+    for what, recipe in (
+            ("SmoothQuant", DmxSmoothQuantRecipe(smoothquant_for_all_linears(0.5, True))),
+            ("GPTQ", DmxGPTQRecipe(gptq_for_all_linears(**PTQ_GPTQ)))):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with recipe.applied_to(dm), torch.no_grad():
+            dm(ids)
+        if on_card:
+            torch.cuda.synchronize()
+        if stats is not None:
+            stats[what] = dict(
+                seconds=round(time.perf_counter() - t0, 3),
+                peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3) if on_card else None,
+                launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+    return dm
+
+
+def linear_weights(torch, model):
+    """{path: a copy of the weight} of every Dmx Linear of ``model``."""
+    from dmx_compressor_tpu_torch import nn as dmxnn
+
+    return {n: m.weight.detach().clone() for n, m in model.named_modules()
+            if isinstance(m, dmxnn.Linear)}
+
+
+def check_ptq_payloads(torch, model, weights):
+    """Every packed payload of ``model`` unpacks to the GPTQ weight it was
+    packed from, bit for bit (GPTQ leaves each weight on BFP16_64's grid; a
+    merged q/k/v payload the three concatenated).  Returns the number held."""
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_unpack
+    from dmx_compressor_tpu_torch.ops.compress import PackedBFPLinear
+
+    held = 0
+    for name, m in model.named_modules():
+        if not isinstance(m, PackedBFPLinear) or m.weight_mantissa is None:
+            continue
+        if name.endswith("qkv_merged"):
+            prefix = name[:-len("qkv_merged")]
+            w = torch.cat([weights[prefix + p] for p in ("q_proj", "k_proj", "v_proj")])
+        else:
+            w = weights[name]
+        if not torch.equal(bfp_unpack(m.packed), w.to(m.weight_mantissa.device)):
+            raise AssertionError(f"ptq_weights: {name}'s payload does not unpack to its GPTQ "
+                                 f"weight")
+        held += 1
+    return held
+
+
+def bfp_steps(torch, w, precision=8, block=64):
+    """Each weight's BFP16_64 step, 2^(exponent + 2 - precision)."""
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack
+
+    e = bfp_pack(w, precision, block).exponent.to(torch.float32)
+    return torch.exp2(e.repeat_interleave(block, dim=-1) + 2 - precision)
+
+
+def gptq_apart(torch, card_w, cpu_w):
+    """(weights apart, weights, most steps apart) of two GPTQ results."""
+    a, b = card_w.cpu(), cpu_w.cpu()
+    steps = ((a - b).abs() / bfp_steps(torch, b)).max().item()
+    return int((a != b).sum()), a.numel(), steps
+
+
+def ptq_spec(cfg, stats, weights):
+    """The ptq_weights path: OPT-125m at full width and depth from the
+    weights path's raw weights (seed 0), :func:`ptq_recipes`, then
+    ``compress_for_inference`` and bench.py's decode through the int8 KV
+    cache.  After compression the launches are the weights path's: a
+    prefill 4L+1 B1 + L B3, a step 4L+1 B1 + L B2 (q/k/v merge: the packed
+    linears carry SmoothQuants of their own, idle, as in the JAX package).
+    Its CPU check runs the same build at FAMILY_CPU_LAYERS on the card and
+    the CPU; :func:`ptq_recipe_parity` holds the recipe itself."""
+    from dmx_compressor_tpu_torch.ops.compress import compress_for_inference, set_inference_mode
+
+    L = cfg.num_hidden_layers
+
+    def build(model):
+        import torch
+
+        from dmx_compressor_tpu_torch import kernels
+
+        deep = model.cfg.num_hidden_layers == L
+        dm = ptq_recipes(torch, kernels, model, stats if deep else None)
+        if deep:
+            weights.update(linear_weights(torch, model))
+        compress_for_inference(dm)
+        set_inference_mode(True)
+        if deep:
+            stats["payloads_held"] = check_ptq_payloads(torch, model, weights)
+        return dm
+
+    import dataclasses
+
+    return dict(name="ptq_weights", build=build, cache=dict(max_len=CAPACITY, quantized=True),
+                prefill={"bfp_linear": 4 * L + 1, "flash_attention": L}, prepare=None,
+                step={"bfp_linear": 4 * L + 1, "flash_decode_int8": L},
+                marks={"bfp_linear": B1_MARKS, "flash_decode_int8": B2_MARKS},
+                cpu_cfg=dataclasses.replace(cfg, num_hidden_layers=FAMILY_CPU_LAYERS),
+                logit_tol=PTQ_PATH_TOL, kv_witness=True)
+
+
+def ptq_recipe_parity(torch, dev, kernels, cfg):
+    """The ptq_weights recipe at ``cfg`` (FAMILY_CPU_LAYERS layers, full
+    width) run on the card and on the CPU from the same raw weights: every
+    Linear's SmoothQuant scale (PTQ_MODEL_SQ_RTOL), the share of GPTQ weights
+    equal and none more than one BFP16_64 step apart (the float64 Cholesky
+    of cuSOLVER and of LAPACK differ in last bits), then each compressed,
+    the card's prefill logits against the CPU's (PTQ_LOGIT_TOL).  Returns
+    its numbers."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.models.shared import greedy_prefill
+    from dmx_compressor_tpu_torch.ops.compress import compress_for_inference, set_inference_mode
+
+    card = OPTForCausalLM(cfg, device=dev, seed=0)
+    cpu = OPTForCausalLM(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    times, dms = {}, {}
+    for where, model in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        dms[where] = ptq_recipes(torch, kernels, model)
+        times[where] = round(time.perf_counter() - t0, 2)
+    sq_err, apart, total, steps = 0.0, 0, 0, 0.0
+    cpu_mods = dict(cpu.named_modules())
+    for name, w in linear_weights(torch, card).items():
+        sq, csq = dict(card.named_modules())[name].smoothquant, cpu_mods[name].smoothquant
+        rel = ((sq.scale.cpu() - csq.scale).abs() / csq.scale.abs()).max().item()
+        sq_err = max(sq_err, rel)
+        a, n, s = gptq_apart(torch, w, cpu_mods[name].weight.detach())
+        apart, total, steps = apart + a, total + n, max(steps, s)
+    log(f"ptq recipes at {cfg.num_hidden_layers} layers: card {times['card']} s, CPU "
+        f"{times['cpu']} s; SmoothQuant scales card vs CPU largest relative difference "
+        f"{sq_err:.3g} (tolerance {PTQ_MODEL_SQ_RTOL}); GPTQ weights card vs CPU: {apart} of "
+        f"{total} apart ({apart / total:.3g}), at most {steps:.3g} BFP16_64 step(s)")
+    if not sq_err <= PTQ_MODEL_SQ_RTOL:
+        raise AssertionError("ptq recipes: SmoothQuant scales disagree with the CPU run")
+    if not steps <= 1.0:
+        raise AssertionError("ptq recipes: a GPTQ weight lands more than one step from the CPU's")
+    ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                        generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for where, model in (("card", card), ("cpu", cpu)):
+        compress_for_inference(dms[where])
+        set_inference_mode(True)
+        d = next(model.parameters()).device
+        with memo_unpack():
+            logits[where] = greedy_prefill(
+                model, model.init_cache(BATCH, CAPACITY, quantized=True, device=d),
+                ids.to(d))[0].float().cpu()
+    set_inference_mode(False)
+    err = (logits["card"] - logits["cpu"]).abs().max().item()
+    log(f"ptq recipes: prefill logits, the card's recipe on the card against the CPU's on the "
+        f"CPU: max_abs_err={err:.3g} (tolerance {PTQ_LOGIT_TOL}; largest |logit| "
+        f"{logits['cpu'].abs().max().item():.4g}, share of logits apart by more than "
+        f"{LOGIT_TOL}: {((logits['card'] - logits['cpu']).abs() > LOGIT_TOL).float().mean():.3g})")
+    if not (err <= PTQ_LOGIT_TOL and np.isfinite(err)):
+        raise AssertionError("ptq recipes: the card's calibrated model disagrees with the CPU's")
+    del card, cpu, dms
+    torch.cuda.empty_cache()
+    return dict(sq_rel=sq_err, gptq_apart=apart, gptq_weights=total, gptq_steps=steps,
+                logit_err=err, seconds=times)
+
+
+def calib_launches(cfg, windows):
+    """The calibration example's launches at ``cfg``, derived from the code
+    (no cache anywhere, so no attention kernel; the Linears unpacked, each
+    weight cast at every forward): the f32 perplexity none; a BASIC forward
+    42L+7 T2 (each layer's LayerNorms 2 + 2, q, k, v, out_proj, fc1 and fc2
+    their BFP input, BFP weight and FLOAT16 output casts 18, the SDPA's 14,
+    ReLU 2, the residual adds 3 + 3; the embeddings' 2, the final LayerNorm's
+    2, the head's 3), ``windows`` of them for the BASIC perplexity; a forward
+    with INT8 Linear inputs 36L+6 (their input casts plain torch), once
+    under the MinMax calibration, once under SmoothQuant's and ``windows``
+    times for the calibrated perplexity."""
+    L = cfg.num_hidden_layers
+    return {"bfp_cast": windows * (42 * L + 7) + (windows + 2) * (36 * L + 6)}
+
+
+def calib_basic_path(torch, dev, kernels, cfg, cpu_cfg):
+    """The port's examples/model_calibration.py flow (``calibrate``) at
+    ``cfg`` on the card from seed 0: its three perplexities over 512 ids in
+    windows of 32, its launches (:func:`calib_launches`, counters set to 0
+    just before and read just after) and wall time; then at ``cpu_cfg``
+    (FAMILY_CPU_LAYERS) on the card and on the CPU from the same raw weights,
+    over CALIB_CPU_IDS ids: the perplexities (CALIB_PPL_RTOL) and every
+    Linear's INT8 input scale
+    (CALIB_SCALE_RTOL) and zero point.  Returns the launch counts."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.examples.model_calibration import calibrate
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import set_inference_mode
+
+    set_inference_mode(False)  # as the example runs in a process of its own
+    windows = 512 // 32
+    model = OPTForCausalLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = calibrate(model, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {**dict.fromkeys(launches, 0), **calib_launches(cfg, windows)}
+    log(f"calib_basic path: {cfg.num_hidden_layers} layers, {wall:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; perplexity f32 {out['fp32']:.4f}, "
+        f"BASIC {out['basic']:.4f}, BASIC + INT8 inputs calibrated + SmoothQuant "
+        f"{out['calibrated']:.4f}; launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError("the calib_basic path did not launch the kernels the expected "
+                             "number of times")
+    if not all(np.isfinite(out[k]) and out[k] > 1 for k in ("fp32", "basic", "calibrated")):
+        raise AssertionError("calib_basic path: a perplexity is not finite")
+    del model, out
+    torch.cuda.empty_cache()
+
+    card = OPTForCausalLM(cpu_cfg, device=dev, seed=0)
+    cpu = OPTForCausalLM(cpu_cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    res = {}
+    for where, m in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        res[where] = calibrate(m, np.random.default_rng(0), eval_len=CALIB_CPU_IDS)
+        res[where]["seconds"] = round(time.perf_counter() - t0, 2)
+    for k in ("fp32", "basic", "calibrated"):
+        a, b = res["card"][k], res["cpu"][k]
+        log(f"calib_basic at {cpu_cfg.num_hidden_layers} layers: perplexity {k} card {a:.6f}, "
+            f"CPU {b:.6f} (relative {abs(a - b) / b:.3g}, tolerance {CALIB_PPL_RTOL})")
+        if not abs(a - b) <= CALIB_PPL_RTOL * b:
+            raise AssertionError(f"calib_basic: the {k} perplexity disagrees with the CPU run")
+    worst, zp_apart, n = 0.0, 0, 0
+    cpu_mods = dict(res["cpu"]["dm"].named_dmx_modules())
+    for name, m in res["card"]["dm"].named_dmx_modules():
+        if name in cpu_mods and hasattr(m, "weight") and m.has_weight and m.ch_axis == -1:
+            a, b = m.input_casts["input_cast"], cpu_mods[name].input_casts["input_cast"]
+            worst = max(worst, ((a.scale.cpu() - b.scale).abs() / b.scale).max().item())
+            zp_apart += int((a.zero_point.cpu() != b.zero_point).sum())
+            n += 1
+    log(f"calib_basic at {cpu_cfg.num_hidden_layers} layers: the {n} Linears' MinMax INT8 input "
+        f"scales card vs CPU: largest relative difference {worst:.3g} (tolerance "
+        f"{CALIB_SCALE_RTOL}), {zp_apart} zero point(s) apart; card {res['card']['seconds']} s, "
+        f"CPU {res['cpu']['seconds']} s")
+    if not worst <= CALIB_SCALE_RTOL:
+        raise AssertionError("calib_basic: the observers' scales disagree with the CPU run")
+    del card, cpu, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8kv_path(torch, dev, kernels, cfg):
+    """The port's examples/opt_int8_smoothquant_kv.py at ``cfg`` on the
+    card from seed 0: INT8 per-group weights (group 64, MinMax, symmetric),
+    SmoothQuant fused, the perplexities, then greedy decode of batch 2 x 8
+    prompt ids through the int8 KV cache, 8 tokens, with the counters set
+    to 0 just before and read just after (the build launches nothing: INT8
+    weight casts are plain torch; a prefill L B3, each of the 7 steps L B2).
+    The built model is then moved to the CPU and fed the card's tokens: each
+    step's logits within KV8_TOL, each token the CPU's where its top-1/top-2
+    margin exceeds it.  Returns the launch counts."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.examples.opt_int8_smoothquant_kv import build, generate
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import set_inference_mode
+
+    set_inference_mode(False)  # as the example runs in a process of its own
+    L, G, nb, T = cfg.num_hidden_layers, 8, 2, 8
+    model = OPTForCausalLM(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = build(model, rng)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    built = dict(kernels.LAUNCHES)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (nb, T)))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    toks = generate(model, ids.to(dev), G)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    zero = dict.fromkeys(launches, 0)
+    want = {**zero, "flash_attention": L, "flash_decode_int8": (G - 1) * L}
+    log(f"int8kv_example path: build {t_build:.2f} s (launches {built}, expected {zero}), "
+        f"perplexity f32 {out['fp32']:.4f}, INT8-group + SmoothQuant {out['quantized']:.4f}; "
+        f"greedy decode {t_gen:.2f} s, launches {launches} (expected {want}); tokens "
+        f"{toks.tolist()}")
+    if built != zero or launches != want:
+        raise AssertionError("the int8kv_example path did not launch the kernels the expected "
+                             "number of times")
+    # the card's logits over its own tokens, teacher-forced (not counted),
+    # then the same on the CPU
+    rows = {}
+    card_toks = toks.cpu()
+    for where in ("card", "cpu"):
+        if where == "cpu":
+            model.to("cpu")
+            torch.cuda.empty_cache()
+        d = next(model.parameters()).device
+        caches = model.init_cache(nb, T + G, quantized=True, device=d)
+        with torch.no_grad():
+            r = [model(ids.to(d), caches=caches, position_offset=0)[:, -1]]
+            for i in range(G - 1):
+                r.append(model(card_toks[:, i:i + 1].to(d), caches=caches,
+                               position_offset=T + i)[:, -1])
+        rows[where] = torch.stack(r).float().cpu()  # [G, nb, V]
+    errs = (rows["card"] - rows["cpu"]).abs().amax(dim=(1, 2)).tolist()
+    log(f"int8kv_example: logits card vs CPU (the CPU fed the card's tokens), per step: "
+        f"max_abs_err {', '.join(f'{e:.3g}' for e in errs)} (tolerance {KV8_TOL})")
+    if not max(errs) <= KV8_TOL:
+        raise AssertionError("int8kv_example: the logits disagree with the CPU run")
+    top2 = rows["cpu"].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > KV8_TOL).T
+    if (clear & (rows["cpu"].argmax(-1).T != card_toks)).any():
+        raise AssertionError("int8kv_example: a greedy token differs from the CPU's choice")
+    log(f"int8kv_example: greedy tokens card vs CPU on the same inputs: {int(clear.sum())} of "
+        f"{nb * G} held (top-1/top-2 margin > {KV8_TOL}), all equal")
+    del model
+    return launches
+
+
+def both_devices(torch, dev, fn):
+    """``fn(device)`` on the card and on the CPU: (card result on the CPU,
+    CPU result); tensors, or tuples / lists / dicts of them."""
+    def to_cpu(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu()
+        if isinstance(v, (tuple, list)):
+            return type(v)(to_cpu(a) for a in v)
+        if isinstance(v, dict):
+            return {k: to_cpu(a) for k, a in v.items()}
+        return v
+
+    return to_cpu(fn(dev)), to_cpu(fn(torch.device("cpu")))
+
+
+def slanc_f64(torch, d, f):
+    """:func:`recipes_phase`'s three SLaNC norms computed in float64 on the
+    CPU from the same weights (the reference both f32 runs are read
+    against)."""
+    import numpy as np
+
+    def w(shape, seed):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape) * 0.05)
+
+    ln, v, o, fc1, fc2, gate, up, down = (
+        w(s, i) for i, s in enumerate(((d,), (d, d), (d, d), (f, d), (d, f), (f, d), (f, d),
+                                       (d, f)), start=1))
+    spec = lambda m: torch.linalg.matrix_norm(m, ord=2)  # noqa: E731
+    return torch.tensor([
+        torch.linalg.matrix_norm((o @ v + torch.eye(d, dtype=torch.float64)) * ln).item(),
+        (ln.abs().sum() * spec(fc1) * spec(fc2) / d).item(),
+        (torch.linalg.matrix_norm(down @ (up * ln)) * spec(gate * ln)).item()],
+        dtype=torch.float64)
+
+
+def recipes_phase(torch, dev, kernels, cfg):
+    """Each ported PTQ piece on the card against the CPU, at one OPT-125m
+    layer's shapes (weights 768 x 768 and 768 x 3072, activations [8, 128,
+    768] and [8, 128, 3072], numpy seed 7, a few outlier channels); the
+    launches of the card's runs counted.  Bit for bit: the MinMax (per
+    tensor, per channel, per group of 64), Histogram and Percentile qparams,
+    Quantize / DeQuantize, the four BTK8_* masks and TopK, the FLOP totals,
+    the plugins' call log.  SmoothQuant scales (static and dynamic) at
+    PTQ_SQ_RTOL; GPTQ at (microblock, block) (64, 128) and (128, 128): the
+    share of weights apart, none beyond one step; SLaNC norms at SLANC_RTOL,
+    each side also read against float64; AFT's tuned ``max_adjust`` on a
+    vsimd softmax of [8, 12, 128, 128] scores within 0.05 and its error
+    within 5 % (an MSE of ~1e-12: the surrogate's last bits move the
+    search).  Returns (the launch counts, its numbers)."""
+    import numpy as np
+
+    import dmx_compressor_tpu_torch as tdmx
+    from dmx_compressor_tpu_torch import layer_reconstruction as lr
+    from dmx_compressor_tpu_torch import nn as dmxnn
+    from dmx_compressor_tpu_torch.advanced_recipe import (
+        DmxModuleApproximationFunctionTuningHyperparams,
+        DmxModuleGPTQHyperparams,
+        DmxModuleSLaNCHyperparams,
+        DmxModuleSmoothQuantHyperparams,
+    )
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.numerics import cast as tcast
+    from dmx_compressor_tpu_torch.numerics import observer as obs
+    from dmx_compressor_tpu_torch.numerics.format import Format
+    from dmx_compressor_tpu_torch.ops.compress import set_inference_mode
+    from dmx_compressor_tpu_torch.plugins import ActivatePlugins, PluginBase
+    from dmx_compressor_tpu_torch.sparse import TopK
+
+    set_inference_mode(False)  # the approximation error needs the exact op
+    rng = np.random.default_rng(7)
+    d, f = cfg.hidden_size, cfg.ffn_dim
+    x_np = rng.standard_normal((*RECIPE_X, d)).astype(np.float32)
+    x_np[..., :4] *= 40.0  # outlier channels
+    xf_np = rng.standard_normal((*RECIPE_X, f)).astype(np.float32)
+    w_np = (rng.standard_normal((d, d)) * 0.05).astype(np.float32)
+    wf_np = (rng.standard_normal((d, f)) * 0.05).astype(np.float32)
+    int8 = Format.from_shorthand("XP[8,0](CSN)")
+    out, bad = {}, []
+    kernels.reset_launches()
+
+    def exact(what, pair):
+        a, b = pair
+        flat = lambda v: v if isinstance(v, (tuple, list)) else [v]  # noqa: E731
+        same = all(torch.equal(p, q) for p, q in zip(flat(a), flat(b)))
+        out[what] = "bit for bit" if same else "differ"
+        if not same:
+            bad.append(what)
+
+    def observe(make, batches):
+        def run(device):
+            o = make()
+            for xb in batches:
+                o(torch.from_numpy(xb).to(device))
+            return o.calculate_qparams()
+        return run
+
+    for what, make in (
+            ("MinMax per tensor", lambda: obs.MinMaxObserver(int8, "per_tensor_affine")),
+            ("MinMax per channel", lambda: obs.MinMaxObserver(int8, "per_channel_symmetric",
+                                                                -1)),
+            ("Histogram", lambda: obs.HistogramObserver(int8)),
+            ("Percentile", lambda: obs.PercentileObserver(int8))):
+        exact(what, both_devices(torch, dev, observe(make, [x_np, x_np * 1.5])))
+
+    def group_calibration(device):
+        c = tcast.CastTo(format=int8)
+        c.enable_calibration(True, observer_cls=obs.MinMaxObserver,
+                             qscheme_to_overload="per_tensor_symmetric", group_size=64,
+                             ch_axis=-1)
+        c(torch.from_numpy(w_np).to(device))
+        c.enable_calibration(False)
+        return c.scale, c.zero_point, c(torch.from_numpy(wf_np[:, :d]).to(device))
+
+    exact("MinMax per group of 64 and its cast", both_devices(torch, dev, group_calibration))
+
+    def quantize(device):
+        q = tcast.Quantize(0.05, 3, int8).to(device)(torch.from_numpy(x_np).to(device))
+        return q, tcast.DeQuantize(0.05, 3).to(device)(q)
+
+    exact("Quantize / DeQuantize", both_devices(torch, dev, quantize))
+
+    def masks(device):
+        score = torch.from_numpy(wf_np).to(device)
+        return [getattr(tdmx.sparseness, n).get_mask(score) for n in
+                ("BTK8_4_LD", "BTK8_4_FD", "BTK8_2_LD", "BTK8_2_FD")] + [
+            TopK(density=0.5).get_mask(score)]
+
+    exact("BTK8_4_LD, BTK8_4_FD, BTK8_2_LD, BTK8_2_FD and TopK masks",
+          both_devices(torch, dev, masks))
+
+    def linear(device, w, fmt=None):
+        n_out, n_in = w.shape
+        m = dmxnn.Linear(n_in, n_out, device=device)
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(w).to(device))
+            m.bias.zero_()
+        if fmt:
+            m.configure(dict(weight_format=fmt))
+        return m
+
+    def smoothquant(dynamic):
+        def run(device):
+            m = linear(device, w_np)
+            xs = [torch.from_numpy(x_np * s).to(device) for s in (1.0, 2.0)]
+            if dynamic:
+                m.init_smoothquant(dynamic=True)
+                m.smoothquant.enable()
+                scales = []
+                for xb in xs:
+                    with torch.no_grad():
+                        m(xb)
+                    scales.append(m.smoothquant.scale.clone())
+                return scales
+            with m.calibrating_smoothquant(DmxModuleSmoothQuantHyperparams()), torch.no_grad():
+                for xb in xs:
+                    m(xb)
+            return [m.smoothquant.scale]
+        return run
+
+    for what, dynamic in (("SmoothQuant static", False), ("SmoothQuant dynamic", True)):
+        card, cpu = both_devices(torch, dev, smoothquant(dynamic))
+        rel = max(((a - b).abs() / b).max().item() for a, b in zip(card, cpu))
+        out[what] = f"scales largest relative difference {rel:.3g}"
+        if not rel <= PTQ_SQ_RTOL:
+            bad.append(what)
+
+    gptq_t2 = {}
+    for w, x, pairs in ((w_np, x_np, ((64, 128), (128, 128))), (wf_np, xf_np, ((64, 128),))):
+        for mb, blk in pairs:
+            def gptq(device, w=w, x=x, mb=mb, blk=blk):
+                m = linear(device, w, "BFP[8|8]{64}(SN)")
+                before = kernels.LAUNCHES["bfp_cast"]
+                with m.optimal_brain_compressing(DmxModuleGPTQHyperparams(mb, blk)), \
+                        torch.no_grad():
+                    m(torch.from_numpy(x).to(device))
+                if device.type == "cuda":
+                    gptq_t2[f"{w.shape[1]}x{w.shape[0]} ({mb}, {blk})"] = (
+                        kernels.LAUNCHES["bfp_cast"] - before)
+                return m.weight
+
+            card, cpu = both_devices(torch, dev, gptq)
+            apart, n, steps = gptq_apart(torch, card, cpu)
+            what = f"GPTQ {w.shape[1]} -> {w.shape[0]} at ({mb}, {blk})"
+            out[what] = f"{apart} of {n} weights apart, at most {steps:.3g} step(s)"
+            if not steps <= 1.0:
+                bad.append(what)
+    want_t2 = {k: int(k.split("x")[0]) // int(k.split("(")[1].split(",")[0]) for k in gptq_t2}
+    out["GPTQ T2 launches"] = f"{gptq_t2} (expected {want_t2}: one a microblock)"
+    if gptq_t2 != want_t2:
+        bad.append("GPTQ T2 launches")
+
+    def slanc(device):
+        def mod(shape, seed):
+            m = torch.nn.Module()
+            m.weight = torch.nn.Parameter(torch.from_numpy(
+                (np.random.default_rng(seed).standard_normal(shape) * 0.05).astype(np.float32)
+            ).to(device))
+            return m
+
+        ln = mod((d,), 1)
+        kw = dict(prev_ln_weight=ln, v_proj=mod((d, d), 2), o_proj=mod((d, d), 3),
+                  fc1=mod((f, d), 4), fc2=mod((d, f), 5), gate_proj=mod((f, d), 6),
+                  up_proj=mod((f, d), 7), down_proj=mod((d, f), 8))
+        return torch.tensor([lr.compute_slanc_norm(DmxModuleSLaNCHyperparams(p, t, **kw))
+                             for p, t in (("post_attn", "standard"), ("post_mlp", "standard"),
+                                          ("post_mlp", "llama"))], dtype=torch.float64)
+
+    card, cpu = both_devices(torch, dev, slanc)
+    f64 = slanc_f64(torch, d, f)
+    rel = ((card - cpu).abs() / cpu).max().item()
+    out["SLaNC norms"] = (f"{card.tolist()} vs {cpu.tolist()} (relative {rel:.3g}; against "
+                          f"float64 on the CPU: card {((card - f64).abs() / f64).max().item():.3g},"
+                          f" CPU {((cpu - f64).abs() / f64).max().item():.3g})")
+    if not rel <= SLANC_RTOL:
+        bad.append("SLaNC norms")
+
+    scores_np = (rng.standard_normal((*RECIPE_X[:1], 12, RECIPE_X[1], RECIPE_X[1])) * 3.0
+                 ).astype(np.float32)
+
+    def aft(device):
+        m = dmxnn.Softmax(dim=-1)
+        m.configure(dict(approximation_function="SOFTMAX[vsimd]{input_clamp=-100}"
+                                                 "(max_adjust=0.5)"))
+        xs = torch.from_numpy(scores_np).to(device)
+        with m.tuning_approximation_function(DmxModuleApproximationFunctionTuningHyperparams(
+                [("max_adjust", 0.0, 1.0)])), torch.no_grad():
+            m(xs)
+        with torch.no_grad():
+            m(xs)
+        return (torch.tensor(m.approximator.function.extra_params["max_adjust"]),
+                torch.mean(m.approximation_error.double() ** 2))
+
+    card, cpu = both_devices(torch, dev, aft)
+    out["AFT"] = (f"max_adjust {card[0].item():.6f} vs {cpu[0].item():.6f}, error "
+                  f"{card[1].item():.4g} vs {cpu[1].item():.4g}")
+    if not (abs(card[0] - cpu[0]) < 0.05 and abs(card[1] / cpu[1] - 1) < 0.05):
+        bad.append("AFT")
+
+    one = type(cfg)(**{**vars(cfg), "num_hidden_layers": 1})
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, RECIPE_X))
+
+    def flops_and_plugins(device):
+        model = OPTForCausalLM(one, device=device, seed=0)
+        dm = DmxModel.from_raw(model)
+
+        class Log(PluginBase):
+            calls = []
+
+            def process_layer(self, data):
+                self.calls.append(type(data.mod).__name__)
+
+        plug = Log()
+        with dm.counting_flops(), ActivatePlugins(plug).applied_to(dm), torch.no_grad():
+            dm(ids.to(device))
+        return torch.tensor([dm.flops]), plug.calls
+
+    (cf, clog), (pf, plog) = both_devices(torch, dev, flops_and_plugins)
+    toks = RECIPE_X[0] * RECIPE_X[1]
+    want = toks * (4 * d * d + 2 * d * f + d * cfg.vocab_size)
+    out["counting_flops"] = f"card {int(cf)}, CPU {int(pf)} (expected {want})"
+    if not int(cf) == int(pf) == want:
+        bad.append("counting_flops")
+    out["ActivatePlugins"] = f"{len(clog)} calls on the card, {len(plog)} on the CPU"
+    if clog != plog or not clog:
+        bad.append("ActivatePlugins")
+
+    launches = dict(kernels.LAUNCHES)
+    for what, v in out.items():
+        log(f"recipes, card vs CPU: {what}: {v}")
+    if bad:
+        raise AssertionError(f"recipes: card and CPU disagree on {bad}")
+    return launches, out
+
+
 @contextlib.contextmanager
 def phase(name: str, seconds: dict):
     """Log and record the wall seconds of one phase of the run (the whole
@@ -3175,10 +3917,22 @@ def phase(name: str, seconds: dict):
     log(f"phase {name}: {seconds[name]} s")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import dataclasses
 
     import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    only = set()
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only":
+            print("usage: chip_smoke.py [--only word,word,...]  (runs the phases whose name, "
+                  "spaces as underscores, holds a word; no kernels line)", file=sys.stderr)
+            return 2
+        only = {w for w in argv[1].split(",") if w}
+
+    def run(name):
+        return not only or any(w in name.replace(" ", "_") for w in only)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3198,7 +3952,7 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
-        f"device count {torch.cuda.device_count()}")
+        f"device count {torch.cuda.device_count()}" + (f"; only {sorted(only)}" if only else ""))
 
     t0, took = time.perf_counter(), {}
     seconds = kernels.build()
@@ -3231,41 +3985,45 @@ def main() -> int:
     s2s_run = {f: seq2seq_layers(c, f, WHISPER_LAYERS) if f == "whisper" else c
                for f, c in s2s.items()}
     clip_cfg = CLIPConfig.vit_b_32()
-    with phase("B1", took):
-        b1_step, b1 = check_b1(torch, dev, cfg)
-    with phase("B2", took):
-        b2 = check_b2(torch, dev, cfg, fams, s2s["whisper"])
-    with phase("B3", took):
-        b3 = check_b3(torch, dev, cfg, fams, s2s["whisper"])
-    with phase("B4", took):
-        b4 = check_b4(torch, dev, cfg, fams, s2s["whisper"])
-    with phase("B5", took):
-        b5_step, b5, b5_wide_step = check_b5(torch, dev, cfg)
-    with phase("T1", took):
-        t1_step, t1, t1_flush = check_t1(torch, dev, cfg)
-    with phase("T2", took):
-        t2_step, t2 = check_t2(torch, dev, cfg)
+    results = {}
+    for name, check in (("B1", lambda: check_b1(torch, dev, cfg)),
+                        ("B2", lambda: check_b2(torch, dev, cfg, fams, s2s["whisper"])),
+                        ("B3", lambda: check_b3(torch, dev, cfg, fams, s2s["whisper"])),
+                        ("B4", lambda: check_b4(torch, dev, cfg, fams, s2s["whisper"])),
+                        ("B5", lambda: check_b5(torch, dev, cfg)),
+                        ("T1", lambda: check_t1(torch, dev, cfg)),
+                        ("T2", lambda: check_t2(torch, dev, cfg))):
+        if run(name):
+            with phase(name, took):
+                results[name] = check()
     fam_linears = {}  # family -> ((B1 step, cases), (T1 step, cases), (B5 step, cases))
     for seed, (family, shapes) in zip((22, 24, 26, 28, 30), linear_shapes_of.items()):
         # GPT-2's head (N 50257) also at a ragged M; B5 at a ragged M over
         # each family's longest K (its down_proj: Gemma's 16384)
         ragged = [(3, gcfg.n_embd, gcfg.vocab_size)] if family == "gpt2" else []
         K, N, _ = max(sbfp_shapes_of[family], key=lambda s: s[0])
-        with phase(f"B1, T1 and B5 at the {family} shapes", took):
-            fam_linears[family] = check_family_linears(
-                torch, dev, shapes, sbfp_shapes_of[family], family, seed, ragged,
-                ragged + [(130, K, N)])
-    s2s_linears = {}  # family -> ((B1 step, cases), (T1 step, cases))
+        name = f"B1, T1 and B5 at the {family} shapes"
+        if run(name):
+            with phase(name, took):
+                fam_linears[family] = check_family_linears(
+                    torch, dev, shapes, sbfp_shapes_of[family], family, seed, ragged,
+                    ragged + [(130, K, N)])
+    s2s_linears = {}  # family -> ((B1 step, cases), (T1 step, cases), (B5 step, cases))
     for seed, (family, scfg) in zip((32, 34), s2s_run.items()):
-        with phase(f"B1 and T1 at the {family} shapes", took):
-            s2s_linears[family] = check_seq2seq_linears(torch, dev, scfg, family, seed)
-    with phase("B1 and T1 at the clip shapes", took):
-        s2s_linears["clip"] = check_clip_linears(torch, dev, clip_cfg, 36)
+        name = f"B1, T1 and B5 at the {family} shapes"
+        if run(name):
+            with phase(name, took):
+                s2s_linears[family] = check_seq2seq_linears(torch, dev, scfg, family, seed)
+    if run("B1, T1 and B5 at the clip shapes"):
+        with phase("B1, T1 and B5 at the clip shapes", took):
+            s2s_linears["clip"] = check_clip_linears(torch, dev, clip_cfg, 36)
 
     by_path, tok_s = {}, {}
     fam_t2 = {}  # family or path -> (T2's per-step numbers, cases) at its recorded sites
     for spec in path_specs(cfg):
         name = spec["name"]
+        if not run(f"{name} path"):
+            continue
         with phase(f"{name} path", took):
             by_path[name], tok_s[name] = serve_path(torch, dev, kernels, cfg, spec)
         log(f"{name} path: decode {tok_s[name]:.1f} tokens/s on {card}")
@@ -3273,13 +4031,11 @@ def main() -> int:
             with phase(f"T2 at the {name} sites", took):
                 fam_t2[name] = check_t2_sites(torch, dev, spec["t2_sites"], spec["t2_step"],
                                               name)
-    log(f"bench.py's ratio, for information (host clock, batch {BATCH}, {card}): "
-        f"weights / baseline {tok_s['weights'] / tok_s['baseline']:.4f}, "
-        f"sbfp / baseline {tok_s['sbfp'] / tok_s['baseline']:.4f}, "
-        f"sbfp_wide / baseline {tok_s['sbfp_wide'] / tok_s['baseline']:.4f}, "
-        f"basic / baseline {tok_s['basic'] / tok_s['baseline']:.4f}, "
-        f"fp8 / baseline {tok_s['fp8'] / tok_s['baseline']:.4f}")
-    kv_repeat_ms = {c["path"]: c["repeat_ms"] for c in b3 if "repeat_ms" in c}
+    if "baseline" in tok_s:
+        log(f"bench.py's ratio, for information (host clock, batch {BATCH}, {card}): "
+            + ", ".join(f"{m} / baseline {tok_s[m] / tok_s['baseline']:.4f}"
+                        for m in ("weights", "sbfp", "sbfp_wide", "basic", "fp8") if m in tok_s))
+    kv_repeat_ms = {c["path"]: c["repeat_ms"] for c in results.get("B3", ()) if "repeat_ms" in c}
     cut = {f: dataclasses.replace(c, num_hidden_layers=FAMILY_PATH_LAYERS)
            for f, c in {**fams, "mistral": mcfg}.items()}
     fam_paths = {**{f: (cut[f], family_path_specs(cut[f], f)) for f in fams},
@@ -3289,6 +4045,8 @@ def main() -> int:
     for family, (fcfg, specs) in fam_paths.items():
         for spec in specs:
             name = spec["name"]
+            if not run(f"{name} path"):
+                continue
             if "flash_attention" in spec["prefill"] and family in kv_repeat_ms:
                 spec["kv_repeat_ms"] = kv_repeat_ms[family]
             with phase(f"{name} path", took):
@@ -3299,14 +4057,16 @@ def main() -> int:
                     fam_t2[family] = check_t2_sites(torch, dev, spec["t2_sites"],
                                                     spec["t2_step"], name,
                                                     spec.get("t2_steps", 20))
-        modes = ("weights", "basic") + (() if family in s2s else ("sbfp",))
-        log(f"bench.py's ratio for the {family} family, for information (host clock, batch "
-            f"{BATCH}, {card}): " + ", ".join(
-                f"{m} / baseline {tok_s[f'{family}_{m}'] / tok_s[f'{family}_baseline']:.4f}"
-                for m in modes))
+        if f"{family}_baseline" in tok_s:
+            log(f"bench.py's ratio for the {family} family, for information (host clock, batch "
+                f"{BATCH}, {card}): " + ", ".join(
+                    f"{m} / baseline {tok_s[f'{family}_{m}'] / tok_s[f'{family}_baseline']:.4f}"
+                    for m in ("weights", "sbfp", "basic") if f"{family}_{m}" in tok_s))
     vision = {}  # path -> its numbers
     for spec in clip_path_specs():
         name = spec["name"]
+        if not run(f"{name} path"):
+            continue
         with phase(f"{name} path", took):
             by_path[name], vision[name] = clip_path(torch, dev, kernels, clip_cfg, spec)
         if spec.get("record_t2"):
@@ -3315,22 +4075,68 @@ def main() -> int:
                                                 name, CLIP_T2_TIMED, unit="forward")
     for spec in lenet_path_specs():
         name = spec["name"]
+        if not run(f"{name} path"):
+            continue
         with phase(f"{name} path", took):
             by_path[name], vision[name] = lenet_path(torch, dev, kernels, spec)
-    with phase("zoo", took):
-        by_path["zoo_basic"] = zoo_phase(torch, dev, kernels)
-    log(f"the vision paths on {card}: {json.dumps(vision)}")
-    with phase("engine paths", took):
-        by_path.update(engine_paths(torch, dev, kernels, cfg, card))
-    with phase("engine_llama_weights path", took):
-        by_path["engine_llama_weights"] = engine_family_path(torch, dev, kernels,
-                                                             fams["llama"], card)
+    if run("zoo"):
+        with phase("zoo", took):
+            by_path["zoo_basic"] = zoo_phase(torch, dev, kernels)
+    if vision:
+        log(f"the vision paths on {card}: {json.dumps(vision)}")
+
+    # phase 7: the PTQ recipes
+    cfg_cut = dataclasses.replace(cfg, num_hidden_layers=FAMILY_CPU_LAYERS)
+    if run("recipes"):
+        with phase("recipes", took):
+            by_path["recipes"], _ = recipes_phase(torch, dev, kernels, cfg)
+    if run("ptq_weights path"):
+        ptq_stats, ptq_w = {}, {}
+        with phase("ptq_weights path", took):
+            by_path["ptq_weights"], tok_s["ptq_weights"] = serve_path(
+                torch, dev, kernels, cfg, ptq_spec(cfg, ptq_stats, ptq_w))
+        want = ptq_recipe_launches(cfg)
+        log(f"ptq_weights path on {card}: decode {tok_s['ptq_weights']:.1f} tokens/s; "
+            f"{ptq_stats['payloads_held']} payloads unpack to their GPTQ weights bit for bit; "
+            + "; ".join(f"{k}: {v['seconds']} s, peak device memory {v['peak_gib']} GiB, "
+                        f"launches {v['launches']} (expected {want[k]})"
+                        for k, v in ptq_stats.items() if k in want))
+        if any(ptq_stats[k]["launches"] != want[k] for k in want):
+            raise AssertionError("the ptq_weights recipes did not launch the kernels the "
+                                 "expected number of times")
+        by_path["ptq_recipes"] = {k: sum(ptq_stats[r]["launches"].get(k, 0) for r in want)
+                                  for k in kernels.LAUNCHES}
+        with phase("ptq recipe parity", took):
+            ptq_recipe_parity(torch, dev, kernels, cfg_cut)
+    if run("calib_basic path"):
+        with phase("calib_basic path", took):
+            by_path["calib_basic"] = calib_basic_path(torch, dev, kernels, cfg, cfg_cut)
+    if run("int8kv_example path"):
+        with phase("int8kv_example path", took):
+            by_path["int8kv_example"] = int8kv_path(torch, dev, kernels, cfg)
+
+    if run("engine paths"):
+        with phase("engine paths", took):
+            by_path.update(engine_paths(torch, dev, kernels, cfg, card))
+    if run("engine_llama_weights path"):
+        with phase("engine_llama_weights path", took):
+            by_path["engine_llama_weights"] = engine_family_path(torch, dev, kernels,
+                                                                 fams["llama"], card)
     for family, scfg in s2s_run.items():
         name = f"engine_{family}_weights"
-        with phase(f"{name} path", took):
-            by_path[name] = engine_seq2seq_path(torch, dev, kernels, scfg, family, card)
+        if run(f"{name} path"):
+            with phase(f"{name} path", took):
+                by_path[name] = engine_seq2seq_path(torch, dev, kernels, scfg, family, card)
     log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
     log(f"kernel builds and phases: {took_build + sum(took.values()):.1f} s")
+    if only:
+        log(f"launches by path: {json.dumps(by_path)}")
+        return 0
+    b1_step, b1 = results["B1"]
+    b2, b3, b4 = results["B2"], results["B3"], results["B4"]
+    b5_step, b5, b5_wide_step = results["B5"]
+    t1_step, t1, t1_flush = results["T1"]
+    t2_step, t2 = results["T2"]
 
     def launches(kern):
         """The kernel's launches over the paths' runs, in all and per path."""
@@ -3350,6 +4156,7 @@ def main() -> int:
     t1_fam = [c for f in fam_linears for c in fam_linears[f][1][1]]
     t1_fam += [c for f in s2s_linears for c in s2s_linears[f][1][1]]
     b5_fam = [c for f in fam_linears for c in fam_linears[f][2][1]]
+    b5_fam += [c for f in s2s_linears for c in s2s_linears[f][2][1]]
     t2_fam = [c for f in fam_t2 for c in fam_t2[f][1]]
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
@@ -3377,7 +4184,8 @@ def main() -> int:
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:199", **launches("sbfp_linear"),
              max_abs_err=max(c["max_abs_err"] for c in b5 + b5_fam), **b5_step,
              f32_route_step=b5_wide_step,
-             **{f"{f}_step": fam_linears[f][2][0] for f in fam_linears}, cases=b5 + b5_fam),
+             **{f"{f}_step": fam_linears[f][2][0] for f in fam_linears},
+             **{f"{f}_step": s2s_linears[f][2][0] for f in s2s_linears}, cases=b5 + b5_fam),
         dict(name="bfp_linear_bf16", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/bfp_linear_bf16.cu",
              replaces="tools/diag_bfpkernel_ab.py:30", **launches("bfp_linear_bf16"),

@@ -9,7 +9,7 @@ the CPU on their own.  The package imports neither ``jax`` nor
 ``dmx_compressor_tpu``.
 
 Top-level namespaces mirror the JAX package's: the ``format.*`` presets,
-``default_approx.*`` and ``config_rules.{BASELINE, FP8, BASIC,
+``sparseness.*`` (N:M block top-K), ``default_approx.*`` and ``config_rules.{BASELINE, FP8, BASIC,
 SBFP_WEIGHT_STORAGE}`` (the JAX package's rules, row for row).
 
 ``format.SBFP12_16`` is the JAX package's preset, scale bias 7.  The serving
@@ -24,6 +24,7 @@ from . import nn
 from .functional.approximate import ApproximationFunction
 from .modeling.model import DmxConfigRule, DmxModel
 from .numerics.format import Format
+from .sparse import Sparseness
 
 __version__ = "0.1.0"
 
@@ -58,6 +59,14 @@ for _sh, _name in (("E4M3", "MXFP8"), ("E5M2", "MXFP8"), ("E2M3", "MXFP6"), ("E3
 for _p in (8, 6, 4):
     for _b in (128, 64, 32):
         setattr(format, f"MXINT{_p}_K{_b}", _F(f"MXINT{_p}{{{_b}}}"))
+
+# N:M sparseness presets
+sparseness = SimpleNamespace(
+    BTK8_4_LD=Sparseness.from_shorthand("BTOPK{4:8,-1}(U)"),
+    BTK8_4_FD=Sparseness.from_shorthand("BTOPK{4:8,1}(U)"),
+    BTK8_2_LD=Sparseness.from_shorthand("BTOPK{2:8,-1}(U)"),
+    BTK8_2_FD=Sparseness.from_shorthand("BTOPK{2:8,1}(U)"),
+)
 
 _A = ApproximationFunction.from_shorthand
 

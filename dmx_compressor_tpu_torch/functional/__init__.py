@@ -3,6 +3,7 @@
 from .approximate import (
     Approximate,
     ApproximationFunction,
+    Approximator,
     CustomFunctionApproximation,
     NoApproximation,
     TorchFunctionApproximation,

@@ -170,3 +170,24 @@ class Approximate:
 
     def __repr__(self):
         return f"Approximate(function={repr(self.function)})"
+
+
+class Approximator:
+    """Standalone approximation of a single tensor op, its error kept:
+    ``approximation_error`` is the surrogate's first output minus the input
+    it replaced, detached."""
+
+    def __init__(self, function=None):
+        if function is None:
+            function = NoApproximation()
+        if not isinstance(function, ApproximationFunction):
+            function = ApproximationFunction.from_shorthand(function)
+        self.function = function
+        self.approximation_error = None
+
+    def __call__(self, x):
+        out = self.function.execute(x)
+        out0 = out[0] if isinstance(out, tuple) else out
+        if not isinstance(self.function, NoApproximation):
+            self.approximation_error = (out0 - x).detach()
+        return out0

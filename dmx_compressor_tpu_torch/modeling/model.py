@@ -1,13 +1,15 @@
 """Model-level API: DmxModel and DmxConfigRule.
 
 Port of ``dmx_compressor_tpu/modeling/model.py`` (the parts the serving path
-uses).  ``DmxModel.from_raw`` substitutes a raw torch model's sub-modules
-with Dmx-aware ones; ``configure`` applies module configs and rules.
+and the PTQ recipes use).  ``DmxModel.from_raw`` substitutes a raw torch
+model's sub-modules with Dmx-aware ones; ``configure`` applies module configs
+and rules; ``counting_flops`` counts the Linear and conv FLOPs of forwards.
 """
 
 from __future__ import annotations
 
 import re
+from contextlib import ExitStack, contextmanager
 from typing import Dict, Iterator, Optional, Tuple
 
 from torch import nn
@@ -99,3 +101,17 @@ class DmxModel:
     def fold_weights_and_biases(self) -> None:
         for _, m in self.named_dmx_modules():
             m.fold_weight_and_bias()
+
+    # -------------------------------------------------------- monitoring
+
+    @contextmanager
+    def counting_flops(self, zero: bool = True):
+        """FLOP counting on every DmxModule within the context."""
+        with ExitStack() as stack:
+            for _, m in self.named_dmx_modules():
+                stack.enter_context(m.counting_flops(zero))
+            yield self
+
+    @property
+    def flops(self):
+        return sum(m.flops or 0 for _, m in self.named_dmx_modules() if m.flop_counter)

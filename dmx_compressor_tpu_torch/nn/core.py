@@ -3,17 +3,25 @@
 Port of ``dmx_compressor_tpu/nn/core.py``.  A DmxModule wraps one logical op
 with the co-design surface
 
-    input casts -> _forward -> output casts -> caller-dtype realignment
+    smoothquant input scale -> input casts -> (Hessian measurement)
+    -> (approximation tuning) -> _forward -> output casts -> plugins
+    -> flop counting -> caller-dtype realignment
 
-and a weight pipeline (storage cast -> weight cast), which
-``fold_weight_and_bias`` bakes into the parameters.  The smoothquant, OBC,
-AFT, sparsity and plugin hooks of the JAX package are not ported yet: they
-stay ``None`` (plugins: empty) and a module that finds one set raises.
+and a weight pipeline
+
+    sparsify -> smoothquant scale -> weight storage cast -> weight cast
+
+which ``fold_weight_and_bias`` bakes into the parameters.  Every
+``sparsifiable`` module carries a :class:`Sparsify` (dense until
+configured) and every module with both channel axes an
+:class:`ActivationWeightSmoothQuant` (idle until calibrated), as in the JAX
+package; idle, neither adds an operation to a forward.  The
+``state_dict_url`` config key (checkpoint loading) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 from torch import nn
@@ -24,22 +32,26 @@ from ..functional.approximate import (
     NoApproximation,
     approx_blend,
 )
+from ..layer_reconstruction import LayerReconstructionMixin
 from ..numerics.cast import CastTo, CastToDict
 from ..numerics.format import Format, Same
-
-_HOOKS_TODO = (
-    "smoothquant / OBC / AFT / sparsity / plugin hooks arrive with the "
-    "calibration/PTQ slice of the port"
-)
-_UNPORTED_KEYS = ("smoothquant_scale_format", "weight_sparseness", "state_dict_url")
+from ..numerics.smoothquant import ActivationWeightSmoothQuant
+from ..perf_proxy import PerformanceProxyMixin
+from ..plugins import PluginBase, PluginLayerData
+from ..sparse import Dense, Sparsify
 
 
-class DmxModule(nn.Module):
-    """nn.Module with the numerics / approximation co-design surface."""
+def is_configurable(m) -> bool:
+    return isinstance(m, DmxModule)
+
+
+class DmxModule(PerformanceProxyMixin, LayerReconstructionMixin, nn.Module):
+    """nn.Module with the numerics / sparsity / approximation co-design
+    surface."""
 
     is_compound: bool = False
     functional_forward = None
-    plugins: List[Any] = []
+    plugins: List[PluginBase] = []
     # inference mode: an approximated op returns the surrogate value
     # directly, skipping the exact op whose only role is carrying gradients
     inference_mode: bool = False
@@ -53,16 +65,19 @@ class DmxModule(nn.Module):
     output_cast_names = ("output_cast",)
     has_weight: bool = False
     has_bias: bool = False
+    sparsifiable: bool = False  # a weight sparsifier attached
 
     def __init__(self) -> None:
         super().__init__()
         self.align_boundary_dtype = True
+        self.state_dict_url = None
         self.approximator = Approximate()
-        self.smoothquant = None
-        self.obc = None
+        self.approximation_error = None
         self.aft = None
-        self.weight_sparsifier = None
+        self.obc = None
         self.init_casts()
+        self.init_sparsifier()
+        self.init_smoothquant()
 
     def init_casts(self) -> None:
         self.input_casts = CastToDict(
@@ -77,15 +92,18 @@ class DmxModule(nn.Module):
         self.weight_cast = CastTo(ch_axis=self.wout_ch_axis) if self.has_weight else None
         self.bias_cast = CastTo() if self.has_bias else None
 
-    def _check_hooks(self) -> None:
-        if (
-            self.smoothquant is not None
-            or self.obc is not None
-            or self.aft is not None
-            or self.weight_sparsifier is not None
-            or DmxModule.plugins
-        ):
-            raise NotImplementedError(_HOOKS_TODO)
+    def init_sparsifier(self) -> None:
+        self.weight_sparsifier = Sparsify() if self.sparsifiable else None
+
+    def init_smoothquant(self, migration_strength: float = 0.5,
+                         scale_format: Union[str, Format] = "SAME",
+                         dynamic: bool = False) -> None:
+        self.smoothquant = (
+            ActivationWeightSmoothQuant(self.ch_axis, self.win_ch_axis, migration_strength,
+                                        scale_format, dynamic)
+            if self.ch_axis is not None and self.win_ch_axis is not None
+            else None
+        )
 
     # ----------------------------------------------------------- configure
 
@@ -93,9 +111,8 @@ class DmxModule(nn.Module):
         """Apply a module config; accepts the legacy singular-key grammar
         (``input_format`` / ``output_format``)."""
         config = dict(config)
-        for key in _UNPORTED_KEYS:
-            if key in config:
-                raise NotImplementedError(f"{key}: {_HOOKS_TODO}")
+        if "state_dict_url" in config and config["state_dict_url"] != self.state_dict_url:
+            raise NotImplementedError("state_dict_url: checkpoint loading is not ported")
         if "input_format" in config:
             config.setdefault("input_formats", [config.pop("input_format")])
         if "output_format" in config:
@@ -123,13 +140,32 @@ class DmxModule(nn.Module):
             self.weight_cast.set_pre_transform(config["pre_weight_transform"])
         if self.bias_cast is not None and "bias_format" in config:
             self.bias_cast.set_format(config["bias_format"])
+        if self.smoothquant is not None and "smoothquant_scale_format" in config:
+            self.smoothquant.set_scale_format(config["smoothquant_scale_format"])
+        if self.weight_sparsifier is not None and "weight_sparseness" in config:
+            self.weight_sparsifier.configure(sparseness=config["weight_sparseness"])
         if "approximation_function" in config:
             self.approximator.set_function(config["approximation_function"])
 
+    transform = configure
+
+    def dmx_config(self, freeze: bool = False) -> "DmxModuleConfig":
+        return DmxModuleConfig.from_module(self, freeze)
+
     # ------------------------------------------------------- weight pipeline
 
+    @property
+    def effective_weight(self) -> torch.Tensor:
+        if self.weight_sparsifier is None:
+            return self.weight
+        return self.weight_sparsifier(self.weight)
+
     def weight_hypernet(self, w: torch.Tensor) -> torch.Tensor:
-        """storage cast -> weight cast."""
+        """sparsify -> smoothquant scale -> storage cast -> weight cast."""
+        if self.weight_sparsifier is not None:
+            w = self.weight_sparsifier(w)
+        if self.smoothquant is not None and not self.smoothquant.fused_to_weight:
+            w = self.smoothquant.scale_weight(w)
         if self.weight_storage_cast is not None:
             w = self.weight_storage_cast(w)
         if self.weight_cast is not None:
@@ -147,18 +183,24 @@ class DmxModule(nn.Module):
         return self.bias_cast(self.bias) if self.bias_cast is not None else None
 
     def fold_weight_and_bias(self) -> None:
-        """Bake the bias cast, then the weight storage cast, then the weight
-        cast into the parameters, each cast SAME afterwards: the forward
-        computes the same values.  A weight Parameter that another module
-        shares (a head tied to the token embedding) is cast for both, as in
-        the JAX package.  The sparsifier and SmoothQuant branches of the JAX
-        package arrive with those hooks (``_check_hooks`` refuses them)."""
-        self._check_hooks()
+        """Bake the bias cast, then the sparsifier, the unfused SmoothQuant
+        scale, the weight storage cast and the weight cast into the
+        parameters, each stage the identity afterwards (the sparsifier dense,
+        the SmoothQuant marked fused, the casts SAME): the forward computes
+        the same values.  A weight Parameter that another module shares (a
+        head tied to the token embedding) changes for both, as in the JAX
+        package."""
         with torch.no_grad():
             if getattr(self, "bias", None) is not None and self.bias_cast is not None and (
                     not isinstance(self.bias_format, Same)):
                 self.bias.copy_(self.bias_cast(self.bias))
                 self.bias_cast.set_format("SAME")
+            if self.weight_sparsifier is not None and not isinstance(
+                    self.weight_sparseness, Dense):
+                self.weight.copy_(self.effective_weight)
+                self.weight_sparsifier = Sparsify(sparseness=Dense())
+            if self.smoothquant is not None and not self.smoothquant.fused_to_weight:
+                self.weight.copy_(self.smoothquant.fuse_to_weight(self.weight))
             for cast in (self.weight_storage_cast, self.weight_cast):
                 if cast is not None and not isinstance(cast.format, Same):
                     self.weight.copy_(cast(self.weight))
@@ -184,6 +226,10 @@ class DmxModule(nn.Module):
             exact = self._raw_forward(*inputs, *args, **kwargs)
         if not isinstance(fn, NoApproximation):
             approx = self.approximator_wrapper(inputs, args, kwargs, **fn.wrapper_params)
+            if isinstance(approx, tuple):
+                self.approximation_error = [(a - e).detach() for a, e in zip(approx, exact)]
+            else:
+                self.approximation_error = (approx - exact).detach()
             exact = approx_blend(exact, approx)
         return exact
 
@@ -192,10 +238,35 @@ class DmxModule(nn.Module):
         return self.approximator.function
 
     def forward(self, input: torch.Tensor, *args, **kwargs):
-        self._check_hooks()
         _dtype = input.dtype
-        _input, args2, kwargs2 = self.input_casts(input, *args, **kwargs)
-        output = self.output_casts(self._forward(_input, *args2, **kwargs2), output=True)
+        sq = self.smoothquant
+        if sq is not None:
+            if sq.dynamic or sq.calibrating:
+                self.update_smoothquant_scale(input)
+            input_scaled = sq.scale_input(input)
+        else:
+            input_scaled = input
+        _input, args2, kwargs2 = self.input_casts(input_scaled, *args, **kwargs)
+        if self.obc is not None:
+            self.obc.measure_hessian(_input)
+        if self.aft is not None:
+            self.aft.optimize(_input, *args2, **kwargs2)
+        _output = self._forward(_input, *args2, **kwargs2)
+        output = self.output_casts(_output, output=True)
+        if DmxModule.plugins:
+            data = PluginLayerData(
+                input_before_cast=input, input_after_cast=_input,
+                output_before_cast=_output, output_after_cast=output,
+                mod=self, args=args2, kwargs=kwargs2,
+            )
+            plugins_copy = list(DmxModule.plugins)
+            for p in plugins_copy:
+                # a plugin's own calls of Dmx modules do not call it again
+                DmxModule.plugins = [q for q in plugins_copy if q is not p]
+                p.process_layer(data)
+                DmxModule.plugins = list(plugins_copy)
+        if self.flop_counter_enabled:
+            self.count_flops(input, output[0] if isinstance(output, (tuple, list)) else output)
         if self.align_boundary_dtype:
             output = (
                 type(output)(a.to(_dtype) for a in output)
@@ -229,3 +300,69 @@ class DmxModule(nn.Module):
     @property
     def bias_format(self):
         return self.bias_cast.format if self.bias_cast is not None else None
+
+    @property
+    def weight_sparseness(self):
+        return (self.weight_sparsifier.sparseness
+                if self.weight_sparsifier is not None else None)
+
+    @property
+    def input_precision(self):
+        return self.input_casts[self.input_cast_names[0]].get_precision()
+
+    @property
+    def weight_precision(self):
+        return self.weight_cast.get_precision()
+
+    @property
+    def weight_storage_precision(self):
+        return self.weight_storage_cast.get_precision()
+
+    @property
+    def weight_scale(self):
+        return self.weight_cast.scale
+
+    @property
+    def weight_zero_point(self):
+        return self.weight_cast.zero_point
+
+    @property
+    def weight_storage_scale(self):
+        return self.weight_storage_cast.scale
+
+    @property
+    def weight_storage_zero_point(self):
+        return self.weight_storage_cast.zero_point
+
+
+class DmxModuleConfig(dict):
+    """Dict of a DmxModule's configurable surface: what differs from the
+    defaults, or everything with ``freeze``; ``configure`` takes it back."""
+
+    @classmethod
+    def from_module(cls, module: DmxModule, freeze: bool = False):
+        cc = cls(instance_of=module.__class__)
+        if not isinstance(module, DmxModule):
+            return cc
+
+        def keep(value, default_type):
+            return value is not None and (freeze or not isinstance(value, default_type))
+
+        if module.input_formats is not None and (
+                freeze or not all(isinstance(f, Same) for f in module.input_formats.values())):
+            cc["input_formats"] = module.input_formats
+        if module.output_formats is not None and (
+                freeze or not all(isinstance(f, Same) for f in module.output_formats.values())):
+            cc["output_formats"] = module.output_formats
+        for key in ("accum_format", "weight_format", "weight_storage_format", "bias_format"):
+            if keep(getattr(module, key), Same):
+                cc[key] = getattr(module, key)
+        if module.smoothquant is not None and keep(module.smoothquant.scale_cast.format, Same):
+            cc["smoothquant_scale_format"] = module.smoothquant.scale_cast.format
+        if keep(module.weight_sparseness, Dense):
+            cc["weight_sparseness"] = module.weight_sparseness
+        if freeze or not isinstance(module.approximation_function, NoApproximation):
+            cc["approximation_function"] = module.approximation_function
+        if module.state_dict_url is not None:
+            cc["state_dict_url"] = module.state_dict_url
+        return cc

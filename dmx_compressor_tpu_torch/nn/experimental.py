@@ -46,6 +46,7 @@ class _UnfoldConvBase(DmxModule):
     has_accum = True
     has_weight = True
     has_bias = True
+    sparsifiable = True
     _nd = 1
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1, padding=0,
@@ -94,7 +95,6 @@ class _UnfoldConvBase(DmxModule):
         """Gather the patches outside the cast pipeline: the casts see the
         GEMM operands (the patch rows and the weight), as in the JAX
         package."""
-        self._check_hooks()
         _dtype = input.dtype
         B, in_sp = input.shape[0], input.shape[2:]
         _x, _, _ = self.input_casts(self._patches(input))

@@ -170,6 +170,7 @@ class Linear(DmxModule):
     has_accum = True
     has_weight = True
     has_bias = True
+    sparsifiable = True
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None):
         self.in_features = in_features
@@ -199,6 +200,9 @@ class Linear(DmxModule):
         out = self.accum_cast(_input.to(_weight.dtype) @ _weight.T)
         return out + self._bias if self.bias is not None else out
 
+    def _flops_for(self, input_shape, output_shape):
+        return math.prod(input_shape) * self.out_features
+
     @classmethod
     def from_raw(cls, raw: nn.Linear) -> "Linear":
         """Build from a torch ``nn.Linear``, sharing its parameters."""
@@ -223,6 +227,7 @@ class Embedding(DmxModule):
 
     has_weight = True
     wout_ch_axis = 0
+    sparsifiable = True
 
     def __init__(self, num_embeddings: int, embedding_dim: int, device=None):
         self.num_embeddings = num_embeddings
@@ -235,7 +240,6 @@ class Embedding(DmxModule):
         return self._weight[_input]
 
     def forward(self, input, *args, **kwargs):
-        self._check_hooks()
         return self.output_casts(self._forward(input), output=True)
 
     @classmethod
@@ -274,6 +278,7 @@ class _ConvNd(DmxModule):
     has_accum = True
     has_weight = True
     has_bias = True
+    sparsifiable = True
     _nd = 2
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1, padding=0,
@@ -871,7 +876,6 @@ class ApplyRotaryPosEmb(DmxModule):
         return self.approx_forward((q, k, cos, sin), unsqueeze_dim)
 
     def forward(self, q, k, cos, sin, unsqueeze_dim=1):
-        self._check_hooks()
         q = self.input_casts["q_cast"](q)
         k = self.input_casts["k_cast"](k)
         cos = self.input_casts["cos_cast"](cos)
@@ -900,7 +904,6 @@ class RotaryEmbedding(DmxModule):
         return rawnn.rotary_cos_sin(self.inv_freq, position_ids, self.attention_scaling, x.dtype)
 
     def forward(self, x, position_ids):
-        self._check_hooks()
         out = self._forward(x, position_ids)
         return self.output_casts(out, output=True) if len(self.output_casts) == 2 else out
 
@@ -937,7 +940,6 @@ class ScaledDotProductAttention(DmxModule):
 
     def forward(self, query, key, value, attn_mask=None, is_causal=False, scale=None,
                 enable_gqa=False):
-        self._check_hooks()
         query = self.input_casts["query_states_cast"](query)
         key = self.input_casts["key_states_cast"](key)
         value = self.input_casts["value_states_cast"](value)

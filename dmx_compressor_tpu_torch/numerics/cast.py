@@ -1,28 +1,35 @@
 """Fake-quantization cast modules.
 
 Port of ``dmx_compressor_tpu/numerics/cast.py``.  A :class:`CastTo` owns a
-target :class:`Format` and affine qparams (``scale`` / ``zero_point``
-buffers).  The forward applies
+target :class:`Format`, an observer (``numerics/observer.py``) and affine
+qparams (``scale`` / ``zero_point`` buffers, per tensor, per channel or per
+group).  The forward applies
 
-    pre_transform -> [affine normalize] -> format cast -> [affine denormalize]
-    -> cast back to the caller's dtype
+    pre_transform -> observer step -> [affine normalize] -> format cast
+    -> [affine denormalize] -> cast back to the caller's dtype
 
 with a straight-through-estimator gradient (:class:`_STE`).
-
-Calibration observers are not ported yet: enabling an observer or
-calibration raises ``NotImplementedError``.
+``enable_calibration`` swaps in a real observer and turns fake quantization
+off until calibration ends.  :class:`Quantize` / :class:`DeQuantize` are the
+drop-in integer quantize / dequantize ops.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
 
 from .format import FixedPoint, Format, Same
-
-_OBSERVERS_TODO = "calibration observers arrive with the calibration/PTQ slice of the port"
+from .observer import (
+    OBSERVERS,
+    HistogramObserver,
+    get_qmin_qmax,
+    is_per_channel,
+    is_per_tensor,
+)
 
 
 class _STE(torch.autograd.Function):
@@ -53,6 +60,7 @@ class CastTo(nn.Module):
     def __init__(
         self,
         format: Union[str, Format] = "SAME",
+        observer: Union[str, type] = "dummy",
         group_size: Optional[int] = None,
         block_dim: int = -1,
         ch_axis: int = -1,
@@ -62,12 +70,17 @@ class CastTo(nn.Module):
         self.format = _as_format(format)
         self.qscheme = qscheme
         self.ch_axis = ch_axis if ch_axis is not None else -1
+        if group_size and not is_per_tensor(qscheme):
+            raise ValueError("group_size must be used with per tensor quantization scheme")
         self.group_size = group_size or None
         self.block_dim = block_dim
         self.fake_quant_enabled = True
         self.observer_enabled = False
         self.pre_transform: Dict[str, Any] = {}
         self.physical_dtype = None
+        obs_cls = OBSERVERS[observer] if isinstance(observer, str) else observer
+        self.observer = obs_cls(dtype=self.format, qscheme=qscheme, ch_axis=self.ch_axis)
+        self.group_observers = []  # a ModuleList once group calibration starts
         self.register_buffer("scale", torch.ones(1, dtype=torch.float32))
         self.register_buffer("zero_point", torch.zeros(1, dtype=torch.int32))
 
@@ -75,6 +88,8 @@ class CastTo(nn.Module):
 
     def set_format(self, format: Union[str, Format]) -> None:
         self.format = _as_format(format)
+        self.observer.dtype = self.format
+        self.observer.quant_min, self.observer.quant_max = get_qmin_qmax(self.format)
 
     def set_pre_transform(self, pre_transform: Dict) -> None:
         self.pre_transform = dict(pre_transform)
@@ -88,20 +103,81 @@ class CastTo(nn.Module):
         self.fake_quant_enabled = False
 
     def enable_observer(self, enabled: bool = True) -> None:
-        if enabled:
-            raise NotImplementedError(_OBSERVERS_TODO)
-        self.observer_enabled = False
+        self.observer_enabled = enabled
 
     def disable_observer(self) -> None:
         self.observer_enabled = False
 
-    def enable_calibration(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_OBSERVERS_TODO)
+    def enable_calibration(
+        self,
+        state: bool = True,
+        observer_cls: type = HistogramObserver,
+        qscheme_to_overload: Optional[str] = None,
+        group_size: Optional[int] = None,
+        ch_axis: Optional[int] = None,
+    ) -> None:
+        """Swap in a real observer and begin calibration (``state``), or end
+        it: fake quantization back on, the observer off."""
+        if state:
+            if ch_axis is not None:
+                self.ch_axis = ch_axis
+            if qscheme_to_overload is not None:
+                self.qscheme = qscheme_to_overload
+            self.group_size = group_size or None
+            if self.group_size and not is_per_tensor(self.qscheme):
+                raise ValueError("group quantization is to be used with per tensor "
+                                 "quantization")
+            self._replace("observer", observer_cls(dtype=self.format, qscheme=self.qscheme,
+                                                   ch_axis=self.ch_axis))
+            self._replace("group_observers", [])
+            self.disable_fake_quant()
+            self.enable_observer()
+        else:
+            self.enable_fake_quant()
+            self.disable_observer()
+
+    def _replace(self, name: str, value) -> None:
+        """Set attribute ``name`` whether it holds a submodule or a plain
+        object now, and whether ``value`` is a module or not."""
+        self._modules.pop(name, None)
+        self.__dict__.pop(name, None)
+        setattr(self, name, value)
+
+    # -- observation --------------------------------------------------------
+
+    def _observer_step(self, x: torch.Tensor) -> None:
+        """Streaming qparam estimation: one observer, or one per group of
+        ``group_size`` channels along ``ch_axis``."""
+        if self.group_size:
+            n = x.shape[self.ch_axis]
+            group_num = math.ceil(n / self.group_size)
+            if len(self.group_observers) != group_num:
+                self._replace("group_observers", nn.ModuleList(
+                    type(self.observer)(dtype=self.format, qscheme=self.qscheme,
+                                        ch_axis=self.ch_axis)
+                    for _ in range(group_num)))
+            scales, zps = [], []
+            ax = self.ch_axis % x.ndim
+            for i, obs in enumerate(self.group_observers):
+                lo = i * self.group_size
+                obs(x.narrow(ax, lo, min(self.group_size, n - lo)))
+                s, zp = obs.calculate_qparams()
+                scales.append(s.reshape(-1))
+                zps.append(zp.reshape(-1))
+            self.scale = torch.cat(scales)
+            self.zero_point = torch.cat(zps)
+        else:
+            self.observer(x.detach().to(torch.float32))
+            s, zp = self.observer.calculate_qparams()
+            self.scale = torch.atleast_1d(s)
+            self.zero_point = torch.atleast_1d(zp)
 
     # -- affine qparams -----------------------------------------------------
 
     def _get_affine_params(self, x: torch.Tensor):
-        sc, zp = self.scale, self.zero_point
+        # on x's device: a Dmx module substituted into a model on the card
+        # holds its casts' initial qparams on the CPU until calibrated
+        sc, zp = self.scale.to(x.device), self.zero_point.to(x.device)
         ax = self.ch_axis % x.ndim
         n = x.shape[ax]
         shape = [n if i == ax else 1 for i in range(x.ndim)]
@@ -151,6 +227,8 @@ class CastTo(nn.Module):
             shortcut_val = x[self.pre_transform["noquant_shortcut"]]
         if "format" in self.pre_transform:
             x = ste(x, self.pre_transform["format"].cast(x, self.block_dim, generator))
+        if self.observer_enabled and not isinstance(self.format, Same):
+            self._observer_step(x)
         if self.fake_quant_enabled:
             if isinstance(self.format, FixedPoint):
                 sc, zp = self._get_affine_params(x)
@@ -181,8 +259,44 @@ class CastTo(nn.Module):
         return (
             f"format={repr(self.format)}, block_dim={self.block_dim}, "
             f"qscheme={self.qscheme}, ch_axis={self.ch_axis}, "
-            f"group_size={self.group_size}, fake_quant={self.fake_quant_enabled}"
+            f"group_size={self.group_size}, fake_quant={self.fake_quant_enabled}, "
+            f"observer={self.observer_enabled}"
         )
+
+
+class Quantize(nn.Module):
+    """Drop-in quantize op producing integer payloads:
+    ``clip(round(x / scale + zero_point))`` as int32."""
+
+    def __init__(self, scale, zero_point, dtype: Union[str, Format]):
+        super().__init__()
+        self.register_buffer("scale", torch.atleast_1d(
+            torch.as_tensor(scale, dtype=torch.float32)))
+        self.register_buffer("zero_point", torch.atleast_1d(
+            torch.as_tensor(zero_point).to(torch.int32)))
+        self.dtype = _as_format(dtype)
+
+    def forward(self, x):
+        qmin, qmax = get_qmin_qmax(self.dtype)
+        q = torch.round(x / self.scale.to(x.device) + self.zero_point.to(x.device))
+        if qmin is not None:
+            q = torch.clamp(q, qmin, qmax)
+        return q.to(torch.int32)
+
+
+class DeQuantize(nn.Module):
+    """Drop-in dequantize op: ``(q - zero_point) * scale`` in f32."""
+
+    def __init__(self, scale=None, zero_point=None, dtype=None):
+        super().__init__()
+        self.register_buffer("scale", torch.atleast_1d(torch.as_tensor(
+            scale if scale is not None else 1.0, dtype=torch.float32)))
+        self.register_buffer("zero_point", torch.atleast_1d(torch.as_tensor(
+            zero_point if zero_point is not None else 0).to(torch.int32)))
+
+    def forward(self, q):
+        return ((q.to(torch.float32) - self.zero_point.to(q.device))
+                * self.scale.to(q.device))
 
 
 class CastToDict(nn.Module):
@@ -254,3 +368,11 @@ class CastToDict(nn.Module):
     def enable_fake_quant(self):
         for k in self._names:
             self[k].enable_fake_quant()
+
+    def enable_observer(self):
+        for k in self._names:
+            self[k].enable_observer()
+
+    def disable_observer(self):
+        for k in self._names:
+            self[k].disable_observer()

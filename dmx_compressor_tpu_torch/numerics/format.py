@@ -65,6 +65,10 @@ class Format:
         raise NotImplementedError
 
     @property
+    def bytes_per_elem(self):
+        raise NotImplementedError
+
+    @property
     def bit_precision(self) -> Optional[float]:
         raise NotImplementedError
 
@@ -91,6 +95,10 @@ class Same(Format):
 
     def cast(self, x, block_dim=-1, generator=None):
         return x
+
+    @property
+    def bytes_per_elem(self):
+        return None
 
     @property
     def bit_precision(self):
@@ -125,6 +133,10 @@ class FixedPoint(Format):
             x, wl=self.precision, fl=self.fraction, clamp=self.clamp,
             symmetric=self.symmetric, rounding=self.rounding, generator=generator,
         )
+
+    @property
+    def bytes_per_elem(self):
+        return self.precision / 8.0
 
     @property
     def bit_precision(self):
@@ -194,6 +206,10 @@ class FloatingPoint(Format):
         return torch.abs(out) if self.unsigned else out
 
     @property
+    def bytes_per_elem(self):
+        return (self.mantissa + self.exponent + 1) / 8.0
+
+    @property
     def bit_precision(self):
         return float(self.mantissa + self.exponent + (0 if self.unsigned else 1))
 
@@ -261,6 +277,10 @@ class BlockFloatingPoint(Format):
         ).to(x.dtype)
 
     @property
+    def bytes_per_elem(self):
+        return (self.precision + 8.0 / self.block_size) / 8.0
+
+    @property
     def bit_precision(self):
         return self.precision + 8.0 / self.block_size
 
@@ -321,6 +341,11 @@ class ScaledBlockFloatingPoint(Format):
         ).to(x.dtype)
 
     @property
+    def bytes_per_elem(self):
+        return (self.block_format.bytes_per_elem
+                + self.scaler_format.bytes_per_elem / self.block_size)
+
+    @property
     def bit_precision(self):
         return (
             self.block_format.bit_precision
@@ -363,6 +388,10 @@ class MXFP(Format):
         return R.apply_blockwise(
             x.to(torch.float32), block_dim, self.block_size, _fn
         ).to(x.dtype)
+
+    @property
+    def bytes_per_elem(self):
+        return self.element_format.bytes_per_elem + 1.0 / self.block_size
 
     @property
     def bit_precision(self):

@@ -299,7 +299,10 @@ def _linear_basic_ok(m, require_bias: bool = True) -> bool:
         return False
     if not (repr(oc.format) == _FLOAT16_REPR and _quiet(oc)):
         return False
-    if m.smoothquant is not None or m.obc is not None or m.aft is not None:
+    sq = m.smoothquant
+    if sq is not None and (sq.dynamic or sq.calibrating or sq.input_maxabs_exists):
+        return False
+    if m.obc is not None or m.aft is not None:
         return False
     return m.bias is not None or not require_bias
 

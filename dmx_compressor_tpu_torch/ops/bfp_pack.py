@@ -2,7 +2,8 @@
 exponents or scales.
 
 Port of ``dmx_compressor_tpu/ops/bfp_pack.py`` (``PackedBFP``, ``bfp_pack``,
-``bfp_unpack``, ``PackedSBFP``, ``sbfp_pack``, ``sbfp_unpack``).  BFP16_64
+``bfp_unpack``, ``int_group_pack`` / ``int_group_unpack``, ``PackedSBFP``,
+``sbfp_pack``, ``sbfp_unpack``).  BFP16_64
 weights are stored as int8 mantissas plus one int8 exponent per 64-block: a
 quarter of the fp32 bytes, which is what a bandwidth-bound decode matmul pays
 for.  SBFP12_16 weights are int4 mantissas, two per byte, plus one f32 scale
@@ -68,6 +69,39 @@ def bfp_unpack(p: PackedBFP) -> torch.Tensor:
     man = p.mantissa.to(torch.float32).reshape(*lead, n // p.block_size, p.block_size)
     e = p.exponent.to(torch.int32)[..., None]
     return R._mul_pow2(man, e + 2 - p.precision).reshape(*lead, n)
+
+
+def int_group_pack(x: torch.Tensor, bits: int = 8, group_size: int = 64,
+                   symmetric: bool = True):
+    """Affine integer group quantization along the last axis: (q int8,
+    scale f32, zero point int32), one (scale, zero point) per group of
+    ``group_size``."""
+    *lead, n = x.shape
+    if n % group_size:
+        raise ValueError(f"last axis {n} not a multiple of group_size {group_size}")
+    xf = x.to(torch.float32).reshape(*lead, n // group_size, group_size)
+    qmax = 2 ** (bits - 1) - 1
+    qmin = -(2 ** (bits - 1))
+    if symmetric:
+        amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+        scale = torch.clamp(amax / torch.tensor(float(qmax), device=x.device), min=1e-10)
+        zp = torch.zeros_like(scale, dtype=torch.int32)
+    else:
+        lo = torch.clamp(torch.amin(xf, dim=-1, keepdim=True), max=0.0)
+        hi = torch.clamp(torch.amax(xf, dim=-1, keepdim=True), min=0.0)
+        scale = torch.clamp((hi - lo) / torch.tensor(float(qmax - qmin), device=x.device),
+                            min=1e-10)
+        zp = torch.clamp(qmin - torch.round(lo / scale), qmin, qmax).to(torch.int32)
+    q = torch.clamp(torch.round(xf / scale) + zp, qmin, qmax)
+    return q.reshape(*lead, n).to(torch.int8), scale[..., 0], zp[..., 0]
+
+
+def int_group_unpack(q: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
+                     group_size: int = 64) -> torch.Tensor:
+    *lead, n = q.shape
+    qf = q.to(torch.float32).reshape(*lead, n // group_size, group_size)
+    out = (qf - zp[..., None].to(torch.float32)) * scale[..., None]
+    return out.reshape(*lead, n)
 
 
 class PackedSBFP(NamedTuple):

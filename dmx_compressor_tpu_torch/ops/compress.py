@@ -61,6 +61,18 @@ def _folded_bias(lin: dmxnn.Linear) -> Optional[torch.Tensor]:
     return bias
 
 
+def _presparse_weight(lin: dmxnn.Linear) -> torch.Tensor:
+    """The weight through the first stages of its pipeline, folded once
+    before packing: sparsify, then the SmoothQuant scale unless it is fused
+    into the weight already."""
+    w = lin.weight
+    if lin.weight_sparsifier is not None:
+        w = lin.weight_sparsifier(w)
+    if lin.smoothquant is not None and not lin.smoothquant.fused_to_weight:
+        w = lin.smoothquant.scale_weight(w)
+    return w
+
+
 class _PackedLinear(DmxModule):
     """Inference-only Linear whose weight lives packed (no weight casts); the
     source Linear's live input/output/bias casts carry over."""
@@ -108,7 +120,9 @@ class PackedBFPLinear(_PackedLinear):
         """The whole BASIC pipeline of this module folds into the fused path
         (ops/basic_linear.py): at most 256 rows (the decode regime), a
         symmetric nearest BFP input cast along the last axis, a SAME or
-        FLOAT16 output cast, no observer or pre-transform."""
+        FLOAT16 output cast, no observer or pre-transform, and no stateful
+        hook at work (plugins, OBC, AFT, flop counting, a dynamic or
+        calibrating SmoothQuant)."""
         if x.ndim < 1 or x.shape[-1] != self.in_features or x.numel() // x.shape[-1] > 256:
             return False
         ic = self.input_casts["input_cast"]
@@ -128,17 +142,28 @@ class PackedBFPLinear(_PackedLinear):
             (isinstance(oc.format, Same) or repr(oc.format) == _FLOAT16_REPR)
             and oc.fake_quant_enabled and not oc.observer_enabled and not oc.pre_transform
         )
-        return in_ok and out_ok and not DmxModule.plugins
+        sq = self.smoothquant
+        quiet = (
+            not DmxModule.plugins
+            and self.obc is None
+            and self.aft is None
+            and not self.flop_counter_enabled
+            and (sq is None or not (sq.dynamic or sq.calibrating))
+        )
+        return in_ok and out_ok and quiet
 
     def forward(self, input, *args, **kwargs):
         if not self._fusable(input):
             return super().forward(input, *args, **kwargs)
         from .basic_linear import fused_basic_linear
 
+        x = input
+        if self.smoothquant is not None:
+            x = self.smoothquant.scale_input(x)
         ic = self.input_casts["input_cast"]
         oc = self.output_casts[self.output_cast_names[0]]
         out = fused_basic_linear(
-            input.to(torch.float32), packed=self.packed, bias=self.bias,
+            x.to(torch.float32), packed=self.packed, bias=self.bias,
             in_wl=ic.format.precision, in_block=ic.format.block_size,
             out_fp16=isinstance(oc.format, FloatingPoint),
         )
@@ -163,7 +188,7 @@ class PackedBFPLinear(_PackedLinear):
         if not isinstance(fmt, BlockFloatingPoint):
             raise TypeError(f"PackedBFPLinear requires a BFP weight format, got {fmt!r}")
         with torch.no_grad():
-            w = lin.weight
+            w = _presparse_weight(lin)
             if lin.weight_storage_cast is not None and not isinstance(
                 lin.weight_storage_cast.format, Same
             ):
@@ -205,7 +230,7 @@ class PackedSBFPLinear(_PackedLinear):
             raise TypeError("PackedSBFPLinear requires SBFP weight storage and weight "
                             f"format SAME, got {fmt!r} / {lin.weight_format!r}")
         with torch.no_grad():
-            packed = sbfp_pack(lin.weight.to(torch.float32), fmt)
+            packed = sbfp_pack(_presparse_weight(lin).to(torch.float32), fmt)
             bias = _folded_bias(lin)
         return cls(packed, bias, lin)
 
@@ -223,11 +248,16 @@ def merge_parallel_linears(mods: List[nn.Module]) -> Optional[PackedBFPLinear]:
         oc = m.output_casts[m.output_cast_names[0]]
         return (
             m.in_features, repr(ic.format), ic.block_dim, ic.fake_quant_enabled,
-            bool(ic.pre_transform), repr(oc.format), oc.fake_quant_enabled,
-            bool(oc.pre_transform), m.precision, m.block_size, m.bias is not None,
+            ic.observer_enabled, bool(ic.pre_transform), repr(oc.format),
+            oc.fake_quant_enabled, oc.observer_enabled, bool(oc.pre_transform),
+            m.precision, m.block_size, m.bias is not None,
         )
 
     if len({sig(m) for m in mods}) != 1:
+        return None
+    if any(m.smoothquant is not None and (m.smoothquant.dynamic
+                                          or m.smoothquant.input_maxabs_exists)
+           for m in mods):
         return None
     packed = PackedBFP(
         torch.cat([m.weight_mantissa for m in mods], dim=0),
@@ -323,12 +353,13 @@ def release_dead_originals(model: nn.Module) -> int:
     return released
 
 
-def build_weights_mode(model: nn.Module):
-    """The weights-mode serving configuration (BFP16_64 packed weights,
-    activations in their own precision): ``DmxModel.from_raw`` ->
-    ``to_basic_mode`` -> every input/output cast SAME and every approximator
-    ``NoApproximation`` -> ``compress_for_inference`` -> inference mode.
-    Returns the DmxModel; ``model`` is transformed in place."""
+def weights_mode_rules(model: nn.Module):
+    """The weights-mode configuration before compression:
+    ``DmxModel.from_raw`` -> ``to_basic_mode`` -> every input/output cast SAME
+    and every approximator ``NoApproximation`` (BFP16_64 weight casts on the
+    Linears).  A PTQ recipe runs here, before ``compress_for_inference``
+    packs the weights.  Returns the DmxModel; ``model`` is transformed in
+    place."""
     from ..functional.approximate import NoApproximation
     from ..modeling.model import DmxModel
 
@@ -338,6 +369,15 @@ def build_weights_mode(model: nn.Module):
         m.input_casts.set_format(["SAME"] * len(m.input_casts))
         m.output_casts.set_format(["SAME"] * len(m.output_casts))
         m.approximator.function = NoApproximation()
+    return dm
+
+
+def build_weights_mode(model: nn.Module):
+    """The weights-mode serving configuration (BFP16_64 packed weights,
+    activations in their own precision): :func:`weights_mode_rules` ->
+    ``compress_for_inference`` -> inference mode.  Returns the DmxModel;
+    ``model`` is transformed in place."""
+    dm = weights_mode_rules(model)
     compress_for_inference(dm)
     set_inference_mode(True)
     return dm

@@ -38,8 +38,10 @@ in the same way:
 
 ``--family t5`` and ``--family whisper`` serve the encoder-decoder families
 (t5-small, whisper-small) in BASIC mode over an f32 cache, as chip_smoke.py's
-t5_basic and whisper_basic paths do: encode seeded inputs (T5: ``--prompt``
-token ids; Whisper: standard-normal features [80, 3000]), prefill the start
+t5_basic and whisper_basic paths do (``--mode weights`` / ``sbfp``: their
+int8-cache legs, the float64 run summing the packed linears in float64):
+encode seeded inputs (T5: ``--prompt`` token ids; Whisper: standard-normal
+features [80, 3000]), prefill the start
 tokens (T5 one, Whisper four) and decode; the float64 run is fed the first
 run's tokens (teacher-forced, as chip_smoke.py holds the card against the
 CPU), and the largest difference over the prefill's and every step's
@@ -192,13 +194,15 @@ FAMILIES = {
 SEQ2SEQ = ("t5", "whisper")
 
 
-def serve_seq2seq(family, cfg, seed, device, batch, prompt, steps, forced=None):
-    """An encoder-decoder family in BASIC mode over an f32 cache from
-    ``seed``: every step's last-position logits [steps + 1, B, V] (the
-    prefill's first) and the greedy tokens; with ``forced`` (tokens [B,
-    steps + 1]) each step takes the forced token instead of its own."""
+def serve_seq2seq(family, cfg, seed, device, batch, prompt, steps, forced=None, mode="basic"):
+    """An encoder-decoder family in BASIC mode over an f32 cache (or
+    bench.py's weights or sbfp leg over an int8 cache) from ``seed``: every
+    step's last-position logits [steps + 1, B, V] (the prefill's first) and
+    the greedy tokens; with ``forced`` (tokens [B, steps + 1]) each step
+    takes the forced token instead of its own."""
     model = FAMILIES[family][1](cfg, device=device, seed=seed)
-    build_basic_mode(model)
+    {"basic": build_basic_mode, "weights": build_weights_mode, "sbfp": build_sbfp_mode}[mode](
+        model)
     g = torch.Generator().manual_seed(seed + 1)
     if family == "t5":
         x = torch.randint(1, cfg.vocab_size, (batch, prompt), generator=g)
@@ -207,7 +211,7 @@ def serve_seq2seq(family, cfg, seed, device, batch, prompt, steps, forced=None):
         x = torch.randn(batch, cfg.num_mel_bins, 2 * cfg.max_source_positions, generator=g)
         start = torch.randint(0, cfg.vocab_size, (batch, 4), generator=g)
     T0 = start.shape[1]
-    caches = model.init_cache(batch, T0 + steps + 1, device=device)
+    caches = model.init_cache(batch, T0 + steps + 1, quantized=mode != "basic", device=device)
     with torch.no_grad():
         enc = model.encode(x.to(device))
         logits = model.decode(start.to(device), enc, caches=caches)
@@ -354,13 +358,13 @@ def main(argv=None) -> None:
             continue
         run = (a.family, cfg, seed, a.device, a.batch, a.prompt, a.steps)
         if a.family in SEQ2SEQ:
-            if a.mode != "basic":
-                raise SystemExit(f"--family {a.family} takes --mode basic")
-            base = serve_seq2seq(*run)
-            with float64_sums():
-                other = serve_seq2seq(*run, forced=base[1])
+            if a.mode == "fp8":
+                raise SystemExit(f"--family {a.family} takes --mode basic, weights or sbfp")
+            base = serve_seq2seq(*run, mode=a.mode)
+            with float64_sums() if a.mode == "basic" else float64_linears():
+                other = serve_seq2seq(*run, forced=base[1], mode=a.mode)
             d = (base[0] - other[0]).abs()
-            print(f"basic {a.family} seed {seed}, {a.layers} layers, vocab {cfg.vocab_size}, "
+            print(f"{a.mode} {a.family} seed {seed}, {a.layers} layers, vocab {cfg.vocab_size}, "
                   f"batch {a.batch}, on {a.device or 'cuda'}: the prefill's and {a.steps} "
                   f"teacher-forced steps' logits max |diff| {d.max().item():.4g} (prefill "
                   f"{d[0].max().item():.4g}; share of logits that differ "

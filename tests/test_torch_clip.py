@@ -87,7 +87,7 @@ def port_leg(leg, params):
     return tuple(a.numpy() for a in (per_image, per_text, probs))
 
 
-@pytest.mark.parametrize("leg", ["raw", "weights", "baseline", "basic"])
+@pytest.mark.parametrize("leg", ["raw", "weights", "sbfp", "baseline", "basic"])
 def test_leg_matches_jax(leg):
     """Both logits and the zero-shot probabilities within the leg's
     tolerance, each image's class the JAX package's (its top-1/top-2

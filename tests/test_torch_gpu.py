@@ -1378,3 +1378,132 @@ def test_lenet_leg_on_card_matches_cpu(cuda, leg):
     with torch.no_grad():
         cpu = model(x)
     torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the PTQ recipes on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _both(cuda, fn):
+    """``fn(device)`` on the card (moved to the CPU) and on the CPU."""
+    got = fn(cuda)
+    got = [t.cpu() for t in got] if isinstance(got, (tuple, list)) else got.cpu()
+    return got, fn(torch.device("cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("observer", ["minmax", "histogram", "percentile"])
+def test_observer_qparams_on_card_equal_the_cpu(cuda, observer):
+    """Each observer's qparams over two batches, bit for bit: the
+    histogram's bins are searchsorted against the same f32 edges on both."""
+    from dmx_compressor_tpu_torch.numerics.observer import OBSERVERS
+
+    int8 = Format.from_shorthand("XP[8,0](CSN)")
+
+    def run(device):
+        g = torch.Generator().manual_seed(0)
+        o = OBSERVERS[observer](int8)
+        for s in (1.0, 3.0):
+            o((torch.randn(8, 128, 768, generator=g) * s).to(device))
+        return o.calculate_qparams()
+
+    (cs, cz), (ps, pz) = _both(cuda, run)
+    assert torch.equal(cs, ps) and torch.equal(cz, pz)
+
+
+@pytest.mark.gpu
+def test_group_calibrated_int8_cast_on_card_equals_the_cpu(cuda):
+    from dmx_compressor_tpu_torch.numerics.cast import CastTo
+    from dmx_compressor_tpu_torch.numerics.observer import MinMaxObserver
+
+    def run(device):
+        w = torch.randn(768, 768, generator=torch.Generator().manual_seed(1)).to(device)
+        c = CastTo(format="XP[8,0](CSN)")
+        c.enable_calibration(True, observer_cls=MinMaxObserver,
+                             qscheme_to_overload="per_tensor_symmetric", group_size=64, ch_axis=-1)
+        c(w)
+        c.enable_calibration(False)
+        return c.scale, c.zero_point, c(w)
+
+    got, want = _both(cuda, run)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_masks_and_int_group_pack_on_card_equal_the_cpu(cuda):
+    import dmx_compressor_tpu_torch as tdmx
+
+    def run(device):
+        s = torch.randint(0, 3, (768, 3072), generator=torch.Generator().manual_seed(2)).float()
+        s = s.to(device)  # ties at every threshold
+        out = [getattr(tdmx.sparseness, n).get_mask(s) for n in
+               ("BTK8_4_LD", "BTK8_4_FD", "BTK8_2_LD", "BTK8_2_FD")]
+        return out + list(tpack.int_group_pack(s * 0.37 - 0.5, 8, 64, symmetric=False))
+
+    got, want = _both(cuda, run)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_smoothquant_and_gptq_on_card_follow_the_cpu(cuda):
+    """SmoothQuant's scale within 1e-5 (powf on both), GPTQ's weights on
+    BFP16_64's grid, none more than one step from the CPU's, one T2 launch
+    a microblock."""
+    from dmx_compressor_tpu_torch import nn as dmxnn
+    from dmx_compressor_tpu_torch.advanced_recipe import (
+        DmxModuleGPTQHyperparams,
+        DmxModuleSmoothQuantHyperparams,
+    )
+
+    def run(device):
+        g = torch.Generator().manual_seed(3)
+        m = dmxnn.Linear(768, 256, device=device)
+        with torch.no_grad():
+            m.weight.copy_((torch.randn(256, 768, generator=g) * 0.05).to(device))
+        x = torch.randn(4, 64, 768, generator=g)
+        x[..., :3] *= 30
+        x = x.to(device)
+        with m.calibrating_smoothquant(DmxModuleSmoothQuantHyperparams(fuse_to_weight=True)):
+            with torch.no_grad():
+                m(x)
+        m.configure(dict(weight_format="BFP[8|8]{64}(SN)"))
+        n0 = kernels.LAUNCHES["bfp_cast"]
+        with m.optimal_brain_compressing(DmxModuleGPTQHyperparams(64, 128)), torch.no_grad():
+            m(x)
+        return m.smoothquant.scale, m.weight.detach(), torch.tensor(
+            kernels.LAUNCHES["bfp_cast"] - n0)
+
+    (cs, cw, cn), (ps, pw, _) = _both(cuda, run)
+    torch.testing.assert_close(cs, ps, rtol=1e-5, atol=0)
+    p = tpack.bfp_pack(pw, 8, 64)
+    step = torch.exp2(p.exponent.float().repeat_interleave(64, dim=-1) + 2 - 8)
+    assert ((cw - pw).abs() <= step).all()
+    assert torch.equal(tpack.bfp_unpack(tpack.bfp_pack(cw, 8, 64)), cw)
+    assert int(cn) == 768 // 64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["sbfp"])
+def test_clip_sbfp_leg_on_card_matches_cpu(cuda, leg):
+    """CLIP's sbfp build at a test width: B5 on every linear, the logits
+    within 1e-3 of the CPU's (the same payloads, f32 sums in another
+    order)."""
+    from dmx_compressor_tpu_torch.models import clip as tc
+    from dmx_compressor_tpu_torch.ops.compress import build_sbfp_mode
+
+    cfg = tc.CLIPConfig.tiny()
+    model = tc.CLIPModel(cfg, device=cuda, seed=0)
+    build_sbfp_mode(model)
+    g = torch.Generator().manual_seed(3)
+    px = torch.randn(4, 3, cfg.vision.image_size, cfg.vision.image_size, generator=g)
+    ids = torch.randint(0, cfg.text.vocab_size, (4, cfg.text.max_position_embeddings),
+                        generator=g)
+    n0 = kernels.LAUNCHES["sbfp_linear"]
+    with torch.no_grad():
+        got = model(ids.to(cuda), px.to(cuda))[0].cpu()
+    assert kernels.LAUNCHES["sbfp_linear"] > n0
+    model.to("cpu")
+    with torch.no_grad():
+        want = model(ids, px)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)

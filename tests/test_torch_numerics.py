@@ -272,8 +272,8 @@ def test_cast_to_dict_routes_inputs_and_outputs():
     assert casts(a, output=True).item() == 1.0
     casts.set_format(["SAME", "FP[1|5|10,15](FN)"])
     assert repr(casts["input_cast"].format) == "SAME"
-    with pytest.raises(NotImplementedError):
-        casts["input_cast"].enable_observer()
+    casts["residual_cast"].set_format("XP[8,0](CSN)"), casts["residual_cast"].enable_calibration(observer_cls=tcast.OBSERVERS["minmax"])
+    assert casts(a, torch.tensor([-2.0, 6.0]))[1][0].tolist() == [-2.0, 6.0] and casts["residual_cast"].scale.tolist() == [float(np.float32(8) / np.float32(254))] and casts["residual_cast"].zero_point.tolist() == [-63]
 
 
 # ---------------------------------------------------------------------------

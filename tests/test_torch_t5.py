@@ -153,7 +153,7 @@ def test_raw_model_matches_hf_torch(gated):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("leg", ["raw", "weights", "basic", "baseline"])
+@pytest.mark.parametrize("leg", ["raw", "weights", "sbfp", "basic", "baseline"])
 def test_leg_matches_jax(leg):
     s2s.leg_matches_jax("t5", leg)
 

@@ -163,8 +163,9 @@ def test_raw_model_matches_hf_torch():
     tm = tw.WhisperForConditionalGeneration(cfg, device="cpu")
     tensors = tw.WhisperForConditionalGeneration.hf_tensor_converter(hf.state_dict())
     missing, unexpected = tm.load_state_dict(tensors, strict=False)
-    # the convs' cast state is no weight
-    assert all(".conv1." in m and "cast" in m or ".conv2." in m and "cast" in m for m in missing)
+    # the convs' cast and SmoothQuant state is no weight
+    assert all((".conv1." in m or ".conv2." in m) and ("cast" in m or ".smoothquant." in m)
+               for m in missing)
     assert unexpected == ["proj_out.weight"]
     assert tm.model.encoder.conv2.weight.shape == (cfg.d_model, 3 * cfg.d_model)
     f = s2s.encoder_input("whisper", cfg)
@@ -176,7 +177,7 @@ def test_raw_model_matches_hf_torch():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("leg", ["raw", "weights", "basic", "baseline"])
+@pytest.mark.parametrize("leg", ["raw", "weights", "sbfp", "basic", "baseline"])
 def test_leg_matches_jax(leg):
     s2s.leg_matches_jax("whisper", leg)
 

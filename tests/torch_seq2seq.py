@@ -6,10 +6,10 @@ Each JAX model of seed 7 (``nnx.Rngs(7)``) carries its weights into the port
 with the family's ``load_jax_params``; both sides take the same seeded
 numpy inputs: T5 token ids uniform in [1, vocab), Whisper standard-normal
 features [B, mels, 2 x max_source_positions].  A leg (``raw`` or bench.py's
-``weights``, ``basic``, ``baseline``) encodes once, prefills the start ids
+``weights``, ``sbfp``, ``basic``, ``baseline``) encodes once, prefills the start ids
 (T5: one token 0; Whisper: four, the length of its
 ``<|startoftranscript|><|en|><|transcribe|><|notimestamps|>``) into caches
-of start + STEPS slots (int8 for the weights leg, as chip_smoke.py's paths)
+of start + STEPS slots (int8 for the weights and sbfp legs, as chip_smoke.py's paths)
 and decodes greedily; the JAX side's packed linears are built with
 ``DMX_DECODE_FUSED=1`` (ROADMAP's parity convention), its encode and decode
 run under ``nnx.jit``.
@@ -111,7 +111,7 @@ def jax_leg(family, leg, gated=False):
     prev = JDmxModule.inference_mode
     j_set_inference_mode(leg not in ("raw", "baseline"))
     ids = start_ids(family, jcfg)
-    caches = jm.init_cache(B, START[family] + STEPS, quantized=leg == "weights")
+    caches = jm.init_cache(B, START[family] + STEPS, quantized=leg in ("weights", "sbfp"))
     enc = nnx.jit(lambda m, x: m.encode(x))(jm, jnp.asarray(encoder_input(family, jcfg)))
     decode = nnx.jit(lambda m, x, e, c, off: m.decode(x, e, caches=c, position_offset=off))
     lg = decode(jm, jnp.asarray(ids), enc, caches, 0)
@@ -150,7 +150,8 @@ def leg_matches_jax(family, leg, gated=False):
     params, jrows, jtoks = jax_leg(family, leg, gated)
     prev = DmxModule.inference_mode
     tm = port_model(family, params, leg, **fields)
-    rows, toks = port_run(tm, family, configs(family, **fields)[1], leg == "weights")
+    rows, toks = port_run(tm, family, configs(family, **fields)[1],
+                          leg in ("weights", "sbfp"))
     DmxModule.inference_mode = prev
     tol = RAW_TOL if leg in ("raw", "baseline") else MODE_TOL
     top2 = np.sort(jrows, axis=-1)[..., -2:]
