@@ -62,7 +62,7 @@ Phases (any failure exits non-zero):
    - fp8 (the JAX package's FP8 rules, ``DmxModel.to_fp8_mode``: AFLOAT8
      Linear and ActActMatMul inputs and weights through float_quantize,
      plain torch as in the JAX package; FLOAT16 boundaries; f32 KV cache),
-     at ``FP8_LAYERS`` (2) layers: prefill and each decode step 28L+5 = 61
+     at ``FP8_LAYERS`` (1) layer: prefill and each decode step 28L+5 = 33
      T2 (FLOAT16 casts), no attention kernel (the SDPA is not transparent:
      the modular path); its CPU check at the same depth, T2 held at every
      recorded site;
@@ -83,7 +83,7 @@ Phases (any failure exits non-zero):
    cProfile of the same steps.  The JAX bench's ratios (weights, SBFP,
    sbfp_wide and basic over baseline tokens/s) follow.
    Then three paths of each of bench.py's Llama-topology families at full
-   width, cut to ``FAMILY_PATH_LAYERS`` (2) layers, from seed 0, at the same
+   width, cut to ``FAMILY_PATH_LAYERS`` (1) layer, from seed 0, at the same
    batch, prompt and steps:
    ``llama-1.1b`` (TinyLlama-1.1B: 22 layers of 2048, MLP 5632, GQA 32
    query heads over 4 KV heads, vocab 32000, an untied head), ``qwen3-0.6b``
@@ -91,22 +91,22 @@ Phases (any failure exits non-zero):
    per-head q / k norms, MLP 3072, vocab 151936, tied) and ``gemma-2b``
    (Gemma-2B: 18 layers of 2048, 8 query heads over one KV head of 256,
    (1 + w) norms, a GeGLU MLP of 16384, vocab 256000, tied).  Llama's at L
-   = 2 (Qwen3's and Gemma's the same counts, Qwen3's q / k norms adding 4L
+   = 1 (Qwen3's and Gemma's the same counts, Qwen3's q / k norms adding 4L
    T2 a prefill and 2L a step):
    - llama_weights (BFP16_64 packed weights, int8 KV cache): prefill
-     4L+1 = 9 B1 and no B3 (an int8 prefill attends over the dequantized
+     4L+1 = 5 B1 and no B3 (an int8 prefill attends over the dequantized
      cache through quantized_sdpa, as in the JAX package), each decode step
-     9 B1 + 2 B2 (8 query heads a KV head);
-   - llama_baseline (BASELINE rules, f32 KV cache): prefill 2 B3 (BH 256,
-     the KV heads repeated to the query heads), each decode step 2 B4;
+     5 B1 + 1 B2 (8 query heads a KV head);
+   - llama_baseline (BASELINE rules, f32 KV cache): prefill 1 B3 (BH 256,
+     the KV heads repeated to the query heads), each decode step 1 B4;
    - llama_basic (BASIC rules, packed BFP16_64 weights, a float16 split
-     cache of 128 + 64): prefill 9 T1 + 40L+5 = 85 T2, prepare 2L = 4 T2,
-     each decode step 9 T1 + 21L+2 = 44 T2 (24L+3 casts: 3L+1 launches
+     cache of 128 + 64): prefill 5 T1 + 40L+5 = 45 T2, prepare 2L = 2 T2,
+     each decode step 5 T1 + 21L+2 = 23 T2 (24L+3 casts: 3L+1 launches
      are a FLOAT16 cast and the BFP cast of its output in one), every layer
      through the fused step.
    - llama_sbfp (bench.py's sbfp leg: SBFP12_16, scale bias 16, on every
-     Linear, the tied heads included; int8 KV): prefill 7L+1 = 15 B5 (q, k,
-     v and gate, up unmerged) and no B3, each step 15 B5 + 2 B2, every B5
+     Linear, the tied heads included; int8 KV): prefill 7L+1 = 8 B5 (q, k,
+     v and gate, up unmerged) and no B3, each step 8 B5 + 1 B2, every B5
      launch on its tensor-core route.
    Their CPU check runs the same build at ``FAMILY_CPU_LAYERS`` layers (the
    path's own depth: the card's run moved to the CPU; the basic path's
@@ -118,41 +118,41 @@ Phases (any failure exits non-zero):
    decode step.  B3's family cases time flash_prefill's K/V head repeat
    apart; each baseline prefill split shows it beside B3.
    Then three paths each of bench.py's ``gpt2`` (GPT-2 124M: 12 blocks of
-   768, 12 heads of 64, a head tied to the 50257-wide vocabulary, at full
-   depth; its CPU checks at full depth, the basic path's at
-   ``FAMILY_CPU_LAYERS``) and ``mistral-1b`` (2048 wide, 32 query heads
+   768, 12 heads of 64, a head tied to the 50257-wide vocabulary, cut to
+   ``GPT2_LAYERS`` (4), L = 4 in its counts below; its CPU checks at that
+   depth, the basic path's at ``FAMILY_CPU_LAYERS``) and ``mistral-1b`` (2048 wide, 32 query heads
    over 8 KV heads of 64, MLP 5632, vocab 32000, untied, a sliding window
-   of 128; cut to ``FAMILY_PATH_LAYERS`` (2) of its 16 layers, L = 2 below;
+   of 128; cut to ``FAMILY_PATH_LAYERS`` (1) of its 16 layers, L = 1 below;
    its CPU check at ``FAMILY_CPU_LAYERS``):
-   - gpt2_weights: prefill 4L+1 = 49 B1 and no B3 (an int8 prefill attends
-     through quantized_sdpa, as for the families), each step 49 B1 + 12 B2;
-   - gpt2_sbfp: prefill 4L+1 = 49 B5 (c_attn born merged, the odd tied
-     head), each step 49 B5 + 12 B2;
-   - gpt2_baseline: prefill 12 B3, each step 12 B4;
-   - gpt2_basic: prefill 49 T1 + 34L+6 = 414 T2, prepare 2L = 24 T2, each
-     step 49 T1 + 17L+3 = 207 T2 (OPT's 16L+3 and the tanh-GELU's FLOAT16
+   - gpt2_weights: prefill 4L+1 = 17 B1 and no B3 (an int8 prefill attends
+     through quantized_sdpa, as for the families), each step 17 B1 + 4 B2;
+   - gpt2_sbfp: prefill 4L+1 = 17 B5 (c_attn born merged, the odd tied
+     head), each step 17 B5 + 4 B2;
+   - gpt2_baseline: prefill 4 B3, each step 4 B4;
+   - gpt2_basic: prefill 17 T1 + 34L+6 = 142 T2, prepare 2L = 8 T2, each
+     step 17 T1 + 17L+3 = 71 T2 (OPT's 16L+3 and the tanh-GELU's FLOAT16
      output cast a block), every block through the fused GPT-2 step;
-   - mistral_weights: prefill and each step 4L+1 = 9 B1, no B2 or B3 (the
+   - mistral_weights: prefill and each step 4L+1 = 5 B1, no B2 or B3 (the
      band keeps the flash kernels away: quantized_sdpa);
-   - mistral_sbfp: prefill and each step 7L+1 = 15 B5, no B2 or B3;
+   - mistral_sbfp: prefill and each step 7L+1 = 8 B5, no B2 or B3;
    - mistral_baseline: no kernel of the port (cuBLAS f32 and the masked
      sdpa, as the JAX package routes a banded model);
-   - mistral_basic: prefill 9 T1 + 40L+5 = 85 T2, prepare 4 T2, each
-     step 9 T1 + 21L+2 = 44 T2, every layer through the fused step under
+   - mistral_basic: prefill 5 T1 + 40L+5 = 45 T2, prepare 2 T2, each
+     step 5 T1 + 21L+2 = 23 T2, every layer through the fused step under
      the banded mask; no B2, B3 or B4 on any Mistral path.
 4. Three paths of the continuous-batching engine (serving/engine.py) at
    examples/serving_bench.py's defaults: OPT-125m at full width from seed
    0, 8 slots, bursts of 16, 32 requests of a 96-token prompt and 64 new
-   tokens, one bucket of 96, max_len 176, cut to ``ENGINE_CUT_LAYERS`` (4)
+   tokens, one bucket of 96, max_len 176, cut to ``ENGINE_CUT_LAYERS`` (2)
    layers:
    - engine_weights: weights mode (BFP16_64, an int8 row cache);
    - engine_weights_chunked: the same with chunked prefill (chunks of 32);
    - engine_raw: the raw model, with an f32 row cache.
    Then engine_llama_weights: the same traffic over TinyLlama-1.1B (full
-   width, seed 0, cut to ``ENGINE_LLAMA_LAYERS`` (4) layers) in weights
-   mode with int8 row caches of its 4 KV heads: each admission 4L+1 = 17 B1
+   width, seed 0, cut to ``ENGINE_LLAMA_LAYERS`` (2) layers) in weights
+   mode with int8 row caches of its 4 KV heads: each admission 4L+1 = 9 B1
    (M 96) and no B3 (an int8 prefill attends through quantized_sdpa), each
-   decode forward 17 B1 + 4 B2 over the GQA row caches.  Its tokens are held against isolated generation on
+   decode forward 9 B1 + 2 B2 over the GQA row caches.  Its tokens are held against isolated generation on
    the card for every fourth request, and its CPU check runs those
    requests through the same build cut to ``FAMILY_CPU_LAYERS`` layers in
    an engine on the card and one on the CPU.
@@ -172,11 +172,12 @@ Phases (any failure exits non-zero):
 5. The encoder-decoder families at full width, from seed 0: t5-small (6 +
    6 layers of 512, 8 heads of 64, ReLU feed-forward 2048, vocab 32128, the
    head tied to the shared table; its attention unscaled, with a bucketed
-   relative-position bias, through the modular SDPA) at full depth and
+   relative-position bias, through the modular SDPA) cut to ``T5_LAYERS``
+   (2) layers a stack and
    whisper-small (12 + 12 layers of 768, 12 heads of 64, vocab 51865 tied,
    the encoder's Conv1dUnfold front end over [80, 3000] features) cut to
-   ``WHISPER_LAYERS`` (4) layers a stack on its paths and engine path, the
-   depth of its CPU checks (L = 4 in its counts below).  B1 and
+   ``WHISPER_LAYERS`` (2) layers a stack on its paths and engine path, the
+   depth of its CPU checks (L = 2 in its counts below).  B1 and
    T1 at their packed linears' shapes (the encoder's and the cross K/V's M
    8 x 128 and 8 x 1500 = 12000, the decoder's 8 and 8 x start, the heads N
    32128 and 51865); B2, B3 and B4 at Whisper's (in phase 2).  Three paths
@@ -187,7 +188,7 @@ Phases (any failure exits non-zero):
    B3; baseline T5 nothing, Whisper L B3 / L B4; basic 16L+1 / 10L+1 T1
    and T5 90L+9 / 52L+5, Whisper 83L+11 / 50L+5 T2), every cross-attention
    K/V recomputed at every step as in the JAX package; their CPU checks at
-   T5's full depth and batch, Whisper's FAMILY_CPU_LAYERS and first row;
+   T5's path depth and full batch, Whisper's FAMILY_CPU_LAYERS and first row;
    the basic paths' T2 sites held bit for bit.  Then engine_t5_weights and
    engine_whisper_weights: the seq2seq engine at serving_bench's traffic
    (T5 ragged inputs of 32-128 tokens padded to 128 and masked; Whisper a
@@ -224,9 +225,9 @@ Phases (any failure exits non-zero):
    weights-mode rules, SmoothQuant fused, GPTQ, then compressed and served
    as the weights path: the recipes 73 + 1308 T2, then 49 B1 + 12 B3 a
    prefill and 49 B1 + 12 B2 a step; every payload the GPTQ weight bit for
-   bit; the recipe run on the card against the CPU at 4 layers);
-   calib_basic (examples/model_calibration.py: 16060 T2; perplexities and
-   INT8 scales card vs CPU at 4 layers); int8kv_example
+   bit; the recipe run on the card against the CPU at ``FAMILY_CPU_LAYERS``);
+   calib_basic (examples/model_calibration.py at CALIB_LAYERS (4): 5500 T2; perplexities and
+   INT8 scales card vs CPU at ``FAMILY_CPU_LAYERS``); int8kv_example
    (examples/opt_int8_smoothquant_kv.py: 12 B3 + 84 B2; tokens against the
    CPU).  The SBFP legs of T5, Whisper and CLIP (t5_sbfp, whisper_sbfp,
    clip_sbfp: the weights paths' counts with B5 for B1) run with their
@@ -276,7 +277,7 @@ BASIC_LOGIT_TOL = 0.15
 # the Llama-topology paths' CPU check (Llama, Qwen3, Gemma): the same build
 # cut to this many layers (full width, seed 0), run on the card and on the
 # CPU
-FAMILY_CPU_LAYERS = 2  # 4 before the PTQ phases joined
+FAMILY_CPU_LAYERS = 1  # 4 before the PTQ phases joined, 2 before QAT's
 # each family's BASIC path's logits, GPU vs CPU at that depth, fixed before
 # the family's first run on the card from tools/order_sensitivity.py
 # --family <family> at the family's width, 4 layers, vocab cut to 2048,
@@ -379,20 +380,28 @@ S2S_ENC = 128
 # engine_raw (the OPT engine's chunked and f32 legs; engine_weights stays at
 # full depth) and engine_llama_weights at these depths; widths, traffic and
 # every check stay
-FP8_LAYERS = 2
+FP8_LAYERS = 1  # 2 before the QAT, model API and benchmarking phases
+# t5-small's paths and engine path (T5_LAYERS a stack), GPT-2's paths
+# (GPT2_LAYERS) and examples/model_calibration.py's model (CALIB_LAYERS) cut
+# so (full width, every check and count kept; full depth before those
+# phases): the time of the new phases
+T5_LAYERS = 2
+GPT2_LAYERS = 4
+CALIB_LAYERS = 4
 # every OPT engine path (engine_weights included) and engine_llama_weights
-# at 4 layers: the time of the PTQ paths and the seq2seq / CLIP SBFP legs
-ENGINE_CUT_LAYERS = 4
-ENGINE_LLAMA_LAYERS = 4
+# at 2 layers (4 before the QAT, model API and benchmarking phases): the
+# time of the new phases
+ENGINE_CUT_LAYERS = 2
+ENGINE_LLAMA_LAYERS = 2
 # the paths of bench.py's Llama-topology families (llama, qwen3, gemma,
 # mistral) at this depth (full width), that of their CPU checks; GPT-2's
 # BASIC CPU check at FAMILY_CPU_LAYERS
-FAMILY_PATH_LAYERS = 2  # 4 before the PTQ phases joined
+FAMILY_PATH_LAYERS = 1  # 4 before the PTQ phases joined, 2 before QAT's
 # the depth cut that buys back the vision families' and the op zoo's time:
 # whisper-small's paths (weights, baseline, basic) and its engine path at
-# this many layers a stack (full width), that of their CPU checks; its
-# kernel phases' shapes stay whisper-small's
-WHISPER_LAYERS = 4
+# this many layers a stack (full width; 4 before QAT's phases joined), that
+# of their CPU checks; its kernel phases' shapes stay whisper-small's
+WHISPER_LAYERS = 2
 S2S_START = {"t5": [0], "whisper": [50258, 50259, 50359, 50363]}
 S2S_CPU_BATCH = 1
 # the least calls of each timing in the families' kernel phases (B1, T1
@@ -1674,8 +1683,8 @@ def family_path_specs(fcfg, family):
 
 def gpt2_path_specs(gcfg):
     """The three paths of GPT-2 (bench.py's gpt2 legs), as
-    :func:`family_path_specs`, at full width and depth, its CPU checks at
-    full depth but the basic path's, which rebuilds it at FAMILY_CPU_LAYERS
+    :func:`family_path_specs`, at full width and ``gcfg``'s depth, its CPU
+    checks at that depth but the basic path's, which rebuilds it at FAMILY_CPU_LAYERS
     on the card to record its T2 sites.  Its attention routes as the families' (an int8 prefill
     through quantized_sdpa: no B3); a block is OPT's with NewGELU for ReLU,
     whose FLOAT16 pair takes ReLU's two casts at prefill and adds its output
@@ -2507,7 +2516,7 @@ def seq2seq_path_specs(cfg, family):
       cross-attention's 1500 keys, are plain torch: the JAX package's jnp
       path).
 
-    CPU checks: T5 at full depth and batch; Whisper at FAMILY_CPU_LAYERS and
+    CPU checks: T5 at the path's depth and full batch; Whisper at FAMILY_CPU_LAYERS and
     the card's first S2S_CPU_BATCH rows (the path at that depth, WHISPER_LAYERS,
     moves its model to the CPU but the basic one's)."""
     import numpy as np
@@ -2674,7 +2683,7 @@ def engine_seq2seq_path(torch, dev, kernels, cfg, family, card):
     caches' per-row lengths for Whisper), the encoder mask built on the
     device from the slots' encoder lengths.  Tokens are held against
     isolated generation on the card (``ENGINE_HELD``) and, through engines
-    on the card and on the CPU, at T5's full depth (the held requests, 8
+    on the card and on the CPU, at T5's path depth (the held requests, 8
     slots) or Whisper's FAMILY_CPU_LAYERS (its first S2S_CPU_BATCH held
     requests, as many slots).  Returns the launch counts."""
     import numpy as np
@@ -3907,6 +3916,399 @@ def recipes_phase(torch, dev, kernels, cfg):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: QAT, the model API and the benchmarking examples
+# ---------------------------------------------------------------------------
+
+QAT_BATCH = (8, 128)  # ids from numpy's default_rng(0)
+QAT_STEPS = 8
+QAT_LR = 1e-3  # Adam at optax's defaults (eps 1e-8), as tests/test_qat.py
+QAT_CPU_LAYERS, QAT_CPU_STEPS = 2, 4
+# card vs CPU at QAT_CPU_LAYERS over QAT_CPU_STEPS (TF32 off): each step's
+# loss within QAT_CURVE_TOL (twice the port-vs-JAX spread of the CPU tests'
+# 12-step curve, tests/test_torch_qat.py; the card's spread 7.5e-4); the
+# first step's q_proj gradients within QAT_GRAD_RTOL of their largest
+# |entry|: twice the card's spread, 8.9e-3 (a BFP cast that lands one step
+# apart moves the gradients behind it)
+QAT_CURVE_TOL = 0.02
+QAT_GRAD_RTOL = 0.02
+MODEL_API_BATCH = 16  # LeNet-5's images
+MONITOR_IDS = (2, 128)  # OPT-125m BASIC at QAT_CPU_LAYERS under Monitoring
+# LeNet-5's T2 launches a forward: thawed from the example yaml, FLOAT16 on
+# the convs', the linears' and the pools' outputs, every BFP cast off the
+# block (plain torch); under the BASIC rules unpacked, 17 (lenet_basic's)
+LENET_THAW_T2, LENET_BASIC_T2 = 7, 17
+
+
+def qat_t2_launches(cfg, seq: int = 128):
+    """T2 launches of one forward of OPT through the modular BASIC path
+    (unpacked Linears, ``DmxModule.inference_mode`` false: QAT's forward and
+    an ``EVALUATION_MODE.BASIC`` one): 44L+7 with every axis on the BFP
+    block (each Linear's input, weight and output casts among them), 42L+7
+    where the sequence is off the block (the attention's two BFP casts
+    along the keys plain torch); counted by spies on the CPU.  A backward
+    launches none."""
+    return (44 if seq % 64 == 0 else 42) * cfg.num_hidden_layers + 7
+
+
+def bench_launches(family, cfg):
+    """The kernel launches of one runner call of a benchmarking example in
+    each EVALUATION_MODE, by spies on the CPU: OPT ids [4, 32] (FP8 the fp8
+    path's 28L+5); CLIP a ``__call__`` over 8 pairs, 81L+15 T2 in BASIC at
+    L layers a tower; Whisper a forward of 4 decoder ids over the encoder,
+    107L+13 T2 in BASIC, L B3 otherwise (the decoder's transparent SDPA)."""
+    if family == "opt":
+        L = cfg.num_hidden_layers
+        basic = {"bfp_cast": qat_t2_launches(cfg, 32)}
+        return {"Vanilla": {}, "Baseline": {}, "FP8": {"bfp_cast": 28 * L + 5},
+                "Basic": basic, "Basic_NoVSIMD": basic}
+    if family == "clip":
+        basic = {"bfp_cast": 81 * cfg.vision.num_hidden_layers + 15}
+        return {"Vanilla": {}, "Baseline": {}, "Basic": basic, "Basic_NoVSIMD": basic}
+    L = cfg.decoder_layers
+    basic = {"bfp_cast": 107 * L + 13}
+    return {"Vanilla": {"flash_attention": L}, "Baseline": {"flash_attention": L},
+            "Basic": basic, "Basic_NoVSIMD": basic}
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def qat_train(torch, kernels, model, ids, steps, card, record_grads=False):
+    """``steps`` Adam steps of QAT through the modular BASIC forward of
+    ``model`` (a raw OPT, substituted in place); an eager forward first, as
+    tests/test_qat.py.  Returns (the DmxModel, the optimizer, each step's
+    (loss, forward launches, backward launches, wall ms), the first step's
+    q_proj gradients when ``record_grads``)."""
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.models import loss_fn
+
+    dm = DmxModel.from_raw(model).to_basic_mode()
+    with torch.no_grad():
+        dm(ids)
+    opt = torch.optim.Adam(model.parameters(), lr=QAT_LR, eps=1e-8)
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    steps_out, grads = [], {}
+    for s in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        kernels.reset_launches()
+        loss = loss_fn(dm(ids), ids)
+        fwd = nonzero(kernels.LAUNCHES)
+        kernels.reset_launches()
+        loss.backward()
+        sync()
+        bwd = nonzero(kernels.LAUNCHES)
+        if record_grads and s == 0:
+            grads = {n: p.grad.detach().float().cpu().clone()
+                     for n, p in model.named_parameters() if "q_proj" in n}
+        opt.step()
+        value = loss.item()
+        sync()
+        steps_out.append((value, fwd, bwd, (time.perf_counter() - t0) * 1e3))
+    return dm, opt, steps_out, grads
+
+
+def qat_basic_path(torch, dev, kernels, cfg):
+    """QAT of OPT-125m at full width and depth: QAT_STEPS Adam steps over
+    ids QAT_BATCH through the modular BASIC forward on the card, every
+    step's forward launching exactly qat_t2_launches(cfg) T2 (each BFP16_64
+    and FLOAT16 cast under the STE; the matmuls torch.matmul) and its
+    backward none; the loss must fall.  Prints each step's loss and wall ms,
+    a profiled step's device ms and idle share, the peak memory.  Then the
+    same at QAT_CPU_LAYERS layers on the card and on the CPU from the same
+    weights, QAT_CPU_STEPS steps, TF32 off: the first step's loss, its
+    q_proj gradients and the loss curve held.  Returns (the launches of the
+    QAT_STEPS steps, the path's numbers)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.models import loss_fn
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.nn.core import DmxModule
+
+    ids_np = np.random.default_rng(0).integers(0, cfg.vocab_size, QAT_BATCH)
+    ids = torch.as_tensor(ids_np, dtype=torch.long)
+    want_fwd = {"bfp_cast": qat_t2_launches(cfg)}
+    prev_mode, DmxModule.inference_mode = DmxModule.inference_mode, False
+    try:
+        model = OPTForCausalLM(cfg, device=dev, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dm, opt, steps, _ = qat_train(torch, kernels, model, ids.to(dev), QAT_STEPS, True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        total = {}
+        for i, (loss, fwd, bwd, ms) in enumerate(steps):
+            log(f"qat_basic step {i}: loss {loss:.6f}, wall {ms:.3f} ms, launches forward {fwd} "
+                f"(expected {want_fwd}), backward {bwd} (expected none)")
+            if fwd != want_fwd or bwd:
+                raise AssertionError("qat_basic: a step did not launch the kernels the expected "
+                                     "number of times")
+            for k, v in fwd.items():
+                total[k] = total.get(k, 0) + v
+        losses = [st[0] for st in steps]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"qat_basic: the loss did not fall: {losses}")
+
+        def one_step():
+            opt.zero_grad(set_to_none=True)
+            loss_fn(dm(ids.to(dev)), ids.to(dev)).backward()
+            opt.step()
+
+        events = device_events(torch, one_step)
+        busy = sum(us for _, us in events) / 1e3
+        wall = float(np.median([st[3] for st in steps[1:]]))
+        log(f"qat_basic: {QAT_STEPS} steps at batch {QAT_BATCH}, L = {cfg.num_hidden_layers}: wall "
+            f"{wall:.3f} ms a step (median of steps 1-{QAT_STEPS - 1}), device {busy:.3f} ms a "
+            f"step (a profiled step), idle share {1 - busy / wall:.3f}, peak device memory "
+            f"{peak:.2f} GiB")
+        for ev, us in sorted(events, key=lambda e: -e[1])[:5]:
+            log(f"  device, a QAT step: {us / 1e3:.4f} ms  {ev[:110]}")
+        del dm, opt, model
+
+        cut = dataclasses.replace(cfg, num_hidden_layers=QAT_CPU_LAYERS)
+        card_model = OPTForCausalLM(cut, device=dev, seed=0)
+        cpu_model = copy.deepcopy(card_model).to("cpu")
+        log(f"qat_basic card vs CPU at {QAT_CPU_LAYERS} layers: TF32 matmul "
+            f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 {torch.backends.cudnn.allow_tf32}")
+        _, _, card_steps, card_g = qat_train(torch, kernels, card_model, ids.to(dev),
+                                             QAT_CPU_STEPS, True, record_grads=True)
+        _, _, cpu_steps, cpu_g = qat_train(torch, kernels, cpu_model, ids, QAT_CPU_STEPS, False,
+                                           record_grads=True)
+        want_cut = {"bfp_cast": qat_t2_launches(cut)}
+        if any(st[1] != want_cut or st[2] for st in card_steps):
+            raise AssertionError("qat_basic's card run at the CPU check's depth did not launch "
+                                 "the kernels the expected number of times")
+        curve = [abs(a[0] - b[0]) for a, b in zip(card_steps, cpu_steps)]
+        grad_abs = max(float((card_g[n] - cpu_g[n]).abs().max()) for n in cpu_g)
+        grad_err = max(float((card_g[n] - cpu_g[n]).abs().max() / cpu_g[n].abs().max())
+                       for n in cpu_g)
+        log(f"qat_basic card vs CPU at {QAT_CPU_LAYERS} layers: first loss {card_steps[0][0]:.7f} "
+            f"/ {cpu_steps[0][0]:.7f}; the loss curve {[round(st[0], 6) for st in card_steps]} / "
+            f"{[round(st[0], 6) for st in cpu_steps]}, max |diff| {max(curve):.3g} (tolerance "
+            f"{QAT_CURVE_TOL}); q_proj gradients max |diff| {grad_abs:.3g}, over max |g| "
+            f"{grad_err:.3g} (tolerance {QAT_GRAD_RTOL})")
+        if not (max(curve) <= QAT_CURVE_TOL and grad_err <= QAT_GRAD_RTOL):
+            raise AssertionError("qat_basic: the card's training disagrees with the CPU's")
+    finally:
+        DmxModule.inference_mode = prev_mode
+    return total, dict(losses=losses, wall_ms=wall, device_ms=busy, idle=1 - busy / wall,
+                       peak_gib=peak, t2_per_step=want_fwd["bfp_cast"],
+                       cpu_curve_err=max(curve), cpu_grad_abs_err=grad_abs,
+                       cpu_grad_rel_err=grad_err)
+
+
+def model_api_phase(torch, dev, kernels, cfg):
+    """The model-level API on the card: configs/dmx_example_config_lenet5.yaml
+    thawed onto LeNet-5 (logits against the model moved to the CPU), freeze
+    and thaw round trips (the same bytes, the same outputs bit for bit),
+    ``compiled()`` of LeNet-5 in BASIC (torch.compile; T2 launches inside
+    the compiled forward as in eager, the output eager's, no diagnostic
+    state written), then ``monitoring`` and ``measure_runtimes`` over
+    OPT-125m in BASIC at QAT_CPU_LAYERS layers.  Returns the launches of
+    the counted runs."""
+    import copy
+    import dataclasses
+    from pathlib import Path
+
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.modeling.model import DmxConfig, DmxModel
+    from dmx_compressor_tpu_torch.models.lenet import LeNet5
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.nn.core import DmxModule
+
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "model_api"
+    out.mkdir(parents=True, exist_ok=True)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (MODEL_API_BATCH, 1, 28, 28), np.float32))
+    x_d = x.to(dev)
+    total = {}
+
+    def counted(fn, want, what):
+        kernels.reset_launches()
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        got = nonzero(kernels.LAUNCHES)
+        log(f"model_api: {what}: launches {got} (expected {want})")
+        if got != want:
+            raise AssertionError(f"model_api: {what} did not launch the kernels the expected "
+                                 f"number of times")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return y
+
+    prev_mode, DmxModule.inference_mode = DmxModule.inference_mode, False
+    try:
+        dm = DmxModel.from_raw(LeNet5(device=dev, seed=0))
+        dm.thaw(str(root / "configs" / "dmx_example_config_lenet5.yaml"))
+        got = counted(lambda: dm(x_d), {"bfp_cast": LENET_THAW_T2}, "the thawed LeNet-5").cpu()
+        cpu_model = copy.deepcopy(dm.module).to("cpu")
+        with torch.no_grad():
+            want = cpu_model(x)
+        err = (got - want).abs().max().item()
+        log(f"model_api: the thawed LeNet-5's logits GPU vs CPU: max_abs_err={err:.3g} "
+            f"(tolerance {LENET_BASIC_TOL})")
+        if not err <= LENET_BASIC_TOL:
+            raise AssertionError("model_api: the thawed LeNet-5 disagrees with the CPU run")
+
+        for what, build in (("thawed", None), ("BASIC", "basic")):
+            src = dm if build is None else DmxModel.from_raw(LeNet5(device=dev, seed=0))
+            if build:
+                src.to_basic_mode()
+            f1, f2 = out / f"{build or 'thawed'}_1.yaml", out / f"{build or 'thawed'}_2.yaml"
+            src.freeze(str(f1))
+            dst = DmxModel.from_raw(LeNet5(device=dev, seed=0)).thaw(str(f1))
+            dst.freeze(str(f2))
+            with torch.no_grad():
+                same = torch.equal(dst(x_d), src(x_d))
+            log(f"model_api: freeze and thaw of the {what} LeNet-5: {len(DmxConfig.from_yaml(str(f1)))} "
+                f"module configs, the refrozen file the same bytes {f1.read_bytes() == f2.read_bytes()}, "
+                f"outputs equal bit for bit {same}")
+            if not (same and f1.read_bytes() == f2.read_bytes()):
+                raise AssertionError(f"model_api: the {what} LeNet-5's freeze / thaw round trip "
+                                     f"changed it")
+
+        dmb = DmxModel.from_raw(LeNet5(device=dev, seed=0)).to_basic_mode()
+        want_t2 = {"bfp_cast": LENET_BASIC_T2}
+        eager = counted(lambda: dmb(x_d), want_t2, "LeNet-5 in BASIC, eager")
+        cast = dmb.get_submodule("fc1").input_casts["input_cast"]
+        cast.physical_dtype = torch.float16  # a mark no compiled forward may overwrite
+        fn = dmb.compiled()
+        t0 = time.perf_counter()
+        first = counted(lambda: fn(x_d), want_t2, "LeNet-5 in BASIC, compiled (first call)")
+        compile_s = time.perf_counter() - t0
+        again = counted(lambda: fn(x_d), want_t2, "LeNet-5 in BASIC, compiled (second call)")
+        err = max((first - eager).abs().max().item(), (again - eager).abs().max().item())
+        log(f"model_api: compiled() of LeNet-5 in BASIC: first call {compile_s:.1f} s with the "
+            f"compile; output vs eager max_abs_err={err:.3g} (expected 0); physical_dtype "
+            f"after the compiled forward {cast.physical_dtype} (its mark float16)")
+        if not (torch.equal(first, eager) and torch.equal(again, eager)):
+            raise AssertionError("model_api: the compiled forward is not eager's")
+        if cast.physical_dtype != torch.float16:
+            raise AssertionError("model_api: the compiled forward wrote diagnostic state")
+
+        cut = dataclasses.replace(cfg, num_hidden_layers=QAT_CPU_LAYERS)
+        dmo = DmxModel.from_raw(OPTForCausalLM(cut, device=dev, seed=0)).to_basic_mode()
+        ids = torch.as_tensor(np.random.default_rng(1).integers(0, cut.vocab_size, MONITOR_IDS),
+                              dtype=torch.long, device=dev)
+        names = list(dmo.dmx_module_dict)
+        want_opt = {"bfp_cast": qat_t2_launches(cut)}
+        with dmo.monitoring() as mon:
+            counted(lambda: dmo(ids), want_opt, "OPT-125m in BASIC under monitoring")
+        with dmo.measure_runtimes() as rt:
+            counted(lambda: dmo(ids), want_opt, "OPT-125m in BASIC under measure_runtimes")
+        runtimes = rt.get_records()
+        calls = {n: len(r.inputs) for n, r in mon.records.items()}
+        # a call a module; each SDPA calls its resadd and its actmatmul twice
+        want_calls = {n: 2 if n.endswith(("sdpa.resadd", "sdpa.actmatmul")) else 1
+                      for n in names}
+        ok = (calls == want_calls and {n: len(t) for n, t in runtimes.items()} == want_calls
+              and all(len(r.outputs) == calls[n] for n, r in mon.records.items())
+              and all(t > 0 for ts in runtimes.values() for t in ts))
+        top = sorted(((sum(t), n) for n, t in runtimes.items()), reverse=True)[:5]
+        log(f"model_api: monitoring / measure_runtimes over {len(names)} modules of OPT-125m in "
+            f"BASIC at {QAT_CPU_LAYERS} layers, ids {MONITOR_IDS}: {sum(calls.values())} calls "
+            f"recorded, each module's as expected {ok}; module time (CUDA events, nested modules "
+            f"counted in their parents too) " + ", ".join(f"{n} {s * 1e3:.4f} ms" for s, n in top))
+        if not ok:
+            raise AssertionError("model_api: monitoring did not record each module's calls")
+    finally:
+        DmxModule.inference_mode = prev_mode
+    return total
+
+
+def benchmarking_phase(torch, dev, kernels, cfg):
+    """The three benchmarking examples on the card, each as a user runs it
+    (its tables printed), the launches over its whole run; then one runner
+    call a mode, each mode's launches held against ``bench_launches``:
+    benchmark_opt at OPT-125m (the five modes, ids [4, 32]), benchmark_clip
+    at CLIP ViT-B/32 over its default corpus, benchmark_whisper at
+    whisper-small cut to WHISPER_LAYERS a stack.  Returns the launches by
+    example and the per-mode launches."""
+    from dmx_compressor_tpu_torch.examples.benchmarking import (
+        benchmark_clip,
+        benchmark_opt,
+        benchmark_whisper,
+    )
+    from dmx_compressor_tpu_torch.models.clip import CLIPConfig
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.nn.core import DmxModule
+    from dmx_compressor_tpu_torch.utils.benchmark import (
+        EVALUATION_MODE,
+        configure_mode,
+        prepare_model,
+    )
+
+    wcfg = benchmark_whisper.config(True, WHISPER_LAYERS)
+    runs = {
+        "opt": (["--full"], cfg),
+        "clip": (["--full"], CLIPConfig.vit_b_32()),
+        "whisper": (["--full", "--layers", str(WHISPER_LAYERS)], wcfg),
+    }
+    mains = {"opt": benchmark_opt, "clip": benchmark_clip, "whisper": benchmark_whisper}
+    by_path, per_mode = {}, {}
+    prev_mode, DmxModule.inference_mode = DmxModule.inference_mode, False
+    try:
+        for family, (argv, fcfg) in runs.items():
+            name = f"benchmark_{family}"
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            mains[family].main(argv + ["--device", str(dev)])
+            torch.cuda.synchronize()
+            by_path[name] = nonzero(kernels.LAUNCHES)
+            log(f"{name}: the example's run took {time.perf_counter() - t0:.1f} s, launches "
+                f"{by_path[name]}")
+            got = {}
+            if family == "opt":
+                model, x = benchmark_opt.build(True, dev)
+                dm = None
+                for mode in EVALUATION_MODE:
+                    if mode != EVALUATION_MODE.VANILLA:
+                        dm = dm or DmxModel.from_raw(model)  # in place, after Vanilla's run
+                        configure_mode(dm, mode)
+                    kernels.reset_launches()
+                    with torch.no_grad():
+                        (dm or model)(x)
+                    torch.cuda.synchronize()
+                    got[mode.value] = nonzero(kernels.LAUNCHES)
+            else:
+                maker = (benchmark_clip.make_model_maker(True, dev) if family == "clip"
+                         else benchmark_whisper.make_model_maker(wcfg, dev))
+                for mode in mains[family].MODES:
+                    model, runner, _ = maker()
+                    model, _ = prepare_model(model, mode, runner)
+                    kernels.reset_launches()
+                    runner(model)
+                    torch.cuda.synchronize()
+                    got[mode.value] = nonzero(kernels.LAUNCHES)
+                    del model
+            want = bench_launches(family, fcfg)
+            log(f"{name}: launches of one runner call by mode {got} (expected {want})")
+            if got != want:
+                raise AssertionError(f"{name}: a mode did not launch the kernels the expected "
+                                     f"number of times")
+            per_mode[name] = got
+            if family == "opt":
+                # each mode: its output forward, 2 warm-up and 3 timed runs
+                want_run = {}
+                for counts in got.values():
+                    for k, v in counts.items():
+                        want_run[k] = want_run.get(k, 0) + 6 * v
+                if by_path[name] != want_run:
+                    raise AssertionError(f"{name}: the example's run launched {by_path[name]}, "
+                                         f"expected {want_run}")
+    finally:
+        DmxModule.inference_mode = prev_mode
+    return by_path, per_mode
+
+
 @contextlib.contextmanager
 def phase(name: str, seconds: dict):
     """Log and record the wall seconds of one phase of the run (the whole
@@ -3981,8 +4383,9 @@ def main(argv=None) -> int:
                       "mistral": family_sbfp_linear_shapes(mcfg),
                       "gpt2": gpt2_linear_shapes(gcfg)}
     s2s = seq2seq_configs()  # t5-small, whisper-small
-    # the paths' configs: whisper-small cut to WHISPER_LAYERS a stack
-    s2s_run = {f: seq2seq_layers(c, f, WHISPER_LAYERS) if f == "whisper" else c
+    # the paths' configs: t5-small and whisper-small cut to T5_LAYERS and
+    # WHISPER_LAYERS a stack
+    s2s_run = {f: seq2seq_layers(c, f, WHISPER_LAYERS if f == "whisper" else T5_LAYERS)
                for f, c in s2s.items()}
     clip_cfg = CLIPConfig.vit_b_32()
     results = {}
@@ -4036,10 +4439,11 @@ def main(argv=None) -> int:
             + ", ".join(f"{m} / baseline {tok_s[m] / tok_s['baseline']:.4f}"
                         for m in ("weights", "sbfp", "sbfp_wide", "basic", "fp8") if m in tok_s))
     kv_repeat_ms = {c["path"]: c["repeat_ms"] for c in results.get("B3", ()) if "repeat_ms" in c}
+    gcut = dataclasses.replace(gcfg, n_layer=GPT2_LAYERS)
     cut = {f: dataclasses.replace(c, num_hidden_layers=FAMILY_PATH_LAYERS)
            for f, c in {**fams, "mistral": mcfg}.items()}
     fam_paths = {**{f: (cut[f], family_path_specs(cut[f], f)) for f in fams},
-                 "gpt2": (gcfg, gpt2_path_specs(gcfg)),
+                 "gpt2": (gcut, gpt2_path_specs(gcut)),
                  "mistral": (cut["mistral"], family_path_specs(cut["mistral"], "mistral")),
                  **{f: (c, seq2seq_path_specs(c, f)) for f, c in s2s_run.items()}}
     for family, (fcfg, specs) in fam_paths.items():
@@ -4110,7 +4514,9 @@ def main(argv=None) -> int:
             ptq_recipe_parity(torch, dev, kernels, cfg_cut)
     if run("calib_basic path"):
         with phase("calib_basic path", took):
-            by_path["calib_basic"] = calib_basic_path(torch, dev, kernels, cfg, cfg_cut)
+            by_path["calib_basic"] = calib_basic_path(
+                torch, dev, kernels, dataclasses.replace(cfg, num_hidden_layers=CALIB_LAYERS),
+                cfg_cut)
     if run("int8kv_example path"):
         with phase("int8kv_example path", took):
             by_path["int8kv_example"] = int8kv_path(torch, dev, kernels, cfg)
@@ -4127,6 +4533,24 @@ def main(argv=None) -> int:
         if run(f"{name} path"):
             with phase(f"{name} path", took):
                 by_path[name] = engine_seq2seq_path(torch, dev, kernels, scfg, family, card)
+    # phase 8: QAT, the model API and the benchmarking examples
+    every = dict.fromkeys(kernels.LAUNCHES, 0)
+    qat = None
+    if run("qat_basic path"):
+        with phase("qat_basic path", took):
+            launched, qat = qat_basic_path(torch, dev, kernels, cfg)
+        by_path["qat_basic"] = {**every, **launched}
+        log(f"qat_basic path on {card}: {json.dumps(qat)}")
+    if run("model_api"):
+        with phase("model_api", took):
+            by_path["model_api"] = {**every, **model_api_phase(torch, dev, kernels, cfg)}
+    if run("benchmarking_examples"):
+        with phase("benchmarking_examples", took):
+            bench, bench_modes = benchmarking_phase(torch, dev, kernels, cfg)
+        by_path.update({name: {**every, **n} for name, n in bench.items()})
+        log(f"the benchmarking examples' launches of one runner call by mode on {card}: "
+            f"{json.dumps(bench_modes)}")
+
     log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
     log(f"kernel builds and phases: {took_build + sum(took.values()):.1f} s")
     if only:
@@ -4197,6 +4621,7 @@ def main(argv=None) -> int:
         dict(name="bfp_cast", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_cast.cu",
              replaces="tools/probe_fused_cast.py:9", **launches("bfp_cast"),
              max_abs_err=0.0, **t2_step, **{f"{f}_step": fam_t2[f][0] for f in fam_t2},
+             qat_basic_step=qat,
              cases=t2 + t2_fam),
     ]
     log(json.dumps({"kernels": entries}))

@@ -20,13 +20,25 @@ neither replaces the other.
 
 from types import SimpleNamespace
 
-from . import nn
+from . import nn, utils
 from .functional.approximate import ApproximationFunction
-from .modeling.model import DmxConfigRule, DmxModel
+from .modeling.model import (
+    DmxConfig,
+    DmxConfigRule,
+    DmxModel,
+    DmxSimplePipeline,
+    DmxTransformation,
+    Model,
+)
 from .numerics.format import Format
 from .sparse import Sparseness
 
 __version__ = "0.1.0"
+
+# the SIMD surrogate library ships in the package (functional/simd_ops.py),
+# as in the JAX package
+VSIMD_OP_REF_AVAILABLE = True
+NUMERICS_UTILS_AVAILABLE = False
 
 _F = Format.from_shorthand
 
@@ -175,11 +187,17 @@ config_rules = SimpleNamespace(
 
 __all__ = [
     "Format",
+    "Sparseness",
     "ApproximationFunction",
     "DmxModel",
+    "DmxConfig",
     "DmxConfigRule",
+    "DmxTransformation",
+    "DmxSimplePipeline",
+    "Model",
     "nn",
     "format",
+    "sparseness",
     "default_approx",
     "config_rules",
 ]

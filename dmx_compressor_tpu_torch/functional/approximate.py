@@ -99,6 +99,9 @@ class NoApproximation(ApproximationFunction):
 _SH_RE = re.compile(r"(\w+)\[(\w+)\]\{(.*?)\}\((.*)\)")
 
 
+Identity = NoApproximation  # the JAX package's alias
+
+
 class _FunctionApproximation(ApproximationFunction):
     """Shared machinery for torch-function and custom-function surrogates."""
 
@@ -189,5 +192,7 @@ class Approximator:
         out = self.function.execute(x)
         out0 = out[0] if isinstance(out, tuple) else out
         if not isinstance(self.function, NoApproximation):
-            self.approximation_error = (out0 - x).detach()
+            from ..utils.tracing import try_set
+
+            try_set(self, "approximation_error", (out0 - x).detach())
         return out0

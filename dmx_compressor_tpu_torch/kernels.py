@@ -161,9 +161,12 @@ def function(name: str):
     return fn
 
 
+@torch.compiler.disable
 def launch(name: str, *args, route: Optional[str] = None) -> None:
     """Launch kernel ``name`` on PyTorch's current stream, count it (by
-    ``route`` too, where given), and raise if the launch was refused."""
+    ``route`` too, where given), and raise if the launch was refused.
+    ``torch.compile`` does not trace it (a foreign call through ctypes): a
+    compiled caller's graph breaks here and the launch runs as in eager."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = function(name)(*args, stream)
     count(name, route)
@@ -171,6 +174,7 @@ def launch(name: str, *args, route: Optional[str] = None) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 
 
+@torch.compiler.disable
 def check_cuda(*tensors: torch.Tensor, dtypes, align: int = 16) -> None:
     """Validate what a kernel takes: the current CUDA device (the kernel
     launches on its stream), contiguous and ``align``-byte aligned (16 for

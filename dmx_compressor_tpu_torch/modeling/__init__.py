@@ -1,3 +1,11 @@
 """Model-level API."""
 
-from .model import DmxConfigRule, DmxModel
+from .model import (
+    DmxConfig,
+    DmxConfigRule,
+    DmxModel,
+    DmxPipelineMixin,
+    DmxSimplePipeline,
+    DmxTransformation,
+    Model,
+)

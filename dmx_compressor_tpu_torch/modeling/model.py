@@ -1,21 +1,51 @@
-"""Model-level API: DmxModel and DmxConfigRule.
+"""Model-level API: DmxModel, DmxConfig, DmxConfigRule and the pipelines.
 
-Port of ``dmx_compressor_tpu/modeling/model.py`` (the parts the serving path
-and the PTQ recipes use).  ``DmxModel.from_raw`` substitutes a raw torch
-model's sub-modules with Dmx-aware ones; ``configure`` applies module configs
-and rules; ``counting_flops`` counts the Linear and conv FLOPs of forwards.
+Port of ``dmx_compressor_tpu/modeling/model.py``.  ``DmxModel.from_raw``
+substitutes a raw torch model's sub-modules with Dmx-aware ones;
+``configure`` applies a :class:`DmxConfig` (a yaml file, a dict of module
+configs) and rules through a queue that ``replay_configuration`` re-applies;
+``freeze`` / ``thaw`` write and read the whole configuration as yaml that
+round-trips with the JAX package's; ``compiled`` is ``torch.compile`` of the
+model (or of a function over it), cached per target until the next
+``configure``; ``counting_flops``, ``monitoring`` and ``measure_runtimes``
+observe forwards.
 """
 
 from __future__ import annotations
 
 import re
 from contextlib import ExitStack, contextmanager
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
+import torch
 from torch import nn
 
-from ..nn.core import DmxModule
+from ..nn.core import DmxModule, DmxModuleConfig
 from ..transform.substitute import named_dmx_modules, substitute_transform
+from ..utils import io as uio
+
+
+def _module_of(model) -> nn.Module:
+    return model.module if isinstance(model, DmxModel) else model
+
+
+class DmxConfig(dict):
+    """{module_name -> DmxModuleConfig}, with a yaml round trip."""
+
+    @classmethod
+    def from_model(cls, model, freeze: bool = False) -> "DmxConfig":
+        return cls({n: m.dmx_config(freeze) for n, m in named_dmx_modules(_module_of(model))})
+
+    @classmethod
+    def from_yaml(cls, fname: str) -> "DmxConfig":
+        return cls(uio.load_config_file(fname))
+
+    def to_yaml(self, fname: str) -> None:
+        uio.save_config_file({k: dict(v) for k, v in self.items()}, fname)
+
+    @property
+    def module_names(self):
+        return self.keys()
 
 
 class DmxConfigRule:
@@ -27,12 +57,32 @@ class DmxConfigRule:
             raise TypeError("module_types must be DmxModule subclasses")
         self.module_types = tuple(module_types)
         self.name_rule = re.compile(name_re)
-        self.module_config = dict(module_config or {})
+        self.module_config = DmxModuleConfig(module_config or {})
 
-    def apply_to(self, model: nn.Module) -> None:
-        for n, m in named_dmx_modules(model):
+    def names_in(self, model_or_config) -> List[str]:
+        """The names the rule selects, in a model or in a DmxConfig."""
+        config = (model_or_config if isinstance(model_or_config, DmxConfig)
+                  else DmxConfig.from_model(model_or_config, freeze=True))
+        return [
+            n for n in config.module_names
+            if any(issubclass(config[n]["instance_of"], mt) for mt in self.module_types)
+            and self.name_rule.match(n)
+        ]
+
+    def apply_to(self, model_or_config) -> None:
+        """Configure the selected modules of a model, or update the selected
+        entries of a DmxConfig."""
+        if isinstance(model_or_config, DmxConfig):
+            for n in self.names_in(model_or_config):
+                model_or_config[n].update(self.module_config)
+            return
+        for n, m in named_dmx_modules(_module_of(model_or_config)):
             if isinstance(m, self.module_types) and self.name_rule.match(n):
                 m.configure(self.module_config)
+
+
+# the JAX package's alias
+DmxTransformation = DmxConfigRule
 
 
 class DmxModel:
@@ -40,6 +90,8 @@ class DmxModel:
 
     def __init__(self, module: nn.Module):
         self._module = module
+        self._dmx_configuration_queue: List[Tuple] = []
+        self._compiled: Dict[int, Callable] = {}
 
     @classmethod
     def from_raw(cls, model: nn.Module, *rules, additional_mappings=None,
@@ -62,6 +114,8 @@ class DmxModel:
     def __getattr__(self, name):
         return getattr(self._module, name)
 
+    # ------------------------------------------------------------- config
+
     def named_dmx_modules(self) -> Iterator[Tuple[str, DmxModule]]:
         return named_dmx_modules(self._module)
 
@@ -69,16 +123,55 @@ class DmxModel:
     def dmx_module_dict(self) -> Dict[str, DmxModule]:
         return dict(self.named_dmx_modules())
 
-    def configure(self, config: Optional[Dict[str, Dict]], *rules: DmxConfigRule) -> "DmxModel":
-        """Apply a {module_name: module_config} dict and/or rules."""
+    def get_submodule(self, name: str) -> DmxModule:
+        return self.dmx_module_dict[name]
+
+    @property
+    def op_set(self):
+        return {type(m).__name__ for _, m in self.named_dmx_modules()}
+
+    def configure(self, config: Optional[Union[str, Dict]], *rules: DmxConfigRule) -> "DmxModel":
+        """Apply a DmxConfig (a yaml file name, or a dict of module configs
+        by name) and/or rules; queued for ``replay_configuration``; drops
+        every ``compiled`` callable."""
+        self._dmx_configuration_queue.append((config, rules))
+        self._apply_configuration(config, rules)
+        self._compiled.clear()
+        return self
+
+    transform = configure
+
+    def _apply_configuration(self, config, rules) -> None:
         if config is not None:
+            if isinstance(config, str):
+                config = DmxConfig.from_yaml(config)
             mods = self.dmx_module_dict
             for n, mc in config.items():
                 if n in mods:
                     mods[n].configure(mc)
         for rule in rules:
             rule.apply_to(self._module)
-        return self
+
+    def replay_configuration(self) -> None:
+        """Re-apply every queued configuration, in order."""
+        for config, rules in self._dmx_configuration_queue:
+            self._apply_configuration(config, rules)
+
+    # ------------------------------------------------------- freeze / thaw
+
+    @property
+    def dmx_config(self) -> DmxConfig:
+        return DmxConfig.from_model(self._module)
+
+    def freeze(self, fname: str) -> None:
+        """Write the whole configuration (every key of every module) as yaml."""
+        DmxConfig.from_model(self._module, freeze=True).to_yaml(fname)
+
+    def thaw(self, fname: str) -> "DmxModel":
+        """Apply a frozen configuration."""
+        return self.configure(fname)
+
+    # -------------------------------------------------------------- modes
 
     def to_baseline_mode(self) -> "DmxModel":
         from .. import config_rules
@@ -102,6 +195,31 @@ class DmxModel:
         for _, m in self.named_dmx_modules():
             m.fold_weight_and_bias()
 
+    # ------------------------------------------------------------ compile
+
+    def compiled(self, fn: Optional[Callable] = None, **options):
+        """``torch.compile`` of ``fn`` (the model when None) over the current
+        configuration, cached per target until the next ``configure``.
+
+        ``options`` go to ``torch.compile``.  Inductor's
+        ``emulate_precision_casts`` is on unless an option says otherwise:
+        without it Inductor drops the round trip through float16 that a
+        FLOAT16 cast's plain version makes, so a compiled cast would not be
+        the cast.  A T2 launch (``ops/bfp_cast.py``) is an operator of the
+        graph; the other kernels' launches, calls through ``ctypes``, break
+        it and run as in eager.  Nothing here catches a compile error.
+        Inside the compiled graph the modules write no diagnostic state
+        (``utils/tracing.py``)."""
+        target = fn if fn is not None else self._module
+        key = id(target)
+        if key not in self._compiled:
+            if options.get("backend", "inductor") == "inductor":
+                inductor = dict(options.get("options") or {})
+                inductor.setdefault("emulate_precision_casts", True)
+                options = {**options, "options": inductor}
+            self._compiled[key] = torch.compile(target, **options)
+        return self._compiled[key]
+
     # -------------------------------------------------------- monitoring
 
     @contextmanager
@@ -115,3 +233,52 @@ class DmxModel:
     @property
     def flops(self):
         return sum(m.flops or 0 for _, m in self.named_dmx_modules() if m.flop_counter)
+
+    def monitoring(self, submodules: Optional[List[str]] = None):
+        """Record the inputs and outputs of the DmxModules (``submodules``:
+        by name; all when None) within the context."""
+        from ..utils.monitor import Monitoring
+
+        return Monitoring(self, submodules)
+
+    def measure_runtimes(self, submodules: Optional[List[str]] = None):
+        """Record the runtimes of the DmxModules within the context."""
+        from ..utils.monitor import RuntimeMeasurement
+
+        return RuntimeMeasurement(self, submodules)
+
+
+class DmxPipelineMixin:
+    """Pipeline-level configure / freeze / thaw."""
+
+    def configure(self, config, *rules):
+        self.model.configure(config, *rules)
+        return self
+
+    def freeze(self, fname):
+        self.model.freeze(fname)
+
+    def thaw(self, fname):
+        self.model.thaw(fname)
+        return self
+
+
+class DmxSimplePipeline(DmxPipelineMixin):
+    """preprocessor -> model -> postprocessor."""
+
+    def __init__(self, preprocessor=None, model=None, postprocessor=None):
+        self.preprocessor = preprocessor
+        self.model = model
+        self.postprocessor = postprocessor
+
+    def __call__(self, x):
+        if self.preprocessor is not None:
+            x = self.preprocessor(x)
+        x = self.model(x)
+        if self.postprocessor is not None:
+            x = self.postprocessor(x)
+        return x
+
+
+# the JAX package's legacy alias
+Model = DmxSimplePipeline

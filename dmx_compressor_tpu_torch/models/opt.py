@@ -372,3 +372,11 @@ def load_jax_params(model: OPTForCausalLM, params: Dict[str, np.ndarray]) -> Non
     head stays tied to ``embed_tokens``.  See
     :func:`.shared.load_jax_biased_params`."""
     load_jax_biased_params(model, params, "model.decoder.embed_tokens")
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy (the perplexity numerator), HF-style shift:
+    the logits at position t score the label at t + 1, in f32."""
+    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, 1:, None].long())[..., 0]
+    return nll.mean()

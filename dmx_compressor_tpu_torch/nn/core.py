@@ -39,6 +39,7 @@ from ..numerics.smoothquant import ActivationWeightSmoothQuant
 from ..perf_proxy import PerformanceProxyMixin
 from ..plugins import PluginBase, PluginLayerData
 from ..sparse import Dense, Sparsify
+from ..utils.tracing import eager, try_set
 
 
 def is_configurable(m) -> bool:
@@ -55,6 +56,9 @@ class DmxModule(PerformanceProxyMixin, LayerReconstructionMixin, nn.Module):
     # inference mode: an approximated op returns the surrogate value
     # directly, skipping the exact op whose only role is carrying gradients
     inference_mode: bool = False
+    # open Monitoring / RuntimeMeasurement contexts (utils/monitor.py): above
+    # 0, the fused BASIC plans step aside so every monitored module is called
+    monitors: int = 0
 
     # cast topology, overridden per subclass
     ch_axis: Optional[int] = None  # input channel axis
@@ -227,9 +231,10 @@ class DmxModule(PerformanceProxyMixin, LayerReconstructionMixin, nn.Module):
         if not isinstance(fn, NoApproximation):
             approx = self.approximator_wrapper(inputs, args, kwargs, **fn.wrapper_params)
             if isinstance(approx, tuple):
-                self.approximation_error = [(a - e).detach() for a, e in zip(approx, exact)]
+                try_set(self, "approximation_error",
+                        [(a - e).detach() for a, e in zip(approx, exact)])
             else:
-                self.approximation_error = (approx - exact).detach()
+                try_set(self, "approximation_error", (approx - exact).detach())
             exact = approx_blend(exact, approx)
         return exact
 
@@ -265,7 +270,7 @@ class DmxModule(PerformanceProxyMixin, LayerReconstructionMixin, nn.Module):
                 DmxModule.plugins = [q for q in plugins_copy if q is not p]
                 p.process_layer(data)
                 DmxModule.plugins = list(plugins_copy)
-        if self.flop_counter_enabled:
+        if self.flop_counter_enabled and eager():
             self.count_flops(input, output[0] if isinstance(output, (tuple, list)) else output)
         if self.align_boundary_dtype:
             output = (

@@ -1,4 +1,4 @@
-"""Numerics core: formats, rounding and casts."""
+"""Numerics core: formats, rounding, casts, observers, SmoothQuant."""
 
 from .format import (
     Format,
@@ -10,5 +10,13 @@ from .format import (
     MXFP,
     MXINT,
 )
-from .cast import CastTo, CastToDict, ste
+from .cast import CastTo, CastToDict, DeQuantize, Quantize, ste
+from .observer import (
+    DummyObserver,
+    HistogramObserver,
+    MinMaxObserver,
+    ObserverBase,
+    PercentileObserver,
+)
+from .smoothquant import ActivationWeightSmoothQuant, SmoothQuant
 from . import rounding

@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 from torch import nn
 
+from ..utils.tracing import try_set
 from .format import FixedPoint, Format, Same
 from .observer import (
     OBSERVERS,
@@ -216,7 +217,7 @@ class CastTo(nn.Module):
         if not isinstance(x, torch.Tensor) or not x.is_floating_point():
             return x
         physical_dtype = x.dtype
-        self.physical_dtype = physical_dtype
+        try_set(self, "physical_dtype", physical_dtype)
         if isinstance(self.format, Same) and not self.pre_transform:
             return x  # a true identity: no STE node at all
         reverse_shaping = None

@@ -161,7 +161,7 @@ def basic_sdpa_shape(sdpa, head_dim: int, seq_len: int) -> Optional[BasicSDPAPar
     from ..nn.core import DmxModule
     from ..numerics.format import BlockFloatingPoint, Same
 
-    if not DmxModule.inference_mode or DmxModule.plugins:
+    if not DmxModule.inference_mode or DmxModule.plugins or DmxModule.monitors:
         return None
 
     def cast_ok(c, want):

@@ -339,7 +339,7 @@ def basic_head_plan(final_ln, lm_head) -> Optional[BasicHeadPlan]:
     from ..nn import modules as dmxnn
     from ..nn.core import DmxModule
 
-    if not DmxModule.inference_mode or DmxModule.plugins:
+    if not DmxModule.inference_mode or DmxModule.plugins or DmxModule.monitors:
         return None
     if not isinstance(final_ln, dmxnn.LayerNorm) or not _fp16_io_ok(final_ln, "layer_norm"):
         return None
@@ -359,7 +359,7 @@ def basic_layer_plan(layer) -> Optional[BasicLayerPlan]:
     from ..nn import modules as dmxnn
     from ..nn.core import DmxModule
 
-    if not DmxModule.inference_mode or DmxModule.plugins:
+    if not DmxModule.inference_mode or DmxModule.plugins or DmxModule.monitors:
         return None
     if not layer.do_layer_norm_before:
         return None
@@ -399,7 +399,7 @@ def basic_gpt2_block_plan(block) -> Optional[BasicLayerPlan]:
     from ..nn import modules as dmxnn
     from ..nn.core import DmxModule
 
-    if not DmxModule.inference_mode or DmxModule.plugins:
+    if not DmxModule.inference_mode or DmxModule.plugins or DmxModule.monitors:
         return None
     attn, mlp = getattr(block, "attn", None), getattr(block, "mlp", None)
     linears = [getattr(attn, "c_attn", None), getattr(attn, "c_proj", None),
@@ -451,7 +451,7 @@ def basic_rms_head_plan(final_norm, lm_head, *, gemma_norm: bool = False
     from ..nn import modules as dmxnn
     from ..nn.core import DmxModule
 
-    if not DmxModule.inference_mode or DmxModule.plugins:
+    if not DmxModule.inference_mode or DmxModule.plugins or DmxModule.monitors:
         return None
     norm_t = dmxnn.GemmaRMSNorm if gemma_norm else dmxnn.RMSNorm
     if type(final_norm) is not norm_t or not _fp16_io_ok(final_norm, "rms_norm"):
@@ -504,7 +504,7 @@ def _llama_family_plan(layer, *, gemma_norm: bool = False, act: str = "silu",
     from ..nn import modules as dmxnn
     from ..nn.core import DmxModule
 
-    if not DmxModule.inference_mode or DmxModule.plugins:
+    if not DmxModule.inference_mode or DmxModule.plugins or DmxModule.monitors:
         return None
     attn = getattr(layer, "self_attn", None)
     mlp = getattr(layer, "mlp", None)

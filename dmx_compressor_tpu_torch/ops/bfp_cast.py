@@ -21,6 +21,7 @@ eight building blocks one at a time through the same kernel.
 from __future__ import annotations
 
 import math
+from typing import List
 
 import torch
 
@@ -86,14 +87,35 @@ def fp16_cast_ref(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _launch(src: torch.Tensor, op: int, outer: int, length: int, inner: int, block: int,
-            wl: int, out_shape=None) -> torch.Tensor:
-    out = torch.empty(src.shape if out_shape is None else out_shape, dtype=torch.float32,
-                      device=src.device)
+def _launch_now(src: torch.Tensor, op: int, outer: int, length: int, inner: int, block: int,
+                wl: int, out_shape: List[int]) -> torch.Tensor:
+    out = torch.empty(out_shape, dtype=torch.float32, device=src.device)
     kernels.check_cuda(src, out, dtypes=(torch.float32, torch.float32), align=4)
     kernels.launch("bfp_cast", src.data_ptr(), out.data_ptr(), op, outer, length, inner,
                    block, wl)
     return out
+
+
+# the launch as an operator of its own, for torch.compile: a compiled
+# forward keeps each T2 launch in its graph (no graph break) and calls the
+# launch above when it runs
+_launch_op = torch.library.custom_op("dmx_compressor_tpu_torch::bfp_cast", _launch_now,
+                                     mutates_args=())
+
+
+@_launch_op.register_fake
+def _(src, op, outer, length, inner, block, wl, out_shape):
+    return src.new_empty(out_shape, dtype=torch.float32)
+
+
+def _launch(src: torch.Tensor, op: int, outer: int, length: int, inner: int, block: int,
+            wl: int, out_shape=None) -> torch.Tensor:
+    """One T2 launch over ``src`` (no gradient: the casts' is the STE's);
+    inside a torch.compile trace through the operator, else directly (an
+    operator call costs host time on every launch of the eager paths)."""
+    shape = list(src.shape if out_shape is None else out_shape)
+    launch = _launch_op if torch.compiler.is_compiling() else _launch_now
+    return launch(src.detach(), op, outer, length, inner, block, wl, shape)
 
 
 def bfp_cast(x: torch.Tensor, wl: int, block: int, axis: int = -1,

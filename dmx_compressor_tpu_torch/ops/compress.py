@@ -39,6 +39,7 @@ from ..numerics.format import (
     Same,
     ScaledBlockFloatingPoint,
 )
+from ..utils.tracing import eager
 from .bfp_linear import bfp_linear, bfp_linear_bf16, sbfp_linear
 from .bfp_pack import PackedBFP, PackedSBFP, bfp_pack, sbfp_pack
 
@@ -147,7 +148,7 @@ class PackedBFPLinear(_PackedLinear):
             not DmxModule.plugins
             and self.obc is None
             and self.aft is None
-            and not self.flop_counter_enabled
+            and not (self.flop_counter_enabled and eager())
             and (sq is None or not (sq.dynamic or sq.calibrating))
         )
         return in_ok and out_ok and quiet

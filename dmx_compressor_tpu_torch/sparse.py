@@ -23,6 +23,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .utils.tracing import eager
+
 
 class Sparseness:
     """Abstract sparseness pattern."""
@@ -226,10 +228,14 @@ class Sparsify(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if isinstance(self.sparseness, Dense):
             return x
-        self._materialize(x, generator)
+        if eager():
+            self._materialize(x, generator)
+        elif self.score is None or self.score.shape != x.shape:
+            raise RuntimeError("Sparsify score not materialized; run one eager forward first")
         score = (self.score_func(self.score, x) if (self.plastic and self.score_func is not None)
                  else self.score)
-        self.plastic = False
+        if eager():
+            self.plastic = False
         with torch.no_grad():
             mask = self.sparseness.get_mask(score.detach(), generator=generator)
         if self.training:

@@ -1,3 +1,9 @@
 """Module-tree transforms."""
 
-from .substitute import named_dmx_modules, substitute_transform
+from .substitute import (
+    DMX_AWARE_MAPPING,
+    RAW_OP_MAPPING,
+    default_mapping,
+    named_dmx_modules,
+    substitute_transform,
+)

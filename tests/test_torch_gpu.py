@@ -1507,3 +1507,42 @@ def test_clip_sbfp_leg_on_card_matches_cpu(cuda, leg):
     with torch.no_grad():
         want = model(ids, px)[0]
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_qat_step_with_t2_equals_its_plain_version_on_card(cuda, monkeypatch):
+    """One QAT step of OPT tiny through the modular BASIC forward on the
+    card, T2 against its plain version on the same card: the loss and every
+    gradient bit for bit; the forward launches T2, the backward none."""
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.models import loss_fn
+    from dmx_compressor_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+    from dmx_compressor_tpu_torch.nn.core import DmxModule
+
+    monkeypatch.setattr(DmxModule, "inference_mode", False)
+    cfg = OPTConfig.tiny()
+    ids = torch.randint(0, cfg.vocab_size, (4, 16),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+
+    def step():
+        model = OPTForCausalLM(cfg, device=cuda, seed=0)
+        dm = DmxModel.from_raw(model).to_basic_mode()
+        n0 = kernels.LAUNCHES["bfp_cast"]
+        loss = loss_fn(dm(ids), ids)
+        n1 = kernels.LAUNCHES["bfp_cast"]
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        return loss.detach(), grads, n1 - n0, kernels.LAUNCHES["bfp_cast"] - n1
+
+    loss, grads, fwd, bwd = step()
+    with monkeypatch.context() as mp:
+        mp.setattr(T2, "bfp_cast", lambda x, wl, block, axis=-1, fp16_first=False:
+                   T2.bfp_cast_ref(T2.fp16_cast_ref(x) if fp16_first else x, wl, block, axis))
+        mp.setattr(T2, "fp16_cast", T2.fp16_cast_ref)
+        want_loss, want_grads, plain_fwd, _ = step()
+    assert fwd > 0 and bwd == 0 and plain_fwd == 0
+    assert torch.equal(loss, want_loss)
+    assert grads.keys() == want_grads.keys()
+    for n, g in grads.items():
+        assert torch.equal(g, want_grads[n]), n
