@@ -226,13 +226,28 @@ Phases (any failure exits non-zero):
    as the weights path: the recipes 73 + 1308 T2, then 49 B1 + 12 B3 a
    prefill and 49 B1 + 12 B2 a step; every payload the GPTQ weight bit for
    bit; the recipe run on the card against the CPU at ``FAMILY_CPU_LAYERS``);
-   calib_basic (examples/model_calibration.py at CALIB_LAYERS (4): 5500 T2; perplexities and
+   calib_basic (examples/model_calibration.py at CALIB_LAYERS (2): 2860 T2; perplexities and
    INT8 scales card vs CPU at ``FAMILY_CPU_LAYERS``); int8kv_example
    (examples/opt_int8_smoothquant_kv.py: 12 B3 + 84 B2; tokens against the
    CPU).  The SBFP legs of T5, Whisper and CLIP (t5_sbfp, whisper_sbfp,
    clip_sbfp: the weights paths' counts with B5 for B1) run with their
    families' paths, and B5 with B1 and T1 at their shapes.
-8. A ``kernels`` JSON line (launches by path, the engine paths included),
+8. QAT, the model API and the benchmarking examples (qat_basic,
+   model_api, benchmarking_examples); then Hugging Face checkpoints in and
+   training checkpoints out: hf_pipeline (OPT-125m's seed-0 tensors in HF
+   names written as ``model.safetensors`` by :func:`write_safetensors` and
+   as ``pytorch_model.bin`` by ``torch.save``, each loaded through
+   ``modeling.hf.pipeline`` onto the card, every parameter bit for bit; 64
+   greedy tokens from batch 8 x prompt 128 raw (L B3, L B4 a step), over an
+   int8 cache (L B3, L B2 a step), under the BASIC rules (44L+7 T2 a
+   forward) and in weights mode (4L+1 B1 + L B3, 4L+1 B1 + L B2 a step),
+   each the directly built model's tokens bit for bit; card vs CPU at 2
+   layers; top-5 sampling twice with one seed), hf_head_dim80 (OPT at
+   OPT-2.7b's attention shape, 32 heads of 80, 2 layers: B3, B4 and B2 at
+   D 80 card vs CPU, and timed beside D 64 and 128) and checkpoint_resume
+   (QAT at 2 layers: 4 Adam steps, ``CheckpointManager.save``, a fresh
+   model restored, 4 more, bit for bit the uninterrupted 8).
+9. A ``kernels`` JSON line (launches by path, the engine paths included),
    then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -278,6 +293,9 @@ BASIC_LOGIT_TOL = 0.15
 # cut to this many layers (full width, seed 0), run on the card and on the
 # CPU
 FAMILY_CPU_LAYERS = 1  # 4 before the PTQ phases joined, 2 before QAT's
+# ... and the card's first rows that it holds (the CPU's head over a 151936
+# / 256000 vocabulary takes seconds a path at all BATCH rows)
+FAMILY_CPU_BATCH = 2
 # each family's BASIC path's logits, GPU vs CPU at that depth, fixed before
 # the family's first run on the card from tools/order_sensitivity.py
 # --family <family> at the family's width, 4 layers, vocab cut to 2048,
@@ -387,7 +405,11 @@ FP8_LAYERS = 1  # 2 before the QAT, model API and benchmarking phases
 # phases): the time of the new phases
 T5_LAYERS = 2
 GPT2_LAYERS = 4
-CALIB_LAYERS = 4
+CALIB_LAYERS = 2  # 4 before the HF checkpoint phases (12 before QAT's)
+# benchmark_clip's synthetic corpus in the benchmarking phase: its first 16
+# pairs of the example's N_PAIRS (64), two batches of 8 an evaluation (the
+# time of the HF checkpoint phases; every mode's launches still held)
+CLIP_BENCH_PAIRS = 16
 # every OPT engine path (engine_weights included) and engine_llama_weights
 # at 2 layers (4 before the QAT, model API and benchmarking phases): the
 # time of the new phases
@@ -486,6 +508,12 @@ def device_trace(torch, run):
 def device_events(torch, run):
     """(name, device microseconds) of every device kernel of ``run()``."""
     return [(key, us) for key, us, _ in device_trace(torch, run)]
+
+
+# the plain versions' timings take at least this many calls (a kernel's at
+# least time_ms's default 10): a plain version is a yardstick, tens of times
+# the kernel's time, whose device time moves little from call to call
+PLAIN_ITERS = 3
 
 
 def time_ms(torch, fn, arg_sets, min_iters: int = 10) -> float:
@@ -620,7 +648,7 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
         x, w, b = sets[0]
         err = max_err(torch, kern(x, w, b), plain(x, w, b), tol, f"{label} {M}x{K}x{N}")
         ms = time(torch, kern, sets)
-        plain_ms = time(torch, plain, sets)
+        plain_ms = time_ms(torch, plain, sets, min(min_iters, PLAIN_ITERS))
         deq = [(s[0].to(lib_dtype), unpack(s[1]).T.contiguous().to(lib_dtype))
                for s in sets[:copies_for((M * K + N * K + M * N) * lib_size)]]
         lib_ms = time(torch, torch.matmul, deq)
@@ -658,7 +686,8 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
         timed.append((f"{ab[0]}_ms", ab[1], sets_of))
     for what, fn, arg_of in timed:
         args = [arg_of[M, K, N][i % len(arg_of[M, K, N])] for M, K, N, i in step]
-        runs[what] = time(torch, lambda: [fn(*a) for a in args], [()]) / len(step)
+        iters = min(min_iters, PLAIN_ITERS) if what == "plain_ms" else min_iters
+        runs[what] = time_ms(torch, lambda: [fn(*a) for a in args], [()], iters) / len(step)
     per_launch_bytes = sum(nbytes(M, K, N) for M, K, N, _ in step) / len(step)
     flops = sum(2 * M * N * K for M, K, N, _ in step) / len(step)
     runs["bound_ms"], runs["bound_by"] = bound(per_launch_bytes, flops, peak_flop_s)
@@ -778,7 +807,7 @@ def check_b5(torch, dev, cfg):
             if not torch.equal(sbfp_linear(*sets[0]), sbfp_linear(*sets[0])):
                 raise AssertionError(f"B5 f32 route ({route}) gave other bits on the same inputs")
             ms = time_ms(torch, sbfp_linear, sets)
-            plain_ms = time_ms(torch, sbfp_linear_ref, sets)
+            plain_ms = time_ms(torch, sbfp_linear_ref, sets, PLAIN_ITERS)
             deq = [(x, sbfp_unpack(w).T.contiguous()) for x, w, _ in sets]
             lib_ms = time_ms(torch, torch.matmul, deq)
             bound_ms, by = bound(b5_bytes(M, K, N), 2 * M * N * K)
@@ -987,7 +1016,7 @@ def t2_per_launch(torch, dev, g, step, steps=10):
     for what, plain in (("ms", False), ("plain_ms", True)):
         runs[what] = time_ms(torch, lambda: [t2_run(m, x, a, plain, *wb) for (m, _, a, *wb), x
                                              in zip(step, inputs)], [()],
-                             min_iters=steps) / len(step)
+                             min_iters=min(steps, PLAIN_ITERS) if plain else steps) / len(step)
     runs["launches_per_step"] = len(step)
     runs["library_ms"] = None
     runs["bound_ms"], runs["bound_by"] = bound(
@@ -1075,7 +1104,7 @@ def check_t2(torch, dev, cfg):
         for mode in ("bfp", "fp16", "fp16bfp"):
             check(f"{mode} {label} {list(shape)} axis {axis}", mode, sets[0][0], axis)
             ms = time_ms(torch, lambda x: run(mode, x, axis), sets)
-            plain_ms = time_ms(torch, lambda x: run(mode, x, axis, plain=True), sets)
+            plain_ms = time_ms(torch, lambda x: run(mode, x, axis, plain=True), sets, PLAIN_ITERS)
             bound_ms, by = bound(8 * n, 0)
             case = dict(mode=mode, site=label, shape=list(shape), axis=axis, max_abs_err=0.0,
                         ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
@@ -1208,7 +1237,7 @@ def check_b2(torch, dev, cfg, fams, wcfg):
         if not torch.equal(flash_decode_int8(q, kv, le), got):
             raise AssertionError("B2 gave other bits on the same inputs")
         ms = time_ms(torch, flash_decode_int8, sets)
-        plain_ms = time_ms(torch, flash_decode_int8_ref, sets)
+        plain_ms = time_ms(torch, flash_decode_int8_ref, sets, PLAIN_ITERS)
         lib_sets = []
         for q_, kv_, le_ in sets[:copies_for(B * Hkv * S * D * 8 + 2 * B * H * D * 4)]:
             k = kv_.k_q.float() * kv_.k_scale[..., None]
@@ -1281,7 +1310,7 @@ def check_b3(torch, dev, cfg, fams, wcfg):
         err = max_err(torch, kern(*sets[0]), plain(*sets[0]), B3_TOL,
                       f"B3 L={L} S={S} bias={with_bias}")
         ms = time_ms(torch, kern, sets)
-        plain_ms = time_ms(torch, plain, sets)
+        plain_ms = time_ms(torch, plain, sets, PLAIN_ITERS)
         # the library yardstick: one SDPA call with a float mask, built
         # beforehand, that carries the bias and the causal diagonal at S - L
         allowed = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
@@ -1381,7 +1410,7 @@ def check_b4(torch, dev, cfg, fams, wcfg):
         if not torch.equal(flash_decode(*sets[0]), got):
             raise AssertionError("B4 gave other bits on the same inputs")
         ms = time_ms(torch, flash_decode, sets)
-        plain_ms = time_ms(torch, flash_decode_ref, sets)
+        plain_ms = time_ms(torch, flash_decode_ref, sets, PLAIN_ITERS)
         # the library yardstick: one SDPA call on the same f32 K/V with a
         # boolean length mask built beforehand
         mask = (torch.arange(S, device=dev)[None, :]
@@ -1631,7 +1660,8 @@ def family_path_specs(fcfg, family):
     # depth is moved to the CPU as it is (the basic path rebuilds it on the
     # card, where its T2 sites are recorded)
     check_cfg = dataclasses.replace(fcfg, num_hidden_layers=FAMILY_CPU_LAYERS)
-    common = dict(model=model, cpu_cfg=None if fcfg == check_cfg else check_cfg)
+    common = dict(model=model, cpu_cfg=None if fcfg == check_cfg else check_cfg,
+                  cpu_batch=FAMILY_CPU_BATCH)
 
     def fused_everywhere(m):
         if any(plan(layer) is None for layer in m.model.layers) or basic_rms_head_plan(
@@ -1970,6 +2000,9 @@ def serve_path(torch, dev, kernels, cfg, spec):
         # the CPU reference runs the card's first nb rows (every row is
         # computed on its own)
         gpu_logits, gpu_tokens, gpu_rows = gpu_logits[:nb], gpu_tokens[:nb], gpu_rows[:, :nb]
+        if witness:
+            card_kv = [tuple(t[:nb] for t in layer) for layer in card_kv]
+            card_f32 = card_f32[:nb]
     cpu_caches = model.init_cache(nb, device="cpu", **cache_kw)
     t0 = time.perf_counter()
     with memo_unpack(), torch.no_grad():
@@ -2003,8 +2036,8 @@ def serve_path(torch, dev, kernels, cfg, spec):
         # where the prefill's gap comes from: the int8 K/V the prefill
         # wrote, card against CPU, and the same prefill over an f32 cache
         with memo_unpack(), torch.no_grad():
-            cpu_f32 = greedy_prefill(model, model.init_cache(BATCH, max_len=CAPACITY,
-                                                             device="cpu"), ids)[0]
+            cpu_f32 = greedy_prefill(model, model.init_cache(nb, max_len=CAPACITY,
+                                                             device="cpu"), ids[:nb])[0]
         f32_err = (card_f32 - cpu_f32).abs().max().item()
         apart, total, steps, s_apart, s_total, rel = kv_gap(torch, card_kv,
                                                             kv_prefix(cpu_caches, prompt))
@@ -3924,6 +3957,7 @@ QAT_BATCH = (8, 128)  # ids from numpy's default_rng(0)
 QAT_STEPS = 8
 QAT_LR = 1e-3  # Adam at optax's defaults (eps 1e-8), as tests/test_qat.py
 QAT_CPU_LAYERS, QAT_CPU_STEPS = 2, 4
+QAT_CPU_ROWS = 2  # the CPU check's first rows of QAT_BATCH
 # card vs CPU at QAT_CPU_LAYERS over QAT_CPU_STEPS (TF32 off): each step's
 # loss within QAT_CURVE_TOL (twice the port-vs-JAX spread of the CPU tests'
 # 12-step curve, tests/test_torch_qat.py; the card's spread 7.5e-4); the
@@ -4075,10 +4109,11 @@ def qat_basic_path(torch, dev, kernels, cfg):
         cpu_model = copy.deepcopy(card_model).to("cpu")
         log(f"qat_basic card vs CPU at {QAT_CPU_LAYERS} layers: TF32 matmul "
             f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 {torch.backends.cudnn.allow_tf32}")
-        _, _, card_steps, card_g = qat_train(torch, kernels, card_model, ids.to(dev),
+        rows = ids[:QAT_CPU_ROWS]
+        _, _, card_steps, card_g = qat_train(torch, kernels, card_model, rows.to(dev),
                                              QAT_CPU_STEPS, True, record_grads=True)
-        _, _, cpu_steps, cpu_g = qat_train(torch, kernels, cpu_model, ids, QAT_CPU_STEPS, False,
-                                           record_grads=True)
+        _, _, cpu_steps, cpu_g = qat_train(torch, kernels, cpu_model, rows, QAT_CPU_STEPS,
+                                           False, record_grads=True)
         want_cut = {"bfp_cast": qat_t2_launches(cut)}
         if any(st[1] != want_cut or st[2] for st in card_steps):
             raise AssertionError("qat_basic's card run at the CPU check's depth did not launch "
@@ -4229,7 +4264,7 @@ def benchmarking_phase(torch, dev, kernels, cfg):
     (its tables printed), the launches over its whole run; then one runner
     call a mode, each mode's launches held against ``bench_launches``:
     benchmark_opt at OPT-125m (the five modes, ids [4, 32]), benchmark_clip
-    at CLIP ViT-B/32 over its default corpus, benchmark_whisper at
+    at CLIP ViT-B/32 over CLIP_BENCH_PAIRS of its corpus, benchmark_whisper at
     whisper-small cut to WHISPER_LAYERS a stack.  Returns the launches by
     example and the per-mode launches."""
     from dmx_compressor_tpu_torch.examples.benchmarking import (
@@ -4255,6 +4290,7 @@ def benchmarking_phase(torch, dev, kernels, cfg):
     mains = {"opt": benchmark_opt, "clip": benchmark_clip, "whisper": benchmark_whisper}
     by_path, per_mode = {}, {}
     prev_mode, DmxModule.inference_mode = DmxModule.inference_mode, False
+    prev_pairs, benchmark_clip.N_PAIRS = benchmark_clip.N_PAIRS, CLIP_BENCH_PAIRS
     try:
         for family, (argv, fcfg) in runs.items():
             name = f"benchmark_{family}"
@@ -4306,7 +4342,640 @@ def benchmarking_phase(torch, dev, kernels, cfg):
                                          f"expected {want_run}")
     finally:
         DmxModule.inference_mode = prev_mode
+        benchmark_clip.N_PAIRS = prev_pairs
     return by_path, per_mode
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Hugging Face checkpoints, the pipeline and training checkpoints
+# ---------------------------------------------------------------------------
+
+# the hf_head_dim80 path: OPT-2.7b's attention shape (hidden 2560 over 32
+# heads: head_dim 80; ffn 10240, its vocabulary) cut to 2 layers, batch 2
+HD80 = dict(hidden_size=2560, ffn_dim=10240, num_attention_heads=32, num_hidden_layers=2,
+            vocab_size=50272, max_position_embeddings=2048)
+HD80_BATCH, HD80_STEPS = 2, 15
+HF_CPU_LAYERS = 2  # the hf_pipeline's card-vs-CPU check: OPT-125m's width at 2 layers
+HF_CPU_BATCH = 2  # ... over the first 2 prompts
+HF_CPU_STEPS = 7  # the prefill's logits and 7 teacher-forced steps' held
+# the directly built BASIC model's greedy tokens held against the pipeline's
+# first 16 (the same 192-slot cache; its host-bound step is ~10x raw's)
+HF_BASIC_HELD = 16
+HF_SAMPLED = 16  # the sampled generations' new tokens
+CKPT_STEPS = 4  # checkpoint_resume: 4 Adam steps, save, restore, 4 more
+# numpy dtype -> the safetensors code
+_ST_CODES = {"float64": "F64", "float32": "F32", "float16": "F16", "int64": "I64",
+             "int32": "I32", "int16": "I16", "int8": "I8", "uint8": "U8", "bool": "BOOL"}
+
+
+def write_safetensors(tensors, fname):
+    """A ``.safetensors`` file of numpy arrays, as the ``safetensors``
+    package writes it (the card's machine has no such package): the
+    tensors laid out by descending element size, then name; an 8-byte
+    little-endian header length; the compact JSON header (dtype, shape,
+    data_offsets) padded with spaces to a multiple of 8; the raw
+    little-endian buffer."""
+    import numpy as np
+
+    order = sorted(tensors, key=lambda k: (-np.asarray(tensors[k]).dtype.itemsize, k))
+    header, blobs, off = {}, [], 0
+    for k in order:
+        a = np.asarray(tensors[k])
+        raw = a.astype(a.dtype.newbyteorder("<")).tobytes(order="C")
+        header[k] = {"dtype": _ST_CODES[a.dtype.name], "shape": list(a.shape),
+                     "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(fname, "wb") as f:
+        f.write(len(text).to_bytes(8, "little"))
+        f.write(text)
+        for raw in blobs:
+            f.write(raw)
+
+
+def opt_hf_config(**fields):
+    """An OPT ``config.json`` (OPT-125m's fields unless given)."""
+    cfg = dict(model_type="opt", vocab_size=50272, hidden_size=768, ffn_dim=3072,
+               num_hidden_layers=12, num_attention_heads=12, max_position_embeddings=2048,
+               do_layer_norm_before=True)
+    cfg.update(fields)
+    return cfg
+
+
+def opt_hf_tensors(cfg, seed=0):
+    """OPT's tensors in HF names (``model.decoder.*``; the head tied to the
+    token table), from numpy's ``default_rng(seed)``: weights normal(0,
+    0.02), biases normal(0, 0.02), LayerNorm scales 1 + normal(0, 0.02)."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    d, f, V = cfg["hidden_size"], cfg["ffn_dim"], cfg["vocab_size"]
+
+    def w(*shape):
+        return (rs.standard_normal(shape, dtype=np.float32) * np.float32(0.02))
+
+    t = {"model.decoder.embed_tokens.weight": w(V, d),
+         "model.decoder.embed_positions.weight": w(cfg["max_position_embeddings"] + 2, d)}
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.decoder.layers.{i}"
+        for name, (n, k) in {"self_attn.q_proj": (d, d), "self_attn.k_proj": (d, d),
+                             "self_attn.v_proj": (d, d), "self_attn.out_proj": (d, d),
+                             "fc1": (f, d), "fc2": (d, f)}.items():
+            t[f"{p}.{name}.weight"], t[f"{p}.{name}.bias"] = w(n, k), w(n)
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            t[f"{p}.{name}.weight"], t[f"{p}.{name}.bias"] = 1 + w(d), w(d)
+    t["model.decoder.final_layer_norm.weight"] = 1 + w(d)
+    t["model.decoder.final_layer_norm.bias"] = w(d)
+    return t
+
+
+def write_opt_checkpoint(torch, root, cfg, tensors, kinds=("safetensors", "bin")):
+    """``root/safetensors`` (``model.safetensors`` by :func:`write_safetensors`)
+    and ``root/bin`` (``pytorch_model.bin`` by ``torch.save``), each with the
+    ``config.json`` (of ``kinds``); returns the directories by kind."""
+    import os
+
+    dirs = {}
+    for kind in kinds:
+        d = dirs[kind] = os.path.join(root, kind)
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(cfg, f)
+    if "safetensors" in dirs:
+        write_safetensors(tensors, os.path.join(dirs["safetensors"], "model.safetensors"))
+    if "bin" in dirs:
+        torch.save({k: torch.from_numpy(v) for k, v in tensors.items()},
+                   os.path.join(dirs["bin"], "pytorch_model.bin"))
+    return dirs
+
+
+def direct_opt(torch, cfg_json, tensors, dev):
+    """The same OPT built directly (``OPTForCausalLM``) on ``dev`` with the
+    checkpoint's tensors copied into its parameters by name."""
+    from dmx_compressor_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+
+    fields = {k: v for k, v in cfg_json.items() if k != "model_type"}
+    model = OPTForCausalLM(OPTConfig(**fields), device=dev, seed=0)
+    own = dict(model.named_parameters())
+    with torch.no_grad():
+        for k, v in tensors.items():
+            own[k].copy_(torch.from_numpy(v))
+    if set(own) - set(tensors):
+        raise AssertionError(f"parameters not in the checkpoint: {set(own) - set(tensors)}")
+    return model
+
+
+def hf_builds():
+    """The hf_pipeline's four builds: (name, the pipeline's dmx_config, the
+    direct model's build, generate's quantized_cache, or None for the
+    weights build, served by greedy_prefill / greedy_decode)."""
+    from dmx_compressor_tpu_torch import config_rules
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
+
+    return [("raw", None, lambda m: DmxModel.from_raw(m), False),
+            ("int8_cache", None, lambda m: DmxModel.from_raw(m), True),
+            ("basic", "BASIC", lambda m: DmxModel.from_raw(m).configure(None, *config_rules.BASIC),
+             False),
+            ("weights", None, build_weights_mode, None)]
+
+
+def hf_basic_t2(cfg, prompt, new_tokens):
+    """T2 launches of the pipeline's BASIC generation (``DmxModel.configure``
+    with the BASIC rules: the modular forward, the Linears unpacked, an f32
+    static cache of prompt + new_tokens slots): each of its ``new_tokens``
+    forwards (the prefill and the steps) 42L+7, 2L more where the cache's
+    slots, which every forward attends over (masked), are a multiple of the
+    BFP block (the attention's two BFP casts along the keys)."""
+    L, slots = cfg["num_hidden_layers"], prompt + new_tokens
+    return new_tokens * (42 * L + 7 + (2 * L if slots % 64 == 0 else 0))
+
+
+def hf_launches(name, cfg, prompt, new_tokens):
+    """The exact launches of one generation of each hf_pipeline build,
+    written from the code before the first chip run: raw prefill L B3,
+    each step L B4; int8_cache L B3 and L B2; basic hf_basic_t2; weights
+    4L+1 B1 a prefill and a step, L B3, L B2 a step."""
+    L, steps = cfg["num_hidden_layers"], new_tokens - 1
+    if name == "raw":
+        return {"flash_attention": L, "flash_decode": L * steps}
+    if name == "int8_cache":
+        return {"flash_attention": L, "flash_decode_int8": L * steps}
+    if name == "basic":
+        return {"bfp_cast": hf_basic_t2(cfg, prompt, new_tokens)}
+    return {"bfp_linear": (4 * L + 1) * new_tokens, "flash_attention": L,
+            "flash_decode_int8": L * steps}
+
+
+def hf_generate(torch, kernels, build, target, ids, new_tokens, card):
+    """Greedy generation of ``new_tokens`` tokens by ``target``: a Pipeline
+    (``generate``), or a model (the weights build: greedy_prefill /
+    greedy_decode over an int8 cache); counted and timed.  Returns (the
+    tokens [B, new_tokens] on the CPU, the launches, wall ms a step)."""
+    from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill
+
+    _, _, _, quantized = build
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if quantized is None:
+        dev = next(target.parameters()).device
+        caches = target.init_cache(ids.shape[0], ids.shape[1] + new_tokens, quantized=True,
+                                   device=dev)
+        _, tok = greedy_prefill(target, caches, ids)
+        toks, _ = greedy_decode(target, caches, tok, ids.shape[1], new_tokens - 1)
+        out = torch.cat([tok[:, None], toks], dim=1)
+    else:
+        out = target.generate(ids, max_new_tokens=new_tokens, quantized_cache=quantized)
+        out = out[:, ids.shape[1]:]
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / new_tokens
+    return out.cpu(), nonzero(kernels.LAUNCHES), wall
+
+
+def held_greedy(torch, model, ids, slots, n):
+    """The first ``n`` greedy tokens of ``model`` over ``ids`` in an f32 cache
+    of ``slots`` slots (``Pipeline.generate``'s loop: greedy_prefill, then
+    greedy_decode), [B, n] on the CPU."""
+    from dmx_compressor_tpu_torch.models.shared import greedy_decode, greedy_prefill
+
+    caches = model.init_cache(ids.shape[0], slots, device=ids.device)
+    _, tok = greedy_prefill(model, caches, ids)
+    toks, _ = greedy_decode(model, caches, tok, ids.shape[1], n - 1)
+    return torch.cat([tok[:, None], toks], dim=1).cpu()
+
+
+def teacher_forced(torch, model, ids, tokens, quantized, steps):
+    """The prefill's last logits and ``steps`` decode steps' logits of
+    ``model`` over ``ids`` then ``tokens`` (the card's), [steps + 1, B, V]
+    on the CPU."""
+    dev = next(model.parameters()).device
+    T = ids.shape[1]
+    caches = model.init_cache(ids.shape[0], T + steps + 1, quantized=quantized, device=dev)
+    rows = []
+    with torch.no_grad():
+        rows.append(model(ids.to(dev), caches=caches, position_offset=0)[:, -1].float().cpu())
+        for i in range(steps):
+            tok = tokens[:, i:i + 1].to(device=dev, dtype=torch.int32)
+            rows.append(model(tok, caches=caches, position_offset=T + i)[:, -1].float().cpu())
+    return torch.stack(rows)
+
+
+def hf_pipeline_path(torch, dev, kernels):
+    """The slice's path at full width: OPT-125m's seed-0 tensors in HF names
+    written as ``model.safetensors`` (this script's writer) and as
+    ``pytorch_model.bin`` (``torch.save``), each loaded through
+    ``pipeline("text-generation", dir)`` on the card: every parameter its
+    tensor bit for bit, no key unmatched.  Four builds generate GEN tokens
+    from a batch of BATCH prompts of PROMPT ids, counted, their tokens
+    equal bit for bit to the same build of the model built directly with the
+    same weights (``direct_opt``); then at HF_CPU_LAYERS layers each build's
+    logits card against CPU, teacher-forced (raw LOGIT_TOL, int8 KV8_TOL,
+    weights KV8_TOL, basic BASIC_LOGIT_TOL); then top-5 sampling twice with
+    one seed.  Returns (the counted launches, the path's numbers)."""
+    import tempfile
+
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.modeling.hf import model_from_checkpoint, pipeline
+    from dmx_compressor_tpu_torch.nn.core import DmxModule
+
+    cfg = opt_hf_config()
+    tensors = opt_hf_tensors(cfg, seed=0)
+    ids = torch.as_tensor(np.random.default_rng(1).integers(0, cfg["vocab_size"],
+                                                            (BATCH, PROMPT)), dtype=torch.int32)
+    total, numbers = {}, {}
+    prev_mode = DmxModule.inference_mode
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            dirs = write_opt_checkpoint(torch, root, cfg, tensors)
+            log(f"hf_pipeline: OPT-125m's {len(tensors)} tensors written as safetensors and bin "
+                f"in {time.perf_counter() - t0:.2f} s")
+            pipes = {}
+            for kind, d in dirs.items():
+                t0 = time.perf_counter()
+                pipe = pipeline("text-generation", d)
+                where = next(pipe.raw_model.parameters()).device
+                sd = pipe.model.module.state_dict()
+                same = sum(torch.equal(sd[k].cpu(), torch.from_numpy(v))
+                           for k, v in tensors.items())
+                log(f"hf_pipeline: {kind} loaded in {time.perf_counter() - t0:.2f} s on "
+                    f"{where}: {same} of {len(tensors)} tensors bit for bit, unmatched "
+                    f"keys {pipe.missed_keys}")
+                if where.type != torch.device(dev).type or pipe.missed_keys or same != len(
+                        tensors):
+                    raise AssertionError(f"hf_pipeline: the {kind} checkpoint did not load "
+                                         f"whole onto the card")
+                pipes[kind] = pipe
+            gen = {}
+            for build in hf_builds():
+                name, dmx_config, direct_build, _ = build
+                if name == "weights":
+                    target, _ = model_from_checkpoint(dirs["safetensors"])
+                    direct_build(target)
+                elif name == "basic":
+                    DmxModule.inference_mode = False
+                    target = pipeline("text-generation", dirs["safetensors"],
+                                      dmx_config=dmx_config)
+                else:
+                    target = pipes["safetensors"]
+                got, launched, wall = hf_generate(torch, kernels, build, target, ids.to(dev),
+                                                  GEN, True)
+                want = hf_launches(name, cfg, PROMPT, GEN)
+                log(f"hf_pipeline {name}: {GEN} tokens, {wall:.3f} ms a step wall (host clock, "
+                    f"the prefill's share included), launches {launched} (expected {want})")
+                if launched != want:
+                    raise AssertionError(f"hf_pipeline {name}: the generation did not launch "
+                                         f"the kernels the expected number of times")
+                for k, v in launched.items():
+                    total[k] = total.get(k, 0) + v
+                if name == "raw":
+                    other, _, _ = hf_generate(torch, kernels, build, pipes["bin"], ids.to(dev),
+                                              GEN, True)
+                    if not torch.equal(other, got):
+                        raise AssertionError("hf_pipeline: the bin and safetensors "
+                                             "checkpoints generate different tokens")
+                direct = direct_opt(torch, cfg, tensors, dev)
+                built = direct_build(direct)
+                if name == "basic":
+                    held = min(HF_BASIC_HELD, GEN)
+                    ref = held_greedy(torch, built.module, ids.to(dev), PROMPT + GEN, held)
+                else:
+                    held = GEN
+                    dtarget = direct if name == "weights" else _DirectPipe(built.module)
+                    ref, _, _ = hf_generate(torch, kernels, build, dtarget, ids.to(dev), GEN, True)
+                if not torch.equal(got[:, :held], ref):
+                    raise AssertionError(f"hf_pipeline {name}: the loaded model's tokens differ "
+                                         f"from the directly built model's")
+                gen[name] = dict(wall_ms_per_step=wall, launches=launched)
+                log(f"hf_pipeline {name}: the first {held} tokens equal the directly built "
+                    f"model's bit for bit")
+                del target, direct, built
+                DmxModule.inference_mode = prev_mode
+                torch.cuda.empty_cache()
+            numbers["generate"] = gen
+
+            # sampling: top-5 at temperature 1, twice with one seed
+            pipe = pipes["safetensors"]
+            s1 = pipe.generate(ids.to(dev), max_new_tokens=HF_SAMPLED, temperature=1.0,
+                               top_k=5, seed=7)
+            s2 = pipe.generate(ids.to(dev), max_new_tokens=HF_SAMPLED, temperature=1.0,
+                               top_k=5, seed=7)
+            with torch.no_grad():
+                logits = pipe.raw_model(s1.long())[:, PROMPT - 1:-1]
+            top5 = torch.topk(logits, 5, dim=-1).indices
+            inside = bool((top5 == s1[:, PROMPT:, None].long()).any(-1).all())
+            log(f"hf_pipeline sampling: top_k 5, seed 7, {HF_SAMPLED} tokens: the same tokens "
+                f"on a second call {torch.equal(s1, s2)}, every token among its step's 5 "
+                f"largest logits {inside}")
+            if not (torch.equal(s1, s2) and inside):
+                raise AssertionError("hf_pipeline: top-k sampling did not reproduce or left "
+                                     "the top k")
+            del pipes, pipe
+            torch.cuda.empty_cache()
+
+        # card against CPU at HF_CPU_LAYERS layers, teacher-forced
+        cut = opt_hf_config(num_hidden_layers=HF_CPU_LAYERS)
+        cut_t = {k: v for k, v in tensors.items()
+                 if not k.startswith("model.decoder.layers.")
+                 or int(k.split(".")[3]) < HF_CPU_LAYERS}
+        tol = {"raw": LOGIT_TOL, "int8_cache": KV8_TOL, "basic": BASIC_LOGIT_TOL,
+               "weights": KV8_TOL}
+        cpu_ids = ids[:HF_CPU_BATCH]
+        errs = {}
+        with tempfile.TemporaryDirectory() as root:
+            d = write_opt_checkpoint(torch, root, cut, cut_t, ("safetensors",))["safetensors"]
+            for build in hf_builds():
+                name, dmx_config, direct_build, quantized = build
+                rows = []
+                for where in (dev, torch.device("cpu")):  # the card's tokens first
+                    DmxModule.inference_mode = False
+                    if name == "weights":
+                        m, _ = model_from_checkpoint(d, device=where)
+                        direct_build(m)
+                    else:
+                        m = pipeline("text-generation", d, dmx_config=dmx_config,
+                                     device=where).raw_model
+                    if not rows:
+                        toks, _, _ = hf_generate(torch, kernels, build, m if name == "weights"
+                                                 else _DirectPipe(m), cpu_ids.to(dev),
+                                                 HF_CPU_STEPS + 1, True)
+                    rows.append(teacher_forced(torch, m, cpu_ids, toks, quantized is not False,
+                                               HF_CPU_STEPS))
+                    del m
+                errs[name] = float((rows[0] - rows[1]).abs().max())
+                log(f"hf_pipeline {name} card vs CPU at {HF_CPU_LAYERS} layers, {HF_CPU_BATCH} "
+                    f"rows: the prefill's and {HF_CPU_STEPS} teacher-forced steps' logits max "
+                    f"|diff| {errs[name]:.3g} (tolerance {tol[name]})")
+                if not errs[name] <= tol[name]:
+                    raise AssertionError(f"hf_pipeline {name}: the card disagrees with the CPU")
+        numbers["cpu_max_abs_err"] = errs
+    finally:
+        DmxModule.inference_mode = prev_mode
+    return total, numbers
+
+
+class _DirectPipe:
+    """``Pipeline.generate``'s loop over a model built directly (the same
+    code, so the two differ only in how the weights arrived)."""
+
+    def __init__(self, model):
+        self.raw_model = model
+
+    def generate(self, ids, **kw):
+        from dmx_compressor_tpu_torch.modeling.hf import Pipeline
+
+        return Pipeline.generate(self, ids, **kw)
+
+
+def head_dim80_kernels(torch, dev):
+    """B3, B2 and B4 at head_dim 80 beside 64 (and 128, the width the kernel
+    runs 80 at) at the same B, H and S: OPT-2.7b's 32 heads, batch BATCH, a
+    prefill of PROMPT, a decode step over CAPACITY slots at its mean fill;
+    each against its plain version (the tolerances of phase 2), its time,
+    its plain version's, SDPA's and its bound (bytes at the true D).  B3 at
+    80 runs over q, k, v zero-padded to 128: the pad is timed apart; the
+    decode kernels take D at run time, where padding the cache would copy it
+    at every step (that copy timed too)."""
+    import torch.nn.functional as F
+
+    from dmx_compressor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from dmx_compressor_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_int8, flash_decode_int8_ref, flash_decode_ref)
+    from dmx_compressor_tpu_torch.ops.kv_cache import QuantizedKVCache, QuantKV
+
+    g = torch.Generator(device=dev).manual_seed(80)
+    H, B, L = HD80["num_attention_heads"], BATCH, PROMPT
+    S, fill = CAPACITY, PROMPT + GEN // 2
+    le = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    cases = []
+    for D in (80, 64, 128):
+        # B3: the causal prefill
+        per = 4 * B * H * D * 4 * L
+        sets = [tuple(torch.randn(B, H, L, D, generator=g, device=dev) for _ in range(3))
+                for _ in range(copies_for(per))]
+        err = max_err(torch, flash_attention(*sets[0], causal=True),
+                      flash_attention_ref(*sets[0], causal=True), B3_TOL, f"B3 D={D}")
+        pairs = L * (L + 1) // 2
+        bound_ms, by = bound(per, B3_PLANE_PRODUCTS * 4 * B * H * D * pairs, PEAK_BF16_FLOP_S)
+        case = dict(kernel="flash_attention", shape=[B * H, L, L, D], max_abs_err=err,
+                    ms=time_ms(torch, lambda q, k, v: flash_attention(q, k, v, causal=True),
+                               sets),
+                    plain_ms=time_ms(torch, lambda q, k, v: flash_attention_ref(q, k, v,
+                                                                                causal=True),
+                                     sets, PLAIN_ITERS),
+                    library_ms=time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), sets),
+                    bound_ms=bound_ms, bound_by=by)
+        if D == 80:
+            case["pad_ms"] = time_ms(torch, lambda q, k, v: [F.pad(t, (0, 48)) for t in (q, k, v)],
+                                     sets)
+        cases.append(case)
+        # B4 and B2: a decode step
+        per = 2 * B * H * S * D * 4
+        f_sets = [(torch.randn(B, H, 1, D, generator=g, device=dev),
+                   torch.randn(B, H, S, D, generator=g, device=dev),
+                   torch.randn(B, H, S, D, generator=g, device=dev), le)
+                  for _ in range(copies_for(per))]
+        err = max_err(torch, flash_decode(*f_sets[0]), flash_decode_ref(*f_sets[0]), B4_TOL,
+                      f"B4 D={D}")
+        mask = (torch.arange(S, device=dev)[None, :] < le[:, None])[:, None, None, :]
+        bound_ms, by = bound(*b4_bytes_flops(B, H, H, D, [fill] * B))
+        case = dict(kernel="flash_decode", shape=[B, H, H, S, D], lengths=fill, max_abs_err=err,
+                    ms=time_ms(torch, flash_decode, f_sets),
+                    plain_ms=time_ms(torch, flash_decode_ref, f_sets, PLAIN_ITERS),
+                    library_ms=time_ms(torch, lambda q, k, v, _: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask), f_sets),
+                    bound_ms=bound_ms, bound_by=by)
+        if D == 80:
+            case["pad_cache_ms"] = time_ms(
+                torch, lambda q, k, v, _: [F.pad(t, (0, 48)) for t in (k, v)], f_sets)
+        cases.append(case)
+        q_sets = []
+        for _ in range(copies_for(B * H * S * (2 * D + 8))):
+            kq, ks = QuantizedKVCache._quantize(torch.randn(B, H, S, D, generator=g, device=dev))
+            vq, vs = QuantizedKVCache._quantize(torch.randn(B, H, S, D, generator=g, device=dev))
+            q_sets.append((torch.randn(B, H, 1, D, generator=g, device=dev),
+                           QuantKV(kq, vq, ks, vs), le))
+        err = max_err(torch, flash_decode_int8(*q_sets[0]), flash_decode_int8_ref(*q_sets[0]),
+                      B2_TOL, f"B2 D={D}")
+        deq = [(q, kv.k_q.float() * kv.k_scale[..., None], kv.v_q.float() * kv.v_scale[..., None])
+               for q, kv, _ in q_sets[:copies_for(per)]]
+        bound_ms, by = bound(*b2_bytes_flops(B, H, H, D, [fill] * B))
+        cases.append(dict(kernel="flash_decode_int8", shape=[B, H, H, S, D], lengths=fill,
+                          max_abs_err=err, ms=time_ms(torch, flash_decode_int8, q_sets),
+                          plain_ms=time_ms(torch, flash_decode_int8_ref, q_sets, PLAIN_ITERS),
+                          library_ms=time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                              q, k, v, attn_mask=mask), deq),
+                          bound_ms=bound_ms, bound_by=by))
+    for c in cases:
+        log(f"hf_head_dim80 {c['kernel']} shape {c['shape']}: max_abs_err={c['max_abs_err']:.3g} "
+            f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
+            f"library_ms(F.scaled_dot_product_attention)={c['library_ms']:.4f} "
+            f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})"
+            + (f" pad of q, k, v to 128: {c['pad_ms']:.4f} ms" if "pad_ms" in c else "")
+            + (f" padding the cache's K/V to 128 instead: {c['pad_cache_ms']:.4f} ms a step"
+               if "pad_cache_ms" in c else ""))
+    return cases
+
+
+def hf_head_dim80_path(torch, dev, kernels):
+    """A written OPT checkpoint at OPT-2.7b's attention shape (HD80: 32 heads
+    of 80) at 2 layers, loaded on the card and on the CPU: the raw model's
+    prefill through B3 and decode through B4, the int8 cache's through B3
+    and B2 (HD80_BATCH prompts of PROMPT ids, HD80_STEPS steps), counted;
+    the card's logits against the CPU's, teacher-forced (LOGIT_TOL,
+    KV8_TOL); then the kernels at D 80 beside 64.  Returns (the counted
+    launches, the numbers)."""
+    import tempfile
+
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.modeling.hf import pipeline
+
+    cfg = opt_hf_config(**HD80)
+    L = cfg["num_hidden_layers"]
+    t0 = time.perf_counter()
+    tensors = opt_hf_tensors(cfg, seed=0)
+    ids = torch.as_tensor(np.random.default_rng(2).integers(0, cfg["vocab_size"],
+                                                            (HD80_BATCH, PROMPT)),
+                          dtype=torch.int32)
+    total, errs = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        d = write_opt_checkpoint(torch, root, cfg, tensors, ("safetensors",))["safetensors"]
+        log(f"hf_head_dim80: {cfg['hidden_size']} wide, {cfg['num_attention_heads']} heads of "
+            f"{cfg['hidden_size'] // cfg['num_attention_heads']}, {L} layers written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del tensors
+        for name, quantized, tol, decode in (("raw", False, LOGIT_TOL, "flash_decode"),
+                                             ("int8_cache", True, KV8_TOL, "flash_decode_int8")):
+            rows = []
+            for where in (dev, torch.device("cpu")):  # the card's tokens first
+                pipe = pipeline("text-generation", d, device=where)
+                if pipe.missed_keys:
+                    raise AssertionError(f"hf_head_dim80: unmatched keys {pipe.missed_keys}")
+                if not rows:
+                    build = (name, None, None, quantized)
+                    toks, launched, wall = hf_generate(torch, kernels, build, pipe, ids.to(dev),
+                                                       HD80_STEPS + 1, True)
+                    want = {"flash_attention": L, decode: L * HD80_STEPS}
+                    log(f"hf_head_dim80 {name}: {HD80_STEPS + 1} tokens, {wall:.3f} ms a step "
+                        f"wall, launches {launched} (expected {want})")
+                    if launched != want:
+                        raise AssertionError(f"hf_head_dim80 {name}: the generation did not "
+                                             f"launch the kernels the expected number of times")
+                    for k, v in launched.items():
+                        total[k] = total.get(k, 0) + v
+                rows.append(teacher_forced(torch, pipe.raw_model, ids, toks, quantized,
+                                           HD80_STEPS))
+                del pipe
+                torch.cuda.empty_cache()
+            errs[name] = float((rows[0] - rows[1]).abs().max())
+            log(f"hf_head_dim80 {name} card vs CPU: the prefill's and {HD80_STEPS} teacher-forced "
+                f"steps' logits max |diff| {errs[name]:.3g} (tolerance {tol})")
+            if not errs[name] <= tol:
+                raise AssertionError(f"hf_head_dim80 {name}: the card disagrees with the CPU")
+    return total, dict(cpu_max_abs_err=errs, cases=head_dim80_kernels(torch, dev))
+
+
+def qat_steps(torch, kernels, dm, opt, ids, n):
+    """``n`` Adam steps of QAT through ``dm``; (each loss, the forwards' and
+    backwards' launches summed)."""
+    from dmx_compressor_tpu_torch.models import loss_fn
+
+    losses, fwd, bwd = [], {}, {}
+    for _ in range(n):
+        opt.zero_grad(set_to_none=True)
+        kernels.reset_launches()
+        loss = loss_fn(dm(ids), ids)
+        for k, v in nonzero(kernels.LAUNCHES).items():
+            fwd[k] = fwd.get(k, 0) + v
+        kernels.reset_launches()
+        loss.backward()
+        for k, v in nonzero(kernels.LAUNCHES).items():
+            bwd[k] = bwd.get(k, 0) + v
+        opt.step()
+        losses.append(loss.item())
+    return losses, fwd, bwd
+
+
+def checkpoint_resume_path(torch, dev, kernels, cfg):
+    """QAT at OPT-125m's width and QAT_CPU_LAYERS layers (qat_basic's build:
+    BASIC, the modular forward, Adam): 2 x CKPT_STEPS uninterrupted steps;
+    then from the same seed CKPT_STEPS steps, ``CheckpointManager.save``, a
+    fresh model (another seed) and optimizer, ``restore_latest`` and
+    CKPT_STEPS more.  The losses and every parameter must equal the
+    uninterrupted run's bit for bit, ``restored_config`` the model's frozen
+    yaml byte for byte; each forward 44L+7 T2, no backward a launch.
+    Returns (the launches, the numbers)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.modeling.model import DmxConfig, DmxModel
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.nn.core import DmxModule
+    from dmx_compressor_tpu_torch.utils.checkpoint import CheckpointManager, restored_config
+    from dmx_compressor_tpu_torch.utils.io import dump_config_str
+
+    cut = dataclasses.replace(cfg, num_hidden_layers=QAT_CPU_LAYERS)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(0, cut.vocab_size, QAT_BATCH),
+                          dtype=torch.long, device=dev)
+
+    def fresh(seed):
+        dm = DmxModel.from_raw(OPTForCausalLM(cut, device=dev, seed=seed)).to_basic_mode()
+        return dm, torch.optim.Adam(dm.module.parameters(), lr=QAT_LR, eps=1e-8)
+
+    prev_mode, DmxModule.inference_mode = DmxModule.inference_mode, False
+    fwd_total = {}
+    try:
+        dm_a, opt_a = fresh(0)
+        losses_a, fwd, bwd_a = qat_steps(torch, kernels, dm_a, opt_a, ids, 2 * CKPT_STEPS)
+        fwd_total.update(fwd)
+        dm_b, opt_b = fresh(0)
+        losses_b, fwd_b, bwd_b = qat_steps(torch, kernels, dm_b, opt_b, ids, CKPT_STEPS)
+        want_yaml = dump_config_str({k: dict(v) for k, v in
+                                     DmxConfig.from_model(dm_b, freeze=False).items()})
+        with tempfile.TemporaryDirectory() as root:
+            mgr = CheckpointManager(root, max_to_keep=3)
+            t0 = time.perf_counter()
+            mgr.save(CKPT_STEPS, dm_b, optimizer_state=opt_b)
+            save_s = time.perf_counter() - t0
+            dm_c, opt_c = fresh(1)
+            t0 = time.perf_counter()
+            step, _ = mgr.restore_latest(dm_c, optimizer_state=opt_c)
+            restore_s = time.perf_counter() - t0
+            got_yaml = dump_config_str({k: dict(v) for k, v in restored_config(
+                mgr._step_dir(CKPT_STEPS)).items()})
+        losses_c, fwd_c, bwd_c = qat_steps(torch, kernels, dm_c, opt_c, ids, CKPT_STEPS)
+        for part in (fwd_b, fwd_c):
+            for k, v in part.items():
+                fwd_total[k] = fwd_total.get(k, 0) + v
+        want = {"bfp_cast": qat_t2_launches(cut) * 4 * CKPT_STEPS}
+        same_params = all(torch.equal(a, c) for a, c in zip(dm_a.module.parameters(),
+                                                           dm_c.module.parameters()))
+        same_losses = losses_a == losses_b + losses_c
+        log(f"checkpoint_resume at {QAT_CPU_LAYERS} layers: losses uninterrupted "
+            f"{[round(x, 6) for x in losses_a]}, resumed {[round(x, 6) for x in losses_b]} + "
+            f"{[round(x, 6) for x in losses_c]}: equal bit for bit {same_losses}; every parameter "
+            f"equal bit for bit {same_params}; restored step {step}; the restored config's yaml "
+            f"the model's byte for byte {got_yaml == want_yaml} ({len(want_yaml)} bytes); save "
+            f"{save_s:.2f} s, restore {restore_s:.2f} s; launches forward {fwd_total} (expected "
+            f"{want}), backward {nonzero({**bwd_a, **bwd_b, **bwd_c})} (expected none)")
+        if not (same_losses and same_params and step == CKPT_STEPS and got_yaml == want_yaml):
+            raise AssertionError("checkpoint_resume: the resumed run differs from the "
+                                 "uninterrupted one")
+        if fwd_total != want or bwd_a or bwd_b or bwd_c:
+            raise AssertionError("checkpoint_resume: the steps did not launch the kernels the "
+                                 "expected number of times")
+    finally:
+        DmxModule.inference_mode = prev_mode
+    return fwd_total, dict(losses=losses_a, save_s=save_s, restore_s=restore_s)
 
 
 @contextlib.contextmanager
@@ -4551,6 +5220,25 @@ def main(argv=None) -> int:
         log(f"the benchmarking examples' launches of one runner call by mode on {card}: "
             f"{json.dumps(bench_modes)}")
 
+    # phase 9: HF checkpoints, the pipeline and training checkpoints
+    hd80 = []
+    if run("hf_pipeline path"):
+        with phase("hf_pipeline path", took):
+            launched, hf_numbers = hf_pipeline_path(torch, dev, kernels)
+        by_path["hf_pipeline"] = {**every, **launched}
+        log(f"hf_pipeline path on {card}: {json.dumps(hf_numbers)}")
+    if run("hf_head_dim80 path"):
+        with phase("hf_head_dim80 path", took):
+            launched, hd80_numbers = hf_head_dim80_path(torch, dev, kernels)
+        by_path["hf_head_dim80"] = {**every, **launched}
+        hd80 = hd80_numbers["cases"]
+        log(f"hf_head_dim80 path on {card}: {json.dumps(hd80_numbers)}")
+    if run("checkpoint_resume path"):
+        with phase("checkpoint_resume path", took):
+            launched, ckpt_numbers = checkpoint_resume_path(torch, dev, kernels, cfg)
+        by_path["checkpoint_resume"] = {**every, **launched}
+        log(f"checkpoint_resume path on {card}: {json.dumps(ckpt_numbers)}")
+
     log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
     log(f"kernel builds and phases: {took_build + sum(took.values()):.1f} s")
     if only:
@@ -4566,6 +5254,9 @@ def main(argv=None) -> int:
         """The kernel's launches over the paths' runs, in all and per path."""
         per = {p: n[kern] for p, n in by_path.items() if n[kern]}
         return dict(launches=sum(per.values()), launches_by_path=per)
+
+    hd80_of = {k: [c for c in hd80 if c["kernel"] == k]
+               for k in ("flash_attention", "flash_decode", "flash_decode_int8")}
 
     def top(cases):
         return {k: cases[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
@@ -4592,17 +5283,20 @@ def main(argv=None) -> int:
              source="dmx_compressor_tpu_torch/csrc/flash_decode_int8.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",
              **launches("flash_decode_int8"),
-             max_abs_err=max(c["max_abs_err"] for c in b2), **top(b2), cases=b2),
+             max_abs_err=max(c["max_abs_err"] for c in b2 + hd80_of["flash_decode_int8"]),
+             **top(b2), cases=b2, head_dim80=hd80_of["flash_decode_int8"]),
         dict(name="flash_attention", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_attention.cu",
              replaces="dmx_compressor_tpu/ops/flash_attention.py:67",
              **launches("flash_attention"),
-             max_abs_err=max(c["max_abs_err"] for c in b3), **top(b3), cases=b3),
+             max_abs_err=max(c["max_abs_err"] for c in b3 + hd80_of["flash_attention"]),
+             **top(b3), cases=b3, head_dim80=hd80_of["flash_attention"]),
         dict(name="flash_decode", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_decode.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",
              **launches("flash_decode"),
-             max_abs_err=max(c["max_abs_err"] for c in b4), **top(b4), cases=b4),
+             max_abs_err=max(c["max_abs_err"] for c in b4 + hd80_of["flash_decode"]),
+             **top(b4), cases=b4, head_dim80=hd80_of["flash_decode"]),
         dict(name="sbfp_linear", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/sbfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:199", **launches("sbfp_linear"),

@@ -47,7 +47,13 @@
 //   (decode_split.cuh): one launch, the same bits on every run.
 // head_dim 32, 64, 128 or 256 (a lane always holds 16 dims of a row, so
 // the registers a thread do not grow with D; at 256 a warp step covers 2
-// keys); CHUNK keys a block, chosen by measurement on the
+// keys).  Any other multiple of 8 up to 256 (OPT-2.7b's 80, say) runs the
+// kernel of the next of those widths, DP, with D taken at run time: a
+// lane's float4 loads past D are not issued and read as zeros, so q's
+// padded dims are zero and add nothing to q . k, and only the D real dims
+// are written (the arithmetic of the unpadded head; at D 80 the lanes of
+// dims 80-127 idle).  Padding the cache instead would copy all of it at
+// every step.  CHUNK keys a block, chosen by measurement on the
 // H100 (PERF.md), mirrored by the wrapper's B4_CHUNK.  lengths[b] must be >=
 // 1 (a decode step always has its own key).  The launch error is returned to
 // the caller (cudaGetLastError).
@@ -63,10 +69,15 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int CHUNK = 1024;  // keys per block
 
-__device__ __forceinline__ void load16(const float* p, float* dst) {
+// the 16 floats at p, of which the first `nvalid` exist (PAD: a lane past
+// the head's D dims; D is a multiple of 8, so a float4 is whole or absent);
+// zeros for the rest
+template <bool PAD>
+__device__ __forceinline__ void load16(const float* p, float* dst, int nvalid) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p) + i);
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!PAD || 4 * i < nvalid) f = __ldg(reinterpret_cast<const float4*>(p) + i);
     dst[4 * i] = f.x;
     dst[4 * i + 1] = f.y;
     dst[4 * i + 2] = f.z;
@@ -75,30 +86,34 @@ __device__ __forceinline__ void load16(const float* p, float* dst) {
 }
 
 // this lane's 16 dims of key and value row `row`, zeros where !valid
+template <bool PAD>
 __device__ __forceinline__ void load_kv(const float* k, const float* v, size_t row, bool valid,
-                                       float* kr, float* vr) {
+                                       int nvalid, float* kr, float* vr) {
   if (valid) {
-    load16(k + row, kr);
-    load16(v + row, vr);
+    load16<PAD>(k + row, kr, nvalid);
+    load16<PAD>(v + row, vr, nvalid);
   } else {
 #pragma unroll
     for (int j = 0; j < 16; ++j) kr[j] = vr[j] = 0.f;
   }
 }
 
-template <int D, int R>
+// DP: the instantiated width; PAD: the head's D (a multiple of 8 below DP)
+// comes at run time in Dr, else D = DP
+template <int DP, int R, bool PAD>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const int* __restrict__ lengths,
                     float* __restrict__ out, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int* __restrict__ tickets, int H, int Hkv, int S,
-                    float scale) {
-  constexpr int LPK = D / 16;      // lanes per key row
+                    int Dr, float scale) {
+  constexpr int LPK = DP / 16;     // lanes per key row
   constexpr int KPW = 32 / LPK;    // keys per warp step
   constexpr int KPB = KPW * WARPS; // keys per block step
+  const int D = PAD ? Dr : DP;
   __shared__ float sm_m[WARPS][R];
   __shared__ float sm_l[WARPS][R];
-  __shared__ float sm_acc[WARPS][R][D];
+  __shared__ float sm_acc[WARPS][R][DP];
 
   const int hkv = blockIdx.x;
   const int b = blockIdx.y;
@@ -117,12 +132,13 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t kv_row0 = ((size_t)b * Hkv + hkv) * S;
   const size_t bh0 = (size_t)b * H + (size_t)hkv * rep;  // the first query head's row
   const int w0 = s0 + warp * KPW + grp;  // this lane's first key
+  const int nvalid = D - sub * 16;       // this lane's dims that exist (PAD)
 
   for (int r0 = 0; r0 < rep; r0 += R) {
     float qv[R][16], kr[16], vr[16];
 #pragma unroll
-    for (int r = 0; r < R; ++r) load16(q + (bh0 + r0 + r) * D + sub * 16, qv[r]);
-    load_kv(k, v, (kv_row0 + w0) * D + sub * 16, w0 < s1, kr, vr);
+    for (int r = 0; r < R; ++r) load16<PAD>(q + (bh0 + r0 + r) * D + sub * 16, qv[r], nvalid);
+    load_kv<PAD>(k, v, (kv_row0 + w0) * D + sub * 16, w0 < s1, nvalid, kr, vr);
 
     float m[R], l[R], acc[R][16];
 #pragma unroll
@@ -138,7 +154,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int s = st + grp;
       const bool valid = s < s1;
       float kn[16], vn[16];
-      load_kv(k, v, (kv_row0 + s + KPB) * D + sub * 16, s + KPB < s1, kn, vn);
+      load_kv<PAD>(k, v, (kv_row0 + s + KPB) * D + sub * 16, s + KPB < s1, nvalid, kn, vn);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float dot = 0.f;
@@ -222,31 +238,43 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DP, bool PAD>
 void launch_d(dim3 grid, cudaStream_t s, int rep, const float* q, const float* k,
               const float* v, const int* le, float* out, float* pa, float* pm, int* tk, int H,
-              int Hkv, int S, float scale) {
+              int Hkv, int S, int D, float scale) {
   if (rep % 4 == 0)
-    flash_decode_kernel<D, 4><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H, Hkv,
-                                                          S, scale);
+    flash_decode_kernel<DP, 4, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H,
+                                                                Hkv, S, D, scale);
   else if (rep % 2 == 0)
-    flash_decode_kernel<D, 2><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H, Hkv,
-                                                          S, scale);
+    flash_decode_kernel<DP, 2, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H,
+                                                                Hkv, S, D, scale);
   else
-    flash_decode_kernel<D, 1><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H, Hkv,
-                                                          S, scale);
+    flash_decode_kernel<DP, 1, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H,
+                                                                Hkv, S, D, scale);
+}
+
+template <int DP>
+void launch_w(dim3 grid, cudaStream_t s, int rep, const float* q, const float* k,
+              const float* v, const int* le, float* out, float* pa, float* pm, int* tk, int H,
+              int Hkv, int S, int D, float scale) {
+  if (D == DP)
+    launch_d<DP, false>(grid, s, rep, q, k, v, le, out, pa, pm, tk, H, Hkv, S, D, scale);
+  else
+    launch_d<DP, true>(grid, s, rep, q, k, v, le, out, pa, pm, tk, H, Hkv, S, D, scale);
 }
 
 }  // namespace
 
 // part_acc [B, H, ceil(S / CHUNK), D] and part_ml [B, H, ceil(S / CHUNK), 2]
 // f32 scratch; tickets int32 [B * Hkv], zero (and left zero); where S <=
-// CHUNK no block touches them, and they may be null
+// CHUNK no block touches them, and they may be null.  D: a multiple of 8
+// up to 256
 extern "C" int dmx_flash_decode(const void* q, const void* k, const void* v,
                                 const void* lengths, void* out, void* part_acc, void* part_ml,
                                 void* tickets, int B, int H, int Hkv, int S, int D, float scale,
                                 void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv != 0 || D < 8 || D > 256 || D % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(Hkv, B, (S + CHUNK - 1) / CHUNK);
   const int rep = H / Hkv;
@@ -258,21 +286,14 @@ extern "C" int dmx_flash_decode(const void* q, const void* k, const void* v,
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   int* tk = static_cast<int*>(tickets);
-  switch (D) {
-    case 32:
-      launch_d<32>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
-      break;
-    case 64:
-      launch_d<64>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
-      break;
-    case 128:
-      launch_d<128>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
-      break;
-    case 256:
-      launch_d<256>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  // the instantiated width: the next of 32, 64, 128, 256
+  if (D <= 32)
+    launch_w<32>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, D, scale);
+  else if (D <= 64)
+    launch_w<64>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, D, scale);
+  else if (D <= 128)
+    launch_w<128>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, D, scale);
+  else
+    launch_w<256>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, D, scale);
   return (int)cudaGetLastError();
 }

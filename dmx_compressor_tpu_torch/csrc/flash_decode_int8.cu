@@ -42,7 +42,15 @@
 //   (PERF.md), so it was removed.
 // head_dim 32, 64, 128 or 256 (at 256 at most 16 query heads a KV head:
 // the chunk's K and V rows take 139 KB of shared memory there, and each
-// query head 3 KB more); CHUNK = 256 keys, chosen by measurement on the
+// query head 3 KB more).  Any other multiple of 8 up to 256 (OPT-2.7b's
+// 80, say) runs the kernel of the next of those widths, DP, with D taken
+// at run time: the K and V rows are staged D bytes each in 8-byte copies
+// (a row starts on an 8-byte boundary), the query rows D floats each with
+// zeros to DP, so the padded dims add nothing to q . k (the staged bytes
+// past D are finite int8, times a zero), and only the D real dims are
+// written; at most 16 query heads a KV head above D 128.  The cache keeps
+// its D: padding its payload would copy all of it at every step, and the
+// per-position int8 scale over D is the unpadded head's.  CHUNK = 256 keys, chosen by measurement on the
 // H100 (PERF.md: 64 and 128 were slower at every shape timed), mirrored by
 // the wrapper's B2_CHUNK.  lengths[b] must be >= 1 (a decode step always
 // has its own key).  The launch error is returned to the caller
@@ -62,7 +70,7 @@ constexpr int CHUNK = 256;  // keys per block
 
 // shared memory of one block, in bytes, laid out in this order
 template <int D>
-struct Smem {
+struct Smem {  // D: the instantiated width (DP)
   static constexpr int KROW = D + 16;  // a padded int8 row
   static constexpr int K = 0;
   static constexpr int V = K + CHUNK * KROW;
@@ -90,16 +98,19 @@ __device__ __forceinline__ float4 i8x4(uint32_t w) {
                      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - BIAS);
 }
 
-template <int D>
+// DP: the instantiated width; PAD: the head's D (a multiple of 8 below DP)
+// comes at run time in Dr, else D = DP
+template <int DP, bool PAD>
 __global__ void __launch_bounds__(NT)
 flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
                          const int8_t* __restrict__ vq, const float* __restrict__ ks,
                          const float* __restrict__ vs, const int* __restrict__ lengths,
                          float* __restrict__ out, float* __restrict__ part_acc,
                          float* __restrict__ part_ml, int* __restrict__ tickets, int H, int Hkv,
-                         int S, float scale) {
-  using L = Smem<D>;
-  constexpr int C16 = D / 16;  // 16-byte pieces of a K/V row
+                         int S, int Dr, float scale) {
+  using L = Smem<DP>;
+  constexpr int C16 = DP / 16;  // 16-byte pieces of a staged K/V row
+  const int D = PAD ? Dr : DP;
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sk = reinterpret_cast<int8_t*>(smem + L::K);
   int8_t* sv = reinterpret_cast<int8_t*>(smem + L::V);
@@ -107,7 +118,7 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   float* svs = reinterpret_cast<float*>(smem + L::VS);
   const int rep = H / Hkv;
   float* sq = reinterpret_cast<float*>(smem + L::Q);
-  float* sp = sq + rep * D;
+  float* sp = sq + rep * DP;
   float* red = sp + rep * CHUNK;
   __shared__ float sm_m[32], sm_l[32];  // rep <= 32 (the wrapper checks)
 
@@ -126,19 +137,40 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   // K rows and both scales, which the logits need; then the V rows, which
   // land while the logits are computed
   const float* qp = q + ((size_t)b * H + (size_t)hkv * rep) * D;
-  for (int i = tid; i < rep * D / 4; i += NT) decode_split::cp_async16(sq + 4 * i, qp + 4 * i);
-  for (int i = tid; i < n * C16; i += NT) {
-    const int r = i / C16, p = i % C16;
-    decode_split::cp_async16(sk + r * L::KROW + p * 16, kq + (row0 + r) * D + p * 16);
+  if constexpr (PAD) {
+    const int Q4 = D / 4, C8 = D / 8, DZ = DP - D;
+    for (int i = tid; i < rep * Q4; i += NT) {
+      const int r = i / Q4, col = (i - r * Q4) * 4;
+      decode_split::cp_async16(sq + r * DP + col, qp + r * D + col);
+    }
+    for (int i = tid; i < rep * DZ; i += NT) sq[(i / DZ) * DP + D + i % DZ] = 0.f;
+    for (int i = tid; i < n * C8; i += NT) {
+      const int r = i / C8, p = i - r * C8;
+      decode_split::cp_async8(sk + r * L::KROW + p * 8, kq + (row0 + r) * D + p * 8);
+    }
+  } else {
+    for (int i = tid; i < rep * D / 4; i += NT) decode_split::cp_async16(sq + 4 * i, qp + 4 * i);
+    for (int i = tid; i < n * C16; i += NT) {
+      const int r = i / C16, p = i % C16;
+      decode_split::cp_async16(sk + r * L::KROW + p * 16, kq + (row0 + r) * D + p * 16);
+    }
   }
   for (int i = tid; i < n; i += NT) {
     decode_split::cp_async4(sks + i, ks + row0 + i);
     decode_split::cp_async4(svs + i, vs + row0 + i);
   }
   decode_split::cp_async_commit();
-  for (int i = tid; i < n * C16; i += NT) {
-    const int r = i / C16, p = i % C16;
-    decode_split::cp_async16(sv + r * L::KROW + p * 16, vq + (row0 + r) * D + p * 16);
+  if constexpr (PAD) {
+    const int C8 = D / 8;
+    for (int i = tid; i < n * C8; i += NT) {
+      const int r = i / C8, p = i - r * C8;
+      decode_split::cp_async8(sv + r * L::KROW + p * 8, vq + (row0 + r) * D + p * 8);
+    }
+  } else {
+    for (int i = tid; i < n * C16; i += NT) {
+      const int r = i / C16, p = i % C16;
+      decode_split::cp_async16(sv + r * L::KROW + p * 16, vq + (row0 + r) * D + p * 16);
+    }
   }
   decode_split::cp_async_commit();
   decode_split::cp_async_wait<1>();
@@ -148,7 +180,7 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   // dims d % 4
   for (int p = tid; p < rep * n; p += NT) {
     const int r = p / n, s = p - r * n;
-    const float4* qr = reinterpret_cast<const float4*>(sq + r * D);
+    const float4* qr = reinterpret_cast<const float4*>(sq + r * DP);
     const int8_t* kr = sk + s * L::KROW;
     float4 dot = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -194,11 +226,12 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   __syncthreads();
 
   // PV: output group oi = (head, 4 dims); G key slices summed in order
-  const int O = rep * D / 4;
+  // (over the DP staged dims: those past D are left unwritten)
+  const int O = rep * DP / 4;
   const int G = max(1, NT / O);
   for (int it = tid; it < G * O; it += NT) {
     const int g = it / O, oi = it - g * O;
-    const int r = oi / (D / 4), d4 = (oi % (D / 4)) * 4;
+    const int r = oi / (DP / 4), d4 = (oi % (DP / 4)) * 4;
     const float* pr = sp + r * CHUNK;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     for (int s = g; s < n; s += G) {
@@ -209,7 +242,7 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
       a2 = fmaf(p, v4.z, a2);
       a3 = fmaf(p, v4.w, a3);
     }
-    *reinterpret_cast<float4*>(red + (size_t)g * rep * D + r * D + d4) =
+    *reinterpret_cast<float4*>(red + (size_t)g * rep * DP + r * DP + d4) =
         make_float4(a0, a1, a2, a3);
   }
   __syncthreads();
@@ -217,9 +250,9 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   const size_t bh0 = (size_t)b * H + (size_t)hkv * rep;  // the first query head's row
   const int nchunks = gridDim.z;
   for (int o = tid; o < rep * D; o += NT) {
-    float a = 0.f;
-    for (int g = 0; g < G; ++g) a += red[(size_t)g * rep * D + o];
     const int r = o / D, d = o - r * D;
+    float a = 0.f;
+    for (int g = 0; g < G; ++g) a += red[(size_t)g * rep * DP + r * DP + d];
     if (nact == 1)
       out[(bh0 + r) * D + d] = a / fmaxf(sm_l[r], 1e-30f);
     else
@@ -238,36 +271,51 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   }
 }
 
-template <int D>
+template <int DP, bool PAD>
 cudaError_t launch(const float* q, const int8_t* kq, const int8_t* vq, const float* ks,
                    const float* vs, const int* lengths, float* out, float* part_acc,
-                   float* part_ml, int* tickets, int B, int H, int Hkv, int S, float scale,
+                   float* part_ml, int* tickets, int B, int H, int Hkv, int S, int D, float scale,
                    cudaStream_t s) {
-  const size_t smem = Smem<D>::bytes(H / Hkv);
+  const size_t smem = Smem<DP>::bytes(H / Hkv);
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_int8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(flash_decode_int8_kernel<DP, PAD>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
   const int nchunks = (S + CHUNK - 1) / CHUNK;
-  flash_decode_int8_kernel<D><<<dim3(Hkv, B, nchunks), NT, smem, s>>>(
-      q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, H, Hkv, S, scale);
+  flash_decode_int8_kernel<DP, PAD><<<dim3(Hkv, B, nchunks), NT, smem, s>>>(
+      q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, H, Hkv, S, D, scale);
   return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t launch_w(const float* q, const int8_t* kq, const int8_t* vq, const float* ks,
+                     const float* vs, const int* lengths, float* out, float* part_acc,
+                     float* part_ml, int* tickets, int B, int H, int Hkv, int S, int D,
+                     float scale, cudaStream_t s) {
+  if (D == DP)
+    return launch<DP, false>(q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, B, H,
+                             Hkv, S, D, scale, s);
+  return launch<DP, true>(q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, B, H, Hkv,
+                          S, D, scale, s);
 }
 
 }  // namespace
 
 // part_acc [B, H, ceil(S / 256), D] and part_ml [B, H, ceil(S / 256), 2]
 // f32 scratch; tickets int32 [B * Hkv], zero (and left zero); where S <= 256
-// no block touches them, and they may be null
+// no block touches them, and they may be null.  D: a multiple of 8 up to
+// 256
 extern "C" int dmx_flash_decode_int8(const void* q, const void* k_q, const void* v_q,
                                      const void* k_scale, const void* v_scale,
                                      const void* lengths, void* out, void* part_acc,
                                      void* part_ml, void* tickets, int B, int H, int Hkv, int S,
                                      int D, float scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > (D == 256 ? 16 : 32))
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > (D > 128 ? 16 : 32) || D < 8 || D > 256 ||
+      D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
@@ -280,23 +328,16 @@ extern "C" int dmx_flash_decode_int8(const void* q, const void* k_q, const void*
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   int* tk = static_cast<int*>(tickets);
+  // the instantiated width: the next of 32, 64, 128, 256
   cudaError_t err;
-  switch (D) {
-    case 32:
-      err = launch<32>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, scale, s);
-      break;
-    case 64:
-      err = launch<64>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, scale, s);
-      break;
-    case 128:
-      err = launch<128>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, scale, s);
-      break;
-    case 256:
-      err = launch<256>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, scale, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (D <= 32)
+    err = launch_w<32>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, D, scale, s);
+  else if (D <= 64)
+    err = launch_w<64>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, D, scale, s);
+  else if (D <= 128)
+    err = launch_w<128>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, D, scale, s);
+  else
+    err = launch_w<256>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B, H, Hkv, S, D, scale, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

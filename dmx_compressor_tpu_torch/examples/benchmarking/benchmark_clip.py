@@ -9,11 +9,12 @@ images and token-id captions (image i with caption i) from numpy's
 top-1 agreement with the Vanilla model.  From the root of a checkout:
 
     python -m dmx_compressor_tpu_torch.examples.benchmarking.benchmark_clip \\
-        [--full] [--device cuda|cpu]
+        [--full] [--device cuda|cpu] [--ckpt DIR]
 
 ``--full`` runs CLIP ViT-B/32 (CLIP tiny otherwise); the weights are random
-(seed 0).  The model runs on the card unless ``--device cpu``.  ``--ckpt``
-raises: it needs modeling/hf.py (ROADMAP Queue A item 9.2).
+(seed 0), or those of the local HF checkpoint ``--ckpt DIR``
+(``modeling.hf.read_hf_checkpoint`` and ``load_hf_state_dict``) at that
+width.  The model runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import argparse
 import numpy as np
 import torch
 
+from ...modeling.hf import load_hf_state_dict, read_hf_checkpoint
 from ...models.clip import CLIPConfig, CLIPModel
 from ...utils.benchmark import (
     EVALUATION_MODE,
@@ -30,7 +32,6 @@ from ...utils.benchmark import (
     measure_model_error,
     measure_model_runtime,
 )
-from ._common import refuse_ckpt
 
 N_PAIRS = 64
 BATCH = 8
@@ -49,10 +50,13 @@ def make_dataset(cfg: CLIPConfig, n: int):
     return images, texts
 
 
-def make_model_maker(full: bool, device):
-    """The model_maker of ``utils/benchmark.py``: a fresh model a call,
-    its runner (one batch through ``__call__``) and its evaluator."""
+def make_model_maker(full: bool, device, ckpt=None):
+    """The model_maker of ``utils/benchmark.py``: a fresh model a call (the
+    checkpoint's weights loaded into it where ``ckpt`` names one), its
+    runner (one batch through ``__call__``) and its evaluator."""
     cfg = CLIPConfig.vit_b_32() if full else CLIPConfig.tiny()
+    tensors = (CLIPModel.hf_tensor_converter(read_hf_checkpoint(ckpt))
+               if ckpt is not None else None)
     images, texts = make_dataset(cfg, N_PAIRS)
     images = torch.from_numpy(images).to(device)
     texts = torch.from_numpy(texts).to(device)
@@ -86,7 +90,10 @@ def make_model_maker(full: bool, device):
         return metrics
 
     def model_maker():
-        return CLIPModel(cfg, device=device, seed=0), model_runner, model_evaluator
+        model = CLIPModel(cfg, device=device, seed=0)
+        if tensors is not None:
+            load_hf_state_dict(model, tensors)
+        return model, model_runner, model_evaluator
 
     return model_maker
 
@@ -95,10 +102,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--full", action="store_true", help="CLIP ViT-B/32 (CLIP tiny otherwise)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--ckpt", default=None, help="a local HF checkpoint (not ported: raises)")
+    ap.add_argument("--ckpt", default=None, help="a local HF checkpoint directory")
     args = ap.parse_args(argv)
-    refuse_ckpt(args.ckpt)
-    maker = make_model_maker(args.full, torch.device(args.device))
+    maker = make_model_maker(args.full, torch.device(args.device), args.ckpt)
     runtime = measure_model_runtime(maker, MODES)
     print()
     accuracy = measure_model_accuracy(maker, MODES)

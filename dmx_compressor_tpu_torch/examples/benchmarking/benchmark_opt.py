@@ -11,8 +11,8 @@ and each mode's output error against Vanilla.  From the root of a checkout:
 
 ``--full`` runs OPT-125m (the JAX example's OPT tiny otherwise).  The
 weights are random (seed 0), the ids numpy's ``default_rng(0)``.  The model
-runs on the card unless ``--device cpu``.  ``--ckpt`` raises: it needs
-modeling/hf.py (ROADMAP Queue A item 9.2).
+runs on the card unless ``--device cpu``.  As in the JAX example, there is
+no ``--ckpt``.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ from ...utils.benchmark import (
     measure_runtime,
     mode_output_error,
 )
-from ._common import refuse_ckpt
 
 BATCH, SEQ = 4, 32
 
@@ -66,9 +65,7 @@ def main(argv=None) -> Dict[str, Dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--full", action="store_true", help="OPT-125m (OPT tiny otherwise)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--ckpt", default=None, help="a local HF checkpoint (not ported: raises)")
     args = ap.parse_args(argv)
-    refuse_ckpt(args.ckpt)
     out = run(*build(args.full, args.device))
     print(markdown_table(out["runtimes"], "Per-mode runtime"))
     print()

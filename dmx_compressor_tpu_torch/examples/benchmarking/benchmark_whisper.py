@@ -9,12 +9,13 @@ numpy's ``default_rng(0)``, as in the JAX example.  From the root of a
 checkout:
 
     python -m dmx_compressor_tpu_torch.examples.benchmarking.benchmark_whisper \\
-        [--full] [--layers N] [--device cuda|cpu]
+        [--full] [--layers N] [--device cuda|cpu] [--ckpt DIR]
 
 ``--full`` runs whisper-small (Whisper tiny otherwise), ``--layers N`` cuts
-each stack to N layers; the weights are random (seed 0).  The model runs on
-the card unless ``--device cpu``.  ``--ckpt`` raises: it needs
-modeling/hf.py (ROADMAP Queue A item 9.2).
+each stack to N layers; the weights are random (seed 0), or those of the
+local HF checkpoint ``--ckpt DIR`` (``modeling.hf.read_hf_checkpoint`` and
+``load_hf_state_dict``) at that width.  The model runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...modeling.hf import load_hf_state_dict, read_hf_checkpoint
 from ...models.whisper import WhisperConfig, WhisperForConditionalGeneration
 from ...utils.benchmark import (
     EVALUATION_MODE,
@@ -33,7 +35,6 @@ from ...utils.benchmark import (
     measure_model_error,
     measure_model_runtime,
 )
-from ._common import refuse_ckpt
 
 BATCH = 2
 GEN_LEN = 12
@@ -48,9 +49,12 @@ def config(full: bool, layers: Optional[int] = None) -> WhisperConfig:
     return cfg
 
 
-def make_model_maker(cfg: WhisperConfig, device):
-    """The model_maker of ``utils/benchmark.py``: a fresh model a call, its
+def make_model_maker(cfg: WhisperConfig, device, ckpt=None):
+    """The model_maker of ``utils/benchmark.py``: a fresh model a call (the
+    checkpoint's weights loaded into it where ``ckpt`` names one), its
     runner (an eager forward) and its evaluator (a greedy transcription)."""
+    tensors = (WhisperForConditionalGeneration.hf_tensor_converter(read_hf_checkpoint(ckpt))
+               if ckpt is not None else None)
     rng = np.random.default_rng(0)
     feats = torch.from_numpy(rng.standard_normal(
         (BATCH, cfg.num_mel_bins, cfg.max_source_positions * 2), np.float32)).to(device)
@@ -72,8 +76,10 @@ def make_model_maker(cfg: WhisperConfig, device):
         return {"token_agreement": float(np.mean(toks == ref)), "n_tokens": float(toks.size)}
 
     def model_maker():
-        return (WhisperForConditionalGeneration(cfg, device=device, seed=0), model_runner,
-                model_evaluator)
+        model = WhisperForConditionalGeneration(cfg, device=device, seed=0)
+        if tensors is not None:
+            load_hf_state_dict(model, tensors)
+        return model, model_runner, model_evaluator
 
     return model_maker
 
@@ -83,10 +89,10 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true", help="whisper-small (Whisper tiny otherwise)")
     ap.add_argument("--layers", type=int, default=None, help="layers a stack (all otherwise)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--ckpt", default=None, help="a local HF checkpoint (not ported: raises)")
+    ap.add_argument("--ckpt", default=None, help="a local HF checkpoint directory")
     args = ap.parse_args(argv)
-    refuse_ckpt(args.ckpt)
-    maker = make_model_maker(config(args.full, args.layers), torch.device(args.device))
+    maker = make_model_maker(config(args.full, args.layers), torch.device(args.device),
+                             args.ckpt)
     runtime = measure_model_runtime(maker, MODES)
     print()
     accuracy = measure_model_accuracy(maker, MODES)

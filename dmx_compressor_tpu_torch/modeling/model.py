@@ -195,6 +195,15 @@ class DmxModel:
         for _, m in self.named_dmx_modules():
             m.fold_weight_and_bias()
 
+    def save_specific_layers_state_dict_and_register_urls(self, parent_dir: str,
+                                                          layers: List[str]) -> None:
+        """Each named module's state dict written under ``parent_dir`` and
+        its ``file://`` URL recorded (``DmxModule.save_state_dict_and_register_url``),
+        so a frozen configuration carries it."""
+        mods = self.dmx_module_dict
+        for n in layers:
+            mods[n].save_state_dict_and_register_url(parent_dir)
+
     # ------------------------------------------------------------ compile
 
     def compiled(self, fn: Optional[Callable] = None, **options):

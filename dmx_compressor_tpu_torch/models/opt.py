@@ -333,6 +333,10 @@ class OPTForCausalLM(nn.Module):
                 if isinstance(m, nn.Linear):
                     m.bias.zero_()
 
+    @property
+    def config(self) -> OPTConfig:
+        return self.cfg
+
     def forward(self, input_ids, caches=None, position_offset=0):
         if input_ids.shape[1] == 1 and caches is not None:
             final_ln = self.model.decoder.final_layer_norm

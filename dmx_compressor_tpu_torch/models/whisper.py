@@ -113,7 +113,11 @@ def sinusoids(length: int, channels: int) -> np.ndarray:
 
 class _FixedTable(nn.Module):
     """A fixed table as a buffer named ``weight`` (HF's name for the
-    encoder's positions), outside the parameters."""
+    encoder's positions), outside the parameters.  A checkpoint's table is
+    not loaded into it (``modeling.hf.load_hf_state_dict``): the JAX
+    package keeps its sinusoids whatever a checkpoint holds."""
+
+    from_checkpoints = False
 
     def __init__(self, table: np.ndarray, device=None):
         super().__init__()

@@ -15,8 +15,9 @@ which ``fold_weight_and_bias`` bakes into the parameters.  Every
 ``sparsifiable`` module carries a :class:`Sparsify` (dense until
 configured) and every module with both channel axes an
 :class:`ActivationWeightSmoothQuant` (idle until calibrated), as in the JAX
-package; idle, neither adds an operation to a forward.  The
-``state_dict_url`` config key (checkpoint loading) is not ported.
+package; idle, neither adds an operation to a forward.  A module's state
+dict round-trips through a ``file://`` URL (``state_dict_url``, a pickle of
+numpy arrays under the port's own state-dict names).
 """
 
 from __future__ import annotations
@@ -115,8 +116,6 @@ class DmxModule(PerformanceProxyMixin, LayerReconstructionMixin, nn.Module):
         """Apply a module config; accepts the legacy singular-key grammar
         (``input_format`` / ``output_format``)."""
         config = dict(config)
-        if "state_dict_url" in config and config["state_dict_url"] != self.state_dict_url:
-            raise NotImplementedError("state_dict_url: checkpoint loading is not ported")
         if "input_format" in config:
             config.setdefault("input_formats", [config.pop("input_format")])
         if "output_format" in config:
@@ -150,11 +149,58 @@ class DmxModule(PerformanceProxyMixin, LayerReconstructionMixin, nn.Module):
             self.weight_sparsifier.configure(sparseness=config["weight_sparseness"])
         if "approximation_function" in config:
             self.approximator.set_function(config["approximation_function"])
+        if "state_dict_url" in config and config["state_dict_url"] != self.state_dict_url:
+            self.load_state_dict_and_register_url(config["state_dict_url"])
 
     transform = configure
 
     def dmx_config(self, freeze: bool = False) -> "DmxModuleConfig":
         return DmxModuleConfig.from_module(self, freeze)
+
+    # ---------------------------------------------------------- state dicts
+
+    def load_state_dict_and_register_url(self, url: str) -> None:
+        """Load the module's state from the pickle of numpy arrays at a
+        ``file://`` URL (written by :meth:`save_state_dict_and_register_url`),
+        in place and on the module's device, and record the URL.  The keys
+        are the module's torch state-dict names; a pickle whose keys differ
+        (one the JAX package wrote names nnx paths) raises ValueError naming
+        the mismatch."""
+        import pickle
+        from urllib.parse import urlparse
+        from urllib.request import url2pathname
+
+        import numpy as np
+
+        with open(url2pathname(urlparse(url).path), "rb") as f:
+            flat = pickle.load(f)
+        own = self.state_dict()
+        if set(flat) != set(own):
+            raise ValueError(
+                f"state_dict_url {url}: its keys are not this module's state-dict names "
+                f"(a pickle the JAX package wrote names nnx paths): missing "
+                f"{sorted(set(own) - set(flat))}, unexpected {sorted(set(flat) - set(own))}")
+        self.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                              for k, v in flat.items()})
+        self.state_dict_url = url
+
+    def save_state_dict_and_register_url(self, parent_dir: str) -> None:
+        """Write the module's state dict as a pickle of numpy arrays named
+        by its md5 (``<md5>.pkl`` under ``parent_dir``) and record its
+        ``file://`` URL as ``state_dict_url``."""
+        import os
+        import pickle
+        import tempfile
+        from pathlib import Path
+
+        from ..utils.io import compute_md5
+
+        fd, tmp = tempfile.mkstemp(dir=parent_dir, suffix=".pkl.tmp")
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump({k: v.detach().cpu().numpy() for k, v in self.state_dict().items()}, f)
+        file_name = os.path.join(parent_dir, f"{compute_md5(tmp)}.pkl")
+        os.replace(tmp, file_name)
+        self.state_dict_url = Path(os.path.abspath(file_name)).as_uri()
 
     # ------------------------------------------------------- weight pipeline
 

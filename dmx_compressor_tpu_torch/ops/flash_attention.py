@@ -24,9 +24,16 @@ from .. import kernels
 from .bfp_linear import split_bf16x3_ref
 
 NEG_INF = -1e30
-# the head dims the kernel takes (32 and 64 one kernel, 128 and 256 its wide
-# form); any other raises on the card
+# the head dims the kernel is built for (32 and 64 one kernel, 128 and 256
+# its wide form); any other multiple of 8 up to 256 is zero-padded to the
+# next of them (:func:`flash_attention`), any other raises on the card
 HEAD_DIMS = (32, 64, 128, 256)
+
+
+def kernel_head_dim(D: int) -> bool:
+    """True for a head_dim the attention kernels (B2, B3, B4) take: a
+    multiple of 8 up to 256."""
+    return D % 8 == 0 and 8 <= D <= HEAD_DIMS[-1]
 # the plane products (a's plane, b's plane; 0 = h, 1 = m, 2 = l) that the
 # kernel takes of each of its two products: ml, lm and ll lie below 2^-21
 # of |a||b| per term and are dropped
@@ -90,8 +97,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: [..., L, D]; k, v: [..., S, D]; bias broadcastable to [..., L, S].
     Causal masking puts the diagonal at S - L and needs S >= L.  The kernel
-    takes float32 q, k, v and bias and head_dim 32, 64, 128 or 256, and
-    raises on anything else.
+    takes float32 q, k, v and bias and head_dim 32, 64, 128 or 256; any
+    other multiple of 8 up to 256 (OPT-2.7b's 80) runs at the next of them
+    over q, k, v zero-padded along D, which is exact: the zero columns add
+    nothing to q k^T, the padded output columns (P times zeros) are
+    dropped, and the scale stays the true D's.  Anything else raises.
     """
     *lead, L, D = q.shape
     S = k.shape[-2]
@@ -99,14 +109,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"causal attention needs S >= L, got L={L}, S={S}")
     if not kernels.plain_or_kernel(q):
         return flash_attention_ref(q, k, v, bias, scale, causal)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the flash attention kernel takes head_dim 32, 64, 128 or 256, "
-                         f"got {D}")
+    if not kernel_head_dim(D):
+        raise ValueError(f"the flash attention kernel takes a head_dim that is a multiple of 8 "
+                         f"up to 256, got {D}")
+    DP = next(d for d in HEAD_DIMS if d >= D)  # the instantiated width
     BH = math.prod(lead)
     scale = (D**-0.5) if scale is None else float(scale)
     q2 = q.reshape(BH, L, D).contiguous()
     k2 = k.reshape(BH, S, D).contiguous()
     v2 = v.reshape(BH, S, D).contiguous()
+    if DP != D:
+        q2, k2, v2 = (torch.nn.functional.pad(t, (0, DP - D)) for t in (q2, k2, v2))
     operands = [q2, k2, v2]
     b2 = None
     if bias is not None:
@@ -118,9 +131,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "flash_attention",
         q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
         b2.data_ptr() if b2 is not None else None, out.data_ptr(),
-        BH, L, S, D, scale, int(causal), S - L,
+        BH, L, S, DP, scale, int(causal), S - L,
     )
-    return out.reshape(*lead, L, D).to(q.dtype)
+    return out[..., :D].reshape(*lead, L, D).to(q.dtype)
 
 
 def sdpa_transparent(sdpa) -> bool:

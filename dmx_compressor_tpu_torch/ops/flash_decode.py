@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from .flash_attention import kernel_head_dim
 from .kv_cache import QuantKV
 
 NEG_INF = -1e30
@@ -33,8 +34,10 @@ NEG_INF = -1e30
 B2_CHUNK = 256
 # B4's: the CHUNK of csrc/flash_decode.cu
 B4_CHUNK = 1024
-# the head dims the decode kernels take (B2, B4); any other raises on the card
-HEAD_DIMS = (32, 64, 128, 256)
+# B2 and B4 are built for head_dim 32, 64, 128 and 256 (the HEAD_DIMS of
+# ops/flash_attention.py); any other multiple of 8 up to 256 runs the next
+# of them with its D taken at run time (the padded dims read as zeros)
+
 # per device: the merge tickets of B2 and B4, int32, zero between launches
 # (the merging block resets its own); launches that share them run on one
 # stream
@@ -130,16 +133,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
     """softmax((q k^T) * scale masked to col < lengths[b]) v over f32 K/V
     [B, Hkv, S, D], one query per row.  Returns [B, H, 1, D].  lengths:
     int32 [B] or a scalar, each >= 1.  On the card, K/V of another dtype or a
-    head_dim other than 32/64/128/256 raise."""
+    head_dim that is no multiple of 8 up to 256 raise."""
     B, H, T, D = q.shape
     if T != 1:
         raise ValueError("flash_decode is the single-query decode kernel")
     if not kernels.plain_or_kernel(q):
         return flash_decode_ref(q, k, v, lengths, scale)
     Hkv, S = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS or H % Hkv:
-        raise ValueError(f"the decode kernel takes head_dim 32/64/128/256 and H % Hkv == 0, "
-                         f"got D={D}, H={H}, Hkv={Hkv}")
+    if not kernel_head_dim(D) or H % Hkv:
+        raise ValueError(f"the decode kernel takes a head_dim that is a multiple of 8 up to 256 "
+                         f"and H % Hkv == 0, got D={D}, H={H}, Hkv={Hkv}")
     if k.shape != (B, Hkv, S, D) or v.shape != k.shape:
         raise ValueError("K/V must be [B, Hkv, S, D]")
     scale = (D**-0.5) if scale is None else float(scale)
@@ -235,17 +238,19 @@ def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
                       scale: Optional[float] = None) -> torch.Tensor:
     """softmax((q k^T) * scale masked to col < lengths[b]) v over int8 K/V,
     one query per row.  Returns [B, H, 1, D].  lengths: int32 [B] or a
-    scalar, each >= 1."""
+    scalar, each >= 1.  On the card a head_dim that is no multiple of 8 up
+    to 256, or more than 32 query heads a KV head (16 above head_dim 128),
+    raise."""
     B, H, T, D = q.shape
     if T != 1:
         raise ValueError("flash_decode_int8 is the single-query decode kernel")
     if not kernels.plain_or_kernel(q):
         return flash_decode_int8_ref(q, kv, lengths, scale)
     Hkv, S = kv.k_q.shape[1], kv.k_q.shape[2]
-    if D not in HEAD_DIMS or H % Hkv or H // Hkv > (16 if D == 256 else 32):
-        raise ValueError(f"the decode kernel takes head_dim 32/64/128/256 and H % Hkv == 0 with "
-                         f"at most 32 query heads a KV head (16 at head_dim 256), got D={D}, "
-                         f"H={H}, Hkv={Hkv}")
+    if not kernel_head_dim(D) or H % Hkv or H // Hkv > (16 if D > 128 else 32):
+        raise ValueError(f"the decode kernel takes a head_dim that is a multiple of 8 up to 256 "
+                         f"and H % Hkv == 0 with at most 32 query heads a KV head (16 above "
+                         f"head_dim 128), got D={D}, H={H}, Hkv={Hkv}")
     if kv.k_q.shape != (B, Hkv, S, D) or kv.v_q.shape != kv.k_q.shape:
         raise ValueError("int8 payloads must be [B, Hkv, S, D]")
     if kv.k_scale.shape != (B, Hkv, S) or kv.v_scale.shape != (B, Hkv, S):

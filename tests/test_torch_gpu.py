@@ -162,9 +162,11 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, L, S, D, causa
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 96), (torch.bfloat16, 64),
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 100), (torch.bfloat16, 64),
                                      (torch.float16, 64), (torch.float32, 512)])
 def test_flash_attention_kernel_raises_rather_than_falling_back(cuda, dtype, D):
+    """A head_dim that is no multiple of 8 up to 256, or q/k/v other than
+    float32, raises before a launch."""
     q = torch.randn(2, 4, 16, D, device=cuda).to(dtype)
     n0 = kernels.LAUNCHES["flash_attention"]
     with pytest.raises(ValueError):
@@ -352,10 +354,11 @@ def test_flash_decode_b2_and_b4_interleaved_share_the_tickets_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,H", [(96, 4), (256, 32)])
+@pytest.mark.parametrize("D,H", [(100, 4), (256, 32), (136, 32)])
 def test_flash_decode_int8_kernel_raises_outside_its_head_dims(cuda, D, H):
-    """A head_dim outside 32 / 64 / 128 / 256, or more than 16 query heads a
-    KV head at 256 (the chunk's shared memory), raises before a launch."""
+    """A head_dim that is no multiple of 8, or more than 16 query heads a KV
+    head above head_dim 128 (the chunk's shared memory at 256, the width
+    136 runs at), raises before a launch."""
     q, kv, le = _b2_inputs(cuda, 2, H, 1, 40, D, [40, 7])
     n0 = kernels.LAUNCHES["flash_decode_int8"]
     with pytest.raises(ValueError):
@@ -364,7 +367,7 @@ def test_flash_decode_int8_kernel_raises_outside_its_head_dims(cuda, D, H):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float32, 80),
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float32, 84),
                                      (torch.float32, 512)])
 def test_flash_decode_kernel_raises_rather_than_falling_back(cuda, dtype, D):
     q = torch.randn(2, 4, 1, D, device=cuda)
@@ -373,6 +376,88 @@ def test_flash_decode_kernel_raises_rather_than_falling_back(cuda, dtype, D):
     with pytest.raises(ValueError):
         tfd.flash_decode(q, k, k.clone(), 8)
     assert kernels.LAUNCHES["flash_decode"] == n0
+
+
+# head dims off the kernels' instantiated widths (32 / 64 / 128 / 256):
+# OPT-2.7b's 80, 96 and 40 (below 64 and not a multiple of 16)
+OFF_HEAD_DIMS = [80, 96, 40]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", OFF_HEAD_DIMS)
+def test_flash_attention_kernel_takes_any_head_dim_multiple_of_8_on_card(cuda, D):
+    """B3 over q, k, v zero-padded to the next width: one launch each, the
+    plain version's values; causal at OPT-2.7b's prefill shape (32 heads,
+    L = S = 128), and L < S with a bias."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    for B, H, L, S, with_bias in [(2, 32, 128, 128, False), (2, 3, 50, 90, True)]:
+        q = torch.randn(B, H, L, D, generator=g, device=cuda)
+        k, v = (torch.randn(B, H, S, D, generator=g, device=cuda) for _ in range(2))
+        bias = torch.randn(B, H, L, S, generator=g, device=cuda) if with_bias else None
+        n0 = kernels.LAUNCHES["flash_attention"]
+        got = tfa.flash_attention(q, k, v, bias, causal=True)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["flash_attention"] == n0 + 1
+        assert got.shape == q.shape
+        torch.testing.assert_close(got, tfa.flash_attention_ref(q, k, v, bias, causal=True),
+                                   rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", OFF_HEAD_DIMS)
+def test_flash_decode_kernels_take_any_head_dim_multiple_of_8_on_card(cuda, D):
+    """B4 and B2 with D taken at run time: one launch each, the plain
+    versions' values, the same bits on a second call, the tickets left at
+    zero; rows over one chunk and over several, GQA 4:1."""
+    for B, H, Hkv, S, lengths in [(8, 32, 32, 256, [160] * 8),
+                                  (3, 16, 4, 2500, [2500, 1025, 7])]:
+        q, k, v, _ = _b4_inputs(cuda, B, H, Hkv, S, D, seed=D)
+        _check_b4(q, k, v, torch.tensor(lengths, dtype=torch.int32, device=cuda))
+        q8, kv, le8 = _b2_inputs(cuda, B, H, Hkv, S, D, lengths)
+        n0 = kernels.LAUNCHES["flash_decode_int8"]
+        got = tfd.flash_decode_int8(q8, kv, le8)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["flash_decode_int8"] == n0 + 1
+        torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q8, kv, le8), rtol=1e-5,
+                                   atol=2e-5)
+        assert torch.equal(tfd.flash_decode_int8(q8, kv, le8), got)
+        assert not tfd._TICKETS[torch.device("cuda", torch.cuda.current_device())].any()
+
+
+@pytest.mark.gpu
+def test_checkpoint_written_by_torch_save_loads_on_card_bit_for_bit(cuda, tmp_path):
+    """A local HF checkpoint (OPT, ``pytorch_model.bin`` by torch.save) loads
+    through ``model_from_checkpoint`` onto the card: no key unmatched, every
+    parameter its tensor bit for bit."""
+    import json
+
+    from dmx_compressor_tpu_torch.modeling.hf import model_from_checkpoint
+
+    cfg = dict(model_type="opt", vocab_size=512, hidden_size=160, ffn_dim=320,
+               num_hidden_layers=2, num_attention_heads=2, max_position_embeddings=64)
+    g = torch.Generator().manual_seed(3)
+    tensors = {"model.decoder.embed_tokens.weight": torch.randn(512, 160, generator=g),
+               "model.decoder.embed_positions.weight": torch.randn(66, 160, generator=g),
+               "model.decoder.final_layer_norm.weight": torch.randn(160, generator=g),
+               "model.decoder.final_layer_norm.bias": torch.randn(160, generator=g)}
+    for i in range(2):
+        p = f"model.decoder.layers.{i}"
+        for name, shape in [("self_attn.q_proj", (160, 160)), ("self_attn.k_proj", (160, 160)),
+                            ("self_attn.v_proj", (160, 160)), ("self_attn.out_proj", (160, 160)),
+                            ("fc1", (320, 160)), ("fc2", (160, 320))]:
+            tensors[f"{p}.{name}.weight"] = torch.randn(*shape, generator=g)
+            tensors[f"{p}.{name}.bias"] = torch.randn(shape[0], generator=g)
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            tensors[f"{p}.{name}.weight"] = torch.randn(160, generator=g)
+            tensors[f"{p}.{name}.bias"] = torch.randn(160, generator=g)
+    torch.save(tensors, str(tmp_path / "pytorch_model.bin"))
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    model, missed = model_from_checkpoint(str(tmp_path))
+    assert missed == []
+    own = dict(model.named_parameters())
+    assert set(own) == set(tensors)
+    for k, v in tensors.items():
+        assert own[k].is_cuda and torch.equal(own[k].cpu(), v), k
 
 
 # T1 (M, N, K, block): the BASIC path's decode and prefill shapes, T1's own

@@ -61,8 +61,6 @@ STILL_MISSING = {
         "QuantizedFunction": "9.6",
         "cast_input_output_transform": "9.4", "configure_graph": "9.4", "node_dict": "9.4",
     },
-    "utils": {"CheckpointManager": "9.3", "restore_checkpoint": "9.3",
-              "restored_config": "9.3", "save_checkpoint": "9.3"},
 }
 # each module of the JAX package's subpackages that the port lacks
 STILL_MISSING_MODULES = {
@@ -70,13 +68,11 @@ STILL_MISSING_MODULES = {
     "numerics": {"onnx_ids": "9.4"},
     "transform": {"intercept": "9.6", "legacy": "9.4", "onnx_export": "9.5", "qdq": "9.4",
                   "visualize": "9.4"},
-    "utils": {"checkpoint": "9.3", "visualization": "9.3"},
 }
 # DmxModel's public members the port lacks
 STILL_MISSING_MEMBERS = {
     "from_nnx": "JAX only: the alias of from_raw for nnx models",
     "from_function": "9.6",
-    "save_specific_layers_state_dict_and_register_urls": "9.2",
     "make_compiler_graphs": "9.4",
     "visualize_graph": "9.4",
 }

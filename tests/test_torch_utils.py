@@ -279,15 +279,59 @@ def test_mode_error_and_markdown_as_benchmark_opt_s():
 # ----------------------------------------------------------------- examples
 
 
+def _write_example_checkpoint(example, path):
+    """A local HF checkpoint at the example's tiny config: a port model of
+    seed 5, each parameter under its HF name (Whisper's are HF's but for
+    its convs' [out, in, 3] layout; CLIP's lose the ``embeddings.`` and
+    ``encoder.`` levels, which this puts back), written as safetensors.
+    Returns the tensors the example's model must hold (the family's
+    ``hf_tensor_converter`` of the written ones)."""
+    import json
+    import os
+
+    from safetensors.numpy import save_file
+
+    from dmx_compressor_tpu_torch.models.clip import CLIPConfig, CLIPModel
+    from dmx_compressor_tpu_torch.models.whisper import (WhisperConfig,
+                                                         WhisperForConditionalGeneration)
+
+    if example == "clip":
+        model = CLIPModel(CLIPConfig.tiny(), device="cpu", seed=5)
+    else:
+        model = WhisperForConditionalGeneration(WhisperConfig.tiny(), device="cpu", seed=5)
+    tensors = {}
+    for name, p in model.named_parameters():
+        a = p.detach().numpy().copy()
+        if example == "whisper" and name.endswith(("conv1.weight", "conv2.weight")):
+            a = a.reshape(a.shape[0], -1, 3)
+        if example == "clip":
+            if "patch_embedding" in name:
+                a = a.reshape(a.shape[0], 3, 8, 8)
+            for emb in ("token_embedding", "position_embedding", "class_embedding",
+                        "patch_embedding"):
+                name = name.replace(f"_model.{emb}", f"_model.embeddings.{emb}")
+            name = name.replace("_model.layers.", "_model.encoder.layers.")
+        tensors[name] = a
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": example}, f)
+    save_file(tensors, os.path.join(path, "model.safetensors"))
+    return type(model).hf_tensor_converter(tensors)
+
+
 @pytest.mark.parametrize("example", ["opt", "clip", "whisper"])
-def test_benchmarking_example_runs_tiny_on_the_cpu(example, capsys):
+def test_benchmarking_example_runs_tiny_on_the_cpu(example, capsys, tmp_path):
     """Each port of examples/benchmarking at its tiny config on the CPU:
-    the JAX example's tables, finite; ``--ckpt`` raises, naming item 9.2."""
+    the JAX example's tables, finite.  CLIP's and Whisper's run over a
+    local HF checkpoint (``--ckpt DIR``), whose tensors their models hold
+    bit for bit; OPT's, as JAX's, takes no ``--ckpt``."""
     import importlib
 
     mod = importlib.import_module(
         f"dmx_compressor_tpu_torch.examples.benchmarking.benchmark_{example}")
-    out = mod.main(["--device", "cpu"])
+    ckpt = str(tmp_path / "ckpt")
+    want = None if example == "opt" else _write_example_checkpoint(example, ckpt)
+    out = mod.main(["--device", "cpu"] + ([] if example == "opt" else ["--ckpt", ckpt]))
     text = capsys.readouterr().out
     modes = [m.value for m in (MODES if example == "opt" else mod.MODES)]
     if example == "opt":
@@ -301,5 +345,15 @@ def test_benchmarking_example_runs_tiny_on_the_cpu(example, capsys):
         assert "### VSIMD operations" in text and "### Basic vs Baseline" in text
         assert list(out["runtime"]) == list(out["accuracy"]) == modes
         assert np.isfinite(out["error"]["Basic"]["final_output"]["mse"])
-    with pytest.raises(NotImplementedError, match="item 9.2"):
-        mod.main(["--device", "cpu", "--ckpt", "some/dir"])
+    if example == "opt":
+        with pytest.raises(SystemExit):  # argparse: no such flag
+            mod.main(["--device", "cpu", "--ckpt", "some/dir"])
+        return
+    maker = (mod.make_model_maker(False, torch.device("cpu"), ckpt) if example == "clip"
+             else mod.make_model_maker(mod.config(False), torch.device("cpu"), ckpt))
+    model, _, _ = maker()
+    own = dict(model.named_parameters())
+    assert set(want) == set(own)
+    for k, v in want.items():
+        want_k = torch.from_numpy(np.asarray(v)).reshape(own[k].shape)
+        assert torch.equal(own[k].detach(), want_k), k
