@@ -165,8 +165,9 @@ Phases (any failure exits non-zero):
    under torch.cuda.set_sync_debug_mode("error").  Every request's tokens
    are held against isolated generation on the card (greedy_prefill and
    greedy_decode on a static cache outside the engine, the requests of one
-   prompt length side by side, up to 8 a batch) and against the same engine run with
-   the model on the CPU, by the margin rule of phase 3.  Each path prints
+   prompt length side by side, up to 8 a batch), and those of the requests
+   ENGINE_HELD against the same engine run over them with the model on the
+   CPU, by the margin rule of phase 3.  Each path prints
    tokens/s, slot utilization, p50/p99 step times and the device's share
    of a steady step.
 5. The encoder-decoder families at full width, from seed 0: t5-small (6 +
@@ -247,7 +248,25 @@ Phases (any failure exits non-zero):
    D 80 card vs CPU, and timed beside D 64 and 128) and checkpoint_resume
    (QAT at 2 layers: 4 Adam steps, ``CheckpointManager.save``, a fresh
    model restored, 4 more, bit for bit the uninterrupted 8).
-9. A ``kernels`` JSON line (launches by path, the engine paths included),
+9. The export path and functional interception: export (OPT-125m at full
+   width and depth, seed 0, ``DmxModel.from_raw(m).to_basic_mode()``: its
+   208 compiler graphs, none skipped; each module's graph evaluated on the
+   inputs its module saw in one modular BASIC prefill of 8 x 128 (44L+7 =
+   535 T2), bit for bit against the module where the graph computes with
+   its ops, at SURROGATE_GRAPH_TOL where it is the exact op of a BASIC
+   surrogate (LayerNorm, Softmax, the SDPA), every evaluation with its
+   module call's T2 launches (535 over the top-level graphs, 703 with the
+   SDPA's children); ``export_onnx`` of the card model byte for byte its CPU
+   copy's, parsed back, 24L+2 = 290 QuantizeBFP; the ``torch.export``
+   program of one decoder layer holding 44 T2 operators, its module's
+   output eager's bit for bit with 44 launches; the bucketed programs of its
+   fc1 over T 32 / 64 / 128, T 100 dispatched to 128) and intercept
+   (``DmxModel.from_function`` over the raw OPT-125m's prefill at 8 x 128
+   under ``InterceptRules.basic()``: 8L+1 dots and 11L+2 adds, three T2 a
+   site = 693; card vs CPU at FAMILY_CPU_LAYERS layers at BASIC_LOGIT_TOL;
+   examples/family_tour.py on the card).  The OPT engine paths' CPU runs
+   take the requests ENGINE_HELD since this phase joined.
+10. A ``kernels`` JSON line (launches by path, the engine paths included),
    then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -353,8 +372,9 @@ ENGINE = dict(slots=8, burst=16, requests=32, prompt=96, gen=64)
 ENGINE_CHUNK = 32
 ENGINE_LEN = ENGINE["prompt"] + ENGINE["gen"] + ENGINE["burst"]  # the row cache's max_len
 # the requests of engine_llama_weights held against isolated generation and
-# the CPU: every fourth, two of each wave of eight admissions (the first
-# wave's, and readmissions into freed slots)
+# the CPU, and of the OPT engine paths against the CPU: every fourth, two of
+# each wave of eight admissions (the first wave's, and readmissions into
+# freed slots)
 ENGINE_HELD = list(range(0, ENGINE["requests"], 4))
 # per-slot lengths of a steady decode step on the engine's row cache: slots
 # spread over their requests' decode, and an idle slot past max_len (its
@@ -406,10 +426,11 @@ FP8_LAYERS = 1  # 2 before the QAT, model API and benchmarking phases
 T5_LAYERS = 2
 GPT2_LAYERS = 4
 CALIB_LAYERS = 2  # 4 before the HF checkpoint phases (12 before QAT's)
-# benchmark_clip's synthetic corpus in the benchmarking phase: its first 16
-# pairs of the example's N_PAIRS (64), two batches of 8 an evaluation (the
-# time of the HF checkpoint phases; every mode's launches still held)
-CLIP_BENCH_PAIRS = 16
+# benchmark_clip's synthetic corpus in the benchmarking phase: its first 8
+# pairs of the example's N_PAIRS (64), one batch of 8 an evaluation (16
+# before the export phases, 64 before the HF checkpoint phases; every mode's
+# launches still held)
+CLIP_BENCH_PAIRS = 8
 # every OPT engine path (engine_weights included) and engine_llama_weights
 # at 2 layers (4 before the QAT, model API and benchmarking phases): the
 # time of the new phases
@@ -2326,8 +2347,9 @@ def engine_paths(torch, dev, kernels, cfg, card):
     """The OPT engine paths, one model after another (OPT at full width,
     seed 0, cut to ``ENGINE_CUT_LAYERS``): per path an engine on the card
     and :func:`engine_closed_loop`; isolated generation on the card; the
-    model moved to the CPU and the path's engine run again there.  Returns
-    the launch counts by path."""
+    model moved to the CPU and the path's engine run there over the requests
+    ``ENGINE_HELD``, held against the card's tokens of those requests.
+    Returns the launch counts by path."""
     import dataclasses
 
     from dmx_compressor_tpu_torch.examples import serving_bench as sb
@@ -2376,15 +2398,20 @@ def engine_paths(torch, dev, kernels, cfg, card):
                     raise AssertionError(f"{sp['name']}: the chunked prefill moved the logits "
                                          f"beyond the tolerance its tokens are held to")
 
-        # the same engine runs with the model on the CPU
+        # the same engine over the requests ENGINE_HELD with the model on
+        # the CPU, against the card's tokens of those requests
         model.to("cpu")
         torch.cuda.empty_cache()
+        held = [requests[i] for i in ENGINE_HELD]
+        held_margins = {j: margins[i] for j, i in enumerate(ENGINE_HELD)}
         for sp in group:
             t0 = time.perf_counter()
-            cpu = engine_run(torch, sb, model, quantized, requests, sp["chunk"])
-            log(f"{sp['name']}: CPU engine run {time.perf_counter() - t0:.1f} s")
-            hold_tokens(sp["name"], "the CPU engine run", got[sp["name"]], cpu, margins,
-                        sp["cpu_tol"])
+            cpu = engine_run(torch, sb, model, quantized, held, sp["chunk"])
+            log(f"{sp['name']}: CPU engine run of requests {ENGINE_HELD} "
+                f"{time.perf_counter() - t0:.1f} s")
+            hold_tokens(sp["name"], f"the CPU engine run (requests {ENGINE_HELD})",
+                        {j: got[sp["name"]][i] for j, i in enumerate(ENGINE_HELD)}, cpu,
+                        held_margins, sp["cpu_tol"])
         del model
     return by_path
 
@@ -3304,10 +3331,11 @@ CALIB_SCALE_RTOL = 1e-2
 # LAPACK's (an H100 read 9.5e-5 apart, the card's 9.3e-5 off the float64
 # reference, printed beside)
 SLANC_RTOL = 1e-3
-# the calibration example's CPU check: its perplexities over 64 ids (two
-# windows), not 512: at 4 layers the CPU takes ~2 minutes over 512 (the
-# BASIC head's weight cast of 50272 x 768 at every forward)
-CALIB_CPU_IDS = 64
+# the calibration example's CPU check: its perplexities over 32 ids (one
+# window; 64 before the export phases), not 512: at 4 layers the CPU takes
+# ~2 minutes over 512 (the BASIC head's weight cast of 50272 x 768 at every
+# forward)
+CALIB_CPU_IDS = 32
 # the recipes phase: each piece at one OPT-125m layer's shapes
 RECIPE_X = (8, 128)  # activations [8, 128, K]
 
@@ -4978,6 +5006,360 @@ def checkpoint_resume_path(torch, dev, kernels, cfg):
     return fwd_total, dict(losses=losses_a, save_s=save_s, restore_s=restore_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the export path and functional interception
+# ---------------------------------------------------------------------------
+
+# the export phase's bucketed programs: a decoder layer's fc1 (BASIC) over x
+# [BATCH, T, 768] for T in these buckets; a T of EXPORT_DISPATCH_T
+# dispatches to the smallest that fits
+EXPORT_BUCKETS = (32, 64, 128)
+EXPORT_DISPATCH_T = 100
+# a module graph against its module where the graph's op is not the
+# module's: the exact softmax / LayerNorm of the graph (the JAX package's
+# functional targets) against the BASIC surrogates (SOFTMAX, LAYER_NORM
+# vsimd), each side then through the same FLOAT16 output cast; twice the
+# gap measured on the CPU at OPT-125m's width (tests/test_torch_export.py's
+# OPT case holds it at 2e-2 at tiny width)
+SURROGATE_GRAPH_TOL = 2e-2
+
+
+def bfp_sites(m) -> int:
+    """The BFP casts (QuantizeBFP / DequantizeBFP pairs) a module's compiler
+    graph carries, counted from the module's casts: its input and output
+    casts, its weight's storage and weight casts and its bias cast; the
+    compound SDPA's own input casts and its children's casts as its graph
+    uses them (actmatmul and resadd twice each), without its own output
+    cast."""
+    from dmx_compressor_tpu_torch.nn import modules as tnn
+    from dmx_compressor_tpu_torch.numerics.format import BlockFloatingPoint
+
+    def bfp(casts):
+        return sum(isinstance(c.format, BlockFloatingPoint) for c in casts if c is not None)
+
+    def own(mod, outputs=True):
+        casts = [c for _, c in mod.input_casts.items()]
+        if outputs:
+            casts += [c for _, c in mod.output_casts.items()]
+        if getattr(mod, "weight", None) is not None:
+            casts += [mod.weight_storage_cast, mod.weight_cast]
+        if getattr(mod, "bias", None) is not None:
+            casts.append(mod.bias_cast)
+        return bfp(casts)
+
+    if isinstance(m, tnn.ScaledDotProductAttention):
+        return (own(m, outputs=False) + 2 * own(m.actmatmul) + 2 * own(m.resadd) + own(m.mul)
+                + own(m.softmax) + own(m.dropout))
+    return own(m)
+
+
+def layer_with_mask(torch, layer):
+    """One decoder layer over x [B, T, D] with its causal mask built inside:
+    a module of one argument, for torch.export and its buckets."""
+    from dmx_compressor_tpu_torch.models.positions import causal_mask
+
+    class LayerWithMask(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layer = layer
+
+        def forward(self, x):
+            T = x.shape[1]
+            return self.layer(x, attn_mask=causal_mask(T, T, 0, x.dtype, x.device))
+
+    return LayerWithMask()
+
+
+def export_phase(torch, dev, kernels, cfg):
+    """The export path over OPT-125m at full width and depth (seed 0,
+    ``DmxModel.from_raw(m).to_basic_mode()`` on the card): the compiler
+    graphs (none skipped, the SDPA's among them); each module's graph
+    evaluated on the inputs its module saw in one BASIC prefill (BATCH x
+    PROMPT, the modular path) against the module's output, bit for bit
+    where the graph computes with the module's ops, else at
+    SURROGATE_GRAPH_TOL, the T2 launches of each evaluation its module
+    call's; the ONNX bytes of the card model against its CPU copy's, parsed
+    back, their QuantizeBFP count the modules' BFP casts; the exported
+    program of one decoder layer holding T2 as an operator, its module's
+    output eager's bit for bit with eager's T2 launches; the bucketed
+    export of its fc1.  Returns (the launches of the counted runs, the
+    numbers)."""
+    import copy
+
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.nn import modules as tnn
+    from dmx_compressor_tpu_torch.nn.core import DmxModule
+    from dmx_compressor_tpu_torch.transform import onnx_export, qdq
+
+    L = cfg.num_hidden_layers
+    numbers, total = {}, {}
+
+    def add(launched):
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+
+    prev_mode, DmxModule.inference_mode = DmxModule.inference_mode, False
+    try:
+        dm = DmxModel.from_raw(OPTForCausalLM(cfg, device=dev, seed=0)).to_basic_mode()
+        t0 = time.perf_counter()
+        graphs = dm.make_compiler_graphs()
+        numbers["graphs_s"] = round(time.perf_counter() - t0, 3)
+        mods = dict(dm.named_dmx_modules())
+        sdpas = [n for n in graphs if isinstance(mods[n], tnn.ScaledDotProductAttention)]
+        log(f"export: {len(graphs)} compiler graphs in {numbers['graphs_s']} s "
+            f"({len(sdpas)} SDPA graphs), skipped {graphs.skipped}")
+        if graphs.skipped or len(graphs) != len(mods) or len(sdpas) != L:
+            raise AssertionError("export: the compiler graphs do not cover every module")
+
+        # one BASIC prefill, every module's inputs, output and T2 launches
+        ids = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                (BATCH, PROMPT)), device=dev)
+        calls = {n: [] for n in graphs}
+        opened = {}
+
+        def pre(m, args, kwargs, n):
+            opened.setdefault(n, []).append(kernels.LAUNCHES["bfp_cast"])
+
+        def post(m, args, kwargs, out, n):
+            began = opened[n].pop()
+            calls[n].append((args, kwargs, out, kernels.LAUNCHES["bfp_cast"] - began))
+
+        hooks = []
+        for n in graphs:
+            hooks.append(mods[n].register_forward_pre_hook(
+                functools.partial(pre, n=n), with_kwargs=True))
+            hooks.append(mods[n].register_forward_hook(
+                functools.partial(post, n=n), with_kwargs=True))
+        children = {f"{n}.{c}" for n in sdpas for c in ("resadd", "actmatmul", "softmax",
+                                                         "dropout", "mul")}
+        DmxModule.monitors += 1  # the modular path: every module is called
+        kernels.reset_launches()
+        try:
+            with torch.no_grad():
+                logits = dm(ids)
+            torch.cuda.synchronize()
+        finally:
+            DmxModule.monitors -= 1
+            for h in hooks:
+                h.remove()
+        eager = nonzero(kernels.LAUNCHES)
+        want = {"bfp_cast": 44 * L + 7}
+        log(f"export: the BASIC prefill ({BATCH} x {PROMPT}, modular) launches {eager} "
+            f"(expected {want})")
+        if eager != want or not torch.isfinite(logits).all():
+            raise AssertionError("export: the BASIC prefill did not launch the kernels the "
+                                 "expected number of times, or its logits are not finite")
+        add(eager)
+        del logits
+
+        # every module's graph on its module's inputs
+        exact = held = 0
+        gaps = {}
+        graph_t2 = top_t2 = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for n, g in graphs.items():
+                m = mods[n]
+                surrogate = isinstance(m, (tnn.LayerNorm, tnn.Softmax)) or n in sdpas
+                for args, kwargs, out, launched in calls[n]:
+                    if n in sdpas:
+                        args = (*args, kwargs["attn_mask"], kwargs["scale"])
+                    before = kernels.LAUNCHES["bfp_cast"]
+                    got = qdq.evaluate_graph(g, m, *args)
+                    t2 = kernels.LAUNCHES["bfp_cast"] - before
+                    if t2 != launched:
+                        raise AssertionError(f"export: {n}'s graph launched T2 {t2} times, "
+                                             f"its module {launched}")
+                    graph_t2 += t2
+                    if n not in children:
+                        top_t2 += t2
+                    if surrogate:
+                        kind = "sdpa" if n in sdpas else type(m).__name__
+                        err = (got - out).abs().max().item()
+                        gaps[kind] = max(gaps.get(kind, 0.0), err)
+                        if not err <= SURROGATE_GRAPH_TOL:
+                            raise AssertionError(f"export: {n}'s graph is {err} from its "
+                                                 f"module (tolerance {SURROGATE_GRAPH_TOL})")
+                        held += 1
+                    else:
+                        if not same_bits(torch, got, out):
+                            raise AssertionError(f"export: {n}'s graph differs from its "
+                                                 f"module's output")
+                        exact += 1
+            torch.cuda.synchronize()
+        numbers["graph_eval_s"] = round(time.perf_counter() - t0, 3)
+        numbers.update(exact=exact, held=held, surrogate_gaps=gaps)
+        log(f"export: graphs against their modules on the card: {exact} calls bit for bit, "
+            f"{held} at the surrogates' tolerance {SURROGATE_GRAPH_TOL} (max gap {gaps}); T2 "
+            f"launches: every evaluation its module call's, the top-level graphs' {top_t2} "
+            f"(the prefill's {eager['bfp_cast']}), with the SDPA's children {graph_t2}; "
+            f"{numbers['graph_eval_s']} s")
+        if top_t2 != eager["bfp_cast"]:
+            raise AssertionError("export: the graphs' T2 launches are not the prefill's")
+        add({"bfp_cast": graph_t2})
+        del calls
+
+        # ONNX: the card model's bytes are its CPU copy's
+        t0 = time.perf_counter()
+        card_onnx = onnx_export.export_onnx(dm.module)
+        numbers["onnx_s"] = round(time.perf_counter() - t0, 3)
+        cpu_onnx = onnx_export.export_onnx(copy.deepcopy(dm.module).to("cpu"))
+        if list(card_onnx) != list(cpu_onnx) or any(card_onnx[k] != cpu_onnx[k]
+                                                    for k in card_onnx):
+            raise AssertionError("export: the card model's ONNX bytes are not its CPU copy's")
+        n_q = n_init = 0
+        for k, data in card_onnx.items():
+            parsed = onnx_export.parse_onnx(data)
+            want_init = [x.name for x in graphs[k].nodes if x.op == "get_attr"]
+            if parsed["initializers"] != want_init or not parsed["outputs"]:
+                raise AssertionError(f"export: {k}'s ONNX does not parse back to its graph")
+            n_q += sum(x["op_type"] == "QuantizeBFP" for x in parsed["nodes"])
+            n_init += len(parsed["initializers"])
+        n_bfp = sum(bfp_sites(mods[k]) for k in card_onnx)
+        numbers.update(onnx_models=len(card_onnx), onnx_bytes=sum(map(len, card_onnx.values())),
+                       quantize_bfp=n_q)
+        log(f"export: export_onnx of the card model: {len(card_onnx)} models, "
+            f"{numbers['onnx_bytes']} bytes in {numbers['onnx_s']} s, byte for byte its CPU "
+            f"copy's; parsed back: {n_init} initializers, {n_q} QuantizeBFP (the modules' BFP "
+            f"casts: {n_bfp})")
+        if n_q != n_bfp:
+            raise AssertionError("export: the QuantizeBFP count is not the modules' BFP casts")
+        del card_onnx, cpu_onnx
+
+        # the program of one decoder layer
+        lw = layer_with_mask(torch, dm.module.model.decoder.layers[0])
+        x = torch.randn(BATCH, PROMPT, cfg.hidden_size, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        t0 = time.perf_counter()
+        ep = qdq.exported_program(lw, x)
+        text = str(ep)
+        numbers["program_s"] = round(time.perf_counter() - t0, 3)
+        ops = text.count("torch.ops.dmx_compressor_tpu_torch.bfp_cast")
+        kernels.reset_launches()
+        with torch.no_grad():
+            want_y = lw(x)
+        torch.cuda.synchronize()
+        eager_l = nonzero(kernels.LAUNCHES)
+        kernels.reset_launches()
+        with torch.no_grad():
+            got_y = ep.module()(x)
+        torch.cuda.synchronize()
+        prog_l = nonzero(kernels.LAUNCHES)
+        numbers.update(program_chars=len(text), program_t2_ops=ops)
+        log(f"export: the program of one decoder layer ({BATCH} x {PROMPT} x "
+            f"{cfg.hidden_size}): {len(text)} characters in {numbers['program_s']} s, {ops} "
+            f"T2 operators; run: launches {prog_l}, eager {eager_l}; bit for bit "
+            f"{same_bits(torch, got_y, want_y)}")
+        if (ops == 0 or ops != eager_l.get("bfp_cast") or prog_l != eager_l
+                or not same_bits(torch, got_y, want_y)):
+            raise AssertionError("export: the exported program does not hold T2 as an "
+                                 "operator, or does not run as eager")
+        add(eager_l)
+        add(prog_l)
+
+        # the bucketed programs, of the layer's fc1 (a BASIC Linear)
+        t0 = time.perf_counter()
+        programs, dispatch = qdq.export_program_bucketed(
+            lw.layer.fc1, (x,), axis_buckets={0: (1, list(EXPORT_BUCKETS))})
+        numbers["buckets_s"] = round(time.perf_counter() - t0, 3)
+        picked = dispatch((x[:, :EXPORT_DISPATCH_T],))
+        want_keys = [f"a0x1={t}" for t in EXPORT_BUCKETS]
+        log(f"export: bucketed programs {list(programs)} in {numbers['buckets_s']} s, each "
+            f"holding T2 {[p.count('dmx_compressor_tpu_torch.bfp_cast') for p in programs.values()]}"
+            f" times; T {EXPORT_DISPATCH_T} dispatches to {picked}")
+        if (list(programs) != want_keys or picked != f"a0x1={EXPORT_BUCKETS[-1]}"
+                or not all("dmx_compressor_tpu_torch.bfp_cast" in p for p in programs.values())):
+            raise AssertionError("export: the bucketed programs or their dispatch are wrong")
+    finally:
+        DmxModule.inference_mode = prev_mode
+    return total, numbers
+
+
+def intercept_phase(torch, dev, kernels, cfg):
+    """``DmxModel.from_function`` over the raw, un-substituted OPT-125m's
+    prefill at full width (seed 0, BATCH x PROMPT) under
+    ``InterceptRules.basic()``: the sites by kind, the T2 launches of one
+    quantized forward (three casts a site, every blocked axis on the BFP
+    block), its gap to the unquantized logits; the same at FAMILY_CPU_LAYERS
+    layers on the card and its CPU copy (the card's first FAMILY_CPU_BATCH
+    rows) held at BASIC_LOGIT_TOL; then examples/family_tour.py on the card.
+    Returns (the launches of the counted runs, the numbers)."""
+    import copy
+    import dataclasses
+    from collections import Counter
+
+    import numpy as np
+
+    from dmx_compressor_tpu_torch.examples.family_tour import tour
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+
+    ids = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT)))
+    numbers = {}
+    m = OPTForCausalLM(cfg, device=dev, seed=0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        qf = DmxModel.from_function(m, (ids.to(dev),))
+    numbers["enumerate_s"] = round(time.perf_counter() - t0, 3)
+    kinds = Counter(s.rsplit("/", 1)[-1].rsplit("_", 1)[0] for s in qf.sites)
+    L = cfg.num_hidden_layers
+    want_kinds = {"dot": 8 * L + 1, "add": 11 * L + 2}
+    numbers["sites"] = dict(kinds)
+    log(f"intercept: {len(qf.sites)} sites by kind {dict(kinds)} (expected {want_kinds}), "
+        f"enumerated in {numbers['enumerate_s']} s; e.g. {qf.sites[:3]} ... {qf.sites[-2:]}")
+    if dict(kinds) != want_kinds:
+        raise AssertionError("intercept: the site list is not the expected one")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = qf(ids.to(dev))
+    torch.cuda.synchronize()
+    numbers["forward_s"] = round(time.perf_counter() - t0, 3)
+    launched = nonzero(kernels.LAUNCHES)
+    want = {"bfp_cast": 3 * len(qf.sites)}
+    with torch.no_grad():
+        exact = m(ids.to(dev))
+    gap = (got - exact).abs().max().item()
+    numbers["gap_to_unquantized"] = gap
+    log(f"intercept: the quantized prefill launches {launched} (expected {want}: three casts "
+        f"a site), {numbers['forward_s']} s; its logits max |quantized - unquantized| {gap:.4g}")
+    if launched != want or not torch.isfinite(got).all():
+        raise AssertionError("intercept: the quantized prefill did not launch the kernels the "
+                             "expected number of times, or its logits are not finite")
+    del got, exact, qf, m
+    torch.cuda.empty_cache()
+
+    # card against CPU at FAMILY_CPU_LAYERS layers
+    cut = dataclasses.replace(cfg, num_hidden_layers=FAMILY_CPU_LAYERS)
+    mc = OPTForCausalLM(cut, device=dev, seed=0)
+    rows = ids[:FAMILY_CPU_BATCH]
+    outs, site_lists = [], []
+    for model, where in ((mc, dev), (copy.deepcopy(mc).to("cpu"), torch.device("cpu"))):
+        with torch.no_grad():
+            q = DmxModel.from_function(model, (rows.to(where),))
+            outs.append(q(rows.to(where)).cpu())
+        site_lists.append(q.sites)
+    err = (outs[0] - outs[1]).abs().max().item()
+    numbers["cpu_max_abs_err"] = err
+    log(f"intercept: card vs CPU at {FAMILY_CPU_LAYERS} layer(s), {FAMILY_CPU_BATCH} rows: the "
+        f"same {len(site_lists[0])} sites {site_lists[0] == site_lists[1]}, logits max |diff| "
+        f"{err:.4g} (tolerance {BASIC_LOGIT_TOL})")
+    if site_lists[0] != site_lists[1] or not err <= BASIC_LOGIT_TOL:
+        raise AssertionError("intercept: the card disagrees with the CPU")
+
+    t0 = time.perf_counter()
+    toured = tour(dev.type)
+    numbers["family_tour_s"] = round(time.perf_counter() - t0, 3)
+    log(f"intercept: examples/family_tour.py on the card in {numbers['family_tour_s']} s")
+    if (toured["intercept"]["sites"] != ["dot_0", "dot_1", "add_0"]
+            or not all(math.isfinite(v["delta"]) for v in toured["families"].values())):
+        raise AssertionError("intercept: family_tour.py did not run as expected")
+    return launched, numbers
+
+
 @contextlib.contextmanager
 def phase(name: str, seconds: dict):
     """Log and record the wall seconds of one phase of the run (the whole
@@ -5238,6 +5620,18 @@ def main(argv=None) -> int:
             launched, ckpt_numbers = checkpoint_resume_path(torch, dev, kernels, cfg)
         by_path["checkpoint_resume"] = {**every, **launched}
         log(f"checkpoint_resume path on {card}: {json.dumps(ckpt_numbers)}")
+
+    # phase 10: the export path and functional interception
+    if run("export"):
+        with phase("export", took):
+            launched, export_numbers = export_phase(torch, dev, kernels, cfg)
+        by_path["export"] = {**every, **launched}
+        log(f"export phase on {card}: {json.dumps(export_numbers)}")
+    if run("intercept"):
+        with phase("intercept", took):
+            launched, intercept_numbers = intercept_phase(torch, dev, kernels, cfg)
+        by_path["intercept"] = {**every, **launched}
+        log(f"intercept phase on {card}: {json.dumps(intercept_numbers)}")
 
     log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
     log(f"kernel builds and phases: {took_build + sum(took.values()):.1f} s")

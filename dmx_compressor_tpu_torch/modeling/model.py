@@ -8,7 +8,8 @@ configs) and rules through a queue that ``replay_configuration`` re-applies;
 round-trips with the JAX package's; ``compiled`` is ``torch.compile`` of the
 model (or of a function over it), cached per target until the next
 ``configure``; ``counting_flops``, ``monitoring`` and ``measure_runtimes``
-observe forwards.
+observe forwards; ``make_compiler_graphs`` and ``visualize_graph`` give the
+export graphs; ``from_function`` intercepts a plain torch function.
 """
 
 from __future__ import annotations
@@ -103,6 +104,18 @@ class DmxModel:
         if rules:
             dm.configure(None, *rules)
         return dm
+
+    @staticmethod
+    def from_function(fn, example_args, rules=None):
+        """Fake-quantize an arbitrary (un-authored) torch function by ATen-op
+        interception: the functional counterpart of ``from_raw`` for code
+        that is not written against the module zoo.  Returns a
+        :class:`~dmx_compressor_tpu_torch.transform.intercept.QuantizedFunction`
+        whose ``sites`` list addresses every intercepted op and whose
+        ``configure({site: SiteRule})`` plays the role of config rules."""
+        from ..transform.intercept import QuantizedFunction
+
+        return QuantizedFunction(fn, example_args, rules)
 
     @property
     def module(self) -> nn.Module:
@@ -228,6 +241,22 @@ class DmxModel:
                 options = {**options, "options": inductor}
             self._compiled[key] = torch.compile(target, **options)
         return self._compiled[key]
+
+    # ------------------------------------------------------------- export
+
+    def visualize_graph(self, file_name=None):
+        """Graphviz dot text of every module's Q/DQ graph
+        (``transform/visualize.py``); with ``file_name`` also written there."""
+        from ..transform.visualize import visualize_graph
+
+        return visualize_graph(self, file_name)
+
+    def make_compiler_graphs(self):
+        """The Q/DQ-annotated export graph of every module
+        (``transform/qdq.py``); ``.skipped`` names the modules without one."""
+        from ..transform.qdq import make_compiler_graph
+
+        return make_compiler_graph(self._module)
 
     # -------------------------------------------------------- monitoring
 

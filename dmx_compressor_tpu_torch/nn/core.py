@@ -385,6 +385,15 @@ class DmxModule(PerformanceProxyMixin, LayerReconstructionMixin, nn.Module):
     def weight_storage_zero_point(self):
         return self.weight_storage_cast.zero_point
 
+    # -------------------------------------------------------------- export
+
+    def to_compiler_graph(self):
+        """The module's Q/DQ-annotated op graph for the downstream compiler
+        (``transform/qdq.py``)."""
+        from ..transform.qdq import module_compiler_graph
+
+        return module_compiler_graph(self)
+
 
 class DmxModuleConfig(dict):
     """Dict of a DmxModule's configurable surface: what differs from the

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from . import rounding as R
+from .onnx_ids import BFP_TYPE_IDS
 from ..ops import bfp_cast as T2
 
 ROUNDING_MODE = {"U": "up", "D": "down", "N": "nearest", "S": "stochastic"}
@@ -56,9 +57,13 @@ def _parse(pattern: str, sh: str, what: str) -> re.Match:
 
 
 class Format:
-    """Abstract tensor numerical format."""
+    """Abstract tensor numerical format.  ``bfp_id`` is the format's frozen
+    id of the Q/DQ export contract (``numerics/onnx_ids.py``); a format
+    without one has None, and a BFP or SBFP format outside the frozen enum
+    raises KeyError, as in the JAX package."""
 
     blocked: bool = False
+    bfp_id: Optional[int] = None
 
     def cast(self, x: torch.Tensor, block_dim: int = -1,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -248,6 +253,14 @@ class BlockFloatingPoint(Format):
         if not (2 <= self.precision <= 25 and self.block_size > 0):
             raise ValueError(f"unsupported BFP p={self.precision} B={self.block_size}")
 
+    @property
+    def bfp_id(self):
+        name = (
+            f"DMX_BFP_{self.precision + 8}"
+            f"{'' if self.symmetric else 'A'}_{self.block_size}"
+        )
+        return BFP_TYPE_IDS[name]
+
     def cast(self, x, block_dim=-1, generator=None):
         if self.block_size == 1:
             # a one-element block is a float with an 8-bit exponent
@@ -326,6 +339,14 @@ class ScaledBlockFloatingPoint(Format):
     @property
     def man_scaling(self):
         return 2 ** (self.block_format.precision - 1) - 1  # largest mantissa abs
+
+    @property
+    def bfp_id(self):
+        name = (
+            f"DMX_SBFP_{self.block_format.precision + 8}_"
+            f"{self.block_size}_{self.scaler_format.bias}"
+        )
+        return BFP_TYPE_IDS[name]
 
     def cast(self, x, block_dim=-1, generator=None):
         def _fn(blocks):

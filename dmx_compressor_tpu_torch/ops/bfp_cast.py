@@ -24,6 +24,7 @@ import math
 from typing import List
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from .. import kernels
 from ..numerics import rounding as R
@@ -96,9 +97,10 @@ def _launch_now(src: torch.Tensor, op: int, outer: int, length: int, inner: int,
     return out
 
 
-# the launch as an operator of its own, for torch.compile: a compiled
-# forward keeps each T2 launch in its graph (no graph break) and calls the
-# launch above when it runs
+# the launch as an operator of its own, for torch.compile and torch.export:
+# a compiled forward keeps each T2 launch in its graph (no graph break) and
+# calls the launch above when it runs; an exported program holds it as the
+# operator dmx_compressor_tpu_torch::bfp_cast
 _launch_op = torch.library.custom_op("dmx_compressor_tpu_torch::bfp_cast", _launch_now,
                                      mutates_args=())
 
@@ -108,13 +110,21 @@ def _(src, op, outer, length, inner, block, wl, out_shape):
     return src.new_empty(out_shape, dtype=torch.float32)
 
 
+def _tracing(src: torch.Tensor) -> bool:
+    """A torch.compile or torch.export trace: Dynamo's, or export's
+    non-strict one over fake tensors (a fake tensor has no storage to
+    launch on)."""
+    return torch.compiler.is_compiling() or isinstance(src, FakeTensor)
+
+
 def _launch(src: torch.Tensor, op: int, outer: int, length: int, inner: int, block: int,
             wl: int, out_shape=None) -> torch.Tensor:
     """One T2 launch over ``src`` (no gradient: the casts' is the STE's);
-    inside a torch.compile trace through the operator, else directly (an
-    operator call costs host time on every launch of the eager paths)."""
+    inside a torch.compile or torch.export trace through the operator, else
+    directly (an operator call costs host time on every launch of the eager
+    paths)."""
     shape = list(src.shape if out_shape is None else out_shape)
-    launch = _launch_op if torch.compiler.is_compiling() else _launch_now
+    launch = _launch_op if _tracing(src) else _launch_now
     return launch(src.detach(), op, outer, length, inner, block, wl, shape)
 
 

@@ -1,4 +1,4 @@
-"""Module-tree transforms."""
+"""Module-tree transforms, the Q/DQ export graphs and functional interception."""
 
 from .substitute import (
     DMX_AWARE_MAPPING,
@@ -7,3 +7,5 @@ from .substitute import (
     named_dmx_modules,
     substitute_transform,
 )
+from .intercept import intercept, InterceptRules, SiteRule, QuantizedFunction
+from .legacy import cast_input_output_transform, configure_graph, node_dict

@@ -1631,3 +1631,57 @@ def test_qat_step_with_t2_equals_its_plain_version_on_card(cuda, monkeypatch):
     assert grads.keys() == want_grads.keys()
     for n, g in grads.items():
         assert torch.equal(g, want_grads[n]), n
+
+
+@pytest.mark.gpu
+def test_basic_linear_graph_equals_its_module_on_card(cuda):
+    """A BASIC Linear's compiler graph evaluated on the card: the module's
+    output bit for bit, with the module's T2 launches (input, weight and
+    output casts); the ONNX bytes of the card module its CPU copy's."""
+    import copy
+
+    from dmx_compressor_tpu_torch import nn as tnn
+    from dmx_compressor_tpu_torch.transform import onnx_export, qdq
+
+    mod = tnn.Linear(768, 256, device=cuda)
+    mod.configure(dict(input_formats=["BFP[8|8]{64}(SN)"], weight_format="BFP[8|8]{64}(SN)",
+                       bias_format="BFP[24|8]{1}(SN)", output_formats=["FP[1|5|10,15](FN)"]))
+    x = torch.randn(8, 128, 768, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    g = mod.to_compiler_graph()
+    with torch.no_grad():
+        n0 = kernels.LAUNCHES["bfp_cast"]
+        want = mod(x)
+        n1 = kernels.LAUNCHES["bfp_cast"]
+        got = qdq.evaluate_graph(g, mod, x)
+        torch.cuda.synchronize()
+    assert n1 - n0 == kernels.LAUNCHES["bfp_cast"] - n1 == 3
+    assert torch.equal(got, want)
+    assert (onnx_export.dmx_graph_to_onnx(g, mod, "linear")
+            == onnx_export.dmx_graph_to_onnx(g, copy.deepcopy(mod).to("cpu"), "linear"))
+
+
+@pytest.mark.gpu
+def test_export_program_holds_t2_as_an_operator_on_card(cuda):
+    """torch.export of a BASIC Linear on the card: each cast's T2 launch is
+    the operator dmx_compressor_tpu_torch::bfp_cast of the program (no
+    launch while tracing); the program's module runs as eager, bit for bit,
+    with eager's T2 launches."""
+    from dmx_compressor_tpu_torch import nn as tnn
+    from dmx_compressor_tpu_torch.transform import qdq
+
+    mod = tnn.Linear(768, 256, device=cuda)
+    mod.configure(dict(input_formats=["BFP[8|8]{64}(SN)"], weight_format="BFP[8|8]{64}(SN)",
+                       output_formats=["FP[1|5|10,15](FN)"]))
+    x = torch.randn(16, 768, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    n0 = kernels.LAUNCHES["bfp_cast"]
+    ep = qdq.exported_program(mod, x)
+    assert kernels.LAUNCHES["bfp_cast"] == n0
+    assert str(ep).count("torch.ops.dmx_compressor_tpu_torch.bfp_cast") == 3
+    with torch.no_grad():
+        want = mod(x)
+        n1 = kernels.LAUNCHES["bfp_cast"]
+        got = ep.module()(x)
+        torch.cuda.synchronize()
+    assert n1 - n0 == kernels.LAUNCHES["bfp_cast"] - n1 == 3
+    assert torch.equal(got, want)

@@ -56,25 +56,14 @@ SUBPACKAGES = ["", "nn", "models", "modeling", "numerics", "functional", "sparse
 STILL_MISSING = {
     "numerics": {"QuantState": "JAX only: an nnx.Variable (the port's quantizer state is "
                                "buffers)"},
-    "transform": {
-        "intercept": "9.6", "InterceptRules": "9.6", "SiteRule": "9.6",
-        "QuantizedFunction": "9.6",
-        "cast_input_output_transform": "9.4", "configure_graph": "9.4", "node_dict": "9.4",
-    },
 }
 # each module of the JAX package's subpackages that the port lacks
 STILL_MISSING_MODULES = {
     "": {"native": "9.7", "parallel": "10"},
-    "numerics": {"onnx_ids": "9.4"},
-    "transform": {"intercept": "9.6", "legacy": "9.4", "onnx_export": "9.5", "qdq": "9.4",
-                  "visualize": "9.4"},
 }
 # DmxModel's public members the port lacks
 STILL_MISSING_MEMBERS = {
     "from_nnx": "JAX only: the alias of from_raw for nnx models",
-    "from_function": "9.6",
-    "make_compiler_graphs": "9.4",
-    "visualize_graph": "9.4",
 }
 
 
