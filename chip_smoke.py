@@ -282,6 +282,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1102,8 +1103,9 @@ def check_t2_sites(torch, dev, sites, step, what, steps=10, unit="decode step"):
 
 def check_t2(torch, dev, cfg):
     """T2 against its plain version, bit for bit, at the BASIC path's cast
-    sites (the BFP, FLOAT16 and composed FLOAT16-then-BFP modes at each; the
-    composed one timed beside its two launches), on special blocks along the
+    sites (the BFP, FLOAT16 and composed FLOAT16-then-BFP modes at each;
+    timed in the modes the path casts in there, the composed one beside its
+    two launches), on special blocks along the
     last axis and along an inner axis (the tile kernel; 5 columns, no
     multiple of 4), and through the eight probes; then its time per launch
     over one decode step's launches.  Returns (the per-step numbers, the
@@ -1118,12 +1120,23 @@ def check_t2(torch, dev, cfg):
              ("tail k", (B, H, GEN, D), -1), ("scores", (B, H, 1, PROMPT + GEN), -1),
              ("tail v", (B, H, GEN, D), -2), ("prefill x", (B * PROMPT, d), -1),
              ("prefill x", (B * PROMPT, f), -1), ("prefill scores", (B, H, PROMPT, PROMPT), -1)]
+    # the modes the BASIC path casts in at each site (t2_step_launches; a
+    # prefill's modular casts are never composed): only these are timed, every
+    # mode is held bit for bit at every site
+    on_path = {("x", f): ("bfp",), ("q", D): ("bfp",), ("tail k", D): ("bfp",),
+               ("tail v", D): ("bfp",), ("scores", PROMPT + GEN): ("fp16", "fp16bfp"),
+               ("x", d): ("bfp", "fp16", "fp16bfp")}
     cases = []
     for label, shape, axis in sites:
         n = math.prod(shape)
         sets = [(heavy_tailed(torch, shape, g, dev),) for _ in range(copies_for(8 * n))]
+        timed = on_path.get((label, shape[-1]), ("bfp", "fp16"))
         for mode in ("bfp", "fp16", "fp16bfp"):
             check(f"{mode} {label} {list(shape)} axis {axis}", mode, sets[0][0], axis)
+            if mode not in timed:
+                log(f"T2 bfp_cast {mode} {label} {list(shape)} axis {axis}: bit-exact (a mode "
+                    f"the path does not cast in there: not timed)")
+                continue
             ms = time_ms(torch, lambda x: run(mode, x, axis), sets)
             plain_ms = time_ms(torch, lambda x: run(mode, x, axis, plain=True), sets, PLAIN_ITERS)
             bound_ms, by = bound(8 * n, 0)
@@ -1242,6 +1255,8 @@ def check_b2(torch, dev, cfg, fams, wcfg):
     # whisper-small's decode step (whisper_weights) and its engine's row cache
     path_shape, engine_shape = whisper_decode_shape(wcfg)
     shapes += [(*path_shape, "whisper_weights"), (*engine_shape, "engine_whisper_weights")]
+    # a tp-2 rank's decode step (parallel phase): half the heads
+    shapes.append((H // PAR_TP, H // PAR_TP, CAPACITY, D, [mean_fill] * B, "parallel_tp2"))
     for H, Hkv, S, D, lengths, path in shapes:
         per_set = B * Hkv * S * (2 * D + 8) + 2 * B * H * D * 4
         sets = []
@@ -1310,6 +1325,8 @@ def check_b3(torch, dev, cfg, fams, wcfg):
     # whisper_baseline's decoder prefill: its 4 start tokens over the f32 cache
     Hw, T0 = wcfg.decoder_attention_heads, len(S2S_START["whisper"])
     shapes.append((BATCH, Hw, Hw, T0, T0, wcfg.d_model // Hw, False, "whisper_baseline"))
+    # a tp-2 rank's prefill (parallel phase): half the heads, BH 48
+    shapes.append((BATCH, H // PAR_TP, H // PAR_TP, PROMPT, PROMPT, D, False, "parallel_tp2"))
     for B, H, Hkv, L, S, D, with_bias, path in shapes:
         per_set = 4 * B * D * (2 * H * L + 2 * Hkv * S) + (4 * B * H * L * S if with_bias else 0)
         sets, kv_sets = [], []
@@ -5360,6 +5377,598 @@ def intercept_phase(torch, dev, kernels, cfg):
     return launched, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 11: parallelism (ranks sharing the one card over gloo) and the native
+# oracle
+# ---------------------------------------------------------------------------
+
+PAR_TP = 2  # OPT-125m over tp 2: heads 6 a rank; B1 at N 1152 / K 384 / N 1536 / K 1536 / N 25136
+PAR_RANKS = 2
+PAR_TIMEOUT = 900  # seconds the world may take before its ranks are killed and the run fails
+PAR_BURST = 16  # the engine's decode forwards a dispatch
+PAR_CKPT_STEPS = 8  # the restored model's greedy tokens: the prefill's and 7 steps'
+PIPE_MICRO = 4  # pipeline_forward: 4 microbatches of 2 x PROMPT over pp 2
+# the pipeline against the sequential BASIC layers on the card: the same
+# casts, cuBLAS products at 256 rows against 1024 (another summation order),
+# where a FLOAT16 output cast may land one fp16 step apart: JAX's bar for
+# its quantized pipeline (tests/test_parallel.py)
+PIPE_TOL = 2e-3
+RING = dict(B=1, H=12, S=8192, D=64)  # ring_attention at sp 2, causal
+# ring attention against the plain SDPA of the whole sequence on the card:
+# f32 logits and an online softmax summed in chunks of 4096 keys against
+# one softmax over 8192 (the CPU test holds 2e-6 at S 32)
+RING_TOL = 1e-4
+SCALING_SHAPES = [(1, 1), (1, 2), (2, 1)]
+
+
+def tp2_linear_shapes(cfg):
+    """(K, N, launches per forward) of a tp-2 rank's packed linears on the
+    weights path: merged q/k/v by heads, out_proj's and fc2's halves of K,
+    fc1's half of N, the head's half of the vocabulary."""
+    d, f, L = cfg.hidden_size, cfg.ffn_dim, cfg.num_hidden_layers
+    return [(d, 3 * d // PAR_TP, L), (d // PAR_TP, d, L), (d, f // PAR_TP, L),
+            (f // PAR_TP, d, L), (d, cfg.vocab_size // PAR_TP, 1)]
+
+
+def check_b1_tp2(torch, dev, cfg):
+    """B1 at a tp-2 rank's shard shapes (decode M = BATCH and prefill M =
+    BATCH x PROMPT), and one decode step's launches of a rank."""
+    from dmx_compressor_tpu_torch.ops.bfp_linear import bfp_linear, bfp_linear_ref
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
+
+    step, cases = check_linear(
+        torch, dev, "B1 bfp_linear (tp 2 shard)", bfp_linear, bfp_linear_ref,
+        lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, tp2_linear_shapes(cfg), [],
+        B1_TOL, seed=40, planes=3)
+    for c in cases:
+        c["path"] = "parallel_tp2"
+    return step, cases
+
+
+def parallel_requests(cfg):
+    from dmx_compressor_tpu_torch.examples import serving_bench as sb
+
+    return sb.make_requests(cfg.vocab_size, BATCH, PROMPT, GEN, spread=False)
+
+
+def parallel_prompt_ids(torch, cfg, dev):
+    import numpy as np
+
+    return torch.from_numpy(np.stack([p for p, _ in parallel_requests(cfg)])).to(dev)
+
+
+def parallel_references(torch, dev, kernels, cfg, capacity):
+    """The unsharded runs on the card the ranks are held against: the
+    weights path's isolated generation (tokens and top-1/top-2 margins) and
+    its prefill's last logits, and the BASIC forward's last logits and
+    launches."""
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import build_basic_mode, build_weights_mode
+
+    ids = parallel_prompt_ids(torch, cfg, dev)
+    ref = {}
+    with torch.no_grad():
+        model = OPTForCausalLM(cfg, device=dev, seed=0)
+        build_weights_mode(model)
+        ref["iso"], ref["margins"] = isolated_generation(
+            torch, model, parallel_requests(cfg), capacity, True, dev)
+        caches = model.init_cache(BATCH, CAPACITY, quantized=True, device=dev)
+        kernels.reset_launches()
+        ref["weights_logits"] = model(ids, caches=caches, position_offset=0)[:, -1].cpu()
+        ref["weights_launches"] = nonzero(kernels.LAUNCHES)
+        del model, caches
+        model = OPTForCausalLM(cfg, device=dev, seed=0)
+        build_basic_mode(model)
+        kernels.reset_launches()
+        ref["basic_logits"] = model(ids)[:, -1].cpu()
+        torch.cuda.synchronize()
+        ref["basic_launches"] = nonzero(kernels.LAUNCHES)
+        del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _rank_engine(torch, kernels, dist, model, cfg, ref, rank, card):
+    """The engine over this rank's shard: the closed loop of the BATCH
+    requests, its launches counted, its tokens held against the unsharded
+    isolated generation and equal on both ranks, tokens/s and the device
+    time of one steady dispatch."""
+    from dmx_compressor_tpu_torch.examples import serving_bench as sb
+
+    L = cfg.num_hidden_layers
+    requests = parallel_requests(cfg)
+    eng = sb.make_engine(model, True, requests, PROMPT, BATCH, PAR_BURST, None, 1, depth=1)
+    eng.warmup(PAR_BURST)
+    torch.cuda.synchronize()
+    dispatches = [0]
+    real = eng._dispatch
+
+    def dispatch(b, sampling):
+        dispatches[0] += 1
+        return real(b, sampling)
+
+    eng._dispatch = dispatch
+    kernels.reset_launches()
+    stats = sb.closed_loop(eng, requests, PAR_BURST)
+    torch.cuda.synchronize()
+    launches = nonzero(kernels.LAUNCHES)
+    eng._dispatch = real
+    adm = sum(st["admissions"] for st in stats["steps"])
+    forwards = dispatches[0] * PAR_BURST
+    want = {"bfp_linear": (4 * L + 1) * (adm + forwards), "flash_attention": L * adm,
+            "flash_decode_int8": L * forwards}
+    log(f"parallel rank {rank}: engine {adm} admissions, {dispatches[0]} dispatches of "
+        f"{PAR_BURST} forwards; launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"rank {rank}: the sharded engine did not launch the kernels the "
+                             "expected number of times")
+    fin = {r.request_id: r for r in eng.finished}
+    got = {i: fin[rid].tokens for i, rid in enumerate(stats["rids"])}
+    held = hold_tokens(f"parallel rank {rank} engine", "the unsharded isolated generation",
+                       got, ref["iso"], ref["margins"], KV8_TOL)
+    both = [None] * dist.get_world_size()
+    dist.all_gather_object(both, got)
+    if any(b != got for b in both):
+        raise AssertionError("the ranks' engines emitted other tokens")
+    sm = sb.summary(stats)
+    for prompt, _ in requests:
+        sb.submit(eng, prompt, GEN)
+    eng.step(PAR_BURST)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        events = device_events(torch, lambda: eng._dispatch(PAR_BURST, False))
+    busy_ms = sum(us for _, us in events) / 1e3
+    coll = _rank_collectives(torch, dist, model, cfg)
+    per_forward = 2 * L + 1  # out_proj's and fc2's all-reduce a layer, the embedding's
+    step_coll_ms = (per_forward * coll["all_reduce_ms"] + coll["all_gather_ms"]) * PAR_BURST
+    log(f"parallel rank {rank} engine on {card}: {sm['tokens_per_s']:.1f} tokens/s, steady "
+        f"step p50 {sm['steady_p50_step_ms']:.3f} ms ({PAR_BURST} forwards), its device busy "
+        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / sm['steady_p50_step_ms']:.3f}); gloo "
+        f"over the shared card: an all-reduce of [{BATCH}, 1, {cfg.hidden_size}] "
+        f"{coll['all_reduce_ms']:.3f} ms, an all-gather of the head's [{BATCH}, 1, "
+        f"{cfg.vocab_size // PAR_TP}] {coll['all_gather_ms']:.3f} ms (host clock): "
+        f"{per_forward} + 1 a forward, ~{step_coll_ms:.1f} ms of the step")
+    return launches, dict(tokens_per_s=sm["tokens_per_s"], held=held,
+                          steady_p50_step_ms=sm["steady_p50_step_ms"],
+                          dispatch_device_ms=busy_ms, collectives_ms_per_step=step_coll_ms, **coll)
+
+
+def _rank_collectives(torch, dist, model, cfg, reps=20):
+    """The host-clock ms of one decode forward's collectives on this rank's
+    tp group: an all-reduce of a row-parallel output [BATCH, 1, d] and the
+    head's all-gather of [BATCH, 1, V / tp] (gloo: CUDA tensors through host
+    memory for the gather)."""
+    from dmx_compressor_tpu_torch.parallel import comm
+
+    group = model.lm_head.tp_shard.group
+    dev = next(model.parameters()).device
+    x = torch.randn(BATCH, 1, cfg.hidden_size, device=dev)
+    y = torch.randn(BATCH, 1, cfg.vocab_size // PAR_TP, device=dev)
+    out = {}
+    for name, fn in (("all_reduce_ms", lambda: comm.all_reduce(x, group)),
+                     ("all_gather_ms", lambda: comm.all_gather(y, group, dim=-1))):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def _greedy(torch, model, ids, steps):
+    from dmx_compressor_tpu_torch.models.opt import greedy_decode, greedy_prefill
+
+    caches = model.init_cache(ids.shape[0], CAPACITY, quantized=True, device=ids.device)
+    with torch.no_grad():
+        _, tok = greedy_prefill(model, caches, ids)
+        more, _ = greedy_decode(model, caches, tok, ids.shape[1], steps - 1)
+    return torch.cat([tok[:, None], more], dim=1)
+
+
+def _rank_pipeline(torch, kernels, dev, cfg, rank):
+    """pipeline_forward over OPT-125m's 12 BASIC decoder layers at pp 2
+    against the sequential layers on this rank."""
+    from torch.func import functional_call
+
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.models.opt import OPTDecoderLayer
+    from dmx_compressor_tpu_torch.ops.compress import set_inference_mode
+    from dmx_compressor_tpu_torch.parallel import make_mesh, pipeline_forward, stack_layer_states
+
+    set_inference_mode(False)
+    torch.manual_seed(0)
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        layer = OPTDecoderLayer(cfg, dev)
+        DmxModel.from_raw(layer).to_basic_mode()
+        layers.append(layer)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(BATCH, PROMPT, cfg.hidden_size, generator=g, device=dev)
+    mesh = make_mesh((PAR_RANKS,), ("pp",), device_type=dev.type)
+    with torch.no_grad():
+        kernels.reset_launches()
+        layers[0](x[:BATCH // PIPE_MICRO])
+        per_layer = nonzero(kernels.LAUNCHES)
+        seq = x
+        for layer in layers:
+            seq = layer(seq)
+        stacked = stack_layer_states([dict(layer.state_dict()) for layer in layers])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        y = pipeline_forward(stacked, x, lambda p, h: functional_call(layers[0], p, (h,)), mesh,
+                             num_microbatches=PIPE_MICRO)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = nonzero(kernels.LAUNCHES)
+    ticks = PIPE_MICRO + PAR_RANKS - 1
+    want = {k: v * ticks * cfg.num_hidden_layers // PAR_RANKS for k, v in per_layer.items()}
+    err = (y - seq).abs().max().item()
+    log(f"parallel rank {rank} pipeline pp {PAR_RANKS}, {PIPE_MICRO} microbatches of "
+        f"{BATCH // PIPE_MICRO} x {PROMPT}: max_abs_err={err:.3g} against the sequential layers "
+        f"(tolerance {PIPE_TOL}), {seconds:.3f} s on the host clock; launches {launches} "
+        f"(expected {want}: {ticks} ticks x {cfg.num_hidden_layers // PAR_RANKS} layers)")
+    if not err <= PIPE_TOL or not torch.isfinite(y).all():
+        raise AssertionError(f"rank {rank}: the pipeline disagrees with the sequential layers")
+    if launches != want:
+        raise AssertionError(f"rank {rank}: the pipeline did not launch T2 the expected number "
+                             "of times")
+    return launches, dict(max_abs_err=err, seconds=seconds)
+
+
+def _rank_ring(torch, dev, rank):
+    """ring_attention at sp 2 against the port's plain SDPA of the whole
+    sequence (rawnn.ScaledDotProductAttention), causal."""
+    from dmx_compressor_tpu_torch import rawnn
+    from dmx_compressor_tpu_torch.parallel import make_mesh, ring_attention
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(RING["B"], RING["H"], RING["S"], RING["D"], generator=g, device=dev)
+               for _ in range(3))
+    mesh = make_mesh((PAR_RANKS,), ("sp",), device_type=dev.type)
+    with torch.no_grad():
+        ring_attention(q, k, v, mesh, causal=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_attention(q, k, v, mesh, causal=True)
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = rawnn.ScaledDotProductAttention()(q, k, v, is_causal=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    err = (out - ref).abs().max().item()
+    log(f"parallel rank {rank} ring_attention sp {PAR_RANKS} B={RING['B']} H={RING['H']} "
+        f"S={RING['S']} D={RING['D']} causal: max_abs_err={err:.3g} against the plain SDPA "
+        f"(tolerance {RING_TOL}); {ring_s:.3f} s against {plain_s:.3f} s on the host clock")
+    if not err <= RING_TOL:
+        raise AssertionError(f"rank {rank}: ring attention disagrees with the plain SDPA")
+    return dict(max_abs_err=err, seconds=ring_s, plain_seconds=plain_s)
+
+
+def _parallel_body(torch, dist, rank, tmp, card, cfg, dev):
+    from dmx_compressor_tpu_torch import kernels
+    from dmx_compressor_tpu_torch.examples import scaling_bench
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import build_basic_mode, build_weights_mode
+    from dmx_compressor_tpu_torch.parallel import make_mesh, shard_state
+    from dmx_compressor_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    L, d, f = cfg.num_hidden_layers, cfg.hidden_size, cfg.ffn_dim
+    ref = torch.load(os.path.join(tmp, "ref.pt"), weights_only=False)
+    ids = parallel_prompt_ids(torch, cfg, dev)
+    mesh = make_mesh((1, PAR_TP), ("dp", "tp"), device_type=dev.type)
+    out, by_path = {}, {}
+
+    # weights mode over tp 2: the prefill's logits and launches, the engine
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = OPTForCausalLM(cfg, device=dev, seed=0)
+        build_weights_mode(model)
+        placement = shard_state(model, mesh)
+    attn = model.model.decoder.layers[0].self_attn
+    shapes = {"qkv_merged": tuple(attn.qkv_merged.weight_mantissa.shape),
+              "out_proj": tuple(attn.out_proj.weight_mantissa.shape),
+              "fc1": tuple(model.model.decoder.layers[0].fc1.weight_mantissa.shape),
+              "fc2": tuple(model.model.decoder.layers[0].fc2.weight_mantissa.shape),
+              "lm_head": tuple(model.lm_head.weight_mantissa.shape), "heads": attn.num_heads}
+    want_shapes = {"qkv_merged": (3 * d // PAR_TP, d), "out_proj": (d, d // PAR_TP),
+                   "fc1": (f // PAR_TP, d), "fc2": (d, f // PAR_TP),
+                   "lm_head": (cfg.vocab_size // PAR_TP, d),
+                   "heads": cfg.num_attention_heads // PAR_TP}
+    log(f"parallel rank {rank}: OPT {d}x{L} weights mode sharded tp {PAR_TP} in "
+        f"{time.perf_counter() - t0:.2f} s; {sum(any(p) for p in placement.values())} sharded "
+        f"keys; shard shapes {shapes}")
+    if shapes != want_shapes:
+        raise AssertionError(f"rank {rank}: shard shapes {shapes}, expected {want_shapes}")
+    with torch.no_grad():
+        caches = model.init_cache(BATCH, CAPACITY, quantized=True, device=dev)
+        kernels.reset_launches()
+        logits = model(ids, caches=caches, position_offset=0)[:, -1]
+        torch.cuda.synchronize()
+    launches = nonzero(kernels.LAUNCHES)
+    want = {"bfp_linear": 4 * L + 1, "flash_attention": L}
+    err = (logits.cpu() - ref["weights_logits"]).abs().max().item()
+    log(f"parallel rank {rank}: the sharded prefill's launches {launches} (expected {want}); "
+        f"last logits max_abs_err={err:.3g} against the unsharded card prefill "
+        f"(tolerance {LOGIT_TOL})")
+    if launches != want or not err <= LOGIT_TOL:
+        raise AssertionError(f"rank {rank}: the sharded weights prefill is wrong")
+    del caches
+    by_path["parallel_engine"], out["engine"] = _rank_engine(
+        torch, kernels, dist, model, cfg, ref, rank, card)
+    out["weights_prefill_err"] = err
+
+    # the sharded checkpoint: save, restore into a model of other weights
+    # sharded the same way, the greedy tokens bit for bit
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(tmp, "ckpt"), model, step=3)
+    with torch.no_grad():
+        other = OPTForCausalLM(cfg, device=dev, seed=1)
+        build_weights_mode(other)
+        shard_state(other, mesh)
+    step, _ = restore_checkpoint(os.path.join(tmp, "ckpt"), other)
+    a, b = _greedy(torch, model, ids, PAR_CKPT_STEPS), _greedy(torch, other, ids, PAR_CKPT_STEPS)
+    log(f"parallel rank {rank}: sharded checkpoint saved and restored (step {step}) in "
+        f"{time.perf_counter() - t0:.2f} s; {a.numel()} greedy tokens "
+        f"{'equal' if torch.equal(a, b) else 'DIFFER'}")
+    if step != 3 or not torch.equal(a, b):
+        raise AssertionError(f"rank {rank}: the sharded checkpoint did not restore the model")
+    del model, other
+    torch.cuda.empty_cache()
+
+    # BASIC over tp 2: the forward's last logits and T1 / T2 launches
+    with torch.no_grad():
+        model = OPTForCausalLM(cfg, device=dev, seed=0)
+        build_basic_mode(model)
+        shard_state(model, mesh)
+        kernels.reset_launches()
+        logits = model(ids)[:, -1]
+        torch.cuda.synchronize()
+    launches = nonzero(kernels.LAUNCHES)
+    err = (logits.cpu() - ref["basic_logits"]).abs().max().item()
+    log(f"parallel rank {rank}: the sharded BASIC forward's launches {launches} (the unsharded "
+        f"forward's {ref['basic_launches']}); last logits max_abs_err={err:.3g} against the "
+        f"unsharded card forward (tolerance {BASIC_LOGIT_TOL})")
+    if launches != ref["basic_launches"] or not err <= BASIC_LOGIT_TOL:
+        raise AssertionError(f"rank {rank}: the sharded BASIC forward is wrong")
+    by_path["parallel_basic"], out["basic_err"] = launches, err
+    del model
+    torch.cuda.empty_cache()
+
+    by_path["parallel_pipeline"], out["pipeline"] = _rank_pipeline(torch, kernels, dev, cfg,
+                                                                   rank)
+    torch.cuda.empty_cache()
+    out["ring"] = _rank_ring(torch, dev, rank)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["scaling"] = scaling_bench.run_shapes(SCALING_SHAPES, cfg, dev, batch=BATCH, seq=PROMPT)
+    log(f"parallel rank {rank}: scaling_bench {SCALING_SHAPES} in "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(out['scaling'])}")
+    return by_path, out
+
+
+def parallel_rank(rank, world, tmp, card, cfg, consts, setup=None):
+    """One rank of the parallel phase's world (gloo, every rank on the one
+    card): the parent's sizes ``consts`` (module constants), its results to
+    ``rank<r>.pt``; a failure raises, so the spawn fails.  ``setup`` (None
+    on the card) runs first: a CPU rehearsal's stubs and counters."""
+    import torch
+    import torch.distributed as dist
+
+    globals().update(consts)
+    if setup is not None:
+        setup()
+    dev = torch.device(consts.get("PAR_DEVICE", "cuda"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        by_path, out = _parallel_body(torch, dist, rank, tmp, card, cfg, dev)
+        torch.save({"by_path": by_path, "out": out}, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_world1(torch, dev, kernels, cfg, tmp):
+    """One NCCL group of world 1 through the tp code path at (1, 1): OPT-125m
+    weights mode sharded over a one-rank tp axis (every collective runs on
+    the card through NCCL) against the same model unsharded."""
+    import os
+
+    import torch.distributed as dist
+
+    from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
+    from dmx_compressor_tpu_torch.parallel import make_mesh, shard_state
+    from dmx_compressor_tpu_torch.parallel.comm import stages_through_host
+
+    ids = parallel_prompt_ids(torch, cfg, dev)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+                            rank=0, world_size=1)
+    try:
+        with torch.no_grad():
+            plain = OPTForCausalLM(cfg, device=dev, seed=0)
+            build_weights_mode(plain)
+            a = _greedy(torch, plain, ids, PAR_CKPT_STEPS)
+            del plain
+            model = OPTForCausalLM(cfg, device=dev, seed=0)
+            build_weights_mode(model)
+            mesh = make_mesh((1, 1), ("dp", "tp"))
+            shard_state(model, mesh)
+            group = mesh.get_group("tp")
+            kernels.reset_launches()
+            b = _greedy(torch, model, ids, PAR_CKPT_STEPS)
+            launches = nonzero(kernels.LAUNCHES)
+        backend = dist.get_backend(group)
+        log(f"nccl world 1: backend {backend}, mesh {mesh.device_type} (1, 1), staged through the "
+            f"host: {stages_through_host(ids.float(), group)}; {a.numel()} greedy tokens "
+            f"{'equal' if torch.equal(a, b) else 'DIFFER'} to the unsharded model's; "
+            f"launches {launches}")
+        if backend != "nccl" or not torch.equal(a, b) or mesh.device_type != "cuda":
+            raise AssertionError("the tp code path over one NCCL rank is wrong")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+NCCL_PROBE_TIMEOUT = 120  # seconds the two-rank NCCL probe may take to raise
+
+
+def nccl_two_ranks_rank(rank, world, tmp, address):
+    """One of two NCCL ranks on the one card, through the port's own entry
+    points (``parallel.initialize`` with ``backend="nccl"``, ``make_mesh``,
+    ``comm.all_reduce``): the group must stay NCCL and its first collective
+    must raise (NCCL refuses two ranks on one device); the backend and what
+    was raised go to ``nccl<r>.txt``."""
+    import torch
+    import torch.distributed as dist
+
+    from dmx_compressor_tpu_torch.parallel import comm, initialize, make_mesh
+
+    torch.cuda.set_device(0)
+    initialize(address, world, rank, backend="nccl")
+    msg = f"backend {dist.get_backend()}: "
+    try:
+        mesh = make_mesh((world,), ("tp",))
+        comm.all_reduce(torch.ones(4, device="cuda"), mesh.get_group("tp"))
+        torch.cuda.synchronize()
+        msg += "no error"
+    except Exception as e:  # recorded; the parent accepts only NCCL's refusal
+        msg += f"raised {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    with open(os.path.join(tmp, f"nccl{rank}.txt"), "w") as f:
+        f.write(msg)
+
+
+def nccl_refused(msg: str) -> bool:
+    """``msg`` (a probe rank's) is NCCL's refusal of two ranks on one card,
+    raised by a group that stayed NCCL."""
+    return (msg.startswith("backend nccl: raised DistBackendError")
+            and ("invalid usage" in msg or "Duplicate GPU" in msg))
+
+
+def nccl_two_ranks(torch, tmp):
+    """NCCL with two ranks on one card raises NCCL's own error, and the port
+    does not switch to gloo: both ranks' first collective must fail so
+    within NCCL_PROBE_TIMEOUT."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:  # a free port for the rendezvous
+        sock.bind(("localhost", 0))
+        address = f"localhost:{sock.getsockname()[1]}"
+    ctx = mp.start_processes(nccl_two_ranks_rank, args=(2, tmp, address), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + NCCL_PROBE_TIMEOUT
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"NCCL with two ranks on one card hung past "
+                                 f"{NCCL_PROBE_TIMEOUT} s instead of raising")
+    msgs = [open(os.path.join(tmp, f"nccl{r}.txt")).read() for r in range(2)]
+    log(f"nccl with two ranks on one card: {msgs}")
+    if not all(nccl_refused(m) for m in msgs):
+        raise AssertionError("NCCL with two ranks on one card did not raise NCCL's refusal")
+    return msgs
+
+
+def parallel_phase(torch, dev, kernels, cfg, card, setup=None):
+    """OPT-125m (full width and depth) over PAR_RANKS ranks sharing the card
+    (gloo, collectives of CUDA tensors through host memory): the weights
+    path's prefill and engine at tp 2, the sharded checkpoint, the BASIC
+    forward at tp 2, pipeline_forward at pp 2, ring_attention at sp 2 and
+    scaling_bench; then one NCCL rank through the tp path, and two NCCL
+    ranks on the card, which must raise.  Every rank holds
+    its own checks and counts its own launches; a rank that fails or hangs
+    past PAR_TIMEOUT fails the phase.  Returns the launches by path and
+    rank, and the numbers."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    requests = parallel_requests(cfg)
+    capacity = PROMPT + max(g for _, g in requests) + PAR_BURST  # make_engine's max_len
+    t0 = time.perf_counter()
+    ref = parallel_references(torch, dev, kernels, cfg, capacity)
+    log(f"parallel: the unsharded references on the card in {time.perf_counter() - t0:.1f} s; "
+        f"prefill launches {ref['weights_launches']}, BASIC forward {ref['basic_launches']}")
+    by_path, numbers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ref, os.path.join(tmp, "ref.pt"))
+        t0 = time.perf_counter()
+        consts = {k: globals()[k] for k in ("BATCH", "PROMPT", "GEN", "CAPACITY", "RING",
+                                            "SCALING_SHAPES")}
+        consts["PAR_DEVICE"] = dev.type
+        ctx = mp.start_processes(parallel_rank, args=(PAR_RANKS, tmp, card, cfg, consts, setup),
+                                 nprocs=PAR_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + PAR_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the parallel world hung past {PAR_TIMEOUT} s")
+        log(f"parallel: {PAR_RANKS} ranks ran in {time.perf_counter() - t0:.1f} s")
+        for r in range(PAR_RANKS):
+            res = torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for name, n in res["by_path"].items():
+                by_path[f"{name}_rank{r}"] = n
+            numbers[f"rank{r}"] = res["out"]
+        by_path["parallel_nccl_world1"] = nccl_world1(torch, dev, kernels, cfg, tmp)
+        if dev.type == "cuda":
+            numbers["nccl_two_ranks"] = nccl_two_ranks(torch, tmp)
+    return by_path, numbers
+
+
+def native_phase(torch, dev, kernels):
+    """The native C++ oracle (csrc/dmxq.cpp, built here with g++): T2's
+    BFP16_64 cast on the card (magnitudes over 16 decades, a zero row, a
+    row of subnormal blocks) and the port's bfp_pack of a card tensor, bit
+    for bit.  No oracle fails the phase."""
+    import numpy as np
+
+    from dmx_compressor_tpu_torch import native
+    from dmx_compressor_tpu_torch.ops import bfp_cast as T2
+    from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
+
+    t0 = time.perf_counter()
+    if not native.is_available():
+        raise AssertionError("the native oracle could not be built with g++")
+    log(f"native: oracle built in {time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=dev).manual_seed(50)
+    x = torch.randn(BATCH * PROMPT, 768, generator=g, device=dev)
+    x *= torch.logspace(-8, 8, x.shape[0], device=dev)[:, None]
+    x[0] = 0.0
+    x[1, ::3] = 1e-40  # subnormal blocks
+    kernels.reset_launches()
+    got = T2.bfp_cast(x, 8, 64)
+    xc = x.cpu().numpy()
+    want = native.block_quantize_nearest(xc.reshape(-1, 64), 8).reshape(xc.shape)
+    bfp_same = np.array_equal(got.cpu().numpy(), want)
+    torch.cuda.synchronize()
+    launches = nonzero(kernels.LAUNCHES)
+    w = torch.randn(768, 3072, generator=g, device=dev) * 0.05
+    p = bfp_pack(w, 8, 64)
+    man, exp = native.bfp_pack(w.cpu().numpy(), 8, 64)
+    pack_same = (np.array_equal(p.mantissa.cpu().numpy(), man)
+                 and np.array_equal(p.exponent.cpu().numpy(), exp)
+                 and np.array_equal(bfp_unpack(p).cpu().numpy(), native.bfp_unpack(man, exp, 8,
+                                                                                    64)))
+    log(f"native: T2 BFP16_64 cast of {tuple(x.shape)} on the card {'=' if bfp_same else '!='} "
+        f"the oracle bit for bit; bfp_pack of a card [768, 3072] {'=' if pack_same else '!='} "
+        f"the oracle's payload and unpacking; launches {launches}")
+    if not (bfp_same and pack_same) or launches != {"bfp_cast": 1}:
+        raise AssertionError("the card disagrees with the native oracle")
+    return launches
+
+
 @contextlib.contextmanager
 def phase(name: str, seconds: dict):
     """Log and record the wall seconds of one phase of the run (the whole
@@ -5471,6 +6080,10 @@ def main(argv=None) -> int:
     if run("B1, T1 and B5 at the clip shapes"):
         with phase("B1, T1 and B5 at the clip shapes", took):
             s2s_linears["clip"] = check_clip_linears(torch, dev, clip_cfg, 36)
+    b1_tp2 = None  # (one decode step of a tp-2 rank, the cases)
+    if run("B1 at the parallel tp2 shard shapes"):
+        with phase("B1 at the parallel tp2 shard shapes", took):
+            b1_tp2 = check_b1_tp2(torch, dev, cfg)
 
     by_path, tok_s = {}, {}
     fam_t2 = {}  # family or path -> (T2's per-step numbers, cases) at its recorded sites
@@ -5633,6 +6246,16 @@ def main(argv=None) -> int:
         by_path["intercept"] = {**every, **launched}
         log(f"intercept phase on {card}: {json.dumps(intercept_numbers)}")
 
+    # phase 11: parallelism over ranks sharing the card, and the native oracle
+    if run("parallel"):
+        with phase("parallel", took):
+            launched, par_numbers = parallel_phase(torch, dev, kernels, cfg, card)
+        by_path.update({name: {**every, **n} for name, n in launched.items()})
+        log(f"parallel phase on {card}: {json.dumps(par_numbers)}")
+    if run("native"):
+        with phase("native", took):
+            by_path["native"] = {**every, **native_phase(torch, dev, kernels)}
+
     log(f"seconds by phase (after {took_build:.1f} s of kernel builds): {json.dumps(took)}")
     log(f"kernel builds and phases: {took_build + sum(took.values()):.1f} s")
     if only:
@@ -5670,9 +6293,10 @@ def main(argv=None) -> int:
     entries = [
         dict(name="bfp_linear", route="cuda", source="dmx_compressor_tpu_torch/csrc/bfp_linear.cu",
              replaces="dmx_compressor_tpu/ops/bfp_linear.py:53", **launches("bfp_linear"),
-             max_abs_err=max(c["max_abs_err"] for c in b1 + b1_fam), **b1_step,
+             max_abs_err=max(c["max_abs_err"] for c in b1 + b1_fam + b1_tp2[1]), **b1_step,
              **{f"{f}_step": fam_linears[f][0][0] for f in fam_linears},
-             **{f"{f}_step": s2s_linears[f][0][0] for f in s2s_linears}, cases=b1 + b1_fam),
+             **{f"{f}_step": s2s_linears[f][0][0] for f in s2s_linears},
+             parallel_tp2_step=b1_tp2[0], cases=b1 + b1_fam + b1_tp2[1]),
         dict(name="flash_decode_int8", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_decode_int8.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",

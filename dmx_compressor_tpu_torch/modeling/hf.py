@@ -429,6 +429,17 @@ def _pick(logits: torch.Tensor, temperature: float, top_k: Optional[int],
     return torch.multinomial(p, 1, generator=gen)[:, 0].to(torch.int32)
 
 
+# the files a local checkpoint's tokenizer loads from (transformers' names);
+# without one, AutoTokenizer.from_pretrained fails as surely as its import
+# costs seconds
+_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json", "vocab.txt",
+                    "merges.txt", "spiece.model", "tokenizer.model")
+
+
+def _has_tokenizer_files(model_path) -> bool:
+    return any(os.path.exists(os.path.join(str(model_path), f)) for f in _TOKENIZER_FILES)
+
+
 class Pipeline:
     """Task pipeline over a Dmx-transformed model of the port's zoo, loaded
     from a local HF checkpoint.
@@ -445,7 +456,7 @@ class Pipeline:
         self.raw_model = raw
         self.model = DmxModel.from_raw(raw)
         self.tokenizer = tokenizer
-        if tokenizer is None:
+        if tokenizer is None and _has_tokenizer_files(model_path):
             try:
                 from transformers import AutoTokenizer
 

@@ -97,6 +97,9 @@ class DmxModel:
     @classmethod
     def from_raw(cls, model: nn.Module, *rules, additional_mappings=None,
                  filter_fn=None) -> "DmxModel":
+        if getattr(model, "tp_placement", None) is not None:
+            raise ValueError("DmxModel.from_raw: the model is sharded (parallel.shard_state); "
+                             "build its mode first, then shard it")
         module = substitute_transform(
             model, additional_mappings=additional_mappings, filter_fn=filter_fn
         )

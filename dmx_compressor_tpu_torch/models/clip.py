@@ -94,7 +94,8 @@ class CLIPAttention(nn.Module):
         self.sdpa = rawnn.ScaledDotProductAttention()
 
     def forward(self, x, attn_mask=None):
-        B, T, D = x.shape
+        B, T, _ = x.shape
+        D = self.num_heads * self.head_dim  # the local heads' on a tensor-parallel rank
 
         def split(t):
             return t.reshape(B, T, self.num_heads, self.head_dim).transpose(1, 2)

@@ -276,10 +276,13 @@ class GPT2LMHeadModel(nn.Module):
     def init_cache(self, batch: int, max_len: int, dtype=None, quantized: bool = False,
                    per_row: bool = False, split_base_len: Optional[int] = None, device=None):
         """One cache per layer, on the card unless ``device='cpu'``;
-        ``per_row`` and ``split_base_len`` as ``ops.kv_cache.make_caches``."""
+        ``per_row`` and ``split_base_len`` as ``ops.kv_cache.make_caches``;
+        the head count is the attention's own (the local one on a
+        tensor-parallel rank)."""
         cfg = self.cfg
+        attn = self.transformer.h[0].attn
         return make_caches(
-            cfg.n_layer, batch, cfg.n_head, max_len, cfg.n_embd // cfg.n_head,
+            cfg.n_layer, batch, attn.num_heads, max_len, attn.head_dim,
             dtype or cfg.dtype, quantized=quantized, split_base_len=split_base_len,
             device=device, per_row=per_row,
         )

@@ -359,11 +359,13 @@ class OPTForCausalLM(nn.Module):
         """One cache per layer, on the card unless ``device='cpu'``; with
         ``per_row`` a row cache (one fill point per batch row); with
         ``split_base_len`` a SplitKVCache whose base holds that many slots
-        and whose tail the rest of ``max_len``."""
+        and whose tail the rest of ``max_len``.  The head count is the
+        attention's own: the local one on a tensor-parallel rank."""
         cfg = self.cfg
+        attn = self.model.decoder.layers[0].self_attn
         return make_caches(
-            cfg.num_hidden_layers, batch, cfg.num_attention_heads, max_len,
-            cfg.hidden_size // cfg.num_attention_heads, dtype or cfg.dtype,
+            cfg.num_hidden_layers, batch, attn.num_heads, max_len, attn.head_dim,
+            dtype or cfg.dtype,
             quantized=quantized, split_base_len=split_base_len, device=device, per_row=per_row,
         )
 

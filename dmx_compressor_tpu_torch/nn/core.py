@@ -60,6 +60,9 @@ class DmxModule(PerformanceProxyMixin, LayerReconstructionMixin, nn.Module):
     # open Monitoring / RuntimeMeasurement contexts (utils/monitor.py): above
     # 0, the fused BASIC plans step aside so every monitored module is called
     monitors: int = 0
+    # this module's tensor-parallel role (parallel.mesh.TPShard), set by
+    # parallel.mesh.shard_state; None: unsharded
+    tp_shard = None
 
     # cast topology, overridden per subclass
     ch_axis: Optional[int] = None  # input channel axis

@@ -191,14 +191,20 @@ class Linear(DmxModule):
             self.bias_cast.block_dim = -1
 
     def _forward(self, _input):
-        if isinstance(self.accum_format, Same):
-            out = _input @ self._weight.to(_input.dtype).T
-            if self.bias is not None:
-                out = out + self._bias.to(_input.dtype)
-            return out
+        tp = self.tp_shard  # tensor parallel (parallel/mesh.py), or None
+        same = isinstance(self.accum_format, Same)
         _weight = self._weight
-        out = self.accum_cast(_input.to(_weight.dtype) @ _weight.T)
-        return out + self._bias if self.bias is not None else out
+        if tp is not None:
+            _input = tp.enter(_input)
+        out = _input @ _weight.to(_input.dtype).T if same else _input.to(_weight.dtype) @ _weight.T
+        if tp is not None:
+            # a row-parallel product is summed before its accumulator cast and bias
+            out = tp.partial_sum(out)
+        if not same:
+            out = self.accum_cast(out)
+        if self.bias is not None:
+            out = out + (self._bias.to(_input.dtype) if same else self._bias)
+        return out if tp is None else tp.finish(out)
 
     def _flops_for(self, input_shape, output_shape):
         return math.prod(input_shape) * self.out_features
@@ -237,6 +243,8 @@ class Embedding(DmxModule):
         self.align_boundary_dtype = False
 
     def _forward(self, _input):
+        if self.tp_shard is not None:  # vocabulary parallel (parallel/mesh.py)
+            return self.tp_shard.lookup(self._weight, _input)
         return self._weight[_input]
 
     def forward(self, input, *args, **kwargs):

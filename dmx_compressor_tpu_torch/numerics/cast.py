@@ -58,6 +58,10 @@ def _as_format(f: Union[str, Format]) -> Format:
 class CastTo(nn.Module):
     """Simulated numerical cast to a target format."""
 
+    # on a rank-local activation of a tensor-parallel model: the gather that
+    # shows the observer the whole tensor (parallel/mesh.py); None: unsharded
+    tp_gather = None
+
     def __init__(
         self,
         format: Union[str, Format] = "SAME",
@@ -229,7 +233,7 @@ class CastTo(nn.Module):
         if "format" in self.pre_transform:
             x = ste(x, self.pre_transform["format"].cast(x, self.block_dim, generator))
         if self.observer_enabled and not isinstance(self.format, Same):
-            self._observer_step(x)
+            self._observer_step(x if self.tp_gather is None else self.tp_gather(x))
         if self.fake_quant_enabled:
             if isinstance(self.format, FixedPoint):
                 sc, zp = self._get_affine_params(x)

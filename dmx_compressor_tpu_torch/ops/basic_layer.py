@@ -287,8 +287,8 @@ def _linear_basic_ok(m, require_bias: bool = True) -> bool:
     observer, pre-transform or stateful hook."""
     from .compress import PackedBFPLinear
 
-    if not isinstance(m, PackedBFPLinear):
-        return False
+    if not isinstance(m, PackedBFPLinear) or m.tp_shard is not None:
+        return False  # a tensor-parallel linear runs the modular path
     ic = m.input_casts["input_cast"]
     oc = m.output_casts[m.output_cast_names[0]]
     fmt = ic.format

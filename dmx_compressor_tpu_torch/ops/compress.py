@@ -96,6 +96,23 @@ class _PackedLinear(DmxModule):
         self.bias_cast = src.bias_cast
         self.input_casts["input_cast"].block_dim = -1
 
+    def _matmul(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _forward(self, _input):
+        tp = self.tp_shard
+        if tp is None:
+            return self._matmul(_input, self._bias)
+        # tensor parallel (parallel/mesh.py): a row-parallel product is summed
+        # over the group before its bias
+        row = tp.role == "row"
+        out = self._matmul(tp.enter(_input), None if row else self._bias)
+        if row:
+            out = tp.partial_sum(out)
+            if self.bias is not None:
+                out = out + self._bias.to(out.dtype)
+        return tp.finish(out)
+
 
 class PackedBFPLinear(_PackedLinear):
     """Inference-only Linear with packed BFP weights and a fused
@@ -126,6 +143,8 @@ class PackedBFPLinear(_PackedLinear):
         calibrating SmoothQuant)."""
         if x.ndim < 1 or x.shape[-1] != self.in_features or x.numel() // x.shape[-1] > 256:
             return False
+        if self.tp_shard is not None and self.tp_shard.role != "col":
+            return False  # its collective sits between the matmul and the casts
         ic = self.input_casts["input_cast"]
         oc = self.output_casts[self.output_cast_names[0]]
         in_ok = (
@@ -178,10 +197,10 @@ class PackedBFPLinear(_PackedLinear):
         return (isinstance(ic.format, BlockFloatingPoint) and ic.format.precision <= 9
                 and ic.fake_quant_enabled)
 
-    def _forward(self, _input):
+    def _matmul(self, x, bias):
         if self._acts_exact_in_bf16():
-            return bfp_linear_bf16(_input, self.packed, bias=self._bias).to(_input.dtype)
-        return bfp_linear(_input, self.packed, bias=self._bias)
+            return bfp_linear_bf16(x, self.packed, bias=bias).to(x.dtype)
+        return bfp_linear(x, self.packed, bias=bias)
 
     @classmethod
     def from_linear(cls, lin: dmxnn.Linear) -> "PackedBFPLinear":
@@ -219,8 +238,8 @@ class PackedSBFPLinear(_PackedLinear):
         return PackedSBFP(self.weight_nibbles, self.weight_block_scale, self.block_size,
                           self.bf16_exact, self.planes)
 
-    def _forward(self, _input):
-        return sbfp_linear(_input, self.packed, bias=self._bias)
+    def _matmul(self, x, bias):
+        return sbfp_linear(x, self.packed, bias=bias)
 
     @classmethod
     def from_linear(cls, lin: dmxnn.Linear) -> "PackedSBFPLinear":
@@ -323,6 +342,9 @@ def compress_for_inference(dm, keep_originals: bool = False) -> int:
     routing.  The merged originals' payloads are released unless
     ``keep_originals``.  Returns the number of modules converted."""
     model = dm.module if hasattr(dm, "module") else dm
+    if getattr(model, "tp_placement", None) is not None:
+        raise ValueError("compress_for_inference: the model is sharded (parallel.shard_state); "
+                         "compress it first, then shard it")
     count = _replace_linears(model)
     for m in list(model.modules()):
         if hasattr(m, "fuse_for_inference"):

@@ -17,6 +17,17 @@ directory holding three items:
   and approximations can be applied again without the code that set them.
 
 Restoring writes into the live model's tensors in place, on their devices.
+
+A model sharded by ``parallel.shard_state`` (it carries ``tp_placement``)
+takes the sharded half: ``model/`` is a ``torch.distributed.checkpoint``
+directory that every rank writes its own shards into (``dcp.save``; each
+sharded tensor wrapped as a ``DTensor`` on the model's mesh for the save
+only, a replicated one written once), ``meta.json`` also records the
+placement, and an optimizer's state is saved per rank (``opt_rank<r>.pt``).
+It restores (``dcp.load``) into a model sharded the same way, each rank
+reading its shards; another placement raises.  Every rank of the mesh
+calls both.  The sharded half replaces orbax's per-shard writes; the
+unsharded half (``torch.save``) is as above.
 """
 
 from __future__ import annotations
@@ -65,13 +76,80 @@ def _config_yaml(model) -> Optional[str]:
     return dump_config_str({k: dict(v) for k, v in cfg.items()})
 
 
+def _placement(model) -> Optional[Dict[str, tuple]]:
+    return getattr(_module_of(model), "tp_placement", None)
+
+
+def _dtensors(model, flat: Dict[str, torch.Tensor]):
+    """The sharded half's state dict: each tensor on the mesh's device type
+    (a CPU copy for a gloo mesh over the card), a sharded one as a DTensor
+    of its shards; plus the staged copies that back them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    module = _module_of(model)
+    mesh, placement = module.tp_mesh, module.tp_placement
+    names = mesh.mesh_dim_names
+    out, staged = {}, {}
+    for k, v in flat.items():
+        local = v.detach()
+        if local.device.type != mesh.device_type:
+            local = local.to(mesh.device_type)
+        staged[k] = local
+        spec = tuple(placement.get(k, ()))
+        if any(a is not None for a in spec):
+            out[k] = DTensor.from_local(
+                local, mesh, [Shard(spec.index(n)) if n in spec else Replicate() for n in names],
+                run_check=False)
+        else:
+            out[k] = local
+    return out, staged
+
+
+def _meta(model, step: int) -> dict:
+    meta = {"step": int(step), "dmx_config_yaml": _config_yaml(model)}
+    placement = _placement(model)
+    if placement is not None:
+        meta["placement"] = {k: list(v) for k, v in placement.items()}
+    return meta
+
+
+def _opt_state(optimizer_state):
+    return (optimizer_state.state_dict() if isinstance(optimizer_state, torch.optim.Optimizer)
+            else optimizer_state)
+
+
+def _save_sharded(path: str, model, optimizer_state, step: int, force: bool) -> str:
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    rank = dist.get_rank()
+    if rank == 0:
+        if os.path.exists(path) and not force:
+            raise FileExistsError(f"checkpoint {path} exists (force=False)")
+        shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path)
+    dist.barrier()
+    sd, _ = _dtensors(model, _flat_tensors(model))
+    dcp.save(sd, checkpoint_id=os.path.join(path, "model"))
+    if optimizer_state is not None:
+        torch.save(_opt_state(optimizer_state), os.path.join(path, f"opt_rank{rank}.pt"))
+    if rank == 0:
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(_meta(model, step), f)
+    dist.barrier()
+    return path
+
+
 def save_checkpoint(path: str, model, *, optimizer_state: Any = None, step: int = 0,
                     force: bool = True) -> str:
     """Write one checkpoint directory at ``path`` (replaced where ``force``,
     else an existing one raises).  ``model`` is a torch module or a
     ``DmxModel``; ``optimizer_state`` a ``torch.optim.Optimizer`` or its
-    ``state_dict()``.  Returns the absolute path."""
+    ``state_dict()``.  A sharded model takes the sharded half (every rank
+    calls it).  Returns the absolute path."""
     path = os.path.abspath(os.fspath(path))
+    if _placement(model) is not None:
+        return _save_sharded(path, model, optimizer_state, step, force)
     if os.path.exists(path) and not force:
         raise FileExistsError(f"checkpoint {path} exists (force=False)")
     tmp = f"{path}.tmp"
@@ -80,11 +158,9 @@ def save_checkpoint(path: str, model, *, optimizer_state: Any = None, step: int 
     torch.save({k: v.detach().cpu() for k, v in _flat_tensors(model).items()},
                os.path.join(tmp, "model.pt"))
     if optimizer_state is not None:
-        sd = (optimizer_state.state_dict() if isinstance(optimizer_state, torch.optim.Optimizer)
-              else optimizer_state)
-        torch.save(sd, os.path.join(tmp, "opt.pt"))
+        torch.save(_opt_state(optimizer_state), os.path.join(tmp, "opt.pt"))
     with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump({"step": int(step), "dmx_config_yaml": _config_yaml(model)}, f)
+        json.dump(_meta(model, step), f)
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
     return path
@@ -98,6 +174,8 @@ def restore_checkpoint(path: str, model, *, optimizer_state: Any = None) -> Tupl
     ``optimizer_state`` to resume it too (it is loaded in place and
     returned), or any value to get the saved ``state_dict()`` back."""
     path = os.path.abspath(os.fspath(path))
+    if _placement(model) is not None:
+        return _restore_sharded(path, model, optimizer_state)
     saved = torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)
     live = _flat_tensors(model)
     missing = sorted(set(live) - set(saved))
@@ -114,6 +192,32 @@ def restore_checkpoint(path: str, model, *, optimizer_state: Any = None) -> Tupl
     opt = None
     if optimizer_state is not None:
         opt = torch.load(os.path.join(path, "opt.pt"), map_location="cpu", weights_only=True)
+        if isinstance(optimizer_state, torch.optim.Optimizer):
+            optimizer_state.load_state_dict(opt)
+            opt = optimizer_state
+    return int(meta["step"]), opt
+
+
+def _restore_sharded(path: str, model, optimizer_state) -> Tuple[int, Any]:
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    placement = {k: list(v) for k, v in _placement(model).items()}
+    if meta.get("placement") != placement:
+        raise ValueError(f"checkpoint {path} was not saved from a model sharded as this one is")
+    live = _flat_tensors(model)
+    sd, staged = _dtensors(model, live)
+    dcp.load(sd, checkpoint_id=os.path.join(path, "model"))
+    with torch.no_grad():
+        for k, v in live.items():
+            if staged[k].data_ptr() != v.data_ptr():
+                v.copy_(staged[k])
+    opt = None
+    if optimizer_state is not None:
+        opt = torch.load(os.path.join(path, f"opt_rank{dist.get_rank()}.pt"),
+                         map_location="cpu", weights_only=True)
         if isinstance(optimizer_state, torch.optim.Optimizer):
             optimizer_state.load_state_dict(opt)
             opt = optimizer_state

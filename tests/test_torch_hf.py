@@ -637,6 +637,9 @@ def test_pipeline_launch_counts_are_chip_smoke_s(tmp_path, monkeypatch):
             return _fn(*a, **kw)
 
         monkeypatch.setattr(mod, attr, wrapped)
+    # the spies' counts stay in this test (later tests of the process read them)
+    monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES, 0))
+    monkeypatch.setattr(kernels, "ROUTE_LAUNCHES", {})
     monkeypatch.setattr(DmxModule, "inference_mode", False)
     cfg = chip_smoke.opt_hf_config(vocab_size=512, hidden_size=128, ffn_dim=256,
                                    num_hidden_layers=2, num_attention_heads=2,

@@ -50,7 +50,7 @@ LENET_YAML = str(ROOT / "configs" / "dmx_example_config_lenet5.yaml")
 MODE_TOL = 4e-3
 
 SUBPACKAGES = ["", "nn", "models", "modeling", "numerics", "functional", "sparse", "serving",
-               "transform", "utils"]
+               "transform", "utils", "parallel"]
 # each name the JAX package exports that the port still lacks -> the
 # ROADMAP Queue A item that ports it, or why it is the JAX package's alone
 STILL_MISSING = {
@@ -58,9 +58,7 @@ STILL_MISSING = {
                                "buffers)"},
 }
 # each module of the JAX package's subpackages that the port lacks
-STILL_MISSING_MODULES = {
-    "": {"native": "9.7", "parallel": "10"},
-}
+STILL_MISSING_MODULES = {}
 # DmxModel's public members the port lacks
 STILL_MISSING_MEMBERS = {
     "from_nnx": "JAX only: the alias of from_raw for nnx models",
