@@ -214,7 +214,7 @@ Phases (any failure exits non-zero):
    clip_basic's T2 sites bit for bit.  LeNet-5 over 256 images:
    lenet_baseline no launch, lenet_basic 17 T2 (FLOAT16 casts), its logits
    against the CPU.  The zoo phase: Conv2d, BatchNorm2d, GroupNorm, the
-   pools, ReLU6 at a ResNet-50 stage, Conv1d at Whisper's [8, 80, 3000],
+   pools, ReLU6 at a ResNet-50 stage, Conv1d at Whisper's [ZOO_BATCH, 80, 3000],
    ConvTranspose2d 64 -> 64 at stride 2, Exp, BAddBMM and the experimental
    convs, each under BASELINE and BASIC on the card (cuDNN's TF32 flag on)
    against the CPU, its T2 launches held (43 over the BASIC forwards).
@@ -266,6 +266,16 @@ Phases (any failure exits non-zero):
    site = 693; card vs CPU at FAMILY_CPU_LAYERS layers at BASIC_LOGIT_TOL;
    examples/family_tour.py on the card).  The OPT engine paths' CPU runs
    take the requests ENGINE_HELD since this phase joined.
+   Then parallelism (``parallel_phase``): two ranks sharing the card over
+   gloo, OPT-125m at full width and PAR_OPT_LAYERS (2) over tp 2 (prefill,
+   engine, sharded checkpoint, BASIC), ``pipeline_forward`` at pp 2 over its 12 layers,
+   ``ring_attention`` at sp 2 and scaling_bench; TinyLlama-1.1B at full width
+   and depth over tp 2 (its shard shapes, 4L+1 = 89 B1 + 22 B3 a prefill,
+   the engine's 89 B1 + 22 B2 a forward, the sharded checkpoint, BASIC's T1
+   and T2 as unsharded), gemma-2b, qwen3-0.6b and mistral-1b prefills at
+   full width, whisper-small at 2 + 2, t5-small and LeNet-5, each against
+   its unsharded card run; one NCCL rank through the tp path; and the
+   native C++ oracle.  B1, B2 and B3 are also held at the shard shapes.
 10. A ``kernels`` JSON line (launches by path, the engine paths included),
    then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -278,13 +288,16 @@ prints no result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import functools
 import json
+import logging
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -451,9 +464,8 @@ S2S_CPU_BATCH = 1
 # the least calls of each timing in the families' kernel phases (B1, T1
 # and B5 at the bench.py families' shapes since the vision paths, whose
 # heads take up to ~40 ms a call on their plain versions; B1 and T1 at the
-# encoder-decoder and CLIP shapes, whose M 12000 cases take ~0.3-1.7 ms; the
-# T2 sites over a recorded step of 200-320 launches): every other phase
-# takes time_ms's 20
+# encoder-decoder and CLIP shapes, whose M 12000 cases take ~0.3-1.7 ms):
+# every other phase takes time_ms's 10
 S2S_TIMED = 5
 # clip_basic's T2 sites are timed over this many recorded forwards (839
 # launches each; the plain versions' ~30 torch ops a cast are host-bound)
@@ -463,7 +475,7 @@ CLIP_T2_TIMED = 2
 CLIP_BATCH = 8
 LENET_BATCH = 256
 # the zoo phase's batch (a ResNet-50 stage's, Whisper's 8 feature rows)
-ZOO_BATCH = 8
+ZOO_BATCH = 4
 # the clip_basic path's embeddings, logits and probabilities, GPU vs CPU:
 # twice the largest reading of tools/order_sensitivity.py --family clip
 # --layers 12 --batch 8 --seeds 0 1 on an H100 (the same build with its T1
@@ -532,10 +544,16 @@ def device_events(torch, run):
     return [(key, us) for key, us, _ in device_trace(torch, run)]
 
 
-# the plain versions' timings take at least this many calls (a kernel's at
-# least time_ms's default 10): a plain version is a yardstick, tens of times
-# the kernel's time, whose device time moves little from call to call
+# the plain versions' timings take this many calls over their first input
+# sets (a kernel's at least time_ms's default 10, cycling through every
+# set): a plain version is a yardstick, tens of times the kernel's time,
+# whose device time moves little from call to call and whose own
+# intermediates leave no input warm in L2
 PLAIN_ITERS = 3
+# a decode step's (or a recorded forward's) timings: the kernel's and the
+# library's over this many steps, the plain versions' over one; each step is
+# tens to hundreds of launches
+STEP_ITERS = 3
 
 
 def time_ms(torch, fn, arg_sets, min_iters: int = 10) -> float:
@@ -561,6 +579,12 @@ def time_ms(torch, fn, arg_sets, min_iters: int = 10) -> float:
     us = sum(t / n * round(n / iters) if round(n / iters) else t / iters
              for _, t, n in trace)
     return us / 1e3
+
+
+def time_plain(torch, fn, arg_sets, iters: int = PLAIN_ITERS) -> float:
+    """A plain version's device ms per call: ``iters`` calls over the first
+    ``iters`` input sets (see PLAIN_ITERS)."""
+    return time_ms(torch, fn, arg_sets[:iters], iters)
 
 
 def copies_for(nbytes: int) -> int:
@@ -670,7 +694,7 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
         x, w, b = sets[0]
         err = max_err(torch, kern(x, w, b), plain(x, w, b), tol, f"{label} {M}x{K}x{N}")
         ms = time(torch, kern, sets)
-        plain_ms = time_ms(torch, plain, sets, min(min_iters, PLAIN_ITERS))
+        plain_ms = time_plain(torch, plain, sets, min(min_iters, PLAIN_ITERS))
         deq = [(s[0].to(lib_dtype), unpack(s[1]).T.contiguous().to(lib_dtype))
                for s in sets[:copies_for((M * K + N * K + M * N) * lib_size)]]
         lib_ms = time(torch, torch.matmul, deq)
@@ -708,7 +732,7 @@ def check_linear(torch, dev, label, kern, plain, pack, unpack, nbytes, step_shap
         timed.append((f"{ab[0]}_ms", ab[1], sets_of))
     for what, fn, arg_of in timed:
         args = [arg_of[M, K, N][i % len(arg_of[M, K, N])] for M, K, N, i in step]
-        iters = min(min_iters, PLAIN_ITERS) if what == "plain_ms" else min_iters
+        iters = 1 if what == "plain_ms" else min(min_iters, STEP_ITERS)
         runs[what] = time_ms(torch, lambda: [fn(*a) for a in args], [()], iters) / len(step)
     per_launch_bytes = sum(nbytes(M, K, N) for M, K, N, _ in step) / len(step)
     flops = sum(2 * M * N * K for M, K, N, _ in step) / len(step)
@@ -829,7 +853,7 @@ def check_b5(torch, dev, cfg):
             if not torch.equal(sbfp_linear(*sets[0]), sbfp_linear(*sets[0])):
                 raise AssertionError(f"B5 f32 route ({route}) gave other bits on the same inputs")
             ms = time_ms(torch, sbfp_linear, sets)
-            plain_ms = time_ms(torch, sbfp_linear_ref, sets, PLAIN_ITERS)
+            plain_ms = time_plain(torch, sbfp_linear_ref, sets)
             deq = [(x, sbfp_unpack(w).T.contiguous()) for x, w, _ in sets]
             lib_ms = time_ms(torch, torch.matmul, deq)
             bound_ms, by = bound(b5_bytes(M, K, N), 2 * M * N * K)
@@ -1028,7 +1052,7 @@ def heavy_tailed(torch, shape, g, dev):
             * torch.exp(3 * torch.randn(shape, generator=g, device=dev)))
 
 
-def t2_per_launch(torch, dev, g, step, steps=10):
+def t2_per_launch(torch, dev, g, step, steps=STEP_ITERS):
     """T2's time per launch over one decode step's launches ``step``
     ((mode, shape, axis[, wl, block]) each; BFP16_64 where wl and block are
     left out), the kernel's and the plain version's, on random inputs of
@@ -1038,7 +1062,7 @@ def t2_per_launch(torch, dev, g, step, steps=10):
     for what, plain in (("ms", False), ("plain_ms", True)):
         runs[what] = time_ms(torch, lambda: [t2_run(m, x, a, plain, *wb) for (m, _, a, *wb), x
                                              in zip(step, inputs)], [()],
-                             min_iters=min(steps, PLAIN_ITERS) if plain else steps) / len(step)
+                             min_iters=1 if plain else steps) / len(step)
     runs["launches_per_step"] = len(step)
     runs["library_ms"] = None
     runs["bound_ms"], runs["bound_by"] = bound(
@@ -1072,7 +1096,7 @@ def record_t2(into: list):
         T2.bfp_cast, T2.fp16_cast = bfp, fp16
 
 
-def check_t2_sites(torch, dev, sites, step, what, steps=10, unit="decode step"):
+def check_t2_sites(torch, dev, sites, step, what, steps=STEP_ITERS, unit="decode step"):
     """T2 against its plain version, bit for bit, at every cast site that a
     path's run recorded (``sites``: (mode, shape, axis, wl, block) from
     :func:`record_t2`): each distinct shape and axis in the BFP, FLOAT16 and
@@ -1138,7 +1162,7 @@ def check_t2(torch, dev, cfg):
                     f"the path does not cast in there: not timed)")
                 continue
             ms = time_ms(torch, lambda x: run(mode, x, axis), sets)
-            plain_ms = time_ms(torch, lambda x: run(mode, x, axis, plain=True), sets, PLAIN_ITERS)
+            plain_ms = time_plain(torch, lambda x: run(mode, x, axis, plain=True), sets)
             bound_ms, by = bound(8 * n, 0)
             case = dict(mode=mode, site=label, shape=list(shape), axis=axis, max_abs_err=0.0,
                         ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
@@ -1255,8 +1279,16 @@ def check_b2(torch, dev, cfg, fams, wcfg):
     # whisper-small's decode step (whisper_weights) and its engine's row cache
     path_shape, engine_shape = whisper_decode_shape(wcfg)
     shapes += [(*path_shape, "whisper_weights"), (*engine_shape, "engine_whisper_weights")]
-    # a tp-2 rank's decode step (parallel phase): half the heads
+    # a tp-2 rank's decode step (parallel phase): half the heads; TinyLlama's
+    # (16 query heads over 2 KV heads) and gemma-2b's (4 over its one KV
+    # head, replicated); whisper-small's (6 heads)
     shapes.append((H // PAR_TP, H // PAR_TP, CAPACITY, D, [mean_fill] * B, "parallel_tp2"))
+    for f in ("llama", "gemma"):
+        Hf, Hkv_f, D_f = family_heads(fams[f])
+        shapes.append((Hf // PAR_TP, tp_kv_heads(Hkv_f), CAPACITY, D_f, [mean_fill] * B,
+                       f"parallel_{f}_tp2"))
+    Hw, _, Sw, Dw, lw = path_shape
+    shapes.append((Hw // PAR_TP, Hw // PAR_TP, Sw, Dw, lw, "parallel_whisper_tp2"))
     for H, Hkv, S, D, lengths, path in shapes:
         per_set = B * Hkv * S * (2 * D + 8) + 2 * B * H * D * 4
         sets = []
@@ -1273,7 +1305,7 @@ def check_b2(torch, dev, cfg, fams, wcfg):
         if not torch.equal(flash_decode_int8(q, kv, le), got):
             raise AssertionError("B2 gave other bits on the same inputs")
         ms = time_ms(torch, flash_decode_int8, sets)
-        plain_ms = time_ms(torch, flash_decode_int8_ref, sets, PLAIN_ITERS)
+        plain_ms = time_plain(torch, flash_decode_int8_ref, sets)
         lib_sets = []
         for q_, kv_, le_ in sets[:copies_for(B * Hkv * S * D * 8 + 2 * B * H * D * 4)]:
             k = kv_.k_q.float() * kv_.k_scale[..., None]
@@ -1325,8 +1357,14 @@ def check_b3(torch, dev, cfg, fams, wcfg):
     # whisper_baseline's decoder prefill: its 4 start tokens over the f32 cache
     Hw, T0 = wcfg.decoder_attention_heads, len(S2S_START["whisper"])
     shapes.append((BATCH, Hw, Hw, T0, T0, wcfg.d_model // Hw, False, "whisper_baseline"))
-    # a tp-2 rank's prefill (parallel phase): half the heads, BH 48
+    # a tp-2 rank's prefill (parallel phase): half the heads, BH 48; and
+    # TinyLlama's, gemma-2b's and qwen3-0.6b's local heads (16 over 2, 4
+    # over 1, 8 over 4)
     shapes.append((BATCH, H // PAR_TP, H // PAR_TP, PROMPT, PROMPT, D, False, "parallel_tp2"))
+    for f in ("llama", "gemma", "qwen3"):
+        Hf, Hkv_f, D_f = family_heads(fams[f])
+        shapes.append((BATCH, Hf // PAR_TP, tp_kv_heads(Hkv_f), PROMPT, PROMPT, D_f, False,
+                       f"parallel_{f}_tp2"))
     for B, H, Hkv, L, S, D, with_bias, path in shapes:
         per_set = 4 * B * D * (2 * H * L + 2 * Hkv * S) + (4 * B * H * L * S if with_bias else 0)
         sets, kv_sets = [], []
@@ -1348,7 +1386,7 @@ def check_b3(torch, dev, cfg, fams, wcfg):
         err = max_err(torch, kern(*sets[0]), plain(*sets[0]), B3_TOL,
                       f"B3 L={L} S={S} bias={with_bias}")
         ms = time_ms(torch, kern, sets)
-        plain_ms = time_ms(torch, plain, sets, PLAIN_ITERS)
+        plain_ms = time_plain(torch, plain, sets)
         # the library yardstick: one SDPA call with a float mask, built
         # beforehand, that carries the bias and the causal diagonal at S - L
         allowed = torch.ones(L, S, dtype=torch.bool, device=dev).tril(S - L)
@@ -1448,7 +1486,7 @@ def check_b4(torch, dev, cfg, fams, wcfg):
         if not torch.equal(flash_decode(*sets[0]), got):
             raise AssertionError("B4 gave other bits on the same inputs")
         ms = time_ms(torch, flash_decode, sets)
-        plain_ms = time_ms(torch, flash_decode_ref, sets, PLAIN_ITERS)
+        plain_ms = time_plain(torch, flash_decode_ref, sets)
         # the library yardstick: one SDPA call on the same f32 K/V with a
         # boolean length mask built beforehand
         mask = (torch.arange(S, device=dev)[None, :]
@@ -1649,7 +1687,9 @@ def path_specs(cfg):
              prepare={"bfp_cast": 2 * L},
              step={"bfp_linear_bf16": 4 * L + 1, "bfp_cast": 16 * L + 3},
              marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
-             logit_tol=BASIC_LOGIT_TOL),
+             # the CPU reference over the card's first 3 rows (384 prefill
+             # rows: the modular path, as the card's 1024)
+             logit_tol=BASIC_LOGIT_TOL, cpu_batch=3),
     ]
 
 
@@ -2656,8 +2696,7 @@ def seq2seq_path_specs(cfg, family):
              prefill={"bfp_linear_bf16": 16 * L + 1, "bfp_cast": t2_pre}, prepare=None,
              step={"bfp_linear_bf16": 10 * L + 1, "bfp_cast": t2_step},
              marks={"bfp_linear_bf16": T1_MARKS, "bfp_cast": T2_MARKS},
-             logit_tol=BASIC_FAMILY_TOL[family], record_t2=True, t2_steps=S2S_TIMED,
-             cpu_cfg=check_cfg),
+             logit_tol=BASIC_FAMILY_TOL[family], record_t2=True, cpu_cfg=check_cfg),
     ]
 
 
@@ -3157,16 +3196,16 @@ def lenet_path_specs():
 def zoo_cases(torch):
     """The op zoo's modules at shapes a user runs, on the CPU, each (label,
     module, inputs, BASIC config or None for the type's BASIC rule, the T2
-    launches of its BASIC forward), ``ZOO_BATCH`` the batch (Exp's and
-    BAddBMM's 12 times it): a ResNet-50 stage (Conv2d 3 x 3, 256 -> 256, no bias, on [8, 256, 56,
+    launches of its BASIC forward), ``ZOO_BATCH`` = n the batch (Exp's and
+    BAddBMM's 12 times it): a ResNet-50 stage (Conv2d 3 x 3, 256 -> 256, no bias, on [n, 256, 56,
     56]) and on its output BatchNorm2d, GroupNorm(32), the pools and
-    ReLU6; Conv1d 80 -> 768 (k 3) on Whisper's [8, 80, 3000] (80 channels
+    ReLU6; Conv1d 80 -> 768 (k 3) on Whisper's [n, 80, 3000] (80 channels
     off the BFP block: its BFP casts plain torch); ConvTranspose2d 64 ->
-    64, stride 2; Exp on [96, 128, 128] and BAddBMM on [96, 128, 64] x
-    [96, 64, 128] (no rule names BAddBMM: a BASIC-like set, FLOAT16 input
+    64, stride 2; Exp on [12n, 128, 128] and BAddBMM on [12n, 128, 64] x
+    [12n, 64, 128] (no rule names BAddBMM: a BASIC-like set, FLOAT16 input
     and output, BFP16_64 batches); the experimental convs at CLIP's patch
-    embedding (3 -> 768, k 32, stride 32 on [8, 3, 224, 224]) and Whisper's
-    conv2 (768 -> 768, k 3, stride 2 on [8, 768, 3000]) under a BASIC-like
+    embedding (3 -> 768, k 32, stride 32 on [n, 3, 224, 224]) and Whisper's
+    conv2 (768 -> 768, k 3, stride 2 on [n, 768, 3000]) under a BASIC-like
     set (BFP16_64 patches and weight, FLOAT16 output), beside the Dmx convs
     they re-lower.  T2 a BASIC forward: a conv 3 (its input, weight and
     output casts; 1 where its input channels, 80 or 3, are off the block),
@@ -4001,7 +4040,7 @@ def recipes_phase(torch, dev, kernels, cfg):
 QAT_BATCH = (8, 128)  # ids from numpy's default_rng(0)
 QAT_STEPS = 8
 QAT_LR = 1e-3  # Adam at optax's defaults (eps 1e-8), as tests/test_qat.py
-QAT_CPU_LAYERS, QAT_CPU_STEPS = 2, 4
+QAT_CPU_LAYERS, QAT_CPU_STEPS = 2, 2
 QAT_CPU_ROWS = 2  # the CPU check's first rows of QAT_BATCH
 # card vs CPU at QAT_CPU_LAYERS over QAT_CPU_STEPS (TF32 off): each step's
 # loss within QAT_CURVE_TOL (twice the port-vs-JAX spread of the CPU tests'
@@ -4182,15 +4221,82 @@ def qat_basic_path(torch, dev, kernels, cfg):
                        cpu_grad_rel_err=grad_err)
 
 
-def model_api_phase(torch, dev, kernels, cfg):
+def compiled_check(_, dev_type, out_path):
+    """model_api's ``compiled()`` check: LeNet-5 in BASIC from seed 0 over
+    MODEL_API_BATCH images, its eager forward, then two calls of
+    ``compiled()`` (torch.compile: Inductor), each call's T2 launches, the
+    outputs, the first call's seconds and the cast's mark after the
+    compiled forward, saved to ``out_path``.  The script runs it in a
+    process of its own (:func:`start_compiled_check`), beside the serving
+    paths: Inductor's compile takes 35-70 s of host time."""
+    import numpy as np
+    import torch
+
+    from dmx_compressor_tpu_torch import kernels
+    from dmx_compressor_tpu_torch.modeling.model import DmxModel
+    from dmx_compressor_tpu_torch.models.lenet import LeNet5
+    from dmx_compressor_tpu_torch.nn.core import DmxModule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_type)
+    prev_mode, DmxModule.inference_mode = DmxModule.inference_mode, False
+    try:
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (MODEL_API_BATCH, 1, 28, 28), np.float32)).to(dev)
+        dmb = DmxModel.from_raw(LeNet5(device=dev, seed=0)).to_basic_mode()
+        res = {}
+
+        def counted(fn, what):
+            kernels.reset_launches()
+            with torch.no_grad():
+                y = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            res[what] = (y.cpu(), nonzero(kernels.LAUNCHES))
+
+        counted(lambda: dmb(x), "eager")
+        cast = dmb.get_submodule("fc1").input_casts["input_cast"]
+        cast.physical_dtype = torch.float16  # a mark no compiled forward may overwrite
+        fn = dmb.compiled()
+        t0 = time.perf_counter()
+        counted(lambda: fn(x), "first")
+        res["compile_s"] = time.perf_counter() - t0
+        counted(lambda: fn(x), "again")
+        res["mark"] = cast.physical_dtype
+        torch.save(res, out_path)
+    finally:
+        DmxModule.inference_mode = prev_mode
+
+
+def start_compiled_check(dev):
+    """Spawns :func:`compiled_check` on ``dev``; returns (its context, the
+    results' path, their directory)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "compiled.pt")
+    ctx = mp.start_processes(compiled_check, args=(dev.type, path), nprocs=1, join=False,
+                             start_method="spawn")
+    atexit.register(kill_world, ctx)  # a run that fails before model_api ends it
+    return ctx, path, tmp
+
+
+COMPILED_TIMEOUT = 600  # seconds model_api waits for the compiled() process
+
+
+def model_api_phase(torch, dev, kernels, cfg, compiled):
     """The model-level API on the card: configs/dmx_example_config_lenet5.yaml
     thawed onto LeNet-5 (logits against the model moved to the CPU), freeze
     and thaw round trips (the same bytes, the same outputs bit for bit),
-    ``compiled()`` of LeNet-5 in BASIC (torch.compile; T2 launches inside
-    the compiled forward as in eager, the output eager's, no diagnostic
-    state written), then ``monitoring`` and ``measure_runtimes`` over
-    OPT-125m in BASIC at QAT_CPU_LAYERS layers.  Returns the launches of
-    the counted runs."""
+    ``compiled()`` of LeNet-5 in BASIC (:func:`compiled_check` in the
+    process ``compiled`` from :func:`start_compiled_check`; T2 launches
+    inside the compiled forward as in eager, the output eager's, no
+    diagnostic state written), then ``monitoring`` and
+    ``measure_runtimes`` over OPT-125m in BASIC at QAT_CPU_LAYERS layers.
+    Returns the launches of the counted runs."""
     import copy
     import dataclasses
     from pathlib import Path
@@ -4255,23 +4361,27 @@ def model_api_phase(torch, dev, kernels, cfg):
                 raise AssertionError(f"model_api: the {what} LeNet-5's freeze / thaw round trip "
                                      f"changed it")
 
-        dmb = DmxModel.from_raw(LeNet5(device=dev, seed=0)).to_basic_mode()
+        ctx, path, _ = compiled
+        join_world(ctx, time.monotonic() + COMPILED_TIMEOUT, "model_api's compiled() process")
+        res = torch.load(path, weights_only=False)
         want_t2 = {"bfp_cast": LENET_BASIC_T2}
-        eager = counted(lambda: dmb(x_d), want_t2, "LeNet-5 in BASIC, eager")
-        cast = dmb.get_submodule("fc1").input_casts["input_cast"]
-        cast.physical_dtype = torch.float16  # a mark no compiled forward may overwrite
-        fn = dmb.compiled()
-        t0 = time.perf_counter()
-        first = counted(lambda: fn(x_d), want_t2, "LeNet-5 in BASIC, compiled (first call)")
-        compile_s = time.perf_counter() - t0
-        again = counted(lambda: fn(x_d), want_t2, "LeNet-5 in BASIC, compiled (second call)")
+        for what, label in (("eager", "eager"), ("first", "compiled (first call)"),
+                            ("again", "compiled (second call)")):
+            got = res[what][1]
+            log(f"model_api: LeNet-5 in BASIC, {label}: launches {got} (expected {want_t2})")
+            if got != want_t2:
+                raise AssertionError(f"model_api: LeNet-5 in BASIC, {label} did not launch the "
+                                     f"kernels the expected number of times")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        (eager, _), (first, _), (again, _) = res["eager"], res["first"], res["again"]
         err = max((first - eager).abs().max().item(), (again - eager).abs().max().item())
-        log(f"model_api: compiled() of LeNet-5 in BASIC: first call {compile_s:.1f} s with the "
-            f"compile; output vs eager max_abs_err={err:.3g} (expected 0); physical_dtype "
-            f"after the compiled forward {cast.physical_dtype} (its mark float16)")
+        log(f"model_api: compiled() of LeNet-5 in BASIC: first call {res['compile_s']:.1f} s with "
+            f"the compile; output vs eager max_abs_err={err:.3g} (expected 0); physical_dtype "
+            f"after the compiled forward {res['mark']} (its mark float16)")
         if not (torch.equal(first, eager) and torch.equal(again, eager)):
             raise AssertionError("model_api: the compiled forward is not eager's")
-        if cast.physical_dtype != torch.float16:
+        if res["mark"] != torch.float16:
             raise AssertionError("model_api: the compiled forward wrote diagnostic state")
 
         cut = dataclasses.replace(cfg, num_hidden_layers=QAT_CPU_LAYERS)
@@ -4396,16 +4506,19 @@ def benchmarking_phase(torch, dev, kernels, cfg):
 # ---------------------------------------------------------------------------
 
 # the hf_head_dim80 path: OPT-2.7b's attention shape (hidden 2560 over 32
-# heads: head_dim 80; ffn 10240, its vocabulary) cut to 2 layers, batch 2
+# heads: head_dim 80; ffn 10240, its vocabulary) cut to 2 layers, HD80_BATCH prompts
 HD80 = dict(hidden_size=2560, ffn_dim=10240, num_attention_heads=32, num_hidden_layers=2,
             vocab_size=50272, max_position_embeddings=2048)
-HD80_BATCH, HD80_STEPS = 2, 15
+HD80_BATCH, HD80_STEPS = 1, 7
 HF_CPU_LAYERS = 2  # the hf_pipeline's card-vs-CPU check: OPT-125m's width at 2 layers
 HF_CPU_BATCH = 2  # ... over the first 2 prompts
 HF_CPU_STEPS = 7  # the prefill's logits and 7 teacher-forced steps' held
-# the directly built BASIC model's greedy tokens held against the pipeline's
-# first 16 (the same 192-slot cache; its host-bound step is ~10x raw's)
-HF_BASIC_HELD = 16
+# ... but 1 step for the BASIC build (on the CPU it BFP-casts every weight,
+# the head's 50272 x 768 among them, at every forward)
+HF_BASIC_CPU_STEPS = 1
+# the BASIC build generates 8 tokens (its host-bound step is ~10x raw's),
+# held against the directly built BASIC model's over the same 136-slot cache
+HF_BASIC_HELD = 8
 HF_SAMPLED = 16  # the sampled generations' new tokens
 CKPT_STEPS = 4  # checkpoint_resume: 4 Adam steps, save, restore, 4 more
 # numpy dtype -> the safetensors code
@@ -4668,10 +4781,12 @@ def hf_pipeline_path(torch, dev, kernels):
                                       dmx_config=dmx_config)
                 else:
                     target = pipes["safetensors"]
+                # the BASIC build (~0.23 s a step) generates the tokens it holds
+                new = HF_BASIC_HELD if name == "basic" else GEN
                 got, launched, wall = hf_generate(torch, kernels, build, target, ids.to(dev),
-                                                  GEN, True)
-                want = hf_launches(name, cfg, PROMPT, GEN)
-                log(f"hf_pipeline {name}: {GEN} tokens, {wall:.3f} ms a step wall (host clock, "
+                                                  new, True)
+                want = hf_launches(name, cfg, PROMPT, new)
+                log(f"hf_pipeline {name}: {new} tokens, {wall:.3f} ms a step wall (host clock, "
                     f"the prefill's share included), launches {launched} (expected {want})")
                 if launched != want:
                     raise AssertionError(f"hf_pipeline {name}: the generation did not launch "
@@ -4687,8 +4802,8 @@ def hf_pipeline_path(torch, dev, kernels):
                 direct = direct_opt(torch, cfg, tensors, dev)
                 built = direct_build(direct)
                 if name == "basic":
-                    held = min(HF_BASIC_HELD, GEN)
-                    ref = held_greedy(torch, built.module, ids.to(dev), PROMPT + GEN, held)
+                    held = new
+                    ref = held_greedy(torch, built.module, ids.to(dev), PROMPT + new, held)
                 else:
                     held = GEN
                     dtarget = direct if name == "weights" else _DirectPipe(built.module)
@@ -4736,6 +4851,7 @@ def hf_pipeline_path(torch, dev, kernels):
             d = write_opt_checkpoint(torch, root, cut, cut_t, ("safetensors",))["safetensors"]
             for build in hf_builds():
                 name, dmx_config, direct_build, quantized = build
+                steps = HF_BASIC_CPU_STEPS if name == "basic" else HF_CPU_STEPS
                 rows = []
                 for where in (dev, torch.device("cpu")):  # the card's tokens first
                     DmxModule.inference_mode = False
@@ -4748,13 +4864,13 @@ def hf_pipeline_path(torch, dev, kernels):
                     if not rows:
                         toks, _, _ = hf_generate(torch, kernels, build, m if name == "weights"
                                                  else _DirectPipe(m), cpu_ids.to(dev),
-                                                 HF_CPU_STEPS + 1, True)
+                                                 steps + 1, True)
                     rows.append(teacher_forced(torch, m, cpu_ids, toks, quantized is not False,
-                                               HF_CPU_STEPS))
+                                               steps))
                     del m
                 errs[name] = float((rows[0] - rows[1]).abs().max())
                 log(f"hf_pipeline {name} card vs CPU at {HF_CPU_LAYERS} layers, {HF_CPU_BATCH} "
-                    f"rows: the prefill's and {HF_CPU_STEPS} teacher-forced steps' logits max "
+                    f"rows: the prefill's and {steps} teacher-forced steps' logits max "
                     f"|diff| {errs[name]:.3g} (tolerance {tol[name]})")
                 if not errs[name] <= tol[name]:
                     raise AssertionError(f"hf_pipeline {name}: the card disagrees with the CPU")
@@ -4810,9 +4926,9 @@ def head_dim80_kernels(torch, dev):
         case = dict(kernel="flash_attention", shape=[B * H, L, L, D], max_abs_err=err,
                     ms=time_ms(torch, lambda q, k, v: flash_attention(q, k, v, causal=True),
                                sets),
-                    plain_ms=time_ms(torch, lambda q, k, v: flash_attention_ref(q, k, v,
-                                                                                causal=True),
-                                     sets, PLAIN_ITERS),
+                    plain_ms=time_plain(torch, lambda q, k, v: flash_attention_ref(q, k, v,
+                                                                                   causal=True),
+                                        sets),
                     library_ms=time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
                         q, k, v, is_causal=True), sets),
                     bound_ms=bound_ms, bound_by=by)
@@ -4832,7 +4948,7 @@ def head_dim80_kernels(torch, dev):
         bound_ms, by = bound(*b4_bytes_flops(B, H, H, D, [fill] * B))
         case = dict(kernel="flash_decode", shape=[B, H, H, S, D], lengths=fill, max_abs_err=err,
                     ms=time_ms(torch, flash_decode, f_sets),
-                    plain_ms=time_ms(torch, flash_decode_ref, f_sets, PLAIN_ITERS),
+                    plain_ms=time_plain(torch, flash_decode_ref, f_sets),
                     library_ms=time_ms(torch, lambda q, k, v, _: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=mask), f_sets),
                     bound_ms=bound_ms, bound_by=by)
@@ -4853,7 +4969,7 @@ def head_dim80_kernels(torch, dev):
         bound_ms, by = bound(*b2_bytes_flops(B, H, H, D, [fill] * B))
         cases.append(dict(kernel="flash_decode_int8", shape=[B, H, H, S, D], lengths=fill,
                           max_abs_err=err, ms=time_ms(torch, flash_decode_int8, q_sets),
-                          plain_ms=time_ms(torch, flash_decode_int8_ref, q_sets, PLAIN_ITERS),
+                          plain_ms=time_plain(torch, flash_decode_int8_ref, q_sets),
                           library_ms=time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
                               q, k, v, attn_mask=mask), deq),
                           bound_ms=bound_ms, bound_by=by))
@@ -5383,9 +5499,14 @@ def intercept_phase(torch, dev, kernels, cfg):
 # ---------------------------------------------------------------------------
 
 PAR_TP = 2  # OPT-125m over tp 2: heads 6 a rank; B1 at N 1152 / K 384 / N 1536 / K 1536 / N 25136
+# OPT-125m's tp paths (prefill, engine, checkpoint, BASIC, the NCCL rank,
+# scaling_bench) at full width and this many layers (TinyLlama-1.1B runs
+# the tp path at full depth); the pipeline keeps all 12 BASIC layers
+PAR_OPT_LAYERS = 2
 PAR_RANKS = 2
 PAR_TIMEOUT = 900  # seconds the world may take before its ranks are killed and the run fails
 PAR_BURST = 16  # the engine's decode forwards a dispatch
+PAR_GEN = 32  # the OPT engine's new tokens a request
 PAR_CKPT_STEPS = 8  # the restored model's greedy tokens: the prefill's and 7 steps'
 PIPE_MICRO = 4  # pipeline_forward: 4 microbatches of 2 x PROMPT over pp 2
 # the pipeline against the sequential BASIC layers on the card: the same
@@ -5412,23 +5533,35 @@ def tp2_linear_shapes(cfg):
 
 def check_b1_tp2(torch, dev, cfg):
     """B1 at a tp-2 rank's shard shapes (decode M = BATCH and prefill M =
-    BATCH x PROMPT), and one decode step's launches of a rank."""
+    BATCH x PROMPT), and one decode step's launches of a rank as the
+    parallel phase makes them: OPT-125m's (at PAR_OPT_LAYERS), then
+    TinyLlama's (22 layers), gemma-2b's and qwen3-0.6b's (at
+    PAR_FAMILY_LAYERS).  Returns ({model: its step}, the cases)."""
+    import dataclasses
+
     from dmx_compressor_tpu_torch.ops.bfp_linear import bfp_linear, bfp_linear_ref
     from dmx_compressor_tpu_torch.ops.bfp_pack import bfp_pack, bfp_unpack
 
-    step, cases = check_linear(
-        torch, dev, "B1 bfp_linear (tp 2 shard)", bfp_linear, bfp_linear_ref,
-        lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, tp2_linear_shapes(cfg), [],
-        B1_TOL, seed=40, planes=3)
-    for c in cases:
-        c["path"] = "parallel_tp2"
-    return step, cases
+    cfg = dataclasses.replace(cfg, num_hidden_layers=PAR_OPT_LAYERS)
+    fc = par_family_configs()
+    steps, cases = {}, []
+    for seed, (name, shapes) in zip((40, 42, 44, 46), (
+            ("opt", tp2_linear_shapes(cfg)),
+            *((f, family_tp2_linear_shapes(fc[f])) for f in ("llama", "gemma", "qwen3")))):
+        steps[name], got = check_linear(
+            torch, dev, f"B1 bfp_linear (tp 2 shard, {name})", bfp_linear, bfp_linear_ref,
+            lambda w: bfp_pack(w, 8, 64), bfp_unpack, b1_bytes, shapes, [], B1_TOL, seed=seed,
+            planes=3)
+        for c in got:
+            c["path"] = "parallel_tp2" if name == "opt" else f"parallel_{name}_tp2"
+        cases += got
+    return steps, cases
 
 
 def parallel_requests(cfg):
     from dmx_compressor_tpu_torch.examples import serving_bench as sb
 
-    return sb.make_requests(cfg.vocab_size, BATCH, PROMPT, GEN, spread=False)
+    return sb.make_requests(cfg.vocab_size, BATCH, PROMPT, PAR_GEN, spread=False)
 
 
 def parallel_prompt_ids(torch, cfg, dev):
@@ -5468,17 +5601,21 @@ def parallel_references(torch, dev, kernels, cfg, capacity):
     return ref
 
 
-def _rank_engine(torch, kernels, dist, model, cfg, ref, rank, card):
-    """The engine over this rank's shard: the closed loop of the BATCH
-    requests, its launches counted, its tokens held against the unsharded
-    isolated generation and equal on both ranks, tokens/s and the device
-    time of one steady dispatch."""
+def _rank_engine(torch, kernels, dist, model, cfg, ref, rank, card, requests, name="engine",
+                 b3_per_admission=True, burst=PAR_BURST, profile=True):
+    """The engine over this rank's shard: the closed loop of ``requests``,
+    its launches counted (an admission's int8 prefill launches B3 where
+    ``b3_per_admission``: OPT's routing; the Llama topology's attends
+    through ``quantized_sdpa``), its tokens held against the unsharded
+    isolated generation (``ref["iso"]``, ``ref["margins"]``) and equal on
+    both ranks, its step time, the collectives' times and, where
+    ``profile``, the device time of one more dispatch of ``burst`` forwards
+    over the requests submitted again."""
     from dmx_compressor_tpu_torch.examples import serving_bench as sb
 
     L = cfg.num_hidden_layers
-    requests = parallel_requests(cfg)
-    eng = sb.make_engine(model, True, requests, PROMPT, BATCH, PAR_BURST, None, 1, depth=1)
-    eng.warmup(PAR_BURST)
+    eng = sb.make_engine(model, True, requests, PROMPT, BATCH, burst, None, 1, depth=1)
+    eng.warmup(burst)
     torch.cuda.synchronize()
     dispatches = [0]
     real = eng._dispatch
@@ -5489,41 +5626,49 @@ def _rank_engine(torch, kernels, dist, model, cfg, ref, rank, card):
 
     eng._dispatch = dispatch
     kernels.reset_launches()
-    stats = sb.closed_loop(eng, requests, PAR_BURST)
+    stats = sb.closed_loop(eng, requests, burst)
     torch.cuda.synchronize()
     launches = nonzero(kernels.LAUNCHES)
     eng._dispatch = real
     adm = sum(st["admissions"] for st in stats["steps"])
-    forwards = dispatches[0] * PAR_BURST
-    want = {"bfp_linear": (4 * L + 1) * (adm + forwards), "flash_attention": L * adm,
-            "flash_decode_int8": L * forwards}
-    log(f"parallel rank {rank}: engine {adm} admissions, {dispatches[0]} dispatches of "
-        f"{PAR_BURST} forwards; launches {launches} (expected {want})")
+    forwards = dispatches[0] * burst
+    want = {"bfp_linear": (4 * L + 1) * (adm + forwards), "flash_decode_int8": L * forwards}
+    if b3_per_admission:
+        want["flash_attention"] = L * adm
+    log(f"parallel rank {rank}: {name} {adm} admissions, {dispatches[0]} dispatches of "
+        f"{burst} forwards; launches {launches} (expected {want})")
     if launches != want:
-        raise AssertionError(f"rank {rank}: the sharded engine did not launch the kernels the "
+        raise AssertionError(f"rank {rank}: the sharded {name} did not launch the kernels the "
                              "expected number of times")
     fin = {r.request_id: r for r in eng.finished}
     got = {i: fin[rid].tokens for i, rid in enumerate(stats["rids"])}
-    held = hold_tokens(f"parallel rank {rank} engine", "the unsharded isolated generation",
+    held = hold_tokens(f"parallel rank {rank} {name}", "the unsharded isolated generation",
                        got, ref["iso"], ref["margins"], KV8_TOL)
     both = [None] * dist.get_world_size()
     dist.all_gather_object(both, got)
     if any(b != got for b in both):
         raise AssertionError("the ranks' engines emitted other tokens")
     sm = sb.summary(stats)
-    for prompt, _ in requests:
-        sb.submit(eng, prompt, GEN)
-    eng.step(PAR_BURST)
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        events = device_events(torch, lambda: eng._dispatch(PAR_BURST, False))
-    busy_ms = sum(us for _, us in events) / 1e3
+    busy_ms = None
+    if profile:
+        for prompt, gen in requests:
+            sb.submit(eng, prompt, gen)
+        eng.step(burst)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            events = device_events(torch, lambda: eng._dispatch(burst, False))
+        busy_ms = sum(us for _, us in events) / 1e3
     coll = _rank_collectives(torch, dist, model, cfg)
     per_forward = 2 * L + 1  # out_proj's and fc2's all-reduce a layer, the embedding's
-    step_coll_ms = (per_forward * coll["all_reduce_ms"] + coll["all_gather_ms"]) * PAR_BURST
-    log(f"parallel rank {rank} engine on {card}: {sm['tokens_per_s']:.1f} tokens/s, steady "
-        f"step p50 {sm['steady_p50_step_ms']:.3f} ms ({PAR_BURST} forwards), its device busy "
-        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / sm['steady_p50_step_ms']:.3f}); gloo "
+    step_coll_ms = (per_forward * coll["all_reduce_ms"] + coll["all_gather_ms"]) * burst
+    # a loop of a dispatch or two has no steady state: its step is overhead, not a rate
+    rate = (f"{sm['tokens_per_s']:.1f} tokens/s, steady step p50" if dispatches[0] > 2 else
+            f"{dispatches[0]} dispatch(es), no steady state (overhead, not a rate): step")
+    busy = ("device busy not measured" if busy_ms is None else
+            f"a dispatch's device busy {busy_ms:.3f} ms (idle share "
+            f"{1 - busy_ms / sm['steady_p50_step_ms']:.3f})")
+    log(f"parallel rank {rank} {name} on {card}: {rate} {sm['steady_p50_step_ms']:.3f} ms "
+        f"({burst} forwards, {sm['steady_p50_step_ms'] / burst:.3f} ms a forward), {busy}; gloo "
         f"over the shared card: an all-reduce of [{BATCH}, 1, {cfg.hidden_size}] "
         f"{coll['all_reduce_ms']:.3f} ms, an all-gather of the head's [{BATCH}, 1, "
         f"{cfg.vocab_size // PAR_TP}] {coll['all_gather_ms']:.3f} ms (host clock): "
@@ -5649,7 +5794,383 @@ def _rank_ring(torch, dev, rank):
     return dict(max_abs_err=err, seconds=ring_s, plain_seconds=plain_s)
 
 
-def _parallel_body(torch, dist, rank, tmp, card, cfg, dev):
+# the other families over tp 2 beside OPT-125m: TinyLlama-1.1B (bench.py's
+# llama-1.1b) at full width and depth, its engine's requests PAR_LLAMA_GEN
+# tokens long in bursts of PAR_LLAMA_BURST (no steady dispatch profiled:
+# its closed loop is one dispatch), its checkpoint's greedy run
+# PAR_LLAMA_CKPT_STEPS tokens (each forward makes 2L + 1 = 45 gloo
+# all-reduces: ~0.4 s a forward with the ranks sharing the card);
+# gemma-2b, qwen3-0.6b and mistral-1b at full width and PAR_FAMILY_LAYERS;
+# whisper-small at WHISPER_LAYERS + WHISPER_LAYERS, PAR_WHISPER_STEPS greedy
+# tokens; t5-small and LeNet-5 whole, one forward
+PAR_LLAMA_GEN = PAR_LLAMA_BURST = 8
+PAR_LLAMA_CKPT_STEPS = 2
+PAR_FAMILY_LAYERS = 2
+PAR_WHISPER_STEPS = 4
+PAR_FAMILIES = ("gemma", "qwen3", "mistral")
+
+
+def par_family_configs():
+    import dataclasses
+
+    from dmx_compressor_tpu_torch.models.gemma import GemmaConfig
+    from dmx_compressor_tpu_torch.models.llama import LlamaConfig
+    from dmx_compressor_tpu_torch.models.mistral import MistralConfig
+    from dmx_compressor_tpu_torch.models.qwen3 import Qwen3Config
+
+    cfgs = {f: dataclasses.replace(c, num_hidden_layers=PAR_FAMILY_LAYERS) for f, c in (
+        ("gemma", GemmaConfig.gemma_2b()), ("qwen3", Qwen3Config.qwen3_0_6b()),
+        ("mistral", MistralConfig.mistral_1b()))}
+    s2s = seq2seq_configs()
+    return {"llama": LlamaConfig.llama_1_1b(), **cfgs, "t5": s2s["t5"],
+            "whisper": seq2seq_layers(s2s["whisper"], "whisper", WHISPER_LAYERS)}
+
+
+def family_model(family, cfg, dev, seed=0):
+    """The raw model of ``family`` at ``cfg`` on ``dev``, weights from ``seed``."""
+    from dmx_compressor_tpu_torch.models import gemma, lenet, llama, mistral, qwen3, t5, whisper
+
+    if family == "lenet":
+        return lenet.LeNet5(device=dev, seed=seed)
+    cls = {"llama": llama.LlamaForCausalLM, "gemma": gemma.GemmaForCausalLM,
+           "qwen3": qwen3.Qwen3ForCausalLM, "mistral": mistral.MistralForCausalLM,
+           "whisper": whisper.WhisperForConditionalGeneration,
+           "t5": t5.T5ForConditionalGeneration}[family]
+    return cls(cfg, device=dev, seed=seed)
+
+
+def tp_kv_heads(Hkv):
+    """A tp-2 rank's KV heads: its share where they divide over tp, else the
+    one its query heads read (replicated over the ranks that share it)."""
+    return Hkv // PAR_TP if Hkv % PAR_TP == 0 else 1
+
+
+def family_tp2_shapes(cfg):
+    """A tp-2 rank's shards of a Llama-topology family in weights mode: each
+    packed payload's (rows, K) and the attention's (query, KV) heads."""
+    d, m = cfg.hidden_size, cfg.intermediate_size
+    H, Hkv, D = family_heads(cfg)
+    q = H * D // PAR_TP
+    return {"qkv_merged": (q + 2 * tp_kv_heads(Hkv) * D, d), "o_proj": (d, q),
+            "gateup_merged": (2 * m // PAR_TP, d), "down_proj": (d, m // PAR_TP),
+            "lm_head": (cfg.vocab_size // PAR_TP, d), "heads": (H // PAR_TP, tp_kv_heads(Hkv))}
+
+
+def family_tp2_linear_shapes(cfg):
+    """(K, N, launches per forward) of a tp-2 rank's packed linears."""
+    s, L = family_tp2_shapes(cfg), cfg.num_hidden_layers
+    return ([(s[k][1], s[k][0], L) for k in ("qkv_merged", "o_proj", "gateup_merged", "down_proj")]
+            + [(s["lm_head"][1], s["lm_head"][0], 1)])
+
+
+def shard_shapes(model):
+    """A sharded Llama-topology model's shards, as family_tp2_shapes gives them."""
+    attn, mlp = model.model.layers[0].self_attn, model.model.layers[0].mlp
+    shapes = {k: tuple(m.weight_mantissa.shape) for k, m in (
+        ("qkv_merged", attn.qkv_merged), ("o_proj", attn.o_proj),
+        ("gateup_merged", mlp.gateup_merged), ("down_proj", mlp.down_proj),
+        ("lm_head", model.lm_head))}
+    return {**shapes, "heads": (attn.num_heads, attn.num_kv_heads)}
+
+
+def family_prompt_ids(torch, cfg, dev):
+    """BATCH prompts of PROMPT ids in ``cfg``'s vocabulary (serving_bench's)."""
+    from dmx_compressor_tpu_torch.examples import serving_bench as sb
+
+    import numpy as np
+
+    return torch.from_numpy(np.stack([p for p, _ in sb.make_requests(
+        cfg.vocab_size, BATCH, PROMPT, 1, spread=False)])).to(dev)
+
+
+def llama_requests(cfg):
+    from dmx_compressor_tpu_torch.examples import serving_bench as sb
+
+    return sb.make_requests(cfg.vocab_size, BATCH, PROMPT, PAR_LLAMA_GEN, spread=False)
+
+
+def whisper_run(torch, model, cfg, dev):
+    """whisper-small's greedy loop over BATCH rows of features: the start
+    tokens prefilled into an int8 cache, PAR_WHISPER_STEPS tokens.  Returns
+    (tokens [B, n], each step's logits [n, B, V])."""
+    from dmx_compressor_tpu_torch.models.shared import seq2seq_greedy
+
+    start = S2S_START["whisper"]
+    x = torch.from_numpy(seq2seq_inputs("whisper", cfg)).to(dev)
+    ids = torch.tensor([start] * BATCH, dtype=torch.int32, device=dev)
+    caches = model.init_cache(BATCH, len(start) + PAR_WHISPER_STEPS, quantized=True, device=dev)
+    with torch.no_grad():
+        return seq2seq_greedy(model, caches, model.encode(x), ids, PAR_WHISPER_STEPS)
+
+
+def replicated_inputs(torch, family, cfg, dev):
+    """The forward's inputs of the families that stay replicated as JAX
+    places them: t5-small's encoder ids and start id, LeNet-5's images."""
+    import numpy as np
+
+    if family == "t5":
+        return (torch.from_numpy(seq2seq_inputs("t5", cfg)).to(dev),
+                torch.tensor([S2S_START["t5"]] * BATCH, dtype=torch.int32, device=dev))
+    return (torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (LENET_BATCH, 1, 28, 28), np.float32)).to(dev),)
+
+
+def build_family(family, cfg, dev, mode, seed=0):
+    from dmx_compressor_tpu_torch.ops.compress import build_basic_mode, build_weights_mode
+
+    model = family_model(family, cfg, dev, seed)
+    (build_basic_mode if mode == "basic" else build_weights_mode)(model)
+    return model
+
+
+def family_references(torch, dev, kernels, capacity):
+    """The unsharded card runs the ranks' families are held against:
+    TinyLlama's weights prefill (no cache: B1 and B3), its isolated
+    generation (int8 caches) and its BASIC forward; gemma-2b's, qwen3-0.6b's
+    and mistral-1b's weights prefill; whisper-small's greedy loop; t5-small's
+    weights forward and LeNet-5's BASIC forward; the last position's logits
+    and the launches of each."""
+    fc = par_family_configs()
+    ref = {}
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, nonzero(kernels.LAUNCHES)
+
+    with torch.no_grad():
+        for family, mode in (("llama", "weights"), ("llama", "basic"),
+                             *((f, "weights") for f in PAR_FAMILIES)):
+            cfg = fc[family]
+            model = build_family(family, cfg, dev, mode)
+            ids = family_prompt_ids(torch, cfg, dev)
+            logits, launches = counted(lambda: model(ids)[:, -1])
+            ref[family, mode] = dict(logits=logits.cpu(), launches=launches)
+            if (family, mode) == ("llama", "weights"):
+                ref[family, mode]["iso"], ref[family, mode]["margins"] = isolated_generation(
+                    torch, model, llama_requests(cfg), capacity, True, dev)
+            del model
+            torch.cuda.empty_cache()
+        model = build_family("whisper", fc["whisper"], dev, "weights")
+        (toks, rows), launches = counted(lambda: whisper_run(torch, model, fc["whisper"], dev))
+        top2 = rows.topk(2, dim=-1).values
+        ref["whisper", "weights"] = dict(tokens=toks.cpu(), logits=rows[0].cpu(),
+                                         margins=(top2[..., 0] - top2[..., 1]).T.cpu(),
+                                         launches=launches)
+        for family, mode in (("t5", "weights"), ("lenet", "basic")):
+            model = build_family(family, fc.get(family), dev, mode)
+            x = replicated_inputs(torch, family, fc.get(family), dev)
+            logits, launches = counted(lambda: model(*x))
+            ref[family, mode] = dict(logits=logits.cpu(), launches=launches)
+        del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+class _Warnings(logging.Handler):
+    """The warnings ``parallel.mesh`` logs (its fallbacks)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def shard_logged(model, mesh):
+    """``shard_state(model, mesh)``; returns the placement and what it logged."""
+    from dmx_compressor_tpu_torch.parallel import shard_state
+
+    handler = _Warnings()
+    logger = logging.getLogger("dmx_compressor_tpu_torch.parallel.mesh")
+    logger.addHandler(handler)
+    try:
+        return shard_state(model, mesh), handler.messages
+    finally:
+        logger.removeHandler(handler)
+
+
+def _rank_llama(torch, dist, kernels, rank, tmp, card, dev, mesh, ref):
+    """TinyLlama-1.1B at full width and depth over tp 2: weights mode's shard
+    shapes, its prefill (B1 4L+1, B3 L), the engine over it (B1 4L+1 and B2
+    L a forward), the sharded checkpoint (its merged q/k/v saved part by
+    part where it has replicated KV heads; here its 2 KV heads a rank are
+    sliced), then the BASIC forward (T1 and T2 as the unsharded forward)."""
+    from dmx_compressor_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    cfg = par_family_configs()["llama"]
+    L = cfg.num_hidden_layers
+    ids = family_prompt_ids(torch, cfg, dev)
+    out, by_path = {}, {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = build_family("llama", cfg, dev, "weights")
+        placement, _ = shard_logged(model, mesh)
+    shapes, want_shapes = shard_shapes(model), family_tp2_shapes(cfg)
+    log(f"parallel rank {rank}: TinyLlama {cfg.hidden_size}x{L} weights mode sharded tp {PAR_TP} "
+        f"in {time.perf_counter() - t0:.2f} s; {sum(any(p) for p in placement.values())} sharded "
+        f"keys; shard shapes {shapes}")
+    if shapes != want_shapes:
+        raise AssertionError(f"rank {rank}: TinyLlama's shard shapes {shapes}, expected "
+                             f"{want_shapes}")
+    with torch.no_grad():
+        kernels.reset_launches()
+        logits = model(ids)[:, -1]
+        torch.cuda.synchronize()
+    launches = nonzero(kernels.LAUNCHES)
+    want = {"bfp_linear": 4 * L + 1, "flash_attention": L}
+    err = (logits.cpu() - ref["llama", "weights"]["logits"]).abs().max().item()
+    log(f"parallel rank {rank}: TinyLlama's sharded prefill launches {launches} (expected "
+        f"{want}); last logits max_abs_err={err:.3g} against the unsharded card prefill "
+        f"(tolerance {LOGIT_TOL})")
+    if launches != want or not err <= LOGIT_TOL:
+        raise AssertionError(f"rank {rank}: TinyLlama's sharded weights prefill is wrong")
+    by_path["parallel_llama_prefill"], out["llama_prefill_err"] = launches, err
+    by_path["parallel_llama_engine"], out["llama_engine"] = _rank_engine(
+        torch, kernels, dist, model, cfg, ref["llama", "weights"], rank, card,
+        llama_requests(cfg), name="TinyLlama engine", b3_per_admission=False,
+        burst=PAR_LLAMA_BURST, profile=False)
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(tmp, "ckpt_llama"), model, step=5)
+    with torch.no_grad():
+        other = build_family("llama", cfg, dev, "weights", seed=1)
+        shard_logged(other, mesh)
+    step, _ = restore_checkpoint(os.path.join(tmp, "ckpt_llama"), other)
+    a, b = (_greedy(torch, model, ids, PAR_LLAMA_CKPT_STEPS),
+            _greedy(torch, other, ids, PAR_LLAMA_CKPT_STEPS))
+    log(f"parallel rank {rank}: TinyLlama's sharded checkpoint saved and restored (step {step}) "
+        f"in {time.perf_counter() - t0:.2f} s; {a.numel()} greedy tokens "
+        f"{'equal' if torch.equal(a, b) else 'DIFFER'}")
+    if step != 5 or not torch.equal(a, b):
+        raise AssertionError(f"rank {rank}: TinyLlama's sharded checkpoint did not restore it")
+    del model, other
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        model = build_family("llama", cfg, dev, "basic")
+        shard_logged(model, mesh)
+        kernels.reset_launches()
+        logits = model(ids)[:, -1]
+        torch.cuda.synchronize()
+    launches = nonzero(kernels.LAUNCHES)
+    want = ref["llama", "basic"]["launches"]
+    err = (logits.cpu() - ref["llama", "basic"]["logits"]).abs().max().item()
+    log(f"parallel rank {rank}: TinyLlama's sharded BASIC forward launches {launches} (the "
+        f"unsharded forward's {want}); last logits max_abs_err={err:.3g} against the unsharded "
+        f"card forward (tolerance {BASIC_LOGIT_TOL})")
+    if launches != want or not err <= BASIC_LOGIT_TOL:
+        raise AssertionError(f"rank {rank}: TinyLlama's sharded BASIC forward is wrong")
+    by_path["parallel_llama_basic"], out["llama_basic_err"] = launches, err
+    del model
+    torch.cuda.empty_cache()
+    return by_path, out
+
+
+def _rank_families(torch, dist, kernels, rank, dev, mesh, ref):
+    """gemma-2b (MQA: its one KV head replicated), qwen3-0.6b and mistral-1b
+    at full width over tp 2: shard shapes, the weights prefill's launches
+    and last logits; whisper-small's greedy loop (6 heads a rank, the cross
+    K/V at N 384, its odd vocabulary replicated and logged); t5-small (its
+    linears replicated, its table sharded as JAX's rules place
+    ``decoder.embed_tokens``) and LeNet-5 (replicated: fc2's 60 local inputs
+    would cut a block), one forward each."""
+    fc = par_family_configs()
+    out, by_path = {}, {}
+    for family in PAR_FAMILIES:
+        cfg = fc[family]
+        L = cfg.num_hidden_layers
+        ids = family_prompt_ids(torch, cfg, dev)
+        with torch.no_grad():
+            model = build_family(family, cfg, dev, "weights")
+            shard_logged(model, mesh)
+            kernels.reset_launches()
+            logits = model(ids)[:, -1]
+            torch.cuda.synchronize()
+        launches = nonzero(kernels.LAUNCHES)
+        shapes, want_shapes = shard_shapes(model), family_tp2_shapes(cfg)
+        # mistral's band keeps its prefill off B3
+        want = {"bfp_linear": 4 * L + 1, **({"flash_attention": L} if family != "mistral" else {})}
+        err = (logits.cpu() - ref[family, "weights"]["logits"]).abs().max().item()
+        log(f"parallel rank {rank}: {family} {cfg.hidden_size}x{L} over tp {PAR_TP}: shard shapes "
+            f"{shapes} (expected {want_shapes}); prefill launches {launches} (expected {want}); "
+            f"last logits max_abs_err={err:.3g} against the unsharded card prefill (tolerance "
+            f"{LOGIT_TOL})")
+        if shapes != want_shapes or launches != want or not err <= LOGIT_TOL:
+            raise AssertionError(f"rank {rank}: {family}'s sharded weights prefill is wrong")
+        by_path[f"parallel_{family}_prefill"], out[f"{family}_prefill_err"] = launches, err
+        del model
+        torch.cuda.empty_cache()
+    cfg = fc["whisper"]
+    with torch.no_grad():
+        model = build_family("whisper", cfg, dev, "weights")
+        _, messages = shard_logged(model, mesh)
+        kernels.reset_launches()
+        toks, rows = whisper_run(torch, model, cfg, dev)
+        torch.cuda.synchronize()
+    launches = nonzero(kernels.LAUNCHES)
+    r = ref["whisper", "weights"]
+    cross = tuple(model.model.decoder.layers[0].encoder_attn.k_proj.weight_mantissa.shape)
+    heads = {a.num_heads for a in model.modules() if hasattr(a, "num_heads")}
+    head = tuple(model.proj_out.weight_mantissa.shape)
+    vocab_logged = any("embed_tokens" in m and "vocabulary" in m for m in messages)
+    err = (rows[0].cpu() - r["logits"]).abs().max().item()
+    got = {i: t for i, t in enumerate(toks.cpu().tolist())}
+    held = hold_tokens(f"parallel rank {rank} whisper", "the unsharded greedy loop", got,
+                       {i: t for i, t in enumerate(r["tokens"].tolist())},
+                       {i: m for i, m in enumerate(r["margins"].tolist())}, KV8_TOL)
+    log(f"parallel rank {rank}: whisper-small {WHISPER_LAYERS} + {WHISPER_LAYERS} over tp "
+        f"{PAR_TP}: heads {heads}, the cross K/V's shard {cross}, proj_out {head} (the vocabulary "
+        f"of {cfg.vocab_size} replicated, logged: {vocab_logged}); launches {launches} (the "
+        f"unsharded loop's {r['launches']}); the prefill's last logits max_abs_err={err:.3g} "
+        f"(tolerance {LOGIT_TOL}), {held} tokens held")
+    if (heads != {cfg.decoder_attention_heads // PAR_TP} or cross != (cfg.d_model // PAR_TP,
+                                                                    cfg.d_model)
+            or head != (cfg.vocab_size, cfg.d_model) or not vocab_logged
+            or launches != r["launches"] or not err <= LOGIT_TOL):
+        raise AssertionError(f"rank {rank}: whisper-small over tp {PAR_TP} is wrong")
+    by_path["parallel_whisper"], out["whisper_prefill_err"] = launches, err
+    del model
+    for family, mode in (("t5", "weights"), ("lenet", "basic")):
+        cfg = fc.get(family)
+        with torch.no_grad():
+            model = build_family(family, cfg, dev, mode)
+            placement, messages = shard_logged(model, mesh)
+            x = replicated_inputs(torch, family, cfg, dev)
+            kernels.reset_launches()
+            logits = model(*x)
+            torch.cuda.synchronize()
+        launches = nonzero(kernels.LAUNCHES)
+        sharded = sorted({k.rsplit(".", 1)[0] for k, v in placement.items() if any(v)})
+        r = ref[family, mode]
+        err = (logits.cpu() - r["logits"]).abs().max().item()
+        # t5: only the table and its tied head shard; LeNet-5 not at all
+        want_sharded = (["decoder.embed_tokens", "encoder.embed_tokens", "lm_head", "shared"]
+                        if family == "t5" else [])
+        log(f"parallel rank {rank}: {family} {mode} over tp {PAR_TP}: sharded {sharded} "
+            f"(expected {want_sharded}), logged {messages[:2]}; launches {launches} (the "
+            f"unsharded forward's {r['launches']}); logits max_abs_err={err:.3g} against the "
+            f"unsharded card forward (tolerance {LOGIT_TOL if family == 't5' else 0})")
+        if (sharded != want_sharded or launches != r["launches"]
+                or not err <= (LOGIT_TOL if family == "t5" else 0.0)):
+            raise AssertionError(f"rank {rank}: {family} over tp {PAR_TP} is wrong")
+        by_path[f"parallel_{family}"], out[f"{family}_err"] = launches, err
+        del model
+    torch.cuda.empty_cache()
+    return by_path, out
+
+
+def wait_for(path):
+    """Waits until ``path`` exists (the parent writes it whole, by a
+    rename); the parent ends the rank if it waits past PAR_TIMEOUT."""
+    while not os.path.exists(path):
+        time.sleep(0.2)
+    return path
+
+
+def _parallel_body(torch, dist, rank, tmp, card, full_cfg, dev):
+    import dataclasses
+
     from dmx_compressor_tpu_torch import kernels
     from dmx_compressor_tpu_torch.examples import scaling_bench
     from dmx_compressor_tpu_torch.models.opt import OPTForCausalLM
@@ -5657,8 +6178,11 @@ def _parallel_body(torch, dist, rank, tmp, card, cfg, dev):
     from dmx_compressor_tpu_torch.parallel import make_mesh, shard_state
     from dmx_compressor_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
+    # OPT-125m's tp paths at PAR_OPT_LAYERS, its pipeline at full depth
+    cfg = dataclasses.replace(full_cfg, num_hidden_layers=PAR_OPT_LAYERS)
     L, d, f = cfg.num_hidden_layers, cfg.hidden_size, cfg.ffn_dim
-    ref = torch.load(os.path.join(tmp, "ref.pt"), weights_only=False)
+    # the parent computes the unsharded references while the ranks start
+    ref = torch.load(wait_for(os.path.join(tmp, "ref.pt")), weights_only=False)
     ids = parallel_prompt_ids(torch, cfg, dev)
     mesh = make_mesh((1, PAR_TP), ("dp", "tp"), device_type=dev.type)
     out, by_path = {}, {}
@@ -5699,7 +6223,7 @@ def _parallel_body(torch, dist, rank, tmp, card, cfg, dev):
         raise AssertionError(f"rank {rank}: the sharded weights prefill is wrong")
     del caches
     by_path["parallel_engine"], out["engine"] = _rank_engine(
-        torch, kernels, dist, model, cfg, ref, rank, card)
+        torch, kernels, dist, model, cfg, ref, rank, card, parallel_requests(cfg))
     out["weights_prefill_err"] = err
 
     # the sharded checkpoint: save, restore into a model of other weights
@@ -5739,8 +6263,14 @@ def _parallel_body(torch, dist, rank, tmp, card, cfg, dev):
     del model
     torch.cuda.empty_cache()
 
-    by_path["parallel_pipeline"], out["pipeline"] = _rank_pipeline(torch, kernels, dev, cfg,
-                                                                   rank)
+    # the Llama topology, Whisper, T5 and LeNet-5 over the same tp 2
+    for part in (_rank_llama(torch, dist, kernels, rank, tmp, card, dev, mesh, ref["families"]),
+                 _rank_families(torch, dist, kernels, rank, dev, mesh, ref["families"])):
+        by_path.update(part[0])
+        out.update(part[1])
+
+    by_path["parallel_pipeline"], out["pipeline"] = _rank_pipeline(torch, kernels, dev,
+                                                                   full_cfg, rank)
     torch.cuda.empty_cache()
     out["ring"] = _rank_ring(torch, dev, rank)
     torch.cuda.empty_cache()
@@ -5853,10 +6383,10 @@ def nccl_refused(msg: str) -> bool:
             and ("invalid usage" in msg or "Duplicate GPU" in msg))
 
 
-def nccl_two_ranks(torch, tmp):
-    """NCCL with two ranks on one card raises NCCL's own error, and the port
-    does not switch to gloo: both ranks' first collective must fail so
-    within NCCL_PROBE_TIMEOUT."""
+def start_nccl_two_ranks(tmp):
+    """Spawns the two NCCL probe ranks (:func:`nccl_two_ranks_rank`); they
+    run beside the gloo world.  Returns (their context, the deadline by
+    which both must have raised)."""
     import socket
 
     import torch.multiprocessing as mp
@@ -5866,13 +6396,29 @@ def nccl_two_ranks(torch, tmp):
         address = f"localhost:{sock.getsockname()[1]}"
     ctx = mp.start_processes(nccl_two_ranks_rank, args=(2, tmp, address), nprocs=2,
                              join=False, start_method="spawn")
-    deadline = time.monotonic() + NCCL_PROBE_TIMEOUT
-    while not ctx.join(timeout=5):
+    return ctx, time.monotonic() + NCCL_PROBE_TIMEOUT
+
+
+def join_world(ctx, deadline, what):
+    """Joins a spawned world; kills its processes and raises if it runs past
+    ``deadline``, raises a rank's failure as the spawn context does."""
+    while not ctx.join(timeout=1):
         if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise AssertionError(f"NCCL with two ranks on one card hung past "
-                                 f"{NCCL_PROBE_TIMEOUT} s instead of raising")
+            kill_world(ctx)
+            raise AssertionError(f"{what} hung past its time limit")
+
+
+def kill_world(ctx):
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+
+
+def nccl_two_ranks(tmp, probe):
+    """NCCL with two ranks on one card raises NCCL's own error, and the port
+    does not switch to gloo: both ranks' first collective (``probe``, from
+    :func:`start_nccl_two_ranks`) must fail so within NCCL_PROBE_TIMEOUT."""
+    join_world(*probe, "NCCL with two ranks on one card (instead of raising)")
     msgs = [open(os.path.join(tmp, f"nccl{r}.txt")).read() for r in range(2)]
     log(f"nccl with two ranks on one card: {msgs}")
     if not all(nccl_refused(m) for m in msgs):
@@ -5881,49 +6427,63 @@ def nccl_two_ranks(torch, tmp):
 
 
 def parallel_phase(torch, dev, kernels, cfg, card, setup=None):
-    """OPT-125m (full width and depth) over PAR_RANKS ranks sharing the card
-    (gloo, collectives of CUDA tensors through host memory): the weights
-    path's prefill and engine at tp 2, the sharded checkpoint, the BASIC
-    forward at tp 2, pipeline_forward at pp 2, ring_attention at sp 2 and
-    scaling_bench; then one NCCL rank through the tp path, and two NCCL
-    ranks on the card, which must raise.  Every rank holds
+    """OPT-125m (full width, PAR_OPT_LAYERS layers) over PAR_RANKS ranks
+    sharing the card (gloo, collectives of CUDA tensors through host
+    memory): the weights path's prefill and engine at tp 2, the sharded
+    checkpoint, the BASIC forward at tp 2; TinyLlama-1.1B the same way at full width and depth,
+    gemma-2b, qwen3-0.6b and mistral-1b prefills at full width, whisper-small,
+    t5-small and LeNet-5 (_rank_llama, _rank_families); pipeline_forward at
+    pp 2, ring_attention at sp 2 and scaling_bench; then one NCCL rank
+    through the tp path, and two NCCL ranks on the card, which must raise.  Every rank holds
     its own checks and counts its own launches; a rank that fails or hangs
     past PAR_TIMEOUT fails the phase.  Returns the launches by path and
-    rank, and the numbers."""
+    rank, and the numbers.  The NCCL probe's ranks and the gloo world start
+    first, and the parent computes the references while they start up."""
+    import dataclasses
     import tempfile
 
     import torch.multiprocessing as mp
 
-    requests = parallel_requests(cfg)
+    ocfg = dataclasses.replace(cfg, num_hidden_layers=PAR_OPT_LAYERS)
+    requests = parallel_requests(ocfg)
     capacity = PROMPT + max(g for _, g in requests) + PAR_BURST  # make_engine's max_len
-    t0 = time.perf_counter()
-    ref = parallel_references(torch, dev, kernels, cfg, capacity)
-    log(f"parallel: the unsharded references on the card in {time.perf_counter() - t0:.1f} s; "
-        f"prefill launches {ref['weights_launches']}, BASIC forward {ref['basic_launches']}")
-    by_path, numbers = {}, {}
+    by_path, numbers, worlds = {}, {}, []
     with tempfile.TemporaryDirectory() as tmp:
-        torch.save(ref, os.path.join(tmp, "ref.pt"))
-        t0 = time.perf_counter()
-        consts = {k: globals()[k] for k in ("BATCH", "PROMPT", "GEN", "CAPACITY", "RING",
-                                            "SCALING_SHAPES")}
-        consts["PAR_DEVICE"] = dev.type
-        ctx = mp.start_processes(parallel_rank, args=(PAR_RANKS, tmp, card, cfg, consts, setup),
-                                 nprocs=PAR_RANKS, join=False, start_method="spawn")
-        deadline = time.monotonic() + PAR_TIMEOUT
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise AssertionError(f"the parallel world hung past {PAR_TIMEOUT} s")
-        log(f"parallel: {PAR_RANKS} ranks ran in {time.perf_counter() - t0:.1f} s")
-        for r in range(PAR_RANKS):
-            res = torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for name, n in res["by_path"].items():
-                by_path[f"{name}_rank{r}"] = n
-            numbers[f"rank{r}"] = res["out"]
-        by_path["parallel_nccl_world1"] = nccl_world1(torch, dev, kernels, cfg, tmp)
-        if dev.type == "cuda":
-            numbers["nccl_two_ranks"] = nccl_two_ranks(torch, tmp)
+        try:
+            probe = start_nccl_two_ranks(tmp) if dev.type == "cuda" else None
+            worlds += [probe[0]] if probe else []
+            t0 = time.perf_counter()
+            consts = {k: globals()[k] for k in ("BATCH", "PROMPT", "GEN", "CAPACITY", "RING",
+                                                "SCALING_SHAPES", "PAR_OPT_LAYERS")}
+            consts["PAR_DEVICE"] = dev.type
+            ctx = mp.start_processes(parallel_rank,
+                                     args=(PAR_RANKS, tmp, card, cfg, consts, setup),
+                                     nprocs=PAR_RANKS, join=False, start_method="spawn")
+            worlds.append(ctx)
+            deadline = time.monotonic() + PAR_TIMEOUT
+            t1 = time.perf_counter()
+            ref = parallel_references(torch, dev, kernels, ocfg, capacity)
+            ref["families"] = family_references(torch, dev, kernels,
+                                                PROMPT + PAR_LLAMA_GEN + PAR_LLAMA_BURST)
+            torch.save(ref, os.path.join(tmp, "ref.part"))
+            os.replace(os.path.join(tmp, "ref.part"), os.path.join(tmp, "ref.pt"))
+            log(f"parallel: the unsharded references on the card in "
+                f"{time.perf_counter() - t1:.1f} s; prefill launches {ref['weights_launches']}, "
+                f"BASIC forward {ref['basic_launches']}; "
+                + "; ".join(f"{f} {m} {r['launches']}" for (f, m), r in ref["families"].items()))
+            join_world(ctx, deadline, "the parallel world")
+            log(f"parallel: {PAR_RANKS} ranks ran in {time.perf_counter() - t0:.1f} s")
+            for r in range(PAR_RANKS):
+                res = torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for name, n in res["by_path"].items():
+                    by_path[f"{name}_rank{r}"] = n
+                numbers[f"rank{r}"] = res["out"]
+            by_path["parallel_nccl_world1"] = nccl_world1(torch, dev, kernels, ocfg, tmp)
+            if probe:
+                numbers["nccl_two_ranks"] = nccl_two_ranks(tmp, probe)
+        finally:
+            for w in worlds:
+                kill_world(w)
     return by_path, numbers
 
 
@@ -6013,11 +6573,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     log(card)
+    # the profiler's first trace (CUPTI's start: ~8 s) runs while nvcc builds
+    first_trace = threading.Thread(target=device_trace,
+                                   args=(torch, lambda: torch.ones(1, device=dev).add_(1)))
+    first_trace.start()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
         f"device count {torch.cuda.device_count()}" + (f"; only {sorted(only)}" if only else ""))
 
     t0, took = time.perf_counter(), {}
     seconds = kernels.build()
+    first_trace.join()
     took_build = time.perf_counter() - t0
     log(f"kernels built in {took_build:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
@@ -6085,6 +6650,9 @@ def main(argv=None) -> int:
         with phase("B1 at the parallel tp2 shard shapes", took):
             b1_tp2 = check_b1_tp2(torch, dev, cfg)
 
+    # model_api's compiled() check compiles with Inductor in a process of its
+    # own while the serving paths run
+    compiled = start_compiled_check(dev) if run("model_api") else None
     by_path, tok_s = {}, {}
     fam_t2 = {}  # family or path -> (T2's per-step numbers, cases) at its recorded sites
     for spec in path_specs(cfg):
@@ -6124,7 +6692,7 @@ def main(argv=None) -> int:
                 with phase(f"T2 at the {name} sites", took):
                     fam_t2[family] = check_t2_sites(torch, dev, spec["t2_sites"],
                                                     spec["t2_step"], name,
-                                                    spec.get("t2_steps", 20))
+                                                    spec.get("t2_steps", STEP_ITERS))
         if f"{family}_baseline" in tok_s:
             log(f"bench.py's ratio for the {family} family, for information (host clock, batch "
                 f"{BATCH}, {card}): " + ", ".join(
@@ -6207,7 +6775,8 @@ def main(argv=None) -> int:
         log(f"qat_basic path on {card}: {json.dumps(qat)}")
     if run("model_api"):
         with phase("model_api", took):
-            by_path["model_api"] = {**every, **model_api_phase(torch, dev, kernels, cfg)}
+            by_path["model_api"] = {**every, **model_api_phase(torch, dev, kernels, cfg,
+                                                               compiled)}
     if run("benchmarking_examples"):
         with phase("benchmarking_examples", took):
             bench, bench_modes = benchmarking_phase(torch, dev, kernels, cfg)
@@ -6296,7 +6865,9 @@ def main(argv=None) -> int:
              max_abs_err=max(c["max_abs_err"] for c in b1 + b1_fam + b1_tp2[1]), **b1_step,
              **{f"{f}_step": fam_linears[f][0][0] for f in fam_linears},
              **{f"{f}_step": s2s_linears[f][0][0] for f in s2s_linears},
-             parallel_tp2_step=b1_tp2[0], cases=b1 + b1_fam + b1_tp2[1]),
+             parallel_tp2_step=b1_tp2[0]["opt"],
+             **{f"parallel_{f}_tp2_step": st for f, st in b1_tp2[0].items() if f != "opt"},
+             cases=b1 + b1_fam + b1_tp2[1]),
         dict(name="flash_decode_int8", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_decode_int8.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",

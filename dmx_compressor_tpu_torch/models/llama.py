@@ -345,10 +345,12 @@ class LlamaForCausalLM(nn.Module):
                    per_row: bool = False, split_base_len: Optional[int] = None, device=None):
         """One cache of the KV heads per layer, on the card unless
         ``device='cpu'``; ``per_row`` and ``split_base_len`` as
-        ``ops.kv_cache.make_caches``."""
+        ``ops.kv_cache.make_caches``.  The KV-head count is the attention's
+        own: the local one on a tensor-parallel rank."""
         cfg = self.cfg
+        attn = self.model.layers[0].self_attn
         return make_caches(
-            cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len,
-            head_dim_of(cfg), dtype or cfg.dtype,
+            cfg.num_hidden_layers, batch, attn.num_kv_heads, max_len,
+            attn.head_dim, dtype or cfg.dtype,
             quantized=quantized, split_base_len=split_base_len, device=device, per_row=per_row,
         )

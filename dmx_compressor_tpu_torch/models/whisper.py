@@ -148,7 +148,7 @@ class WhisperAttention(FrozenRouting, nn.Module):
 
     def forward(self, x, kv=None, attn_mask=None, cache=None,
                 prefill_offset: Optional[int] = None):
-        B, T, D = x.shape
+        B, T, _ = x.shape
         kv = x if kv is None else kv
         q = self._split(self.q_proj(x))
         k = self._split(self.k_proj(kv))
@@ -166,7 +166,8 @@ class WhisperAttention(FrozenRouting, nn.Module):
         if out is None:
             out = cached_attend(self.sdpa, q, k, v, cache, attn_mask, scale=self.scaling,
                                 transparent=transparent)
-        return self.out_proj(out.transpose(1, 2).reshape(B, T, D))
+        # the local heads' width on a tensor-parallel rank
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, self.num_heads * self.head_dim))
 
 
 class WhisperEncoderLayer(nn.Module):
@@ -318,10 +319,13 @@ class WhisperForConditionalGeneration(nn.Module):
     def init_cache(self, batch: int, max_len: int, dtype=None, quantized: bool = False,
                    per_row: bool = False, device=None):
         """The decoder's self-attention caches, one per layer, on the card
-        unless ``device='cpu'``; ``per_row`` as ``ops.kv_cache.make_caches``."""
+        unless ``device='cpu'``; ``per_row`` as ``ops.kv_cache.make_caches``.
+        The head count is the attention's own: the local one on a
+        tensor-parallel rank."""
         cfg = self.cfg
-        return make_caches(cfg.decoder_layers, batch, cfg.decoder_attention_heads, max_len,
-                           cfg.d_model // cfg.decoder_attention_heads, dtype or cfg.dtype,
+        attn = self.model.decoder.layers[0].self_attn
+        return make_caches(cfg.decoder_layers, batch, attn.num_heads, max_len, attn.head_dim,
+                           dtype or cfg.dtype,
                            quantized=quantized, device=device, per_row=per_row)
 
     def generate(self, input_features, decoder_start_ids, max_new_tokens: int = 32,

@@ -47,18 +47,20 @@ def exponent_with_sentinel(amax: torch.Tensor) -> torch.Tensor:
 
 
 def bfp_cast_with_exponents(xf: torch.Tensor, e_full: torch.Tensor, wl: int) -> torch.Tensor:
-    """Symmetric nearest BFP fake-quant of f32 ``xf`` given per-element
-    shared exponents (``e_full`` == -128: a zero block, passed through): the
-    reference rebase-add, whose f32 add rounds first, then the clamp to
-    (2 - 2^-(wl-2)) * 2^e of values that reached 2^(e+1)."""
+    """Symmetric nearest BFP fake-quant of f32 ``xf`` given shared exponents
+    per element or per block, broadcastable to ``xf`` (``e_full`` == -128: a
+    zero block, passed through): the reference rebase-add, whose f32 add
+    rounds first, then the clamp to (2 - 2^-(wl-2)) * 2^e of values that
+    reached 2^(e+1).  The powers of two are built at ``e_full``'s shape and
+    broadcast, so each element sees the same f32 operations either way."""
     zero = e_full == -128.0
     e = torch.where(zero, torch.zeros_like(e_full), e_full).to(torch.int32)
-    base = R._mul_pow2(torch.full_like(xf, 1.5), e + 2)
+    base = R._mul_pow2(torch.full_like(e_full, 1.5), e + 2)
     t = xf + base
     q = torch.round(R._mul_pow2(t, wl - 2 - e))
     q = R._mul_pow2(q, e + 2 - wl) - base
-    lim = R._mul_pow2(torch.ones_like(xf), e + 1)
-    maxv = (2.0 - 2.0 ** (-(wl - 2))) * R._mul_pow2(torch.ones_like(xf), e)
+    lim = R._mul_pow2(torch.ones_like(e_full), e + 1)
+    maxv = (2.0 - 2.0 ** (-(wl - 2))) * R._mul_pow2(torch.ones_like(e_full), e)
     q = torch.where(torch.abs(q) >= lim, torch.sign(q) * maxv, q)
     return torch.where(zero, xf, q)
 
@@ -70,8 +72,7 @@ def bfp_cast_ref(x: torch.Tensor, wl: int, block: int, axis: int = -1) -> torch.
     *lead, n = xf.shape
     xr = xf.reshape(*lead, n // block, block)
     amax = torch.amax(torch.abs(xr), dim=-1, keepdim=True)
-    e = torch.broadcast_to(exponent_with_sentinel(amax), xr.shape)
-    q = bfp_cast_with_exponents(xr, e, wl).reshape(xf.shape)
+    q = bfp_cast_with_exponents(xr, exponent_with_sentinel(amax), wl).reshape(xf.shape)
     return torch.movedim(q, -1, ax).to(x.dtype)
 
 

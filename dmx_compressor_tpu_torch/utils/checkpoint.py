@@ -22,8 +22,11 @@ A model sharded by ``parallel.shard_state`` (it carries ``tp_placement``)
 takes the sharded half: ``model/`` is a ``torch.distributed.checkpoint``
 directory that every rank writes its own shards into (``dcp.save``; each
 sharded tensor wrapped as a ``DTensor`` on the model's mesh for the save
-only, a replicated one written once), ``meta.json`` also records the
-placement, and an optimizer's state is saved per rank (``opt_rank<r>.pt``).
+only, a replicated one written once; a sharded tensor's global form is the
+ranks' local rows end to end, so a merged q/k/v whose KV head every rank
+holds beside its own query heads saves that head on each), ``meta.json``
+also records the placement, and an optimizer's state is saved per rank
+(``opt_rank<r>.pt``).
 It restores (``dcp.load``) into a model sharded the same way, each rank
 reading its shards; another placement raises.  Every rank of the mesh
 calls both.  The sharded half replaces orbax's per-shard writes; the

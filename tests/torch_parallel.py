@@ -10,6 +10,7 @@ parent computes JAX's values and the comparisons.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
@@ -31,45 +32,99 @@ CLIP_VISION = dict(hidden_size=128, intermediate_size=256, num_hidden_layers=1,
 CLIP_TEXT = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=1,
                  num_attention_heads=2, max_position_embeddings=16)
 CLIP_PROJ = 64
+# the Llama topology at tp 2 (query heads of 32 or 64, 2 a rank): GQA with
+# its KV heads sliced (Llama, Qwen3 2 of 4), MQA with its one KV head
+# replicated (Gemma), and 3 KV heads under 6 query heads, which divide
+# neither way (Mistral: its attention stays replicated, logged)
+LLAMA_FIELDS = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=1,
+                    num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64)
+QWEN3_FIELDS = dict(LLAMA_FIELDS, head_dim=32, tie_word_embeddings=True)
+GEMMA_FIELDS = dict(LLAMA_FIELDS, num_key_value_heads=1, head_dim=32)
+MISTRAL_FIELDS = dict(LLAMA_FIELDS, hidden_size=192, num_attention_heads=6, num_key_value_heads=3,
+                      sliding_window=4)
+WHISPER_FIELDS = dict(vocab_size=256, num_mel_bins=16, d_model=128, encoder_layers=1,
+                      decoder_layers=1, encoder_attention_heads=2, decoder_attention_heads=2,
+                      encoder_ffn_dim=256, decoder_ffn_dim=256, max_source_positions=16,
+                      max_target_positions=32)
+T5_FIELDS = dict(vocab_size=256, d_model=64, d_kv=16, d_ff=128, num_layers=1,
+                 num_decoder_layers=1, num_heads=4)
+FIELDS = {"opt": OPT_FIELDS, "gpt2": GPT2_FIELDS, "llama": LLAMA_FIELDS, "qwen3": QWEN3_FIELDS,
+          "gemma": GEMMA_FIELDS, "mistral": MISTRAL_FIELDS, "whisper": WHISPER_FIELDS,
+          "t5": T5_FIELDS}
 # test_serving.py's CFG and test_checkpoint.py's _tiny_opt
 ENGINE_FIELDS = dict(vocab_size=97, hidden_size=64, ffn_dim=128, num_hidden_layers=2,
                      num_attention_heads=4, max_position_embeddings=64)
 CKPT_FIELDS = dict(vocab_size=128, hidden_size=32, ffn_dim=64, num_hidden_layers=2,
                    num_attention_heads=2, max_position_embeddings=64)
-FAMILIES = ("opt", "gpt2", "clip")
+# the engine over LlamaConfig.tiny() (4 query heads over 2 KV heads of 16:
+# 2 over 1 a rank); the sharded checkpoint over Llamas in weights mode: at
+# tp 2 an MQA one, whose merged q/k/v holds its query heads' shard beside
+# its one KV head, replicated; at tp 4 8 query heads of 32 over 2 KV heads,
+# which ranks 0-1 and 2-3 hold in pairs (widths that keep whole blocks at tp 4)
+LLAMA_ENGINE_FIELDS = dict(vocab_size=512, hidden_size=64, intermediate_size=128,
+                           num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                           max_position_embeddings=64)
+LLAMA_CKPT_FIELDS = dict(LLAMA_FIELDS, vocab_size=128, num_key_value_heads=1)
+LLAMA_PAIRS_FIELDS = dict(LLAMA_FIELDS, vocab_size=128, hidden_size=256, num_attention_heads=8,
+                          num_key_value_heads=2)
+# case -> (config fields, mesh shape) of the Llama checkpoint round trips
+LLAMA_CKPT_CASES = {"mqa_tp2": (LLAMA_CKPT_FIELDS, (2, 2)),
+                    "gqa_tp4": (LLAMA_PAIRS_FIELDS, (1, 4))}
+FAMILIES = ("opt", "gpt2", "clip", "llama", "qwen3", "gemma", "mistral", "whisper", "t5",
+            "lenet")
 MODES = ("basic", "weights")
+# (query heads, KV heads) of a rank's attention modules at tp 2
+HEADS = {"opt": [(1, 1)], "gpt2": [(1, 1)], "clip": [(1, 1)], "llama": [(2, 1)],
+         "qwen3": [(2, 1)], "gemma": [(2, 1)], "mistral": [(6, 3)], "whisper": [(1, 1)],
+         "t5": [(4, 4)], "lenet": []}
+
+
+def _classes(family):
+    from dmx_compressor_tpu_torch.models import gemma, gpt2, llama, mistral, opt, qwen3, t5, whisper
+
+    return {"opt": (opt.OPTConfig, opt.OPTForCausalLM, opt.load_jax_params),
+            "gpt2": (gpt2.GPT2Config, gpt2.GPT2LMHeadModel, gpt2.load_jax_params),
+            "llama": (llama.LlamaConfig, llama.LlamaForCausalLM, llama.load_jax_params),
+            "qwen3": (qwen3.Qwen3Config, qwen3.Qwen3ForCausalLM, qwen3.load_jax_params),
+            "gemma": (gemma.GemmaConfig, gemma.GemmaForCausalLM, gemma.load_jax_params),
+            "mistral": (mistral.MistralConfig, mistral.MistralForCausalLM,
+                        mistral.load_jax_params),
+            "whisper": (whisper.WhisperConfig, whisper.WhisperForConditionalGeneration,
+                        whisper.load_jax_params),
+            "t5": (t5.T5Config, t5.T5ForConditionalGeneration, t5.load_jax_params)}[family]
 
 
 def port_config(family, **over):
     from dmx_compressor_tpu_torch.models.clip import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
-    from dmx_compressor_tpu_torch.models.gpt2 import GPT2Config
-    from dmx_compressor_tpu_torch.models.opt import OPTConfig
 
-    if family == "opt":
-        return OPTConfig(**{**OPT_FIELDS, **over})
-    if family == "gpt2":
-        return GPT2Config(**{**GPT2_FIELDS, **over})
-    return CLIPConfig(vision=CLIPVisionConfig(**CLIP_VISION), text=CLIPTextConfig(**CLIP_TEXT),
-                      projection_dim=CLIP_PROJ)
+    if family == "clip":
+        return CLIPConfig(vision=CLIPVisionConfig(**CLIP_VISION), text=CLIPTextConfig(**CLIP_TEXT),
+                          projection_dim=CLIP_PROJ)
+    return _classes(family)[0](**{**FIELDS[family], **over})
 
 
 def port_model(family, params=None, cfg=None, seed=0):
     """The raw port model on the CPU, the JAX model's weights loaded where
     ``params`` (its flat nnx state) is given."""
-    from dmx_compressor_tpu_torch.models import clip, gpt2, opt
+    from dmx_compressor_tpu_torch.models import clip, lenet
 
-    mod = {"opt": opt, "gpt2": gpt2, "clip": clip}[family]
-    cls = {"opt": opt.OPTForCausalLM, "gpt2": gpt2.GPT2LMHeadModel,
-           "clip": clip.CLIPModel}[family]
-    m = cls(cfg or port_config(family), device="cpu", seed=seed)
+    if family == "lenet":
+        m, load = lenet.LeNet5(device="cpu", seed=seed), lenet.load_jax_params
+    elif family == "clip":
+        m, load = clip.CLIPModel(cfg or port_config(family), device="cpu", seed=seed), \
+            clip.load_jax_params
+    else:
+        _, cls, load = _classes(family)
+        m = cls(cfg or port_config(family), device="cpu", seed=seed)
     if params is not None:
-        mod.load_jax_params(m, params)
+        load(m, params)
     return m
 
 
 def build_mode(model, mode):
-    """BASIC (``to_basic_mode``: fake-quant, T2's plain casts) or weights
-    mode (``build_weights_mode``: packed BFP16_64, B1's plain version)."""
+    """BASIC (``to_basic_mode``: fake-quant, T2's plain casts), weights
+    mode (``build_weights_mode``: packed BFP16_64, B1's plain version) or
+    the baseline (``to_baseline_mode``); "raw" as it is."""
     from dmx_compressor_tpu_torch.modeling.model import DmxModel
     from dmx_compressor_tpu_torch.ops.compress import build_weights_mode, set_inference_mode
 
@@ -78,15 +133,28 @@ def build_mode(model, mode):
         DmxModel.from_raw(model).to_basic_mode()
     elif mode == "weights":
         build_weights_mode(model)
+    elif mode == "baseline":
+        set_inference_mode(False)
+        DmxModel.from_raw(model).to_baseline_mode()
     return model
+
+
+def model_args(family, inputs, mesh=None):
+    """The forward's inputs as tensors: the whole batch, or this rank's dp
+    share of it where ``mesh`` is given."""
+    from dmx_compressor_tpu_torch.parallel import host_local_batch
+
+    names = {"clip": ("ids", "px"), "whisper": ("feats", "ids"), "t5": ("enc_ids", "ids"),
+             "lenet": ("px",)}.get(family, ("ids",))
+    return tuple(torch.from_numpy(inputs[n]) if mesh is None else host_local_batch(inputs[n], mesh)
+                 for n in names)
 
 
 def forward(family, model, inputs):
     """The whole batch's logits (CLIP's per image)."""
     with torch.no_grad():
-        if family == "clip":
-            return model(torch.from_numpy(inputs["ids"]), torch.from_numpy(inputs["px"]))[0]
-        return model(torch.from_numpy(inputs["ids"]))
+        out = model(*model_args(family, inputs))
+    return out[0] if family == "clip" else out
 
 
 # --------------------------------------------------------------------------
@@ -95,11 +163,12 @@ def forward(family, model, inputs):
 
 
 def case_forwards(ctx, req):
-    """OPT, GPT-2 and CLIP in BASIC and weights mode, sharded over dp 2 x
-    tp 2: each rank's logits for its dp share of the batch (CLIP: the whole
+    """Every family in BASIC and weights mode, sharded over dp 2 x tp 2:
+    each rank's logits for its dp share of the batch (CLIP: the whole
     batch's logits, and its dp share's image and text features), beside
-    the port's unsharded forward of the whole batch."""
-    from dmx_compressor_tpu_torch.parallel import host_local_batch, make_mesh, shard_state
+    the port's unsharded forward of the whole batch; the placement, the
+    groups of keys that share a tensor, and what ``shard_state`` logged."""
+    from dmx_compressor_tpu_torch.parallel import make_mesh, shard_state
 
     mesh = make_mesh((2, 2), ("dp", "tp"))
     out = {}
@@ -109,26 +178,31 @@ def case_forwards(ctx, req):
             ref = build_mode(port_model(family, req["params"][family]), mode)
             full = forward(family, ref, inputs)
             m = build_mode(port_model(family, req["params"][family]), mode)
-            placement = shard_state(m, mesh)
+            ids = {}
+            for k, v in m.state_dict(keep_vars=True).items():
+                ids.setdefault(id(v), []).append(k)
+            with _logged() as messages:
+                placement = shard_state(m, mesh)
             with torch.no_grad():
                 if family == "clip":
-                    got = m(torch.from_numpy(inputs["ids"]), torch.from_numpy(inputs["px"]))[0]
-                    px = host_local_batch(inputs["px"], mesh)
-                    ids = host_local_batch(inputs["ids"], mesh)
-                    feats = (m.get_image_features(px), m.get_text_features(ids))
+                    got = m(*model_args(family, inputs))[0]
+                    px, ids_local = model_args(family, inputs, mesh)[::-1]
+                    feats = (m.get_image_features(px), m.get_text_features(ids_local))
                     want = (ref.get_image_features(torch.from_numpy(inputs["px"])),
                             ref.get_text_features(torch.from_numpy(inputs["ids"])))
                     extra = dict(img_feat=feats[0], txt_feat=feats[1], img_full=want[0],
                                  txt_full=want[1])
                 else:
-                    got = m(host_local_batch(inputs["ids"], mesh))
+                    got = m(*model_args(family, inputs, mesh))
                     extra = {}
-            heads = sorted({getattr(x, "num_heads") for x in m.modules()
-                            if hasattr(x, "num_heads") and hasattr(x, "head_dim")})
+            heads = sorted({(x.num_heads, getattr(x, "num_kv_heads", x.num_heads))
+                            for x in m.modules() if hasattr(x, "num_heads")
+                            and hasattr(x, "head_dim")})
             out[(family, mode)] = dict(
                 local=got, full=full, coord=tuple(mesh.get_coordinate()), heads=heads,
                 sharded=sorted(k for k, v in placement.items() if any(a is not None for a in v)),
-                **extra)
+                placement=placement, shared=[g for g in ids.values() if len(g) > 1],
+                messages=messages, **extra)
     return out
 
 
@@ -192,15 +266,28 @@ class _Records(logging.Handler):
         self.messages.append(record.getMessage())
 
 
+@contextlib.contextmanager
+def _logged():
+    """The warnings ``parallel.mesh`` logs within the block."""
+    handler = _Records()
+    logger = logging.getLogger("dmx_compressor_tpu_torch.parallel.mesh")
+    logger.addHandler(handler)
+    try:
+        yield handler.messages
+    finally:
+        logger.removeHandler(handler)
+
+
 def case_fallback(ctx, req):
     """``rules_for_model`` lists exact paths first; an indivisible dim logs
-    "fallback" and stays replicated; an uncovered family and a head count
-    that does not divide tp raise ValueError."""
+    "fallback" and stays replicated; a unit that cannot be cut exactly stays
+    replicated, logged, and computes the unsharded values (tp 4): 3 query
+    heads, an MLP whose row linear's 32 local inputs cut BFP blocks of 64,
+    SmoothQuant state on a row linear, 3 KV heads under 12 query heads; a
+    model sharded twice, and a rank outside the mesh, raise ValueError."""
     from torch import nn
 
     from dmx_compressor_tpu_torch.modeling.model import DmxModel
-    from dmx_compressor_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    from dmx_compressor_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
     from dmx_compressor_tpu_torch.parallel.mesh import (
         TRANSFORMER_RULES,
         P,
@@ -210,34 +297,87 @@ def case_fallback(ctx, req):
     )
 
     out = {}
-    m = OPTForCausalLM(OPTConfig.tiny(), device="cpu")
+    m = port_model("opt", cfg=port_config("opt", **FALLBACK_FIELDS["opt"]))
     DmxModel.from_raw(m)
     rules = rules_for_model(m)
     out["exact_first"] = [pat for pat, _ in rules[:-len(TRANSFORMER_RULES)]]
     mesh = make_mesh((1, 4), ("dp", "tp"))
     out["mesh_shape"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    handler = _Records()
-    logging.getLogger("dmx_compressor_tpu_torch.parallel.mesh").addHandler(handler)
     bare = nn.ModuleDict({"q_proj": nn.Linear(16, 6)})  # 6 % 4 != 0
-    placement = shard_state(bare, mesh, rules=((r".*q_proj.*weight$", P("tp", None)),
-                                               (r".*", P())))
-    out["messages"] = handler.messages
+    with _logged() as messages:
+        placement = shard_state(bare, mesh, rules=((r".*q_proj.*weight$", P("tp", None)),
+                                                   (r".*", P())))
+    out["messages"] = messages
     out["bare_placement"] = placement
     out["bare_shape"] = tuple(bare["q_proj"].weight.shape)
+    ids = torch.from_numpy(fallback_ids(req["inputs"]))
+    replicated = {}
+    for case, (family, mode, unit) in FALLBACK_CASES.items():
+        models = []
+        for _ in range(2):
+            m = port_model(family, req["fallback_params"][family],
+                           port_config(family, **FALLBACK_FIELDS[family]))
+            build_mode(m, mode)
+            if case == "smoothquant":
+                _calibrate_smoothquant(m, ids)
+            models.append(m)
+        with _logged() as messages:
+            placement = shard_state(models[1], mesh)
+        with torch.no_grad():
+            got = models[1](ids)
+            err = (got - models[0](ids)).abs().max().item()
+        replicated[case] = dict(messages=messages, err=err, got=got,
+                                unit={k: v for k, v in placement.items() if k.startswith(unit)},
+                                sharded=sorted(k for k, v in placement.items() if any(v)))
+    out["replicated"] = replicated
     errors = {}
-    odd = OPTForCausalLM(OPTConfig(vocab_size=64, hidden_size=96, ffn_dim=128,
-                                   num_hidden_layers=1, num_attention_heads=3), device="cpu")
-    llama = LlamaForCausalLM(LlamaConfig(vocab_size=64, hidden_size=64, intermediate_size=128,
-                                         num_hidden_layers=1, num_attention_heads=2,
-                                         num_key_value_heads=1), device="cpu")
-    for name, model in (("heads", odd), ("family", llama)):
-        try:
-            shard_state(model, mesh)
-            errors[name] = None
-        except ValueError as e:
-            errors[name] = str(e)
+    try:
+        shard_state(models[1], mesh)
+        errors["sharded"] = None
+    except ValueError as e:
+        errors["sharded"] = str(e)
+    half = make_mesh((1, 2), ("dp", "tp"))
+    try:
+        shard_state(port_model("opt", cfg=port_config("opt", **FALLBACK_FIELDS["opt"])), half)
+        errors["outside"] = None
+    except ValueError as e:
+        errors["outside"] = str(e)
     out["errors"] = errors
     return out
+
+
+def fallback_ids(inputs):
+    """The fallback cases' tokens (their vocabulary of 64)."""
+    return inputs["opt"]["ids"] % 64
+
+
+# case -> (family, mode, the unit's key prefix) of test_unshardable_raises_value_error
+FALLBACK_CASES = {"heads": ("opt", "raw", "model.decoder.layers.0.self_attn."),
+                  "block": ("opt", "weights", "model.decoder.layers.0.fc"),
+                  "smoothquant": ("opt", "baseline", "model.decoder.layers.0.fc"),
+                  "kv_heads": ("llama", "raw", "model.layers.0.self_attn.")}
+FALLBACK_FIELDS = {
+    # 3 heads of 32; the MLP's 32 local features at tp 4 (a block of 64 cut
+    # where packed); the vocabulary of 64
+    "opt": dict(vocab_size=64, hidden_size=96, ffn_dim=128, num_hidden_layers=1,
+                num_attention_heads=3, max_position_embeddings=64),
+    # 12 query heads of 8 over 3 KV heads
+    "llama": dict(vocab_size=64, hidden_size=96, intermediate_size=128, num_hidden_layers=1,
+                  num_attention_heads=12, num_key_value_heads=3, max_position_embeddings=64),
+}
+
+
+def _calibrate_smoothquant(model, ids):
+    """SmoothQuant state (unfused) on each layer's fc2, from one forward."""
+    from dmx_compressor_tpu_torch.advanced_recipe import DmxModuleSmoothQuantHyperparams
+
+    hp = DmxModuleSmoothQuantHyperparams(migration_strength=0.5, fuse_to_weight=False)
+    fc2 = [layer.fc2 for layer in model.model.decoder.layers]
+    with contextlib.ExitStack() as stack:
+        for lin in fc2:
+            stack.enter_context(lin.calibrating_smoothquant(hp))
+        with torch.no_grad():
+            model(ids)
 
 
 def _mlp_apply(p, h):
@@ -378,6 +518,102 @@ def case_checkpoint(ctx, req):
                 values_equal=all(torch.equal(sd1[k], sd2[k]) for k in sd1),
                 logits_equal=torch.equal(a, b), logits=b,
                 n_sharded=sum(any(x is not None for x in v) for v in placement.values()))
+
+
+def case_engine_llama(ctx, req):
+    """The engine over a tiny Llama sharded tp 2 (2 query heads over 1 KV
+    head a rank), beside the unsharded engine."""
+    from dmx_compressor_tpu_torch.models.llama import LlamaConfig
+    from dmx_compressor_tpu_torch.parallel import make_mesh, shard_state
+    from dmx_compressor_tpu_torch.serving.engine import ContinuousBatchingEngine
+
+    cfg = LlamaConfig(**LLAMA_ENGINE_FIELDS)
+
+    def serve(model):
+        eng = ContinuousBatchingEngine(model, max_slots=2, max_len=48, prompt_buckets=(8, 16))
+        rids = [eng.submit(p, max_new_tokens=4) for p in req["prompts"]]
+        results = {r.request_id: r for r in eng.run(burst=2)}
+        return [results[r].tokens for r in rids]
+
+    plain = serve(port_model("llama", req["llama_engine_params"], cfg))
+    m = port_model("llama", req["llama_engine_params"], cfg)
+    shard_state(m, make_mesh((2, 2), ("dp", "tp")))
+    caches = m.init_cache(2, 8, device="cpu", per_row=True)
+    return dict(sharded=serve(m), plain=plain, cache_heads=caches[0].k.shape[1])
+
+
+def case_checkpoint_llama(ctx, req):
+    """The sharded checkpoint of Llamas in weights mode (LLAMA_CKPT_CASES),
+    each restored into a model of other weights sharded the same way: an
+    MQA one at tp 2, and 2 KV heads held in pairs at tp 4."""
+    from dmx_compressor_tpu_torch.models.llama import LlamaConfig
+    from dmx_compressor_tpu_torch.ops.compress import build_weights_mode
+    from dmx_compressor_tpu_torch.parallel import make_mesh, shard_state
+    from dmx_compressor_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    ids = torch.from_numpy(req["ckpt_ids"])
+    out = {}
+    for case, (fields, shape) in LLAMA_CKPT_CASES.items():
+        cfg = LlamaConfig(**fields)
+        mesh = make_mesh(shape, ("dp", "tp"))
+        path = os.path.join(req["dir"], f"ck_{case}")
+        models, placements = [], []
+        for seed in (0, 1):
+            m = port_model("llama", cfg=cfg, seed=seed)
+            build_weights_mode(m)
+            placements.append(shard_state(m, mesh))
+            models.append(m)
+        save_checkpoint(path, models[0], step=2)
+        step, _ = restore_checkpoint(path, models[1])
+        with torch.no_grad():
+            a, b = models[0](ids), models[1](ids)
+        sd1, sd2 = models[0].state_dict(), models[1].state_dict()
+        attn = models[0].model.layers[0].self_attn
+        out[case] = dict(
+            step=step, same_placement=placements[0] == placements[1] == models[1].tp_placement,
+            values_equal=all(torch.equal(sd1[k], sd2[k]) for k in sd1),
+            logits_equal=torch.equal(a, b), logits=b,
+            qkv_shape=tuple(attn.qkv_merged.weight_mantissa.shape),
+            qkv_spec=placements[0]["model.layers.0.self_attn.qkv_merged.weight_mantissa"],
+            heads=(attn.num_heads, attn.num_kv_heads))
+    return out
+
+
+def case_placement(ctx, req):
+    """The placement where a part's blocks meet tp otherwise than in equal
+    shares.  At tp 4, 8 query heads over 2 KV heads (raw): a rank keeps KV
+    head ``r // 2``, so the ranks' KV rows differ and k_proj is sharded;
+    the logits equal the unsharded model's.  At tp 1 every column-parallel
+    tensor keeps the spec JAX's rules give it: OPT's q_proj, and an MQA
+    Llama's k_proj (raw) and merged q/k/v (weights mode)."""
+    from dmx_compressor_tpu_torch.models.llama import LlamaConfig
+    from dmx_compressor_tpu_torch.parallel import make_mesh, shard_state
+
+    ids = torch.from_numpy(req["ckpt_ids"])
+    cfg = LlamaConfig(**LLAMA_PAIRS_FIELDS)
+    ref, m = (port_model("llama", cfg=cfg) for _ in range(2))
+    mesh = make_mesh((1, 4), ("dp", "tp"))
+    placement = shard_state(m, mesh)
+    r = mesh.get_coordinate()[1]
+    attn = m.model.layers[0].self_attn
+    k_full = ref.model.layers[0].self_attn.k_proj.weight
+    D = attn.head_dim
+    with torch.no_grad():
+        err = (m(ids) - ref(ids)).abs().max().item()
+    pairs = dict(k_spec=placement["model.layers.0.self_attn.k_proj.weight"],
+                 q_spec=placement["model.layers.0.self_attn.q_proj.weight"],
+                 heads=(attn.num_heads, attn.num_kv_heads),
+                 k_rows=torch.equal(attn.k_proj.weight, k_full[r // 2 * D:(r // 2 + 1) * D]),
+                 err=err)
+    one = make_mesh((4, 1), ("dp", "tp"))
+    opt = port_model("opt")
+    mqa = LlamaConfig(**LLAMA_CKPT_FIELDS)
+    raw, packed = port_model("llama", cfg=mqa), build_mode(port_model("llama", cfg=mqa), "weights")
+    key = "model.layers.0.self_attn."
+    tp1 = dict(q_spec=shard_state(opt, one)["model.decoder.layers.0.self_attn.q_proj.weight"],
+               k_spec=shard_state(raw, one)[key + "k_proj.weight"],
+               qkv_spec=shard_state(packed, one)[key + "qkv_merged.weight_mantissa"])
+    return {"kv_pairs_tp4": pairs, "tp1": tp1}
 
 
 def case_observer(ctx, req):
