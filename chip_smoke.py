@@ -245,7 +245,10 @@ Phases (any failure exits non-zero):
    each the directly built model's tokens bit for bit; card vs CPU at 2
    layers; top-5 sampling twice with one seed), hf_head_dim80 (OPT at
    OPT-2.7b's attention shape, 32 heads of 80, 2 layers: B3, B4 and B2 at
-   D 80 card vs CPU, and timed beside D 64 and 128) and checkpoint_resume
+   D 80 card vs CPU, also loaded with dtype bf16 (an f32 model over a bf16
+   cache: B4's bf16 route), and timed beside D 64 and 128; the routes of
+   fp16 / bf16 caches and operands, B2's query-head groups and head dims
+   100 and 512, each against its plain version) and checkpoint_resume
    (QAT at 2 layers: 4 Adam steps, ``CheckpointManager.save``, a fresh
    model restored, 4 more, bit for bit the uninterrupted 8).
 9. The export path and functional interception: export (OPT-125m at full
@@ -1225,11 +1228,12 @@ def b2_bytes_flops(B, H, Hkv, D, lengths):
     return nbytes, 4 * keys * (H // Hkv) * Hkv * D
 
 
-def b4_bytes_flops(B, H, Hkv, D, lengths):
-    """q in and out written; the f32 K/V rows below each row's length; the
+def b4_bytes_flops(B, H, Hkv, D, lengths, kv_bytes=4):
+    """q in and out written; the K/V rows below each row's length
+    (``kv_bytes`` an element: 4 in f32, 2 over a 16-bit cache); the
     lengths.  Two dot products of D per key and query head."""
     keys = sum(lengths)
-    return 2 * B * H * D * 4 + keys * Hkv * 2 * D * 4 + B * 4, 4 * keys * H * D
+    return 2 * B * H * D * 4 + keys * Hkv * 2 * D * kv_bytes + B * 4, 4 * keys * H * D
 
 
 def whisper_decode_shape(wcfg):
@@ -4984,14 +4988,154 @@ def head_dim80_kernels(torch, dev):
     return cases
 
 
+# a 16-bit output of B3 is the f32 result rounded once: two f32 results
+# within B3_TOL may round one step of the dtype apart (rtol its eps)
+B3_BF16_TOL = dict(rtol=2**-7, atol=2e-5)
+# the wider inputs of the attention kernels: B4 over fp16 / bf16
+# caches at the OPT path's decode shape (B 8, 12 heads) and the Llama
+# path's GQA (32 over 4); B2 over StarCoder's 48 query heads a KV head (D
+# 128) and 64 over 1 (D 64); all three at head dims 100 and 512 at
+# hf_head_dim80's shapes (B 8, 32 heads)
+HALF_B4_CASES = ((8, 12, 12), (8, 32, 4))
+GROUPED_B2_CASES = ((8, 48, 1, 128), (8, 64, 1, 64))
+ROUTE_HEAD_DIMS = (100, 512)
+
+
+def route_kernels(torch, dev):
+    """B4, B3 and B2 on their routes off the main kernels, each against its
+    plain version on the same inputs (B2_TOL / B3_TOL / B4_TOL on f32
+    outputs, B3_BF16_TOL on a bf16 one), timed with its plain version, SDPA
+    and its bound: B4 over bf16 and fp16 caches (read as stored; the bound counts
+    the 16-bit bytes); B3 with bf16 q/k/v and with an f32 q over bf16 K/V
+    (the wrapper's f32 copies timed apart as upcast_ms) at the OPT path's
+    prefill (BH 96, L = S = 128, D 64, causal); B2 on its grouped route; B2,
+    B3 and B4 at D 100 and 512 (B3's 100 padded to 128, its 512 the generic
+    kernel; B2's and B4's both the generic route).  Each case names its
+    route (``attention_route``)."""
+    import torch.nn.functional as F
+
+    from dmx_compressor_tpu_torch.ops.flash_attention import (
+        attention_route, flash_attention, flash_attention_ref)
+    from dmx_compressor_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_int8, flash_decode_int8_ref, flash_decode_ref)
+    from dmx_compressor_tpu_torch.ops.kv_cache import QuantizedKVCache, QuantKV
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    S, fill = CAPACITY, PROMPT + GEN // 2
+    cases = []
+
+    def causal_mask(B):
+        le = torch.full((B,), fill, dtype=torch.int32, device=dev)
+        return le, (torch.arange(S, device=dev)[None, :] < le[:, None])[:, None, None, :]
+
+    def b4_case(B, H, Hkv, D, kv_dtype):
+        le, mask = causal_mask(B)
+        nbytes = torch.finfo(kv_dtype).bits // 8
+        sets = [(torch.randn(B, H, 1, D, generator=g, device=dev),
+                 torch.randn(B, Hkv, S, D, generator=g, device=dev).to(kv_dtype),
+                 torch.randn(B, Hkv, S, D, generator=g, device=dev).to(kv_dtype), le)
+                for _ in range(copies_for(2 * B * Hkv * S * D * nbytes))]
+        route = attention_route("flash_decode", H, Hkv, D, (torch.float32, kv_dtype, kv_dtype))
+        err = max_err(torch, flash_decode(*sets[0]), flash_decode_ref(*sets[0]), B4_TOL,
+                      f"B4 {kv_dtype} {B, H, Hkv, S, D}")
+        bound_ms, by = bound(*b4_bytes_flops(B, H, Hkv, D, [fill] * B, nbytes))
+        cases.append(dict(
+            kernel="flash_decode", route=route, dtype=str(kv_dtype), shape=[B, H, Hkv, S, D],
+            lengths=fill, max_abs_err=err, ms=time_ms(torch, flash_decode, sets),
+            plain_ms=time_plain(torch, flash_decode_ref, sets),
+            library_ms=time_ms(torch, lambda q, k, v, _: F.scaled_dot_product_attention(
+                q.to(k.dtype), k, v, attn_mask=mask, enable_gqa=H != Hkv), sets),
+            bound_ms=bound_ms, bound_by=by))
+
+    def b3_case(B, H, D, q_dtype, kv_dtype):
+        L = PROMPT
+        per = B * H * L * D * (torch.finfo(q_dtype).bits + 2 * torch.finfo(kv_dtype).bits) // 8
+        sets = [(torch.randn(B, H, L, D, generator=g, device=dev).to(q_dtype),
+                 torch.randn(B, H, L, D, generator=g, device=dev).to(kv_dtype),
+                 torch.randn(B, H, L, D, generator=g, device=dev).to(kv_dtype))
+                for _ in range(copies_for(per))]
+        route = attention_route("flash_attention", 1, 1, D, (q_dtype, kv_dtype, kv_dtype))
+        tol = B3_TOL if q_dtype == torch.float32 else B3_BF16_TOL
+        err = max_err(torch, flash_attention(*sets[0], causal=True).float(),
+                      flash_attention_ref(*sets[0], causal=True).float(), tol,
+                      f"B3 {q_dtype} over {kv_dtype} D={D}")
+        pairs = L * (L + 1) // 2
+        nbytes = per + B * H * L * D * torch.finfo(q_dtype).bits // 8
+        if route == "generic":  # f32 on the CUDA cores
+            bound_ms, by = bound(nbytes, 4 * B * H * D * pairs)
+        else:  # the six bf16 plane products
+            bound_ms, by = bound(nbytes, B3_PLANE_PRODUCTS * 4 * B * H * D * pairs,
+                                 PEAK_BF16_FLOP_S)
+        case = dict(
+            kernel="flash_attention", route=route, dtype=f"q {q_dtype}, k/v {kv_dtype}",
+            shape=[B * H, L, L, D], max_abs_err=err,
+            ms=time_ms(torch, lambda q, k, v: flash_attention(q, k, v, causal=True), sets),
+            plain_ms=time_plain(torch, lambda q, k, v: flash_attention_ref(q, k, v, causal=True),
+                                sets),
+            library_ms=time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                q.to(k.dtype), k, v, is_causal=True), sets),
+            bound_ms=bound_ms, bound_by=by)
+        if route == "upcast":
+            case["upcast_ms"] = time_ms(
+                torch, lambda q, k, v: [t.float().contiguous() for t in (q, k, v)], sets)
+        cases.append(case)
+
+    def b2_case(B, H, Hkv, D):
+        le, mask = causal_mask(B)
+        sets = []
+        for _ in range(copies_for(B * Hkv * S * (2 * D + 8))):
+            kq, ks = QuantizedKVCache._quantize(torch.randn(B, Hkv, S, D, generator=g,
+                                                            device=dev))
+            vq, vs = QuantizedKVCache._quantize(torch.randn(B, Hkv, S, D, generator=g,
+                                                            device=dev))
+            sets.append((torch.randn(B, H, 1, D, generator=g, device=dev),
+                         QuantKV(kq, vq, ks, vs), le))
+        route = attention_route("flash_decode_int8", H, Hkv, D)
+        err = max_err(torch, flash_decode_int8(*sets[0]), flash_decode_int8_ref(*sets[0]),
+                      B2_TOL, f"B2 {B, H, Hkv, S, D}")
+        deq = [(q, kv.k_q.float() * kv.k_scale[..., None], kv.v_q.float() * kv.v_scale[..., None])
+               for q, kv, _ in sets[:copies_for(2 * B * Hkv * S * D * 4)]]
+        bound_ms, by = bound(*b2_bytes_flops(B, H, Hkv, D, [fill] * B))
+        cases.append(dict(
+            kernel="flash_decode_int8", route=route, shape=[B, H, Hkv, S, D], lengths=fill,
+            max_abs_err=err, ms=time_ms(torch, flash_decode_int8, sets),
+            plain_ms=time_plain(torch, flash_decode_int8_ref, sets),
+            library_ms=time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=H != Hkv), deq),
+            bound_ms=bound_ms, bound_by=by))
+
+    for kv_dtype in (torch.bfloat16, torch.float16):
+        for B, H, Hkv in HALF_B4_CASES:
+            b4_case(B, H, Hkv, 64, kv_dtype)
+    b3_case(BATCH, 12, 64, torch.bfloat16, torch.bfloat16)
+    b3_case(BATCH, 12, 64, torch.float32, torch.bfloat16)
+    for B, H, Hkv, D in GROUPED_B2_CASES:
+        b2_case(B, H, Hkv, D)
+    H = HD80["num_attention_heads"]
+    for D in ROUTE_HEAD_DIMS:
+        b3_case(BATCH, H, D, torch.float32, torch.float32)
+        b4_case(BATCH, H, H, D, torch.float32)
+        b2_case(BATCH, H, H, D)
+    for c in cases:
+        log(f"route {c['kernel']}/{c['route'] or 'main'} {c.get('dtype', '')} shape {c['shape']}: "
+            f"max_abs_err={c['max_abs_err']:.3g} kernel_ms={c['ms']:.4f} "
+            f"plain_ms={c['plain_ms']:.4f} library_ms(F.scaled_dot_product_attention)="
+            f"{c['library_ms']:.4f} bound_ms={c['bound_ms']:.4f} ({c['bound_by']})"
+            + (f" the wrapper's f32 copies {c['upcast_ms']:.4f} ms of it" if "upcast_ms" in c
+               else ""))
+    return cases
+
+
 def hf_head_dim80_path(torch, dev, kernels):
     """A written OPT checkpoint at OPT-2.7b's attention shape (HD80: 32 heads
     of 80) at 2 layers, loaded on the card and on the CPU: the raw model's
     prefill through B3 and decode through B4, the int8 cache's through B3
-    and B2 (HD80_BATCH prompts of PROMPT ids, HD80_STEPS steps), counted;
-    the card's logits against the CPU's, teacher-forced (LOGIT_TOL,
-    KV8_TOL); then the kernels at D 80 beside 64.  Returns (the counted
-    launches, the numbers)."""
+    and B2, and the checkpoint loaded with dtype bf16 (an f32 model over a
+    bf16 float cache) through B3 and B4's bf16 route (HD80_BATCH prompts of
+    PROMPT ids, HD80_STEPS steps), counted by kernel and by route; the card's logits against the CPU's, teacher-forced (LOGIT_TOL,
+    KV8_TOL, LOGIT_TOL); then the kernels at D 80 beside 64, B3's SDPA at D
+    80 timed twice more, and the routes of :func:`route_kernels`.  Returns
+    (the counted launches, the numbers)."""
     import tempfile
 
     import numpy as np
@@ -5012,21 +5156,27 @@ def hf_head_dim80_path(torch, dev, kernels):
             f"{cfg['hidden_size'] // cfg['num_attention_heads']}, {L} layers written in "
             f"{time.perf_counter() - t0:.2f} s")
         del tensors
-        for name, quantized, tol, decode in (("raw", False, LOGIT_TOL, "flash_decode"),
-                                             ("int8_cache", True, KV8_TOL, "flash_decode_int8")):
+        for name, quantized, tol, decode, dtype in (
+                ("raw", False, LOGIT_TOL, "flash_decode", torch.float32),
+                ("int8_cache", True, KV8_TOL, "flash_decode_int8", torch.float32),
+                ("bf16_cache", False, LOGIT_TOL, "flash_decode", torch.bfloat16)):
             rows = []
             for where in (dev, torch.device("cpu")):  # the card's tokens first
-                pipe = pipeline("text-generation", d, device=where)
+                pipe = pipeline("text-generation", d, device=where, dtype=dtype)
                 if pipe.missed_keys:
                     raise AssertionError(f"hf_head_dim80: unmatched keys {pipe.missed_keys}")
                 if not rows:
                     build = (name, None, None, quantized)
                     toks, launched, wall = hf_generate(torch, kernels, build, pipe, ids.to(dev),
                                                        HD80_STEPS + 1, True)
+                    routes = dict(kernels.ROUTE_LAUNCHES)
                     want = {"flash_attention": L, decode: L * HD80_STEPS}
+                    want_routes = ({"flash_decode/bf16": L * HD80_STEPS}
+                                   if dtype == torch.bfloat16 else {})
                     log(f"hf_head_dim80 {name}: {HD80_STEPS + 1} tokens, {wall:.3f} ms a step "
-                        f"wall, launches {launched} (expected {want})")
-                    if launched != want:
+                        f"wall, launches {launched} (expected {want}), by route {routes} "
+                        f"(expected {want_routes})")
+                    if launched != want or routes != want_routes:
                         raise AssertionError(f"hf_head_dim80 {name}: the generation did not "
                                              f"launch the kernels the expected number of times")
                     for k, v in launched.items():
@@ -5040,7 +5190,32 @@ def hf_head_dim80_path(torch, dev, kernels):
                 f"steps' logits max |diff| {errs[name]:.3g} (tolerance {tol})")
             if not errs[name] <= tol:
                 raise AssertionError(f"hf_head_dim80 {name}: the card disagrees with the CPU")
-    return total, dict(cpu_max_abs_err=errs, cases=head_dim80_kernels(torch, dev))
+    cases = head_dim80_kernels(torch, dev)
+    return total, dict(cpu_max_abs_err=errs, cases=cases + route_kernels(torch, dev),
+                       sdpa_d80_retimed=sdpa_d80_retimed(torch, dev))
+
+
+def sdpa_d80_retimed(torch, dev):
+    """SDPA at B3's D 80 case (B 8, 32 heads, L = S = 128, causal), timed
+    twice more beside B3 at D 80 over fresh inputs, in turns (SDPA, B3, B3,
+    SDPA): its earlier runs read 0.0253 and 0.0533 ms."""
+    import torch.nn.functional as F
+
+    from dmx_compressor_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(81)
+    H, B, L, D = HD80["num_attention_heads"], BATCH, PROMPT, 80
+    sets = [tuple(torch.randn(B, H, L, D, generator=g, device=dev) for _ in range(3))
+            for _ in range(copies_for(4 * B * H * D * 4 * L))]
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+    b3 = lambda q, k, v: flash_attention(q, k, v, causal=True)  # noqa: E731
+    times = dict(sdpa_ms=[time_ms(torch, sdpa, sets)], b3_ms=[time_ms(torch, b3, sets)])
+    times["b3_ms"].append(time_ms(torch, b3, sets))
+    times["sdpa_ms"].append(time_ms(torch, sdpa, sets))
+    names = [n for n, _, _ in device_trace(torch, lambda: sdpa(*sets[0]))]
+    log(f"hf_head_dim80 SDPA at D 80 (B 8, 32 heads, L = S = 128, causal) in turns with B3: "
+        f"{times}; SDPA's device kernels {names}")
+    return dict(times, sdpa_kernels=names)
 
 
 def qat_steps(torch, kernels, dm, opt, ids, n):

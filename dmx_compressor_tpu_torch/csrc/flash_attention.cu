@@ -5,7 +5,8 @@
 // TPU Pallas kernel behind flash_attention).
 //
 // out = softmax(q . k^T * scale + bias) . v over [BH, L, D] queries and
-// [BH, S, D] keys/values, D 32, 64, 128 or 256, optionally causal with the diagonal at
+// [BH, S, D] keys/values, D 32, 64, 128 or 256 (any D above 256 on the
+// generic kernel below), optionally causal with the diagonal at
 // offset S - L (row i sees keys j <= i + S - L), optional additive bias
 // [BH, L, S].
 //
@@ -60,6 +61,22 @@
 // into an f32 accumulator, and the small products' sum carries that loss
 // only at 2^-8 of the logit's size (the wgmma mainloop's repair, ROADMAP
 // Queue C fault 2).
+//
+// Head dims above 256 take flash_attention_generic_kernel: simple and right
+// first, in f32 on the CUDA cores (no planes): a block of 8 warps owns 8
+// query rows of one (b, h), one warp a row, and walks 64-key tiles.  A warp
+// takes its row's logits of the tile key by key, its lanes over D (the
+// sums across the warp), and its online softmax; then one thread a (row,
+// dim) rescales its output, kept in `out` itself (each thread's own
+// elements; no shared-memory accumulator, so any D fits), and adds the
+// tile's P v in key order; the last pass divides by the row sum.  It reads
+// each K/V tile once per block from L2 (8 rows a read), so it is bound by
+// L2 traffic and the dependent shuffles, not by HBM; its times are in
+// PERF.md.  A head_dim below 256 that is no multiple of 8 is zero-padded by
+// the wrapper to the next of 32, 64, 128, 256 (exact, as D 80).  q, k, v and
+// the bias are float32 here: the wrapper makes f32 contiguous copies of
+// fp16 / bf16 operands (a prefill runs once a request; the copies' cost is
+// in PERF.md beside the kernel's time).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -584,6 +601,90 @@ flash_attention_wide_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
+// ---------------------------------------------------------------------------
+// any head_dim (the wrapper sends those above 256)
+// ---------------------------------------------------------------------------
+
+constexpr int GQB = WARPS;  // query rows a block, one warp each
+constexpr int GTK = 64;     // keys a tile
+
+__global__ void __launch_bounds__(THREADS)
+flash_attention_generic_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               float* __restrict__ out, int L, int S, int D, float scale,
+                               int causal, int offset) {
+  __shared__ float sp[GQB][GTK];
+  __shared__ float s_alpha[GQB], s_l[GQB];
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * GQB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = q0 + warp;
+  const bool live = row < L;  // warp-uniform
+  const float* qr = q + ((size_t)bh * L + (live ? row : 0)) * D;
+  const float* kb = k + (size_t)bh * S * D;
+  const float* vb = v + (size_t)bh * S * D;
+  float* ob = out + ((size_t)bh * L + q0) * D;  // the block's rows
+  const int nrows = min(GQB, L - q0);
+  const int kend = causal ? min(S, min(q0 + GQB, L) + offset) : S;
+  float m = -INFINITY, l = 0.f;  // this warp's row, the same in every lane
+
+  for (int t0 = 0; t0 < kend; t0 += GTK) {
+    const int nk = min(GTK, kend - t0);
+    float mx = -INFINITY;
+    for (int j = 0; j < nk; ++j) {
+      const int col = t0 + j;
+      float x = -INFINITY;
+      if (live && (!causal || col <= row + offset)) {  // warp-uniform
+        const float* kr = kb + (size_t)col * D;
+        float dot = 0.f;
+        for (int d = lane; d < D; d += 32) dot = fmaf(__ldg(qr + d), __ldg(kr + d), dot);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        x = __fmul_rn(dot, scale);
+        if (bias != nullptr) x = __fadd_rn(x, bias[((size_t)bh * L + row) * S + col]);
+      }
+      if (lane == 0) sp[warp][j] = x;
+      mx = fmaxf(mx, x);
+    }
+    __syncwarp();
+    const float m_new = fmaxf(m, mx);
+    const float ms = m_new == -INFINITY ? 0.f : m_new;  // a row with no key so far
+    const float alpha = expf(m - ms);
+    float psum = 0.f;
+    for (int j = lane; j < nk; j += 32) {
+      const float p = expf(sp[warp][j] - ms);
+      sp[warp][j] = p;
+      psum += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
+    l = l * alpha + psum;
+    m = m_new;
+    if (lane == 0) s_alpha[warp] = alpha;
+    __syncthreads();
+    for (int o = threadIdx.x; o < nrows * D; o += THREADS) {
+      const int r = o / D, d = o - r * D;
+      float a = t0 == 0 ? 0.f : ob[o] * s_alpha[r];
+      const float* vc = vb + (size_t)t0 * D + d;
+      for (int j = 0; j < nk; ++j) a = fmaf(sp[r][j], vc[(size_t)j * D], a);
+      ob[o] = a;
+    }
+    __syncthreads();
+  }
+  if (lane == 0) s_l[warp] = l;
+  __syncthreads();
+  for (int o = threadIdx.x; o < nrows * D; o += THREADS) ob[o] /= fmaxf(s_l[o / D], 1e-30f);
+}
+
+cudaError_t launch_generic(const float* q, const float* k, const float* v, const float* bias,
+                           float* out, int BH, int L, int S, int D, float scale, int causal,
+                           int offset, cudaStream_t s) {
+  const dim3 grid((L + GQB - 1) / GQB, BH);
+  flash_attention_generic_kernel<<<grid, THREADS, 0, s>>>(q, k, v, bias, out, L, S, D, scale,
+                                                          causal, offset);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_wide(const float* q, const float* k, const float* v, const float* bias,
                         float* out, int BH, int L, int S, float scale, int causal, int offset,
@@ -639,7 +740,8 @@ extern "C" int dmx_flash_attention(const void* q, const void* k, const void* v,
       return (int)launch_wide<128>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);
     case 256:
       return (int)launch_wide<256>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:  // the wrapper pads any D up to 256 to one of the above
+      if (D <= 256) return (int)cudaErrorInvalidValue;
+      return (int)launch_generic(qp, kp, vp, bp, op, BH, L, S, D, scale, causal, offset, s);
   }
 }

@@ -1,4 +1,5 @@
-// B4: single-query attention over a float (f32) KV cache, for Hopper (sm_90a).
+// B4: single-query attention over a float KV cache (f32, fp16 or bf16), for
+// Hopper (sm_90a).
 //
 // Replaces: dmx_compressor_tpu/ops/flash_decode.py:_decode_grid_call, float
 // branch (the TPU Pallas kernel behind flash_decode, via _decode_pallas /
@@ -7,7 +8,8 @@
 // For each batch row b and query head h (KV head h / rep):
 //   logit[s] = (q . k[s]) * scale,   s < lengths[b]
 //   out      = sum_s softmax(logit)[s] * v[s]
-// K/V are the port's D-minor cache, [B, Hkv, S, D] f32; q and out [B, H, D].
+// K/V are the port's D-minor cache, [B, Hkv, S, D] f32, fp16 or bf16 (both
+// one dtype); q and out [B, H, D] f32.
 //
 // What bounds it on the card: the f32 K/V stream of the filled slots (8 *
 // lengths[b] * D bytes per KV head): 0.0024 ms at the baseline path's shape
@@ -57,10 +59,24 @@
 // H100 (PERF.md), mirrored by the wrapper's B4_CHUNK.  lengths[b] must be >=
 // 1 (a decode step always has its own key).  The launch error is returned to
 // the caller (cudaGetLastError).
+//
+// A 16-bit cache (fp16 or bf16: half the bytes of f32, the usual way to
+// serve) is read as it is stored: a lane's 16 dims are two 16-byte loads
+// of 8 elements each instead of four of 4, widened to f32 in registers,
+// which is exact (every fp16 and bf16 value is an f32 value); all the
+// arithmetic stays f32.  Widening the cache in the wrapper instead would
+// read all of it and write twice its bytes at every step.  The bound over
+// a 16-bit cache is half the f32 cache's bytes.
+//
+// A head_dim that is no multiple of 8, or above 256, takes the generic
+// route of decode_split.cuh (scalar loads, any D; simple, its times in
+// PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "decode_split.cuh"
 
@@ -69,25 +85,49 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int CHUNK = 1024;  // keys per block
 
-// the 16 floats at p, of which the first `nvalid` exist (PAD: a lane past
-// the head's D dims; D is a multiple of 8, so a float4 is whole or absent);
-// zeros for the rest
-template <bool PAD>
-__device__ __forceinline__ void load16(const float* p, float* dst, int nvalid) {
+__device__ __forceinline__ float2 widen2(uint32_t w, const __half*) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
+
+__device__ __forceinline__ float2 widen2(uint32_t w, const __nv_bfloat16*) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+// the 16 elements at p (float, __half or __nv_bfloat16) as floats, of which
+// the first `nvalid` exist (PAD: a lane past the head's D dims; D is a
+// multiple of 8, so a float4, or a 16-byte piece of 8 halves, is whole or
+// absent); zeros for the rest
+template <bool PAD, typename T>
+__device__ __forceinline__ void load16(const T* p, float* dst, int nvalid) {
+  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (!PAD || 4 * i < nvalid) f = __ldg(reinterpret_cast<const float4*>(p) + i);
-    dst[4 * i] = f.x;
-    dst[4 * i + 1] = f.y;
-    dst[4 * i + 2] = f.z;
-    dst[4 * i + 3] = f.w;
+    for (int i = 0; i < 4; ++i) {
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!PAD || 4 * i < nvalid) f = __ldg(reinterpret_cast<const float4*>(p) + i);
+      dst[4 * i] = f.x;
+      dst[4 * i + 1] = f.y;
+      dst[4 * i + 2] = f.z;
+      dst[4 * i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (!PAD || 8 * i < nvalid) u = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = widen2(w[j], p);
+        dst[8 * i + 2 * j] = f.x;
+        dst[8 * i + 2 * j + 1] = f.y;
+      }
+    }
   }
 }
 
 // this lane's 16 dims of key and value row `row`, zeros where !valid
-template <bool PAD>
-__device__ __forceinline__ void load_kv(const float* k, const float* v, size_t row, bool valid,
+template <bool PAD, typename T>
+__device__ __forceinline__ void load_kv(const T* k, const T* v, size_t row, bool valid,
                                        int nvalid, float* kr, float* vr) {
   if (valid) {
     load16<PAD>(k + row, kr, nvalid);
@@ -98,12 +138,13 @@ __device__ __forceinline__ void load_kv(const float* k, const float* v, size_t r
   }
 }
 
-// DP: the instantiated width; PAD: the head's D (a multiple of 8 below DP)
-// comes at run time in Dr, else D = DP
-template <int DP, int R, bool PAD>
+// T: the K/V element (float, __half, __nv_bfloat16); DP: the instantiated
+// width; PAD: the head's D (a multiple of 8 below DP) comes at run time in
+// Dr, else D = DP
+template <typename T, int DP, int R, bool PAD>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ lengths,
+flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
                     float* __restrict__ out, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int* __restrict__ tickets, int H, int Hkv, int S,
                     int Dr, float scale) {
@@ -138,7 +179,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float qv[R][16], kr[16], vr[16];
 #pragma unroll
     for (int r = 0; r < R; ++r) load16<PAD>(q + (bh0 + r0 + r) * D + sub * 16, qv[r], nvalid);
-    load_kv<PAD>(k, v, (kv_row0 + w0) * D + sub * 16, w0 < s1, nvalid, kr, vr);
+    load_kv<PAD, T>(k, v, (kv_row0 + w0) * D + sub * 16, w0 < s1, nvalid, kr, vr);
 
     float m[R], l[R], acc[R][16];
 #pragma unroll
@@ -154,7 +195,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int s = st + grp;
       const bool valid = s < s1;
       float kn[16], vn[16];
-      load_kv<PAD>(k, v, (kv_row0 + s + KPB) * D + sub * 16, s + KPB < s1, nvalid, kn, vn);
+      load_kv<PAD, T>(k, v, (kv_row0 + s + KPB) * D + sub * 16, s + KPB < s1, nvalid, kn, vn);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float dot = 0.f;
@@ -238,62 +279,84 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DP, bool PAD>
-void launch_d(dim3 grid, cudaStream_t s, int rep, const float* q, const float* k,
-              const float* v, const int* le, float* out, float* pa, float* pm, int* tk, int H,
-              int Hkv, int S, int D, float scale) {
+template <typename T, int DP, bool PAD>
+void launch_d(dim3 grid, cudaStream_t s, int rep, const float* q, const T* k, const T* v,
+              const int* le, float* out, float* pa, float* pm, int* tk, int H, int Hkv, int S,
+              int D, float scale) {
   if (rep % 4 == 0)
-    flash_decode_kernel<DP, 4, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H,
-                                                                Hkv, S, D, scale);
+    flash_decode_kernel<T, DP, 4, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk,
+                                                                   H, Hkv, S, D, scale);
   else if (rep % 2 == 0)
-    flash_decode_kernel<DP, 2, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H,
-                                                                Hkv, S, D, scale);
+    flash_decode_kernel<T, DP, 2, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk,
+                                                                   H, Hkv, S, D, scale);
   else
-    flash_decode_kernel<DP, 1, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk, H,
-                                                                Hkv, S, D, scale);
+    flash_decode_kernel<T, DP, 1, PAD><<<grid, WARPS * 32, 0, s>>>(q, k, v, le, out, pa, pm, tk,
+                                                                   H, Hkv, S, D, scale);
 }
 
-template <int DP>
-void launch_w(dim3 grid, cudaStream_t s, int rep, const float* q, const float* k,
-              const float* v, const int* le, float* out, float* pa, float* pm, int* tk, int H,
-              int Hkv, int S, int D, float scale) {
+template <typename T, int DP>
+void launch_w(dim3 grid, cudaStream_t s, int rep, const float* q, const T* k, const T* v,
+              const int* le, float* out, float* pa, float* pm, int* tk, int H, int Hkv, int S,
+              int D, float scale) {
   if (D == DP)
-    launch_d<DP, false>(grid, s, rep, q, k, v, le, out, pa, pm, tk, H, Hkv, S, D, scale);
+    launch_d<T, DP, false>(grid, s, rep, q, k, v, le, out, pa, pm, tk, H, Hkv, S, D, scale);
   else
-    launch_d<DP, true>(grid, s, rep, q, k, v, le, out, pa, pm, tk, H, Hkv, S, D, scale);
+    launch_d<T, DP, true>(grid, s, rep, q, k, v, le, out, pa, pm, tk, H, Hkv, S, D, scale);
+}
+
+// one launch over K/V of element T
+template <typename T>
+cudaError_t launch_t(const float* q, const void* k, const void* v, const int* le, float* out,
+                     float* pa, float* pm, int* tk, int B, int H, int Hkv, int S, int D,
+                     float scale, cudaStream_t s) {
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  if (D % 8 != 0 || D > 256)
+    return decode_split::launch_generic<T>(q, kp, vp, nullptr, nullptr, le, out, pa, pm, tk, B,
+                                           H, Hkv, S, D, scale, s);
+  const dim3 grid(Hkv, B, (S + CHUNK - 1) / CHUNK);
+  const int rep = H / Hkv;
+  // the instantiated width: the next of 32, 64, 128, 256
+  if (D <= 32)
+    launch_w<T, 32>(grid, s, rep, q, kp, vp, le, out, pa, pm, tk, H, Hkv, S, D, scale);
+  else if (D <= 64)
+    launch_w<T, 64>(grid, s, rep, q, kp, vp, le, out, pa, pm, tk, H, Hkv, S, D, scale);
+  else if (D <= 128)
+    launch_w<T, 128>(grid, s, rep, q, kp, vp, le, out, pa, pm, tk, H, Hkv, S, D, scale);
+  else
+    launch_w<T, 256>(grid, s, rep, q, kp, vp, le, out, pa, pm, tk, H, Hkv, S, D, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// part_acc [B, H, ceil(S / CHUNK), D] and part_ml [B, H, ceil(S / CHUNK), 2]
-// f32 scratch; tickets int32 [B * Hkv], zero (and left zero); where S <=
-// CHUNK no block touches them, and they may be null.  D: a multiple of 8
-// up to 256
+// part_acc [B, H, n, D] and part_ml [B, H, n, 2] f32 scratch, n = ceil(S /
+// CHUNK) (ceil(S / GEN_CHUNK) on the generic route); tickets int32 [B * Hkv]
+// ([B * Hkv * ceil(H / Hkv / GEN_HEADS)] on the generic route), zero (and
+// left zero); where one chunk covers S no block touches them, and they may
+// be null.  kv_dtype: 0 float32, 1 float16, 2 bfloat16.  D: any; a multiple
+// of 8 up to 256 takes the main kernel, any other the generic route
 extern "C" int dmx_flash_decode(const void* q, const void* k, const void* v,
                                 const void* lengths, void* out, void* part_acc, void* part_ml,
                                 void* tickets, int B, int H, int Hkv, int S, int D, float scale,
-                                void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || D < 8 || D > 256 || D % 8 != 0)
-    return (int)cudaErrorInvalidValue;
+                                int kv_dtype, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || D < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Hkv, B, (S + CHUNK - 1) / CHUNK);
-  const int rep = H / Hkv;
   const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
   const int* lp = static_cast<const int*>(lengths);
   float* op = static_cast<float*>(out);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   int* tk = static_cast<int*>(tickets);
-  // the instantiated width: the next of 32, 64, 128, 256
-  if (D <= 32)
-    launch_w<32>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, D, scale);
-  else if (D <= 64)
-    launch_w<64>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, D, scale);
-  else if (D <= 128)
-    launch_w<128>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, D, scale);
-  else
-    launch_w<256>(grid, s, rep, qp, kp, vp, lp, op, pa, pm, tk, H, Hkv, S, D, scale);
-  return (int)cudaGetLastError();
+  switch (kv_dtype) {
+    case 0:
+      return (int)launch_t<float>(qp, k, v, lp, op, pa, pm, tk, B, H, Hkv, S, D, scale, s);
+    case 1:
+      return (int)launch_t<__half>(qp, k, v, lp, op, pa, pm, tk, B, H, Hkv, S, D, scale, s);
+    case 2:
+      return (int)launch_t<__nv_bfloat16>(qp, k, v, lp, op, pa, pm, tk, B, H, Hkv, S, D, scale,
+                                          s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -40,21 +40,32 @@
 //   (decode_split.cuh): one launch.  A merge by a second launch was
 //   measured beside it on the H100 and was slower at the main path's shape
 //   (PERF.md), so it was removed.
-// head_dim 32, 64, 128 or 256 (at 256 at most 16 query heads a KV head:
-// the chunk's K and V rows take 139 KB of shared memory there, and each
-// query head 3 KB more).  Any other multiple of 8 up to 256 (OPT-2.7b's
+// head_dim 32, 64, 128 or 256 (at 256 at most 16 query heads a KV head in
+// a block: the chunk's K and V rows take 139 KB of shared memory there, and
+// each query head 3 KB more; more heads take the grouped route below).  Any other multiple of 8 up to 256 (OPT-2.7b's
 // 80, say) runs the kernel of the next of those widths, DP, with D taken
 // at run time: the K and V rows are staged D bytes each in 8-byte copies
 // (a row starts on an 8-byte boundary), the query rows D floats each with
 // zeros to DP, so the padded dims add nothing to q . k (the staged bytes
 // past D are finite int8, times a zero), and only the D real dims are
-// written; at most 16 query heads a KV head above D 128.  The cache keeps
-// its D: padding its payload would copy all of it at every step, and the
-// per-position int8 scale over D is the unpadded head's.  CHUNK = 256 keys, chosen by measurement on the
-// H100 (PERF.md: 64 and 128 were slower at every shape timed), mirrored by
-// the wrapper's B2_CHUNK.  lengths[b] must be >= 1 (a decode step always
+// written; at most 16 query heads a KV head in a block above D 128.  The
+// cache keeps its D: padding its payload would copy all of it at every
+// step, and the per-position int8 scale over D is the unpadded head's.
+// CHUNK = 256 keys, chosen by measurement on the H100 (PERF.md: 64 and 128
+// were slower at every shape timed), mirrored by the wrapper's B2_CHUNK.  lengths[b] must be >= 1 (a decode step always
 // has its own key).  The launch error is returned to the caller
 // (cudaGetLastError).
+//
+// More query heads a KV head than the shared memory and sm_m / sm_l take
+// (32, or 16 above head_dim 128: Falcon-7B's 71 over 1, StarCoder's 48)
+// run on the grouped route: the grid's x axis is (KV head, group), the rep
+// query heads split into ceil(rep / 32) (or / 16) groups of at most that
+// many, and each block stages its chunk's K/V rows for its own group.  So
+// the K/V bytes are read once per group, twice at rep 48 or 64 (the second
+// read mostly from L2: the groups of a chunk run together); the bound
+// counts them once.  One launch; each group merges its chunks on its own
+// ticket.  A head_dim that is no multiple of 8, or above 256, takes the
+// generic route of decode_split.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,6 +78,10 @@ namespace {
 constexpr int NT = 256;  // threads per block
 constexpr int WARPS = NT / 32;
 constexpr int CHUNK = 256;  // keys per block
+
+// the most query heads a block takes at width DP: its shared memory (at
+// 256, 139 KB of K/V rows and 3 KB a head) and sm_m / sm_l
+__host__ __device__ constexpr int max_group(int DP) { return DP > 128 ? 16 : 32; }
 
 // shared memory of one block, in bytes, laid out in this order
 template <int D>
@@ -99,8 +114,8 @@ __device__ __forceinline__ float4 i8x4(uint32_t w) {
 }
 
 // DP: the instantiated width; PAD: the head's D (a multiple of 8 below DP)
-// comes at run time in Dr, else D = DP
-template <int DP, bool PAD>
+// comes at run time in Dr, else D = DP; GROUPED: the grouped route
+template <int DP, bool PAD, bool GROUPED>
 __global__ void __launch_bounds__(NT)
 flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
                          const int8_t* __restrict__ vq, const float* __restrict__ ks,
@@ -116,13 +131,23 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   int8_t* sv = reinterpret_cast<int8_t*>(smem + L::V);
   float* sks = reinterpret_cast<float*>(smem + L::KS);
   float* svs = reinterpret_cast<float*>(smem + L::VS);
-  const int rep = H / Hkv;
+  // the grid's x axis: (KV head, group of at most GH query heads); one
+  // group (GH = H / Hkv) but on the grouped route; rep: this block's query
+  // heads
+  int hkv = blockIdx.x, grp = 0, GH = H / Hkv, rep = GH;
+  if constexpr (GROUPED) {
+    const int groups = gridDim.x / Hkv;
+    hkv = blockIdx.x / groups;
+    grp = blockIdx.x - hkv * groups;
+    GH = (GH + groups - 1) / groups;
+    rep = min(GH, H / Hkv - grp * GH);
+    if (rep <= 0) return;  // uniform: every block of an empty group
+  }
   float* sq = reinterpret_cast<float*>(smem + L::Q);
-  float* sp = sq + rep * DP;
-  float* red = sp + rep * CHUNK;
-  __shared__ float sm_m[32], sm_l[32];  // rep <= 32 (the wrapper checks)
+  float* sp = sq + GH * DP;
+  float* red = sp + GH * CHUNK;
+  __shared__ float sm_m[32], sm_l[32];  // GH <= max_group(DP) <= 32
 
-  const int hkv = blockIdx.x;
   const int b = blockIdx.y;
   const int c = blockIdx.z;
   const int len = min(lengths[b], S);
@@ -132,11 +157,13 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   const int nact = (len + CHUNK - 1) / CHUNK;
   const int tid = threadIdx.x;
   const size_t row0 = ((size_t)b * Hkv + hkv) * S + s0;  // the chunk's first key
+  // the block's first query head
+  const size_t bh0 = (size_t)b * H + (size_t)hkv * (H / Hkv) + (size_t)grp * GH;
 
   // stage the chunk in two groups, both in flight at once: the query rows,
   // K rows and both scales, which the logits need; then the V rows, which
   // land while the logits are computed
-  const float* qp = q + ((size_t)b * H + (size_t)hkv * rep) * D;
+  const float* qp = q + bh0 * D;
   if constexpr (PAD) {
     const int Q4 = D / 4, C8 = D / 8, DZ = DP - D;
     for (int i = tid; i < rep * Q4; i += NT) {
@@ -247,7 +274,6 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   }
   __syncthreads();
 
-  const size_t bh0 = (size_t)b * H + (size_t)hkv * rep;  // the first query head's row
   const int nchunks = gridDim.z;
   for (int o = tid; o < rep * D; o += NT) {
     const int r = o / D, d = o - r * D;
@@ -263,7 +289,7 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
     part_ml[((bh0 + r) * nchunks + c) * 2] = sm_m[r];
     part_ml[((bh0 + r) * nchunks + c) * 2 + 1] = sm_l[r];
   }
-  if (!decode_split::last_to_arrive(tickets + (size_t)b * Hkv + hkv, nact)) return;
+  if (!decode_split::last_to_arrive(tickets + (size_t)b * gridDim.x + blockIdx.x, nact)) return;
   for (int o = tid; o < rep * D; o += NT) {
     const int r = o / D, d = o - r * D;
     out[(bh0 + r) * D + d] = decode_split::merge_chunks(
@@ -271,24 +297,39 @@ flash_decode_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__
   }
 }
 
-template <int DP, bool PAD>
+template <int DP, bool PAD, bool GROUPED>
 cudaError_t launch(const float* q, const int8_t* kq, const int8_t* vq, const float* ks,
                    const float* vs, const int* lengths, float* out, float* part_acc,
                    float* part_ml, int* tickets, int B, int H, int Hkv, int S, int D, float scale,
                    cudaStream_t s) {
-  const size_t smem = Smem<DP>::bytes(H / Hkv);
+  const int rep = H / Hkv;
+  const int groups = (rep + max_group(DP) - 1) / max_group(DP);
+  const size_t smem = Smem<DP>::bytes((rep + groups - 1) / groups);
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_decode_int8_kernel<DP, PAD>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_decode_int8_kernel<DP, PAD, GROUPED>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)smem);
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
   const int nchunks = (S + CHUNK - 1) / CHUNK;
-  flash_decode_int8_kernel<DP, PAD><<<dim3(Hkv, B, nchunks), NT, smem, s>>>(
+  flash_decode_int8_kernel<DP, PAD, GROUPED><<<dim3(Hkv * groups, B, nchunks), NT, smem, s>>>(
       q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, H, Hkv, S, D, scale);
   return cudaSuccess;
+}
+
+// the grouped route where the KV head's query heads exceed one block
+template <int DP, bool PAD>
+cudaError_t launch_g(const float* q, const int8_t* kq, const int8_t* vq, const float* ks,
+                     const float* vs, const int* lengths, float* out, float* part_acc,
+                     float* part_ml, int* tickets, int B, int H, int Hkv, int S, int D,
+                     float scale, cudaStream_t s) {
+  if (H / Hkv > max_group(DP))
+    return launch<DP, PAD, true>(q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, B,
+                                 H, Hkv, S, D, scale, s);
+  return launch<DP, PAD, false>(q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, B, H,
+                                Hkv, S, D, scale, s);
 }
 
 template <int DP>
@@ -297,26 +338,26 @@ cudaError_t launch_w(const float* q, const int8_t* kq, const int8_t* vq, const f
                      float* part_ml, int* tickets, int B, int H, int Hkv, int S, int D,
                      float scale, cudaStream_t s) {
   if (D == DP)
-    return launch<DP, false>(q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, B, H,
-                             Hkv, S, D, scale, s);
-  return launch<DP, true>(q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, B, H, Hkv,
-                          S, D, scale, s);
+    return launch_g<DP, false>(q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, B, H,
+                               Hkv, S, D, scale, s);
+  return launch_g<DP, true>(q, kq, vq, ks, vs, lengths, out, part_acc, part_ml, tickets, B, H,
+                            Hkv, S, D, scale, s);
 }
 
 }  // namespace
 
 // part_acc [B, H, ceil(S / 256), D] and part_ml [B, H, ceil(S / 256), 2]
-// f32 scratch; tickets int32 [B * Hkv], zero (and left zero); where S <= 256
-// no block touches them, and they may be null.  D: a multiple of 8 up to
-// 256
+// f32 scratch; tickets int32 [B * Hkv * groups], zero (and left zero), with
+// groups = ceil(rep / 32) (ceil(rep / 16) above head_dim 128; ceil(rep /
+// GEN_HEADS) on the generic route); where S <= 256 no block touches them,
+// and they may be null.  D: any; a multiple of 8 up to 256 takes the main
+// kernel, any other the generic route
 extern "C" int dmx_flash_decode_int8(const void* q, const void* k_q, const void* v_q,
                                      const void* k_scale, const void* v_scale,
                                      const void* lengths, void* out, void* part_acc,
                                      void* part_ml, void* tickets, int B, int H, int Hkv, int S,
                                      int D, float scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > (D > 128 ? 16 : 32) || D < 8 || D > 256 ||
-      D % 8 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv != 0 || D < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
   const int8_t* kp = static_cast<const int8_t*>(k_q);
@@ -328,6 +369,9 @@ extern "C" int dmx_flash_decode_int8(const void* q, const void* k_q, const void*
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   int* tk = static_cast<int*>(tickets);
+  if (D % 8 != 0 || D > 256)
+    return (int)decode_split::launch_generic<int8_t>(qp, kp, vp, ksp, vsp, lp, op, pa, pm, tk, B,
+                                                     H, Hkv, S, D, scale, s);
   // the instantiated width: the next of 32, 64, 128, 256
   cudaError_t err;
   if (D <= 32)

@@ -50,7 +50,7 @@ SIGNATURES = {
     ),
     "sbfp_linear": ("dmx_sbfp_linear", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "flash_decode": (
-        "dmx_flash_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "dmx_flash_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
     "bfp_cast": ("dmx_bfp_cast", [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "bfp_linear_bf16": (

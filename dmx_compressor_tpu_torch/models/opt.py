@@ -200,7 +200,9 @@ class OPTAttention(FrozenRouting, nn.Module):
                     if p is not None:
                         out = basic_sdpa_decode(q, k, v, attn_mask, scale=self.scaling, params=p)
             if out is None:
-                out = self.sdpa(q, k, v, attn_mask=attn_mask, scale=self.scaling)
+                # a 16-bit cache in q's dtype (the JAX package's matmuls promote it)
+                out = self.sdpa(q, k.to(q.dtype), v.to(q.dtype), attn_mask=attn_mask,
+                                scale=self.scaling)
         return out.transpose(1, 2).reshape(B, T, D)
 
 

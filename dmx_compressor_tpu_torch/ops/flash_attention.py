@@ -11,6 +11,8 @@ f32 operands (:func:`flash_attention_planes_ref` transcribes them).
 for CPU tensors.  ``flash_prefill`` and ``flash_chunked_prefill`` route a
 decoder family's prefill (Llama's; OPT has its own routing) through it, the
 KV heads repeated to the query heads first (the kernel has no GQA).
+:func:`attention_route` names the route an input takes through B2, B3 and
+B4: every input the JAX package computes has one.
 """
 
 from __future__ import annotations
@@ -24,16 +26,65 @@ from .. import kernels
 from .bfp_linear import split_bf16x3_ref
 
 NEG_INF = -1e30
-# the head dims the kernel is built for (32 and 64 one kernel, 128 and 256
-# its wide form); any other multiple of 8 up to 256 is zero-padded to the
-# next of them (:func:`flash_attention`), any other raises on the card
+# the head dims the kernels are built for (B3: 32 and 64 one kernel, 128
+# and 256 its wide form); B3 zero-pads any other D up to 256 to the next of
+# them (:func:`flash_attention`), B2 and B4 take a multiple of 8 up to 256
+# at run time; the rest takes each kernel's generic route
 HEAD_DIMS = (32, 64, 128, 256)
 
 
 def kernel_head_dim(D: int) -> bool:
-    """True for a head_dim the attention kernels (B2, B3, B4) take: a
-    multiple of 8 up to 256."""
+    """True for a head_dim that B2 and B4 take on their main kernels (B3 on
+    its main kernels after the pad): a multiple of 8 up to 256."""
     return D % 8 == 0 and 8 <= D <= HEAD_DIMS[-1]
+
+
+def b2_group(D: int) -> int:
+    """The most query heads a KV head that one block of B2's main kernel
+    serves (its shared memory and ``sm_m`` / ``sm_l``): more take the
+    grouped route (csrc/flash_decode_int8.cu's ``max_group``)."""
+    return 16 if D > 128 else 32
+
+
+def attention_route(kernel: str, H: int, Hkv: int, D: int, dtypes=()) -> Optional[str]:
+    """The route a launch of ``kernel`` ("flash_attention" B3,
+    "flash_decode" B4 or "flash_decode_int8" B2) takes on the card for H
+    query heads over Hkv KV heads (B3: 1, 1) of head_dim D and operands of
+    ``dtypes`` (B3: q, k, v and the bias where there is one; B4: q, k, v):
+    None for the kernel's main route (today's paths), else the name its
+    wrapper counts in ``kernels.ROUTE_LAUNCHES`` under ``<kernel>/``:
+
+    - B3: "generic" above D 256 (f32 on the CUDA cores, any D), else
+      "upcast" where an operand is not f32 (f32 copies made in the wrapper);
+      any D up to 256 is zero-padded to the next of HEAD_DIMS;
+    - B4: "generic" for a D that is no multiple of 8 or above 256, else
+      "f16" / "bf16" over a 16-bit cache read as stored (K and V of one
+      such dtype; K/V of any other dtype, or of two, are widened to f32
+      first, as the plain version does);
+    - B2: "generic" as B4, else "grouped" above ``b2_group(D)`` query heads
+      a KV head.
+
+    Raises ValueError only where the JAX package cannot compute either: H
+    not a multiple of Hkv, or no heads or dims."""
+    if H < 1 or Hkv < 1 or D < 1 or H % Hkv:
+        raise ValueError(f"attention needs H % Hkv == 0 and H, Hkv, D >= 1, got H={H}, "
+                         f"Hkv={Hkv}, D={D}")
+    if kernel == "flash_attention":
+        if D > HEAD_DIMS[-1]:
+            return "generic"
+        return "upcast" if any(dt != torch.float32 for dt in dtypes) else None
+    if kernel not in ("flash_decode", "flash_decode_int8"):
+        raise ValueError(f"no attention kernel {kernel!r}")
+    if not kernel_head_dim(D):
+        return "generic"
+    if kernel == "flash_decode_int8":
+        return "grouped" if H // Hkv > b2_group(D) else None
+    kv = tuple(dtypes[1:3])
+    if len(kv) == 2 and kv[0] == kv[1] and kv[0] in (torch.float16, torch.bfloat16):
+        return "f16" if kv[0] == torch.float16 else "bf16"
+    return None
+
+
 # the plane products (a's plane, b's plane; 0 = h, 1 = m, 2 = l) that the
 # kernel takes of each of its two products: ml, lm and ll lie below 2^-21
 # of |a||b| per term and are dropped
@@ -93,15 +144,19 @@ def flash_attention_planes_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, scale: Optional[float] = None,
                     causal: bool = False) -> torch.Tensor:
-    """softmax(q k^T * scale + bias) v, blockwise.
+    """softmax(q k^T * scale + bias) v, blockwise; in q's dtype.
 
     q: [..., L, D]; k, v: [..., S, D]; bias broadcastable to [..., L, S].
     Causal masking puts the diagonal at S - L and needs S >= L.  The kernel
-    takes float32 q, k, v and bias and head_dim 32, 64, 128 or 256; any
-    other multiple of 8 up to 256 (OPT-2.7b's 80) runs at the next of them
-    over q, k, v zero-padded along D, which is exact: the zero columns add
-    nothing to q k^T, the padded output columns (P times zeros) are
-    dropped, and the scale stays the true D's.  Anything else raises.
+    takes float32 q, k, v and bias: operands of another dtype (fp16, bf16;
+    an f32 q over a 16-bit cache's K/V at a chunked prefill) are copied to
+    f32 first, which is what the plain version computes in.  Its main
+    kernels take head_dim 32, 64, 128 or 256; any other D up to 256
+    (OPT-2.7b's 80, or 100) runs at the next of them over q, k, v
+    zero-padded along D, which is exact: the zero columns add nothing to q
+    k^T, the padded output columns (P times zeros) are dropped, and the
+    scale stays the true D's.  A D above 256 takes the generic kernel
+    (:func:`attention_route`).
     """
     *lead, L, D = q.shape
     S = k.shape[-2]
@@ -109,29 +164,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"causal attention needs S >= L, got L={L}, S={S}")
     if not kernels.plain_or_kernel(q):
         return flash_attention_ref(q, k, v, bias, scale, causal)
-    if not kernel_head_dim(D):
-        raise ValueError(f"the flash attention kernel takes a head_dim that is a multiple of 8 "
-                         f"up to 256, got {D}")
-    DP = next(d for d in HEAD_DIMS if d >= D)  # the instantiated width
+    dtypes = (q.dtype, k.dtype, v.dtype) + ((bias.dtype,) if bias is not None else ())
+    route = attention_route("flash_attention", 1, 1, D, dtypes)
+    # the width launched: D itself on the generic route, else the next
+    # instantiated one
+    DP = D if route == "generic" else next(d for d in HEAD_DIMS if d >= D)
     BH = math.prod(lead)
     scale = (D**-0.5) if scale is None else float(scale)
-    q2 = q.reshape(BH, L, D).contiguous()
-    k2 = k.reshape(BH, S, D).contiguous()
-    v2 = v.reshape(BH, S, D).contiguous()
+    f32 = torch.float32
+    q2 = q.reshape(BH, L, D).to(f32).contiguous()
+    k2 = k.reshape(BH, S, D).to(f32).contiguous()
+    v2 = v.reshape(BH, S, D).to(f32).contiguous()
     if DP != D:
         q2, k2, v2 = (torch.nn.functional.pad(t, (0, DP - D)) for t in (q2, k2, v2))
     operands = [q2, k2, v2]
     b2 = None
     if bias is not None:
-        b2 = torch.broadcast_to(bias, (*lead, L, S)).reshape(BH, L, S).contiguous()
+        b2 = torch.broadcast_to(bias, (*lead, L, S)).reshape(BH, L, S).to(f32).contiguous()
         operands.append(b2)
-    kernels.check_cuda(*operands, dtypes=(torch.float32,) * len(operands))
+    kernels.check_cuda(*operands, dtypes=(f32,) * len(operands))
     out = torch.empty_like(q2)
     kernels.launch(
         "flash_attention",
         q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
         b2.data_ptr() if b2 is not None else None, out.data_ptr(),
-        BH, L, S, DP, scale, int(causal), S - L,
+        BH, L, S, DP, scale, int(causal), S - L, route=route,
     )
     return out[..., :D].reshape(*lead, L, D).to(q.dtype)
 

@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .flash_attention import kernel_head_dim
+from .flash_attention import attention_route, b2_group
 from .kv_cache import QuantKV
 
 NEG_INF = -1e30
@@ -36,7 +36,14 @@ B2_CHUNK = 256
 B4_CHUNK = 1024
 # B2 and B4 are built for head_dim 32, 64, 128 and 256 (the HEAD_DIMS of
 # ops/flash_attention.py); any other multiple of 8 up to 256 runs the next
-# of them with its D taken at run time (the padded dims read as zeros)
+# of them with its D taken at run time (the padded dims read as zeros); any
+# other D takes the generic route of csrc/decode_split.cuh, whose blocks
+# serve GENERIC_HEADS query heads of a KV head over GENERIC_CHUNK keys (its
+# GEN_HEADS and GEN_CHUNK)
+GENERIC_CHUNK = 256
+GENERIC_HEADS = 8
+# the K/V dtypes B4 reads as stored, by their code in csrc/flash_decode.cu
+B4_KV_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # per device: the merge tickets of B2 and B4, int32, zero between launches
 # (the merging block resets its own); launches that share them run on one
@@ -128,34 +135,54 @@ def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, le
     return _merge_chunks(m, l, acc, D).to(q.dtype)
 
 
+def _decode_grid(route: Optional[str], H: int, Hkv: int, S: int, D: int, chunk: int):
+    """(chunks a row, tickets a batch row) of a decode launch: the main and
+    grouped routes split S by ``chunk``, the generic route by GENERIC_CHUNK
+    and its query heads into groups of GENERIC_HEADS; the grouped route
+    (B2) into groups of at most ``b2_group(D)``."""
+    rep = H // Hkv
+    if route == "generic":
+        return -(-S // GENERIC_CHUNK), Hkv * -(-rep // GENERIC_HEADS)
+    if route == "grouped":
+        return -(-S // chunk), Hkv * -(-rep // b2_group(D))
+    return -(-S // chunk), Hkv
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths,
                  scale: Optional[float] = None) -> torch.Tensor:
-    """softmax((q k^T) * scale masked to col < lengths[b]) v over f32 K/V
-    [B, Hkv, S, D], one query per row.  Returns [B, H, 1, D].  lengths:
-    int32 [B] or a scalar, each >= 1.  On the card, K/V of another dtype or a
-    head_dim that is no multiple of 8 up to 256 raise."""
+    """softmax((q k^T) * scale masked to col < lengths[b]) v over K/V [B,
+    Hkv, S, D], one query per row.  Returns [B, H, 1, D] in q's dtype.
+    lengths: int32 [B] or a scalar, each >= 1.  On the card a float32,
+    float16 or bfloat16 cache is read as stored (K and V of one dtype; any
+    other K/V are widened to f32 first, as the plain version computes), q
+    in f32; any head_dim (:func:`attention_route`)."""
     B, H, T, D = q.shape
     if T != 1:
         raise ValueError("flash_decode is the single-query decode kernel")
     if not kernels.plain_or_kernel(q):
         return flash_decode_ref(q, k, v, lengths, scale)
     Hkv, S = k.shape[1], k.shape[2]
-    if not kernel_head_dim(D) or H % Hkv:
-        raise ValueError(f"the decode kernel takes a head_dim that is a multiple of 8 up to 256 "
-                         f"and H % Hkv == 0, got D={D}, H={H}, Hkv={Hkv}")
+    route = attention_route("flash_decode", H, Hkv, D, (q.dtype, k.dtype, v.dtype))
     if k.shape != (B, Hkv, S, D) or v.shape != k.shape:
         raise ValueError("K/V must be [B, Hkv, S, D]")
+    if k.dtype != v.dtype or k.dtype not in B4_KV_DTYPES:
+        k, v = k.to(torch.float32), v.to(torch.float32)  # no cache stores these
+    k, v = k.contiguous(), v.contiguous()
     scale = (D**-0.5) if scale is None else float(scale)
     q2 = q.to(torch.float32).contiguous()
     le = _lengths_1d(lengths, B, q.device).contiguous()
-    kernels.check_cuda(q2, k, v, le,
-                       dtypes=(torch.float32, torch.float32, torch.float32, torch.int32))
+    kernels.check_cuda(q2, le, dtypes=(torch.float32, torch.int32))
+    # the main kernel reads a lane's 16 dims with 16-byte loads, the generic
+    # route element by element
+    kernels.check_cuda(k, v, dtypes=(k.dtype, k.dtype),
+                       align=k.element_size() if route == "generic" else 16)
     out = torch.empty_like(q2)
-    _part, acc, ml, tk = _partials(q.device, B, H, Hkv, -(-S // B4_CHUNK), D)
+    n, tickets = _decode_grid(route, H, Hkv, S, D, B4_CHUNK)
+    _part, acc, ml, tk = _partials(q.device, B, H, n, D, B * tickets)
     kernels.launch(
         "flash_decode",
         q2.data_ptr(), k.data_ptr(), v.data_ptr(), le.data_ptr(), out.data_ptr(), acc, ml, tk,
-        B, H, Hkv, S, D, scale,
+        B, H, Hkv, S, D, scale, B4_KV_DTYPES[k.dtype], route=route,
     )
     return out.to(q.dtype)
 
@@ -222,35 +249,31 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
-def _partials(device, B: int, H: int, Hkv: int, n: int, D: int):
+def _partials(device, B: int, H: int, n: int, D: int, tickets: int):
     """The split kernels' scratch: (the buffer, which the caller keeps until
     the launch, then pointers to the chunks' acc [B, H, n, D] and (m, l)
-    [B, H, n, 2] in it and to the tickets); all None where one chunk covers
-    a row (each block finishes its row)."""
+    [B, H, n, 2] in it and to ``tickets`` tickets); all None where one chunk
+    covers a row (each block finishes its row)."""
     if n <= 1:
         return None, None, None, None
     part = torch.empty(B * H * n * (D + 2), dtype=torch.float32, device=device)
     acc = part.data_ptr()
-    return part, acc, acc + B * H * n * D * 4, _tickets(device, B * Hkv).data_ptr()
+    return part, acc, acc + B * H * n * D * 4, _tickets(device, tickets).data_ptr()
 
 
 def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
                       scale: Optional[float] = None) -> torch.Tensor:
     """softmax((q k^T) * scale masked to col < lengths[b]) v over int8 K/V,
-    one query per row.  Returns [B, H, 1, D].  lengths: int32 [B] or a
-    scalar, each >= 1.  On the card a head_dim that is no multiple of 8 up
-    to 256, or more than 32 query heads a KV head (16 above head_dim 128),
-    raise."""
+    one query per row.  Returns [B, H, 1, D] in q's dtype.  lengths: int32
+    [B] or a scalar, each >= 1.  On the card any head_dim and any number of
+    query heads a KV head (:func:`attention_route`)."""
     B, H, T, D = q.shape
     if T != 1:
         raise ValueError("flash_decode_int8 is the single-query decode kernel")
     if not kernels.plain_or_kernel(q):
         return flash_decode_int8_ref(q, kv, lengths, scale)
     Hkv, S = kv.k_q.shape[1], kv.k_q.shape[2]
-    if not kernel_head_dim(D) or H % Hkv or H // Hkv > (16 if D > 128 else 32):
-        raise ValueError(f"the decode kernel takes a head_dim that is a multiple of 8 up to 256 "
-                         f"and H % Hkv == 0 with at most 32 query heads a KV head (16 above "
-                         f"head_dim 128), got D={D}, H={H}, Hkv={Hkv}")
+    route = attention_route("flash_decode_int8", H, Hkv, D)
     if kv.k_q.shape != (B, Hkv, S, D) or kv.v_q.shape != kv.k_q.shape:
         raise ValueError("int8 payloads must be [B, Hkv, S, D]")
     if kv.k_scale.shape != (B, Hkv, S) or kv.v_scale.shape != (B, Hkv, S):
@@ -259,17 +282,21 @@ def flash_decode_int8(q: torch.Tensor, kv: QuantKV, lengths,
     q2 = q.to(torch.float32).contiguous()
     le = _lengths_1d(lengths, B, q.device).contiguous()
     kernels.check_cuda(
-        q2, kv.k_q, kv.v_q, kv.k_scale, kv.v_scale, le,
-        dtypes=(torch.float32, torch.int8, torch.int8, torch.float32, torch.float32,
-                torch.int32),
+        q2, kv.k_scale, kv.v_scale, le,
+        dtypes=(torch.float32, torch.float32, torch.float32, torch.int32),
     )
+    # the main kernel stages rows with 8- and 16-byte copies, the generic
+    # route reads them byte by byte
+    kernels.check_cuda(kv.k_q, kv.v_q, dtypes=(torch.int8, torch.int8),
+                       align=1 if route == "generic" else 16)
     out = torch.empty_like(q2)
-    _part, acc, ml, tk = _partials(q.device, B, H, Hkv, -(-S // B2_CHUNK), D)
+    n, tickets = _decode_grid(route, H, Hkv, S, D, B2_CHUNK)
+    _part, acc, ml, tk = _partials(q.device, B, H, n, D, B * tickets)
     kernels.launch(
         "flash_decode_int8",
         q2.data_ptr(), kv.k_q.data_ptr(), kv.v_q.data_ptr(), kv.k_scale.data_ptr(),
         kv.v_scale.data_ptr(), le.data_ptr(), out.data_ptr(), acc, ml, tk, B, H, Hkv, S, D,
-        scale,
+        scale, route=route,
     )
     return out.to(q.dtype)
 

@@ -161,17 +161,44 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, L, S, D, causa
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
 
 
+def _hold_to_plain(got, want, dtype):
+    """The kernels' tolerance (rtol 1e-5, atol 2e-5) on an f32 output; an
+    output in a 16-bit dtype is the f32 result rounded once, so two f32
+    results within that tolerance may land one step of the dtype apart:
+    rtol its eps."""
+    rtol = 1e-5 if dtype == torch.float32 else torch.finfo(dtype).eps
+    assert got.dtype == want.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=rtol, atol=2e-5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 100), (torch.bfloat16, 64),
-                                     (torch.float16, 64), (torch.float32, 512)])
+                                     (torch.float16, 64), (torch.float32, 512), (None, 64)])
 def test_flash_attention_kernel_raises_rather_than_falling_back(cuda, dtype, D):
-    """A head_dim that is no multiple of 8 up to 256, or q/k/v other than
-    float32, raises before a launch."""
-    q = torch.randn(2, 4, 16, D, device=cuda).to(dtype)
+    """Never the plain version on the card: a head_dim that is no multiple
+    of 8 (100, zero-padded to 128), one above 256 (512, the generic kernel)
+    and fp16 / bf16 q/k/v (f32 copies) launch the kernel once, by the route
+    ``attention_route`` names, within the plain version's values in q's
+    dtype; causal attention with S < L (dtype None here), which JAX does
+    not compute either, raises before a launch."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn(2, 4, 16, D, generator=g, device=cuda).to(dtype or torch.float32)
+    k, v = (torch.randn(2, 4, 16 if dtype else 8, D, generator=g, device=cuda).to(q.dtype)
+            for _ in range(2))
     n0 = kernels.LAUNCHES["flash_attention"]
-    with pytest.raises(ValueError):
-        tfa.flash_attention(q, q.clone(), q.clone(), causal=True)
-    assert kernels.LAUNCHES["flash_attention"] == n0
+    if dtype is None:
+        with pytest.raises(ValueError):
+            tfa.flash_attention(q, k, v, causal=True)
+        assert kernels.LAUNCHES["flash_attention"] == n0
+        return
+    route = tfa.attention_route("flash_attention", 1, 1, D, (dtype,) * 3)
+    r0 = kernels.ROUTE_LAUNCHES.get(f"flash_attention/{route}", 0)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == n0 + 1
+    if route is not None:
+        assert kernels.ROUTE_LAUNCHES[f"flash_attention/{route}"] == r0 + 1
+    _hold_to_plain(got, tfa.flash_attention_ref(q, k, v, causal=True), dtype)
 
 
 # (M, N, K): ragged shapes (K = 48 and 80 are not multiples of 32: decode
@@ -354,28 +381,55 @@ def test_flash_decode_b2_and_b4_interleaved_share_the_tickets_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,H", [(100, 4), (256, 32), (136, 32)])
-def test_flash_decode_int8_kernel_raises_outside_its_head_dims(cuda, D, H):
-    """A head_dim that is no multiple of 8, or more than 16 query heads a KV
-    head above head_dim 128 (the chunk's shared memory at 256, the width
-    136 runs at), raises before a launch."""
-    q, kv, le = _b2_inputs(cuda, 2, H, 1, 40, D, [40, 7])
+@pytest.mark.parametrize("D,H,Hkv", [(100, 4, 1), (256, 32, 1), (136, 32, 1), (64, 5, 2)])
+def test_flash_decode_int8_kernel_raises_outside_its_head_dims(cuda, D, H, Hkv):
+    """Outside the main kernel's head dims and head groups, the kernel still
+    launches once: a head_dim that is no multiple of 8 on the generic route,
+    more than 16 query heads a KV head above head_dim 128 (the chunk's
+    shared memory at 256, the width 136 runs at) on the grouped route,
+    within the plain version's values; H % Hkv != 0, which JAX does not
+    compute either, raises before a launch."""
+    q, kv, le = _b2_inputs(cuda, 2, H, Hkv, 40, D, [40, 7])
     n0 = kernels.LAUNCHES["flash_decode_int8"]
-    with pytest.raises(ValueError):
-        tfd.flash_decode_int8(q, kv, le)
-    assert kernels.LAUNCHES["flash_decode_int8"] == n0
+    if H % Hkv:
+        with pytest.raises(ValueError):
+            tfd.flash_decode_int8(q, kv, le)
+        assert kernels.LAUNCHES["flash_decode_int8"] == n0
+        return
+    route = tfa.attention_route("flash_decode_int8", H, Hkv, D)
+    assert route == ("generic" if D % 8 else "grouped")
+    r0 = kernels.ROUTE_LAUNCHES.get(f"flash_decode_int8/{route}", 0)
+    got = tfd.flash_decode_int8(q, kv, le)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode_int8"] == n0 + 1
+    assert kernels.ROUTE_LAUNCHES[f"flash_decode_int8/{route}"] == r0 + 1
+    torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q, kv, le), rtol=1e-5, atol=2e-5)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float32, 84),
-                                     (torch.float32, 512)])
-def test_flash_decode_kernel_raises_rather_than_falling_back(cuda, dtype, D):
+@pytest.mark.parametrize("dtype,D,Hkv", [(torch.float16, 64, 4), (torch.float32, 84, 4),
+                                         (torch.float32, 512, 4), (torch.float32, 64, 3)])
+def test_flash_decode_kernel_raises_rather_than_falling_back(cuda, dtype, D, Hkv):
+    """Never the plain version on the card: an fp16 cache (read as stored),
+    a head_dim that is no multiple of 8 and one above 256 (the generic
+    route) launch the kernel once, within the plain version's values; 4
+    query heads over 3 KV heads, which JAX does not compute either, raises
+    before a launch."""
     q = torch.randn(2, 4, 1, D, device=cuda)
-    k = torch.randn(2, 4, 16, D, device=cuda, dtype=dtype)
+    k = torch.randn(2, Hkv, 16, D, device=cuda, dtype=dtype)
+    v = torch.randn(2, Hkv, 16, D, device=cuda, dtype=dtype)
     n0 = kernels.LAUNCHES["flash_decode"]
-    with pytest.raises(ValueError):
-        tfd.flash_decode(q, k, k.clone(), 8)
-    assert kernels.LAUNCHES["flash_decode"] == n0
+    if 4 % Hkv:
+        with pytest.raises(ValueError):
+            tfd.flash_decode(q, k, v, 8)
+        assert kernels.LAUNCHES["flash_decode"] == n0
+        return
+    route = tfa.attention_route("flash_decode", 4, Hkv, D, (q.dtype, dtype, dtype))
+    assert route == ("f16" if dtype == torch.float16 else "generic")
+    got = tfd.flash_decode(q, k, v, 8)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_decode"] == n0 + 1
+    torch.testing.assert_close(got, tfd.flash_decode_ref(q, k, v, 8), rtol=1e-5, atol=2e-5)
 
 
 # head dims off the kernels' instantiated widths (32 / 64 / 128 / 256):
@@ -422,6 +476,140 @@ def test_flash_decode_kernels_take_any_head_dim_multiple_of_8_on_card(cuda, D):
                                    atol=2e-5)
         assert torch.equal(tfd.flash_decode_int8(q8, kv, le8), got)
         assert not tfd._TICKETS[torch.device("cuda", torch.cuda.current_device())].any()
+
+
+# (B, H, Hkv, S, D, lengths): the OPT path's decode shape, the Llama
+# path's GQA, rows over several chunks, a head_dim off the widths (80, D
+# at run time) and each width
+HALF_B4_SHAPES = [(8, 12, 12, 256, 64, [160] * 8), (8, 32, 4, 256, 64, [160] * 8),
+                  (3, 16, 4, 2500, 128, [2500, 1025, 7]), (2, 8, 8, 300, 80, [300, 1]),
+                  (2, 4, 4, 200, 32, [200, 17]), (2, 8, 1, 1100, 256, [1100, 1024])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,D,lengths", HALF_B4_SHAPES)
+def test_flash_decode_kernel_reads_a_16_bit_cache_on_card(cuda, kv_dtype, B, H, Hkv, S, D,
+                                                          lengths):
+    """B4 over an fp16 / bf16 cache read as stored: each launch by the f16 /
+    bf16 route; an f32 q's output within rtol 1e-5 / atol 2e-5 of the plain
+    version and of the split transcription (widening is exact, the sums
+    f32), the same bits again, the tickets at zero; a q in the cache's dtype
+    gets the plain version's output in that dtype."""
+    q, k, v, _ = _b4_inputs(cuda, B, H, Hkv, S, D, seed=D)
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    le = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    key = "flash_decode/" + ("f16" if kv_dtype == torch.float16 else "bf16")
+    r0 = kernels.ROUTE_LAUNCHES.get(key, 0)
+    _check_b4(q, k, v, le)
+    assert kernels.ROUTE_LAUNCHES[key] == r0 + 2
+    qh = q.to(kv_dtype)
+    _hold_to_plain(tfd.flash_decode(qh, k, v, le), tfd.flash_decode_ref(qh, k, v, le), kv_dtype)
+
+
+# (B, H, Hkv, S, D, lengths) of B2's grouped route: StarCoder's 48 query
+# heads over 1 at D 128 (two groups of 24), 64 over 1 at D 64 (two of 32),
+# Falcon-7B's 71 over 1 (24, 24, 23), 24 over 1 at D 256 (two of 12) and
+# 40 over 2 at D 136 (14, 14, 12 a KV head); rows over one chunk
+# and several
+GROUPED_B2_SHAPES = [(2, 48, 1, 600, 128, [600, 255]), (8, 64, 1, 256, 64, [160] * 8),
+                     (2, 64, 1, 600, 64, [599, 7]), (2, 71, 1, 300, 64, [300, 256]),
+                     (2, 24, 1, 300, 256, [300, 1]), (3, 80, 2, 520, 136, [520, 64, 257])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,D,lengths", GROUPED_B2_SHAPES)
+def test_flash_decode_int8_grouped_route_on_card(cuda, B, H, Hkv, S, D, lengths):
+    """More query heads a KV head than one block of B2 takes: one launch by
+    the grouped route, within rtol 1e-5 / atol 2e-5 of the plain version and
+    of the split transcription, the same bits again, the tickets at zero."""
+    q, kv, le = _b2_inputs(cuda, B, H, Hkv, S, D, lengths)
+    assert tfa.attention_route("flash_decode_int8", H, Hkv, D) == "grouped"
+    r0 = kernels.ROUTE_LAUNCHES.get("flash_decode_int8/grouped", 0)
+    got = tfd.flash_decode_int8(q, kv, le)
+    torch.cuda.synchronize()
+    assert kernels.ROUTE_LAUNCHES["flash_decode_int8/grouped"] == r0 + 1
+    torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q, kv, le), rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(got, tfd.flash_decode_int8_split_ref(q, kv, le), rtol=1e-5,
+                               atol=2e-5)
+    assert torch.equal(tfd.flash_decode_int8(q, kv, le), got)
+    assert not tfd._TICKETS[torch.device("cuda", torch.cuda.current_device())].any()
+
+
+# head dims the decode kernels take on their generic route: 100 and 84 (a
+# row 4-byte aligned in f32), 99 (a bf16 row 2-byte aligned, an int8 row
+# byte aligned) and 512
+GENERIC_HEAD_DIMS = [100, 84, 99, 512]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", GENERIC_HEAD_DIMS)
+def test_decode_kernels_generic_route_on_card(cuda, D):
+    """B4 over f32 and bf16 caches and B2 on the generic route: one launch
+    each by the generic route, within rtol 1e-5 / atol 2e-5 of the plain
+    versions, the same bits again, the tickets at zero; rows over one chunk
+    and several, 32 heads and GQA 12:1 (each KV head's 12 query heads in
+    groups of 8 and 4)."""
+    for B, H, Hkv, S, lengths in [(8, 32, 32, 256, [160] * 8),
+                                  (3, 24, 2, 700, [700, 257, 3])]:
+        q, k, v, _ = _b4_inputs(cuda, B, H, Hkv, S, D, seed=D)
+        le = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        for dt in (torch.float32, torch.bfloat16):
+            r0 = kernels.ROUTE_LAUNCHES.get("flash_decode/generic", 0)
+            _check_b4(q, k.to(dt), v.to(dt), le)
+            assert kernels.ROUTE_LAUNCHES["flash_decode/generic"] == r0 + 2
+        q8, kv, le8 = _b2_inputs(cuda, B, H, Hkv, S, D, lengths)
+        r0 = kernels.ROUTE_LAUNCHES.get("flash_decode_int8/generic", 0)
+        got = tfd.flash_decode_int8(q8, kv, le8)
+        torch.cuda.synchronize()
+        assert kernels.ROUTE_LAUNCHES["flash_decode_int8/generic"] == r0 + 1
+        torch.testing.assert_close(got, tfd.flash_decode_int8_ref(q8, kv, le8), rtol=1e-5,
+                                   atol=2e-5)
+        assert torch.equal(tfd.flash_decode_int8(q8, kv, le8), got)
+        assert not tfd._TICKETS[torch.device("cuda", torch.cuda.current_device())].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [512, 300, 257])
+def test_flash_attention_generic_kernel_on_card(cuda, D):
+    """B3 above head_dim 256: one launch by the generic route, within rtol
+    1e-5 / atol 2e-5 of the plain version; causal at L = S over two key
+    tiles, L < S with a bias, non-causal and ragged."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    for B, H, L, S, causal, with_bias in [(2, 4, 128, 128, True, False),
+                                          (2, 3, 50, 90, True, True),
+                                          (1, 2, 33, 70, False, True)]:
+        q = torch.randn(B, H, L, D, generator=g, device=cuda)
+        k, v = (torch.randn(B, H, S, D, generator=g, device=cuda) for _ in range(2))
+        bias = torch.randn(B, H, L, S, generator=g, device=cuda) if with_bias else None
+        r0 = kernels.ROUTE_LAUNCHES.get("flash_attention/generic", 0)
+        got = tfa.flash_attention(q, k, v, bias, causal=causal)
+        torch.cuda.synchronize()
+        assert kernels.ROUTE_LAUNCHES["flash_attention/generic"] == r0 + 1
+        torch.testing.assert_close(got, tfa.flash_attention_ref(q, k, v, bias, causal=causal),
+                                   rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 80, 128, 512])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.bfloat16, torch.bfloat16),
+                                              (torch.float16, torch.float16),
+                                              (torch.float32, torch.bfloat16),
+                                              (torch.float32, torch.float16)])
+def test_flash_attention_16_bit_operands_on_card(cuda, D, q_dtype, kv_dtype):
+    """B3 with 16-bit operands: 16-bit q/k/v, and an f32 q over 16-bit K/V
+    (a chunked prefill over a 16-bit cache: 32 queries over 96 keys,
+    causal), with a bias in q's dtype: one launch, the plain version's
+    output in q's dtype (_hold_to_plain)."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn(2, 4, 32, D, generator=g, device=cuda).to(q_dtype)
+    k, v = (torch.randn(2, 4, 96, D, generator=g, device=cuda).to(kv_dtype) for _ in range(2))
+    bias = torch.randn(2, 4, 32, 96, generator=g, device=cuda).to(q_dtype)
+    n0 = kernels.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, bias, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == n0 + 1
+    _hold_to_plain(got, tfa.flash_attention_ref(q, k, v, bias, causal=True), q_dtype)
 
 
 @pytest.mark.gpu
@@ -692,6 +880,117 @@ def test_engine_matches_isolated_generation_on_card(cuda, mode, chunk):
     for rid, (p, g) in zip(rids, reqs):
         want, margins = _isolated_on_card(model, p, g, quantized, max_len, cuda)
         assert res[rid].finish_reason == "length" and len(res[rid].tokens) == g
+        for s, (a, b) in enumerate(zip(res[rid].tokens, want)):
+            if margins[s] <= ENGINE_TOL:
+                break
+            assert a == b, f"request {rid}, token {s}"
+
+
+# ---------------------------------------------------------------------------
+# 16-bit float caches on the card
+# ---------------------------------------------------------------------------
+
+# tiny OPT (4 heads of 32) and Llama (4 query heads over 2 KV heads of 32)
+HALF_CFG = {"opt": dict(vocab_size=512, hidden_size=128, ffn_dim=256, num_hidden_layers=2,
+                        num_attention_heads=4, max_position_embeddings=256),
+            "llama": dict(vocab_size=512, hidden_size=128, intermediate_size=256,
+                          num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                          max_position_embeddings=256)}
+# logits, card against CPU over a 16-bit cache: f32 sums in another order,
+# and a K/V entry whose f32 values, a few ulp apart on the two devices, round
+# one 16-bit step apart (as an int8 entry one step apart: ENGINE_TOL)
+HALF_TOL = 1e-2
+
+
+def _half_model(family, device, **cfg):
+    from dmx_compressor_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from dmx_compressor_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+
+    cls, cfg_cls = {"opt": (OPTForCausalLM, OPTConfig),
+                    "llama": (LlamaForCausalLM, LlamaConfig)}[family]
+    with torch.no_grad():
+        return cls(cfg_cls(**HALF_CFG[family], **cfg), device=device, seed=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("family", ["opt", "llama"])
+def test_half_cache_model_on_card_matches_cpu(cuda, family, kv_dtype):
+    """A tiny f32 model over a 16-bit float cache (``init_cache(dtype=...)``,
+    the cache ``model_from_checkpoint(dtype=...)`` gives) on the card: a
+    prefill of 24 (one B3 a layer), a second chunk of 8 (Llama's through
+    ``flash_chunked_prefill``: one B3 a layer over the cache's 16-bit K/V,
+    by the upcast route; OPT's through its modular sdpa) and 4 greedy steps
+    (one B4 a layer each, by the f16 / bf16 route).  Its logits within
+    HALF_TOL of the same model's on the CPU (the plain versions) over the
+    card's tokens, and each token the CPU's where the CPU's top-2 margin
+    exceeds HALF_TOL."""
+    from dmx_compressor_tpu_torch.models.shared import greedy_token
+
+    model = _half_model(family, cuda)
+    L = model.cfg.num_hidden_layers
+    B, P, C, steps = 2, 24, 8, 4
+    ids = torch.randint(0, 512, (B, P + C), generator=torch.Generator().manual_seed(5))
+
+    def run(dev, toks=None):
+        caches = model.init_cache(B, 64, dtype=kv_dtype, device=dev)
+        assert caches[0].k.dtype == kv_dtype
+        rows, chosen = [], []
+        with torch.no_grad():
+            model(ids[:, :P].to(dev), caches=caches, position_offset=0)
+            rows.append(model(ids[:, P:].to(dev), caches=caches, position_offset=P)[:, -1])
+            for i in range(steps):
+                tok = greedy_token(rows[-1]) if toks is None else toks[:, i].to(dev)
+                chosen.append(tok.cpu())
+                rows.append(model(tok[:, None].to(torch.int32), caches=caches,
+                                  position_offset=P + C + i)[:, -1])
+        return torch.stack(rows).float().cpu(), torch.stack(chosen, 1)
+
+    kernels.reset_launches()
+    got, toks = run(cuda)
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    assert launched == {"flash_attention": L * (2 if family == "llama" else 1),
+                        "flash_decode": L * steps}
+    b4 = "flash_decode/" + ("f16" if kv_dtype == torch.float16 else "bf16")
+    assert kernels.ROUTE_LAUNCHES.get(b4) == L * steps
+    assert kernels.ROUTE_LAUNCHES.get("flash_attention/upcast", 0) == (
+        L if family == "llama" else 0)
+    model.to("cpu")
+    want, _ = run("cpu", toks)
+    assert (got - want).abs().max().item() <= HALF_TOL
+    top2 = want[:-1].topk(2, dim=-1).values  # the rows each token was chosen from
+    clear = top2[..., 0] - top2[..., 1] > HALF_TOL  # [steps, B]
+    choice = torch.stack([greedy_token(r) for r in want[:-1]])
+    assert not (clear & (choice != toks.T)).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_engine_over_bf16_row_caches_on_card(cuda, chunk):
+    """The engine over bf16 row caches (a config whose dtype is bf16: f32
+    weights, the caches' default dtype) on the card: its decode steps through
+    B4's bf16 route; each request's tokens those of isolated generation on
+    the card over a bf16 cache, up to the first step whose top-1/top-2
+    margin is within ENGINE_TOL."""
+    import numpy as np
+    from dmx_compressor_tpu_torch.serving import ContinuousBatchingEngine
+
+    model = _half_model("opt", cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(1, 512, (n,)).astype(np.int32), g)
+            for n, g in ((5, 20), (30, 6), (17, 4), (9, 8))]
+    max_len = 64
+    eng = ContinuousBatchingEngine(model, max_slots=3, max_len=max_len, prompt_buckets=(16, 32),
+                                   prefill_chunk=chunk)
+    assert eng.caches[0].k.dtype == torch.bfloat16
+    kernels.reset_launches()
+    rids = [eng.submit(p, max_new_tokens=g) for p, g in reqs]
+    res = {r.request_id: r for r in eng.run(burst=4)}
+    assert kernels.ROUTE_LAUNCHES.get("flash_decode/bf16", 0) == kernels.LAUNCHES["flash_decode"]
+    assert kernels.LAUNCHES["flash_decode"] > 0
+    for rid, (p, g) in zip(rids, reqs):
+        want, margins = _isolated_on_card(model, p, g, False, max_len, cuda)
+        assert len(res[rid].tokens) == g
         for s, (a, b) in enumerate(zip(res[rid].tokens, want)):
             if margins[s] <= ENGINE_TOL:
                 break
