@@ -58,6 +58,7 @@ from ..ops.compress import merge_parallel_linears
 from ..ops.flash_attention import flash_chunked_prefill, flash_prefill
 from ..ops.flash_decode import cached_attend
 from ..ops.kv_cache import cache_seq_len, make_caches
+from ..utils.tracing import span
 from .positions import causal_mask, resolve_positions
 from .shared import FrozenRouting, load_jax_params, take_rows
 
@@ -168,6 +169,13 @@ class LlamaAttention(FrozenRouting, nn.Module):
         q, k = q.transpose(1, 2), k.transpose(1, 2)
         v = self._split(_v, self.num_kv_heads)
         q, k = self.apply_rope(q, k, cos, sin)
+        with span("dmx.attention"):
+            out = self._attend(q, k, v, attn_mask, cache, prefill_offset, plain_causal)
+            out = out.transpose(1, 2).reshape(B, T, D)
+        return self.o_proj(out)
+
+    def _attend(self, q, k, v, attn_mask, cache, prefill_offset, plain_causal):
+        """Attention over the normed and roped heads, [B, H, T, D] out."""
         transparent = self.sdpa_is_transparent  # None until frozen: the ops ask
         if prefill_offset is not None:
             # a causal prefill from 0, or a chunk at prefill_offset over the
@@ -178,11 +186,10 @@ class LlamaAttention(FrozenRouting, nn.Module):
                 out = flash_chunked_prefill(self.sdpa, q, k, v, cache=cache,
                                             offset=prefill_offset, transparent=transparent)
             if out is not None:
-                return self.o_proj(out.transpose(1, 2).reshape(B, T, D))
-        out = cached_attend(self.sdpa, q, k, v, cache, attn_mask,
-                            enable_gqa=self.num_kv_heads != self.num_heads,
-                            plain_causal=plain_causal, transparent=transparent)
-        return self.o_proj(out.transpose(1, 2).reshape(B, T, D))
+                return out
+        return cached_attend(self.sdpa, q, k, v, cache, attn_mask,
+                             enable_gqa=self.num_kv_heads != self.num_heads,
+                             plain_causal=plain_causal, transparent=transparent)
 
 
 class LlamaMLP(nn.Module):
@@ -329,6 +336,11 @@ class LlamaForCausalLM(nn.Module):
         return self.cfg
 
     def forward(self, input_ids, caches=None, position_offset=0):
+        """Logits [B, T, vocab]; recorded as the span ``dmx.forward``."""
+        with span("dmx.forward"):
+            return self._logits(input_ids, caches, position_offset)
+
+    def _logits(self, input_ids, caches, position_offset):
         if input_ids.shape[1] == 1 and caches is not None:
             plan = basic_rms_head_plan(self.model.norm, self.lm_head,
                                        gemma_norm=self.gemma_norm)

@@ -59,6 +59,7 @@ from ..ops.basic_linear import fused_basic_linear
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode, flash_decode_int8, post_update_lengths
 from ..ops.kv_cache import cache_seq_len, make_caches, quantized_sdpa
+from ..utils.tracing import span
 from .positions import causal_mask, resolve_positions
 # greedy decoding is shared by every family; OPT's callers import it here
 from .shared import FrozenRouting, load_jax_biased_params, take_rows
@@ -162,7 +163,12 @@ class OPTAttention(FrozenRouting, nn.Module):
 
     def attend(self, _q, _k, _v, attn_mask=None, cache=None, position_offset=0):
         """Head-split attention over projected q/k/v [B, T, D]; returns the
-        merged-head context [B, T, D] (before out_proj)."""
+        merged-head context [B, T, D] (before out_proj).  Recorded as the
+        span ``dmx.attention``."""
+        with span("dmx.attention"):
+            return self._attend(_q, _k, _v, attn_mask, cache, position_offset)
+
+    def _attend(self, _q, _k, _v, attn_mask, cache, position_offset):
         B, T, D = _q.shape
         q, k, v = self._split(_q), self._split(_k), self._split(_v)
         if cache is not None and getattr(cache, "split", False):
@@ -340,6 +346,11 @@ class OPTForCausalLM(nn.Module):
         return self.cfg
 
     def forward(self, input_ids, caches=None, position_offset=0):
+        """Logits [B, T, vocab]; recorded as the span ``dmx.forward``."""
+        with span("dmx.forward"):
+            return self._logits(input_ids, caches, position_offset)
+
+    def _logits(self, input_ids, caches, position_offset):
         if input_ids.shape[1] == 1 and caches is not None:
             final_ln = self.model.decoder.final_layer_norm
             plan = basic_head_plan(final_ln, self.lm_head)

@@ -39,7 +39,7 @@ from ..numerics.format import (
     Same,
     ScaledBlockFloatingPoint,
 )
-from ..utils.tracing import eager
+from ..utils.tracing import eager, span
 from .bfp_linear import bfp_linear, bfp_linear_bf16, sbfp_linear
 from .bfp_pack import PackedBFP, PackedSBFP, bfp_pack, sbfp_pack
 
@@ -98,6 +98,14 @@ class _PackedLinear(DmxModule):
 
     def _matmul(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
+
+    def forward(self, input, *args, **kwargs):
+        with span("dmx.linear"):
+            return self._call(input, *args, **kwargs)
+
+    def _call(self, input, *args, **kwargs):
+        """The whole call, input and output casts included."""
+        return super().forward(input, *args, **kwargs)
 
     def _forward(self, _input):
         tp = self.tp_shard
@@ -172,9 +180,9 @@ class PackedBFPLinear(_PackedLinear):
         )
         return in_ok and out_ok and quiet
 
-    def forward(self, input, *args, **kwargs):
+    def _call(self, input, *args, **kwargs):
         if not self._fusable(input):
-            return super().forward(input, *args, **kwargs)
+            return super()._call(input, *args, **kwargs)
         from .basic_linear import fused_basic_linear
 
         x = input
