@@ -559,14 +559,14 @@ PLAIN_ITERS = 3
 STEP_ITERS = 3
 
 
-def time_ms(torch, fn, arg_sets, min_iters: int = 10) -> float:
-    """Device ms per call of ``fn``: the device time of all the work the
-    calls launched (torch.profiler), cycling through ``arg_sets`` whose
-    inputs together exceed L2, so each call finds its inputs cold as on the
-    main path.  Each kernel counts its mean time a launch times its launches
-    a call (its launches over the calls, rounded), so a trace that lost a
-    few of a kernel's records is not taken again.  Raises if the profiler
-    saw no device time."""
+def time_by_kernel(torch, fn, arg_sets, min_iters: int = 10) -> dict:
+    """Device ms per call of ``fn`` by kernel name: the device time of all
+    the work the calls launched (torch.profiler), cycling through
+    ``arg_sets`` whose inputs together exceed L2, so each call finds its
+    inputs cold as on the main path.  Each kernel counts its mean time a
+    launch times its launches a call (its launches over the calls, rounded),
+    so a trace that lost a few of a kernel's records is not taken again.
+    Raises if the profiler saw no device time."""
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
@@ -579,9 +579,13 @@ def time_ms(torch, fn, arg_sets, min_iters: int = 10) -> float:
     trace = device_trace(torch, run)
     if not trace:
         raise RuntimeError(f"torch.profiler recorded no trace of {fn}")
-    us = sum(t / n * round(n / iters) if round(n / iters) else t / iters
-             for _, t, n in trace)
-    return us / 1e3
+    return {name: (t / n * round(n / iters) if round(n / iters) else t / iters) / 1e3
+            for name, t, n in trace}
+
+
+def time_ms(torch, fn, arg_sets, min_iters: int = 10) -> float:
+    """Device ms per call of ``fn``, all its kernels (:func:`time_by_kernel`)."""
+    return sum(time_by_kernel(torch, fn, arg_sets, min_iters).values())
 
 
 def time_plain(torch, fn, arg_sets, iters: int = PLAIN_ITERS) -> float:
@@ -1335,7 +1339,8 @@ def check_b2(torch, dev, cfg, fams, wcfg):
 def check_b3(torch, dev, cfg, fams, wcfg):
     import torch.nn.functional as F
 
-    from dmx_compressor_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from dmx_compressor_tpu_torch.ops.flash_attention import (
+        attention_route, flash_attention, flash_attention_ref)
 
     g = torch.Generator(device=dev).manual_seed(13)
     cases = []
@@ -1347,7 +1352,10 @@ def check_b3(torch, dev, cfg, fams, wcfg):
     # repeats the K/V heads to the query heads before the kernel, a copy
     # timed here apart; the bound counts the K/V of the KV heads, as the
     # function flash_prefill computes reads them); then the wide kernel
-    # (head_dim 128 and 256) at L < S with a bias
+    # (head_dim 128 and 256) at L < S with a bias.  A shape that takes the
+    # wgmma route (attention_route; qwen3's) gets the KV heads as they are,
+    # as flash_prefill hands them; the others the repeated K/V their kernels
+    # take, the repeat timed apart
     H = cfg.num_attention_heads
     D = cfg.hidden_size // H
     shapes = [(BATCH, H, H, PROMPT, PROMPT, D, False, None),
@@ -1371,6 +1379,8 @@ def check_b3(torch, dev, cfg, fams, wcfg):
                        f"parallel_{f}_tp2"))
     for B, H, Hkv, L, S, D, with_bias, path in shapes:
         per_set = 4 * B * D * (2 * H * L + 2 * Hkv * S) + (4 * B * H * L * S if with_bias else 0)
+        route = attention_route("flash_attention", H, Hkv, D,
+                                (torch.float32,) * (4 if with_bias else 3), S=S)
         sets, kv_sets = [], []
         for _ in range(copies_for(per_set)):
             q = torch.randn(B, H, L, D, generator=g, device=dev)
@@ -1378,8 +1388,11 @@ def check_b3(torch, dev, cfg, fams, wcfg):
             v = torch.randn(B, Hkv, S, D, generator=g, device=dev)
             bias = torch.randn(B, H, L, S, generator=g, device=dev) if with_bias else None
             kv_sets.append((k, v))
-            sets.append((q, torch.repeat_interleave(k, H // Hkv, dim=1),
-                         torch.repeat_interleave(v, H // Hkv, dim=1), bias))
+            if route == "wgmma":
+                sets.append((q, k, v, bias))
+            else:
+                sets.append((q, torch.repeat_interleave(k, H // Hkv, dim=1),
+                             torch.repeat_interleave(v, H // Hkv, dim=1), bias))
 
         def kern(q, k, v, bias):
             return flash_attention(q, k, v, bias, causal=True)
@@ -1412,11 +1425,15 @@ def check_b3(torch, dev, cfg, fams, wcfg):
         bound_ms, by = bound(per_set, B3_PLANE_PRODUCTS * 4 * B * H * D * pairs, PEAK_BF16_FLOP_S)
         cases.append(dict(shape=[B * H, L, S, D], bias=with_bias, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
-                          bound_f32_ms=bound_f32_ms))
+                          bound_f32_ms=bound_f32_ms, route=route or "main"))
         if path is not None:
             cases[-1]["path"] = path
         gqa = ""
-        if Hkv != H:
+        if Hkv != H and route == "wgmma":
+            cases[-1]["kv_heads"] = Hkv
+            gqa = (f" ({Hkv} KV heads, read as they are on the wgmma route: kernel_ms holds its "
+                   f"pre-pass; library_ms is SDPA with enable_gqa on the {Hkv} heads)")
+        elif Hkv != H:
             # flash_prefill's head repeat of K and V, one layer's
             cases[-1]["kv_heads"] = Hkv
             cases[-1]["repeat_ms"] = time_ms(
@@ -1426,7 +1443,8 @@ def check_b3(torch, dev, cfg, fams, wcfg):
                    f"repeat of K and V to {H} heads before the kernel: "
                    f"repeat_ms={cases[-1]['repeat_ms']:.4f} a layer, library_ms is SDPA "
                    f"with enable_gqa on the {Hkv} heads)")
-        log(f"B3 flash_attention BH={B * H} L={L} S={S} D={D} causal bias={with_bias}{gqa}: "
+        log(f"B3 flash_attention BH={B * H} L={L} S={S} D={D} causal bias={with_bias} "
+            f"route={route or 'main'}{gqa}: "
             f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms(F.scaled_dot_product_attention, float mask)={lib_ms:.4f} "
             f"(its max_abs_err against the plain version {lib_err:.3g}) "
@@ -1434,6 +1452,103 @@ def check_b3(torch, dev, cfg, fams, wcfg):
             f"{B3_PLANE_PRODUCTS} bf16 tensor-core products per f32 product at "
             f"{PEAK_BF16_FLOP_S/1e12} TFLOP/s) bound_f32_ms={bound_f32_ms:.4f} "
             f"({PEAK_F32_FLOP_S/1e12} f32 TFLOP/s)")
+    return cases
+
+
+# B3's wgmma route at Qwen3-0.6B's scoring shape (portbench's
+# qwen3-0.6b.weights-score: 4 rows of 4096 tokens, 16 query heads over 8 KV
+# heads of 128, causal), beside the wide kernel over the K/V repeated to the
+# query heads; then the shapes the route's thresholds (WGMMA_MIN_KEYS over as
+# many KV heads as query heads, WGMMA_MIN_KEYS_GQA over fewer) were set from,
+# (B, H, Hkv, L = S), both routes timed
+B3_WGMMA_SCORE = (4, 16, 8, 4096)
+B3_CROSSOVER = [(8, 16, 16, 128), (8, 16, 16, 144), (8, 16, 16, 160), (8, 16, 16, 176),
+                (8, 16, 16, 192), (8, 16, 16, 256), (1, 8, 8, 256), (8, 16, 8, 64),
+                (8, 16, 8, 96), (8, 16, 8, 128), (1, 16, 8, 1024)]
+
+
+@contextlib.contextmanager
+def b3_route(tfa, route):
+    """B3 launches take ``route`` ("wgmma" or "main") whatever their keys:
+    the thresholds moved to 1 or past any S while the block runs."""
+    keep = tfa.WGMMA_MIN_KEYS, tfa.WGMMA_MIN_KEYS_GQA
+    tfa.WGMMA_MIN_KEYS = tfa.WGMMA_MIN_KEYS_GQA = 1 if route == "wgmma" else 1 << 62
+    try:
+        yield
+    finally:
+        tfa.WGMMA_MIN_KEYS, tfa.WGMMA_MIN_KEYS_GQA = keep
+
+
+def check_b3_wgmma(torch, dev, kernels):
+    import torch.nn.functional as F
+
+    from dmx_compressor_tpu_torch.ops import flash_attention as tfa
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    D, f32 = 128, (torch.float32,) * 3
+
+    def make_sets(B, H, Hkv, T):
+        per_set = 4 * B * D * (2 * H * T + 2 * Hkv * T)
+        return per_set, [tuple(torch.randn(B, h, T, D, generator=g, device=dev)
+                               for h in (H, Hkv, Hkv)) for _ in range(copies_for(per_set))]
+
+    def kern(q, k, v):
+        return tfa.flash_attention(q, k, v, causal=True)
+
+    def split(times, needle):
+        return sum(ms for name, ms in times.items() if needle in name)
+
+    B, H, Hkv, T = B3_WGMMA_SCORE
+    per_set, sets = make_sets(B, H, Hkv, T)
+    want = tfa.flash_attention_ref(*sets[0], causal=True)
+    r0 = kernels.ROUTE_LAUNCHES.get("flash_attention/wgmma", 0)
+    err = max_err(torch, kern(*sets[0]), want, B3_TOL, "B3 wgmma at the qwen3 scoring shape")
+    if kernels.ROUTE_LAUNCHES.get("flash_attention/wgmma", 0) != r0 + 1:
+        raise AssertionError("B3 at the qwen3 scoring shape did not take the wgmma route")
+    with b3_route(tfa, "main"):
+        wide_err = max_err(torch, kern(*sets[0]), want, B3_TOL,
+                           "B3 wide at the qwen3 scoring shape")
+    del want
+    new = time_by_kernel(torch, kern, sets)
+    with b3_route(tfa, "main"):
+        old = time_by_kernel(torch, kern, sets)
+    plain_ms = time_plain(torch, lambda q, k, v: tfa.flash_attention_ref(q, k, v, causal=True),
+                          sets)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    lib_ms = time_ms(torch, library, sets)
+    pairs = T * (T + 1) // 2
+    bound_ms, by = bound(per_set, B3_PLANE_PRODUCTS * 4 * B * H * D * pairs, PEAK_BF16_FLOP_S)
+    score = dict(shape=[B, H, Hkv, T, T, D], route="wgmma", max_abs_err=err,
+                 wide_max_abs_err=wide_err, ms=sum(new.values()),
+                 main_ms=split(new, "kernel_wgmma"), split_kv_ms=split(new, "split_kv"),
+                 wide_ms=split(old, "wide_kernel"),
+                 repeat_ms=sum(old.values()) - split(old, "wide_kernel"), plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+    log(f"B3 wgmma at the qwen3 scoring shape B={B} H={H} Hkv={Hkv} L=S={T} D={D} causal: "
+        f"max_abs_err={err:.3g} (the wide kernel's {wide_err:.3g} on the same inputs) "
+        f"kernel_ms={score['ms']:.4f} (flash_attention_kernel_wgmma {score['main_ms']:.4f} + "
+        f"its pre-pass flash_attention_kernel_split_kv {score['split_kv_ms']:.4f}); the wide "
+        f"kernel {score['wide_ms']:.4f} + the K/V repeat before it {score['repeat_ms']:.4f}; "
+        f"plain_ms={plain_ms:.4f} library_ms(F.scaled_dot_product_attention, is_causal, "
+        f"enable_gqa)={lib_ms:.4f} bound_ms={bound_ms:.4f} ({by}; {B3_PLANE_PRODUCTS} bf16 "
+        f"products per f32 product at {PEAK_BF16_FLOP_S/1e12} TFLOP/s)")
+    del sets
+    cases = [score]
+    for B, H, Hkv, T in B3_CROSSOVER:
+        _, sets = make_sets(B, H, Hkv, T)
+        route = tfa.attention_route("flash_attention", H, Hkv, D, f32, S=T) or "main"
+        ms = {}
+        for r in ("wgmma", "main"):
+            with b3_route(tfa, r):
+                ms[r] = time_ms(torch, kern, sets)
+        cases.append(dict(shape=[B, H, Hkv, T, T, D], route=route, wgmma_ms=ms["wgmma"],
+                          main_ms=ms["main"]))
+        log(f"B3 crossover B={B} H={H} Hkv={Hkv} L=S={T} D={D} causal: the wgmma route "
+            f"{ms['wgmma']:.4f} ms (its pre-pass included), the wide kernel {ms['main']:.4f} ms "
+            f"(the K/V repeat included where Hkv < H); the rule takes {route}")
     return cases
 
 
@@ -6792,6 +6907,7 @@ def main(argv=None) -> int:
     for name, check in (("B1", lambda: check_b1(torch, dev, cfg)),
                         ("B2", lambda: check_b2(torch, dev, cfg, fams, s2s["whisper"])),
                         ("B3", lambda: check_b3(torch, dev, cfg, fams, s2s["whisper"])),
+                        ("B3 wgmma", lambda: check_b3_wgmma(torch, dev, kernels)),
                         ("B4", lambda: check_b4(torch, dev, cfg, fams, s2s["whisper"])),
                         ("B5", lambda: check_b5(torch, dev, cfg)),
                         ("T1", lambda: check_t1(torch, dev, cfg)),
@@ -7053,8 +7169,10 @@ def main(argv=None) -> int:
              source="dmx_compressor_tpu_torch/csrc/flash_attention.cu",
              replaces="dmx_compressor_tpu/ops/flash_attention.py:67",
              **launches("flash_attention"),
-             max_abs_err=max(c["max_abs_err"] for c in b3 + hd80_of["flash_attention"]),
-             **top(b3), cases=b3, head_dim80=hd80_of["flash_attention"]),
+             max_abs_err=max(c["max_abs_err"] for c in b3 + hd80_of["flash_attention"]
+                             + results["B3 wgmma"][:1]),
+             **top(b3), cases=b3, head_dim80=hd80_of["flash_attention"],
+             wgmma=results["B3 wgmma"]),
         dict(name="flash_decode", route="cuda",
              source="dmx_compressor_tpu_torch/csrc/flash_decode.cu",
              replaces="dmx_compressor_tpu/ops/flash_decode.py:305",

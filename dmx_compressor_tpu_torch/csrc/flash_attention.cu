@@ -62,6 +62,24 @@
 // only at 2^-8 of the logit's size (the wgmma mainloop's repair, ROADMAP
 // Queue C fault 2).
 //
+// Head dim 128 over long key ranges takes the wgmma route (the wrapper's
+// attention_route: f32, no bias, from 144 keys, 128 where K/V hold fewer
+// heads than q), where the wide kernel's limits are its own: every block
+// splits each K/V tile again (at L = S = 4096 causal each K/V row ~16 times
+// a (b, h), and twice more over heads repeated 16:8), and mma.sync leaves
+// the copies unoverlapped.  flash_attention_kernel_split_kv writes K and V
+// of each KV head once as their three planes into a scratch the wrapper
+// allocates (V transposed, so that both products read K-major tiles), and
+// flash_attention_kernel_wgmma runs B1's Hopper shape over them: a producer
+// thread keeps a ring of K and V^T plane tiles in flight with TMA on
+// mbarriers, two consumer warpgroups (64 query rows each, setmaxnreg) issue
+// wgmma, query head h reading KV head h // (H / Hkv) (no repeat).  The
+// arithmetic is the wide kernel's: the same planes (split_pair), the same
+// six products with hh apart from the rest in q . k^T, the same softmax;
+// only the f32 sums' order differs.  At Qwen3's scoring shape (BH 64 over
+// 32 KV heads, L = S = 4096) it runs its six bf16 products at ~67 % of
+// the tensor cores' peak, 2.6x the wide kernel (PERF.md).
+//
 // Head dims above 256 take flash_attention_generic_kernel: simple and right
 // first, in f32 on the CUDA cores (no planes): a block of 8 warps owns 8
 // query rows of one (b, h), one warp a row, and walks 64-key tiles.  A warp
@@ -86,9 +104,20 @@
 
 namespace {
 
+using bfp_wgmma::desc_sw128;
+using bfp_wgmma::mbar_arrive;
+using bfp_wgmma::mbar_expect_tx;
+using bfp_wgmma::mbar_init;
+using bfp_wgmma::mbar_wait;
 using bfp_wgmma::mma_m16n8k16;
+using bfp_wgmma::pin;
 using bfp_wgmma::smem_u32;
 using bfp_wgmma::split_x;
+using bfp_wgmma::tma_load_3d;
+using bfp_wgmma::warpgroup_sync;
+using bfp_wgmma::wgmma_commit;
+using bfp_wgmma::wgmma_fence;
+using bfp_wgmma::wgmma_wait0;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -602,6 +631,351 @@ flash_attention_wide_kernel(const float* __restrict__ q, const float* __restrict
 }
 
 // ---------------------------------------------------------------------------
+// head_dim 128 on wgmma and TMA (the wgmma route)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+constexpr int D = 128;
+constexpr int BQ = 128;  // queries a work item: 64 per consumer warpgroup
+constexpr int BK = 64;   // keys a tile
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int PRODUCER_REGS = 24;   // setmaxnreg: 128 x 24 + 256 x 240 <= 64K
+constexpr int CONSUMER_REGS = 240;
+constexpr int SUB = 64 * 128;                     // bytes of a 64-row tile of 64 bf16 (128 B rows)
+constexpr int Q_BYTES = CONSUMERS * 3 * 2 * SUB;  // q planes: [warpgroup][plane][half of D]
+constexpr int SLOT = 3 * 2 * SUB;  // a K tile [half of D][plane][key] or a V^T tile [plane][d]
+constexpr int SMEM = Q_BYTES + 2 * SLOT + 1024;   // + alignment: 193 KB
+constexpr int SPLIT_KEYS = 16;                    // keys a block of the pre-pass
+// the planes of a and b in KEPT_PLANE_PRODUCTS' i-th product (0 = h, 1 = m,
+// 2 = l): hh, hm, mh, hl, lh, mm
+__device__ constexpr int kept_a(int i) { return i == 2 || i == 5 ? 1 : i == 4 ? 2 : 0; }
+__device__ constexpr int kept_b(int i) { return i == 1 || i == 5 ? 1 : i == 3 ? 2 : 0; }
+}  // namespace wg
+
+// The pre-pass: K and V of each KV head n = b * Hkv + hk (read through their
+// strides, d contiguous) as their three exact planes, split_pair's
+// arithmetic: K into kpl [n][plane][S][128] (pairs along d, as the wide
+// kernel splits them), V transposed into vpl [n][plane][128][Sp] (pairs
+// along keys; zero at keys S .. Sp - 1).  Grid (Sp / 16, B * Hkv), 128
+// threads: a warp takes 4 keys of K (a lane 4 of d), a thread one column d
+// of V's 16 keys (a warp reads 32 consecutive floats of a key row).
+__global__ void __launch_bounds__(128)
+flash_attention_kernel_split_kv(const float* __restrict__ k, const float* __restrict__ v,
+                                uint16_t* __restrict__ kpl, uint16_t* __restrict__ vpl, int S,
+                                int Sp, int Hkv, long long ksb, long long ksh, long long kss,
+                                long long vsb, long long vsh, long long vss) {
+  const int n = blockIdx.y, s0 = blockIdx.x * wg::SPLIT_KEYS;
+  const int b = n / Hkv, hk = n % Hkv;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float4 f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + 4 * warp + i;
+    f[i] = s < S ? __ldg(reinterpret_cast<const float4*>(kb + s * kss + 4 * lane))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float x[wg::SPLIT_KEYS];
+#pragma unroll
+  for (int i = 0; i < wg::SPLIT_KEYS; ++i)
+    x[i] = s0 + i < S ? __ldg(vb + (s0 + i) * vss + tid) : 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + 4 * warp + i;
+    if (s >= S) continue;
+    uint32_t a[3], c[3];
+    split_pair(f[i].x, f[i].y, a);
+    split_pair(f[i].z, f[i].w, c);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<uint2*>(kpl + ((size_t)(n * 3 + p) * S + s) * wg::D + 4 * lane) =
+          make_uint2(a[p], c[p]);
+  }
+  uint32_t w[3][wg::SPLIT_KEYS / 2];
+#pragma unroll
+  for (int i = 0; i < wg::SPLIT_KEYS / 2; ++i) {
+    uint32_t o[3];
+    split_pair(x[2 * i], x[2 * i + 1], o);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) w[p][i] = o[p];
+  }
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    uint4* dst = reinterpret_cast<uint4*>(vpl + ((size_t)(n * 3 + p) * wg::D + tid) * Sp + s0);
+    dst[0] = make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+    dst[1] = make_uint4(w[p][4], w[p][5], w[p][6], w[p][7]);
+  }
+}
+
+// d[64 x 64] (+)= a . b^T, both bf16 K-major tiles in shared memory
+// (desc_sw128); acc false: d = a . b^T (wgmma's scale-d)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, bool acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"((int)acc));
+}
+
+// d[64 x 128] += a . b^T, a a 64 x 16 bf16 A fragment in registers (mma.sync's
+// m16n8k16 A layout in each warp's 16 rows), b a K-major tile in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 0;"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// The main kernel.  A work item is 128 query rows of one query head bh (KV
+// head bh / group); the items run heaviest first (the last query tiles of
+// every head, then the ones before), a persistent block taking items
+// blockIdx.x, + gridDim.x, ...  Two shared-memory slots form the ring: slot
+// 0 holds a K tile (3 planes x 64 keys x 128 d, two TMA boxes of 64 d),
+// slot 1 a V^T tile (3 planes x 128 d x 64 keys); the producer thread loads
+// K(j) into slot 0 and V(j) into slot 1 as each frees, running on into the
+// next item.  Each consumer warpgroup owns 64 query rows: it splits them
+// into its q planes in shared memory at the item's start, then per key tile
+// issues S(j) = q . K(j)^T (48 wgmma m64n64k16 from shared memory: hh in
+// sh, the five smaller products in sl) and waits for it, takes the online
+// softmax on the accumulators, splits P into three planes in registers
+// (split_finite_pair) and issues o += P . V(j) (24 wgmma m64n128k16, P from
+// registers) and waits for that; the two warpgroups' products interleave on
+// the tensor cores.  Issuing S(j + 1) behind P . V(j) before waiting made
+// ptxas serialize every wgmma (C7515: the softmax defines S's accumulators
+// inside that pipeline stage) and was 16 % slower on an H100 (PERF.md).
+__global__ void __launch_bounds__(wg::THREADS, 1)
+flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const float* __restrict__ q, float* __restrict__ out, int BH, int L,
+                             int S, int group, float scale, int causal, int offset) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[2];
+  __shared__ __align__(8) uint64_t empty[2];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* kslot = smem + wg::Q_BYTES;
+  unsigned char* vslot = kslot + wg::SLOT;
+  const int nq = (L + wg::BQ - 1) / wg::BQ;
+  const int items = nq * BH;
+  const int wgi = threadIdx.x / 128;
+  // the keys that rows [r0, r1) see (r1 clipped to L)
+  auto keys_end = [&](int r0, int r1) { return causal ? min(S, min(r1, L) + offset) : S; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], wg::CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == wg::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(wg::PRODUCER_REGS));
+    if (threadIdx.x == wg::CONSUMERS * 128) {
+      int c = 0;  // tiles loaded: K(c) the c-th use of slot 0, V(c) of slot 1
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const int q0 = (nq - 1 - w / BH) * wg::BQ, kv = (w % BH) / group;
+        const int nt = (keys_end(q0, q0 + wg::BQ) + wg::BK - 1) / wg::BK;
+        for (int j = 0; j < nt; ++j, ++c) {
+          mbar_wait(&empty[0], (c & 1) ^ 1);
+          mbar_expect_tx(&full[0], wg::SLOT);
+          tma_load_3d(kslot, &kmap, &full[0], 0, j * wg::BK, 3 * kv);
+          tma_load_3d(kslot + 3 * wg::SUB, &kmap, &full[0], 64, j * wg::BK, 3 * kv);
+          mbar_wait(&empty[1], (c & 1) ^ 1);
+          mbar_expect_tx(&full[1], wg::SLOT);
+          tma_load_3d(vslot, &vmap, &full[1], j * wg::BK, 0, 3 * kv);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(wg::CONSUMER_REGS));
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* qw = smem + wgi * 3 * 2 * wg::SUB;  // this warpgroup's q planes [plane][half]
+
+  float sh[32] = {}, sl[32] = {};  // S's accumulators: hh, the five smaller products
+  int c = 0;  // tiles consumed
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const int q0 = (nq - 1 - w / BH) * wg::BQ, bh = w % BH;
+    const int r0 = q0 + 64 * wgi;  // the warpgroup's first row
+    const int nt = (keys_end(q0, q0 + wg::BQ) + wg::BK - 1) / wg::BK;
+    // keys this warpgroup's rows see: tiles past them are waited for and
+    // released, not computed
+    const int wkend = r0 >= L ? 0 : keys_end(r0, r0 + 64);
+    const int rows[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+
+    // the q planes of the warpgroup's 64 rows, in the 128-byte swizzle
+    // wgmma reads (16-byte chunk ch of row r at chunk ch ^ (r % 8))
+    warpgroup_sync(wgi);  // every warp's last products (which read q) are done
+    {
+      float4 f[16];
+#pragma unroll
+      for (int it = 0; it < 16; ++it) {
+        const int i = tid + 128 * it, row = r0 + (i >> 5);
+        f[it] = row < L ? __ldg(reinterpret_cast<const float4*>(
+                              q + ((size_t)bh * L + row) * wg::D + 4 * (i & 31)))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int it = 0; it < 16; ++it) {
+        const int i = tid + 128 * it, r = i >> 5, d = 4 * (i & 31);
+        uint32_t a[3], b[3];
+        split_pair(f[it].x, f[it].y, a);
+        split_pair(f[it].z, f[it].w, b);
+        const int off = r * 128 + ((((d & 63) >> 3) ^ (r & 7)) << 4) + (d & 7) * 2;
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          *reinterpret_cast<uint2*>(qw + (p * 2 + (d >> 6)) * wg::SUB + off) =
+              make_uint2(a[p], b[p]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    warpgroup_sync(wgi);
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+    uint32_t pa[4][3][4];
+
+    for (int j = 0; j < nt; ++j) {
+      const int cj = c + j, t0 = j * wg::BK;
+      const bool act = t0 < wkend;  // warpgroup-uniform
+      mbar_wait(&full[0], cj & 1);
+      if (act) {
+        // S(j) over the K tile in slot 0: k16 step kk reads half kk / 4 of
+        // D, 32 bytes further into each 128-byte row per step
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < wg::D / 16; ++kk) {
+          const int hf = kk >> 2, ko = 2 * (kk & 3);
+#pragma unroll
+          for (int i = 0; i < 6; ++i) {
+            const uint64_t a = desc_sw128(qw + (wg::kept_a(i) * 2 + hf) * wg::SUB) + ko;
+            const uint64_t b = desc_sw128(kslot + (hf * 3 + wg::kept_b(i)) * wg::SUB) + ko;
+            if (i == 0)
+              wgmma_ss_n64(sh, a, b, kk > 0);
+            else
+              wgmma_ss_n64(sl, a, b, kk > 0 || i > 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        pin(sh);
+        pin(sl);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[0]);  // K(j) is read
+      if (act) {
+        // online softmax, as flash_attention_wide_kernel's; s in sh
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = rows[e >> 1];
+            const int col = t0 + 8 * jj + 2 * t + (e & 1);
+            const bool ok = col < S && (!causal || col <= row + offset);
+            const float x = __fmul_rn(__fadd_rn(sl[4 * jj + e], sh[4 * jj + e]), scale);
+            sh[4 * jj + e] = ok ? x : -INFINITY;
+            mx[e >> 1] = fmaxf(mx[e >> 1], sh[4 * jj + e]);
+          }
+        float alpha[2], ms[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(mrow[r], mx[r]);
+          ms[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key so far
+          alpha[r] = expf(mrow[r] - ms[r]);
+          mrow[r] = m_new;
+          lrow[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sh[i] = expf(sh[i] - ms[(i >> 1) & 1]);
+          lrow[(i >> 1) & 1] += sh[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+        // P's A fragments: k16 step kk holds key groups 2kk and 2kk + 1
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t w4[4][3];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_finite_pair(sh[8 * kk + 2 * i], sh[8 * kk + 2 * i + 1], w4[i]);
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pa[kk][p][i] = w4[i][p];
+        }
+      }
+      mbar_wait(&full[1], cj & 1);
+      if (act) {
+        pin(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 6; ++i)  // (P, V) planes
+            wgmma_rs_n128(o, pa[kk][wg::kept_a(i)],
+                          desc_sw128(vslot + wg::kept_b(i) * 2 * wg::SUB) + 2 * kk);
+        wgmma_commit();
+        wgmma_wait0();
+        pin(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[1]);  // V(j) is read
+    }
+    c += nt;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= L) continue;
+      const float inv = 1.f / fmaxf(lrow[r], 1e-30f);
+      float* op = out + ((size_t)bh * L + rows[r]) * wg::D + 2 * t;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+        *reinterpret_cast<float2*>(op + 8 * jj) =
+            make_float2(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // any head_dim (the wrapper sends those above 256)
 // ---------------------------------------------------------------------------
 
@@ -685,6 +1059,66 @@ cudaError_t launch_generic(const float* q, const float* k, const float* v, const
   return cudaGetLastError();
 }
 
+// the wgmma route: the pre-pass into `planes` (K planes [B * Hkv][3][S][128],
+// then V^T planes [B * Hkv][3][128][Sp], Sp = S rounded up to 64), then the
+// main kernel over one persistent block an SM
+cudaError_t launch_wgmma(const float* q, const float* k, const float* v, float* out,
+                         uint16_t* planes, int BH, int L, int S, float scale, int causal,
+                         int offset, int Hkv, int group, const long long (&ks)[3],
+                         const long long (&vs)[3], cudaStream_t stream) {
+  if (group < 1 || BH % group || (BH / group) % Hkv) return cudaErrorInvalidValue;
+  const int BHkv = BH / group;
+  const int Sp = (S + wg::BK - 1) / wg::BK * wg::BK;
+  uint16_t* kpl = planes;
+  uint16_t* vpl = planes + (size_t)BHkv * 3 * S * wg::D;
+  flash_attention_kernel_split_kv<<<dim3(Sp / wg::SPLIT_KEYS, BHkv), 128, 0, stream>>>(
+      k, v, kpl, vpl, S, Sp, Hkv, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const bfp_wgmma::EncodeTiled encode = bfp_wgmma::encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap kmap, vmap;
+  const cuuint32_t el[3] = {1, 1, 1};
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)wg::D, (cuuint64_t)S, (cuuint64_t)3 * BHkv};
+    const cuuint64_t strides[2] = {(cuuint64_t)wg::D * 2, (cuuint64_t)S * wg::D * 2};
+    const cuuint32_t box[3] = {64, wg::BK, 3};
+    if (encode(&kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, kpl, dims, strides, box, el,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)Sp, (cuuint64_t)wg::D, (cuuint64_t)3 * BHkv};
+    const cuuint64_t strides[2] = {(cuuint64_t)Sp * 2, (cuuint64_t)Sp * wg::D * 2};
+    const cuuint32_t box[3] = {wg::BK, wg::D, 3};
+    if (encode(&vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, vpl, dims, strides, box, el,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  static bool attr_set = false;
+  static int sms = 0;
+  if (!attr_set) {
+    err = cudaFuncSetAttribute(flash_attention_kernel_wgmma,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+    if (err != cudaSuccess) return err;
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const long long items = (long long)(L + wg::BQ - 1) / wg::BQ * BH;
+  const int grid = (int)(items < sms ? items : sms);
+  flash_attention_kernel_wgmma<<<grid, wg::THREADS, wg::SMEM, stream>>>(
+      kmap, vmap, q, out, BH, L, S, group, scale, causal, offset);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_wide(const float* q, const float* k, const float* v, const float* bias,
                         float* out, int BH, int L, int S, float scale, int causal, int offset,
@@ -723,7 +1157,9 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 
 extern "C" int dmx_flash_attention(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int BH, int L, int S, int D,
-                                   float scale, int causal, int offset, void* stream) {
+                                   float scale, int causal, int offset, void* planes, int Hkv,
+                                   int group, long long ksb, long long ksh, long long kss,
+                                   long long vsb, long long vsh, long long vss, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
@@ -731,6 +1167,15 @@ extern "C" int dmx_flash_attention(const void* q, const void* k, const void* v,
   const float* bp = static_cast<const float*>(bias);
   float* op = static_cast<float*>(out);
   if (L <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  // the wgmma route: the wrapper passes the planes' scratch (D 128, no bias;
+  // K / V of B * Hkv heads through their strides, query head bh reading KV
+  // head bh / group); every other route takes K / V [BH, S, D] contiguous
+  if (planes != nullptr) {
+    if (D != 128 || bias != nullptr) return (int)cudaErrorInvalidValue;
+    const long long ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
+    return (int)launch_wgmma(qp, kp, vp, op, static_cast<uint16_t*>(planes), BH, L, S, scale,
+                             causal, offset, Hkv, group, ks, vs, s);
+  }
   switch (D) {
     case 32:
       return (int)launch<32>(qp, kp, vp, bp, op, BH, L, S, scale, causal, offset, s);

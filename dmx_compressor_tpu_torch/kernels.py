@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # name -> (C symbol, argument types); every pointer and the stream are c_void_p
 SIGNATURES = {
     "bfp_linear": ("dmx_bfp_linear", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
@@ -46,7 +47,9 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     ),
     "flash_attention": (
-        "dmx_flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+        "dmx_flash_attention",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+         _P],
     ),
     "sbfp_linear": ("dmx_sbfp_linear", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "flash_decode": (
@@ -175,14 +178,15 @@ def launch(name: str, *args, route: Optional[str] = None) -> None:
 
 
 @torch.compiler.disable
-def check_cuda(*tensors: torch.Tensor, dtypes, align: int = 16) -> None:
+def check_cuda(*tensors: torch.Tensor, dtypes, align: int = 16, contiguous: bool = True) -> None:
     """Validate what a kernel takes: the current CUDA device (the kernel
-    launches on its stream), contiguous and ``align``-byte aligned (16 for
-    the kernels that read with 16-byte loads), dtype."""
+    launches on its stream), contiguous (unless the kernel reads through
+    the strides) and ``align``-byte aligned (16 for the kernels that read
+    with 16-byte loads), dtype."""
     for t, dt in zip(tensors, dtypes):
         if not t.is_cuda or t.device.index != torch.cuda.current_device():
             raise ValueError(f"kernel operands must be on the current CUDA device, got {t.device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
         if t.data_ptr() % align:
             raise ValueError(f"kernel operands must start on a {align}-byte boundary")

@@ -360,14 +360,13 @@ def _split_cache_attend(sdpa, q, k, v, cache, attn_mask, scale: float, transpare
     over the base's precomputed casts where the shapes match; else the
     modular sdpa over the concatenated segments."""
     from .basic_attention import basic_sdpa_decode_split, basic_sdpa_shape
-    from .flash_attention import _repeat_kv, flash_attention
+    from .flash_attention import flash_attention
 
     T = q.shape[-2]
     if T > 1:
         cache.write_base(k, v)
         if transparent:
-            kf, vf = _repeat_kv(q, k, v) if enable_gqa else (k, v)
-            return flash_attention(q, kf, vf, causal=True, scale=scale)
+            return flash_attention(q, k, v, causal=True, scale=scale)
         m = attn_mask[..., :k.shape[-2]] if attn_mask is not None else None
         return sdpa(q, k, v, attn_mask=m, scale=scale, enable_gqa=enable_gqa)
     if attn_mask is not None:

@@ -161,6 +161,72 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, L, S, D, causa
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
 
 
+# B3's wgmma route (head_dim 128, f32, no bias; from WGMMA_MIN_KEYS keys, or
+# WGMMA_MIN_KEYS_GQA over fewer KV heads): (B, H, Hkv, L, S, causal, c,
+# route): Qwen3's scoring shape (one batch row: 16 heads over 8, L = S =
+# 4096); L no multiple of 128 or of the 64-key tile; chunked prefills (L <
+# S); non-causal; groups of 1, 2 and 8; q, k scaled by c = 2; then each
+# threshold's two sides (S 143 / 144 over as many KV heads, 127 / 128 over
+# fewer), the side below on today's wide kernel
+WGMMA_SHAPES = [(1, 16, 8, 4096, 4096, True, 1.0, "wgmma"),
+                (2, 4, 2, 1000, 1000, True, 1.0, "wgmma"),
+                (2, 4, 4, 333, 333, True, 1.0, "wgmma"),
+                (2, 8, 1, 96, 700, True, 1.0, "wgmma"),
+                (2, 4, 2, 200, 1030, True, 2.0, "wgmma"),
+                (2, 4, 2, 500, 777, False, 1.0, "wgmma"),
+                (1, 16, 16, 1, 300, False, 1.0, "wgmma"),
+                (2, 4, 2, 300, 300, True, 2.0, "wgmma"),
+                (2, 4, 4, 143, 143, True, 1.0, None), (2, 4, 4, 144, 144, True, 1.0, "wgmma"),
+                (2, 4, 2, 127, 127, True, 1.0, None), (2, 4, 2, 128, 128, True, 1.0, "wgmma")]
+
+
+def _attention_ref_by_row(q, k, v, causal):
+    """flash_attention_ref one batch row at a time (the [H, L, S] logits of
+    Qwen3's 4096 positions are 1 GB a row)."""
+    return torch.cat([tfa.flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
+                      for i in range(q.shape[0])])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,L,S,causal,c,route", WGMMA_SHAPES)
+def test_flash_attention_wgmma_route_matches_plain_on_card(cuda, B, H, Hkv, L, S, causal, c,
+                                                           route):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(B, H, L, 128, generator=g, device=cuda) * c
+    k = torch.randn(B, Hkv, S, 128, generator=g, device=cuda) * c
+    v = torch.randn(B, Hkv, S, 128, generator=g, device=cuda)
+    assert tfa.attention_route("flash_attention", H, Hkv, 128, (torch.float32,) * 3,
+                               S=S) == route
+    n0 = kernels.LAUNCHES["flash_attention"]
+    r0 = kernels.ROUTE_LAUNCHES.get("flash_attention/wgmma", 0)
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == n0 + 1
+    assert kernels.ROUTE_LAUNCHES.get("flash_attention/wgmma", 0) == r0 + (route == "wgmma")
+    torch.testing.assert_close(got, _attention_ref_by_row(q, k, v, causal), rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_wgmma_route_reads_views_of_the_projection_on_card(cuda):
+    """K and V as Qwen3's forward hands them (views of a merged q/k/v
+    projection, heads transposed) are read in place through their strides,
+    and a prefill chunk over a cache's prefix (a slice along S) too."""
+    B, T, H, Hkv, D = 2, 300, 4, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(B, T, (H + 2 * Hkv) * D, generator=g, device=cuda)
+    q = qkv[..., :H * D].reshape(B, T, H, D).transpose(1, 2)
+    k = qkv[..., H * D:(H + Hkv) * D].reshape(B, T, Hkv, D).transpose(1, 2)
+    v = qkv[..., (H + Hkv) * D:].reshape(B, T, Hkv, D).transpose(1, 2)
+    cache = torch.randn(2, B, Hkv, 512, D, generator=g, device=cuda)
+    for kk, vv, L in ((k, v, T), (cache[0, :, :, :T], cache[1, :, :, :T], 100)):
+        r0 = kernels.ROUTE_LAUNCHES.get("flash_attention/wgmma", 0)
+        got = tfa.flash_attention(q[:, :, :L], kk, vv, causal=True)
+        torch.cuda.synchronize()
+        assert kernels.ROUTE_LAUNCHES["flash_attention/wgmma"] == r0 + 1
+        want = tfa.flash_attention_ref(q[:, :, :L], kk, vv, causal=True)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+
+
 def _hold_to_plain(got, want, dtype):
     """The kernels' tolerance (rtol 1e-5, atol 2e-5) on an f32 output; an
     output in a 16-bit dtype is the f32 result rounded once, so two f32

@@ -334,6 +334,33 @@ def test_attention_route_names_the_new_routes(kernel, H, Hkv, D, dtypes, want):
     assert tfa.attention_route(kernel, H, Hkv, D, dtypes) == want
 
 
+F32 = (torch.float32,) * 3
+
+
+# B3's wgmma route: head_dim 128, f32 q / k / v, no bias, from
+# WGMMA_MIN_KEYS keys (WGMMA_MIN_KEYS_GQA where Hkv < H); (H, Hkv, D,
+# dtypes, S, want)
+@pytest.mark.parametrize("H,Hkv,D,dtypes,S,want", [
+    (16, 8, 128, F32, 4096, "wgmma"),                    # Qwen3's scoring
+    (16, 8, 128, F32, 128, "wgmma"),                     # its bring-up prefill
+    (16, 8, 128, F32, 127, None),
+    (8, 1, 128, F32, 128, "wgmma"),
+    (16, 16, 128, F32, 144, "wgmma"),
+    (16, 16, 128, F32, 143, None),
+    (16, 16, 128, F32, 128, None),                       # MHA below the crossover
+    (16, 8, 128, F32 + (torch.float32,), 4096, None),    # a bias
+    (16, 8, 128, (torch.bfloat16,) * 3, 4096, "upcast"),
+    (16, 8, 128, (torch.float32, torch.float16, torch.float16), 4096, "upcast"),
+    (16, 8, 64, F32, 4096, None),
+    (16, 8, 80, F32, 4096, None),                        # padded to 128, not on the route
+    (8, 1, 256, F32, 4096, None),
+    (16, 8, 512, F32, 4096, "generic"),
+    (16, 8, 128, F32, None, None),                       # keys not given: today's route
+])
+def test_attention_route_names_the_wgmma_route(H, Hkv, D, dtypes, S, want):
+    assert tfa.attention_route("flash_attention", H, Hkv, D, dtypes, S=S) == want
+
+
 @pytest.mark.parametrize("route,H,Hkv,S,D,chunk,want", [
     (None, 12, 12, 256, 64, tfd.B4_CHUNK, (1, 12)),
     ("bf16", 32, 4, 3000, 64, tfd.B4_CHUNK, (3, 4)),

@@ -309,6 +309,78 @@ def test_flash_attention_rejects_causal_with_fewer_keys():
                             torch.zeros(1, 4, 64), causal=True)
 
 
+# K/V of fewer heads than q (GQA): query head h reads KV head h // (H / Hkv),
+# what the kernel's wgmma route reads per KV head and its other routes after
+# the repeat.  (H, Hkv, L, S, causal): groups of 1, 2 and 8, a chunk with L
+# < S, a non-causal call
+GQA_CASES = [(4, 4, 33, 33, True), (4, 2, 40, 40, True), (8, 1, 24, 24, True),
+             (4, 2, 16, 48, True), (6, 3, 20, 30, False)]
+
+
+def _gqa_inputs(H, Hkv, L, S, D=128):
+    rs = np.random.RandomState(21)
+    return (torch.from_numpy(rand(rs, 2, H, L, D)), torch.from_numpy(rand(rs, 2, Hkv, S, D)),
+            torch.from_numpy(rand(rs, 2, Hkv, S, D)))
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_ref",
+                                "flash_attention_planes_ref"])
+@pytest.mark.parametrize("H,Hkv,L,S,causal", GQA_CASES)
+def test_attention_over_kv_heads_equals_the_repeated_call(fn, H, Hkv, L, S, causal):
+    """flash_attention's plain path and both plain versions over Hkv KV heads
+    give the call over K/V repeated to the H query heads, bit for bit."""
+    q, k, v = _gqa_inputs(H, Hkv, L, S)
+    f = getattr(tfa, fn)
+    got = f(q, k, v, causal=causal)
+    rep = H // Hkv
+    want = f(q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1), causal=causal)
+    assert got.shape == q.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("H,Hkv,chunk", [(4, 2, False), (8, 1, False), (4, 4, False),
+                                         (4, 2, True), (8, 1, True)])
+def test_flash_prefill_skips_the_repeat(H, Hkv, chunk):
+    """flash_prefill and flash_chunked_prefill hand B3 the KV heads as they
+    are (no repeat): the output equals flash_attention over the repeated
+    K/V, and the cache holds the KV heads."""
+    L = 24
+    q, k, v = _gqa_inputs(H, Hkv, L, L)
+    rep = H // Hkv
+    cache = tkv.KVCache(2, Hkv, 64, 128, device="cpu")
+    if chunk:  # a chunk at offset 16 over the prefix already in the cache
+        pk, pv = (torch.from_numpy(rand(np.random.RandomState(5), 2, Hkv, 16, 128))
+                  for _ in range(2))
+        cache.update(pk, pv)
+        got = tfa.flash_chunked_prefill(None, q, k, v, cache=cache, offset=16, transparent=True)
+        kf, vf = torch.cat([pk, k], dim=2), torch.cat([pv, v], dim=2)
+    else:
+        got = tfa.flash_prefill(None, q, k, v, cache=cache, transparent=True)
+        kf, vf = k, v
+    want = tfa.flash_attention(q, kf.repeat_interleave(rep, dim=1),
+                               vf.repeat_interleave(rep, dim=1), causal=True)
+    assert torch.equal(got, want)
+    assert torch.equal(cache.k[:, :, :kf.shape[2]], kf)
+
+
+def test_wgmma_route_reads_kv_in_place():
+    """The wgmma route's K/V view (``_per_kv_head``): v as the transposed
+    view of a merged q/k/v projection is read in place through its strides;
+    a view whose d is not contiguous, or whose rows leave 16-byte
+    alignment, is copied."""
+    B, T, H, Hkv, D = 2, 40, 4, 2, 128
+    qkv = torch.randn(B, T, (H + 2 * Hkv) * D)
+    v = qkv[..., (H + Hkv) * D:].reshape(B, T, Hkv, D).transpose(1, 2)
+    v4, st = tfa._per_kv_head(v, Hkv)
+    assert v4.data_ptr() == v.data_ptr() and st == (T * (H + 2 * Hkv) * D, D, (H + 2 * Hkv) * D)
+    assert torch.equal(v4, v)
+    for t in (v.transpose(-1, -2).contiguous().transpose(-1, -2),  # d strided
+              qkv[..., 1:1 + Hkv * D].reshape(B, T, Hkv, D).transpose(1, 2)):  # off by 4 bytes
+        t4, st = tfa._per_kv_head(t, Hkv)
+        assert t4.is_contiguous() and torch.equal(t4, t)
+        assert st == (Hkv * T * D, T * D, D)
+
+
 def test_quantized_cache_update_returns_dequantized_buffers():
     """QuantizedKVCache.update (the non-transparent path) dequantizes its
     full buffers exactly as the JAX cache does (JAX stores [B, H, D, S])."""
